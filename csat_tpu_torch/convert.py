@@ -1,0 +1,120 @@
+"""Carry flax ``CSATrans`` weights into the port's modules.
+
+``convert_params`` maps the flax param tree (nested dicts of numpy arrays,
+``variables["params"]``) onto the port's ``state_dict`` names:
+
+* a ``Dense`` ``kernel`` ``(in, out)`` becomes a ``Linear`` ``weight``
+  ``(out, in)`` (transposed);
+* a ``LayerNorm`` ``scale`` becomes ``weight``;
+* an ``Embeddings`` module's ``embedding`` table becomes its ``weight`` and its
+  ``LayerNorm_0`` its ``norm``;
+* ``clusters`` ``(h·kk, dh)`` and ``L_q``/``T_q`` ``(R, d)`` keep their shape;
+* flax's auto-named submodules get the port's names: ``layer_i`` →
+  ``layers.i``, ``transformer_i`` → ``blocks.i``, ``DisentangledAttn_0`` /
+  ``SBMAttention_0`` → ``attn``, ``ClusterProj_0`` → ``proj``,
+  ``FeedForward_0`` → ``ff``, ``Dense_k`` → ``fc{k+1}``, and inside a CSE layer
+  or SBM block ``LayerNorm_0``/``LayerNorm_1`` → ``attn_norm``/``ff_norm``.
+
+A flax leaf no rule maps fails loudly, and so does (with ``model``) any port
+parameter left unfilled or any shape that disagrees.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["convert_params", "load_flax_params", "flatten"]
+
+_SEGMENT = {
+    "DisentangledAttn_0": "attn",
+    "SBMAttention_0": "attn",
+    "ClusterProj_0": "proj",
+    "FeedForward_0": "ff",
+    "embedding": "weight",
+}
+_LAYER_NORMS = {"LayerNorm_0": "attn_norm", "LayerNorm_1": "ff_norm"}
+_KNOWN = {
+    "src_embedding", "tgt_embedding", "src_pe_embedding", "pegen", "encoder",
+    "decoder", "generator", "L_q", "T_q", "wq", "wk", "wv", "wo", "l_q", "l_k",
+    "t_q", "t_k", "pe_expand", "out", "clusters", "self_attn", "cross_attn",
+    "q", "k", "v", "ff", "norm", "norm1", "norm2", "norm3", "bias", "kernel",
+    "scale",
+}
+
+
+def flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Nested param dict → ``{path tuple: array}``."""
+    out = {}
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            out.update(flatten(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _map_path(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """Flax path → (port state_dict key, leaf kind)."""
+    names = []
+    for i, seg in enumerate(path):
+        parent = path[i - 1] if i else ""
+        m = re.fullmatch(r"(layer|transformer)_(\d+)", seg)
+        if m:
+            names.append(("layers" if m.group(1) == "layer" else "blocks") + "." + m.group(2))
+        elif seg in _LAYER_NORMS and re.fullmatch(r"(layer|transformer)_\d+", parent):
+            names.append(_LAYER_NORMS[seg])
+        elif seg == "LayerNorm_0":
+            names.append("norm")
+        elif re.fullmatch(r"Dense_\d+", seg):
+            names.append(f"fc{int(seg.split('_')[1]) + 1}")
+        elif seg in _SEGMENT:
+            names.append(_SEGMENT[seg])
+        elif seg in _KNOWN:
+            names.append(seg)
+        else:
+            raise KeyError(f"flax leaf {'/'.join(path)}: no rule for {seg!r}")
+    leaf = path[-1]
+    if leaf == "kernel":
+        names[-1] = "weight"
+    elif leaf == "scale":
+        names[-1] = "weight"
+    return ".".join(names), leaf
+
+
+def convert_params(flax_params: Mapping, model: Optional[nn.Module] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Flax ``CSATrans`` params → the port's ``state_dict`` (CPU f32
+    tensors).  With ``model``, also checks that every port parameter is
+    filled exactly once with the right shape."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in flatten(flax_params).items():
+        key, leaf = _map_path(path)
+        if key in sd:
+            raise KeyError(f"two flax leaves map to {key}")
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        sd[key] = t.T.contiguous() if leaf == "kernel" else t
+    if model is not None:
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        missing = sorted(set(want) - set(sd))
+        extra = sorted(set(sd) - set(want))
+        if missing or extra:
+            raise KeyError(f"unfilled port parameters {missing}; unconsumed flax "
+                           f"leaves {extra}")
+        bad = [(k, tuple(sd[k].shape), want[k]) for k in want if tuple(sd[k].shape) != want[k]]
+        if bad:
+            raise ValueError(f"shape mismatches (key, flax, port): {bad}")
+    return sd
+
+
+@torch.no_grad()
+def load_flax_params(model: nn.Module, flax_params: Mapping) -> nn.Module:
+    """Convert and load into ``model`` in place (onto its device)."""
+    sd = convert_params(flax_params, model)
+    model.load_state_dict(sd, strict=True)
+    return model

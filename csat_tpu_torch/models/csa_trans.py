@@ -1,0 +1,107 @@
+"""CSATrans: the encoder–decoder model, as served.
+
+Counterpart of the JAX package's ``models/csa_trans.py:72-261``: source
+embedding ``sbm_enc_dim - pe_dim`` wide, pegen CSE positional encodings,
+the SBM encoder, and a decoder stepped one token per slot over the paged KV
+pool.  Only the ``pegen`` PE variant is in this slice; the others raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from csat_tpu_torch.configs import Config
+from csat_tpu_torch.data.dataset import Batch
+from csat_tpu_torch.models.components import Decoder, Embeddings, Generator
+from csat_tpu_torch.models.cse import CSE
+from csat_tpu_torch.models.init import init_params
+from csat_tpu_torch.models.sbm import SBMEncoder
+from csat_tpu_torch.utils import PAD, resolve_device
+
+
+class CSATrans(nn.Module):
+    """Built on ``device`` (default ``cuda``; raises without one unless
+    ``device="cpu"``) with weights drawn from ``seed`` (default
+    ``cfg.seed``) — or load converted flax weights afterwards
+    (``convert.load_flax_params``)."""
+
+    def __init__(self, cfg: Config, src_vocab_size: int, tgt_vocab_size: int,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: Optional[int] = None):
+        super().__init__()
+        if cfg.use_pegen != "pegen":
+            raise NotImplementedError(
+                f"use_pegen={cfg.use_pegen!r}: only 'pegen' is ported; the other "
+                "PE variants are queued in ROADMAP.md")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.src_vocab_size = src_vocab_size
+        self.tgt_vocab_size = tgt_vocab_size
+        self.src_embedding = Embeddings(src_vocab_size, cfg.src_emb_dim, pad_row=cfg.pad_row)
+        self.tgt_embedding = Embeddings(tgt_vocab_size, cfg.hidden_size, with_pos=True,
+                                        pad_row=cfg.pad_row)
+        self.src_pe_embedding = Embeddings(src_vocab_size, cfg.pegen_dim, pad_row=cfg.pad_row)
+        self.pegen = CSE(cfg)
+        self.encoder = SBMEncoder(cfg)
+        self.decoder = Decoder(cfg.decoder_layers, cfg.hidden_size, cfg.num_heads,
+                               cfg.dim_feed_forward)
+        self.generator = Generator(cfg.hidden_size, tgt_vocab_size,
+                                   reference_dropout=cfg.generator_dropout)
+        init_params(self, cfg.seed if seed is None else seed)
+        self.to(device)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.fc1.weight.device
+
+    @torch.no_grad()
+    def encode(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch`` with tensors on the model's device
+        (``data.dataset.batch_to_device``) → ``(memory (B, N, hidden),
+        sparsity scalar)``."""
+        src_mask = batch.src_seq == PAD
+        src_emb = self.src_embedding(batch.src_seq)
+        pe_emb = self.src_pe_embedding(batch.src_seq)
+        src_pe = self.pegen(pe_emb, batch.L, batch.T, batch.L_mask, batch.T_mask)
+        memory, sparsities = self.encoder(src_emb, src_pe, src_mask)
+        sparsity = torch.mean(torch.stack([torch.mean(s) for s in sparsities]))
+        return memory, sparsity
+
+    @torch.no_grad()
+    def project_cross_kv(self, memory: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        """Per-layer cross-attention K/V ``(B, H, N, dh)`` of the memory."""
+        return [layer.cross_attn.project_kv(memory) for layer in self.decoder.layers]
+
+    @torch.no_grad()
+    def decode_step(self, tok: torch.Tensor, pos: torch.Tensor, caches: List[Dict],
+                    src_mask: torch.Tensor, prev_pad: torch.Tensor):
+        """One token per slot.  ``tok`` (S, 1) inputs at per-slot positions
+        ``pos`` (S,); ``caches`` per decoder layer ``{"self": ..., "cross":
+        ...}`` page views (``serve/pages.py``); ``src_mask`` (S, N) True on
+        padded keys; ``prev_pad`` (S, T) pad flags of the inputs so far (a
+        generated PAD is masked out of later self attention).  Returns
+        ``(log_probs (S, V), [(k_step, v_step)] per layer)``."""
+        max_len = prev_pad.shape[1]
+        emb = self.tgt_embedding(tok, pos=pos)
+        future = torch.arange(max_len, device=tok.device)[None, :] > pos[:, None]
+        self_mask = prev_pad | future                       # (S, T)
+        dec_out, steps = self.decoder(emb, self_mask, src_mask, caches)
+        return self.generator(dec_out[:, -1]), steps
+
+    def init_page_pool(self, num_pages: int, page_size: int) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed per-layer f32 K/V page arrays ``(num_pages, H, page, dh)``
+        with f32 per-row scales of 1.0 (untouched pages, the null page
+        included, dequantize to exact zeros)."""
+        cfg = self.cfg
+        shape = (num_pages, cfg.num_heads, page_size, cfg.hidden_size // cfg.num_heads)
+        dev = self.device
+        return [
+            {"k": torch.zeros(shape, device=dev), "v": torch.zeros(shape, device=dev),
+             "k_scale": torch.ones(shape[:-1] + (1,), device=dev),
+             "v_scale": torch.ones(shape[:-1] + (1,), device=dev)}
+            for _ in self.decoder.layers
+        ]

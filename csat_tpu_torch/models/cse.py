@@ -1,0 +1,87 @@
+"""CSE — Code Structure Embedder: disentangled relative-position attention.
+
+Counterpart of the JAX package's ``models/cse.py:42-171`` (the reference's
+``csa_trans.py:180-236`` and ``disentangled_attn.py``).  The attention core is
+the ``cse`` mod through :func:`~csat_tpu_torch.ops.flex_core.flex_attention`:
+the CUDA kernel on the card, the plain path on the CPU.  The L and T distance
+planes fan out to ``H/2`` pseudo-heads each inside the mod.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from csat_tpu_torch.configs import Config
+from csat_tpu_torch.models.components import LN_EPS, FeedForward, merge_heads
+from csat_tpu_torch.ops.flex_core import flex_attention
+from csat_tpu_torch.ops.mods import cse_mod
+
+
+class DisentangledAttn(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        d, h = cfg.pegen_dim, cfg.num_heads
+        self.cfg = cfg
+        self.dk = d // h
+        self.half = h // 2  # L-heads then T-heads
+        self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
+        self.l_q, self.l_k, self.t_q, self.t_k = (
+            nn.Linear(d, self.dk * self.half) for _ in range(4))
+
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        """(R, half·dk) → (half, R, dk)."""
+        return t.reshape(t.shape[0], self.half, self.dk).transpose(0, 1)
+
+    def forward(self, x, rel_tables, rel, mask):
+        """``x`` (B, N, d); ``rel_tables`` (2, R, d) stacked L_q/T_q; ``rel``
+        (B, 2, N, N) int32 offset distances; ``mask`` (B, 2, N, N) bool."""
+        b, n, _ = x.shape
+        h = self.cfg.num_heads
+        q, k, v = (w(x).reshape(b, n, h, self.dk).transpose(1, 2).contiguous()
+                   for w in (self.wq, self.wk, self.wv))
+        l_table, t_table = rel_tables[0], rel_tables[1]
+        rel_q = torch.cat([self._heads(self.l_q(l_table)), self._heads(self.t_q(t_table))])
+        rel_k = torch.cat([self._heads(self.l_k(l_table)), self._heads(self.t_k(t_table))])
+        spec, aux = cse_mod(rel_q, rel_k, rel, mask)
+        out, _ = flex_attention(q, k, v, spec, aux)
+        if self.cfg.cse_empty_rows == "zero":
+            # rows with no related pair take nothing from attention
+            empty = mask.all(dim=-1).repeat_interleave(self.half, dim=1)  # (B, H, N)
+            out = torch.where(empty[..., None], torch.zeros_like(out), out)
+        return self.wo(merge_heads(out))
+
+
+class CSELayer(nn.Module):
+    """Pre-norm disentangled attention + FFN."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.attn_norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
+        self.attn = DisentangledAttn(cfg)
+        self.ff_norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
+        self.ff = FeedForward(cfg.pegen_dim, cfg.pegen_dim)
+
+    def forward(self, x, rel_tables, rel, mask):
+        x = x + self.attn(self.attn_norm(x), rel_tables, rel, mask)
+        return x + self.ff(self.ff_norm(x))
+
+
+class CSE(nn.Module):
+    """Stack of CSE layers producing the per-node positional encoding."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.L_q = nn.Parameter(torch.empty(cfg.max_src_len, cfg.pegen_dim))
+        self.T_q = nn.Parameter(torch.empty(cfg.max_src_len, cfg.pegen_dim))
+        self.layers = nn.ModuleList(CSELayer(cfg) for _ in range(cfg.num_layers))
+        self.norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
+
+    def forward(self, src_pe_emb, L, T, L_mask, T_mask):
+        rel = torch.stack([L, T], dim=1).to(torch.int32)
+        mask = torch.stack([L_mask, T_mask], dim=1)
+        rel_tables = torch.stack([self.L_q, self.T_q])
+        x = src_pe_emb
+        for layer in self.layers:
+            x = layer(x, rel_tables, rel, mask)
+        return self.norm(x)

@@ -1,0 +1,169 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use
+by ``nvcc`` into its own shared library under ``build/kernels/`` at the
+repository root (listed in ``.gitignore``), then loaded with ``ctypes``.  The
+libraries are keyed by a hash of their source and flags, so an edited source
+is rebuilt and an unchanged one is reused.  All sources compile in parallel,
+one ``nvcc`` process each.
+
+Nothing here runs at import time: the CPU path never needs ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+__all__ = [
+    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "build_dir", "check_head_dim", "load_library", "build_all", "kernel",
+    "launch", "launch_counts", "reset_launches",
+]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_REPO = Path(__file__).resolve().parents[2]
+
+#: library name → CUDA source
+SOURCES: Dict[str, Path] = {
+    "flex_fwd": _CSRC / "flex_fwd.cu",
+    "paged_decode": _CSRC / "paged_decode.cu",
+}
+
+#: every kernel of the serving path → the library that holds it
+KERNELS: Dict[str, str] = {
+    "flex_fwd_cse": "flex_fwd",
+    "flex_fwd_sbm_expected": "flex_fwd",
+    "paged_decode": "paged_decode",
+}
+
+#: every kernel → the TPU (Pallas) kernel of the JAX package it replaces
+REPLACES: Dict[str, str] = {
+    "flex_fwd_cse": "csat_tpu/ops/flex_core.py:304 (_fwd_call, cse mod)",
+    "flex_fwd_sbm_expected": "csat_tpu/ops/flex_core.py:304 (_fwd_call, sbm_expected mod)",
+    "paged_decode": "csat_tpu/ops/paged_decode.py:237 (_attend_kernel)",
+}
+
+#: every kernel → the head widths it is instantiated for: the widths the
+#: registry's configs give it (CSE and decoder 512 / 8 heads = 64; the SBM
+#: encoder 512 / 8 = 64 for ``python``, 768 / 8 = 96 for ``java``).  The C
+#: entry points return -1 for any other width.
+HEAD_DIMS: Dict[str, tuple] = {
+    "flex_fwd_cse": (64,),
+    "flex_fwd_sbm_expected": (64, 96),
+    "paged_decode": (64,),
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # q k v lq lk rel mask out lse gsum skip | B H N DH R group scale stream
+    "flex_fwd_cse": [_P] * 11 + [_I] * 6 + [_F, _P],
+    # q k v r kh pad out lse gsum skip | B H N DH KK floor scale stream
+    "flex_fwd_sbm_expected": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    # dtype | q pk pv sk sv table mask idx ktok vtok out skip | S H NB page width DH stream
+    "paged_decode": [_I] + [_P] * 12 + [_I] * 6 + [_P],
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+BUILD_LOG: Dict[str, str] = {}
+
+
+def build_dir() -> Path:
+    return _REPO / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
+def build_all(names: Optional[List[str]] = None) -> float:
+    """Compile every missing library in parallel; returns wall seconds.
+    Raises with the compiler's output when a build fails."""
+    names = list(SOURCES) if names is None else names
+    todo = [n for n in names if not _lib_path(n).exists()]
+    t0 = time.perf_counter()
+    if todo:
+        build_dir().mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for n in todo:
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_LOG[n] = out
+            if proc.returncode != 0:
+                failed.append(f"{n}:\n{out}")
+            else:
+                os.replace(tmp, _lib_path(n))
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, lib_name in KERNELS.items():
+            if lib_name == name:
+                getattr(lib, fn).argtypes = _ARGTYPES[fn]
+                getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check_head_dim(fn: str, dh: int) -> None:
+    """Refuse a head width kernel ``fn`` has no instantiation for."""
+    if dh not in HEAD_DIMS[fn]:
+        raise ValueError(f"kernel {fn} is built for head widths {HEAD_DIMS[fn]}, got {dh}")
+
+
+def kernel(fn: str):
+    """The C entry point ``fn`` (building its library on first use)."""
+    return getattr(load_library(KERNELS[fn]), fn)
+
+
+def launch(fn: str, args) -> None:
+    """Launch kernel ``fn`` with its C arguments and count the launch.
+    Raises on a launch the runtime refused (``cudaGetLastError`` != 0) or
+    on an argument the C side rejected (negative codes).  Every kernel
+    wrapper launches through here, so the counts show which kernels a run
+    went through."""
+    rc = kernel(fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"kernel {fn} failed to launch: error code {rc}")
+    _LAUNCHES[fn] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launches() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0

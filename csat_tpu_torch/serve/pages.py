@@ -1,0 +1,202 @@
+"""Block-paged KV pool: page allocator, paged slot state, the decode step.
+
+Counterpart of the JAX package's ``serve/pages.py:109-449``.  Per decoder
+layer, K and V live in page arrays ``(num_pages, H, page, dh)``; each slot
+owns two fixed-width int32 page-table rows, ``self_pt`` (ceil(steps/page)
+entries) and ``cross_pt`` (ceil(mem_len/page)).  One page id addresses the
+same slice of every layer's arrays.  Page 0 is the reserved null page:
+unallocated table entries point at it and frozen rows' dead writes land in
+it.
+
+Unlike the JAX pool, which is an immutable pytree donated through compiled
+programs, :class:`PagedPool` is updated IN PLACE: the decode step writes
+each token's K/V into its page and advances the slot state on the tensors
+themselves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from csat_tpu_torch.configs import Config
+from csat_tpu_torch.ops.paged_decode import NULL_PAGE, quantize_kv
+from csat_tpu_torch.utils import EOS, PAD
+
+__all__ = [
+    "NULL_PAGE", "PageGeometry", "page_geometry", "PageAllocator", "PagedPool",
+    "chain_table_row", "init_paged_pool", "build_paged_decode_step",
+]
+
+
+class PageGeometry(NamedTuple):
+    page: int       # tokens per page
+    num_pages: int  # total pages INCLUDING the null page
+    sp: int         # self page-table width  = ceil(steps / page)
+    cp: int         # cross page-table width = ceil(mem_len / page)
+    steps: int      # decode budget capacity (max_tgt_len - 1)
+    mem_len: int    # encoder memory width (max_src_len)
+
+    def self_pages(self, limit: int) -> int:
+        return max(1, -(-int(limit) // self.page))
+
+    def cross_pages(self, n: int) -> int:
+        return max(1, -(-int(n) // self.page))
+
+
+def page_geometry(cfg: Config) -> PageGeometry:
+    """``serve_num_pages == 0`` sizes the pool for every slot's worst-case
+    chain; an explicit pool must fund at least one worst-case request."""
+    page = cfg.serve_page_size
+    steps = cfg.max_tgt_len - 1
+    mem_len = cfg.max_src_len
+    sp = -(-steps // page)
+    cp = -(-mem_len // page)
+    num_pages = cfg.serve_num_pages or (1 + cfg.serve_slots * (sp + cp))
+    if num_pages < 1 + sp + cp:
+        raise ValueError(
+            f"serve_num_pages={num_pages} cannot fund one worst-case request: "
+            f"need >= 1 null + {sp} self + {cp} cross pages")
+    return PageGeometry(page, num_pages, sp, cp, steps, mem_len)
+
+
+class PageAllocator:
+    """Host-side free list over page ids ``1..num_pages-1``: all-or-nothing
+    :meth:`alloc`, and assertions against aliasing and double frees (either
+    would silently corrupt another request's KV)."""
+
+    def __init__(self, num_pages: int):
+        assert num_pages >= 2, f"need >= 2 pages (one is the null page), got {num_pages}"
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))  # pop() yields 1, 2, …
+        self._used: set = set()
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return len(self._used)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` pages, or None (and no state change) when the pool cannot
+        fund them."""
+        assert n >= 0, n
+        if n > len(self._free):
+            return None
+        chain = [self._free.pop() for _ in range(n)]
+        self._used.update(chain)
+        return chain
+
+    def free(self, chain: Sequence[int]) -> None:
+        for p in chain:
+            p = int(p)
+            assert p != NULL_PAGE, "freeing the null page"
+            assert p in self._used, f"double-free / foreign page {p}"
+            self._used.remove(p)
+            self._free.append(p)
+
+
+@dataclasses.dataclass
+class PagedPool:
+    """Device-resident paged slot state, updated in place."""
+
+    pages: List[Dict[str, torch.Tensor]]  # per layer k, v (NP, H, page, dh); k_scale, v_scale (NP, H, page, 1)
+    self_pt: torch.Tensor    # (S, SP) int32 — self-KV chain (NULL_PAGE beyond)
+    cross_pt: torch.Tensor   # (S, CP) int32 — cross-KV chain
+    src_mask: torch.Tensor   # (S, N) bool — True = pad key (all True when free)
+    tok: torch.Tensor        # (S, 1) int64 — current decoder input token
+    pos: torch.Tensor        # (S,) int32 — tokens generated so far
+    limit: torch.Tensor      # (S,) int32 — budget; 0 ⇒ slot frozen
+    done: torch.Tensor       # (S,) bool — row emitted EOS
+    prev_pad: torch.Tensor   # (S, T) bool — pad-ness of decoder inputs so far
+    toks: torch.Tensor       # (S, T) int64 — generated ids (PAD beyond pos)
+
+
+def chain_table_row(chain: Sequence[int], width: int) -> np.ndarray:
+    row = np.full((width,), NULL_PAGE, np.int32)
+    row[: len(chain)] = chain
+    return row
+
+
+def init_paged_pool(model, num_slots: int, geo: PageGeometry) -> PagedPool:
+    """Every slot frozen (``limit = 0``) with null page tables."""
+    dev = model.device
+    return PagedPool(
+        pages=model.init_page_pool(geo.num_pages, geo.page),
+        self_pt=torch.full((num_slots, geo.sp), NULL_PAGE, dtype=torch.int32, device=dev),
+        cross_pt=torch.full((num_slots, geo.cp), NULL_PAGE, dtype=torch.int32, device=dev),
+        src_mask=torch.ones((num_slots, geo.mem_len), dtype=torch.bool, device=dev),
+        tok=torch.full((num_slots, 1), PAD, dtype=torch.long, device=dev),
+        pos=torch.zeros((num_slots,), dtype=torch.int32, device=dev),
+        limit=torch.zeros((num_slots,), dtype=torch.int32, device=dev),
+        done=torch.zeros((num_slots,), dtype=torch.bool, device=dev),
+        prev_pad=torch.zeros((num_slots, geo.steps), dtype=torch.bool, device=dev),
+        toks=torch.full((num_slots, geo.steps), PAD, dtype=torch.long, device=dev),
+    )
+
+
+def build_paged_decode_step(model, geo: PageGeometry):
+    """→ ``step(pool) -> status``: advance every live slot one token.
+
+    Attention reads K/V through each row's page chain (the paged-decode
+    kernel on the card); this step's K/V are then written into the page
+    owning position ``pos`` (``self_pt[s, pos // page]`` at ``pos % page``),
+    frozen rows writing to the null page.  A row that finishes this step
+    nulls its own table rows, so its pages can be handed out again at once.
+    ``status`` is the ``(S, 3)`` int32 ``[pos, done, bad]`` snapshot, ``bad``
+    flagging an active row whose log-probs went non-finite."""
+    page = geo.page
+
+    @torch.no_grad()
+    def step(pool: PagedPool) -> torch.Tensor:
+        caches = [
+            {"self": {"pages_k": e["k"], "pages_v": e["v"], "scale_k": e["k_scale"],
+                      "scale_v": e["v_scale"], "table": pool.self_pt,
+                      "width": geo.steps, "idx": pool.pos},
+             "cross": {"pages_k": e["k"], "pages_v": e["v"], "scale_k": e["k_scale"],
+                       "scale_v": e["v_scale"], "table": pool.cross_pt,
+                       "width": geo.mem_len}}
+            for e in pool.pages
+        ]
+        log_probs, steps = model.decode_step(
+            pool.tok, pool.pos, caches, pool.src_mask, pool.prev_pad)
+        nxt = torch.argmax(log_probs, dim=-1)                       # (S,)
+        act = (~pool.done) & (pool.pos < pool.limit)
+        bad = act & torch.any(~torch.isfinite(log_probs), dim=-1)
+        nxt = torch.where(act, nxt, torch.full_like(nxt, PAD))
+
+        pos = pool.pos.long()
+        pidx = torch.clamp(pos // page, 0, geo.sp - 1)
+        page_ids = torch.gather(pool.self_pt, 1, pidx[:, None])[:, 0].long()
+        page_ids = torch.where(act, page_ids, torch.full_like(page_ids, NULL_PAGE))
+        offs = pos % page
+        # in place, where the JAX step returns new page arrays; frozen rows
+        # all write the null page, whose contents no live lane reads
+        for e, (k_step, v_step) in zip(pool.pages, steps):
+            kq, ks = quantize_kv(k_step[:, :, 0, :], e["k"].dtype)    # (S, H, dh)
+            vq, vs = quantize_kv(v_step[:, :, 0, :], e["v"].dtype)
+            e["k"][page_ids, :, offs, :] = kq
+            e["v"][page_ids, :, offs, :] = vq
+            e["k_scale"][page_ids, :, offs, :] = ks
+            e["v_scale"][page_ids, :, offs, :] = vs
+
+        t_cap = pool.toks.shape[1]
+        ar = torch.arange(t_cap, device=pos.device)[None, :]
+        write = (ar == pos[:, None]) & act[:, None]
+        pool.toks.copy_(torch.where(write, nxt[:, None], pool.toks))
+        write_next = (ar == (pos + 1)[:, None]) & act[:, None]
+        pool.prev_pad.copy_(torch.where(write_next, (nxt == PAD)[:, None], pool.prev_pad))
+        pool.done |= act & (nxt == EOS)
+        pool.pos.copy_(torch.where(act, pool.pos + 1, pool.pos))
+        pool.tok.copy_(torch.where(act[:, None], nxt[:, None], pool.tok))
+        alive = (~pool.done) & (pool.pos < pool.limit)
+        pool.self_pt.masked_fill_(~alive[:, None], NULL_PAGE)
+        pool.cross_pt.masked_fill_(~alive[:, None], NULL_PAGE)
+        return torch.stack([pool.pos, pool.done.to(torch.int32), bad.to(torch.int32)], dim=1)
+
+    return step
