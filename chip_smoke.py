@@ -1,23 +1,34 @@
 """End-to-end smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
-    python3 chip_smoke.py --profile    # also trace one serving run with torch.profiler
+    python3 chip_smoke.py --profile    # also trace a serving run and train steps
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. ``device``  — the card, as ``nvidia-smi`` names it, with TF32 off;
-2. ``build``   — compiles every CUDA kernel of the serving path from the
-   checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for sm_90a;
+2. ``build``   — compiles every CUDA kernel of the serving and training paths
+   from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
+   sm_90a, one process per source, all at once;
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it: max abs error (with its tolerance),
-   exact skip counts, and times (CUDA events, median of several runs);
+   the shapes the serving and training paths give it: max abs error (with its
+   tolerance), exact skip counts, and times (CUDA events, median of several
+   runs);
 4. ``serve``   — the flagship ``python`` model at full width (random weights
    from a seed, ``eval_graph="expected"``) serves 16 synthetic requests
    through ``ServeEngine``; every request must be OK, no page may leak, every
-   kernel must have launched, and the tokens must equal the same weights
-   served on the CPU through the plain paths (up to a near-tie, see below);
-5. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phase 4, its error, times and
+   serving kernel must have launched, and the tokens must equal the same
+   weights served on the CPU through the plain paths (up to a near-tie, see
+   below);
+5. ``train``   — the same model trains at full width on a batch of 64
+   synthetic ASTs (``noise_mode="counter"``): one step through the kernels
+   and one through the plain paths on the card from the same weights, seeds
+   and batch must agree (loss within 1e-5 relative, global grad-norm within
+   1e-4 relative; every parameter's max abs gradient error is written out),
+   then 8 kernel steps on that batch must stay finite and end below the first
+   step's loss, and one ``noise_mode="shared"`` step runs the graph kernel;
+   every training kernel must have launched in the step that uses it;
+6. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-5, its error, times and
    bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -29,6 +40,7 @@ and the ``csat_tpu_torch`` package beside it.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -54,6 +66,20 @@ BUDGETS = (0, 12, 30, 0, 20, 8, 0, 40)  # 0 = the full max_tgt_len - 1
 TIE_MARGIN = 1e-4
 FLEX_TOL = 2e-5   # f32 kernel vs plain: summation order only
 PAGED_TOL = 1e-5
+GRAD_TOL = 1e-4   # backward kernels vs plain autograd, atol and rtol: order of N-key sums
+NEAR = 1e-6       # a Bernoulli draw within this of its threshold may flip
+TRAIN_B = 64      # the configs' batch_size
+RATE = 0.2        # the configs' attention dropout
+TRAIN_STEPS = 8
+LOSS_RTOL, GNORM_RTOL = 1e-5, 1e-4
+
+#: the kernels each driven path must launch
+PATH_KERNELS = {
+    "serve": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode"),
+    "train_counter": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+                      "flex_bwd_k_sbm_sampled"),
+    "train_shared": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -121,14 +147,16 @@ def build_phase() -> None:
 # ---------------------------------------------------------------------------
 
 def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev):
-    from csat_tpu_torch.ops.mods import cse_mod, sbm_expected_mod
+    from csat_tpu_torch.ops.mods import (
+        cse_mod, sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod)
 
     h, dh, r_len, kk = 8, 64, 150, 10
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
     q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
     # padded keys in every row but the first; the short rows leave whole
-    # 64-key tiles padded, which the SBM kernel skips
-    n_real = [n, n - 3, n // 2, n // 5, n - 1, n // 3, 2 * n // 3, max(1, n // 10)][:b]
+    # 64-key tiles padded, which the SBM kernels skip
+    n_real = [n, n - 3, n // 2, n // 5, n - 1, n // 3, 2 * n // 3, max(1, n // 10)]
+    n_real = (n_real * -(-b // len(n_real)))[:b]
     if mod == "cse":
         rel = torch.randint(0, r_len, (b, 2, n, n), generator=gen)  # not symmetric
         mask = torch.rand((b, 2, n, n), generator=gen) < 0.3
@@ -144,34 +172,77 @@ def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev):
             pad[i, m:] = True
         logits = torch.randn(h, kk * kk, generator=gen)
         s_aff = torch.softmax(logits, -1).reshape(h, kk, kk)
-        spec, aux = sbm_expected_mod(torch.sigmoid(rnd(b, h, n, kk)),
-                                     torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev), pad.to(dev))
+        if mod == "sbm_expected":
+            spec, aux = sbm_expected_mod(torch.sigmoid(rnd(b, h, n, kk)),
+                                         torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev),
+                                         pad.to(dev))
+        elif mod == "sbm_sampled":
+            seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, dtype=torch.int32)
+            spec, aux = sbm_sampled_mod(torch.sigmoid(2 * rnd(b, h, n, kk)),
+                                        torch.sigmoid(2 * rnd(b, h, n, kk)), s_aff.to(dev),
+                                        pad.to(dev), seed.to(dev))
+        else:
+            graph = (torch.rand((b, h, n, n), generator=gen) < 0.4).float()
+            spec, aux = sbm_graph_mod(graph.to(dev), pad.to(dev))
     return q, k, v, spec, aux
+
+
+def _near_draws(q, spec, aux):
+    """(B, H, N, N) Bernoulli draws of the sampled mod within NEAR of their
+    threshold — the only ones allowed to flip between kernel and plain path
+    (their R·K̂ᵀ sums may round apart); all False for the other mods."""
+    from csat_tpu_torch.ops.hashrng import uniform_field
+    from csat_tpu_torch.ops.mods import SBMSampledSpec, exp_adjacency
+
+    if not isinstance(spec, SBMSampledSpec):
+        b, h, n, _ = q.shape
+        return torch.zeros((b, h, n, n), dtype=torch.bool, device=q.device)
+    r, kh, _, sseed = aux
+    b, h, n, _ = r.shape
+    p = torch.clamp(exp_adjacency(r, kh), spec.floor, 0.99)
+    return (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
 
 
 def flex_check(mod: str, b: int, n: int, gen, dev) -> dict:
     from csat_tpu_torch.ops import build, flex_core
 
     q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev)
-    out, ex = flex_core.flex_attention(q, k, v, spec, aux)
-    ref, rex = flex_core.flex_reference(q, k, v, spec, aux)
+    train = mod in ("sbm_sampled", "sbm_graph")
+    rate = RATE if train else 0.0
+    dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if train else None
+    with torch.no_grad():
+        out, ex = flex_core.flex_attention(q, k, v, spec, aux, rate, dseed)
+        ref, rex = flex_core.flex_reference(q, k, v, spec, aux, rate, dseed)
+        near = _near_draws(q, spec, aux)
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    lse_err = (ex["lse"] - rex["lse"]).abs().max().item()
+    # a flipped draw moves graph_sum of its (b, h) by one and changes its row:
+    # flips are counted from graph_sum, gated to near-threshold draws, and
+    # rows holding a near draw are left out of the comparison
+    sampled = mod == "sbm_sampled"
+    flips = int((ex["graph_sum"] - rex["graph_sum"]).abs().sum()) if sampled else 0
+    near_ok = not sampled or bool(torch.all((ex["graph_sum"] - rex["graph_sum"]).abs()
+                                            <= near.sum(dim=(2, 3))))
+    rows = ~near.any(dim=-1)
+    err = (out - ref)[rows].abs().max().item()
+    lse_err = (ex["lse"] - rex["lse"])[rows].abs().max().item()
     gsum_err = ((ex["graph_sum"] - rex["graph_sum"]).abs()
                 / rex["graph_sum"].abs().clamp_min(1.0)).max().item()
     skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
     skip_equal = bool(torch.equal(ex["skipped_blocks"], skips))
-    if not (err <= FLEX_TOL and lse_err <= FLEX_TOL and gsum_err <= 1e-5 and skip_equal
-            and torch.isfinite(out).all()):
+    gsum_tol = float("inf") if sampled else 1e-5  # sampled: the flip gate instead
+    if not (err <= FLEX_TOL and lse_err <= FLEX_TOL and gsum_err <= gsum_tol and near_ok
+            and skip_equal and torch.isfinite(out).all()):
         raise AssertionError(f"flex {mod} B={b} N={n}: err={err} lse_err={lse_err} "
-                             f"gsum_rel_err={gsum_err} skips equal={skip_equal}")
+                             f"gsum_rel_err={gsum_err} flips={flips} near_ok={near_ok} "
+                             f"skips equal={skip_equal}")
 
-    fn, args, _ = flex_core.kernel_args(spec, q, k, v, aux)
+    fn, args, _ = flex_core.kernel_args(spec, q, k, v, aux, rate, dseed)
     lib = build.kernel(fn)
     ms = cuda_ms(lambda: lib(*args))
-    plain_ms = cuda_ms(lambda: flex_core.flex_reference(q, k, v, spec, aux))
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: flex_core.flex_reference(q, k, v, spec, aux, rate, dseed))
     _, h, _, dh = q.shape
+    library_ms = None
     # operations this run's inputs need, not the most they could
     if mod == "cse":
         mask = aux[3]
@@ -181,24 +252,106 @@ def flex_check(mod: str, b: int, n: int, gen, dev) -> dict:
         live = int((~mask).sum()) * spec.group
         empty_rows = int(mask.all(dim=-1).sum()) * spec.group
         flops = live * 8 * dh + empty_rows * n * dh
-        library_ms = None
     else:
-        # q·k and P·V on live-weight entries; R·K̂ on every entry, since
-        # graph_sum counts the weight of padded keys too
-        _, w_eff = spec.full_weight(q, k, aux)
-        live = int((torch.broadcast_to(w_eff, (b, h, n, n)) > 0).sum())
-        flops = live * 4 * dh + b * h * n * n * 2 * spec.kk
-        logw = torch.log(torch.broadcast_to(w_eff, (b, h, n, n)).contiguous())
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=logw))
+        # q·k and P·V on live-weight entries; for the factor mods R·K̂ on
+        # every entry, since graph_sum counts the weight of padded keys too
+        # (the sampled mod's integer hashes are not counted)
+        with torch.no_grad():
+            _, w_eff = spec.full_weight(q, k, aux)
+        w_eff = torch.broadcast_to(w_eff, (b, h, n, n))
+        live = int((w_eff > 0).sum())
+        flops = live * 4 * dh
+        if mod != "sbm_graph":
+            flops += b * h * n * n * 2 * spec.kk
+        if mod != "sbm_sampled":
+            # SDPA with an additive log w mask: the same attention (for the
+            # graph mod without its dropout: SDPA draws its own dropout bits)
+            logw = torch.log(w_eff.contiguous())
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=logw))
     moved = nbytes(q, k, v, *aux, ex["lse"], out)
     bound, bound_by = bound_ms(moved, flops)
-    rec = dict(kernel=fn, B=b, N=n, max_abs_err=err, lse_max_abs_err=lse_err, tol=FLEX_TOL,
+    rec = dict(kernel=fn, B=b, N=n, rate=rate, max_abs_err=err, lse_max_abs_err=lse_err,
+               tol=FLEX_TOL, flips=flips, near_draws=int(near.sum()),
                skipped_blocks=int(skips.sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
                live_entries=live, flops=flops, bytes=moved)
     emit("kernel", **rec)
     return rec
+
+
+def bwd_check(b: int, n: int, gen, dev) -> dict:
+    """K3/K4 (the sampled mod's two backward passes) against the plain
+    autograd of ``flex_reference`` on the same inputs, with dropout."""
+    from csat_tpu_torch.ops import build, flex_core
+
+    q, k, v, spec, aux = _flex_inputs("sbm_sampled", b, n, gen, dev)
+    dseed = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
+    go = torch.randn(q.shape, generator=gen).to(dev)
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
+        out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), RATE, dseed)
+        loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
+        return leaves, out, ex, loss
+
+    k_leaves, k_out, k_ex, k_loss = run(flex_core.flex_attention)
+    got = torch.autograd.grad(k_loss, k_leaves)
+    p_leaves, p_out, p_ex, p_loss = run(flex_core.flex_reference)
+    want = torch.autograd.grad(p_loss, p_leaves, retain_graph=True)
+    torch.cuda.synchronize()
+    near = _near_draws(q, spec, aux)
+    dg = (k_ex["graph_sum"] - p_ex["graph_sum"]).abs()
+    flips = int(dg.sum())
+    same = dg == 0  # a flip changes its own (b, h) only
+    if not (bool(torch.all(dg <= near.sum(dim=(2, 3)))) and same.float().mean() >= 0.9):
+        raise AssertionError(f"K3/K4: {flips} flipped draws, not all near the threshold")
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv", "dr", "dkh"), got, want):
+        a, w = a[same], w[same]
+        errs[name] = (a - w).abs().max().item()
+        worst = ((a - w).abs() - GRAD_TOL * (1 + w.abs())).max().item()
+        if not (worst <= 0 and torch.isfinite(a).all()):
+            raise AssertionError(f"K3/K4 {name}: max abs err {errs[name]} over "
+                                 f"{GRAD_TOL} (1 + |plain|)")
+
+    with torch.no_grad():
+        out = k_out.detach()
+        lse = k_ex["lse"].detach()
+        dvec = torch.sum(go * out, dim=-1)
+        gs = torch.full((b, q.shape[1]), 1e-3, device=dev)
+        q_args, k_args, _ = flex_core.bwd_kernel_args(spec, q, k, v, aux, lse, dvec, go, gs,
+                                                      RATE, dseed)
+    lib_q, lib_k = build.kernel("flex_bwd_q_sbm_sampled"), build.kernel("flex_bwd_k_sbm_sampled")
+    ms_q, ms_k = cuda_ms(lambda: lib_q(*q_args)), cuda_ms(lambda: lib_k(*k_args))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(p_loss, p_leaves, retain_graph=True),
+                       reps=5, trials=5)
+    # operations this run's data needs: live entries (a_eff > 0) take q·k and
+    # g·v and, q-pass, d_s·K (6 dh) or, k-pass, d_sᵀ·Q and attnᵀ·g (8 dh); every
+    # entry its R·K̂ (2 kk); every sampled edge its d_exp·K̂ or d_expᵀ·R (2 kk)
+    with torch.no_grad():
+        a_raw, a_eff = spec.full_weight(q, k, aux)
+    live, edges = int((a_eff > 0).sum()), int((a_raw > 0).sum())
+    _, h, _, dh = q.shape
+    every = b * h * n * n * 2 * spec.kk
+    inputs = nbytes(q, k, v, *aux, lse, dvec, go, gs)
+    recs = {}
+    for fn, ms, flops, outs in (
+            ("flex_bwd_q_sbm_sampled", ms_q, live * 6 * dh + every + edges * 2 * spec.kk,
+             (q, aux[0])),
+            ("flex_bwd_k_sbm_sampled", ms_k, live * 8 * dh + every + edges * 2 * spec.kk,
+             (k, v, aux[1]))):
+        moved = inputs + nbytes(*outs)
+        bound, bound_by = bound_ms(moved, flops)
+        errs_fn = {key: errs[key] for key in (("dq", "dr") if "_q_" in fn else ("dk", "dv", "dkh"))}
+        recs[fn] = dict(kernel=fn, B=b, N=n, rate=RATE, max_abs_err=max(errs_fn.values()),
+                        grad_errs=errs_fn, tol=f"{GRAD_TOL} (1 + |plain|)", flips=flips,
+                        near_draws=int(near.sum()), ms=ms, plain_ms=plain_ms,
+                        plain_is="the whole plain backward (both passes)", library_ms=None,
+                        bound_ms=bound, bound_by=bound_by, live_entries=live, edges=edges,
+                        flops=flops, bytes=moved)
+        emit("kernel", **recs[fn])
+    return recs
 
 
 def _paged_inputs(dtype, side: str, gen, dev):
@@ -295,8 +448,16 @@ def kernel_phase(dev) -> dict:
              for dt in (torch.float32, torch.bfloat16, torch.int8) for side in ("self", "cross")}
     flex.update({(mod, b, n): flex_check(mod, b, n, gen, dev)
                  for mod in mods for n, bs in FLEX_SHAPES for b in bs if b != 4})
+    # the training path: B 64, N 150 (the flagship bucket at batch_size)
+    train = {mod: flex_check(mod, TRAIN_B, 150, gen, dev) for mod in ("sbm_sampled", "sbm_graph")}
+    cse_train = flex_check("cse", TRAIN_B, 150, gen, dev)
+    bwd = bwd_check(TRAIN_B, 150, gen, dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
+            "flex_fwd_cse@train": cse_train,
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],
+            "flex_fwd_sbm_sampled": train["sbm_sampled"],
+            "flex_fwd_sbm_graph": train["sbm_graph"],
+            **bwd,
             "paged_decode": paged[(torch.float32, "cross")]}
 
 
@@ -389,6 +550,14 @@ def profile_serve(cfg, model, samples, budgets) -> dict:
         engine.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return _device_summary(prof, wall, "serve_trace.json")
+
+
+def _device_summary(prof, wall: float, trace_name=None) -> dict:
+    """Device time by kernel and the device's busy share of ``wall`` from a
+    finished profiler; the Chrome trace goes to ``chiprun_out/trace_name``
+    when one is named (the serve trace; a train trace would be too large to
+    bring back)."""
     def device_ms(e):  # the attribute's name changed across torch versions
         return (getattr(e, "self_device_time_total", 0.0)
                 or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
@@ -398,8 +567,9 @@ def profile_serve(cfg, model, samples, budgets) -> dict:
     by_kernel = sorted(((e.key, device_ms(e), e.count) for e in kernels),
                        key=lambda kv: -kv[1])
     busy_ms = sum(ms for _, ms, _ in by_kernel)
-    OUT_DIR.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(OUT_DIR / "serve_trace.json"))
+    if trace_name:
+        OUT_DIR.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(OUT_DIR / trace_name))
     return dict(wall_s=wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / 1e3 / wall if wall else None,
                 top=[[k[:80], ms, n] for k, ms, n in by_kernel[:15]])
@@ -417,9 +587,7 @@ def serve_phase(profile: bool) -> dict:
     leaks = gpu["engine"].page_leaks()
     if leaks:
         raise AssertionError(f"{leaks} pages leaked")
-    idle = [fn for fn in build.KERNELS if gpu["counts"][fn] <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the serving path: {idle}")
+    _check_launched("serve", gpu["counts"])
     n_tokens = sum(len(r.tokens) for r in gpu["results"])
 
     cpu = serve(cfg, "cpu", samples, budgets)
@@ -461,11 +629,162 @@ def serve_phase(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: train the flagship model
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, b: int):
+    """``b`` synthetic ASTs spread over 20..max_src_len nodes with random
+    summaries, collated at the flagship width onto the card."""
+    from csat_tpu_torch.data.dataset import batch_to_device, collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+
+    rng = np.random.default_rng(SEED + 1)
+    sizes = np.linspace(20, cfg.max_src_len, b).round().astype(int)
+    rng.shuffle(sizes)
+    samples = [train_sample(random_ast(rng, int(n)), cfg, SRC_VOCAB, TGT_VOCAB, rng)
+               for n in sizes]
+    arrs = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+    return batch_to_device(collate(arrs, cfg.max_src_len), torch.device("cuda"))
+
+
+def timed_step(step, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0
+
+
+def trainer(cfg, model=None):
+    """(model, train state, train step) at ``cfg``: a fresh full-width model
+    from ``SEED`` unless ``model`` is given."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
+
+    model = model or CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cuda", seed=SEED)
+    opt = default_optimizer(cfg)
+    return model, create_train_state(model, opt, SEED), make_train_step(model, opt, cfg)
+
+
+def _check_launched(path: str, counts) -> None:
+    idle = [fn for fn in PATH_KERNELS[path] if counts[fn] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the {path} path: {idle}")
+
+
+def profile_steps(step, state, batch, n: int = 2) -> dict:
+    """``n`` train steps under torch.profiler: device busy share of the wall
+    time and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _device_summary(prof, wall)
+
+
+def train_phase(profile: bool) -> dict:
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import build, flex_core
+
+    cfg = get_config("python", noise_mode="counter")
+    batch = train_batch(cfg, cfg.batch_size)
+    model, state, step = trainer(cfg)
+    plain_model, plain_state, plain_step = trainer(cfg, copy.deepcopy(model))
+
+    # one step through the kernels, one through the plain paths on the card,
+    # from the same weights, seeds and batch
+    build.reset_launches()
+    state, m_k, first_s = timed_step(step, state, batch)
+    counts = build.launch_counts()
+    flex_core_select = flex_core.select_impl
+    flex_core.select_impl = lambda x: "reference"
+    try:
+        build.reset_launches()
+        plain_state, m_p, plain_s = timed_step(plain_step, plain_state, batch)
+    finally:
+        flex_core.select_impl = flex_core_select
+    if any(build.launch_counts().values()):
+        raise AssertionError(f"the plain step launched kernels: {build.launch_counts()}")
+    loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
+    gnorm_rel = abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"])) / float(m_p["grad_norm"])
+    grad_err = {name: [(p.grad - pp.grad).abs().max().item(), pp.grad.abs().max().item()]
+                for (name, p), (_, pp) in zip(model.named_parameters(),
+                                              plain_model.named_parameters())}
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "train_grad_err.json").write_text(json.dumps(
+        {"columns": ["max_abs_err", "plain_max_abs_grad"], "params": grad_err}, indent=1))
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1][0])[:5]
+    # edges the two steps' graphs differ by, net: the sampled graphs see
+    # inputs that differ by rounding (K1 against the plain CSE upstream), so
+    # draws within that rounding of their threshold may flip between steps
+    edges = cfg.batch_size * cfg.max_src_len ** 2 * cfg.num_heads * cfg.sbm_layers
+    step_flips = abs(float(m_k["sparsity"]) - float(m_p["sparsity"])) * edges
+    grad_err = {name: err for name, (err, _) in grad_err.items()}
+    if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL
+            and all(np.isfinite(list(grad_err.values())))):
+        raise AssertionError(f"kernel vs plain step: loss rel {loss_rel}, grad-norm rel "
+                             f"{gnorm_rel}, worst grads {worst}")
+    del plain_model, plain_state, plain_step
+
+    # TRAIN_STEPS more kernel steps on the same batch
+    losses, times = [float(m_k["loss"])], []
+    for _ in range(TRAIN_STEPS):
+        state, m, seconds = timed_step(step, state, batch)
+        if m["nonfinite"] or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"non-finite train step: {m}")
+        losses.append(float(m["loss"]))
+        times.append(seconds)
+    steps_counts = build.launch_counts()
+    counts = {fn: counts[fn] + steps_counts[fn] for fn in counts}
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    _check_launched("train_counter", counts)
+    trace = profile_steps(step, state, batch) if profile else None
+    del model, state, step
+
+    # one step of the config's default noise mode: the shared graph
+    shared_cfg = cfg.replace(noise_mode="shared")
+    _, sh_state, sh_step = trainer(shared_cfg)
+    build.reset_launches()
+    sh_state, m_s, shared_s = timed_step(sh_step, sh_state, batch)
+    shared_counts = build.launch_counts()
+    if m_s["nonfinite"] or not np.isfinite(float(m_s["loss"])):
+        raise AssertionError(f"non-finite shared-noise step: {m_s}")
+    _check_launched("train_shared", shared_counts)
+
+    n_steps = 1 + TRAIN_STEPS
+    rec = dict(model="python", noise_mode="counter", batch=cfg.batch_size, widths=dict(
+        pegen=cfg.pegen_dim, enc=cfg.sbm_enc_dim, hidden=cfg.hidden_size, heads=cfg.num_heads,
+        cse_layers=cfg.num_layers, sbm_layers=cfg.sbm_layers, dec_layers=cfg.decoder_layers,
+        clusters=list(cfg.clusters), max_src_len=cfg.max_src_len, max_tgt_len=cfg.max_tgt_len),
+        vocab=[SRC_VOCAB, TGT_VOCAB], dropout=cfg.dropout,
+        attention_dropout=cfg.attention_dropout, learning_rate=cfg.learning_rate,
+        kernel_loss=float(m_k["loss"]), plain_loss=float(m_p["loss"]), loss_rel=loss_rel,
+        loss_rtol=LOSS_RTOL, kernel_grad_norm=float(m_k["grad_norm"]),
+        plain_grad_norm=float(m_p["grad_norm"]), grad_norm_rel=gnorm_rel,
+        grad_norm_rtol=GNORM_RTOL, grad_max_abs_err=max(grad_err.values()),
+        worst_grad_errs=worst, kernel_sparsity=float(m_k["sparsity"]),
+        plain_sparsity=float(m_p["sparsity"]), net_graph_edges_apart=step_flips,
+        plain_step_s=plain_s, first_step_s=first_s,
+        losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
+        launches=counts, launches_per_step={fn: c / n_steps for fn, c in counts.items()},
+        shared=dict(loss=float(m_s["loss"]), step_s=shared_s, launches=shared_counts),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
+    emit("train", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace a second serving run with torch.profiler")
+                    help="trace a serving run and two train steps with torch.profiler")
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
@@ -474,13 +793,18 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     measured = kernel_phase(dev)
     served = serve_phase(args.profile)
+    trained = train_phase(args.profile)
+    by_path = {"serve": served["launches"], "train_counter": trained["launches"],
+               "train_shared": trained["shared"]["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]
+        launches = {path: counts[fn] for path, counts in by_path.items() if counts[fn]}
         kernels.append(dict(
             name=fn, route="cuda", source=str(build.SOURCES[lib].relative_to(REPO)),
             replaces=build.REPLACES[fn],
-            launches=served["launches"][fn], max_abs_err=m["max_abs_err"], ms=m["ms"],
+            launches=sum(launches.values()), launches_by_path=launches,
+            max_abs_err=m["max_abs_err"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             library_ms=m["library_ms"],
             shape={k: m[k] for k in ("B", "N", "side", "dtype", "width") if k in m},

@@ -3,10 +3,10 @@ reads, under the same names and defaults, plus the named registry.
 
 Field names are identical to the reference's so one set of overrides builds
 both configs.  Fields that only select JAX/TPU machinery (``backend``,
-meshes, compilation caches), training (data paths, batch size, dropout, the
-sampled-graph noise) or serving features outside this port are absent: the
-port picks kernel or plain path by the device a tensor lies on, and a field
-it never reads is not one it pretends to honour.
+meshes, compilation caches, ``flex_bwd``), the trainer's loop (data paths,
+epochs, bucketing, checkpoints, eval decode) or serving features outside this
+port are absent: the port picks kernel or plain path by the device a tensor
+lies on, and a field it never reads is not one it pretends to honour.
 """
 
 from __future__ import annotations
@@ -39,13 +39,25 @@ class Config:
     max_tgt_len: int = 50
     max_src_len: int = 150
 
-    # SBM graph: Bernoulli clamp floor, and the eval-time graph
-    # ("expected" = the Bernoulli mean clip(Q̂SK̂ᵀ, floor, .99), the
-    # deterministic graph this port serves; "sample" needs the training
-    # slice's noise and raises in the model)
+    # SBM graph: Bernoulli clamp floor, the noise of the sampled graph
+    # ("shared": uniform noise from the generator through the STE, the
+    # sbm_graph mod; "counter": the hash stream drawn in-kernel, the
+    # sbm_sampled mod), and the eval-time graph ("expected" = the Bernoulli
+    # mean clip(Q̂SK̂ᵀ, floor, .99), the deterministic graph served; "sample"
+    # draws a graph at eval too)
     sbm_floor: float = 0.01
+    noise_mode: str = "shared"
     eval_graph: str = "sample"
     bucket_src_lens: Tuple[int, ...] = ()
+
+    # training (reference: config/python.py, script/train.py)
+    dropout: float = 0.2
+    attention_dropout: float = 0.2  # fixed 0.2 in the reference
+    sw: float = 1e-2  # sparsity-regularizer weight
+    learning_rate: float = 1e-4
+    smoothing: float = 0.0  # label smoothing
+    batch_size: int = 64
+    nonfinite_guard: bool = True
 
     # serving: slot pool and the block-paged KV pool
     serve_slots: int = 8
@@ -75,6 +87,8 @@ class Config:
         assert self.pad_row in ("zero", "frozen"), self.pad_row
         assert self.cse_empty_rows in ("uniform", "zero"), self.cse_empty_rows
         assert self.eval_graph in ("sample", "expected"), self.eval_graph
+        assert self.noise_mode in ("shared", "counter"), self.noise_mode
+        assert 0.0 <= self.dropout < 1.0 and 0.0 <= self.attention_dropout < 1.0
         assert self.sbm_enc_dim % self.num_heads == 0
         assert self.hidden_size % self.num_heads == 0
         assert self.num_heads % 2 == 0, "CSE splits heads into L and T halves"

@@ -1,7 +1,10 @@
-"""Carry flax ``CSATrans`` weights into the port's modules.
+"""Carry flax ``CSATrans`` weights (or their gradients) into the port's modules.
 
-``convert_params`` maps the flax param tree (nested dicts of numpy arrays,
-``variables["params"]``) onto the port's ``state_dict`` names:
+``convert_params`` maps a flax param tree (nested dicts of numpy arrays,
+``variables["params"]``) — or a gradient tree of the same structure, as
+``jax.grad`` returns it — onto the port's ``named_parameters()`` names, so
+weights load into the model and gradients line up with each parameter's
+``.grad``:
 
 * a ``Dense`` ``kernel`` ``(in, out)`` becomes a ``Linear`` ``weight``
   ``(out, in)`` (transposed);
@@ -89,9 +92,10 @@ def _map_path(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 def convert_params(flax_params: Mapping, model: Optional[nn.Module] = None
                    ) -> Dict[str, torch.Tensor]:
-    """Flax ``CSATrans`` params → the port's ``state_dict`` (CPU f32
-    tensors).  With ``model``, also checks that every port parameter is
-    filled exactly once with the right shape."""
+    """Flax ``CSATrans`` params or gradients → ``{port parameter name: CPU
+    f32 tensor}``.  With ``model``, also checks that every parameter of
+    ``model.named_parameters()`` is filled exactly once with the right
+    shape."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in flatten(flax_params).items():
         key, leaf = _map_path(path)
@@ -100,7 +104,7 @@ def convert_params(flax_params: Mapping, model: Optional[nn.Module] = None
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         sd[key] = t.T.contiguous() if leaf == "kernel" else t
     if model is not None:
-        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        want = {k: tuple(v.shape) for k, v in model.named_parameters()}
         missing = sorted(set(want) - set(sd))
         extra = sorted(set(sd) - set(want))
         if missing or extra:

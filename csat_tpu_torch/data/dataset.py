@@ -54,14 +54,17 @@ def collate(arrs: Dict[str, np.ndarray], max_src_len: int) -> Batch:
 
 
 def batch_to_device(batch: Batch, device: torch.device) -> Batch:
-    """The encoder's inputs as tensors on ``device``, widened to the
-    compute dtypes (int64 token ids, int32 distances, bool masks); fields the
-    serving encoder never reads stay on the host."""
+    """The model's inputs as tensors on ``device``, widened to the compute
+    dtypes (int64 token ids, int32 distances, bool masks); fields the model
+    never reads (``num_node``, ``adj``, ``tree_pos``, ``triplet``) stay on
+    the host."""
     def put(x, dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
     return batch._replace(
         src_seq=put(batch.src_seq, torch.long),
+        tgt_seq=put(batch.tgt_seq, torch.long),
+        target=put(batch.target, torch.long),
         L=put(batch.L, torch.int32),
         T=put(batch.T, torch.int32),
         L_mask=put(batch.L_mask, torch.bool),

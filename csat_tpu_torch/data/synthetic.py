@@ -6,7 +6,8 @@ In the spirit of the JAX package's ``data/synthetic.py:40-90`` generator
 requests over every prefill bucket; ``request_sample``
 turns a JSON AST into the flagship-width sample dict the serving engine
 ingests, through the same tree → pre-order → L/T matrices pipeline the
-preprocessing runs.  Token ids come from a stable hash of each node's value,
+preprocessing runs; ``train_sample`` adds a random summary as the decoder
+input and target.  Token ids come from a stable hash of each node's value,
 so no vocabulary file is needed.
 """
 
@@ -20,8 +21,9 @@ import numpy as np
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.data.ast_tools import (
     ast_json_to_tree, build_matrices, truncate_preorder)
+from csat_tpu_torch.utils import BOS, EOS
 
-__all__ = ["random_ast", "request_sample"]
+__all__ = ["random_ast", "request_sample", "train_sample"]
 
 VERBS = ["get", "set", "load", "save", "parse", "build", "find", "update", "check", "make"]
 NOUNS = ["node", "tree", "value", "config", "index", "token", "graph", "batch", "path", "cache"]
@@ -84,3 +86,20 @@ def request_sample(ast_json: List[dict], cfg: Config,
         "tree_pos": np.zeros((N, tp_dim), np.uint8),
         "triplet": np.zeros((N,), np.int32),
     }
+
+
+def train_sample(ast_json: List[dict], cfg: Config, src_vocab_size: int,
+                 tgt_vocab_size: int, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """:func:`request_sample` plus a summary of 3 to ``max_tgt_len - 2``
+    random words: ``tgt_seq`` (BOS, words…) and ``target`` (words…, EOS),
+    PAD beyond, both ``max_tgt_len - 1`` wide — the collate's training
+    fields."""
+    sample = request_sample(ast_json, cfg, src_vocab_size)
+    t = cfg.max_tgt_len
+    words = rng.integers(4, tgt_vocab_size, int(rng.integers(3, t - 1)))
+    seq = np.zeros((t,), np.int32)
+    seq[0] = BOS
+    seq[1:1 + len(words)] = words
+    seq[1 + len(words)] = EOS
+    sample["tgt_seq"], sample["target"] = seq[:-1], seq[1:]
+    return sample

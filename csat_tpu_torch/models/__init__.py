@@ -1,4 +1,4 @@
-"""The CSA-Trans model in PyTorch (serving path)."""
+"""The CSA-Trans model in PyTorch (training and serving)."""
 
 from csat_tpu_torch.models.csa_trans import CSATrans
 

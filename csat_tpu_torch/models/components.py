@@ -1,13 +1,17 @@
 """Shared model blocks: embeddings, feed-forward, decoder, output head.
 
 Counterparts of the JAX package's ``models/components.py:39-420``.  The
-decoder here is the serving decoder: one token per slot per step, self and
-cross attention read K/V through the paged pool (``ops/paged_decode.py``).
-The teacher-forced (whole-sequence) decoder belongs to the training slice.
+decoder runs two ways: teacher-forced over the whole target sequence
+(training, :meth:`Decoder.teacher_forced`, plain tensor ops as JAX leaves
+them to XLA) and one token per slot per step with self and cross attention
+reading K/V through the paged pool (serving, :meth:`Decoder.forward`,
+``ops/paged_decode.py``).
 
 Numerics follow the reference: LayerNorm eps 1e-5, exact GELU, -1e9
 masked-score fill, and the Generator's ``log(max(softmax, 1e-30))`` form
-when ``generator_dropout`` is set.
+when ``generator_dropout`` is set.  Dropout runs where the flax modules put
+it, only when ``deterministic`` is False, with its keep mask drawn from the
+caller's explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,29 @@ from csat_tpu_torch.utils import PAD
 
 LN_EPS = 1e-5
 NEG_INF = -1e9
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax applies it (``where(keep, x / (1 - rate),
+    0)``), with the keep mask drawn from ``gen`` on ``x``'s device; the
+    identity when ``deterministic`` or ``rate == 0``."""
+    if deterministic or rate == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """(size, size) bool, True above the diagonal (future positions)."""
+    return torch.triu(torch.ones((size, size), dtype=torch.bool, device=device), diagonal=1)
+
+
+def make_std_mask(seq: torch.Tensor, pad: int = PAD) -> torch.Tensor:
+    """(B, T, T) bool mask hiding padding and future words. True = masked."""
+    return (seq == pad)[:, None, :] | subsequent_mask(seq.shape[-1], seq.device)[None]
 
 
 def sinusoidal_rows(pos: torch.Tensor, dim: int) -> torch.Tensor:
@@ -49,24 +76,30 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class Embeddings(nn.Module):
-    """Token embedding → optional sinusoidal position → LayerNorm.  PAD
-    lookups are zeroed (``pad_row="zero"``) or keep the table's row
-    (``"frozen"``: identical at inference)."""
+    """Token embedding → optional sinusoidal position → LayerNorm → dropout.
+    PAD lookups are zeroed (``pad_row="zero"``) or keep the table's row with
+    its gradient blocked (``"frozen"``, the reference's padding_idx row)."""
 
-    def __init__(self, vocab_size: int, hidden_size: int, with_pos: bool = False,
-                 pad_row: str = "zero"):
+    def __init__(self, vocab_size: int, hidden_size: int, dropout: float = 0.0,
+                 with_pos: bool = False, pad_row: str = "zero"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab_size, hidden_size))
         self.norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.dropout = dropout
         self.with_pos = with_pos
         self.pad_row = pad_row
 
-    def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                deterministic: bool = True, gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """``pos`` (B,) gives every row its own position (one token per
         slot); None uses positions ``0..T-1``."""
         emb = F.embedding(x, self.weight)
+        is_pad = (x == PAD)[..., None]
         if self.pad_row == "zero":
-            emb = torch.where((x == PAD)[..., None], torch.zeros_like(emb), emb)
+            emb = torch.where(is_pad, torch.zeros_like(emb), emb)
+        else:
+            emb = torch.where(is_pad, emb.detach(), emb)
         if self.with_pos:
             dim = self.weight.shape[1]
             if pos is None:
@@ -74,32 +107,51 @@ class Embeddings(nn.Module):
                     torch.arange(x.shape[-1], device=x.device), dim)[None]
             else:
                 emb = emb + sinusoidal_rows(pos, dim)[:, None, :]
-        return self.norm(emb)
+        return dropout(self.norm(emb), self.dropout, deterministic, gen)
 
 
 class FeedForward(nn.Module):
-    """Linear → exact GELU → Linear."""
+    """Linear → exact GELU → dropout → Linear."""
 
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = F.gelu(self.fc1(x), approximate="none")
+        return self.fc2(dropout(h, self.dropout, deterministic, gen))
 
 
 class MultiHeadAttention(nn.Module):
-    """Separate q/k/v/out projections; decode-time attention through the
-    paged KV pool."""
+    """Separate q/k/v/out projections; whole-sequence attention with
+    attention-weight dropout (training), or decode-time attention through
+    the paged KV pool (serving)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
+
+    def attend(self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor,
+               deterministic: bool = True, gen: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+        """``q_in`` (B, Tq, D) attends over ``kv_in`` (B, Tk, D); ``mask``
+        bool, broadcastable to (B, H, Tq, Tk), True on disallowed keys
+        (score filled with -1e9 before the softmax)."""
+        q = split_heads(self.q(q_in), self.num_heads)
+        k = split_heads(self.k(kv_in), self.num_heads)
+        v = split_heads(self.v(kv_in), self.num_heads)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+        scores = torch.where(mask, torch.full_like(scores, NEG_INF), scores)
+        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, deterministic, gen)
+        return self.out(merge_heads(torch.einsum("bhqk,bhkd->bhqd", attn, v)))
 
     def project_kv(self, kv_in: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Split-head K/V of the encoder memory, computed once at prefill."""
@@ -134,16 +186,26 @@ class MultiHeadAttention(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm self-attention, cross-attention and FFN sublayers."""
+    """Pre-norm self-attention, cross-attention and FFN sublayers, each
+    followed by dropout before its residual."""
 
-    def __init__(self, d_model: int, num_heads: int, d_ff: int):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.cross_attn = MultiHeadAttention(d_model, num_heads)
-        self.ff = FeedForward(d_model, d_ff)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.ff = FeedForward(d_model, d_ff, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = dropout
+
+    def teacher_forced(self, tgt, memory, tgt_mask, mem_mask, deterministic, gen):
+        drop = lambda x: dropout(x, self.dropout, deterministic, gen)
+        normed = self.norm1(tgt)
+        tgt = tgt + drop(self.self_attn.attend(normed, normed, tgt_mask, deterministic, gen))
+        tgt = tgt + drop(self.cross_attn.attend(self.norm2(tgt), memory, mem_mask,
+                                                deterministic, gen))
+        return tgt + drop(self.ff(self.norm3(tgt), deterministic, gen))
 
     def forward(self, tgt, self_mask, mem_mask, cache):
         h, k_step, v_step = self.self_attn.attend_self(self.norm1(tgt), self_mask, cache["self"])
@@ -156,11 +218,23 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     """Stack of :class:`DecoderLayer` + final LayerNorm."""
 
-    def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int):
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, num_heads, d_ff) for _ in range(num_layers))
+            DecoderLayer(d_model, num_heads, d_ff, dropout) for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def teacher_forced(self, tgt, memory, tgt_mask, memory_key_pad,
+                       deterministic: bool = True, gen: Optional[torch.Generator] = None):
+        """Whole target sequence at once: ``tgt`` (B, T, D) embeddings,
+        ``tgt_mask`` (B, T, T) from :func:`make_std_mask`, ``memory_key_pad``
+        (B, N) True on padded nodes."""
+        self_mask = tgt_mask[:, None]
+        mem_mask = memory_key_pad[:, None, None, :]
+        for layer in self.layers:
+            tgt = layer.teacher_forced(tgt, memory, self_mask, mem_mask, deterministic, gen)
+        return self.norm(tgt)
 
     def forward(self, tgt, self_mask, mem_mask, caches: List[Dict]):
         steps = []
@@ -171,16 +245,20 @@ class Decoder(nn.Module):
 
 
 class Generator(nn.Module):
-    """Output head: linear → softmax → log(max(p, 1e-30)) (the reference's
-    order, dropout off at inference) or plain ``log_softmax``."""
+    """Output head: linear → dropout → softmax → log(max(p, 1e-30)) (the
+    reference's order) or plain ``log_softmax`` without dropout."""
 
-    def __init__(self, d_model: int, vocab_size: int, reference_dropout: bool = True):
+    def __init__(self, d_model: int, vocab_size: int, reference_dropout: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(d_model, vocab_size)
         self.reference_dropout = reference_dropout
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         logits = self.fc1(x)
         if self.reference_dropout:
+            logits = dropout(logits, self.dropout, deterministic, gen)
             return torch.log(torch.clamp(torch.softmax(logits, dim=-1), min=1e-30))
         return torch.log_softmax(logits, dim=-1)

@@ -1,9 +1,11 @@
-"""CSATrans: the encoder–decoder model, as served.
+"""CSATrans: the encoder–decoder model, trained and served.
 
 Counterpart of the JAX package's ``models/csa_trans.py:72-261``: source
 embedding ``sbm_enc_dim - pe_dim`` wide, pegen CSE positional encodings,
-the SBM encoder, and a decoder stepped one token per slot over the paged KV
-pool.  Only the ``pegen`` PE variant is in this slice; the others raise.
+the SBM encoder, and a decoder run teacher-forced over the whole target
+(``forward``, the training pass) or stepped one token per slot over the
+paged KV pool (``decode_step``, serving).  Only the ``pegen`` PE variant is
+ported; the others raise.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from torch import nn
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.data.dataset import Batch
-from csat_tpu_torch.models.components import Decoder, Embeddings, Generator
+from csat_tpu_torch.models.components import Decoder, Embeddings, Generator, make_std_mask
 from csat_tpu_torch.models.cse import CSE
 from csat_tpu_torch.models.init import init_params
 from csat_tpu_torch.models.sbm import SBMEncoder
@@ -40,16 +42,19 @@ class CSATrans(nn.Module):
         self.cfg = cfg
         self.src_vocab_size = src_vocab_size
         self.tgt_vocab_size = tgt_vocab_size
-        self.src_embedding = Embeddings(src_vocab_size, cfg.src_emb_dim, pad_row=cfg.pad_row)
-        self.tgt_embedding = Embeddings(tgt_vocab_size, cfg.hidden_size, with_pos=True,
+        self.src_embedding = Embeddings(src_vocab_size, cfg.src_emb_dim, cfg.dropout,
                                         pad_row=cfg.pad_row)
-        self.src_pe_embedding = Embeddings(src_vocab_size, cfg.pegen_dim, pad_row=cfg.pad_row)
+        self.tgt_embedding = Embeddings(tgt_vocab_size, cfg.hidden_size, cfg.dropout,
+                                        with_pos=True, pad_row=cfg.pad_row)
+        self.src_pe_embedding = Embeddings(src_vocab_size, cfg.pegen_dim, cfg.dropout,
+                                           pad_row=cfg.pad_row)
         self.pegen = CSE(cfg)
         self.encoder = SBMEncoder(cfg)
         self.decoder = Decoder(cfg.decoder_layers, cfg.hidden_size, cfg.num_heads,
-                               cfg.dim_feed_forward)
+                               cfg.dim_feed_forward, cfg.dropout)
         self.generator = Generator(cfg.hidden_size, tgt_vocab_size,
-                                   reference_dropout=cfg.generator_dropout)
+                                   reference_dropout=cfg.generator_dropout,
+                                   dropout=cfg.dropout)
         init_params(self, cfg.seed if seed is None else seed)
         self.to(device)
         self.eval()
@@ -59,17 +64,37 @@ class CSATrans(nn.Module):
         return self.generator.fc1.weight.device
 
     @torch.no_grad()
-    def encode(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, batch: Batch, deterministic: bool = True,
+               gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``batch`` with tensors on the model's device
         (``data.dataset.batch_to_device``) → ``(memory (B, N, hidden),
-        sparsity scalar)``."""
+        sparsity scalar)``, without gradients (serving's prefill).  Sampled
+        graphs draw from ``gen``, a generator on the model's device."""
+        return self.encode_with_grad(batch, deterministic, gen)
+
+    def encode_with_grad(self, batch: Batch, deterministic: bool = True,
+                         gen: Optional[torch.Generator] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`encode` under autograd: the encoder half of the training
+        pass (``deterministic=False`` drops and samples from ``gen``)."""
         src_mask = batch.src_seq == PAD
-        src_emb = self.src_embedding(batch.src_seq)
-        pe_emb = self.src_pe_embedding(batch.src_seq)
-        src_pe = self.pegen(pe_emb, batch.L, batch.T, batch.L_mask, batch.T_mask)
-        memory, sparsities = self.encoder(src_emb, src_pe, src_mask)
+        src_emb = self.src_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
+        pe_emb = self.src_pe_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
+        src_pe = self.pegen(pe_emb, batch.L, batch.T, batch.L_mask, batch.T_mask,
+                            deterministic, gen)
+        memory, sparsities = self.encoder(src_emb, src_pe, src_mask, deterministic, gen)
         sparsity = torch.mean(torch.stack([torch.mean(s) for s in sparsities]))
         return memory, sparsity
+
+    def forward(self, batch: Batch, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced pass → ``(log_probs (B, T, V), sparsity scalar)``,
+        the training forward of the JAX ``CSATrans.__call__``."""
+        memory, sparsity = self.encode_with_grad(batch, deterministic, gen)
+        tgt = self.tgt_embedding(batch.tgt_seq, deterministic=deterministic, gen=gen)
+        dec = self.decoder.teacher_forced(tgt, memory, make_std_mask(batch.tgt_seq, PAD),
+                                          batch.src_seq == PAD, deterministic, gen)
+        return self.generator(dec, deterministic, gen), sparsity
 
     @torch.no_grad()
     def project_cross_kv(self, memory: torch.Tensor) -> List[Dict[str, torch.Tensor]]:

@@ -4,16 +4,20 @@ Counterpart of the JAX package's ``models/cse.py:42-171`` (the reference's
 ``csa_trans.py:180-236`` and ``disentangled_attn.py``).  The attention core is
 the ``cse`` mod through :func:`~csat_tpu_torch.ops.flex_core.flex_attention`:
 the CUDA kernel on the card, the plain path on the CPU.  The L and T distance
-planes fan out to ``H/2`` pseudo-heads each inside the mod.
+planes fan out to ``H/2`` pseudo-heads each inside the mod.  The attention
+carries no attention dropout (as in JAX); the residual branches and the FFN
+drop at ``cfg.dropout`` in training mode.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from csat_tpu_torch.configs import Config
-from csat_tpu_torch.models.components import LN_EPS, FeedForward, merge_heads
+from csat_tpu_torch.models.components import LN_EPS, FeedForward, dropout, merge_heads
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import cse_mod
 
@@ -60,11 +64,15 @@ class CSELayer(nn.Module):
         self.attn_norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
         self.attn = DisentangledAttn(cfg)
         self.ff_norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
-        self.ff = FeedForward(cfg.pegen_dim, cfg.pegen_dim)
+        self.ff = FeedForward(cfg.pegen_dim, cfg.pegen_dim, cfg.dropout)
+        self.dropout = cfg.dropout
 
-    def forward(self, x, rel_tables, rel, mask):
-        x = x + self.attn(self.attn_norm(x), rel_tables, rel, mask)
-        return x + self.ff(self.ff_norm(x))
+    def forward(self, x, rel_tables, rel, mask, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
+        h = self.attn(self.attn_norm(x), rel_tables, rel, mask)
+        x = x + dropout(h, self.dropout, deterministic, gen)
+        h = self.ff(self.ff_norm(x), deterministic, gen)
+        return x + dropout(h, self.dropout, deterministic, gen)
 
 
 class CSE(nn.Module):
@@ -77,11 +85,12 @@ class CSE(nn.Module):
         self.layers = nn.ModuleList(CSELayer(cfg) for _ in range(cfg.num_layers))
         self.norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
 
-    def forward(self, src_pe_emb, L, T, L_mask, T_mask):
+    def forward(self, src_pe_emb, L, T, L_mask, T_mask, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
         rel = torch.stack([L, T], dim=1).to(torch.int32)
         mask = torch.stack([L_mask, T_mask], dim=1)
         rel_tables = torch.stack([self.L_q, self.T_q])
         x = src_pe_emb
         for layer in self.layers:
-            x = layer(x, rel_tables, rel, mask)
+            x = layer(x, rel_tables, rel, mask, deterministic, gen)
         return self.norm(x)

@@ -1,27 +1,54 @@
-"""SBM encoder: stochastic-block-model attention, expected-graph evaluation.
+"""SBM encoder: stochastic-block-model sparse attention.
 
 Counterpart of the JAX package's ``models/sbm.py:69-375`` (the reference's
-``sbm_model.py``/``sbm_attn.py``).  Serving runs deterministically, so the
-graph is the Bernoulli mean ``clip(Q̂ S K̂ᵀ, floor, .99)``
-(``eval_graph="expected"``, the ``sbm_expected`` mod) and attention dropout
-is off.  The sampled graphs (hash-stream or shared noise) belong to the
-training slice and raise here.
+``sbm_model.py``/``sbm_attn.py``).  The attention graph is one of three mods
+(``ops/mods.py``), chosen as the JAX ``SBMAttention`` chooses
+(``sbm.py:143-188``):
+
+* ``noise_mode="counter"`` — the Bernoulli graph is drawn inside the kernel
+  from the counter hash under a per-layer sample seed (``sbm_sampled``);
+* ``noise_mode="shared"`` — uniform noise from the generator is turned into
+  a 0/1 graph through the STE outside the attention (``sbm_graph``);
+* deterministic with ``eval_graph="expected"`` — the Bernoulli mean
+  ``clip(Q̂ S K̂ᵀ, floor, .99)`` as a soft weight (``sbm_expected``, the
+  serving graph).
+
+Attention dropout (``attention_dropout``, training only) is the hash
+keep-field under a per-layer dropout seed.  Seeds and noise come from the
+caller's explicit ``torch.Generator`` (:func:`draw_seed`, where JAX calls
+``draw_counter_seed``).  ``ClusterProj`` drops at 0.2 whatever
+``cfg.dropout`` is, as the JAX module hard-codes it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from csat_tpu_torch.configs import Config
-from csat_tpu_torch.models.components import LN_EPS, merge_heads, split_heads
+from csat_tpu_torch.models.components import LN_EPS, dropout, merge_heads, split_heads
+from csat_tpu_torch.models.ste import bernoulli_noise, sample_graph
 from csat_tpu_torch.ops.flex_core import flex_attention
-from csat_tpu_torch.ops.mods import sbm_expected_mod
+from csat_tpu_torch.ops.mods import sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod
+
+
+def draw_seed(gen: torch.Generator, name: str) -> torch.Tensor:
+    """A (1,) int32 seed in [0, 2³¹ − 1) for the ``name`` ("sample" or
+    "dropout") hash stream, drawn from ``gen`` on its own device — no host
+    sync; the kernels read it there."""
+    del name  # one generator serves both streams; the name documents the call
+    return torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device,
+                         dtype=torch.int32)
 
 
 class ClusterProj(nn.Module):
-    """3-layer MLP applied to Q and K head vectors."""
+    """3-layer MLP applied to Q and K head vectors, dropout after the first
+    two layers."""
+
+    dropout = 0.2  # fixed in the JAX module and the reference
 
     def __init__(self, head_dim: int):
         super().__init__()
@@ -29,62 +56,82 @@ class ClusterProj(nn.Module):
         self.fc2 = nn.Linear(head_dim, head_dim)
         self.fc3 = nn.Linear(head_dim, head_dim)
 
-    def forward(self, x):
-        return self.fc3(F.relu(self.fc2(F.relu(self.fc1(x)))))
+    def forward(self, x, deterministic: bool = True, gen: Optional[torch.Generator] = None):
+        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen))
+        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen))
+        return self.fc3(h)
 
 
 class SBMAttention(nn.Module):
-    """Cluster memberships → expected adjacency weight → blocked attention.
+    """Cluster memberships → the layer's graph mod → blocked attention.
     Returns ``(out, per-head sparsity)``."""
 
-    def __init__(self, num_heads: int, head_dim: int, num_clusters: int,
-                 floor: float, eval_graph: str):
+    def __init__(self, num_heads: int, head_dim: int, num_clusters: int, floor: float,
+                 noise_mode: str, eval_graph: str, attention_dropout: float):
         super().__init__()
-        if eval_graph != "expected":
-            raise NotImplementedError(
-                "the port serves eval_graph='expected'; sampled SBM graphs "
-                "(sbm_sampled/sbm_graph mods) are queued for the training slice "
-                "in ROADMAP.md")
         self.num_heads, self.head_dim, self.kk = num_heads, head_dim, num_clusters
         self.floor = floor
+        self.noise_mode, self.eval_graph = noise_mode, eval_graph
+        self.attention_dropout = attention_dropout
         self.clusters = nn.Parameter(torch.empty(num_heads * num_clusters, head_dim))
         self.proj = ClusterProj(head_dim)
 
-    def forward(self, q, k, v, key_pad):
+    def forward(self, q, k, v, key_pad, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
         b, h, n, dh = q.shape
         c = self.clusters.reshape(h, self.kk, dh)
         dist = torch.einsum("hkd,hjd->hkj", c, c)
         s_aff = torch.softmax(dist.reshape(h, self.kk * self.kk), dim=-1).reshape(h, self.kk, self.kk)
-        q_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(q), c))
-        k_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(k), c))
-        spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor)
-        out, extras = flex_attention(q, k, v, spec, aux)
+        q_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(q, deterministic, gen), c))
+        k_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(k, deterministic, gen), c))
+
+        rate = 0.0 if deterministic else self.attention_dropout
+        expected = deterministic and self.eval_graph == "expected"
+        if not expected and gen is None:
+            raise ValueError("a sampled SBM graph needs an explicit torch.Generator")
+        if expected:
+            spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor)
+        elif self.noise_mode == "counter":
+            spec, aux = sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad,
+                                        draw_seed(gen, "sample"), self.floor)
+        else:
+            exp_a = torch.einsum("bhnk,hkj,bhmj->bhnm", q_hat, s_aff, k_hat)
+            graph = sample_graph(exp_a, bernoulli_noise(gen, (b, h, n, n)), self.floor)
+            spec, aux = sbm_graph_mod(graph, key_pad)
+        drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
+        out, extras = flex_attention(q, k, v, spec, aux, rate, drop_seed)
+        # per-head sparsity Σ graph / (b·n·n) over the padded node axis
         return out, torch.sum(extras["graph_sum"], dim=0) / (b * n * n)
 
 
 class SBMBlock(nn.Module):
-    """Pre-norm block: SBM attention + GELU MLP, each with a residual."""
+    """Pre-norm block: SBM attention + GELU MLP, each with dropout before
+    its residual."""
 
     def __init__(self, cfg: Config, layer_idx: int):
         super().__init__()
         d = cfg.sbm_enc_dim
         self.num_heads = cfg.num_heads
+        self.dropout = cfg.dropout
         self.attn_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
         self.attn = SBMAttention(cfg.num_heads, cfg.head_dim, cfg.clusters[layer_idx],
-                                 cfg.sbm_floor, cfg.eval_graph)
+                                 cfg.sbm_floor, cfg.noise_mode, cfg.eval_graph,
+                                 cfg.attention_dropout)
         self.ff_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.fc1 = nn.Linear(d, d)
         self.fc2 = nn.Linear(d, d)
 
-    def forward(self, x, key_pad):
+    def forward(self, x, key_pad, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
+        drop = lambda t: dropout(t, self.dropout, deterministic, gen)
         h = self.attn_norm(x)
         q, k, v = (split_heads(w(h), self.num_heads).contiguous()
                    for w in (self.wq, self.wk, self.wv))
-        out, sparsity = self.attn(q, k, v, key_pad)
-        x = x + self.wo(merge_heads(out))
-        x = x + self.fc2(F.gelu(self.fc1(self.ff_norm(x)), approximate="none"))
-        return x, sparsity
+        out, sparsity = self.attn(q, k, v, key_pad, deterministic, gen)
+        x = x + drop(self.wo(merge_heads(out)))
+        h = drop(F.gelu(self.fc1(self.ff_norm(x)), approximate="none"))
+        return x + drop(self.fc2(h)), sparsity
 
 
 class SBMEncoder(nn.Module):
@@ -101,11 +148,12 @@ class SBMEncoder(nn.Module):
         self.norm = nn.LayerNorm(cfg.sbm_enc_dim, eps=LN_EPS)
         self.out = nn.Linear(cfg.sbm_enc_dim, cfg.hidden_size)
 
-    def forward(self, src_emb, src_pe, key_pad):
+    def forward(self, src_emb, src_pe, key_pad, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
         x = torch.cat([src_emb, self.pe_expand(src_pe)], dim=-1)
         sparsities = []
         for block in self.blocks:
-            x, sparsity = block(x, key_pad)
+            x, sparsity = block(x, key_pad, deterministic, gen)
             sparsities.append(sparsity)
         x = self.norm(x) * (1.0 - key_pad.to(x.dtype))[:, :, None]
         return self.out(x), sparsities

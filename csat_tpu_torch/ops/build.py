@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use
 by ``nvcc`` into its own shared library under ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), then loaded with ``ctypes``.  The
-libraries are keyed by a hash of their source and flags, so an edited source
-is rebuilt and an unchanged one is reused.  All sources compile in parallel,
+libraries are keyed by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  All sources compile in parallel,
 one ``nvcc`` process each.
 
 Nothing here runs at import time: the CPU path never needs ``nvcc``.
@@ -32,13 +33,18 @@ _REPO = Path(__file__).resolve().parents[2]
 #: library name → CUDA source
 SOURCES: Dict[str, Path] = {
     "flex_fwd": _CSRC / "flex_fwd.cu",
+    "flex_bwd": _CSRC / "flex_bwd.cu",
     "paged_decode": _CSRC / "paged_decode.cu",
 }
 
-#: every kernel of the serving path → the library that holds it
+#: every kernel of the serving and training paths → the library that holds it
 KERNELS: Dict[str, str] = {
     "flex_fwd_cse": "flex_fwd",
     "flex_fwd_sbm_expected": "flex_fwd",
+    "flex_fwd_sbm_sampled": "flex_fwd",
+    "flex_fwd_sbm_graph": "flex_fwd",
+    "flex_bwd_q_sbm_sampled": "flex_bwd",
+    "flex_bwd_k_sbm_sampled": "flex_bwd",
     "paged_decode": "paged_decode",
 }
 
@@ -46,6 +52,10 @@ KERNELS: Dict[str, str] = {
 REPLACES: Dict[str, str] = {
     "flex_fwd_cse": "csat_tpu/ops/flex_core.py:304 (_fwd_call, cse mod)",
     "flex_fwd_sbm_expected": "csat_tpu/ops/flex_core.py:304 (_fwd_call, sbm_expected mod)",
+    "flex_fwd_sbm_sampled": "csat_tpu/ops/flex_core.py:304 (_fwd_call, sbm_sampled mod)",
+    "flex_fwd_sbm_graph": "csat_tpu/ops/flex_core.py:304 (_fwd_call, sbm_graph mod)",
+    "flex_bwd_q_sbm_sampled": "csat_tpu/ops/flex_core.py:498 (_kernel_bwd_calls q-pass, sbm_sampled mod)",
+    "flex_bwd_k_sbm_sampled": "csat_tpu/ops/flex_core.py:519 (_kernel_bwd_calls k-pass, sbm_sampled mod)",
     "paged_decode": "csat_tpu/ops/paged_decode.py:237 (_attend_kernel)",
 }
 
@@ -56,6 +66,10 @@ REPLACES: Dict[str, str] = {
 HEAD_DIMS: Dict[str, tuple] = {
     "flex_fwd_cse": (64,),
     "flex_fwd_sbm_expected": (64, 96),
+    "flex_fwd_sbm_sampled": (64, 96),
+    "flex_fwd_sbm_graph": (64, 96),
+    "flex_bwd_q_sbm_sampled": (64, 96),
+    "flex_bwd_k_sbm_sampled": (64, 96),
     "paged_decode": (64,),
 }
 
@@ -68,6 +82,17 @@ _ARGTYPES = {
     "flex_fwd_cse": [_P] * 11 + [_I] * 6 + [_F, _P],
     # q k v r kh pad out lse gsum skip | B H N DH KK floor scale stream
     "flex_fwd_sbm_expected": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    # q k v r kh pad sseed dseed out lse gsum skip | B H N DH KK stride
+    # floor scale rate keep_scale stream
+    "flex_fwd_sbm_sampled": [_P] * 12 + [_I] * 6 + [_F] * 4 + [_P],
+    # q k v graph pad dseed out lse gsum skip | B H N DH stride scale rate
+    # keep_scale stream
+    "flex_fwd_sbm_graph": [_P] * 10 + [_I] * 5 + [_F] * 3 + [_P],
+    # q k v r kh pad sseed dseed lse dvec gout gs dq dr | B H N DH KK stride
+    # floor scale rate keep_scale stream
+    "flex_bwd_q_sbm_sampled": [_P] * 14 + [_I] * 6 + [_F] * 4 + [_P],
+    # ... gs dk dv dkh | (as the q-pass)
+    "flex_bwd_k_sbm_sampled": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
     # dtype | q pk pv sk sv table mask idx ktok vtok out skip | S H NB page width DH stream
     "paged_decode": [_I] + [_P] * 12 + [_I] * 6 + [_P],
 }
@@ -90,8 +115,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return build_dir() / f"lib{name}_{digest}.so"
 

@@ -2,26 +2,40 @@
 // templated on the attention mod.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under two mods of csat_tpu/ops/mods.py:
+// _fwd_body :230) under four mods of csat_tpu/ops/mods.py:
 //   * MOD_CSE          — CSESpec.tile_score (:430-439): disentangled L/T
 //                         relative bias s = (q·k + q·lk[rel_ij] + k·lq[rel_ji])
 //                         / sqrt(3 dk), -1e9 fill where the raw distance is 0,
 //                         weight = real-extent gate;
 //   * MOD_SBM_EXPECTED — SBMExpectedSpec.tile_weight_parts (:248-252):
 //                         s = q·k / sqrt(dh), weight clip(R·K̂ᵀ, floor, .99) ·
-//                         real · (1 - key_pad), R = Q̂·S formed outside.
-// Both compute out = Σ_j w_ij e^{s_ij} V_j / Σ_j w_ij e^{s_ij} (rows with no
-// live weight are exactly 0), plus per-row lse, Σ w_raw (graph_sum) and the
-// number of dead (q-tile, k-tile) blocks (skipped_blocks).
+//                         real · (1 - key_pad), R = Q̂·S formed outside;
+//   * MOD_SBM_SAMPLED  — SBMSampledSpec.tile_weight_parts (:188-194): the
+//                         Bernoulli graph a = 1{u < clip(R·K̂ᵀ, floor, .99)} ·
+//                         real drawn in-kernel from the counter hash
+//                         (ops/hashrng.py:46-72) under the sample seed, weight
+//                         a · (1 - key_pad), graph_sum Σ a (padded keys too);
+//   * MOD_SBM_GRAPH    — SBMGraphSpec.tile_weight (:310-312): a materialised
+//                         0/1 graph tile read from device memory, weight
+//                         graph · (1 - key_pad).
+// All compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
+// with no live weight are exactly 0), plus per-row lse (before dropout),
+// Σ w_raw (graph_sum) and the number of dead (q-tile, k-tile) blocks
+// (skipped_blocks).  keep_ij = 1{u ≥ rate} / (1 − rate) is the attention
+// dropout of flex_core.py:214-219, 276-281, drawn from the same hash under
+// the dropout seed (rate 0: keep = 1).
 //
-// What bounds it on an H100: at the serving shapes (B=4..8, H=8, N<=150,
+// What bounds it on an H100: at the serving shapes (B <= 8, H=8, N<=150,
 // dh=64, f32) the whole call moves well under 10 MB and does a few hundred
-// MFLOP, so neither HBM (3.35 TB/s) nor the f32 pipes (67 TFLOP/s) are the
-// limit: the grid is only B·H·ceil(N/64) <= 192 blocks of one q-tile each, so
-// latency of the per-tile loop (loads → scores → row reductions → P·V) and
-// the ~1 block/SM occupancy bound it.  The CSE mod triples the score work
-// (two gathered dot products per unmasked entry from the relative tables;
-// a masked entry takes the -1e9 fill without them).
+// MFLOP, and at the training shape (B=64) a few tens of MB and a few GFLOP:
+// neither HBM (3.35 TB/s) nor the f32 pipes (67 TFLOP/s) are the limit.
+// One block owns one 64-row q-tile and walks the k-tiles in series, so the
+// latency of that loop (loads → weights → scores → row reductions → P·V) and
+// the occupancy of ~1 block per SM bound it.  The CSE mod triples the score
+// work (two gathered dot products per unmasked entry from the relative
+// tables; a masked entry takes the -1e9 fill without them); the sampled mod
+// adds 10 products and two 32-bit hashes per entry; the graph mod reads a
+// 4-byte weight per entry (46 MB at the training shape).
 //
 // Design:
 //   * The TPU kernel keeps a full (128, n_pad) f32 score row and weight row
@@ -41,7 +55,14 @@
 //     memory, so the c2p/p2c gathers index them directly (no lane-chunked
 //     gather as on the TPU).  The p2c term reads rel[j][i] (transposed).
 //   * The cluster axis (kk=10) is not padded to 128 lanes: R and K̂ tiles are
-//     kk wide (<= 16) in shared memory.
+//     kk wide (<= 16) in shared memory.  R·K̂ᵀ is summed j = 0, 1, … with
+//     one rounding per product and per sum (__fmul_rn/__fadd_rn, no FMA
+//     contraction), the order of ops/mods.py:exp_adjacency, so the plain path
+//     draws the identical Bernoulli graph.
+//   * The hash row stride is round_up(N, 128), the TPU tile, as the stream's
+//     definition requires; rows and columns are global indices and bh =
+//     b·H + h, so every tile regenerates its part of one field.  Dropout
+//     multiplies P only where it enters P·V, never the row sum l.
 //   * Simple SIMT f32: 256 threads, each owns a 4x4 block of the 64x64 score
 //     tile (rows ty*4.., columns tx+16*j) and the same 4 rows x dh/16 columns
 //     of the output accumulator; rows reduce over the 16 lanes that share
@@ -50,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hashrng.cuh"
 
 namespace {
 
@@ -61,7 +84,10 @@ constexpr int KKLD = KKMAX + 1;
 constexpr float NEG = -1e30f;
 constexpr float NEG_CSE = -1e9f;
 
-enum { MOD_CSE = 0, MOD_SBM_EXPECTED = 1 };
+enum { MOD_CSE = 0, MOD_SBM_EXPECTED = 1, MOD_SBM_SAMPLED = 2, MOD_SBM_GRAPH = 3 };
+
+template <int MOD>
+__host__ __device__ constexpr bool uses_factors() { return MOD == MOD_SBM_EXPECTED || MOD == MOD_SBM_SAMPLED; }
 
 struct Params {
   const float* q;
@@ -71,15 +97,19 @@ struct Params {
   const float* lk;
   const int32_t* rel;     // CSE: (B, 2, N, N)
   const uint8_t* mask;    // CSE: (B, 2, N, N), nonzero = masked
-  const float* r;         // SBM: (B, H, N, kk)
-  const float* kh;        // SBM: (B, H, N, kk)
+  const float* r;         // SBM expected/sampled: (B, H, N, kk)
+  const float* kh;        // SBM expected/sampled: (B, H, N, kk)
+  const float* graph;     // SBM graph: (B, H, N, N) 0/1
   const float* pad;       // SBM: (B, N), 1.0 = padded key
+  const int32_t* sseed;   // SBM sampled: (1,) Bernoulli stream seed
+  const int32_t* dseed;   // (1,) dropout stream seed, read when rate > 0
   float* out;             // (B, H, N, dh)
   float* lse;             // (B, H, N)
   float* gsum_part;       // (B, H, n_qtiles)
   int32_t* skip_part;     // (B, H, n_qtiles)
   int B, H, N, R, group, kk;
-  float floor_, scale;
+  uint32_t stride;        // hash row stride, round_up(N, 128)
+  float floor_, scale, rate, keep_scale;
 };
 
 template <int MOD, int DH>
@@ -87,7 +117,8 @@ size_t smem_floats(int R) {
   constexpr int LD = DH + 1;
   size_t n = 2 * BM * LD + BN * DH + BM * (BN + 1);
   if (MOD == MOD_CSE) n += 2 * (size_t)R * LD;
-  else n += BM * KKLD + BN * KKLD + BN;
+  else if (uses_factors<MOD>()) n += BM * KKLD + BN * KKLD + BN;
+  else n += BN;
   return n;
 }
 
@@ -105,7 +136,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   float* Lk = ext + (size_t)p.R * LD;
   float* Rs = ext;                     // SBM factors
   float* Khs = ext + BM * KKLD;
-  float* pads = Khs + BN * KKLD;
+  float* pads = uses_factors<MOD>() ? Khs + BN * KKLD : ext;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -117,6 +148,9 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   const int row0 = qt * BM;
   const int plane = (MOD == MOD_CSE) ? h / p.group : 0;
   const size_t plane_off = ((size_t)b * 2 + plane) * N * N;
+  const uint32_t sseed = (MOD == MOD_SBM_SAMPLED) ? (uint32_t)p.sseed[0] : 0u;
+  const bool dropout = p.rate > 0.f;
+  const uint32_t dseed = dropout ? (uint32_t)p.dseed[0] : 0u;
 
   for (int i = tid; i < BM * DH; i += THREADS) {
     const int r = i / DH, d = i % DH, gr = row0 + r;
@@ -130,7 +164,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       Lq[r * LD + d] = lqh[i];
       Lk[r * LD + d] = lkh[i];
     }
-  } else {
+  } else if (uses_factors<MOD>()) {
     const float* rg = p.r + bh * N * p.kk;
     for (int i = tid; i < BM * KKMAX; i += THREADS) {
       const int r = i / KKMAX, j = i % KKMAX, gr = row0 + r;
@@ -158,12 +192,14 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       Ks[c * LD + d] = in ? kg[(size_t)gc * DH + d] : 0.f;
       Vs[c * DH + d] = in ? vg[(size_t)gc * DH + d] : 0.f;
     }
-    if (MOD == MOD_SBM_EXPECTED) {
+    if (uses_factors<MOD>()) {
       const float* khg = p.kh + bh * N * p.kk;
       for (int i = tid; i < BN * KKMAX; i += THREADS) {
         const int c = i / KKMAX, j = i % KKMAX, gc = col0 + c;
         Khs[c * KKLD + j] = (gc < N && j < p.kk) ? khg[(size_t)gc * p.kk + j] : 0.f;
       }
+    }
+    if (MOD != MOD_CSE) {
       for (int c = tid; c < BN; c += THREADS) {
         const int gc = col0 + c;
         pads[c] = gc < N ? p.pad[(size_t)b * N + gc] : 1.f;
@@ -181,17 +217,24 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       for (int jj = 0; jj < 4; ++jj) {
         const int c = tx + 16 * jj, gc = col0 + c;
         const bool real = gr < N && gc < N;
-        float wr;
-        float we;
+        float wr = 0.f;
         if (MOD == MOD_CSE) {
           wr = real ? 1.f : 0.f;
-          we = wr;
+        } else if (MOD == MOD_SBM_GRAPH) {
+          if (real) wr = p.graph[(bh * N + gr) * N + gc];
         } else {
           float ea = 0.f;
-          for (int j = 0; j < p.kk; ++j) ea += Rs[r * KKLD + j] * Khs[c * KKLD + j];
-          wr = real ? fminf(fmaxf(ea, p.floor_), 0.99f) : 0.f;
-          we = wr * (1.f - pads[c]);
+          for (int j = 0; j < p.kk; ++j)
+            ea = __fadd_rn(ea, __fmul_rn(Rs[r * KKLD + j], Khs[c * KKLD + j]));
+          const float pr = fminf(fmaxf(ea, p.floor_), 0.99f);
+          if (MOD == MOD_SBM_EXPECTED) {
+            wr = real ? pr : 0.f;
+          } else if (real) {
+            const float u = hash_uniform(sseed, (uint32_t)bh, gr, gc, p.stride);
+            wr = u < pr ? 1.f : 0.f;
+          }
         }
+        const float we = (MOD == MOD_CSE) ? wr : wr * (1.f - pads[c]);
         gsum += wr;
         w[ii][jj] = we;
         live_local |= (we > 0.f);
@@ -247,6 +290,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
     // online max / sum over the 16 lanes that share each row
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
+      const int gr = row0 + ty * 4 + ii;
       float mt = NEG;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
@@ -258,8 +302,12 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       float lt = 0.f;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
+        const int gc = col0 + tx + 16 * jj;
         const float pr = w[ii][jj] > 0.f ? expf(s[ii][jj] - m_new) * w[ii][jj] : 0.f;
-        Ps[(ty * 4 + ii) * (BN + 1) + tx + 16 * jj] = pr;
+        float keep = 1.f;
+        if (dropout && pr > 0.f)
+          keep = hash_uniform(dseed, (uint32_t)bh, gr, gc, p.stride) >= p.rate ? p.keep_scale : 0.f;
+        Ps[(ty * 4 + ii) * (BN + 1) + tx + 16 * jj] = pr * keep;
         lt += pr;
       }
 #pragma unroll
@@ -322,15 +370,25 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The head widths of ops/build.py HEAD_DIMS: 64 for both mods, and 96 for
+// The head widths of ops/build.py HEAD_DIMS: 64 for every mod, and 96 for
 // the SBM encoder of the java config (768 / 8 heads).
 template <int MOD>
 int dispatch(int dh, const Params& p, cudaStream_t stream) {
   if (dh == 64) return launch<MOD, 64>(p, stream);
-  if constexpr (MOD == MOD_SBM_EXPECTED) {
+  if constexpr (MOD != MOD_CSE) {
     if (dh == 96) return launch<MOD, 96>(p, stream);
   }
   return -1;  // head width without an instantiation
+}
+
+Params base(const float* q, const float* k, const float* v, float* out, float* lse,
+            float* gsum_part, int32_t* skip_part, int B, int H, int N, float scale) {
+  Params p{};
+  p.q = q; p.k = k; p.v = v;
+  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
+  p.B = B; p.H = H; p.N = N; p.group = 1; p.scale = scale;
+  p.rate = 0.f; p.keep_scale = 1.f;
+  return p;
 }
 
 }  // namespace
@@ -341,11 +399,9 @@ extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
                             float* gsum_part, int32_t* skip_part, int B, int H,
                             int N, int DH, int R, int group, float scale,
                             void* stream) {
-  Params p{};
-  p.q = q; p.k = k; p.v = v; p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
-  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.R = R; p.group = group; p.kk = 0;
-  p.floor_ = 0.f; p.scale = scale;
+  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
+  p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
+  p.R = R; p.group = group;
   return dispatch<MOD_CSE>(DH, p, (cudaStream_t)stream);
 }
 
@@ -355,10 +411,36 @@ extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float
                                      int32_t* skip_part, int B, int H, int N, int DH,
                                      int KK, float floor_, float scale, void* stream) {
   if (KK < 1 || KK > KKMAX) return -3;
-  Params p{};
-  p.q = q; p.k = k; p.v = v; p.r = r; p.kh = kh; p.pad = pad;
-  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.R = 0; p.group = 1; p.kk = KK;
-  p.floor_ = floor_; p.scale = scale;
+  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
+  p.r = r; p.kh = kh; p.pad = pad; p.kk = KK; p.floor_ = floor_;
   return dispatch<MOD_SBM_EXPECTED>(DH, p, (cudaStream_t)stream);
+}
+
+extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float* v,
+                                    const float* r, const float* kh, const float* pad,
+                                    const int32_t* sseed, const int32_t* dseed,
+                                    float* out, float* lse, float* gsum_part,
+                                    int32_t* skip_part, int B, int H, int N, int DH,
+                                    int KK, int stride, float floor_, float scale,
+                                    float rate, float keep_scale, void* stream) {
+  if (KK < 1 || KK > KKMAX) return -3;
+  if (rate > 0.f && dseed == nullptr) return -4;
+  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
+  p.r = r; p.kh = kh; p.pad = pad; p.sseed = sseed; p.dseed = dseed;
+  p.kk = KK; p.stride = (uint32_t)stride; p.floor_ = floor_;
+  p.rate = rate; p.keep_scale = keep_scale;
+  return dispatch<MOD_SBM_SAMPLED>(DH, p, (cudaStream_t)stream);
+}
+
+extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v,
+                                  const float* graph, const float* pad,
+                                  const int32_t* dseed, float* out, float* lse,
+                                  float* gsum_part, int32_t* skip_part, int B, int H,
+                                  int N, int DH, int stride, float scale, float rate,
+                                  float keep_scale, void* stream) {
+  if (rate > 0.f && dseed == nullptr) return -4;
+  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
+  p.graph = graph; p.pad = pad; p.dseed = dseed;
+  p.stride = (uint32_t)stride; p.rate = rate; p.keep_scale = keep_scale;
+  return dispatch<MOD_SBM_GRAPH>(DH, p, (cudaStream_t)stream);
 }

@@ -1,0 +1,94 @@
+"""Counter-based uniform random bits, bit for bit as the JAX package draws them.
+
+A copy of the JAX package's ``ops/hashrng.py``: a murmur3 finalizer over
+``(seed, batch·head, global row, global col)`` gives the uniform draw of every
+attention pair.  The stream is a pure function of indices, so the CUDA kernels
+(``csrc/flex_fwd.cu``, ``csrc/flex_bwd.cu``) generate it tile by tile, the
+backward regenerates it, and :func:`uniform_field` materialises the same
+field for the plain path.
+
+PyTorch's ``uint32`` has thin operator support on the CPU, so the arithmetic
+runs in ``int64`` holding values below 2³²: every product is split into two
+16-bit halves (no ``int64`` overflow) and masked back to 32 bits.  The row
+stride is the TPU tile, ``round_up(n, 128)``, whatever block size a kernel
+tiles by: it is part of the stream's definition.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+__all__ = ["TILE", "round_up", "noise_stride", "hash_bits", "bits_to_uniform",
+           "uniform_field"]
+
+TILE = 128  # the JAX kernels' node tile: the hash row stride is N padded to it
+
+_C1 = 0x9E3779B9  # golden-ratio mix for the seed
+_C2 = 0x85EBCA6B  # murmur3 constant, mixes batch·head
+_C3 = 0xC2B2AE35
+_M32 = 0xFFFFFFFF
+
+IntLike = Union[int, torch.Tensor]
+
+
+def round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def noise_stride(n: int) -> int:
+    """Row stride of the (i, j) hash counter: N padded to the TPU tile."""
+    return round_up(n, TILE)
+
+
+def _u32(x: IntLike) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.int64) & _M32
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x · c mod 2³²`` for ``0 <= x, c < 2³²`` without leaving int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def hash_bits(seed: IntLike, bh: IntLike, rows: IntLike, cols: IntLike,
+              stride: int) -> torch.Tensor:
+    """The uint32 hash (held in int64) of every broadcast ``(seed, bh, row,
+    col)``; ``seed`` may be an int32 tensor, wrapped to uint32 as JAX casts
+    it."""
+    x = (_mul32(_u32(rows), stride) + _u32(cols)) & _M32
+    x = x ^ _mul32(_u32(seed), _C1)
+    x = x ^ _mul32(_u32(bh), _C2)
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C2)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _C3)
+    return x ^ (x >> 16)
+
+
+def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """Top 24 bits × 2⁻²⁴ as float32 in [0, 1): exact, through an integer
+    below 2²⁴ (the JAX package's int32 step)."""
+    top = (bits >> 8).to(torch.int32)
+    return top.to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _bh_rows_cols(b: int, h: int, n_rows: int, n_cols: int, device):
+    bh = (torch.arange(b, device=device)[:, None] * h
+          + torch.arange(h, device=device)[None, :])[:, :, None, None]
+    rows = torch.arange(n_rows, device=device)[None, None, :, None]
+    cols = torch.arange(n_cols, device=device)[None, None, None, :]
+    return bh, rows, cols
+
+
+def uniform_field(seed: IntLike, b: int, h: int, n_rows: int, n_cols: int,
+                  stride: int, device=None) -> torch.Tensor:
+    """The full (B, H, n_rows, n_cols) uniform field the kernels generate tile
+    by tile — the plain path's copy of exactly the tensor they avoid."""
+    if device is None and torch.is_tensor(seed):
+        device = seed.device
+    bh, rows, cols = _bh_rows_cols(b, h, n_rows, n_cols, device)
+    return bits_to_uniform(hash_bits(seed, bh, rows, cols, stride))
+

@@ -1,13 +1,21 @@
-"""Attention mods on the serving path: CSE relative bias and SBM expected graph.
+"""Attention mods: CSE relative bias and the SBM graph family.
 
-Torch counterparts of the JAX package's ``ops/mods.py`` ``CSESpec`` +
-``cse_mod`` (``:374-501``) and ``SBMExpectedSpec`` + ``sbm_expected_mod``
-(``:229-279, :481-485``).  A mod is a frozen spec of static facts plus the
+Torch counterparts of the JAX package's ``ops/mods.py``: ``CSESpec`` +
+``cse_mod`` (``:374-501``), ``SBMSampledSpec`` + ``sbm_sampled_mod``
+(``:170-226, :469-478``), ``SBMExpectedSpec`` + ``sbm_expected_mod``
+(``:229-279, :481-485``) and ``SBMGraphSpec`` + ``sbm_graph_mod``
+(``:282-326, :488-491``).  A mod is a frozen spec of static facts plus the
 ``aux`` tuple of tensors it needs; ``full_weight`` / ``full_score`` evaluate
-it over whole arrays (the plain path, :func:`~csat_tpu_torch.ops.flex_core.
-flex_reference`), ``full_weight_padded`` gives the weight field on a padded
-geometry (the block-skip oracle).  The CUDA kernel (``csrc/flex_fwd.cu``)
-computes the same definitions tile by tile.
+it over whole arrays (the plain path,
+:func:`~csat_tpu_torch.ops.flex_core.flex_reference`), ``full_weight_padded``
+gives the weight field on a padded geometry (the block-skip oracle).  The
+CUDA kernels (``csrc/flex_fwd.cu``, ``csrc/flex_bwd.cu``) compute the same
+definitions tile by tile.
+
+The SBM adjacency ``expA = R K̂ᵀ`` (``R = Q̂ S``) is summed one cluster at a
+time, as the kernels sum it (:func:`exp_adjacency`), so the sampled mod's
+Bernoulli draw ``u < clip(expA, floor, .99)`` cannot flip between the kernel
+and the plain path on an entry where ``u`` and ``p`` are an ulp apart.
 """
 
 from __future__ import annotations
@@ -17,7 +25,11 @@ import math
 
 import torch
 
-__all__ = ["CSESpec", "SBMExpectedSpec", "cse_mod", "sbm_expected_mod", "NEG_CSE"]
+from csat_tpu_torch.ops.hashrng import noise_stride, uniform_field
+
+__all__ = ["CSESpec", "SBMExpectedSpec", "SBMSampledSpec", "SBMGraphSpec", "cse_mod",
+           "sbm_expected_mod", "sbm_sampled_mod", "sbm_graph_mod", "exp_adjacency",
+           "NEG_CSE"]
 
 NEG_CSE = -1e9  # the reference's CSE mask fill for a live (weight 1) entry
 
@@ -25,6 +37,21 @@ NEG_CSE = -1e9  # the reference's CSE mask fill for a live (weight 1) entry
 def _real_gate(n: int, n_pad: int, device) -> torch.Tensor:
     idx = torch.arange(n_pad, device=device)
     return ((idx[:, None] < n) & (idx[None, :] < n)).to(torch.float32)
+
+
+def exp_adjacency(r: torch.Tensor, kh: torch.Tensor) -> torch.Tensor:
+    """``R K̂ᵀ`` (B, H, N, M) from (B, H, N, kk) and (B, H, M, kk), summed
+    over the clusters in order j = 0, 1, … with one rounding per product and
+    per sum — the CUDA kernels' order (``__fmul_rn``/``__fadd_rn``)."""
+    acc = r[..., :, None, 0] * kh[..., None, :, 0]
+    for j in range(1, r.shape[-1]):
+        acc = acc + r[..., :, None, j] * kh[..., None, :, j]
+    return acc
+
+
+def _pad_nodes(x: torch.Tensor, n_pad: int, value: float = 0.0) -> torch.Tensor:
+    """Pad the node axis (second to last) of a (..., N, kk) factor."""
+    return torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[-2]), value=value)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +95,23 @@ class CSESpec:
         return real.expand(b, h, n_pad, n_pad)
 
 
+class _SBMBase:
+    """Shared facts of the SBM family: plain ``q·k / sqrt(dh)`` scores and
+    the hash stride of the node count."""
+
+    def scale(self, dh: int) -> float:
+        return 1.0 / math.sqrt(dh)
+
+    @property
+    def stride(self) -> int:
+        return noise_stride(self.n)
+
+    def full_score(self, s, q, k, aux):
+        return s
+
+
 @dataclasses.dataclass(frozen=True)
-class SBMExpectedSpec:
+class SBMExpectedSpec(_SBMBase):
     """Bernoulli mean ``clip(R K̂ᵀ, floor, .99)`` as a soft weight, with the
     real-extent gate and the key-padding gate (``R = Q̂ S``)."""
 
@@ -80,26 +122,75 @@ class SBMExpectedSpec:
 
     name = "sbm_expected"
 
-    def scale(self, dh: int) -> float:
-        return 1.0 / math.sqrt(dh)
-
     def full_weight(self, q, k, aux):
         r, kh, padf = aux
-        w_raw = torch.clamp(torch.einsum("bhnj,bhmj->bhnm", r, kh), self.floor, 0.99)
+        w_raw = torch.clamp(exp_adjacency(r, kh), self.floor, 0.99)
         return w_raw, w_raw * (1.0 - padf)[:, None, None, :]
-
-    def full_score(self, s, q, k, aux):
-        return s
 
     def full_weight_padded(self, aux, b: int, h: int, n_pad: int):
         r, kh, padf = aux
-        extra = n_pad - self.n
-        rp = torch.nn.functional.pad(r, (0, 0, 0, extra))
-        khp = torch.nn.functional.pad(kh, (0, 0, 0, extra))
-        padp = torch.nn.functional.pad(padf, (0, extra), value=1.0)
-        exp_a = torch.einsum("bhnj,bhmj->bhnm", rp, khp)
-        w_raw = torch.clamp(exp_a, self.floor, 0.99) * _real_gate(self.n, n_pad, r.device)
+        rp, khp = _pad_nodes(r, n_pad), _pad_nodes(kh, n_pad)
+        padp = torch.nn.functional.pad(padf, (0, n_pad - self.n), value=1.0)
+        w_raw = torch.clamp(exp_adjacency(rp, khp), self.floor, 0.99) * _real_gate(
+            self.n, n_pad, r.device)
         return w_raw * (1.0 - padp[:, None, None, :])
+
+
+@dataclasses.dataclass(frozen=True)
+class SBMSampledSpec(_SBMBase):
+    """Bernoulli graph ``1{u < clip(R K̂ᵀ, floor, .99)}`` drawn from the hash
+    stream under ``sample_seed`` (aux ``(r, k_hat, key_pad_f32,
+    sample_seed)``), with the STE gradient ``hardtanh(A · g)`` into ``R K̂ᵀ``.
+    ``graph_sum`` counts the raw graph, padded key columns included; the
+    attention weight is ``A · (1 - pad)``."""
+
+    n: int
+    heads: int
+    kk: int
+    floor: float
+
+    name = "sbm_sampled"
+
+    def full_weight(self, q, k, aux):
+        from csat_tpu_torch.models.ste import sample_graph  # lazy: package cycle
+
+        r, kh, padf, sseed = aux
+        b, h, n, _ = r.shape
+        noise = uniform_field(sseed, b, h, n, n, self.stride, r.device)
+        graph = sample_graph(exp_adjacency(r, kh), noise, self.floor)
+        return graph, graph * (1.0 - padf)[:, None, None, :]
+
+    def full_weight_padded(self, aux, b: int, h: int, n_pad: int):
+        r, kh, padf, sseed = aux
+        rp, khp = _pad_nodes(r, n_pad), _pad_nodes(kh, n_pad)
+        padp = torch.nn.functional.pad(padf, (0, n_pad - self.n), value=1.0)
+        noise = uniform_field(sseed, b, h, n_pad, n_pad, self.stride, r.device)
+        p = torch.clamp(exp_adjacency(rp, khp), self.floor, 0.99)
+        a_raw = (noise < p).to(torch.float32) * _real_gate(self.n, n_pad, r.device)
+        return a_raw * (1.0 - padp[:, None, None, :])
+
+
+@dataclasses.dataclass(frozen=True)
+class SBMGraphSpec(_SBMBase):
+    """A materialised 0/1 graph (``noise_mode="shared"``), sampled outside
+    through the STE and read as the weight (aux ``(graph, key_pad_f32)``);
+    its cotangent flows back out through the plain backward."""
+
+    n: int
+    heads: int
+
+    name = "sbm_graph"
+
+    def full_weight(self, q, k, aux):
+        graph, padf = aux
+        return graph, graph * (1.0 - padf)[:, None, None, :]
+
+    def full_weight_padded(self, aux, b: int, h: int, n_pad: int):
+        graph, padf = aux
+        extra = n_pad - self.n
+        gp = torch.nn.functional.pad(graph, (0, extra, 0, extra))
+        padp = torch.nn.functional.pad(padf, (0, extra), value=1.0)
+        return gp * (1.0 - padp[:, None, None, :])
 
 
 def cse_mod(rel_q, rel_k, rel, mask):
@@ -120,3 +211,22 @@ def sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, floor: float = 0.01):
     r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
     aux = (r.contiguous(), k_hat.contiguous(), key_pad.to(torch.float32).contiguous())
     return SBMExpectedSpec(n=n, heads=h, kk=kk, floor=float(floor)), aux
+
+
+def sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad, sample_seed, floor: float = 0.01):
+    """Counter-mode sampled graph.  ``R = Q̂ S`` is formed here, so the
+    cotangent of ``R`` reaches ``Q̂`` and ``S`` through plain autograd;
+    ``sample_seed`` is a (1,) int32 tensor on the data's device (the kernels
+    read it there: no host sync)."""
+    b, h, n, kk = q_hat.shape
+    r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
+    seed = torch.as_tensor(sample_seed, dtype=torch.int32, device=q_hat.device).reshape(1)
+    aux = (r.contiguous(), k_hat.contiguous(), key_pad.to(torch.float32).contiguous(), seed)
+    return SBMSampledSpec(n=n, heads=h, kk=kk, floor=float(floor)), aux
+
+
+def sbm_graph_mod(graph, key_pad):
+    """``graph`` (B, H, N, N) 0/1 f32, ``key_pad`` (B, N) truthy on padded keys."""
+    b, h, n, _ = graph.shape
+    aux = (graph.contiguous(), key_pad.to(torch.float32).contiguous())
+    return SBMGraphSpec(n=n, heads=h), aux

@@ -1,0 +1,36 @@
+"""Label-smoothing KL-divergence loss.
+
+Counterpart of the JAX package's ``train/loss.py`` (the reference's
+``utils/label_smooth.py:15-40``): smoothed one-hot target distribution
+(mass ``smoothing / (V - 2)`` off-target), PAD column zeroed, PAD target rows
+zeroed, KL divergence with *sum* reduction, normalised by the count of
+non-PAD target tokens.  At ``smoothing=0`` (the configs' default) it is the
+mean NLL of the non-PAD tokens.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from csat_tpu_torch.utils import PAD
+
+__all__ = ["label_smoothing_loss"]
+
+
+def label_smoothing_loss(log_probs: torch.Tensor, target: torch.Tensor,
+                         smoothing: float = 0.0) -> torch.Tensor:
+    """``log_probs`` (..., V) log-probabilities, ``target`` (...) token ids
+    → scalar loss."""
+    v = log_probs.shape[-1]
+    x = log_probs.reshape(-1, v).to(torch.float32)
+    t = target.reshape(-1).long()
+    true_dist = torch.full_like(x, smoothing / (v - 2))
+    true_dist.scatter_(1, t[:, None], 1.0 - smoothing)
+    true_dist[:, PAD] = 0.0
+    true_dist = torch.where((t == PAD)[:, None], torch.zeros_like(true_dist), true_dist)
+    # KL(sum): Σ p·(log p − x), with 0·log 0 := 0
+    log_td = torch.where(true_dist > 0, torch.log(torch.clamp(true_dist, min=1e-30)),
+                         torch.zeros_like(true_dist))
+    loss = torch.sum(true_dist * (log_td - x))
+    ntokens = torch.sum(t != PAD)
+    return loss / torch.clamp(ntokens, min=1).to(torch.float32)

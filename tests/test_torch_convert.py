@@ -61,3 +61,20 @@ def test_shape_mismatch_fails(setup):
                        "bias": np.zeros((7,), np.float32)}}
     with pytest.raises(ValueError, match="shape"):
         convert_params({**params, "generator": gen}, model)
+
+
+def test_gradient_tree_maps_onto_named_parameters(setup):
+    """A gradient tree has the params' structure: it converts onto
+    ``named_parameters()`` with the same transposes, so each entry lines up
+    with its parameter's ``.grad``."""
+    import jax
+
+    from csat_tpu_torch.convert import convert_params
+
+    params, model = setup
+    grads = jax.tree_util.tree_map(lambda x: 2.0 * np.asarray(x), params)
+    g = convert_params(grads, model)
+    p = convert_params(params, model)
+    assert list(g) == list(p) and set(g) == {name for name, _ in model.named_parameters()}
+    for name in g:
+        np.testing.assert_array_equal(g[name].numpy(), 2.0 * p[name].numpy())

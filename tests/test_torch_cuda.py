@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+the serving kernels (K1, K2, K5) and the training kernels (K6, K7 forward
+with dropout, K3/K4 backward) at the training shape and at ragged shapes.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use), so
 they carry the ``cuda`` marker and skip elsewhere; run them on a GPU machine
@@ -117,3 +119,147 @@ def test_wrappers_refuse_uninstantiated_head_width(dev):
     q, k, v, spec, aux = _flex_case("cse", 1, 20, 32, dev)
     with pytest.raises(ValueError, match="head widths"):
         flex_core.flex_attention(q, k, v, spec, aux)
+    q, k, v, spec, aux, _ = _train_case("sbm_sampled", 1, 20, 32, dev)
+    with pytest.raises(ValueError, match="head widths"):
+        flex_core.flex_attention(q, k, v, spec, aux)
+
+
+# ---------------------------------------------------------------------------
+# the training path: sampled / graph forward (K6, K7), sampled backward (K3, K4)
+# ---------------------------------------------------------------------------
+
+RATE = 0.2        # the configs' attention dropout
+NEAR = 1e-6       # a Bernoulli draw within this of its threshold may flip
+SBM_TOL = 2e-5    # forward out / lse: summation order only
+GRAD_TOL = 1e-4   # backward, atol and rtol: summation order over N keys
+
+
+def _train_case(mod, b, n, dh, dev, seed=0, h=4):
+    from csat_tpu_torch.ops.mods import sbm_graph_mod, sbm_sampled_mod
+
+    g = torch.Generator().manual_seed(seed)
+    kk = 10
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
+    pad = torch.zeros((b, n), dtype=torch.bool)
+    for i in range(b):
+        pad[i, max(1, n - 1 - (i * 37) % n):] = i > 0
+    pad = pad.to(dev)
+    dseed = torch.tensor([777 + seed], dtype=torch.int32, device=dev)
+    if mod == "sbm_sampled":
+        s_aff = torch.softmax(torch.randn(h, kk * kk, generator=g), -1).reshape(h, kk, kk)
+        spec, aux = sbm_sampled_mod(torch.sigmoid(2 * rnd(b, h, n, kk)),
+                                    torch.sigmoid(2 * rnd(b, h, n, kk)), s_aff.to(dev), pad,
+                                    torch.tensor([1234 + seed], dtype=torch.int32, device=dev))
+    else:
+        graph = (torch.rand((b, h, n, n), generator=g) < 0.4).float().to(dev)
+        spec, aux = sbm_graph_mod(graph, pad)
+    return q, k, v, spec, aux, dseed
+
+
+def _near_rows(spec, aux):
+    """(B, H, N) rows holding a Bernoulli draw within NEAR of its threshold,
+    and the count of such draws per (b, h)."""
+    from csat_tpu_torch.ops.hashrng import uniform_field
+    from csat_tpu_torch.ops.mods import SBMSampledSpec, exp_adjacency
+
+    if not isinstance(spec, SBMSampledSpec):
+        z = torch.zeros(aux[0].shape[:3], dtype=torch.bool, device=aux[0].device)
+        return z, z.sum(-1)
+    r, kh, _, sseed = aux
+    b, h, n, _ = r.shape
+    p = torch.clamp(exp_adjacency(r, kh), spec.floor, 0.99)
+    near = (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
+    return near.any(-1), near.sum((-1, -2))
+
+
+@pytest.mark.parametrize("mod", ["sbm_sampled", "sbm_graph"])
+@pytest.mark.parametrize("b,n,dh", [(64, 150, 64), (3, 37, 64), (3, 75, 64), (2, 130, 96)])
+def test_sbm_train_forward_matches_plain(dev, mod, b, n, dh):
+    from csat_tpu_torch.ops import build, flex_core
+
+    q, k, v, spec, aux, dseed = _train_case(mod, b, n, dh, dev)
+    fn = f"flex_fwd_{mod}"
+    before = build.launch_counts()[fn]
+    out, ex = flex_core.flex_attention(q, k, v, spec, aux, RATE, dseed)
+    ref, rex = flex_core.flex_reference(q, k, v, spec, aux, RATE, dseed)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[fn] == before + 1
+    near_rows, near_count = _near_rows(spec, aux)
+    # a draw may flip only within NEAR of its threshold: graph_sum moves by
+    # at most the near draws of its (b, h), and only rows holding one differ
+    assert torch.all((ex["graph_sum"] - rex["graph_sum"]).abs() <= near_count)
+    keep = ~near_rows
+    torch.testing.assert_close(out[keep], ref[keep], atol=SBM_TOL, rtol=0)
+    torch.testing.assert_close(ex["lse"][keep], rex["lse"][keep], atol=SBM_TOL, rtol=0)
+    skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
+    assert torch.equal(ex["skipped_blocks"], skips)
+
+
+@pytest.mark.parametrize("b,n,dh", [(64, 150, 64), (3, 37, 64), (3, 75, 64), (2, 130, 96)])
+def test_sbm_sampled_backward_matches_plain(dev, b, n, dh):
+    from csat_tpu_torch.ops import build, flex_core
+
+    q, k, v, spec, aux, dseed = _train_case("sbm_sampled", b, n, dh, dev, seed=1)
+    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
+        out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), RATE, dseed)
+        loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
+        return ex["graph_sum"].detach(), torch.autograd.grad(loss, leaves)
+
+    before = build.launch_counts()
+    gsum, got = grads(flex_core.flex_attention)
+    ref_gsum, want = grads(flex_core.flex_reference)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    for fn in ("flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled", "flex_bwd_k_sbm_sampled"):
+        assert after[fn] == before[fn] + 1, fn
+    # a flipped draw changes its own (b, h) only; compare the (b, h) whose
+    # graph_sum agrees, and only near-threshold draws may have flipped
+    _, near_count = _near_rows(spec, aux)
+    assert torch.all((gsum - ref_gsum).abs() <= near_count)
+    same = gsum == ref_gsum
+    assert same.float().mean() >= 0.9
+    for name, a, w in zip(("q", "k", "v", "r", "k_hat"), got, want):
+        torch.testing.assert_close(a[same], w[same], atol=GRAD_TOL, rtol=GRAD_TOL, msg=name)
+
+
+def test_kernel_backward_adds_graph_sum_cotangent_on_dead_tiles(dev):
+    """A key tile that is all padding is dead for the attention, but its raw
+    graph still carries the graph_sum cotangent into dR / dK̂."""
+    from csat_tpu_torch.ops import flex_core
+    from csat_tpu_torch.ops.mods import sbm_sampled_mod
+
+    g = torch.Generator().manual_seed(3)
+    b, h, n, dh, kk = 1, 2, 150, 64, 10
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    pad = torch.zeros((b, n), dtype=torch.bool)
+    pad[0, 60:] = True  # k-tiles 1 and 2 are all padding
+    s_aff = torch.softmax(torch.randn(h, kk * kk, generator=g), -1).reshape(h, kk, kk).to(dev)
+    leaves = [rnd(b, h, n, kk).sigmoid().requires_grad_() for _ in range(2)]
+    q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
+    seed = torch.tensor([9], dtype=torch.int32, device=dev)
+    outs = []
+    for fn in (flex_core.flex_attention, flex_core.flex_reference):
+        spec, aux = sbm_sampled_mod(*leaves, s_aff, pad.to(dev), seed)
+        _, ex = fn(q, k, v, spec, aux)
+        outs.append(torch.autograd.grad(ex["graph_sum"].sum(), leaves))
+    for a, w in zip(*outs):
+        assert a[:, :, 64:].abs().sum() > 0
+        torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_mod_without_a_kernel_raises_on_the_card(dev):
+    import dataclasses
+
+    from csat_tpu_torch.ops import flex_core
+
+    @dataclasses.dataclass(frozen=True)
+    class Unknown:
+        name = "unknown"
+
+    q = torch.zeros((1, 1, 8, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="unknown"):
+        flex_core.flex_attention(q, q, q, Unknown(), ())

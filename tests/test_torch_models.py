@@ -237,4 +237,4 @@ def test_unported_variants_raise(models):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CSATrans(tcfg.replace(full_att=True), 200, 300, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CSATrans(tcfg.replace(eval_graph="sample"), 200, 300, device="cpu")
+        CSATrans(tcfg.replace(use_pegen="triplet"), 200, 300, device="cpu")

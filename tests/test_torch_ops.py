@@ -203,6 +203,10 @@ def test_kernel_head_widths_cover_every_config(name):
     cfg = get_config(name)
     widths = {"flex_fwd_cse": cfg.pegen_dim // cfg.num_heads,
               "flex_fwd_sbm_expected": cfg.head_dim,
+              "flex_fwd_sbm_sampled": cfg.head_dim,
+              "flex_fwd_sbm_graph": cfg.head_dim,
+              "flex_bwd_q_sbm_sampled": cfg.head_dim,
+              "flex_bwd_k_sbm_sampled": cfg.head_dim,
               "paged_decode": cfg.hidden_size // cfg.num_heads}
     assert set(widths) == set(build.KERNELS) == set(build.HEAD_DIMS) == set(build.REPLACES)
     for fn, dh in widths.items():
