@@ -1,7 +1,7 @@
 """End-to-end smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # from the root of a checkout
-    python3 chip_smoke.py --profile    # also trace a serving run and train steps
+    python3 chip_smoke.py --profile    # also trace a serving run, train steps and a fit epoch
 
 Phases, each printing JSON lines:
 
@@ -10,9 +10,16 @@ Phases, each printing JSON lines:
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once;
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
-   the shapes the serving and training paths give it: max abs error (with its
+   the shapes the driven paths give it — the serving batches, B 64 / N 150,
+   and every bucket of the fit's plan (259×37, 128×75, 64×150), which each
+   later phase checks against what it ran: max abs error (with its
    tolerance), exact skip counts, and times (CUDA events, median of several
-   runs);
+   runs; the plan's smaller buckets are checked untimed); every backward
+   check also holds its forward's ``out`` and ``lse``; the expected-graph
+   backward also on whole padded key tiles and on inputs with exact ties at
+   both clip bounds, at the default floor and at floor 0, and without
+   dropout against a float64 closed form that shares no code with the plain
+   version;
 4. ``serve``   — the flagship ``python`` model at full width (random weights
    from a seed, ``eval_graph="expected"``) serves 16 synthetic requests
    through ``ServeEngine``; every request must be OK, no page may leak, every
@@ -27,8 +34,22 @@ Phases, each printing JSON lines:
    then 8 kernel steps on that batch must stay finite and end below the first
    step's loss, and one ``noise_mode="shared"`` step runs the graph kernel;
    every training kernel must have launched in the step that uses it;
-6. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-5, its error, times and
+6. ``expected_grad`` — the gradient of the same model's deterministic forward
+   under ``eval_graph="expected"`` (``nll + sw · sparsity``, batch 64):
+   through the kernels and through the plain paths on the card, loss within
+   1e-5 and global grad-norm within 1e-4 relative, every parameter's error
+   written out;
+7. ``fit``     — ``Trainer.fit`` at the published widths on a synthetic corpus
+   made in a temporary directory (512 / 64 / 64 samples of 10 to 150 nodes; the
+   vocabularies are the corpus's own, a few dozen words): 2 epochs with
+   ``noise_mode="counter"``, ``eval_graph="expected"``, length buckets, batch
+   64, validation (greedy decode + BLEU) and a checkpoint each epoch; every
+   step finite, the second epoch's mean loss below the first's, at least two
+   bucket shapes stepped, the train and eval kernels launched; a second
+   ``Trainer`` restored from the epoch-1 checkpoint must reproduce the next
+   step's loss bit for bit; then ``run_test`` scores BLEU / ROUGE-L / METEOR;
+8. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-7, its error, times and
    bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -40,11 +61,15 @@ and the ``csat_tpu_torch`` package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +97,12 @@ TRAIN_B = 64      # the configs' batch_size
 RATE = 0.2        # the configs' attention dropout
 TRAIN_STEPS = 8
 LOSS_RTOL, GNORM_RTOL = 1e-5, 1e-4
+GS_COEF = 1e-3    # weight of Σ graph_sum in the backward checks' loss
+GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
+
+#: (kernel, B, N) held against its plain version in phase 3; each driven
+#: path must find the shapes it gave its kernels in here
+CHECKED: set = set()
 
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -79,7 +110,15 @@ PATH_KERNELS = {
     "train_counter": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
                       "flex_bwd_k_sbm_sampled"),
     "train_shared": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    "expected_grad": ("flex_fwd_cse", "flex_fwd_sbm_expected", "flex_bwd_q_sbm_expected",
+                      "flex_bwd_k_sbm_expected"),
+    # Trainer.fit: train steps (K1, K6, K3, K4) and the eval decode's encoder (K1, K2)
+    "fit": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+            "flex_bwd_k_sbm_sampled", "flex_fwd_sbm_expected"),
 }
+FIT_SAMPLES = (512, 64, 64)   # train / dev / test
+FIT_NODES = (10, 150)         # node counts, uniform: the corpus spreads over the buckets
+FIT_EPOCHS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -146,7 +185,7 @@ def build_phase() -> None:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev):
+def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: float = 0.01):
     from csat_tpu_torch.ops.mods import (
         cse_mod, sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod)
 
@@ -175,7 +214,7 @@ def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev):
         if mod == "sbm_expected":
             spec, aux = sbm_expected_mod(torch.sigmoid(rnd(b, h, n, kk)),
                                          torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev),
-                                         pad.to(dev))
+                                         pad.to(dev), floor=floor)
         elif mod == "sbm_sampled":
             seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, dtype=torch.int32)
             spec, aux = sbm_sampled_mod(torch.sigmoid(2 * rnd(b, h, n, kk)),
@@ -203,7 +242,10 @@ def _near_draws(q, spec, aux):
     return (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
 
 
-def flex_check(mod: str, b: int, n: int, gen, dev) -> dict:
+def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True) -> dict:
+    """One forward kernel against its plain version at (B, N); ``timed``
+    adds the times and the bound (left out for shapes checked for
+    correctness only)."""
     from csat_tpu_torch.ops import build, flex_core
 
     q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev)
@@ -235,6 +277,14 @@ def flex_check(mod: str, b: int, n: int, gen, dev) -> dict:
         raise AssertionError(f"flex {mod} B={b} N={n}: err={err} lse_err={lse_err} "
                              f"gsum_rel_err={gsum_err} flips={flips} near_ok={near_ok} "
                              f"skips equal={skip_equal}")
+    CHECKED.add((f"flex_fwd_{mod}", b, n))
+    if not timed:
+        rec = dict(kernel=f"flex_fwd_{mod}", B=b, N=n, rate=rate, timed=False, max_abs_err=err,
+                   lse_max_abs_err=lse_err, tol=FLEX_TOL, flips=flips,
+                   near_draws=int(near.sum()), skipped_blocks=int(skips.sum()),
+                   skip_equal=skip_equal)
+        emit("kernel", **rec)
+        return rec
 
     fn, args, _ = flex_core.kernel_args(spec, q, k, v, aux, rate, dseed)
     lib = build.kernel(fn)
@@ -280,19 +330,88 @@ def flex_check(mod: str, b: int, n: int, gen, dev) -> dict:
     return rec
 
 
-def bwd_check(b: int, n: int, gen, dev) -> dict:
-    """K3/K4 (the sampled mod's two backward passes) against the plain
-    autograd of ``flex_reference`` on the same inputs, with dropout."""
-    from csat_tpu_torch.ops import build, flex_core
+def _plant_ties(spec, aux):
+    """Exact ties of R·K̂ᵀ at both clip bounds, and at 0, in every (b, h):
+    column 5 of K̂ is the unit vector e₀, so entry (i, 5) equals R[i, 0]."""
+    r, kh = aux[0].clone(), aux[1].clone()
+    kh[:, :, 3] = 0.0          # column 3: R·K̂ᵀ == 0 on every row
+    kh[:, :, 5] = 0.0
+    kh[:, :, 5, 0] = 1.0
+    r[:, :, 7] = 0.0
+    r[:, :, 7, 0] = 0.99       # (7, 5) == .99
+    r[:, :, 8] = 0.0
+    r[:, :, 8, 0] = spec.floor  # (8, 5) == floor
+    return (r, kh, *aux[2:])
 
-    q, k, v, spec, aux = _flex_inputs("sbm_sampled", b, n, gen, dev)
+
+def expected_closed_form(q, k, v, aux, floor: float, go, gs_coef: float) -> dict:
+    """The expected mod without dropout, written out from its definition in
+    float64 over whole (N, N) fields: ``w = clip(R·K̂ᵀ, floor, .99)·(1 − pad)``,
+    ``attn = w eˢ / Σ w eˢ``, ``out = attn·V``, and the gradients of
+    ``Σ out·go + gs_coef · Σ clip(R·K̂ᵀ)`` by hand.  It shares no code with
+    ``flex_reference`` or the kernels.  Two conventions are the mod's own: the
+    clip passes half the gradient where R·K̂ᵀ equals a bound (``jnp.clip``),
+    and a row with no live weight is identically 0 and passes nothing back.
+    ``∂attn/∂w = e^{s − lse}(δ − attn)`` holds at ``w = 0`` as anywhere else,
+    which is what a tie at ``floor == 0`` needs.  R·K̂ᵀ is summed in float32
+    in the kernels' order, so its ties are the same entries."""
+    r, kh, padf = aux[:3]
+    ea = r[..., :, None, 0] * kh[..., None, :, 0]
+    for j in range(1, r.shape[-1]):
+        ea = ea + r[..., :, None, j] * kh[..., None, :, j]
+    lo, hi = (torch.tensor(x, dtype=torch.float32, device=q.device) for x in (floor, 0.99))
+    c = (((ea > lo) & (ea < hi)).double() + 0.5 * ((ea == lo) | (ea == hi)).double())
+    w_raw = torch.minimum(torch.maximum(ea, lo), hi).double()
+    keep = (1.0 - padf.double())[:, None, None, :]
+    w = w_raw * keep
+    q64, k64, v64, go64 = (t.double() for t in (q, k, v, go))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = q64 @ k64.transpose(-1, -2) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = w * torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    live = (l > 0).double()
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    attn = p / l_safe
+    lse = m + torch.log(l_safe)
+    d_attn = go64 @ v64.transpose(-1, -2)
+    t = d_attn - (attn * d_attn).sum(dim=-1, keepdim=True)
+    d_s = attn * t
+    d_ea = (torch.exp(s - lse) * t * live * keep + gs_coef) * c
+    return dict(out=attn @ v64, lse=lse[..., 0], live_rows=l[..., 0] > 0,
+                dq=d_s @ k64 * scale, dk=d_s.transpose(-1, -2) @ q64 * scale,
+                dv=attn.transpose(-1, -2) @ go64, dr=d_ea @ kh.double(),
+                dkh=d_ea.transpose(-1, -2) @ r.double())
+
+
+def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
+              variant: str = "plain", floor: float = 0.01, timed: bool = True) -> dict:
+    """The two backward passes of the sampled mod (K3/K4) or the expected mod
+    (K8/K9) against the plain autograd of ``flex_reference`` on the same
+    inputs; the forward's ``out`` and ``lse`` of the same call are held
+    against the plain ones too.  ``variant="ties"`` plants exact ties at both
+    clip bounds of the expected mod; ``"padded"`` names the run whose short
+    rows leave whole key tiles padded (every run of ``_flex_inputs`` has them:
+    it is checked).  Without dropout the expected mod's kernel and plain
+    results are also held against :func:`expected_closed_form`."""
+    from csat_tpu_torch.ops import build, flex_core
+    from csat_tpu_torch.ops.mods import exp_adjacency
+
+    q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor)
+    sampled = mod == "sbm_sampled"
+    if variant == "ties":
+        aux = _plant_ties(spec, aux)
+        ea = exp_adjacency(aux[0], aux[1])
+        floor_t = torch.tensor(spec.floor, device=dev)
+        if not ((ea == 0.99).any() and (ea == floor_t).any() and (ea == 0).any()):
+            raise AssertionError("the tie input holds no exact tie")
     dseed = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
     go = torch.randn(q.shape, generator=gen).to(dev)
 
     def run(fn):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
-        out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), RATE, dseed)
-        loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
+        out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), rate, dseed)
+        loss = torch.sum(out * go) + GS_COEF * torch.sum(ex["graph_sum"])
         return leaves, out, ex, loss
 
     k_leaves, k_out, k_ex, k_loss = run(flex_core.flex_attention)
@@ -302,49 +421,89 @@ def bwd_check(b: int, n: int, gen, dev) -> dict:
     torch.cuda.synchronize()
     near = _near_draws(q, spec, aux)
     dg = (k_ex["graph_sum"] - p_ex["graph_sum"]).abs()
-    flips = int(dg.sum())
-    same = dg == 0  # a flip changes its own (b, h) only
-    if not (bool(torch.all(dg <= near.sum(dim=(2, 3)))) and same.float().mean() >= 0.9):
-        raise AssertionError(f"K3/K4: {flips} flipped draws, not all near the threshold")
+    if sampled:
+        flips = int(dg.sum())
+        same = dg == 0  # a flip changes its own (b, h) only
+        if not (bool(torch.all(dg <= near.sum(dim=(2, 3)))) and same.float().mean() >= 0.9):
+            raise AssertionError(f"K3/K4: {flips} flipped draws, not all near the threshold")
+    else:  # nothing is drawn: every (b, h) is compared
+        flips, same = 0, torch.ones_like(dg, dtype=torch.bool)
+        skipped = int(k_ex["skipped_blocks"].sum())
+        if variant == "padded" and skipped <= 0:
+            raise AssertionError("the padded-tile input skipped no tile")
+    label = f"{mod} backward B={b} N={n} ({variant}, rate {rate}, floor {spec.floor})"
+    # the forward of the same call: rows holding a near-threshold draw left out
+    rows = same[:, :, None] & ~near.any(dim=-1)
+    fwd_err = (k_out.detach() - p_out.detach())[rows].abs().max().item()
+    lse_err = (k_ex["lse"] - p_ex["lse"].detach())[rows].abs().max().item()
+    if not (fwd_err <= FLEX_TOL and lse_err <= FLEX_TOL and torch.isfinite(k_out).all()):
+        raise AssertionError(f"{label}: forward err {fwd_err}, lse err {lse_err} over {FLEX_TOL}")
     errs = {}
-    for name, a, w in zip(("dq", "dk", "dv", "dr", "dkh"), got, want):
+    for name, a, w in zip(GRAD_NAMES, got, want):
         a, w = a[same], w[same]
         errs[name] = (a - w).abs().max().item()
         worst = ((a - w).abs() - GRAD_TOL * (1 + w.abs())).max().item()
         if not (worst <= 0 and torch.isfinite(a).all()):
-            raise AssertionError(f"K3/K4 {name}: max abs err {errs[name]} over "
+            raise AssertionError(f"{label} {name}: max abs err {errs[name]} over "
                                  f"{GRAD_TOL} (1 + |plain|)")
+    closed_errs = None
+    if not sampled and rate == 0.0:
+        closed = expected_closed_form(q, k, v, aux, spec.floor, go, GS_COEF)
+        live = closed["live_rows"]
+        closed_errs = {"out": ((k_out.detach() - closed["out"])[live]).abs().max().item(),
+                       "lse": ((k_ex["lse"] - closed["lse"])[live]).abs().max().item()}
+        if max(closed_errs.values()) > FLEX_TOL:
+            raise AssertionError(f"{label}: forward against the closed form {closed_errs}")
+        for side, grads in (("kernel", got), ("plain", want)):
+            for name, a in zip(GRAD_NAMES, grads):
+                w = closed[name]
+                closed_errs[f"{side}_{name}"] = (a - w).abs().max().item()
+                if ((a - w).abs() - GRAD_TOL * (1 + w.abs())).max().item() > 0:
+                    raise AssertionError(f"{label} {name}: {side} against the closed form, max "
+                                         f"abs err {closed_errs[f'{side}_{name}']}")
+    q_fn, k_fn = f"flex_bwd_q_{mod}", f"flex_bwd_k_{mod}"
+    CHECKED.update({(q_fn, b, n), (k_fn, b, n), (f"flex_fwd_{mod}", b, n)})
+    if not timed:
+        rec = dict(kernel=[q_fn, k_fn], B=b, N=n, rate=rate, variant=variant, floor=spec.floor,
+                   timed=False, grad_errs=errs, fwd_max_abs_err=fwd_err, lse_max_abs_err=lse_err,
+                   closed_form_errs=closed_errs, tol=f"{GRAD_TOL} (1 + |plain|)", flips=flips,
+                   near_draws=int(near.sum()))
+        emit("kernel", **rec)
+        return {q_fn: rec, k_fn: rec}
 
     with torch.no_grad():
         out = k_out.detach()
         lse = k_ex["lse"].detach()
         dvec = torch.sum(go * out, dim=-1)
-        gs = torch.full((b, q.shape[1]), 1e-3, device=dev)
-        q_args, k_args, _ = flex_core.bwd_kernel_args(spec, q, k, v, aux, lse, dvec, go, gs,
-                                                      RATE, dseed)
-    lib_q, lib_k = build.kernel("flex_bwd_q_sbm_sampled"), build.kernel("flex_bwd_k_sbm_sampled")
+        gs = torch.full((b, q.shape[1]), GS_COEF, device=dev)
+        q_fn, q_args, k_fn, k_args, _ = flex_core.bwd_kernel_args(
+            spec, q, k, v, aux, lse, dvec, go, gs, rate, dseed)
+    lib_q, lib_k = build.kernel(q_fn), build.kernel(k_fn)
     ms_q, ms_k = cuda_ms(lambda: lib_q(*q_args)), cuda_ms(lambda: lib_k(*k_args))
     plain_ms = cuda_ms(lambda: torch.autograd.grad(p_loss, p_leaves, retain_graph=True),
                        reps=5, trials=5)
     # operations this run's data needs: live entries (a_eff > 0) take q·k and
     # g·v and, q-pass, d_s·K (6 dh) or, k-pass, d_sᵀ·Q and attnᵀ·g (8 dh); every
-    # entry its R·K̂ (2 kk); every sampled edge its d_exp·K̂ or d_expᵀ·R (2 kk)
+    # entry its R·K̂ (2 kk); its d_exp·K̂ or d_expᵀ·R (2 kk) every sampled edge
+    # of the sampled mod and every entry of the expected mod (the soft weight
+    # is live wherever the key is real)
     with torch.no_grad():
         a_raw, a_eff = spec.full_weight(q, k, aux)
     live, edges = int((a_eff > 0).sum()), int((a_raw > 0).sum())
     _, h, _, dh = q.shape
     every = b * h * n * n * 2 * spec.kk
+    dexp = (edges if sampled else b * h * n * n) * 2 * spec.kk
     inputs = nbytes(q, k, v, *aux, lse, dvec, go, gs)
     recs = {}
     for fn, ms, flops, outs in (
-            ("flex_bwd_q_sbm_sampled", ms_q, live * 6 * dh + every + edges * 2 * spec.kk,
-             (q, aux[0])),
-            ("flex_bwd_k_sbm_sampled", ms_k, live * 8 * dh + every + edges * 2 * spec.kk,
-             (k, v, aux[1]))):
+            (q_fn, ms_q, live * 6 * dh + every + dexp, (q, aux[0])),
+            (k_fn, ms_k, live * 8 * dh + every + dexp, (k, v, aux[1]))):
         moved = inputs + nbytes(*outs)
         bound, bound_by = bound_ms(moved, flops)
         errs_fn = {key: errs[key] for key in (("dq", "dr") if "_q_" in fn else ("dk", "dv", "dkh"))}
-        recs[fn] = dict(kernel=fn, B=b, N=n, rate=RATE, max_abs_err=max(errs_fn.values()),
+        recs[fn] = dict(kernel=fn, B=b, N=n, rate=rate, variant=variant, floor=spec.floor,
+                        max_abs_err=max(errs_fn.values()), fwd_max_abs_err=fwd_err,
+                        lse_max_abs_err=lse_err, closed_form_errs=closed_errs,
                         grad_errs=errs_fn, tol=f"{GRAD_TOL} (1 + |plain|)", flips=flips,
                         near_draws=int(near.sum()), ms=ms, plain_ms=plain_ms,
                         plain_is="the whole plain backward (both passes)", library_ms=None,
@@ -438,6 +597,15 @@ def paged_check(dtype, side: str, gen, dev) -> dict:
 FLEX_SHAPES = ((37, (1, 4, 8)), (75, (1, 4, 8)), (150, (1, 4)))
 
 
+def plan_shapes():
+    """(rows, N) of every bucket of the flagship plan: the batches the fit's
+    train steps and eval decode give the kernels (259×37, 128×75, 64×150)."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.bucketing import plan_buckets
+
+    return sorted({(s.batch_size, s.n) for s in plan_buckets(get_config("python", bucketing=True))})
+
+
 def kernel_phase(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     mods = ("cse", "sbm_expected")
@@ -451,13 +619,36 @@ def kernel_phase(dev) -> dict:
     # the training path: B 64, N 150 (the flagship bucket at batch_size)
     train = {mod: flex_check(mod, TRAIN_B, 150, gen, dev) for mod in ("sbm_sampled", "sbm_graph")}
     cse_train = flex_check("cse", TRAIN_B, 150, gen, dev)
-    bwd = bwd_check(TRAIN_B, 150, gen, dev)
+    bwd = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev)
+    # K8/K9: the training shape with and without dropout, a serving-sized
+    # batch, exact clip ties (at the default floor, and at floor 0, where a
+    # tie at the lower bound is a weight of 0 with the gate half open) and
+    # whole padded key tiles
+    bwd_exp = bwd_check("sbm_expected", TRAIN_B, 150, gen, dev, rate=RATE)
+    bwd_check("sbm_expected", TRAIN_B, 150, gen, dev, rate=0.0)
+    bwd_check("sbm_expected", 4, 150, gen, dev, rate=RATE)
+    bwd_check("sbm_expected", 4, 150, gen, dev, rate=0.0, variant="ties")
+    bwd_check("sbm_expected", 8, 150, gen, dev, rate=RATE, variant="padded")
+    # drawn after everything above, so the inputs above stay as they were:
+    # K2 at the expected-gradient path's shape, the floor-0 ties, and the
+    # shapes of the fit's other buckets (the flagship bucket is above) for
+    # the train kernels (K1, K6, K3, K4) and the eval encoder's (K1, K2),
+    # checked without the timing loops
+    flex_check("sbm_expected", TRAIN_B, 150, gen, dev)
+    bwd_check("sbm_expected", 4, 150, gen, dev, rate=0.0, variant="ties", floor=0.0, timed=False)
+    for b, n in plan_shapes():
+        if (b, n) == (TRAIN_B, 150):
+            continue
+        for mod in ("cse", "sbm_expected", "sbm_sampled"):
+            flex_check(mod, b, n, gen, dev, timed=False)
+        bwd_check("sbm_sampled", b, n, gen, dev, timed=False)
+        bwd_check("sbm_expected", b, n, gen, dev, rate=0.0, timed=False)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],
             "flex_fwd_sbm_sampled": train["sbm_sampled"],
             "flex_fwd_sbm_graph": train["sbm_graph"],
-            **bwd,
+            **bwd, **bwd_exp,
             "paged_decode": paged[(torch.float32, "cross")]}
 
 
@@ -672,6 +863,16 @@ def _check_launched(path: str, counts) -> None:
         raise AssertionError(f"kernels never launched on the {path} path: {idle}")
 
 
+def _check_shapes(path: str, shapes) -> None:
+    """Every (B, N) the path gave its flex kernels must be one at which
+    phase 3 held them against their plain versions."""
+    missing = sorted((fn, b, n) for fn in PATH_KERNELS[path] if fn.startswith("flex_")
+                     for b, n in shapes if (fn, b, n) not in CHECKED)
+    if missing:
+        raise AssertionError(f"the {path} path ran kernels at shapes phase 3 did not check: "
+                             f"{missing}")
+
+
 def profile_steps(step, state, batch, n: int = 2) -> dict:
     """``n`` train steps under torch.profiler: device busy share of the wall
     time and device time by kernel."""
@@ -744,6 +945,7 @@ def train_phase(profile: bool) -> dict:
     if not losses[-1] < losses[1]:
         raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
     _check_launched("train_counter", counts)
+    _check_shapes("train_counter", [tuple(batch.src_seq.shape)])
     trace = profile_steps(step, state, batch) if profile else None
     del model, state, step
 
@@ -756,6 +958,7 @@ def train_phase(profile: bool) -> dict:
     if m_s["nonfinite"] or not np.isfinite(float(m_s["loss"])):
         raise AssertionError(f"non-finite shared-noise step: {m_s}")
     _check_launched("train_shared", shared_counts)
+    _check_shapes("train_shared", [tuple(batch.src_seq.shape)])
 
     n_steps = 1 + TRAIN_STEPS
     rec = dict(model="python", noise_mode="counter", batch=cfg.batch_size, widths=dict(
@@ -780,11 +983,205 @@ def train_phase(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the expected-graph gradient of the whole model
+# ---------------------------------------------------------------------------
+
+def expected_grad_phase() -> dict:
+    """``model(batch, deterministic=True)`` under ``eval_graph="expected"``,
+    ``nll + sw · sparsity``, ``backward()``: the kernels (K1, K2 forward;
+    K8, K9 backward) against the plain paths on the card, same weights."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build, flex_core
+    from csat_tpu_torch.resilience.guards import global_norm
+    from csat_tpu_torch.train import label_smoothing_loss
+
+    cfg = get_config("python", eval_graph="expected")
+    batch = train_batch(cfg, cfg.batch_size)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cuda", seed=SEED)
+    plain_model = copy.deepcopy(model)
+
+    def grad_pass(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log_probs, sparsity = m(batch, deterministic=True)
+        nll = label_smoothing_loss(log_probs, batch.target, cfg.smoothing)
+        total = nll + cfg.sw * sparsity
+        total.backward()
+        torch.cuda.synchronize()
+        grads = {name: p.grad for name, p in m.named_parameters()}
+        return (float(total.detach()), float(nll.detach()), float(global_norm(grads)),
+                time.perf_counter() - t0)
+
+    build.reset_launches()
+    k_total, k_nll, k_gnorm, k_s = grad_pass(model)
+    counts = build.launch_counts()
+    select = flex_core.select_impl
+    flex_core.select_impl = lambda x: "reference"
+    try:
+        build.reset_launches()
+        p_total, p_nll, p_gnorm, p_s = grad_pass(plain_model)
+    finally:
+        flex_core.select_impl = select
+    if any(build.launch_counts().values()):
+        raise AssertionError(f"the plain pass launched kernels: {build.launch_counts()}")
+    _check_launched("expected_grad", counts)
+    _check_shapes("expected_grad", [tuple(batch.src_seq.shape)])
+    loss_rel = abs(k_total - p_total) / abs(p_total)
+    gnorm_rel = abs(k_gnorm - p_gnorm) / p_gnorm
+    grad_err = {name: [(p.grad - pp.grad).abs().max().item(), pp.grad.abs().max().item()]
+                for (name, p), (_, pp) in zip(model.named_parameters(),
+                                              plain_model.named_parameters())}
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "expected_grad_err.json").write_text(json.dumps(
+        {"columns": ["max_abs_err", "plain_max_abs_grad"], "params": grad_err}, indent=1))
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1][0])[:5]
+    finite = all(np.isfinite(err) for err, _ in grad_err.values())
+    if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL and finite):
+        raise AssertionError(f"expected-graph gradient, kernel vs plain: loss rel {loss_rel}, "
+                             f"grad-norm rel {gnorm_rel}, worst grads {worst}")
+    graph_grads = [err for name, (err, mx) in grad_err.items() if "clusters" in name and mx > 0]
+    if len(graph_grads) != cfg.sbm_layers:
+        raise AssertionError("the cluster embeddings got no gradient through the graph")
+    rec = dict(model="python", eval_graph="expected", batch=cfg.batch_size,
+               kernel_loss=k_total, plain_loss=p_total, loss_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               kernel_grad_norm=k_gnorm, plain_grad_norm=p_gnorm, grad_norm_rel=gnorm_rel,
+               grad_norm_rtol=GNORM_RTOL,
+               grad_max_abs_err=max(err for err, _ in grad_err.values()),
+               worst_grad_errs=worst, kernel_pass_s=k_s, plain_pass_s=p_s, launches=counts)
+    emit("expected_grad", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Trainer.fit at the published widths
+# ---------------------------------------------------------------------------
+
+def _by_shape(steps):
+    """Per batch shape (B, N, T-1): step count and median seconds (the first
+    step of a shape, which pays one-off allocation, left out when it can be)."""
+    out = {}
+    for shape in sorted({tuple(r["shape"]) for r in steps}):
+        secs = [r["seconds"] for r in steps if tuple(r["shape"]) == shape]
+        out["x".join(map(str, shape))] = dict(
+            steps=len(secs), median_s=statistics.median(secs[1:] or secs), first_s=secs[0])
+    return out
+
+
+def fit_phase(profile: bool) -> dict:
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.data.synthetic import make_corpus
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.train import Trainer, run_test
+    from csat_tpu_torch.train.checkpoint import make_checkpoint_fn
+
+    tmp = tempfile.mkdtemp(prefix="csat_fit_")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # keep stdout to the JSON lines
+            data_dir = make_corpus(os.path.join(tmp, "corpus"), *FIT_SAMPLES, seed=SEED,
+                                   max_ast_len=150, node_range=FIT_NODES)
+        corpus_s = time.perf_counter() - t0
+
+        def new_trainer(out):
+            cfg = get_config("python", data_dir=data_dir, output_dir=os.path.join(tmp, out),
+                             noise_mode="counter", eval_graph="expected", bucketing=True,
+                             num_epochs=FIT_EPOCHS, val_interval=1, save_interval=1,
+                             guard_check_every=1)
+            logs = []
+            tr = Trainer(cfg, log=logs.append)
+            sets = {split: ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab)
+                    for split in ("train", "dev", "test")}
+            return cfg, tr, sets, logs
+
+        cfg, tr, sets, logs = new_trainer("run_a")
+        ckpt = make_checkpoint_fn(tr.output_dir, retries=cfg.save_retries,
+                                  backoff_s=cfg.save_retry_backoff_s)
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist = tr.fit(sets["train"], sets["dev"], checkpoint_fn=ckpt)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = build.launch_counts()
+        steps = hist["steps"]
+        if not all(np.isfinite(r["loss"]) for r in steps) or hist["nonfinite_steps"]:
+            raise AssertionError(f"non-finite train step in the fit: {hist['nonfinite_steps']}")
+        if not (len(hist["loss"]) == FIT_EPOCHS and hist["loss"][-1] < hist["loss"][0]):
+            raise AssertionError(f"epoch loss did not fall: {hist['loss']}")
+        shapes = _by_shape(steps)
+        if len(shapes) < 2:
+            raise AssertionError(f"fewer than two bucket shapes stepped: {list(shapes)}")
+        _check_launched("fit", counts)
+        # train steps come in the plan's shapes, and the eval decode pads
+        # every batch to its bucket's rows
+        _check_shapes("fit", {tuple(r["shape"][:2]) for r in steps} | set(plan_shapes()))
+        ck_dir = os.path.join(tr.output_dir, "checkpoints")
+        if sorted(os.listdir(ck_dir)) != [f"state_{e}.pt" for e in range(1, FIT_EPOCHS + 1)]:
+            raise AssertionError(f"checkpoints missing: {os.listdir(ck_dir)}")
+
+        # a second Trainer restored from the epoch-1 checkpoint replays epoch 2
+        cfg_b, tr_b, sets_b, _ = new_trainer("run_b")
+        os.makedirs(os.path.join(tr_b.output_dir, "checkpoints"))
+        shutil.copy(os.path.join(ck_dir, "state_1.pt"),
+                    os.path.join(tr_b.output_dir, "checkpoints", "state_1.pt"))
+        trace = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, hist_b = tr_b.fit(sets_b["train"], sets_b["dev"], resume=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            trace = _device_summary(prof, wall)
+        else:
+            _, hist_b = tr_b.fit(sets_b["train"], sets_b["dev"], resume=True)
+        want = [r for r in steps if r["epoch"] == 2]
+        got = hist_b["steps"]
+        if not (got and [r["shape"] for r in got] == [r["shape"] for r in want]):
+            raise AssertionError("the restored run stepped other batches")
+        if got[0]["loss"] != want[0]["loss"]:
+            raise AssertionError(f"restored loss {got[0]['loss']!r} differs from the "
+                                 f"uninterrupted run's {want[0]['loss']!r}")
+        equal_steps = sum(g["loss"] == w["loss"] for g, w in zip(got, want))
+
+        tr.model.load_state_dict(hist["best_params"], strict=True)
+        t0 = time.perf_counter()
+        scores = run_test(tr.model, sets["test"], cfg, tr.tgt_vocab,
+                          output_dir=tr.output_dir)
+        test_s = time.perf_counter() - t0
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"test scores not finite: {scores}")
+        eval_tokens = len(sets["dev"]) * (cfg.max_tgt_len - 1)
+        rec = dict(
+            model="python", noise_mode="counter", eval_graph="expected", bucketing=True,
+            batch=cfg.batch_size, epochs=FIT_EPOCHS, samples=list(FIT_SAMPLES),
+            node_range=list(FIT_NODES), vocab=[tr.src_vocab.size(), tr.tgt_vocab.size()],
+            corpus_s=corpus_s, fit_s=fit_s, epoch_loss=hist["loss"],
+            step_losses=[r["loss"] for r in steps], steps=len(steps), by_shape=shapes,
+            val_bleu=hist["val_bleu"], best_bleu=hist["best_bleu"], eval_s=hist["eval_s"],
+            eval_tokens=eval_tokens,
+            eval_tokens_per_s=eval_tokens / statistics.median(hist["eval_s"]),
+            rollbacks=hist["rollbacks"], launches=counts,
+            restored_first_loss=got[0]["loss"], uninterrupted_first_loss=want[0]["loss"],
+            restored_steps_bit_equal=[equal_steps, len(want)],
+            test=scores, test_s=test_s, test_tokens=len(sets["test"]) * (cfg.max_tgt_len - 1),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
+        emit("fit", **rec)
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace a serving run and two train steps with torch.profiler")
+                    help="trace a serving run, two train steps and the restored fit "
+                         "epoch with torch.profiler")
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
@@ -794,8 +1191,11 @@ def main(argv=None) -> int:
     measured = kernel_phase(dev)
     served = serve_phase(args.profile)
     trained = train_phase(args.profile)
+    expected = expected_grad_phase()
+    fitted = fit_phase(args.profile)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
-               "train_shared": trained["shared"]["launches"]}
+               "train_shared": trained["shared"]["launches"],
+               "expected_grad": expected["launches"], "fit": fitted["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

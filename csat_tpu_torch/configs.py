@@ -2,11 +2,14 @@
 reads, under the same names and defaults, plus the named registry.
 
 Field names are identical to the reference's so one set of overrides builds
-both configs.  Fields that only select JAX/TPU machinery (``backend``,
-meshes, compilation caches, ``flex_bwd``), the trainer's loop (data paths,
-epochs, bucketing, checkpoints, eval decode) or serving features outside this
-port are absent: the port picks kernel or plain path by the device a tensor
-lies on, and a field it never reads is not one it pretends to honour.
+both configs.  The trainer's fields are here (data paths, epochs, validation
+and save intervals, bucketing, eval decode, guard rollback, checkpoint
+retries).  Fields that only select JAX/TPU machinery (``backend``, meshes,
+compilation caches, AOT warm-up, ``flex_bwd``), trainer machinery the port
+does not carry yet (prefetch, profiling, telemetry, watchdog, preemption
+signals) or serving features outside this port are absent: the port picks
+kernel or plain path by the device a tensor lies on, and a field it never
+reads is not one it pretends to honour.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class Config:
     name: str = "python"
+    project_name: str = "final_exp"
+    task_name: str = "default"
+    lang: str = "python"  # "python" | "java": selects the triplet vocabulary
 
     # model (reference defaults: config/python.py)
     seed: int = 2021
@@ -36,6 +42,8 @@ class Config:
     tree_pos_width: int = 8
     tree_pos_height: int = 16
 
+    # data
+    data_dir: str = "./processed/tree_sitter_python"
     max_tgt_len: int = 50
     max_src_len: int = 150
 
@@ -48,7 +56,19 @@ class Config:
     sbm_floor: float = 0.01
     noise_mode: str = "shared"
     eval_graph: str = "sample"
+
+    # length-bucketed execution (data/bucketing.py): each sample goes to the
+    # smallest fitting (N, T) bucket, batched under a node budget
+    # (0 = batch_size · max_src_len); () ladders = the geometric halving
+    # ladder for N and the flagship T only
+    bucketing: bool = False
     bucket_src_lens: Tuple[int, ...] = ()
+    bucket_tgt_lens: Tuple[int, ...] = ()
+    bucket_token_budget: int = 0
+    # eval decode stops once every row has emitted </s> (off: the reference
+    # always runs max_tgt_len - 1 steps; the metric transform truncates at
+    # the first </s> either way)
+    decode_early_eos: bool = False
 
     # training (reference: config/python.py, script/train.py)
     dropout: float = 0.2
@@ -57,7 +77,25 @@ class Config:
     learning_rate: float = 1e-4
     smoothing: float = 0.0  # label smoothing
     batch_size: int = 64
+    num_epochs: int = 500
+    val_interval: int = 5
+    save_interval: int = 50
+    is_test: bool = False
+    output_dir: str = "./outputs"
+
+    # resilience: the in-step non-finite guard; roll back to the last good
+    # snapshot after this many consecutive guarded steps (0 = never), read
+    # the counter every guard_check_every steps, give up after
+    # guard_max_rollbacks; refresh the snapshot every snapshot_every_steps
+    # known-good iterations (0 = at epoch starts only); bounded retry
+    # around checkpoint saves
     nonfinite_guard: bool = True
+    guard_rollback_after: int = 3
+    guard_check_every: int = 16
+    guard_max_rollbacks: int = 3
+    snapshot_every_steps: int = 0
+    save_retries: int = 3
+    save_retry_backoff_s: float = 0.5
 
     # serving: slot pool and the block-paged KV pool
     serve_slots: int = 8
@@ -98,6 +136,13 @@ class Config:
         assert self.serve_num_pages >= 0, self.serve_num_pages
         assert self.serve_prefill_budget >= 0, self.serve_prefill_budget
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens
+        assert all(t >= 2 for t in self.bucket_tgt_lens), self.bucket_tgt_lens
+        assert self.bucket_token_budget >= 0, self.bucket_token_budget
+        assert self.guard_rollback_after >= 0, self.guard_rollback_after
+        assert self.guard_check_every >= 1, self.guard_check_every
+        assert self.guard_max_rollbacks >= 0, self.guard_max_rollbacks
+        assert self.snapshot_every_steps >= 0, self.snapshot_every_steps
+        assert self.save_retries >= 1, self.save_retries
         if self.use_pegen == "sequential":
             assert self.pe_dim == 0
         else:
@@ -106,8 +151,11 @@ class Config:
 
 # the registry holds the variants the port serves (pegen PE, SBM encoder);
 # the reference's other PE variants and full attention return with their ports
-_PY = Config(name="python")
-_JAVA = _PY.replace(name="java", pe_dim=128, sbm_enc_dim=768)
+_PY = Config(name="python", task_name="256_512_512_4_4_10_10_10_10_b64_tgt50_vanilla",
+             lang="python", data_dir="./processed/tree_sitter_python")
+_JAVA = _PY.replace(name="java", task_name="128_768_512_4_4_10_10_10_10_b64_tgt50_10k_20k_java",
+                    lang="java", pe_dim=128, sbm_enc_dim=768,
+                    data_dir="./processed/tree_sitter_java")
 
 _REGISTRY = {}
 
@@ -120,6 +168,10 @@ def _reg(cfg: Config) -> Config:
 
 _reg(_PY)
 _reg(_JAVA)
+
+
+def list_configs():
+    return sorted(_REGISTRY)
 
 
 def get_config(name: str, **overrides) -> Config:

@@ -20,6 +20,13 @@ weights load into the model and gradients line up with each parameter's
 
 A flax leaf no rule maps fails loudly, and so does (with ``model``) any port
 parameter left unfilled or any shape that disagrees.
+
+A whole train state goes both ways as numpy: :func:`load_train_state` fills a
+port ``TrainState`` from the JAX ``TrainState``'s parts (params, the AdamW
+``mu``/``nu`` trees and ``count`` of its optax state, ``step``), so a fit can
+start from a JAX state; :func:`export_tree` / :func:`export_train_state` map
+the port's tensors back onto a flax tree's structure.  The noise generators
+are not convertible (JAX threads a PRNG key, the port a ``torch.Generator``).
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["convert_params", "load_flax_params", "flatten"]
+__all__ = ["convert_params", "load_flax_params", "flatten", "load_train_state",
+           "export_tree", "export_train_state"]
 
 _SEGMENT = {
     "DisentangledAttn_0": "attn",
@@ -122,3 +130,49 @@ def load_flax_params(model: nn.Module, flax_params: Mapping) -> nn.Module:
     sd = convert_params(flax_params, model)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+@torch.no_grad()
+def load_train_state(state, flax_params: Mapping, mu: Optional[Mapping] = None,
+                     nu: Optional[Mapping] = None, count: int = 0, step: int = 0):
+    """Fill the port's ``TrainState`` in place from the parts of a JAX one
+    (numpy trees): parameters, and — when given — the AdamW first and second
+    moments, their count and the step.  The generator is left as it is."""
+    def fill(dst: Dict[str, torch.Tensor], tree: Mapping) -> None:
+        src = convert_params(tree)
+        if set(src) != set(dst):
+            raise KeyError(f"state and tree disagree on {sorted(set(src) ^ set(dst))}")
+        for key, t in dst.items():
+            t.copy_(src[key])
+
+    fill(state.params, flax_params)
+    if mu is not None:
+        fill(state.opt_state.mu, mu)
+        fill(state.opt_state.nu, nu)
+    state.opt_state.count = int(count)
+    state.step = int(step)
+    return state
+
+
+def export_tree(tensors: Mapping[str, torch.Tensor], flax_template: Mapping) -> Dict:
+    """The inverse of :func:`convert_params`: the port's ``{name: tensor}``
+    as a nested dict of numpy arrays with ``flax_template``'s structure (a
+    ``Dense`` kernel transposed back to ``(in, out)``)."""
+    out: Dict = {}
+    for path in flatten(flax_template):
+        key, leaf = _map_path(path)
+        arr = tensors[key].detach().cpu().numpy()
+        node = out
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T) if leaf == "kernel" else arr.copy()
+    return out
+
+
+def export_train_state(state, flax_template: Mapping) -> Dict:
+    """The port's ``TrainState`` as the numpy parts of a JAX one: ``params``,
+    ``mu``, ``nu`` (flax trees), ``count`` and ``step``."""
+    return {"params": export_tree(state.params, flax_template),
+            "mu": export_tree(state.opt_state.mu, flax_template),
+            "nu": export_tree(state.opt_state.nu, flax_template),
+            "count": int(state.opt_state.count), "step": int(state.step)}

@@ -9,12 +9,21 @@ ingests, through the same tree → pre-order → L/T matrices pipeline the
 preprocessing runs; ``train_sample`` adds a random summary as the decoder
 input and target.  Token ids come from a stable hash of each node's value,
 so no vocabulary file is needed.
+
+``gen_ast_nl`` and ``make_corpus`` are the port's copy of the JAX package's
+synthetic code-summarization corpus (``data/synthetic.py:40-114``): random
+"function" ASTs with a summary that is a deterministic function of the tree
+(so a correct model learns it), written as ``ast.original`` / ``nl.original``
+and run through ``data/preprocess.py``.  From the same seed both packages
+write the same corpus (``tests/test_torch_data.py``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import zlib
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -23,10 +32,12 @@ from csat_tpu_torch.data.ast_tools import (
     ast_json_to_tree, build_matrices, truncate_preorder)
 from csat_tpu_torch.utils import BOS, EOS
 
-__all__ = ["random_ast", "request_sample", "train_sample"]
+__all__ = ["random_ast", "request_sample", "train_sample", "gen_ast_nl", "grow_ast",
+           "make_corpus"]
 
 VERBS = ["get", "set", "load", "save", "parse", "build", "find", "update", "check", "make"]
 NOUNS = ["node", "tree", "value", "config", "index", "token", "graph", "batch", "path", "cache"]
+STMTS = ["assign", "return", "call", "if", "for", "while"]
 KINDS = ["identifier", "call", "assign", "block", "attribute", "argument_list",
          "binary_operator", "return_statement", "if_statement", "string"]
 
@@ -103,3 +114,106 @@ def train_sample(ast_json: List[dict], cfg: Config, src_vocab_size: int,
     seq[1 + len(words)] = EOS
     sample["tgt_seq"], sample["target"] = seq[:-1], seq[1:]
     return sample
+
+
+def gen_ast_nl(rng: np.random.Generator) -> Tuple[List[dict], List[str]]:
+    """One random function AST (JSON node list) + its NL summary tokens."""
+    labels: List[str] = []
+    child_lists: List[List[int]] = []
+
+    root = _node(labels, child_lists, "nont", "function_definition")
+    verb = VERBS[rng.integers(len(VERBS))]
+    noun = NOUNS[rng.integers(len(NOUNS))]
+    name = _node(labels, child_lists, "nont", "identifier")
+    child_lists[root].append(name)
+    v_tok = _node(labels, child_lists, "idt", verb)
+    child_lists[name].append(v_tok)
+    n_tok = _node(labels, child_lists, "idt", noun)
+    child_lists[v_tok].append(n_tok)  # sub-token chain, as the extractor builds
+
+    params = _node(labels, child_lists, "nont", "parameters")
+    child_lists[root].append(params)
+    for _ in range(rng.integers(0, 3)):
+        p = _node(labels, child_lists, "nont", "identifier")
+        child_lists[params].append(p)
+        t = _node(labels, child_lists, "idt", NOUNS[rng.integers(len(NOUNS))])
+        child_lists[p].append(t)
+
+    body = _node(labels, child_lists, "nont", "block")
+    child_lists[root].append(body)
+    extra_nouns: List[str] = []
+    for _ in range(rng.integers(1, 5)):
+        kind = STMTS[rng.integers(len(STMTS))]
+        st = _node(labels, child_lists, "nont", kind)
+        child_lists[body].append(st)
+        for _ in range(rng.integers(1, 3)):
+            w = NOUNS[rng.integers(len(NOUNS))]
+            extra_nouns.append(w)
+            idn = _node(labels, child_lists, "nont", "identifier")
+            child_lists[st].append(idn)
+            tok = _node(labels, child_lists, "idt", w)
+            child_lists[idn].append(tok)
+
+    ast_json = []
+    for i, lab in enumerate(labels):
+        entry = {"label": lab}
+        if child_lists[i]:
+            entry["children"] = [f"ref:{c + 1}" for c in child_lists[i]]
+        ast_json.append(entry)
+
+    nl = [verb, "the", noun]
+    if extra_nouns:
+        nl += ["using", extra_nouns[0]]
+    return ast_json, nl
+
+
+def grow_ast(ast_json: List[dict], rng: np.random.Generator, num_nodes: int) -> List[dict]:
+    """Append random nodes to a JSON AST until it has ``num_nodes`` (a
+    larger tree is returned as it is): each new node hangs under one of the
+    last few nodes, as in :func:`random_ast`.  The head of the tree, which
+    the summary of :func:`gen_ast_nl` is a function of, stays in place."""
+    out = [dict(entry, children=list(entry.get("children", ()))) for entry in ast_json]
+    for i in range(len(out), num_nodes):
+        parent = int(rng.integers(max(0, i - 6), i))
+        if rng.random() < 0.5:
+            kind, value = "nont", KINDS[rng.integers(len(KINDS))]
+        else:
+            kind, value = "idt", NOUNS[rng.integers(len(NOUNS))]
+        out.append({"label": f"{kind}:{value}:0:0:{i + 1}", "children": []})
+        out[parent]["children"].append(f"ref:{i + 1}")
+    return [e if e["children"] else {"label": e["label"]} for e in out]
+
+
+def make_corpus(
+    data_dir: str,
+    n_train: int = 256,
+    n_dev: int = 64,
+    n_test: int = 64,
+    seed: int = 0,
+    max_ast_len: int = 150,
+    node_range: Optional[Tuple[int, int]] = None,
+) -> str:
+    """Generate + preprocess a corpus under ``data_dir``. Returns ``data_dir``.
+
+    ``node_range=(lo, hi)`` (the port's addition) grows every AST to a node
+    count drawn uniformly from ``[lo, hi]``, so a corpus spreads over the
+    length buckets; without it the files equal the JAX package's."""
+    from csat_tpu_torch.data.preprocess import process_dataset
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("dev", n_dev), ("test", n_test)):
+        d = os.path.join(data_dir, split)
+        os.makedirs(d, exist_ok=True)
+        asts, nls = [], []
+        for _ in range(n):
+            a, nl = gen_ast_nl(rng)
+            if node_range is not None:
+                a = grow_ast(a, rng, int(rng.integers(node_range[0], node_range[1] + 1)))
+            asts.append(json.dumps(a))
+            nls.append(" ".join(nl))
+        with open(os.path.join(d, "ast.original"), "w") as f:
+            f.write("\n".join(asts))
+        with open(os.path.join(d, "nl.original"), "w") as f:
+            f.write("\n".join(nls) + "\n")
+    process_dataset(data_dir, max_ast_len=max_ast_len, make_vocab=True)
+    return data_dir

@@ -23,8 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = [
-    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "build_dir", "check_head_dim", "load_library", "build_all", "kernel",
-    "launch", "launch_counts", "reset_launches",
+    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "build_dir", "check_head_dim",
+    "load_library", "build_all", "kernel", "launch", "launch_counts", "reset_launches",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,6 +45,8 @@ KERNELS: Dict[str, str] = {
     "flex_fwd_sbm_graph": "flex_fwd",
     "flex_bwd_q_sbm_sampled": "flex_bwd",
     "flex_bwd_k_sbm_sampled": "flex_bwd",
+    "flex_bwd_q_sbm_expected": "flex_bwd",
+    "flex_bwd_k_sbm_expected": "flex_bwd",
     "paged_decode": "paged_decode",
 }
 
@@ -56,6 +58,8 @@ REPLACES: Dict[str, str] = {
     "flex_fwd_sbm_graph": "csat_tpu/ops/flex_core.py:304 (_fwd_call, sbm_graph mod)",
     "flex_bwd_q_sbm_sampled": "csat_tpu/ops/flex_core.py:498 (_kernel_bwd_calls q-pass, sbm_sampled mod)",
     "flex_bwd_k_sbm_sampled": "csat_tpu/ops/flex_core.py:519 (_kernel_bwd_calls k-pass, sbm_sampled mod)",
+    "flex_bwd_q_sbm_expected": "csat_tpu/ops/flex_core.py:498 (_kernel_bwd_calls q-pass, sbm_expected mod)",
+    "flex_bwd_k_sbm_expected": "csat_tpu/ops/flex_core.py:519 (_kernel_bwd_calls k-pass, sbm_expected mod)",
     "paged_decode": "csat_tpu/ops/paged_decode.py:237 (_attend_kernel)",
 }
 
@@ -70,6 +74,8 @@ HEAD_DIMS: Dict[str, tuple] = {
     "flex_fwd_sbm_graph": (64, 96),
     "flex_bwd_q_sbm_sampled": (64, 96),
     "flex_bwd_k_sbm_sampled": (64, 96),
+    "flex_bwd_q_sbm_expected": (64, 96),
+    "flex_bwd_k_sbm_expected": (64, 96),
     "paged_decode": (64,),
 }
 
@@ -80,8 +86,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # q k v lq lk rel mask out lse gsum skip | B H N DH R group scale stream
     "flex_fwd_cse": [_P] * 11 + [_I] * 6 + [_F, _P],
-    # q k v r kh pad out lse gsum skip | B H N DH KK floor scale stream
-    "flex_fwd_sbm_expected": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    # q k v r kh pad dseed out lse gsum skip | B H N DH KK stride floor scale
+    # rate keep_scale stream
+    "flex_fwd_sbm_expected": [_P] * 11 + [_I] * 6 + [_F] * 4 + [_P],
     # q k v r kh pad sseed dseed out lse gsum skip | B H N DH KK stride
     # floor scale rate keep_scale stream
     "flex_fwd_sbm_sampled": [_P] * 12 + [_I] * 6 + [_F] * 4 + [_P],
@@ -93,6 +100,9 @@ _ARGTYPES = {
     "flex_bwd_q_sbm_sampled": [_P] * 14 + [_I] * 6 + [_F] * 4 + [_P],
     # ... gs dk dv dkh | (as the q-pass)
     "flex_bwd_k_sbm_sampled": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
+    # the sampled lists without sseed
+    "flex_bwd_q_sbm_expected": [_P] * 13 + [_I] * 6 + [_F] * 4 + [_P],
+    "flex_bwd_k_sbm_expected": [_P] * 14 + [_I] * 6 + [_F] * 4 + [_P],
     # dtype | q pk pv sk sv table mask idx ktok vtok out skip | S H NB page width DH stream
     "paged_decode": [_I] + [_P] * 12 + [_I] * 6 + [_P],
 }

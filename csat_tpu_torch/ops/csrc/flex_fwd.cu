@@ -407,12 +407,17 @@ extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
 
 extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float* v,
                                      const float* r, const float* kh, const float* pad,
-                                     float* out, float* lse, float* gsum_part,
-                                     int32_t* skip_part, int B, int H, int N, int DH,
-                                     int KK, float floor_, float scale, void* stream) {
+                                     const int32_t* dseed, float* out, float* lse,
+                                     float* gsum_part, int32_t* skip_part, int B, int H,
+                                     int N, int DH, int KK, int stride, float floor_,
+                                     float scale, float rate, float keep_scale,
+                                     void* stream) {
   if (KK < 1 || KK > KKMAX) return -3;
+  if (rate > 0.f && dseed == nullptr) return -4;
   Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
-  p.r = r; p.kh = kh; p.pad = pad; p.kk = KK; p.floor_ = floor_;
+  p.r = r; p.kh = kh; p.pad = pad; p.dseed = dseed; p.kk = KK;
+  p.stride = (uint32_t)stride; p.floor_ = floor_;
+  p.rate = rate; p.keep_scale = keep_scale;
   return dispatch<MOD_SBM_EXPECTED>(DH, p, (cudaStream_t)stream);
 }
 

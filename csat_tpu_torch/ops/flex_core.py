@@ -11,11 +11,12 @@ before ·V (the normalizer and ``lse`` stay pre-dropout).
 :func:`flex_attention` is the one entry point: for CUDA tensors it runs the
 hand-written Hopper kernels inside one ``torch.autograd.Function`` — the
 forward ``csrc/flex_fwd.cu`` (``flex_fwd_{cse,sbm_expected,sbm_sampled,
-sbm_graph}``) and, for the sampled SBM mod, the two-pass backward
-``csrc/flex_bwd.cu`` (``flex_bwd_q_sbm_sampled``: dq, dR over k-tiles;
-``flex_bwd_k_sbm_sampled``: dk, dv, dK̂ over q-tiles).  The other mods'
-backward is the autograd of :func:`flex_reference` recomputed from the saved
-inputs, as the JAX package's reference backward is.  For CPU tensors it
+sbm_graph}``) and, for the sampled and the expected SBM mods, the two-pass
+backward ``csrc/flex_bwd.cu`` (``flex_bwd_q_sbm_{sampled,expected}``: dq, dR
+over k-tiles; ``flex_bwd_k_sbm_{sampled,expected}``: dk, dv, dK̂ over
+q-tiles).  The CSE and graph mods' backward is the autograd of
+:func:`flex_reference` recomputed from the saved inputs, as the JAX package's
+reference backward is.  For CPU tensors it
 evaluates :func:`flex_reference`, the plain PyTorch composition of the same
 mod definitions, under plain autograd.  Anything else raises.
 
@@ -79,12 +80,21 @@ def select_impl(x: torch.Tensor) -> str:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
-def _finalize(s: torch.Tensor, w: torch.Tensor):
+def _finalize(s: torch.Tensor, w: torch.Tensor, exact_ratio: bool = False):
     """Weighted-softmax-cancelled normalization over the last axis (the
     JAX ``_finalize``, ``flex_core.py:148-177``).  The exp is guarded on its
     input: dead entries exponentiate 0, never ``s + 1e30``.  Rows with no
     live weight come out exactly 0.  Returns ``(attn, lse, ratio)`` with
-    ``ratio = e^{s - lse}``, the weight gradient's factor."""
+    ``ratio = e^{s - lse}``, the weight gradient's factor
+    (``∂attn_ij/∂w_ik = e^{s_ik - lse_i}(δ_jk − attn_ij)``, whatever ``w_ik``).
+
+    At an entry whose weight is 0 the guarded ``ratio`` is ``1 / l``, not
+    that derivative.  The STE and pad gates zero it there, so most mods never
+    see the difference.  With ``exact_ratio`` those entries get the
+    derivative itself, ``exp(min(s - lse, 80))`` in a row that has live
+    weight and 0 in a row that has none (a row that is identically 0 passes
+    nothing back), as ``csrc/flex_bwd.cu`` and JAX's ``_bwd_tile`` compute
+    it.  A mod asks for it through ``spec.exact_weight_grad``."""
     live_e = w > 0
     m = torch.amax(torch.where(live_e, s, torch.full_like(s, NEG)), dim=-1, keepdim=True)
     eexp = torch.exp(torch.where(live_e, s, m) - m)
@@ -93,18 +103,24 @@ def _finalize(s: torch.Tensor, w: torch.Tensor):
     live = l > 0
     l_safe = torch.where(live, l, torch.ones_like(l))
     lse = torch.where(live, m + torch.log(l_safe), torch.full_like(l, NEG))
-    return e / l_safe, lse, eexp / l_safe
+    ratio = eexp / l_safe
+    if exact_ratio:
+        dead = torch.exp(torch.clamp(s - torch.where(live, lse, torch.zeros_like(lse)),
+                                     max=80.0))
+        ratio = torch.where(live_e, ratio, torch.where(live, dead, torch.zeros_like(dead)))
+    return e / l_safe, lse, ratio
 
 
 class _WeightedSoftmax(torch.autograd.Function):
     """``_finalize`` with the closed-form backward of the JAX package
     (``flex_core.py:195-208``): with ``t = g − Σ attn·g``, ``d_s = attn ⊙ t``
     and ``d_w = ratio ⊙ t`` (summed over the axes ``w`` broadcasts along).
-    Returns ``(attn, lse)``; ``lse`` carries no gradient."""
+    ``exact_ratio`` picks ``d_w``'s factor at weight-0 entries (see
+    :func:`_finalize`).  Returns ``(attn, lse)``; ``lse`` carries no gradient."""
 
     @staticmethod
-    def forward(ctx, s, w):
-        attn, lse, ratio = _finalize(s, w)
+    def forward(ctx, s, w, exact_ratio: bool = False):
+        attn, lse, ratio = _finalize(s, w, exact_ratio and ctx.needs_input_grad[1])
         ctx.save_for_backward(attn, ratio)
         ctx.w_shape = w.shape
         ctx.mark_non_differentiable(lse)
@@ -121,7 +137,7 @@ class _WeightedSoftmax(torch.autograd.Function):
                          if b == 1 and a != 1)
             if axes:
                 d_w = torch.sum(d_w, dim=axes, keepdim=True)
-        return attn * t, d_w
+        return attn * t, d_w, None
 
 
 def keep_field(seed, b: int, h: int, n: int, stride: int, rate: float, device=None):
@@ -143,7 +159,7 @@ def flex_reference(q, k, v, spec, aux, dropout_rate: float = 0.0,
     s = torch.einsum("bhnd,bhmd->bhnm", q, k) * spec.scale(dh)
     w_raw, w_eff = spec.full_weight(q, k, aux)
     s = spec.full_score(s, q, k, aux)
-    attn, lse = _WeightedSoftmax.apply(s, w_eff)
+    attn, lse = _WeightedSoftmax.apply(s, w_eff, spec.exact_weight_grad)
     gsum = torch.sum(torch.broadcast_to(w_raw, s.shape), dim=(2, 3))
     if dropout_rate > 0.0:
         attn = attn * keep_field(dropout_seed, b, h, n, spec.stride, dropout_rate, q.device)
@@ -213,7 +229,7 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
     tail = [outs[key].data_ptr() for key in ("out", "lse", "gsum", "skip")]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     qkv = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-    if rate > 0.0 and not isinstance(spec, (SBMSampledSpec, SBMGraphSpec)):
+    if rate > 0.0 and isinstance(spec, CSESpec):  # the CSE layers never pass a rate
         raise NotImplementedError(f"no attention-dropout kernel for mod {spec.name!r}")
     dptr, rate, keep_scale = _dropout_args(q, rate, dseed)
     if isinstance(spec, CSESpec):
@@ -227,8 +243,8 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
                 b, h, n, dh, spec.r_len, spec.group, spec.scale(dh), stream]
     elif isinstance(spec, SBMExpectedSpec):
         fn = "flex_fwd_sbm_expected"
-        args = [*qkv, *_sbm_factor_args(spec, aux, b, h, n), *tail, b, h, n, dh, spec.kk,
-                spec.floor, spec.scale(dh), stream]
+        args = [*qkv, *_sbm_factor_args(spec, aux, b, h, n), dptr, *tail, b, h, n, dh,
+                spec.kk, spec.stride, spec.floor, spec.scale(dh), rate, keep_scale, stream]
     elif isinstance(spec, SBMSampledSpec):
         check_cuda("sample_seed", aux[3], torch.int32, (1,))
         fn = "flex_fwd_sbm_sampled"
@@ -249,31 +265,35 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
 
 
 def bwd_kernel_args(spec, q, k, v, aux, lse, dvec, g_out, gs, rate: float = 0.0, dseed=None):
-    """Check the inputs of the two backward launches of the sampled SBM mod
-    and allocate their outputs.  Returns ``(q_args, k_args, grads)`` with
-    ``grads`` = dq, dk, dv (B, H, N, dh), dr, dkh (B, H, N, kk)."""
-    if not isinstance(spec, SBMSampledSpec):
+    """Check the inputs of the two backward launches of the sampled or the
+    expected SBM mod and allocate their outputs.  Returns ``(q_fn, q_args,
+    k_fn, k_args, grads)`` with ``grads`` = dq, dk, dv (B, H, N, dh), dr, dkh
+    (B, H, N, kk)."""
+    if not isinstance(spec, (SBMSampledSpec, SBMExpectedSpec)):
         raise NotImplementedError(f"no CUDA backward kernel for mod {spec.name!r}")
+    sampled = isinstance(spec, SBMSampledSpec)
+    q_fn, k_fn = f"flex_bwd_q_{spec.name}", f"flex_bwd_k_{spec.name}"
     b, h, n, dh = q.shape
     for name, t in (("q", q), ("k", k), ("v", v), ("g_out", g_out)):
         check_cuda(name, t, torch.float32, (b, h, n, dh))
     check_cuda("lse", lse, torch.float32, (b, h, n))
     check_cuda("dvec", dvec, torch.float32, (b, h, n))
     check_cuda("gs", gs, torch.float32, (b, h))
-    check_cuda("sample_seed", aux[3], torch.int32, (1,))
-    build.check_head_dim("flex_bwd_q_sbm_sampled", dh)
+    if sampled:
+        check_cuda("sample_seed", aux[3], torch.int32, (1,))
+    build.check_head_dim(q_fn, dh)
     dptr, rate, keep_scale = _dropout_args(q, rate, dseed)
     grads = {"dq": torch.empty_like(q), "dk": torch.empty_like(k), "dv": torch.empty_like(v),
              "dr": torch.empty_like(aux[0]), "dkh": torch.empty_like(aux[1])}
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *_sbm_factor_args(spec, aux, b, h, n),
-            aux[3].data_ptr(), dptr, lse.data_ptr(), dvec.data_ptr(), g_out.data_ptr(),
-            gs.data_ptr()]
+            *([aux[3].data_ptr()] if sampled else []), dptr, lse.data_ptr(),
+            dvec.data_ptr(), g_out.data_ptr(), gs.data_ptr()]
     tail = [b, h, n, dh, spec.kk, spec.stride, spec.floor, spec.scale(dh), rate, keep_scale,
             stream]
     q_args = head + [grads["dq"].data_ptr(), grads["dr"].data_ptr()] + tail
     k_args = head + [grads[key].data_ptr() for key in ("dk", "dv", "dkh")] + tail
-    return q_args, k_args, grads
+    return q_fn, q_args, k_fn, k_args, grads
 
 
 def _kernel_fwd(spec, q, k, v, aux, rate, dseed):
@@ -284,8 +304,9 @@ def _kernel_fwd(spec, q, k, v, aux, rate, dseed):
 
 
 class _FlexKernel(torch.autograd.Function):
-    """The CUDA forward, with the K3/K4 kernel backward for the sampled SBM
-    mod and the recomputed plain backward for every other mod."""
+    """The CUDA forward, with the two-pass kernel backward for the sampled
+    and the expected SBM mods and the recomputed plain backward for the CSE
+    and graph mods."""
 
     @staticmethod
     def forward(ctx, spec, rate, dseed, q, k, v, *aux):
@@ -303,14 +324,14 @@ class _FlexKernel(torch.autograd.Function):
         g_out = torch.zeros_like(out) if g_out is None else g_out.contiguous()
         g_gsum = (torch.zeros((b, h), dtype=torch.float32, device=q.device)
                   if g_gsum is None else g_gsum.contiguous())
-        if isinstance(spec, SBMSampledSpec):
+        if isinstance(spec, (SBMSampledSpec, SBMExpectedSpec)):
             dvec = torch.sum(g_out * out, dim=-1)
-            q_args, k_args, grads = bwd_kernel_args(
+            q_fn, q_args, k_fn, k_args, grads = bwd_kernel_args(
                 spec, q, k, v, aux, lse, dvec, g_out, g_gsum, rate, dseed)
-            build.launch("flex_bwd_q_sbm_sampled", q_args)
-            build.launch("flex_bwd_k_sbm_sampled", k_args)
+            build.launch(q_fn, q_args)
+            build.launch(k_fn, k_args)
             return (None, None, None, grads["dq"], grads["dk"], grads["dv"],
-                    grads["dr"], grads["dkh"], None, None)
+                    grads["dr"], grads["dkh"], *([None] * (len(aux) - 2)))
         # the plain backward, recomputed from the saved inputs
         needs = ctx.needs_input_grad[3:]
         with torch.enable_grad():

@@ -28,7 +28,7 @@ import torch
 from csat_tpu_torch.ops.hashrng import noise_stride, uniform_field
 
 __all__ = ["CSESpec", "SBMExpectedSpec", "SBMSampledSpec", "SBMGraphSpec", "cse_mod",
-           "sbm_expected_mod", "sbm_sampled_mod", "sbm_graph_mod", "exp_adjacency",
+           "sbm_expected_mod", "sbm_sampled_mod", "sbm_graph_mod", "exp_adjacency", "clip",
            "NEG_CSE"]
 
 NEG_CSE = -1e9  # the reference's CSE mask fill for a live (weight 1) entry
@@ -49,6 +49,33 @@ def exp_adjacency(r: torch.Tensor, kh: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+class _Clip(torch.autograd.Function):
+    """``min(max(x, lo), hi)`` with the gradient ``jnp.clip`` has: 1 strictly
+    inside ``(lo, hi)``, 0 outside, and 1/2 where ``x`` equals a bound (JAX
+    splits a tie of ``max``/``min`` evenly; ``torch.clamp`` passes the whole
+    gradient there).  The expected mod's backward kernel applies the same
+    factor, so the plain path and the kernel agree at exact ties."""
+
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
+        hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+        ctx.save_for_backward(x, lo_t, hi_t)
+        return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lo, hi = ctx.saved_tensors
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        tie = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * tie), None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``, its gradient at the bounds included."""
+    return _Clip.apply(x, lo, hi)
+
+
 def _pad_nodes(x: torch.Tensor, n_pad: int, value: float = 0.0) -> torch.Tensor:
     """Pad the node axis (second to last) of a (..., N, kk) factor."""
     return torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[-2]), value=value)
@@ -65,6 +92,7 @@ class CSESpec:
     r_len: int
 
     name = "cse"
+    exact_weight_grad = False  # the weight is the constant 1
 
     @property
     def group(self) -> int:
@@ -97,7 +125,15 @@ class CSESpec:
 
 class _SBMBase:
     """Shared facts of the SBM family: plain ``q·k / sqrt(dh)`` scores and
-    the hash stride of the node count."""
+    the hash stride of the node count.
+
+    ``exact_weight_grad`` says which factor the weighted softmax's backward
+    takes for ``∂/∂w`` at an entry whose weight is 0
+    (``flex_core._finalize``).  A mod whose own gates zero the gradient there
+    (the STE's ``A · g``, the pad gate) leaves it False; a mod that can pass
+    gradient into a weight of exactly 0 sets it."""
+
+    exact_weight_grad = False
 
     def scale(self, dh: int) -> float:
         return 1.0 / math.sqrt(dh)
@@ -121,10 +157,12 @@ class SBMExpectedSpec(_SBMBase):
     floor: float
 
     name = "sbm_expected"
+    # at floor == 0 an entry with R·K̂ᵀ == 0 has weight 0 and a half-open clip
+    exact_weight_grad = True
 
     def full_weight(self, q, k, aux):
         r, kh, padf = aux
-        w_raw = torch.clamp(exp_adjacency(r, kh), self.floor, 0.99)
+        w_raw = clip(exp_adjacency(r, kh), self.floor, 0.99)
         return w_raw, w_raw * (1.0 - padf)[:, None, None, :]
 
     def full_weight_padded(self, aux, b: int, h: int, n_pad: int):

@@ -1,19 +1,29 @@
-"""The in-step non-finite guard.
+"""The in-step non-finite guard and the rollback snapshots.
 
-Counterpart of the JAX package's ``resilience/guards.py:guarded_apply``: the
-optimizer update runs only when the loss and the global gradient norm are
-finite, so one NaN/Inf step leaves parameters and moments untouched and the
-consecutive-bad counter rises.  JAX decides on the device under
-``lax.cond``; here the verdict is read on the host, one sync per step.
+Counterpart of the JAX package's ``resilience/guards.py``.
+:func:`guarded_apply`: the optimizer update runs only when the loss and the
+global gradient norm are finite, so one NaN/Inf step leaves parameters and
+moments untouched and the consecutive-bad counter rises.  JAX decides on the
+device under ``lax.cond``; here the verdict is read on the host, one sync per
+step.  :func:`host_snapshot` / :func:`restore_snapshot`: a host copy of the
+whole train state (parameters, AdamW moments, step, the noise generator's
+state) that the trainer rolls back to after consecutive guarded steps; a
+run whose rollbacks are exhausted raises :class:`TrainingDivergedError`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["global_norm", "guarded_apply"]
+__all__ = ["TrainingDivergedError", "global_norm", "guarded_apply", "HostSnapshot",
+           "host_snapshot", "restore_snapshot"]
+
+
+class TrainingDivergedError(RuntimeError):
+    """Raised when rollback retries are exhausted: the run cannot make
+    progress and continuing would only burn accelerator time."""
 
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -32,3 +42,47 @@ def guarded_apply(optimizer, params: Dict[str, torch.Tensor], grads: Dict[str, t
     if ok:
         optimizer.update(params, grads, opt_state)
     return ok, gnorm, 0 if ok else bad_steps + 1
+
+
+class HostSnapshot(NamedTuple):
+    """Host copy of a train state; the step's in-place updates cannot reach it."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    gen_state: torch.Tensor
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+
+
+def host_snapshot(state) -> HostSnapshot:
+    """Detach ``state`` (a ``train.state.TrainState``) to CPU copies."""
+    opt = state.opt_state
+    return HostSnapshot(step=int(state.step), params=_to_host(state.params), count=int(opt.count),
+                        mu=_to_host(opt.mu), nu=_to_host(opt.nu),
+                        gen_state=state.generator.get_state().clone())
+
+
+@torch.no_grad()
+def restore_snapshot(snap: HostSnapshot, state, resplit: int = 0):
+    """Write ``snap`` back into ``state`` in place (the parameters are the
+    model's own tensors) and return it.  ``resplit > 0`` reseeds the noise
+    generator from its seed and the rollback ordinal, so a retry after a
+    rollback draws a different Bernoulli graph / dropout path: replaying the
+    trajectory that just diverged would diverge again at the same step."""
+    for k, p in state.params.items():
+        p.copy_(snap.params[k])
+    for k in state.opt_state.mu:
+        state.opt_state.mu[k].copy_(snap.mu[k])
+        state.opt_state.nu[k].copy_(snap.nu[k])
+    state.opt_state.count = snap.count
+    state.step = snap.step
+    state.generator.set_state(snap.gen_state)
+    if resplit:
+        seed = (state.generator.initial_seed() + (0x5E511 + resplit) * 0x9E3779B97F4A7C15)
+        state.generator.manual_seed(seed % (1 << 63))
+    return state

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the serving kernels (K1, K2, K5) and the training kernels (K6, K7 forward
-with dropout, K3/K4 backward) at the training shape and at ragged shapes.
+with dropout, K3/K4 backward, K8/K9 expected-graph backward with clip ties
+and whole padded key tiles) at the training shape and at ragged shapes.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use), so
 they carry the ``cuda`` marker and skip elsewhere; run them on a GPU machine
@@ -249,6 +250,77 @@ def test_kernel_backward_adds_graph_sum_cotangent_on_dead_tiles(dev):
     for a, w in zip(*outs):
         assert a[:, :, 64:].abs().sum() > 0
         torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def _expected_case(b, n, dh, dev, floor, variant, seed=2, h=4, kk=10):
+    """Leaves (q, k, v, R, K̂) and the key-pad mask of an expected-mod call.
+    ``ties``: exact ties of R·K̂ᵀ at both clip bounds (0.99, and ``floor``)
+    and at 0; ``padded_tile``: every key from 60 on is padding in row 0, so
+    k-tiles 1.. are dead there."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
+    r = torch.sigmoid(2 * rnd(b, h, n, kk)) * 0.25
+    kh = torch.sigmoid(2 * rnd(b, h, n, kk))
+    pad = torch.zeros((b, n), dtype=torch.bool)
+    for i in range(1, b):
+        pad[i, max(1, n - 1 - (i * 37) % n):] = True
+    if variant == "ties":
+        kh[:, :, 3] = 0.0                       # column 3: R·K̂ᵀ == 0 on every row
+        kh[:, :, 5] = 0.0
+        kh[:, :, 5, 0] = 1.0                    # column 5: R·K̂ᵀ == R[..., 0]
+        r[:, :, 7] = 0.0
+        r[:, :, 7, 0] = 0.99                    # (7, 5) == .99
+        r[:, :, 8] = 0.0
+        r[:, :, 8, 0] = floor                   # (8, 5) == floor
+        r[:, :, 9] = 0.0                        # row 9: all 0 (dead at floor 0)
+    if variant == "padded_tile":
+        pad[0, 60:] = True
+    return [t.to(dev) for t in (q, k, v, r, kh)], pad.to(dev)
+
+
+@pytest.mark.parametrize("b,n,dh,rate,floor,variant", [
+    (64, 150, 64, RATE, 0.01, "plain"), (64, 150, 64, 0.0, 0.01, "plain"),
+    (3, 37, 64, RATE, 0.01, "plain"), (3, 75, 64, 0.0, 0.01, "ties"),
+    (2, 130, 96, RATE, 0.01, "ties"), (2, 150, 64, RATE, 0.0, "ties"),
+    (2, 150, 64, RATE, 0.01, "padded_tile"), (2, 150, 64, 0.0, 0.0, "padded_tile")])
+def test_sbm_expected_backward_matches_plain(dev, b, n, dh, rate, floor, variant):
+    """K8/K9 (and K2 with dropout) against the plain recomputed backward;
+    atol and rtol 1e-4 as K3/K4: summation order over N keys."""
+    from csat_tpu_torch.ops import build, flex_core
+    from csat_tpu_torch.ops.mods import SBMExpectedSpec, exp_adjacency
+
+    leaves0, pad = _expected_case(b, n, dh, dev, floor, variant)
+    h, kk = leaves0[3].shape[1], leaves0[3].shape[3]
+    spec = SBMExpectedSpec(n=n, heads=h, kk=kk, floor=floor)
+    dseed = torch.tensor([778], dtype=torch.int32, device=dev)
+    go = torch.randn(leaves0[0].shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    if variant == "ties":
+        ea = exp_adjacency(leaves0[3], leaves0[4])
+        assert (ea == 0.99).any() and (ea == torch.tensor(floor, device=dev)).any()
+        assert (ea == 0).any()
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in leaves0]
+        out, ex = fn(*leaves[:3], spec, (leaves[3], leaves[4], pad.float()), rate, dseed)
+        loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
+        return out.detach(), ex, torch.autograd.grad(loss, leaves)
+
+    before = build.launch_counts()
+    out, ex, got = grads(flex_core.flex_attention)
+    ref, rex, want = grads(flex_core.flex_reference)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    for fn in ("flex_fwd_sbm_expected", "flex_bwd_q_sbm_expected", "flex_bwd_k_sbm_expected"):
+        assert after[fn] == before[fn] + 1, fn
+    torch.testing.assert_close(out, ref, atol=SBM_TOL, rtol=0)
+    torch.testing.assert_close(ex["graph_sum"], rex["graph_sum"], rtol=1e-5, atol=1e-3)
+    if variant == "padded_tile":
+        assert ex["skipped_blocks"][0].min() >= 2 * 3   # k-tiles 1, 2 × 3 q-tiles
+        assert got[4][0, :, 64:].abs().sum() > 0        # gs still reaches dK̂ there
+    for name, a, w in zip(("q", "k", "v", "r", "k_hat"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL, msg=name)
 
 
 def test_mod_without_a_kernel_raises_on_the_card(dev):

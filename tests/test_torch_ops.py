@@ -6,6 +6,12 @@
   kernel-vs-reference gate is 2e-6 (tests/test_ops.py); the margin covers
   torch's CPU summation order.  ``reference_block_skip`` at block 128 equals
   JAX's oracle and the JAX kernel's realized count.
+* the expected mod's backward (the plain version of the ``flex_bwd_*_sbm_expected``
+  kernels): dq, dk, dv, dR, dK̂ within 3e-5 of ``jax.grad`` through JAX's
+  kernel backward (``bwd="kernel"``, interpret mode), at attention dropout 0
+  and 0.2, with padded keys, and with exact ties of R·K̂ᵀ at both clip bounds
+  (``jnp.clip`` passes half the gradient at a tie; ``torch.clamp`` would pass
+  all of it).
 * paged decode attention, self and cross: within 1e-6 on live rows at f32
   storage and 1e-5 at bf16/int8, skip counts exactly equal, and ``quantize_kv``
   int8 values and scales bit-equal (round half to even).
@@ -115,6 +121,114 @@ def test_sbm_block_skip_at_kernel_block_counts_padding():
     assert tfc.num_blocks(n) == 4
 
 
+def _expected_bwd_inputs(n, seed, ties, floor, b=2, h=3, dh=16, kk=4):
+    rng = np.random.default_rng(seed)
+    q, k, v = (0.5 * rng.standard_normal((b, h, n, dh)).astype(np.float32) for _ in range(3))
+    r = (rng.random((b, h, n, kk)) * 0.6).astype(np.float32)
+    kh = (rng.random((b, h, n, kk)) * 0.8).astype(np.float32)
+    key_pad = np.zeros((b, n), bool)
+    key_pad[1, n // 2:] = True
+    if ties:
+        kh[:, :, 3] = 0.0           # column 3: R·K̂ᵀ == 0 on every row
+        kh[:, :, 5] = 0.0
+        kh[:, :, 5, 0] = 1.0        # column 5: R·K̂ᵀ == R[..., 0]
+        r[:, :, 7] = 0.0
+        r[:, :, 7, 0] = 0.99        # entry (7, 5) == .99, the upper bound
+        r[:, :, 8] = 0.0
+        r[:, :, 8, 0] = floor       # entry (8, 5) == floor, the lower bound
+        r[:, :, 9] = 0.0            # row 9 all 0: a dead row when floor is 0
+    go = rng.standard_normal((b, h, n, dh)).astype(np.float32)
+    return dict(q=q, k=k, v=v, r=r, kh=kh), key_pad, go
+
+
+def test_clip_gradient_at_ties_matches_jax():
+    """Half the gradient where x equals a bound, as ``jnp.clip`` gives."""
+    import jax
+
+    from csat_tpu_torch.ops.mods import clip
+
+    x = np.asarray([-1.0, 0.0, 0.005, 0.01, 0.5, 0.99, 1.5], np.float32)
+    for lo in (0.0, 0.01):
+        want = jax.grad(lambda a: jnp.sum(3.0 * jnp.clip(a, lo, 0.99)))(jnp.asarray(x))
+        xt = _t(x).requires_grad_()
+        (3.0 * clip(xt, lo, 0.99)).sum().backward()
+        np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(clip(xt, lo, 0.99).detach().numpy(),
+                                      np.asarray(jnp.clip(jnp.asarray(x), lo, 0.99)))
+    assert xt.grad.tolist() == [0.0, 0.0, 0.0, 1.5, 3.0, 1.5, 0.0]
+
+
+@pytest.mark.parametrize("n,rate,floor,ties", [
+    (70, 0.0, 0.01, False), (140, 0.2, 0.01, False), (70, 0.2, 0.01, True),
+    (70, 0.0, 0.0, True), (140, 0.2, 0.0, True)])
+def test_expected_backward_matches_jax_kernel(n, rate, floor, ties):
+    import jax
+
+    from csat_tpu.ops import flex_core as jfc
+    from csat_tpu.ops import mods as jmods
+    from csat_tpu_torch.ops import flex_core as tfc
+    from csat_tpu_torch.ops import mods as tmods
+
+    le, key_pad, go = _expected_bwd_inputs(n, seed=n, ties=ties, floor=floor)
+    h, kk = le["r"].shape[1], le["r"].shape[3]
+    eye = np.broadcast_to(np.eye(kk, dtype=np.float32), (h, kk, kk)).copy()  # R = Q̂
+
+    def jloss(l):
+        spec, aux = jmods.sbm_expected_mod(l["r"], l["kh"], jnp.asarray(eye),
+                                           jnp.asarray(key_pad), floor=floor)
+        out, ex = jfc.flex_attention(l["q"], l["k"], l["v"], spec, aux, rate,
+                                     jnp.int32(777), bwd="kernel")
+        return jnp.sum(out * go) + 1e-3 * jnp.sum(ex["graph_sum"]), out
+
+    (_, j_out), j_grads = jax.value_and_grad(jloss, has_aux=True)(
+        {key: jnp.asarray(val) for key, val in le.items()})
+    leaves = {key: _t(val).requires_grad_() for key, val in le.items()}
+    spec, aux = tmods.sbm_expected_mod(leaves["r"], leaves["kh"], _t(eye), _t(key_pad),
+                                       floor=floor)
+    out, ex = tfc.flex_attention(leaves["q"], leaves["k"], leaves["v"], spec, aux, rate,
+                                 torch.tensor([777], dtype=torch.int32))
+    (torch.sum(out * _t(go)) + 1e-3 * torch.sum(ex["graph_sum"])).backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=1e-5, rtol=0)
+    if ties:
+        ea = tmods.exp_adjacency(leaves["r"], leaves["kh"]).detach()
+        assert (ea == 0.99).any() and (ea == np.float32(floor)).any() and (ea == 0).any()
+    for key in le:
+        assert np.abs(np.asarray(j_grads[key])).max() > 1e-3, key
+        np.testing.assert_allclose(leaves[key].grad.numpy(), np.asarray(j_grads[key]),
+                                   atol=3e-5, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("floor", [0.01, 0.0])
+def test_expected_backward_matches_closed_form_at_ties(floor):
+    """The plain backward against the smoke script's float64 closed form,
+    which is written from the mod's definition and shares no code with
+    ``flex_reference``: at ``floor == 0`` a tie at the lower bound is a
+    weight of exactly 0 whose gradient factor is ``e^{s - lse}``."""
+    import chip_smoke
+
+    from csat_tpu_torch.ops import flex_core as tfc
+    from csat_tpu_torch.ops import mods as tmods
+
+    le, key_pad, go = _expected_bwd_inputs(70, seed=9, ties=True, floor=floor)
+    h, kk = le["r"].shape[1], le["r"].shape[3]
+    eye = _t(np.broadcast_to(np.eye(kk, dtype=np.float32), (h, kk, kk)).copy())
+    leaves = {key: _t(val).requires_grad_() for key, val in le.items()}
+    spec, aux = tmods.sbm_expected_mod(leaves["r"], leaves["kh"], eye, _t(key_pad), floor=floor)
+    out, ex = tfc.flex_attention(leaves["q"], leaves["k"], leaves["v"], spec, aux)
+    (torch.sum(out * _t(go)) + 1e-3 * torch.sum(ex["graph_sum"])).backward()
+    with torch.no_grad():
+        closed = chip_smoke.expected_closed_form(
+            leaves["q"], leaves["k"], leaves["v"], aux, floor, _t(go), 1e-3)
+    live = closed["live_rows"]
+    assert bool((~live).any()) == (floor == 0.0)  # row 9 is dead only at floor 0
+    np.testing.assert_allclose(out.detach()[live].numpy(), closed["out"][live].numpy(), atol=1e-5)
+    np.testing.assert_allclose(ex["lse"][live].numpy(), closed["lse"][live].numpy(), atol=1e-5)
+    for key, name in (("q", "dq"), ("k", "dk"), ("v", "dv"), ("r", "dr"), ("kh", "dkh")):
+        assert closed[name].abs().max() > 1e-3, name
+        np.testing.assert_allclose(leaves[key].grad.numpy(), closed[name].numpy(),
+                                   atol=3e-5, rtol=0, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # paged decode
 # ---------------------------------------------------------------------------
@@ -207,6 +321,8 @@ def test_kernel_head_widths_cover_every_config(name):
               "flex_fwd_sbm_graph": cfg.head_dim,
               "flex_bwd_q_sbm_sampled": cfg.head_dim,
               "flex_bwd_k_sbm_sampled": cfg.head_dim,
+              "flex_bwd_q_sbm_expected": cfg.head_dim,
+              "flex_bwd_k_sbm_expected": cfg.head_dim,
               "paged_decode": cfg.hidden_size // cfg.num_heads}
     assert set(widths) == set(build.KERNELS) == set(build.HEAD_DIMS) == set(build.REPLACES)
     for fn, dh in widths.items():
