@@ -8,13 +8,15 @@ Phases, each printing JSON lines:
 1. ``device``  — the card, as ``nvidia-smi`` names it, with TF32 off;
 2. ``build``   — compiles every CUDA kernel of the serving and training paths
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
-   sm_90a, one process per source, all at once;
+   sm_90a, one process per source, all at once, and counts the tensor-core
+   instructions in the SASS of K1 and K2 (``sass``: none fails the run);
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
    and every bucket of the fit's plan (259×37, 128×75, 64×150), which each
    later phase checks against what it ran: max abs error (with its
    tolerance), exact skip counts, and times (CUDA events, median of several
-   runs; the plan's smaller buckets are checked untimed); every backward
+   runs; at the plan's smaller buckets only K1 and K2 are timed, beside SDPA
+   with the same score bias or weight as an additive float mask); every backward
    check also holds its forward's ``out`` and ``lse``; the expected-graph
    backward also on whole padded key tiles and on inputs with exact ties at
    both clip bounds, at the default floor and at floor 0, and without
@@ -32,7 +34,11 @@ Phases, each printing JSON lines:
    and batch must agree (loss within 1e-5 relative, global grad-norm within
    1e-4 relative; every parameter's max abs gradient error is written out),
    then 8 kernel steps on that batch must stay finite and end below the first
-   step's loss, and one ``noise_mode="shared"`` step runs the graph kernel;
+   step's loss; two backward passes from the same weights, batch and noise
+   must give bit-equal gradients (the same two passes with PyTorch's own
+   backward of the CSE gathers and the embedding lookups, whose sums run in a
+   varying order, are reported beside them, and the step time with each,
+   alternating); one ``noise_mode="shared"`` step runs the graph kernel;
    every training kernel must have launched in the step that uses it;
 6. ``expected_grad`` — the gradient of the same model's deterministic forward
    under ``eval_graph="expected"`` (``nll + sw · sparsity``, batch 64):
@@ -46,8 +52,9 @@ Phases, each printing JSON lines:
    64, validation (greedy decode + BLEU) and a checkpoint each epoch; every
    step finite, the second epoch's mean loss below the first's, at least two
    bucket shapes stepped, the train and eval kernels launched; a second
-   ``Trainer`` restored from the epoch-1 checkpoint must reproduce the next
-   step's loss bit for bit; then ``run_test`` scores BLEU / ROUGE-L / METEOR;
+   ``Trainer`` restored from the epoch-1 checkpoint must reproduce every
+   loss of epoch 2 bit for bit; then ``run_test`` scores BLEU / ROUGE-L /
+   METEOR;
 8. ``kernels`` — one line listing every kernel with its route, source, the
    TPU kernel it replaces, its launches in phases 4-7, its error, times and
    bound.
@@ -80,7 +87,8 @@ REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"  # run reports (ptxas log, profiler trace); in .gitignore
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
-# the tensor cores — the kernels here run f32 SIMT arithmetic.
+# the tensor cores, the rate every kernel's bound is stated at (K1/K2 run
+# their products as 3xTF32 on the tensor cores, the others f32 SIMT).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
@@ -179,6 +187,26 @@ def build_phase() -> None:
     for fn in build.KERNELS:
         build.kernel(fn)  # load and bind every entry point
     emit("build", seconds=seconds, libraries=sorted(build.SOURCES), kernels=sorted(build.KERNELS))
+    counts = tensor_core_instructions(build.library_path("flex_fwd_tc"))
+    emit("sass", library="flex_fwd_tc", tensor_core_instructions=counts)
+    if len(counts) < 3 or not all(counts.values()):  # K1 at dh 64, K2 at dh 64 and 96
+        raise AssertionError(f"K1/K2 were built without tensor-core instructions: {counts}")
+
+
+def tensor_core_instructions(lib: Path) -> dict:
+    """Tensor-core instructions (``HMMA``/``HGMMA``) per kernel function in
+    the SASS of a built library, as ``cuobjdump -sass`` lists it."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +252,19 @@ def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: flo
             graph = (torch.rand((b, h, n, n), generator=gen) < 0.4).float()
             spec, aux = sbm_graph_mod(graph.to(dev), pad.to(dev))
     return q, k, v, spec, aux
+
+
+def cse_bias(q, k, spec, aux):
+    """The CSE mod's additive score bias (B, H, N, N): ``(c2p + p2c) ·
+    scale`` on unmasked entries, -1e9 on masked ones."""
+    from csat_tpu_torch.ops.mods import rel_gather
+
+    lq, lk, rel, mask = aux
+    mask8 = mask.repeat_interleave(spec.group, dim=1)
+    c2p, p2c_t = rel_gather(torch.einsum("bhnd,hrd->bhnr", q, lk),
+                            torch.einsum("bhmd,hrd->bhmr", k, lq), rel)
+    bias = (c2p + p2c_t.transpose(-1, -2)) * spec.scale(q.shape[-1])
+    return torch.where(mask8, torch.full_like(bias, -1e9), bias).contiguous()
 
 
 def _near_draws(q, spec, aux):
@@ -302,6 +343,13 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True) -> dict:
         live = int((~mask).sum()) * spec.group
         empty_rows = int(mask.all(dim=-1).sum()) * spec.group
         flops = live * 8 * dh + empty_rows * n * dh
+        # SDPA with the relative bias as an additive float mask, formed
+        # outside the timing: (c2p + p2c)·scale, and -1e9 where masked (added
+        # to the score where the kernel replaces it: a yardstick of time)
+        with torch.no_grad():
+            bias = cse_bias(q, k, spec, aux)
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=spec.scale(dh)))
     else:
         # q·k and P·V on live-weight entries; for the factor mods R·K̂ on
         # every entry, since graph_sum counts the weight of padded keys too
@@ -632,15 +680,17 @@ def kernel_phase(dev) -> dict:
     # drawn after everything above, so the inputs above stay as they were:
     # K2 at the expected-gradient path's shape, the floor-0 ties, and the
     # shapes of the fit's other buckets (the flagship bucket is above) for
-    # the train kernels (K1, K6, K3, K4) and the eval encoder's (K1, K2),
-    # checked without the timing loops
+    # the train kernels (K1, K6, K3, K4) and the eval encoder's (K1, K2);
+    # K1 and K2 are timed there too, the others checked without the timing
+    # loops
     flex_check("sbm_expected", TRAIN_B, 150, gen, dev)
     bwd_check("sbm_expected", 4, 150, gen, dev, rate=0.0, variant="ties", floor=0.0, timed=False)
     for b, n in plan_shapes():
         if (b, n) == (TRAIN_B, 150):
             continue
-        for mod in ("cse", "sbm_expected", "sbm_sampled"):
-            flex_check(mod, b, n, gen, dev, timed=False)
+        for mod in ("cse", "sbm_expected"):
+            flex_check(mod, b, n, gen, dev)
+        flex_check("sbm_sampled", b, n, gen, dev, timed=False)
         bwd_check("sbm_sampled", b, n, gen, dev, timed=False)
         bwd_check("sbm_expected", b, n, gen, dev, rate=0.0, timed=False)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
@@ -888,6 +938,56 @@ def profile_steps(step, state, batch, n: int = 2) -> dict:
     return _device_summary(prof, wall)
 
 
+def replay_repair(model, cfg, step, state, batch, rounds: int = 3) -> dict:
+    """The fixed-order backward of the CSE gathers (``ops/mods.py:rel_gather``)
+    and of the embedding lookups (``models/components.py:lookup``) against
+    PyTorch's own (``torch.gather``'s ``scatter_add_`` and ``F.embedding``'s
+    backward, which add in a varying order): how many parameters' gradients
+    differ between two backward passes of the model on the same weights,
+    batch and noise, and the train step's time with each, alternating on
+    this card (atomic, fixed, fixed, atomic per round)."""
+    from csat_tpu_torch.models import components
+    from csat_tpu_torch.ops import mods
+    from csat_tpu_torch.train import label_smoothing_loss
+
+    def atomic(c2p_full, p2c_full, rel):
+        rel_h = rel.long().repeat_interleave(c2p_full.shape[1] // rel.shape[1], dim=1)
+        return torch.gather(c2p_full, -1, rel_h), torch.gather(p2c_full, -1, rel_h)
+
+    fixed = (mods.rel_gather, components.lookup)
+    variants = {"fixed": fixed, "atomic": (atomic, torch.nn.functional.embedding)}
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        log_probs, sparsity = model(batch, deterministic=False, gen=gen)
+        total = label_smoothing_loss(log_probs, batch.target, cfg.smoothing) + cfg.sw * sparsity
+        total.backward()
+        return {name: p.grad.clone() for name, p in model.named_parameters()}
+
+    rec = {}
+    times = {name: [] for name in variants}
+    try:
+        for name, fns in variants.items():
+            mods.rel_gather, components.lookup = fns
+            first, second = grads(), grads()
+            rec[f"{name}_params_apart"] = sorted(k for k in first
+                                                 if not torch.equal(first[k], second[k]))
+        for _ in range(rounds):
+            for name in ("atomic", "fixed", "fixed", "atomic"):
+                mods.rel_gather, components.lookup = variants[name]
+                state, _, seconds = timed_step(step, state, batch)
+                times[name].append(seconds)
+    finally:
+        mods.rel_gather, components.lookup = fixed
+    rec.update({f"{name}_step_s": ts for name, ts in times.items()})
+    rec.update({f"{name}_step_s_median": statistics.median(ts) for name, ts in times.items()})
+    if rec["fixed_params_apart"]:
+        raise AssertionError(f"two backward passes differ in {rec['fixed_params_apart']}")
+    return rec
+
+
 def train_phase(profile: bool) -> dict:
     from csat_tpu_torch.configs import get_config
     from csat_tpu_torch.ops import build, flex_core
@@ -946,6 +1046,7 @@ def train_phase(profile: bool) -> dict:
         raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
     _check_launched("train_counter", counts)
     _check_shapes("train_counter", [tuple(batch.src_seq.shape)])
+    repair = replay_repair(model, cfg, step, state, batch)
     trace = profile_steps(step, state, batch) if profile else None
     del model, state, step
 
@@ -977,6 +1078,7 @@ def train_phase(profile: bool) -> dict:
         losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
         launches=counts, launches_per_step={fn: c / n_steps for fn, c in counts.items()},
         shared=dict(loss=float(m_s["loss"]), step_s=shared_s, launches=shared_counts),
+        replay_repair=repair,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
     emit("train", **rec)
     return rec
@@ -1142,10 +1244,12 @@ def fit_phase(profile: bool) -> dict:
         got = hist_b["steps"]
         if not (got and [r["shape"] for r in got] == [r["shape"] for r in want]):
             raise AssertionError("the restored run stepped other batches")
-        if got[0]["loss"] != want[0]["loss"]:
-            raise AssertionError(f"restored loss {got[0]['loss']!r} differs from the "
-                                 f"uninterrupted run's {want[0]['loss']!r}")
-        equal_steps = sum(g["loss"] == w["loss"] for g, w in zip(got, want))
+        # every step of the replayed epoch, not only the first
+        apart = [(i, g["loss"], w["loss"]) for i, (g, w) in enumerate(zip(got, want))
+                 if g["loss"] != w["loss"]]
+        if apart:
+            raise AssertionError(f"the restored run's losses differ from the uninterrupted "
+                                 f"run's (step, restored, uninterrupted): {apart}")
 
         tr.model.load_state_dict(hist["best_params"], strict=True)
         t0 = time.perf_counter()
@@ -1166,7 +1270,7 @@ def fit_phase(profile: bool) -> dict:
             eval_tokens_per_s=eval_tokens / statistics.median(hist["eval_s"]),
             rollbacks=hist["rollbacks"], launches=counts,
             restored_first_loss=got[0]["loss"], uninterrupted_first_loss=want[0]["loss"],
-            restored_steps_bit_equal=[equal_steps, len(want)],
+            restored_steps_bit_equal=[len(want), len(want)],
             test=scores, test_s=test_s, test_tokens=len(sets["test"]) * (cfg.max_tgt_len - 1),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
         emit("fit", **rec)

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = [
-    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "build_dir", "check_head_dim",
+    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "build_dir", "library_path", "check_head_dim",
     "load_library", "build_all", "kernel", "launch", "launch_counts", "reset_launches",
 ]
 
@@ -32,6 +32,7 @@ _REPO = Path(__file__).resolve().parents[2]
 
 #: library name → CUDA source
 SOURCES: Dict[str, Path] = {
+    "flex_fwd_tc": _CSRC / "flex_fwd_tc.cu",
     "flex_fwd": _CSRC / "flex_fwd.cu",
     "flex_bwd": _CSRC / "flex_bwd.cu",
     "paged_decode": _CSRC / "paged_decode.cu",
@@ -39,8 +40,8 @@ SOURCES: Dict[str, Path] = {
 
 #: every kernel of the serving and training paths → the library that holds it
 KERNELS: Dict[str, str] = {
-    "flex_fwd_cse": "flex_fwd",
-    "flex_fwd_sbm_expected": "flex_fwd",
+    "flex_fwd_cse": "flex_fwd_tc",
+    "flex_fwd_sbm_expected": "flex_fwd_tc",
     "flex_fwd_sbm_sampled": "flex_fwd",
     "flex_fwd_sbm_graph": "flex_fwd",
     "flex_bwd_q_sbm_sampled": "flex_bwd",
@@ -124,7 +125,8 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where library ``name`` is built (it exists after :func:`build_all`)."""
     headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
         SOURCES[name].read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
@@ -136,14 +138,14 @@ def build_all(names: Optional[List[str]] = None) -> float:
     """Compile every missing library in parallel; returns wall seconds.
     Raises with the compiler's output when a build fails."""
     names = list(SOURCES) if names is None else names
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     t0 = time.perf_counter()
     if todo:
         build_dir().mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
         for n in todo:
-            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
             procs[n] = (tmp, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -154,7 +156,7 @@ def build_all(names: Optional[List[str]] = None) -> float:
             if proc.returncode != 0:
                 failed.append(f"{n}:\n{out}")
             else:
-                os.replace(tmp, _lib_path(n))
+                os.replace(tmp, library_path(n))
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -164,7 +166,7 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         for fn, lib_name in KERNELS.items():
             if lib_name == name:
                 getattr(lib, fn).argtypes = _ARGTYPES[fn]

@@ -10,8 +10,9 @@ with the score ``s`` and the weight ``w`` defined by a mod
 before ·V (the normalizer and ``lse`` stay pre-dropout).
 :func:`flex_attention` is the one entry point: for CUDA tensors it runs the
 hand-written Hopper kernels inside one ``torch.autograd.Function`` — the
-forward ``csrc/flex_fwd.cu`` (``flex_fwd_{cse,sbm_expected,sbm_sampled,
-sbm_graph}``) and, for the sampled and the expected SBM mods, the two-pass
+forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_{cse,sbm_expected}``, tensor
+cores) or ``csrc/flex_fwd.cu`` (``flex_fwd_{sbm_sampled,sbm_graph}``) and,
+for the sampled and the expected SBM mods, the two-pass
 backward ``csrc/flex_bwd.cu`` (``flex_bwd_q_sbm_{sampled,expected}``: dq, dR
 over k-tiles; ``flex_bwd_k_sbm_{sampled,expected}``: dk, dv, dK̂ over
 q-tiles).  The CSE and graph mods' backward is the autograd of
@@ -20,7 +21,7 @@ reference backward is.  For CPU tensors it
 evaluates :func:`flex_reference`, the plain PyTorch composition of the same
 mod definitions, under plain autograd.  Anything else raises.
 
-The kernels tile the node axis in blocks of :data:`FLEX_BLOCK` = 64 (the TPU
+The kernels count dead tiles in blocks of :data:`FLEX_BLOCK` = 64 (the TPU
 kernels used 128) and stream key tiles with online max/sum statistics, so
 they agree with the plain path to rounding, not bitwise; ``skipped_blocks``
 counts dead (q-tile, k-tile) pairs at the kernels' block size and equals
@@ -44,7 +45,7 @@ __all__ = [
     "bwd_kernel_args", "keep_field",
 ]
 
-FLEX_BLOCK = 64  # the CUDA kernels' q-tile and k-tile (csrc/flex_{fwd,bwd}.cu BM/BN)
+FLEX_BLOCK = 64  # the CUDA kernels' q-tile and k-tile (csrc/flex_{fwd,fwd_tc,bwd}.cu BM/BN)
 NEG = -1e30      # masked-max sentinel of a row that has seen no live weight
 
 

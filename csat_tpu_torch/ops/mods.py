@@ -9,7 +9,8 @@ Torch counterparts of the JAX package's ``ops/mods.py``: ``CSESpec`` +
 it over whole arrays (the plain path,
 :func:`~csat_tpu_torch.ops.flex_core.flex_reference`), ``full_weight_padded``
 gives the weight field on a padded geometry (the block-skip oracle).  The
-CUDA kernels (``csrc/flex_fwd.cu``, ``csrc/flex_bwd.cu``) compute the same
+CUDA kernels (``csrc/flex_fwd_tc.cu``, ``csrc/flex_fwd.cu``,
+``csrc/flex_bwd.cu``) compute the same
 definitions tile by tile.
 
 The SBM adjacency ``expA = R K̂ᵀ`` (``R = Q̂ S``) is summed one cluster at a
@@ -29,7 +30,7 @@ from csat_tpu_torch.ops.hashrng import noise_stride, uniform_field
 
 __all__ = ["CSESpec", "SBMExpectedSpec", "SBMSampledSpec", "SBMGraphSpec", "cse_mod",
            "sbm_expected_mod", "sbm_sampled_mod", "sbm_graph_mod", "exp_adjacency", "clip",
-           "NEG_CSE"]
+           "rel_gather", "NEG_CSE"]
 
 NEG_CSE = -1e9  # the reference's CSE mask fill for a live (weight 1) entry
 
@@ -76,6 +77,49 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return _Clip.apply(x, lo, hi)
 
 
+class _RelGather(torch.autograd.Function):
+    """The CSE mod's two table gathers, ``x[b, h, i, rel[b, h // group, i,
+    j]]`` for ``x`` = c2p_full and p2c_full (B, H, N, R), with a backward
+    that adds the cotangents landing on one table entry in a fixed order.
+    ``torch.gather``'s own backward on the card is ``scatter_add_``, which
+    adds them with atomics in an order that changes from run to run, so two
+    backward passes on the same inputs differ in the last bits.  Here one
+    ``index_put_`` with ``accumulate=True`` takes both tables and every head
+    of a plane as the columns of one row per (b, plane, i, j) — on the card
+    it sorts the indices (stably) and adds each entry's terms in that
+    order."""
+
+    @staticmethod
+    def forward(ctx, c2p_full, p2c_full, rel):
+        group = c2p_full.shape[1] // rel.shape[1]
+        rel_h = rel.long().repeat_interleave(group, dim=1)
+        ctx.save_for_backward(rel)
+        ctx.shape = c2p_full.shape
+        return torch.gather(c2p_full, -1, rel_h), torch.gather(p2c_full, -1, rel_h)
+
+    @staticmethod
+    def backward(ctx, g_c2p, g_p2c):
+        (rel,) = ctx.saved_tensors
+        b, h, n, r = ctx.shape
+        planes = rel.shape[1]
+        group = h // planes
+        vals = torch.stack((g_c2p, g_p2c), dim=-1).view(b, planes, group, n, n, 2)
+        vals = vals.permute(0, 1, 3, 4, 2, 5).reshape(-1, group * 2)
+        rows = torch.arange(b * planes * n, device=rel.device).mul_(r)
+        idx = (rel.long().view(-1, n) + rows[:, None]).reshape(-1)
+        grad = torch.zeros((b * planes * n * r, group * 2), dtype=vals.dtype, device=vals.device)
+        grad.index_put_((idx,), vals, accumulate=True)
+        grad = grad.view(b, planes, n, r, group, 2).permute(0, 1, 4, 2, 3, 5).reshape(b, h, n, r, 2)
+        return grad[..., 0], grad[..., 1], None
+
+
+def rel_gather(c2p_full: torch.Tensor, p2c_full: torch.Tensor, rel: torch.Tensor):
+    """``(c2p_full[..., rel], p2c_full[..., rel])`` along the last axis,
+    ``rel`` (B, planes, N, N) fanned out to the heads of each plane, with a
+    backward that gives the same bits on every run."""
+    return _RelGather.apply(c2p_full, p2c_full, rel)
+
+
 def _pad_nodes(x: torch.Tensor, n_pad: int, value: float = 0.0) -> torch.Tensor:
     """Pad the node axis (second to last) of a (..., N, kk) factor."""
     return torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[-2]), value=value)
@@ -107,15 +151,13 @@ class CSESpec:
 
     def full_score(self, s, q, k, aux):
         lq, lk, rel, mask = aux
-        rel8 = rel.repeat_interleave(self.group, dim=1).long()    # (B, H, N, N)
         mask8 = mask.repeat_interleave(self.group, dim=1)
         inv = self.scale(q.shape[-1])
         c2p_full = torch.einsum("bhnd,hrd->bhnr", q, lk)          # (B, H, N, R)
-        c2p = torch.gather(c2p_full, 3, rel8)
-        p2c_full = torch.einsum("hrd,bhmd->bhrm", lq, k)          # (B, H, R, N)
-        # p2c[i, j] = (k_j · lq)[rel[j, i]]: the transpose of c2p's index
-        p2c = torch.gather(p2c_full, 2, rel8.transpose(-1, -2))
-        s = s + c2p * inv + p2c * inv
+        p2c_full = torch.einsum("bhmd,hrd->bhmr", k, lq)          # (B, H, N, R)
+        # c2p[i, j] = (q_i · lk)[rel[i, j]]; p2c[i, j] = (k_j · lq)[rel[j, i]]
+        c2p, p2c_t = rel_gather(c2p_full, p2c_full, rel)
+        s = s + c2p * inv + p2c_t.transpose(-1, -2) * inv
         return torch.where(mask8, torch.full_like(s, NEG_CSE), s)
 
     def full_weight_padded(self, aux, b: int, h: int, n_pad: int):

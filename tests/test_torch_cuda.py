@@ -65,6 +65,100 @@ def test_flex_kernel_matches_plain(dev, mod, n, dh):
     assert torch.equal(ex["skipped_blocks"], skips)
 
 
+def _tc_case(mod, b, n, dh, dev, seed):
+    """K1/K2 inputs at the flagship's heads, clusters and table length: per
+    sample, every key real, keys past 64 padded (whole dead key tiles), a
+    third real, or none; CSE also an all-masked row in sample 0."""
+    from csat_tpu_torch.ops.mods import cse_mod, sbm_expected_mod
+
+    g = torch.Generator().manual_seed(seed)
+    h, kk, r_len = 8, 10, 150
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
+    n_real = ([n, min(n, 64), max(1, n // 3), 0] * b)[:b]
+    if mod == "cse":
+        rel = torch.randint(0, r_len, (b, 2, n, n), generator=g)
+        mask = torch.rand((b, 2, n, n), generator=g) < 0.3
+        for i, m in enumerate(n_real):
+            mask[i, :, :, m:] = True
+            mask[i, :, m:, :] = True
+        mask[0, 0, 1, :] = True
+        return q, k, v, *cse_mod(rnd(h, r_len, dh), rnd(h, r_len, dh), rel.to(dev), mask.to(dev))
+    pad = torch.zeros((b, n), dtype=torch.bool)
+    for i, m in enumerate(n_real):
+        pad[i, m:] = True
+    s_aff = torch.softmax(torch.randn(h, kk * kk, generator=g), -1).reshape(h, kk, kk)
+    return q, k, v, *sbm_expected_mod(torch.sigmoid(rnd(b, h, n, kk)),
+                                      torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev), pad.to(dev))
+
+
+# the tensor-core K1/K2 at every bucket length and at serving and training
+# batch sizes; K2 also at the java width (dh 96), with and without dropout
+@pytest.mark.parametrize("mod,b,n,dh,rate", [
+    *[(mod, b, n, 64, 0.0) for mod in ("cse", "sbm_expected") for n in (37, 75, 150)
+      for b in (1, 4, 64)],
+    ("sbm_expected", 4, 150, 96, 0.0), ("sbm_expected", 4, 150, 96, 0.2),
+    ("sbm_expected", 64, 75, 96, 0.2), ("sbm_expected", 64, 150, 64, 0.2)])
+def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
+    from csat_tpu_torch.ops import build, flex_core
+
+    q, k, v, spec, aux = _tc_case(mod, b, n, dh, dev, seed=b * 1000 + n)
+    dseed = torch.tensor([77], dtype=torch.int32, device=dev) if rate else None
+    before = build.launch_counts()[f"flex_fwd_{mod}"]
+    out, ex = flex_core.flex_attention(q, k, v, spec, aux, rate, dseed)
+    ref, rex = flex_core.flex_reference(q, k, v, spec, aux, rate, dseed)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[f"flex_fwd_{mod}"] == before + 1
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(ex["lse"], rex["lse"], atol=2e-5, rtol=0)
+    torch.testing.assert_close(ex["graph_sum"], rex["graph_sum"], rtol=1e-5, atol=1e-3)
+    skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
+    assert torch.equal(ex["skipped_blocks"], skips)
+    if mod == "sbm_expected" and b >= 2 and n > 64:
+        assert skips.sum() > 0  # the sample padded past key 64 skips whole tiles
+    if mod == "cse":  # the all-masked row is uniform over its real columns
+        torch.testing.assert_close(out[0, 0, 1], v[0, 0].mean(dim=0), atol=2e-5, rtol=0)
+
+
+def test_cse_plain_backward_repeats_bit_for_bit(dev):
+    """The CSE mod's backward on the card (the plain path: K1 has no backward
+    kernel) gives the same bits on every run: the relative-table gathers add
+    their cotangents in a fixed order (``ops/mods.py:rel_gather``)."""
+    from csat_tpu_torch.ops import flex_core
+
+    q, k, v, spec, (lq, lk, rel, mask) = _tc_case("cse", 16, 150, 64, dev, seed=5)
+    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(dev)
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, lq, lk)]
+        out, _ = flex_core.flex_attention(*leaves[:3], spec, (*leaves[3:], rel, mask))
+        return torch.autograd.grad(torch.sum(out * go), leaves)
+
+    first, second = grads(), grads()
+    for name, a, b in zip(("dq", "dk", "dv", "dlq", "dlk"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_embedding_backward_repeats_bit_for_bit(dev):
+    """A token embedding's backward on the card gives the same bits on every
+    run, also when a small vocabulary repeats indices many times
+    (``models/components.py:lookup``)."""
+    from csat_tpu_torch.models.components import Embeddings
+
+    g = torch.Generator().manual_seed(7)
+    emb = Embeddings(26, 512).to(dev)
+    torch.nn.init.normal_(emb.weight)
+    x = torch.randint(0, 26, (64, 150), generator=g).to(dev)
+    go = torch.randn(64, 150, 512, generator=g).to(dev)
+
+    def grad():
+        emb.zero_grad(set_to_none=True)
+        torch.sum(emb(x) * go).backward()
+        return emb.weight.grad.clone()
+
+    assert torch.equal(grad(), grad())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("side", ["self", "cross"])
 def test_paged_kernel_matches_plain(dev, dtype, side):
