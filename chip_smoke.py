@@ -9,14 +9,15 @@ Phases, each printing JSON lines:
 2. ``build``   — compiles every CUDA kernel of the serving and training paths
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once, and counts the tensor-core
-   instructions in the SASS of K1 and K2 (``sass``: none fails the run);
+   instructions in the SASS of K2 (``sass``: none fails the run);
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
    and every bucket of the fit's plan (259×37, 128×75, 64×150), which each
    later phase checks against what it ran: max abs error (with its
    tolerance), exact skip counts, and times (CUDA events, median of several
    runs; at the plan's smaller buckets only K1 and K2 are timed, beside SDPA
-   with the same score bias or weight as an additive float mask); every backward
+   with the same score bias or weight as an additive float mask; K1 also on
+   the distances and masks of the train phase's batch); every backward
    check also holds its forward's ``out`` and ``lse``; the expected-graph
    backward also on whole padded key tiles and on inputs with exact ties at
    both clip bounds, at the default floor and at floor 0, and without
@@ -35,10 +36,8 @@ Phases, each printing JSON lines:
    1e-4 relative; every parameter's max abs gradient error is written out),
    then 8 kernel steps on that batch must stay finite and end below the first
    step's loss; two backward passes from the same weights, batch and noise
-   must give bit-equal gradients (the same two passes with PyTorch's own
-   backward of the CSE gathers and the embedding lookups, whose sums run in a
-   varying order, are reported beside them, and the step time with each,
-   alternating); one ``noise_mode="shared"`` step runs the graph kernel;
+   must give bit-equal gradients; one ``noise_mode="shared"`` step runs the
+   graph kernel;
    every training kernel must have launched in the step that uses it;
 6. ``expected_grad`` — the gradient of the same model's deterministic forward
    under ``eval_graph="expected"`` (``nll + sw · sparsity``, batch 64):
@@ -86,11 +85,13 @@ import torch
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"  # run reports (ptxas log, profiler trace); in .gitignore
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
-# the tensor cores, the rate every kernel's bound is stated at (K1/K2 run
-# their products as 3xTF32 on the tensor cores, the others f32 SIMT).
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores (the SIMT kernels' rate) and TF32 FLOP/s on them.
+# K2 runs its dot products as 3xTF32, three TF32 products per f32 one, so
+# its bound takes those at a third of the TF32 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_3XTF32_FLOP_S = 495e12 / 3
 
 SEED = 2021
 SRC_VOCAB, TGT_VOCAB = 10000, 20000  # the reference's vocabulary caps
@@ -150,8 +151,11 @@ def cuda_ms(fn, reps: int = 20, trials: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+def bound_ms(n_bytes: float, flops: float, tc_flops: float = 0.0):
+    """The larger of the bytes' time and the operations' time: ``flops`` at
+    the f32 SIMT rate plus ``tc_flops`` at the 3xTF32 tensor-core rate."""
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_F32_FLOP_S + tc_flops / PEAK_3XTF32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -189,8 +193,8 @@ def build_phase() -> None:
     emit("build", seconds=seconds, libraries=sorted(build.SOURCES), kernels=sorted(build.KERNELS))
     counts = tensor_core_instructions(build.library_path("flex_fwd_tc"))
     emit("sass", library="flex_fwd_tc", tensor_core_instructions=counts)
-    if len(counts) < 3 or not all(counts.values()):  # K1 at dh 64, K2 at dh 64 and 96
-        raise AssertionError(f"K1/K2 were built without tensor-core instructions: {counts}")
+    if len(counts) < 2 or not all(counts.values()):  # K2 at dh 64 and 96
+        raise AssertionError(f"K2 was built without tensor-core instructions: {counts}")
 
 
 def tensor_core_instructions(lib: Path) -> dict:
@@ -213,7 +217,8 @@ def tensor_core_instructions(lib: Path) -> dict:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: float = 0.01):
+def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: float = 0.01,
+                 rel_mask=None):
     from csat_tpu_torch.ops.mods import (
         cse_mod, sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod)
 
@@ -224,7 +229,10 @@ def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: flo
     # 64-key tiles padded, which the SBM kernels skip
     n_real = [n, n - 3, n // 2, n // 5, n - 1, n // 3, 2 * n // 3, max(1, n // 10)]
     n_real = (n_real * -(-b // len(n_real)))[:b]
-    if mod == "cse":
+    if mod == "cse" and rel_mask is not None:  # a real batch's distances and masks
+        rel, mask = rel_mask
+        spec, aux = cse_mod(rnd(h, r_len, dh), rnd(h, r_len, dh), rel, mask)
+    elif mod == "cse":
         rel = torch.randint(0, r_len, (b, 2, n, n), generator=gen)  # not symmetric
         mask = torch.rand((b, 2, n, n), generator=gen) < 0.3
         for i, m in enumerate(n_real):
@@ -283,13 +291,14 @@ def _near_draws(q, spec, aux):
     return (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
 
 
-def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True) -> dict:
+def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=None) -> dict:
     """One forward kernel against its plain version at (B, N); ``timed``
     adds the times and the bound (left out for shapes checked for
-    correctness only)."""
+    correctness only); ``rel_mask`` gives K1 a real batch's distances and
+    masks in place of random ones."""
     from csat_tpu_torch.ops import build, flex_core
 
-    q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev)
+    q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask)
     train = mod in ("sbm_sampled", "sbm_graph")
     rate = RATE if train else 0.0
     dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if train else None
@@ -342,7 +351,7 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True) -> dict:
         # P·V, unless its whole row is masked: that row is the mean of V
         live = int((~mask).sum()) * spec.group
         empty_rows = int(mask.all(dim=-1).sum()) * spec.group
-        flops = live * 8 * dh + empty_rows * n * dh
+        simt_flops, tc_flops = live * 8 * dh + empty_rows * n * dh, 0
         # SDPA with the relative bias as an additive float mask, formed
         # outside the timing: (c2p + p2c)·scale, and -1e9 where masked (added
         # to the score where the kernel replaces it: a yardstick of time)
@@ -358,9 +367,11 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True) -> dict:
             _, w_eff = spec.full_weight(q, k, aux)
         w_eff = torch.broadcast_to(w_eff, (b, h, n, n))
         live = int((w_eff > 0).sum())
-        flops = live * 4 * dh
+        # K2 runs q·k and P·V on the tensor cores, R·K̂ and K6/K7 on f32 SIMT
+        tc_flops = live * 4 * dh if mod == "sbm_expected" else 0
+        simt_flops = 0 if tc_flops else live * 4 * dh
         if mod != "sbm_graph":
-            flops += b * h * n * n * 2 * spec.kk
+            simt_flops += b * h * n * n * 2 * spec.kk
         if mod != "sbm_sampled":
             # SDPA with an additive log w mask: the same attention (for the
             # graph mod without its dropout: SDPA draws its own dropout bits)
@@ -368,12 +379,13 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True) -> dict:
             library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=logw))
     moved = nbytes(q, k, v, *aux, ex["lse"], out)
-    bound, bound_by = bound_ms(moved, flops)
+    bound, bound_by = bound_ms(moved, simt_flops, tc_flops)
     rec = dict(kernel=fn, B=b, N=n, rate=rate, max_abs_err=err, lse_max_abs_err=lse_err,
                tol=FLEX_TOL, flips=flips, near_draws=int(near.sum()),
                skipped_blocks=int(skips.sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
-               live_entries=live, flops=flops, bytes=moved)
+               live_entries=live, flops=simt_flops + tc_flops, tensor_core_flops=tc_flops,
+               bytes=moved, inputs="random" if rel_mask is None else "train batch")
     emit("kernel", **rec)
     return rec
 
@@ -655,6 +667,8 @@ def plan_shapes():
 
 
 def kernel_phase(dev) -> dict:
+    from csat_tpu_torch.configs import get_config
+
     gen = torch.Generator().manual_seed(SEED)
     mods = ("cse", "sbm_expected")
     # B 4 and the paged cases draw their inputs first, so that they stay the
@@ -693,8 +707,15 @@ def kernel_phase(dev) -> dict:
         flex_check("sbm_sampled", b, n, gen, dev, timed=False)
         bwd_check("sbm_sampled", b, n, gen, dev, timed=False)
         bwd_check("sbm_expected", b, n, gen, dev, rate=0.0, timed=False)
+    # K1 on the train phase's batch (ASTs of 20-150 nodes padded to 150):
+    # real distances, most entries masked, as the train and fit paths give it
+    batch = train_batch(get_config("python", noise_mode="counter"), TRAIN_B)
+    rel_mask = (torch.stack([batch.L, batch.T], dim=1).to(torch.int32).contiguous(),
+                torch.stack([batch.L_mask, batch.T_mask], dim=1).contiguous())
+    cse_real = flex_check("cse", TRAIN_B, 150, gen, dev, rel_mask=rel_mask)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             "flex_fwd_cse@train": cse_train,
+            "flex_fwd_cse@train_batch": cse_real,
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],
             "flex_fwd_sbm_sampled": train["sbm_sampled"],
             "flex_fwd_sbm_graph": train["sbm_graph"],
@@ -938,24 +959,12 @@ def profile_steps(step, state, batch, n: int = 2) -> dict:
     return _device_summary(prof, wall)
 
 
-def replay_repair(model, cfg, step, state, batch, rounds: int = 3) -> dict:
-    """The fixed-order backward of the CSE gathers (``ops/mods.py:rel_gather``)
-    and of the embedding lookups (``models/components.py:lookup``) against
-    PyTorch's own (``torch.gather``'s ``scatter_add_`` and ``F.embedding``'s
-    backward, which add in a varying order): how many parameters' gradients
-    differ between two backward passes of the model on the same weights,
-    batch and noise, and the train step's time with each, alternating on
-    this card (atomic, fixed, fixed, atomic per round)."""
-    from csat_tpu_torch.models import components
-    from csat_tpu_torch.ops import mods
+def repeatable_backward(model, cfg, batch) -> dict:
+    """Two backward passes of the model on the same weights, batch and noise
+    must give bit-equal gradients: the CSE gathers (``ops/mods.py:rel_gather``)
+    and the embedding lookups (``models/components.py:Embeddings``) add their
+    cotangents in a fixed order."""
     from csat_tpu_torch.train import label_smoothing_loss
-
-    def atomic(c2p_full, p2c_full, rel):
-        rel_h = rel.long().repeat_interleave(c2p_full.shape[1] // rel.shape[1], dim=1)
-        return torch.gather(c2p_full, -1, rel_h), torch.gather(p2c_full, -1, rel_h)
-
-    fixed = (mods.rel_gather, components.lookup)
-    variants = {"fixed": fixed, "atomic": (atomic, torch.nn.functional.embedding)}
 
     def grads():
         for p in model.parameters():
@@ -966,26 +975,11 @@ def replay_repair(model, cfg, step, state, batch, rounds: int = 3) -> dict:
         total.backward()
         return {name: p.grad.clone() for name, p in model.named_parameters()}
 
-    rec = {}
-    times = {name: [] for name in variants}
-    try:
-        for name, fns in variants.items():
-            mods.rel_gather, components.lookup = fns
-            first, second = grads(), grads()
-            rec[f"{name}_params_apart"] = sorted(k for k in first
-                                                 if not torch.equal(first[k], second[k]))
-        for _ in range(rounds):
-            for name in ("atomic", "fixed", "fixed", "atomic"):
-                mods.rel_gather, components.lookup = variants[name]
-                state, _, seconds = timed_step(step, state, batch)
-                times[name].append(seconds)
-    finally:
-        mods.rel_gather, components.lookup = fixed
-    rec.update({f"{name}_step_s": ts for name, ts in times.items()})
-    rec.update({f"{name}_step_s_median": statistics.median(ts) for name, ts in times.items()})
-    if rec["fixed_params_apart"]:
-        raise AssertionError(f"two backward passes differ in {rec['fixed_params_apart']}")
-    return rec
+    first, second = grads(), grads()
+    apart = sorted(k for k in first if not torch.equal(first[k], second[k]))
+    if apart:
+        raise AssertionError(f"two backward passes differ in {apart}")
+    return {"params": len(first), "params_apart": apart}
 
 
 def train_phase(profile: bool) -> dict:
@@ -1046,7 +1040,7 @@ def train_phase(profile: bool) -> dict:
         raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
     _check_launched("train_counter", counts)
     _check_shapes("train_counter", [tuple(batch.src_seq.shape)])
-    repair = replay_repair(model, cfg, step, state, batch)
+    repeat = repeatable_backward(model, cfg, batch)
     trace = profile_steps(step, state, batch) if profile else None
     del model, state, step
 
@@ -1078,7 +1072,7 @@ def train_phase(profile: bool) -> dict:
         losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
         launches=counts, launches_per_step={fn: c / n_steps for fn, c in counts.items()},
         shared=dict(loss=float(m_s["loss"]), step_s=shared_s, launches=shared_counts),
-        replay_repair=repair,
+        repeatable_backward=repeat,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
     emit("train", **rec)
     return rec

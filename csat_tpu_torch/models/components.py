@@ -75,33 +75,6 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-class _Lookup(torch.autograd.Function):
-    """``F.embedding(x, weight)`` whose backward adds the rows that land on
-    one table row in a fixed order.  ``F.embedding``'s own backward on the
-    card adds repeated indices in an order that changes from run to run (a
-    small vocabulary repeats them often), so a replayed step would not give
-    the same bits; here the sum is ``index_put_`` with ``accumulate=True``,
-    which on the card sorts the indices (stably) and adds in that order."""
-
-    @staticmethod
-    def forward(ctx, x, weight):
-        ctx.save_for_backward(x)
-        ctx.rows = weight.shape[0]
-        return F.embedding(x, weight)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        grad = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype, device=g.device)
-        grad.index_put_((x.reshape(-1),), g.reshape(-1, g.shape[-1]), accumulate=True)
-        return None, grad
-
-
-def lookup(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Rows ``weight[x]``, with a backward that gives the same bits on every run."""
-    return _Lookup.apply(x, weight)
-
-
 class Embeddings(nn.Module):
     """Token embedding → optional sinusoidal position → LayerNorm → dropout.
     PAD lookups are zeroed (``pad_row="zero"``) or keep the table's row with
@@ -121,7 +94,11 @@ class Embeddings(nn.Module):
                 ) -> torch.Tensor:
         """``pos`` (B,) gives every row its own position (one token per
         slot); None uses positions ``0..T-1``."""
-        emb = lookup(x, self.weight)
+        # indexing, not F.embedding: its backward on the card is index_put_
+        # with accumulate, which sorts the indices and adds the rows of a
+        # repeated token in a fixed order; F.embedding's adds them in an
+        # order that changes from run to run
+        emb = self.weight[x]
         is_pad = (x == PAD)[..., None]
         if self.pad_row == "zero":
             emb = torch.where(is_pad, torch.zeros_like(emb), emb)

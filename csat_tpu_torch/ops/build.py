@@ -40,7 +40,7 @@ SOURCES: Dict[str, Path] = {
 
 #: every kernel of the serving and training paths → the library that holds it
 KERNELS: Dict[str, str] = {
-    "flex_fwd_cse": "flex_fwd_tc",
+    "flex_fwd_cse": "flex_fwd",
     "flex_fwd_sbm_expected": "flex_fwd_tc",
     "flex_fwd_sbm_sampled": "flex_fwd",
     "flex_fwd_sbm_graph": "flex_fwd",

@@ -1,9 +1,13 @@
 // Blocked weighted-softmax attention forward for Hopper (sm_90a), one SIMT
-// kernel templated on the attention mod.  The CSE and expected-SBM mods (K1,
-// K2) run on the tensor-core kernel of flex_fwd_tc.cu.
+// kernel templated on the attention mod.  The expected-SBM mod (K2) runs on
+// the tensor-core kernel of flex_fwd_tc.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under two mods of csat_tpu/ops/mods.py:
+// _fwd_body :230) under three mods of csat_tpu/ops/mods.py:
+//   * MOD_CSE          — CSESpec.tile_score (:430-439): disentangled L/T
+//                         relative bias s = (q·k + q·lk[rel_ij] + k·lq[rel_ji])
+//                         / sqrt(3 dk), -1e9 fill where the raw distance is 0,
+//                         weight = real-extent gate;
 //   * MOD_SBM_SAMPLED  — SBMSampledSpec.tile_weight_parts (:188-194): the
 //                         Bernoulli graph a = 1{u < clip(R·K̂ᵀ, floor, .99)} ·
 //                         real drawn in-kernel from the counter hash
@@ -12,7 +16,7 @@
 //   * MOD_SBM_GRAPH    — SBMGraphSpec.tile_weight (:310-312): a materialised
 //                         0/1 graph tile read from device memory, weight
 //                         graph · (1 - key_pad).
-// Both compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
+// All compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
 // with no live weight are exactly 0), plus per-row lse (before dropout),
 // Σ w_raw (graph_sum) and the number of dead (q-tile, k-tile) blocks
 // (skipped_blocks).  keep_ij = 1{u ≥ rate} / (1 − rate) is the attention
@@ -25,9 +29,11 @@
 // neither HBM (3.35 TB/s) nor the f32 pipes (67 TFLOP/s) are the limit.
 // One block owns one 64-row q-tile and walks the k-tiles in series, so the
 // latency of that loop (loads → weights → scores → row reductions → P·V) and
-// the occupancy of ~1 block per SM bound it.  The sampled mod adds 10
-// products and two 32-bit hashes per entry; the graph mod reads a 4-byte
-// weight per entry (46 MB at the training shape).
+// the occupancy of ~1 block per SM bound it.  The CSE mod triples the score
+// work (two gathered dot products per unmasked entry from the relative
+// tables; a masked entry takes the -1e9 fill without them); the sampled mod
+// adds 10 products and two 32-bit hashes per entry; the graph mod reads a
+// 4-byte weight per entry (46 MB at the training shape).
 //
 // Design:
 //   * The TPU kernel keeps a full (128, n_pad) f32 score row and weight row
@@ -39,7 +45,13 @@
 //   * A k-tile whose weights are all zero is skipped (no score/PV work) and
 //     counted — the analogue of the TPU kernel's @pl.when skip, at this
 //     kernel's block size of 64 (reference_block_skip is evaluated at 64).
-//   * NEG=-1e30 is the running max of a row that has seen no live weight.
+//   * Two sentinels, as in the reference: NEG=-1e30 is the running max of a
+//     row that has seen no live weight; -1e9 is the CSE score fill of a LIVE
+//     (weight 1) entry, so a CSE row whose every column is masked softmaxes
+//     to uniform over its real columns (the cse_empty_rows="uniform" quirk).
+//   * The CSE relative tables lq/lk of this head (R x dh) sit in shared
+//     memory, so the c2p/p2c gathers index them directly (no lane-chunked
+//     gather as on the TPU).  The p2c term reads rel[j][i] (transposed).
 //   * The cluster axis (kk=10) is not padded to 128 lanes: R and K̂ tiles are
 //     kk wide (<= 16) in shared memory.  R·K̂ᵀ is summed j = 0, 1, … with
 //     one rounding per product and per sum (__fmul_rn/__fadd_rn, no FMA
@@ -68,8 +80,9 @@ constexpr int THREADS = 256;
 constexpr int KKMAX = 16;
 constexpr int KKLD = KKMAX + 1;
 constexpr float NEG = -1e30f;
+constexpr float NEG_CSE = -1e9f;
 
-enum { MOD_SBM_SAMPLED = 2, MOD_SBM_GRAPH = 3 };
+enum { MOD_CSE = 0, MOD_SBM_SAMPLED = 2, MOD_SBM_GRAPH = 3 };
 
 template <int MOD>
 __host__ __device__ constexpr bool uses_factors() { return MOD == MOD_SBM_SAMPLED; }
@@ -78,6 +91,10 @@ struct Params {
   const float* q;
   const float* k;
   const float* v;
+  const float* lq;        // CSE: (H, R, dh)
+  const float* lk;
+  const int32_t* rel;     // CSE: (B, 2, N, N)
+  const uint8_t* mask;    // CSE: (B, 2, N, N), nonzero = masked
   const float* r;         // SBM sampled: (B, H, N, kk)
   const float* kh;        // SBM sampled: (B, H, N, kk)
   const float* graph;     // SBM graph: (B, H, N, N) 0/1
@@ -88,16 +105,17 @@ struct Params {
   float* lse;             // (B, H, N)
   float* gsum_part;       // (B, H, n_qtiles)
   int32_t* skip_part;     // (B, H, n_qtiles)
-  int B, H, N, kk;
+  int B, H, N, R, group, kk;
   uint32_t stride;        // hash row stride, round_up(N, 128)
   float floor_, scale, rate, keep_scale;
 };
 
 template <int MOD, int DH>
-size_t smem_floats() {
+size_t smem_floats(int R) {
   constexpr int LD = DH + 1;
   size_t n = 2 * BM * LD + BN * DH + BM * (BN + 1);
-  if (uses_factors<MOD>()) n += BM * KKLD + BN * KKLD + BN;
+  if (MOD == MOD_CSE) n += 2 * (size_t)R * LD;
+  else if (uses_factors<MOD>()) n += BM * KKLD + BN * KKLD + BN;
   else n += BN;
   return n;
 }
@@ -112,6 +130,8 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   float* Vs = Ks + BN * LD;
   float* Ps = Vs + BN * DH;
   float* ext = Ps + BM * (BN + 1);
+  float* Lq = ext;                     // CSE tables (R x LD)
+  float* Lk = ext + (size_t)p.R * LD;
   float* Rs = ext;                     // SBM factors
   float* Khs = ext + BM * KKLD;
   float* pads = uses_factors<MOD>() ? Khs + BN * KKLD : ext;
@@ -124,6 +144,8 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   const float* kg = p.k + bh * N * DH;
   const float* vg = p.v + bh * N * DH;
   const int row0 = qt * BM;
+  const int plane = (MOD == MOD_CSE) ? h / p.group : 0;
+  const size_t plane_off = ((size_t)b * 2 + plane) * N * N;
   const uint32_t sseed = (MOD == MOD_SBM_SAMPLED) ? (uint32_t)p.sseed[0] : 0u;
   const bool dropout = p.rate > 0.f;
   const uint32_t dseed = dropout ? (uint32_t)p.dseed[0] : 0u;
@@ -132,7 +154,15 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
     const int r = i / DH, d = i % DH, gr = row0 + r;
     Qs[r * LD + d] = gr < N ? qg[(size_t)gr * DH + d] : 0.f;
   }
-  if (uses_factors<MOD>()) {
+  if (MOD == MOD_CSE) {
+    const float* lqh = p.lq + (size_t)h * p.R * DH;
+    const float* lkh = p.lk + (size_t)h * p.R * DH;
+    for (int i = tid; i < p.R * DH; i += THREADS) {
+      const int r = i / DH, d = i % DH;
+      Lq[r * LD + d] = lqh[i];
+      Lk[r * LD + d] = lkh[i];
+    }
+  } else if (uses_factors<MOD>()) {
     const float* rg = p.r + bh * N * p.kk;
     for (int i = tid; i < BM * KKMAX; i += THREADS) {
       const int r = i / KKMAX, j = i % KKMAX, gr = row0 + r;
@@ -167,9 +197,11 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
         Khs[c * KKLD + j] = (gc < N && j < p.kk) ? khg[(size_t)gc * p.kk + j] : 0.f;
       }
     }
-    for (int c = tid; c < BN; c += THREADS) {
-      const int gc = col0 + c;
-      pads[c] = gc < N ? p.pad[(size_t)b * N + gc] : 1.f;
+    if (MOD != MOD_CSE) {
+      for (int c = tid; c < BN; c += THREADS) {
+        const int gc = col0 + c;
+        pads[c] = gc < N ? p.pad[(size_t)b * N + gc] : 1.f;
+      }
     }
     __syncthreads();
 
@@ -184,7 +216,9 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
         const int c = tx + 16 * jj, gc = col0 + c;
         const bool real = gr < N && gc < N;
         float wr = 0.f;
-        if (MOD == MOD_SBM_GRAPH) {
+        if (MOD == MOD_CSE) {
+          wr = real ? 1.f : 0.f;
+        } else if (MOD == MOD_SBM_GRAPH) {
           if (real) wr = p.graph[(bh * N + gr) * N + gc];
         } else {
           float ea = 0.f;
@@ -196,7 +230,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
             wr = u < pr ? 1.f : 0.f;
           }
         }
-        const float we = wr * (1.f - pads[c]);
+        const float we = (MOD == MOD_CSE) ? wr : wr * (1.f - pads[c]);
         gsum += wr;
         w[ii][jj] = we;
         live_local |= (we > 0.f);
@@ -225,9 +259,29 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
         for (int jj = 0; jj < 4; ++jj) s[ii][jj] += qv[ii] * kv[jj];
     }
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
+    for (int ii = 0; ii < 4; ++ii) {
+      const int r = ty * 4 + ii, gr = row0 + r;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[ii][jj] *= p.scale;
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj, gc = col0 + c;
+        float sc = s[ii][jj] * p.scale;
+        if (MOD == MOD_CSE && w[ii][jj] > 0.f) {
+          if (p.mask[plane_off + (size_t)gr * N + gc]) {
+            sc = NEG_CSE;  // the fill replaces the score: no gathers needed
+          } else {
+            const int rij = p.rel[plane_off + (size_t)gr * N + gc];
+            const int rji = p.rel[plane_off + (size_t)gc * N + gr];
+            float c2p = 0.f, p2c = 0.f;
+            for (int d = 0; d < DH; ++d) {
+              c2p += Qs[r * LD + d] * Lk[rij * LD + d];
+              p2c += Ks[c * LD + d] * Lq[rji * LD + d];
+            }
+            sc = sc + c2p * p.scale + p2c * p.scale;
+          }
+        }
+        s[ii][jj] = sc;
+      }
+    }
 
     // online max / sum over the 16 lanes that share each row
 #pragma unroll
@@ -302,7 +356,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
 
 template <int MOD, int DH>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_floats<MOD, DH>() * sizeof(float);
+  const size_t bytes = smem_floats<MOD, DH>(p.R) * sizeof(float);
   if (bytes > 232448) return -2;  // over the 227 KB a block may use
   cudaError_t err = cudaFuncSetAttribute(
       flex_fwd_kernel<MOD, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -312,12 +366,14 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The head widths of ops/build.py HEAD_DIMS: 64, and 96 for the SBM encoder
-// of the java config (768 / 8 heads).
+// The head widths of ops/build.py HEAD_DIMS: 64 for every mod, and 96 for
+// the SBM encoder of the java config (768 / 8 heads).
 template <int MOD>
 int dispatch(int dh, const Params& p, cudaStream_t stream) {
   if (dh == 64) return launch<MOD, 64>(p, stream);
-  if (dh == 96) return launch<MOD, 96>(p, stream);
+  if constexpr (MOD != MOD_CSE) {
+    if (dh == 96) return launch<MOD, 96>(p, stream);
+  }
   return -1;  // head width without an instantiation
 }
 
@@ -326,12 +382,24 @@ Params base(const float* q, const float* k, const float* v, float* out, float* l
   Params p{};
   p.q = q; p.k = k; p.v = v;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.scale = scale;
+  p.B = B; p.H = H; p.N = N; p.group = 1; p.scale = scale;
   p.rate = 0.f; p.keep_scale = 1.f;
   return p;
 }
 
 }  // namespace
+
+extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
+                            const float* lq, const float* lk, const int32_t* rel,
+                            const uint8_t* mask, float* out, float* lse,
+                            float* gsum_part, int32_t* skip_part, int B, int H,
+                            int N, int DH, int R, int group, float scale,
+                            void* stream) {
+  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
+  p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
+  p.R = R; p.group = group;
+  return dispatch<MOD_CSE>(DH, p, (cudaStream_t)stream);
+}
 
 extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float* v,
                                     const float* r, const float* kh, const float* pad,

@@ -1,78 +1,53 @@
 // Blocked weighted-softmax attention forward on Hopper's tensor cores
-// (sm_90a) for two mods: the kernels K1 (flex_fwd_cse) and K2
-// (flex_fwd_sbm_expected).  The sampled and graph mods (K6, K7) stay on the
-// SIMT template of flex_fwd.cu.
+// (sm_90a) for the expected-SBM mod: the kernel K2 (flex_fwd_sbm_expected).
+// The CSE, sampled and graph mods (K1, K6, K7) stay on the SIMT template of
+// flex_fwd.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under
-//   * MOD_CSE          — CSESpec.tile_score (csat_tpu/ops/mods.py:430-439):
-//                         s = (q·k + q·lk[rel_ij] + k·lq[rel_ji]) / sqrt(3 dk),
-//                         -1e9 fill where the raw distance is 0, weight = the
-//                         real-extent gate;
-//   * MOD_SBM_EXPECTED — SBMExpectedSpec.tile_weight_parts (:248-252):
-//                         s = q·k / sqrt(dh), weight clip(R·K̂ᵀ, floor, .99) ·
-//                         real · (1 - key_pad), R = Q̂·S formed outside, with
-//                         hash dropout on P (flex_core.py:214-219).
-// Both compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
-// with no live weight exactly 0), lse before dropout, Σ w_raw per q-tile and
-// the dead (64-row, 64-column) tiles per q-tile — the outputs, sentinels and
-// argument lists of the SIMT kernel these replace.
+// _fwd_body :230) under SBMExpectedSpec.tile_weight_parts
+// (csat_tpu/ops/mods.py:248-252): s = q·k / sqrt(dh), weight clip(R·K̂ᵀ,
+// floor, .99) · real · (1 - key_pad), R = Q̂·S formed outside, with hash
+// dropout on P (flex_core.py:214-219).  It computes out = Σ_j w_ij e^{s_ij}
+// keep_ij V_j / Σ_j w_ij e^{s_ij} (rows with no live weight exactly 0), lse
+// before dropout, Σ w_raw per q-tile and the dead (64-row, 64-column) tiles
+// per q-tile — the outputs, sentinels and argument list of the SIMT kernel
+// it replaces.
 //
 // What bounds it on an H100: at B 64, N 150, dh 64 the call moves about
-// 90 MB (q, k, v, out; K1 also rel and mask, 14 MB) and needs about 2
-// GFLOP of dot products: ~0.03 ms either way, so neither bound is near.
+// 90 MB (q, k, v, out, the factors) and needs about 2 GFLOP of dot products
+// and 0.3 GFLOP of R·K̂ᵀ: ~0.03 ms either way, so neither bound is near.
 // What limited the SIMT kernel was its arithmetic: every product was a
-// scalar FMA, and K1 formed its two relative-bias terms as two dh-long
-// gathered dot products per entry.  What limits this one is latency: a
-// block is 4 warps, each a long chain of dependent loads, products and
-// barriers, and registers (255 a thread) and K1's shared memory leave two
-// blocks an SM.
+// scalar FMA.  What limits this one is latency: a block is 4 warps, each a
+// long chain of dependent loads, products and barriers.
 //
 // Design:
-//   * Tensor cores, f32-faithful.  Q·Kᵀ, P·V and K1's table products run on
-//     mma.sync.m16n8k8 TF32 with the 3xTF32 split (each f32 operand x = hi +
-//     lo, hi = tf32(x), lo = tf32(x − hi); a·b ≈ hi·lo + lo·hi + hi·hi with
-//     f32 accumulation), which keeps about f32 precision.  One TF32 product
-//     keeps about 3 decimal digits: it would break the 2e-5 parity tolerance
-//     and move sampled edges downstream of K1.  mma.sync, not wgmma: a warp
-//     owns 16 rows, so P stays in registers between the two products (the
-//     k index of P·V is permuted so that the accumulator layout of S is the
-//     A operand layout of P·V: k = tig ↔ column 2·tig, k = tig+4 ↔ 2·tig+1,
-//     and V is read at the same permuted rows), rows come in 16-row steps
-//     and key columns in 8-column steps, so N = 150 computes 160 x 152
-//     entries, not 192 x 192; wgmma's 64-row A tiles and K-major TF32
-//     operands (V transposed in shared memory) would force P through shared
-//     memory and buy nothing at 64-row tiles of a 150-node problem.
-//   * K1's bias as tile products, as the TPU kernel forms it: C2Pᵀ = Lk ·
-//     Q_tileᵀ (R x 64, once per block) and, per k-tile, P2Cᵀ = Lq · K_tileᵀ
-//     (R x 64), both on the tensor cores into shared memory, then each entry
-//     gathers C2Pᵀ[rel_ij, i] and P2Cᵀ[rel_ji, j].  The tables' A operands
-//     come straight from device memory (a head's tables are 77 KB, read by
-//     every block of the head from L2), so no table sits in shared memory
-//     and no chunk of one has to be waited for: 109 KB a block, two blocks
-//     (8 warps) an SM.  The distances and the mask of an entry are loaded
-//     unconditionally, half a k-tile at once, so their latency is paid per
-//     half-tile, not per entry.  Two other layouts were slower on the card:
-//     the tables streamed through shared memory in 64-row chunks (a barrier
-//     and an exposed load per chunk, and the gathers' loads one entry after
-//     another), and a cluster of a head's q-tile blocks sharing P2Cᵀ through
-//     distributed shared memory (two cluster barriers a k-tile cost more
-//     than the third of P2Cᵀ each block saves).
-//   * K2's R·K̂ᵀ is summed j = 0, 1, … with one rounding per product and per
-//     sum (__fmul_rn/__fadd_rn, no FMA), as ops/mods.py:exp_adjacency and
-//     the backward kernels sum it, so the weights are the same bits.
+//   * Tensor cores, f32-faithful.  Q·Kᵀ and P·V run on mma.sync.m16n8k8
+//     TF32 with the 3xTF32 split (each f32 operand x = hi + lo, hi =
+//     tf32(x), lo = tf32(x − hi); a·b ≈ hi·lo + lo·hi + hi·hi with f32
+//     accumulation), which keeps about f32 precision.  One TF32 product
+//     keeps about 3 decimal digits: it would break the 2e-5 parity
+//     tolerance.  mma.sync, not wgmma: a warp owns 16 rows, so P stays in
+//     registers between the two products (the k index of P·V is permuted so
+//     that the accumulator layout of S is the A operand layout of P·V: k =
+//     tig ↔ column 2·tig, k = tig+4 ↔ 2·tig+1, and V is read at the same
+//     permuted rows), rows come in 16-row steps and key columns in 8-column
+//     steps, so N = 150 computes 160 x 152 entries, not 192 x 192; wgmma's
+//     64-row A tiles and K-major TF32 operands (V transposed in shared
+//     memory) would force P through shared memory and buy nothing at 64-row
+//     tiles of a 150-node problem.
+//   * R·K̂ᵀ is summed j = 0, 1, … with one rounding per product and per sum
+//     (__fmul_rn/__fadd_rn, no FMA), as ops/mods.py:exp_adjacency and the
+//     backward kernels sum it, so the weights are the same bits.
 //   * Loads: K (with K̂ and the pad row) and V are copied with cp.async in
 //     two groups, so V arrives while the weights, Q·Kᵀ and the softmax run;
 //     Q is read once into registers.  Single-buffered: three k-tiles a block
-//     at N 150 leave little to pipeline (K2: 43 KB at dh 64, 60 KB at dh 96).
+//     at N 150 leave little to pipeline (43 KB at dh 64, 60 KB at dh 96).
 //   * Skip count at FLEX_BLOCK = 64: a block is one 64-row q-tile (4 warps x
 //     16 rows) and walks 64-column k-tiles; a k-tile with no live weight in
 //     the whole block is skipped and counted, so the count equals
 //     reference_block_skip at 64.  Warps whose rows all lie past N only load.
-//   * Sentinels as before: NEG = -1e30 is the running max of a row that has
-//     seen no live weight; -1e9 is the CSE score fill of a masked but LIVE
-//     entry, so an all-masked CSE row softmaxes to uniform over its real
-//     columns.  Dropout multiplies P where it enters P·V, never l.
+//   * NEG = -1e30 is the running max of a row that has seen no live weight.
+//     Dropout multiplies P where it enters P·V, never l.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,33 +58,26 @@
 namespace {
 
 constexpr int BM = 64;          // q-tile rows: 4 warps x 16
-constexpr int BN = 64;          // k-tile columns (and table chunk rows)
+constexpr int BN = 64;          // k-tile columns
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int KKMAX = 16;
 constexpr int KKLD = KKMAX + 1;
 constexpr float NEG = -1e30f;
-constexpr float NEG_CSE = -1e9f;
-
-enum { MOD_CSE = 0, MOD_SBM_EXPECTED = 1 };
 
 struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* lq;        // CSE: (H, R, dh)
-  const float* lk;
-  const int32_t* rel;     // CSE: (B, 2, N, N)
-  const uint8_t* mask;    // CSE: (B, 2, N, N), nonzero = masked
-  const float* r;         // expected: (B, H, N, kk)
-  const float* kh;        // expected: (B, H, N, kk)
-  const float* pad;       // expected: (B, N), 1.0 = padded key
+  const float* r;         // (B, H, N, kk)
+  const float* kh;        // (B, H, N, kk)
+  const float* pad;       // (B, N), 1.0 = padded key
   const int32_t* dseed;   // (1,) dropout stream seed, read when rate > 0
   float* out;             // (B, H, N, dh)
   float* lse;             // (B, H, N)
   float* gsum_part;       // (B, H, n_qtiles)
   int32_t* skip_part;     // (B, H, n_qtiles)
-  int B, H, N, R, group, kk;
+  int B, H, N, kk;
   uint32_t stride;        // hash row stride, round_up(N, 128)
   float floor_, scale, rate, keep_scale;
 };
@@ -188,19 +156,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
 
 // ---- the kernel ------------------------------------------------------------
 
-template <int MOD>
-size_t smem_bytes(int dh, int R) {
-  size_t n = (size_t)BN * (dh + 16) + (size_t)BN * (dh + 4);  // K and V tiles
-  if (MOD == MOD_CSE) n += 2 * (size_t)R * BN;   // C2Pᵀ, P2Cᵀ
-  else n += KKMAX * BN + BN + BM * KKLD;         // K̂ᵀ, pad row, R
+size_t smem_bytes(int dh) {
+  // K and V tiles, K̂ᵀ, the pad row, R
+  const size_t n = (size_t)BN * (dh + 16) + (size_t)BN * (dh + 4) + KKMAX * BN + BN + BM * KKLD;
   return n * sizeof(float);
 }
 
-// C2Pᵀ / P2Cᵀ are (R, 64) tables read at random rows; column groups of 8
-// are XOR-swizzled by the row, so the accumulator stores spread over banks
-__device__ __forceinline__ int swz(int r, int c) { return r * BN + (c ^ ((r & 7) << 3)); }
-
-// The k index of every Q·Kᵀ-shaped product (reducing over dh) is permuted
+// The k index of Q·Kᵀ (reducing over dh) is permuted
 // so that a lane's operands of two k-steps lie in four consecutive floats:
 // in k-steps 2p and 2p + 1, lane tig's k = tig and k = tig + 4 are the
 // columns d0 + 2h and d0 + 2h + 1 of d0 = 16p + 4·tig (h = the step's
@@ -220,47 +182,10 @@ __device__ __forceinline__ float4 row4(const float* row, bool in) {
   return in ? *reinterpret_cast<const float4*>(row) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// T[r][c] = Σ_d L[r][d]·X[c][d] for the r-blocks (16 table rows) of this
-// warp: A = table rows straight from device memory (L2-resident, shared by
-// every block of the head), B = a (64, DH + 16) K-layout tile in shared
-// memory; the result goes to the swizzled (R, 64) table T.  Rows past R are
-// not stored.
-template <int DH>
-__device__ __forceinline__ void table_product(float* T, const float* L, int R,
-                                              const float* X, int warp, int g, int tig) {
-  constexpr int LDK = DH + 16;
-  for (int rb = warp; rb * 16 < R; rb += WARPS) {
-    const int r0 = rb * 16 + g, r1 = r0 + 8;
-    float acc[8][4] = {};
-#pragma unroll
-    for (int pp = 0; pp < DH / 16; ++pp) {
-      const int d0 = 16 * pp + 4 * tig;
-      float a0[4], a1[4];
-      pair_frags(row4(L + (size_t)r0 * DH + d0, r0 < R), row4(L + (size_t)r1 * DH + d0, r1 < R),
-                 a0, a1);
-      uint32_t h0[4], l0[4], h1[4], l1[4];
-      split4(a0, h0, l0);
-      split4(a1, h1, l1);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const float4 b = *reinterpret_cast<const float4*>(X + (8 * t + g) * LDK + d0);
-        mma3(acc[t], h0, l0, b.x, b.y);
-        mma3(acc[t], h1, l1, b.z, b.w);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int c = 8 * t + 2 * tig;
-      if (r0 < R) *reinterpret_cast<float2*>(T + swz(r0, c)) = make_float2(acc[t][0], acc[t][1]);
-      if (r1 < R) *reinterpret_cast<float2*>(T + swz(r1, c)) = make_float2(acc[t][2], acc[t][3]);
-    }
-  }
-}
-
 // Lane layout of one m16n8 accumulator: c[0], c[1] at (g, 2·tig + {0, 1}),
 // c[2], c[3] at (g + 8, 2·tig + {0, 1}); entry i of n8 tile t of a warp is
 // row wrow + g + 8·(i >> 1), column 8·t + 2·tig + (i & 1).
-template <int MOD, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   constexpr int LD = DH + 4;     // V tile: ≡ 4 (mod 32), its fragment reads are conflict-free
   constexpr int LDK = DH + 16;   // K tile: ≡ 16 (mod 32), for the 16-byte pair loads
@@ -269,12 +194,9 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   __shared__ float red[WARPS];
   float* Ks = smem;
   float* Vs = Ks + BN * LDK;
-  float* ext = Vs + BN * LD;
-  float* C2PT = ext;                      // CSE: (R, 64) swizzled, [r][q row]
-  float* P2CT = ext + (size_t)p.R * BN;   // CSE: (R, 64) swizzled, [r][key]
-  float* KhT = ext;                       // expected: (KKMAX, BN)
-  float* pads = KhT + KKMAX * BN;         // expected: (BN)
-  float* Rs = pads + BN;                  // expected: (BM, KKLD)
+  float* KhT = Vs + BN * LD;      // (KKMAX, BN)
+  float* pads = KhT + KKMAX * BN;  // (BN)
+  float* Rs = pads + BN;           // (BM, KKLD)
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -289,10 +211,6 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   const bool active = row0 + wrow < N;   // the warp has a real row
   const bool dropout = p.rate > 0.f;
   const uint32_t dseed = dropout ? (uint32_t)p.dseed[0] : 0u;
-  const int plane = (MOD == MOD_CSE) ? h / p.group : 0;
-  const size_t plane_off = ((size_t)b * 2 + plane) * N * N;
-  const float* lqh = (MOD == MOD_CSE) ? p.lq + (size_t)h * p.R * DH : nullptr;
-  const float* lkh = (MOD == MOD_CSE) ? p.lk + (size_t)h * p.R * DH : nullptr;
 
   // Q fragments of the warp's 16 rows, f32, read once (permuted k)
   float qf[KS][4];
@@ -303,20 +221,10 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
                row4(qg + (size_t)gr_[1] * DH + d0, gr_[1] < N), qf[2 * pp], qf[2 * pp + 1]);
   }
 
-  if constexpr (MOD == MOD_CSE) {
-    // C2Pᵀ = Lk · Q_tileᵀ, Q staged in the K buffer
-    load_rows<DH, LDK>(Ks, qg, row0, N);
-    cp_commit();
-    cp_wait<0>();
-    __syncthreads();
-    table_product<DH>(C2PT, lkh, p.R, Ks, warp, g, tig);
-    __syncthreads();
-  } else {
-    const float* rg = p.r + bh * N * p.kk;
-    for (int i = tid; i < BM * KKMAX; i += THREADS) {
-      const int r = i / KKMAX, j = i % KKMAX, gr = row0 + r;
-      Rs[r * KKLD + j] = (gr < N && j < p.kk) ? rg[(size_t)gr * p.kk + j] : 0.f;
-    }
+  const float* rg = p.r + bh * N * p.kk;
+  for (int i = tid; i < BM * KKMAX; i += THREADS) {
+    const int r = i / KKMAX, j = i % KKMAX, gr = row0 + r;
+    Rs[r * KKLD + j] = (gr < N && j < p.kk) ? rg[(size_t)gr * p.kk + j] : 0.f;
   }
 
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
@@ -328,28 +236,19 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   for (int kt = 0; kt < nkt; ++kt) {
     const int col0 = kt * BN;
     const int ntk = min(8, (N - col0 + 7) >> 3);  // n8 column tiles holding real keys
-    float w[8][4] = {};  // the expected mod's effective weights
-    // an entry's weight; CSE: the real-extent gate, recomputed, not stored
-    auto weight = [&](int t, int i) -> float {
-      if constexpr (MOD == MOD_CSE)
-        return gr_[i >> 1] < N && col0 + 8 * t + 2 * tig + (i & 1) < N ? 1.f : 0.f;
-      else
-        return w[t][i];
-    };
+    float w[8][4] = {};  // the effective weights
 
     // ---- K (+ K̂, pads), and V in a second group that lands later ----
     load_rows<DH, LDK>(Ks, kg, col0, N);
-    if constexpr (MOD == MOD_SBM_EXPECTED) {
-      const float* khg = p.kh + bh * N * p.kk;
-      for (int i = tid; i < KKMAX * BN; i += THREADS) {
-        const int j = i / BN, c = i % BN, gc = col0 + c;
-        const bool in = gc < N && j < p.kk;
-        cp4(KhT + j * BN + c, khg + (in ? (size_t)gc * p.kk + j : 0), in);
-      }
-      for (int c = tid; c < BN; c += THREADS) {
-        const int gc = col0 + c;
-        cp4(pads + c, p.pad + (size_t)b * N + (gc < N ? gc : 0), gc < N);
-      }
+    const float* khg = p.kh + bh * N * p.kk;
+    for (int i = tid; i < KKMAX * BN; i += THREADS) {
+      const int j = i / BN, c = i % BN, gc = col0 + c;
+      const bool in = gc < N && j < p.kk;
+      cp4(KhT + j * BN + c, khg + (in ? (size_t)gc * p.kk + j : 0), in);
+    }
+    for (int c = tid; c < BN; c += THREADS) {
+      const int gc = col0 + c;
+      cp4(pads + c, p.pad + (size_t)b * N + (gc < N ? gc : 0), gc < N);
     }
     cp_commit();
     load_rows<DH, LD>(Vs, vg, col0, N);
@@ -359,53 +258,36 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
 
     // ---- weights and liveness ----
     int live_local = 0;
-    if constexpr (MOD == MOD_SBM_EXPECTED) {
-      const float* r0 = Rs + (wrow + g) * KKLD;
-      const float* r1 = r0 + 8 * KKLD;
-      for (int j = 0; j < p.kk; ++j) {
-        const float a0 = r0[j], a1 = r1[j];
+    const float* r0 = Rs + (wrow + g) * KKLD;
+    const float* r1 = r0 + 8 * KKLD;
+    for (int j = 0; j < p.kk; ++j) {
+      const float a0 = r0[j], a1 = r1[j];
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float2 kv = *reinterpret_cast<const float2*>(KhT + j * BN + 8 * t + 2 * tig);
-          w[t][0] = __fadd_rn(w[t][0], __fmul_rn(a0, kv.x));
-          w[t][1] = __fadd_rn(w[t][1], __fmul_rn(a0, kv.y));
-          w[t][2] = __fadd_rn(w[t][2], __fmul_rn(a1, kv.x));
-          w[t][3] = __fadd_rn(w[t][3], __fmul_rn(a1, kv.y));
-        }
+      for (int t = 0; t < 8; ++t) {
+        const float2 kv = *reinterpret_cast<const float2*>(KhT + j * BN + 8 * t + 2 * tig);
+        w[t][0] = __fadd_rn(w[t][0], __fmul_rn(a0, kv.x));
+        w[t][1] = __fadd_rn(w[t][1], __fmul_rn(a0, kv.y));
+        w[t][2] = __fadd_rn(w[t][2], __fmul_rn(a1, kv.x));
+        w[t][3] = __fadd_rn(w[t][3], __fmul_rn(a1, kv.y));
       }
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = 8 * t + 2 * tig + (i & 1);
-          const bool real = gr_[i >> 1] < N && col0 + c < N;
-          const float pr = fminf(fmaxf(w[t][i], p.floor_), 0.99f);
-          const float wr = real ? pr : 0.f;
-          const float we = wr * (1.f - pads[c]);
-          gsum += wr;
-          w[t][i] = we;
-          live_local |= (we > 0.f);
-        }
-    } else {
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool real = gr_[i >> 1] < N && col0 + 8 * t + 2 * tig + (i & 1) < N;
-          gsum += real ? 1.f : 0.f;
-          live_local |= real;
-        }
     }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * t + 2 * tig + (i & 1);
+        const bool real = gr_[i >> 1] < N && col0 + c < N;
+        const float pr = fminf(fmaxf(w[t][i], p.floor_), 0.99f);
+        const float wr = real ? pr : 0.f;
+        const float we = wr * (1.f - pads[c]);
+        gsum += wr;
+        w[t][i] = we;
+        live_local |= (we > 0.f);
+      }
     if (!__syncthreads_or(live_local)) {
       ++skips;  // block-uniform: every thread counts the same skips
       cp_wait<0>();  // V lands before the next tile
       continue;
-    }
-
-    if constexpr (MOD == MOD_CSE) {
-      // P2Cᵀ = Lq · K_tileᵀ, for every key of the tile
-      table_product<DH>(P2CT, lqh, p.R, Ks, warp, g, tig);
-      __syncthreads();
     }
 
     float sacc[8][4] = {};
@@ -426,45 +308,11 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
           }
       }
 
-      // ---- scores; CSE: the gathered bias and the mask fill.  The
-      // distances and the mask of half the entries are loaded at once,
-      // unconditionally (entry 0 of the plane stands in for an unreal one),
-      // so their latency is paid once per half, not once per entry ----
+      // ---- scores ----
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        int rij[4][4], rji[4][4], mk[4][4];
-        if constexpr (MOD == MOD_CSE) {
+      for (int t = 0; t < 8; ++t)
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int gr = gr_[i >> 1], gc = col0 + 8 * (4 * half + u) + 2 * tig + (i & 1);
-              const bool real = gr < N && gc < N;
-              const size_t ij = plane_off + (real ? (size_t)gr * N + gc : 0);
-              const size_t ji = plane_off + (real ? (size_t)gc * N + gr : 0);
-              mk[u][i] = __ldg(p.mask + ij);
-              rij[u][i] = __ldg(p.rel + ij);
-              rji[u][i] = __ldg(p.rel + ji);
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int t = 4 * half + u;
-            const int rl = wrow + g + 8 * (i >> 1), c = 8 * t + 2 * tig + (i & 1);
-            float sc = sacc[t][i] * p.scale;
-            if constexpr (MOD == MOD_CSE) {
-              if (row0 + rl < N && col0 + c < N) {
-                // a masked entry takes the fill in place of its score
-                sc = mk[u][i] ? NEG_CSE
-                              : sc + C2PT[swz(rij[u][i], rl)] * p.scale
-                                   + P2CT[swz(rji[u][i], c)] * p.scale;
-              }
-            }
-            sacc[t][i] = sc;
-          }
-      }
+        for (int i = 0; i < 4; ++i) sacc[t][i] *= p.scale;
 
       // ---- online max / sum over the 4 lanes that share each row ----
 #pragma unroll
@@ -474,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
         for (int t = 0; t < 8; ++t)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (weight(t, 2 * hr + e) > 0.f) mt = fmaxf(mt, sacc[t][2 * hr + e]);
+            if (w[t][2 * hr + e] > 0.f) mt = fmaxf(mt, sacc[t][2 * hr + e]);
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
         const float m_new = fmaxf(m[hr], mt);
@@ -485,7 +333,7 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 2 * hr + e;
-            const float we = weight(t, i);
+            const float we = w[t][i];
             const float pr = we > 0.f ? expf(sacc[t][i] - m_new) * we : 0.f;
             float keep = 1.f;
             if (dropout && pr > 0.f)
@@ -556,20 +404,19 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   }
 }
 
-template <int MOD, int DH>
+template <int DH>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<MOD>(DH, p.R);
-  if (bytes > 232448) return -2;  // over the 227 KB a block may use
+  const size_t bytes = smem_bytes(DH);
   cudaError_t err = cudaFuncSetAttribute(
-      flex_tc_kernel<MOD, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flex_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  // the largest shared-memory carveout, so that two K1 blocks fit an SM
-  err = cudaFuncSetAttribute(flex_tc_kernel<MOD, DH>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
+  // the largest shared-memory carveout, so that the shared memory never
+  // caps the blocks an SM holds below what the registers allow
+  err = cudaFuncSetAttribute(flex_tc_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + BM - 1) / BM, p.H, p.B);
-  flex_tc_kernel<MOD, DH><<<grid, THREADS, bytes, stream>>>(p);
+  flex_tc_kernel<DH><<<grid, THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -578,29 +425,15 @@ Params base(const float* q, const float* k, const float* v, float* out, float* l
   Params p{};
   p.q = q; p.k = k; p.v = v;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.group = 1; p.scale = scale;
+  p.B = B; p.H = H; p.N = N; p.scale = scale;
   p.rate = 0.f; p.keep_scale = 1.f;
   return p;
 }
 
 }  // namespace
 
-// The head widths of ops/build.py HEAD_DIMS: 64 for the CSE mod, 64 and 96
-// (the java config's SBM encoder, 768 / 8 heads) for the expected mod.
-extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
-                            const float* lq, const float* lk, const int32_t* rel,
-                            const uint8_t* mask, float* out, float* lse,
-                            float* gsum_part, int32_t* skip_part, int B, int H,
-                            int N, int DH, int R, int group, float scale,
-                            void* stream) {
-  if (R < 1) return -3;
-  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
-  p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
-  p.R = R; p.group = group;
-  if (DH == 64) return launch<MOD_CSE, 64>(p, (cudaStream_t)stream);
-  return -1;  // head width without an instantiation
-}
-
+// The head widths of ops/build.py HEAD_DIMS: 64, and 96 for the java
+// config's SBM encoder (768 / 8 heads).
 extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float* v,
                                      const float* r, const float* kh, const float* pad,
                                      const int32_t* dseed, float* out, float* lse,
@@ -614,7 +447,7 @@ extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float
   p.r = r; p.kh = kh; p.pad = pad; p.dseed = dseed; p.kk = KK;
   p.stride = (uint32_t)stride; p.floor_ = floor_;
   p.rate = rate; p.keep_scale = keep_scale;
-  if (DH == 64) return launch<MOD_SBM_EXPECTED, 64>(p, (cudaStream_t)stream);
-  if (DH == 96) return launch<MOD_SBM_EXPECTED, 96>(p, (cudaStream_t)stream);
-  return -1;
+  if (DH == 64) return launch<64>(p, (cudaStream_t)stream);
+  if (DH == 96) return launch<96>(p, (cudaStream_t)stream);
+  return -1;  // head width without an instantiation
 }

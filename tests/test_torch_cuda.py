@@ -92,8 +92,9 @@ def _tc_case(mod, b, n, dh, dev, seed):
                                       torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev), pad.to(dev))
 
 
-# the tensor-core K1/K2 at every bucket length and at serving and training
-# batch sizes; K2 also at the java width (dh 96), with and without dropout
+# K1 and the tensor-core K2 at every bucket length and at serving and
+# training batch sizes; K2 also at the java width (dh 96), with and without
+# dropout
 @pytest.mark.parametrize("mod,b,n,dh,rate", [
     *[(mod, b, n, 64, 0.0) for mod in ("cse", "sbm_expected") for n in (37, 75, 150)
       for b in (1, 4, 64)],
@@ -120,6 +121,39 @@ def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
         torch.testing.assert_close(out[0, 0, 1], v[0, 0].mean(dim=0), atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b,n", [(4, 37), (8, 75), (64, 150)])
+def test_cse_kernel_on_ast_distances(dev, b, n):
+    """K1 on the distances and masks of synthetic ASTs, as the serving and
+    training paths give it: most entries masked, the distances of the
+    unmasked ones in a narrow band around the offset, padded rows whose every
+    entry is masked."""
+    import numpy as np
+
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+    from csat_tpu_torch.ops import flex_core
+    from csat_tpu_torch.ops.mods import cse_mod
+
+    cfg = get_config("python")
+    rng = np.random.default_rng(n)
+    samples = [train_sample(random_ast(rng, int(m)), cfg, 100, 100, rng)
+               for m in np.linspace(min(10, n), n, b).round()]
+    batch = collate({key: np.stack([x[key] for x in samples]) for key in samples[0]},
+                    cfg.max_src_len)
+    rel = torch.from_numpy(np.stack([batch.L, batch.T], 1)[:, :, :n, :n].astype(np.int32))
+    mask = torch.from_numpy(np.stack([batch.L_mask, batch.T_mask], 1)[:, :, :n, :n].copy())
+    g = torch.Generator().manual_seed(n)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    q, k, v = rnd(b, 8, n, 64), rnd(b, 8, n, 64), rnd(b, 8, n, 64)
+    spec, aux = cse_mod(rnd(8, cfg.max_src_len, 64), rnd(8, cfg.max_src_len, 64), rel.to(dev),
+                        mask.to(dev))
+    out, ex = flex_core.flex_attention(q, k, v, spec, aux)
+    ref, rex = flex_core.flex_reference(q, k, v, spec, aux)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(ex["lse"], rex["lse"], atol=2e-5, rtol=0)
+
+
 def test_cse_plain_backward_repeats_bit_for_bit(dev):
     """The CSE mod's backward on the card (the plain path: K1 has no backward
     kernel) gives the same bits on every run: the relative-table gathers add
@@ -142,7 +176,7 @@ def test_cse_plain_backward_repeats_bit_for_bit(dev):
 def test_embedding_backward_repeats_bit_for_bit(dev):
     """A token embedding's backward on the card gives the same bits on every
     run, also when a small vocabulary repeats indices many times
-    (``models/components.py:lookup``)."""
+    (``models/components.py:Embeddings``)."""
     from csat_tpu_torch.models.components import Embeddings
 
     g = torch.Generator().manual_seed(7)
