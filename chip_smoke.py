@@ -9,15 +9,18 @@ Phases, each printing JSON lines:
 2. ``build``   — compiles every CUDA kernel of the serving and training paths
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once, and counts the tensor-core
-   instructions in the SASS of K2 (``sass``: none fails the run);
+   instructions in the SASS of K2 and of K3/K4 (``sass``: an instantiation
+   without any fails the run);
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
    and every bucket of the fit's plan (259×37, 128×75, 64×150), which each
    later phase checks against what it ran: max abs error (with its
    tolerance), exact skip counts, and times (CUDA events, median of several
-   runs; at the plan's smaller buckets only K1 and K2 are timed, beside SDPA
-   with the same score bias or weight as an additive float mask; K1 also on
-   the distances and masks of the train phase's batch); every backward
+   runs; at the plan's smaller buckets K1, K2 and K3/K4 are timed, K1 and K2
+   beside SDPA with the same score bias or weight as an additive float mask;
+   K1 also on the distances and masks of the train phase's batch, K3/K4 on
+   what the first SBM layer of a training step on that batch gives them —
+   factors, padding, seeds and cotangents); every backward
    check also holds its forward's ``out`` and ``lse``; the expected-graph
    backward also on whole padded key tiles and on inputs with exact ties at
    both clip bounds, at the default floor and at floor 0, and without
@@ -87,8 +90,8 @@ OUT_DIR = REPO / "chiprun_out"  # run reports (ptxas log, profiler trace); in .g
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (the SIMT kernels' rate) and TF32 FLOP/s on them.
-# K2 runs its dot products as 3xTF32, three TF32 products per f32 one, so
-# its bound takes those at a third of the TF32 rate.
+# K2, K3 and K4 run their products as 3xTF32, three TF32 products per f32
+# one, so their bounds take those at a third of the TF32 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_3XTF32_FLOP_S = 495e12 / 3
@@ -112,6 +115,14 @@ GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
 #: (kernel, B, N) held against its plain version in phase 3; each driven
 #: path must find the shapes it gave its kernels in here
 CHECKED: set = set()
+
+#: library → the kernel instantiations in it that must hold tensor-core
+#: instructions: K2 at dh 64 and 96; K3 and K4 at dh 64 and 96
+TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 2, "flex_bwd_tc": 4}
+
+#: the __global__ functions of csrc/*.cu, as the profiler names them
+PORT_KERNEL_FUNCTIONS = ("flex_fwd_kernel", "flex_tc_kernel", "bwd_tc_kernel", "bwd_q_kernel",
+                         "bwd_k_kernel", "paged_decode_kernel")
 
 #: the kernels each driven path must launch
 PATH_KERNELS = {
@@ -191,10 +202,12 @@ def build_phase() -> None:
     for fn in build.KERNELS:
         build.kernel(fn)  # load and bind every entry point
     emit("build", seconds=seconds, libraries=sorted(build.SOURCES), kernels=sorted(build.KERNELS))
-    counts = tensor_core_instructions(build.library_path("flex_fwd_tc"))
-    emit("sass", library="flex_fwd_tc", tensor_core_instructions=counts)
-    if len(counts) < 2 or not all(counts.values()):  # K2 at dh 64 and 96
-        raise AssertionError(f"K2 was built without tensor-core instructions: {counts}")
+    # K2 at dh 64 and 96; K3 and K4 (the q- and the k-pass) at dh 64 and 96
+    for lib, n_fns in TENSOR_CORE_LIBRARIES.items():
+        counts = tensor_core_instructions(build.library_path(lib))
+        emit("sass", library=lib, tensor_core_instructions=counts)
+        if len(counts) < n_fns or not all(counts.values()):
+            raise AssertionError(f"{lib} was built without tensor-core instructions: {counts}")
 
 
 def tensor_core_instructions(lib: Path) -> dict:
@@ -444,8 +457,45 @@ def expected_closed_form(q, k, v, aux, floor: float, go, gs_coef: float) -> dict
                 dkh=d_ea.transpose(-1, -2) @ r.double())
 
 
+def capture_sbm_inputs(cfg, batch, device="cuda") -> dict:
+    """What the first SBM layer gives ``flex_attention`` in one training
+    forward of the flagship model on ``batch`` (weights from ``SEED``), and the
+    cotangents that the backward of ``nll + sw · sparsity`` brings to its
+    ``out`` and ``graph_sum``: the real inputs of K6 and of K3/K4."""
+    from csat_tpu_torch.models import CSATrans, sbm
+    from csat_tpu_torch.train import label_smoothing_loss
+
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    got = {}
+    inner = sbm.flex_attention
+
+    def recorder(q, k, v, spec, aux, rate=0.0, dseed=None):
+        out, ex = inner(q, k, v, spec, aux, rate, dseed)
+        if not got:
+            got.update(q=q, k=k, v=v, spec=spec, aux=aux, rate=rate, dseed=dseed)
+            got["go"] = torch.zeros_like(out)
+            got["gs"] = torch.zeros_like(ex["graph_sum"])
+            out.register_hook(lambda g: got["go"].copy_(g))
+            if ex["graph_sum"].requires_grad:
+                ex["graph_sum"].register_hook(lambda g: got["gs"].copy_(g))
+        return out, ex
+
+    sbm.flex_attention = recorder
+    try:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        log_probs, sparsity = model(batch, deterministic=False, gen=gen)
+        total = label_smoothing_loss(log_probs, batch.target, cfg.smoothing) + cfg.sw * sparsity
+        total.backward()
+    finally:
+        sbm.flex_attention = inner
+    detach = lambda t: t.detach().clone().contiguous() if torch.is_tensor(t) else t
+    return {key: (tuple(detach(t) for t in val) if key == "aux" else detach(val))
+            for key, val in got.items()}
+
+
 def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
-              variant: str = "plain", floor: float = 0.01, timed: bool = True) -> dict:
+              variant: str = "plain", floor: float = 0.01, timed: bool = True,
+              captured=None) -> dict:
     """The two backward passes of the sampled mod (K3/K4) or the expected mod
     (K8/K9) against the plain autograd of ``flex_reference`` on the same
     inputs; the forward's ``out`` and ``lse`` of the same call are held
@@ -453,11 +503,21 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
     clip bounds of the expected mod; ``"padded"`` names the run whose short
     rows leave whole key tiles padded (every run of ``_flex_inputs`` has them:
     it is checked).  Without dropout the expected mod's kernel and plain
-    results are also held against :func:`expected_closed_form`."""
+    results are also held against :func:`expected_closed_form`.  ``captured``
+    (from :func:`capture_sbm_inputs`) replaces the random inputs, the output
+    cotangent and the graph_sum cotangent with a real batch's."""
     from csat_tpu_torch.ops import build, flex_core
     from csat_tpu_torch.ops.mods import exp_adjacency
 
-    q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor)
+    if captured is None:
+        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor)
+        dseed = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
+        go = torch.randn(q.shape, generator=gen).to(dev)
+        gs = torch.full((b, q.shape[1]), GS_COEF, device=dev)
+    else:
+        q, k, v, spec, aux, rate, dseed, go, gs = (captured[key] for key in (
+            "q", "k", "v", "spec", "aux", "rate", "dseed", "go", "gs"))
+        b, n = q.shape[0], q.shape[2]
     sampled = mod == "sbm_sampled"
     if variant == "ties":
         aux = _plant_ties(spec, aux)
@@ -465,13 +525,11 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
         floor_t = torch.tensor(spec.floor, device=dev)
         if not ((ea == 0.99).any() and (ea == floor_t).any() and (ea == 0).any()):
             raise AssertionError("the tie input holds no exact tie")
-    dseed = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
-    go = torch.randn(q.shape, generator=gen).to(dev)
 
     def run(fn):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
         out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), rate, dseed)
-        loss = torch.sum(out * go) + GS_COEF * torch.sum(ex["graph_sum"])
+        loss = torch.sum(out * go) + torch.sum(gs * ex["graph_sum"])
         return leaves, out, ex, loss
 
     k_leaves, k_out, k_ex, k_loss = run(flex_core.flex_attention)
@@ -535,7 +593,6 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
         out = k_out.detach()
         lse = k_ex["lse"].detach()
         dvec = torch.sum(go * out, dim=-1)
-        gs = torch.full((b, q.shape[1]), GS_COEF, device=dev)
         q_fn, q_args, k_fn, k_args, _ = flex_core.bwd_kernel_args(
             spec, q, k, v, aux, lse, dvec, go, gs, rate, dseed)
     lib_q, lib_k = build.kernel(q_fn), build.kernel(k_fn)
@@ -546,7 +603,9 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
     # g·v and, q-pass, d_s·K (6 dh) or, k-pass, d_sᵀ·Q and attnᵀ·g (8 dh); every
     # entry its R·K̂ (2 kk); its d_exp·K̂ or d_expᵀ·R (2 kk) every sampled edge
     # of the sampled mod and every entry of the expected mod (the soft weight
-    # is live wherever the key is real)
+    # is live wherever the key is real).  K3/K4 run the dh-deep and the
+    # cluster products on the tensor cores (3xTF32) and R·K̂ on f32 SIMT;
+    # K8/K9 run all of it on f32 SIMT
     with torch.no_grad():
         a_raw, a_eff = spec.full_weight(q, k, aux)
     live, edges = int((a_eff > 0).sum()), int((a_raw > 0).sum())
@@ -555,11 +614,12 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
     dexp = (edges if sampled else b * h * n * n) * 2 * spec.kk
     inputs = nbytes(q, k, v, *aux, lse, dvec, go, gs)
     recs = {}
-    for fn, ms, flops, outs in (
-            (q_fn, ms_q, live * 6 * dh + every + dexp, (q, aux[0])),
-            (k_fn, ms_k, live * 8 * dh + every + dexp, (k, v, aux[1]))):
+    for fn, ms, deep, outs in ((q_fn, ms_q, live * 6 * dh, (q, aux[0])),
+                               (k_fn, ms_k, live * 8 * dh, (k, v, aux[1]))):
+        tc_flops = deep + dexp if sampled else 0
+        flops = deep + every + dexp
         moved = inputs + nbytes(*outs)
-        bound, bound_by = bound_ms(moved, flops)
+        bound, bound_by = bound_ms(moved, flops - tc_flops, tc_flops)
         errs_fn = {key: errs[key] for key in (("dq", "dr") if "_q_" in fn else ("dk", "dv", "dkh"))}
         recs[fn] = dict(kernel=fn, B=b, N=n, rate=rate, variant=variant, floor=spec.floor,
                         max_abs_err=max(errs_fn.values()), fwd_max_abs_err=fwd_err,
@@ -568,7 +628,9 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
                         near_draws=int(near.sum()), ms=ms, plain_ms=plain_ms,
                         plain_is="the whole plain backward (both passes)", library_ms=None,
                         bound_ms=bound, bound_by=bound_by, live_entries=live, edges=edges,
-                        flops=flops, bytes=moved)
+                        entries=b * h * n * n, flops=flops, tensor_core_flops=tc_flops,
+                        bytes=moved,
+                        inputs="random" if captured is None else "train batch")
         emit("kernel", **recs[fn])
     return recs
 
@@ -695,8 +757,8 @@ def kernel_phase(dev) -> dict:
     # K2 at the expected-gradient path's shape, the floor-0 ties, and the
     # shapes of the fit's other buckets (the flagship bucket is above) for
     # the train kernels (K1, K6, K3, K4) and the eval encoder's (K1, K2);
-    # K1 and K2 are timed there too, the others checked without the timing
-    # loops
+    # K1, K2, K3 and K4 are timed there too, the others checked without the
+    # timing loops
     flex_check("sbm_expected", TRAIN_B, 150, gen, dev)
     bwd_check("sbm_expected", 4, 150, gen, dev, rate=0.0, variant="ties", floor=0.0, timed=False)
     for b, n in plan_shapes():
@@ -705,17 +767,23 @@ def kernel_phase(dev) -> dict:
         for mod in ("cse", "sbm_expected"):
             flex_check(mod, b, n, gen, dev)
         flex_check("sbm_sampled", b, n, gen, dev, timed=False)
-        bwd_check("sbm_sampled", b, n, gen, dev, timed=False)
+        bwd_check("sbm_sampled", b, n, gen, dev)
         bwd_check("sbm_expected", b, n, gen, dev, rate=0.0, timed=False)
     # K1 on the train phase's batch (ASTs of 20-150 nodes padded to 150):
     # real distances, most entries masked, as the train and fit paths give it
-    batch = train_batch(get_config("python", noise_mode="counter"), TRAIN_B)
+    cfg = get_config("python", noise_mode="counter")
+    batch = train_batch(cfg, TRAIN_B)
     rel_mask = (torch.stack([batch.L, batch.T], dim=1).to(torch.int32).contiguous(),
                 torch.stack([batch.L_mask, batch.T_mask], dim=1).contiguous())
     cse_real = flex_check("cse", TRAIN_B, 150, gen, dev, rel_mask=rel_mask)
+    # K3/K4 on what the first SBM layer of a training step on that batch
+    # gives them: its factors, padding, seeds and cotangents
+    bwd_real = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev,
+                         captured=capture_sbm_inputs(cfg, batch))
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
+            **{f"{fn}@train_batch": rec for fn, rec in bwd_real.items()},
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],
             "flex_fwd_sbm_sampled": train["sbm_sampled"],
             "flex_fwd_sbm_graph": train["sbm_graph"],
@@ -832,9 +900,11 @@ def _device_summary(prof, wall: float, trace_name=None) -> dict:
     if trace_name:
         OUT_DIR.mkdir(exist_ok=True)
         prof.export_chrome_trace(str(OUT_DIR / trace_name))
+    port = [[k[:80], ms, n] for k, ms, n in by_kernel
+            if any(f"(anonymous namespace)::{fn}" in k for fn in PORT_KERNEL_FUNCTIONS)]
     return dict(wall_s=wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / 1e3 / wall if wall else None,
-                top=[[k[:80], ms, n] for k, ms, n in by_kernel[:15]])
+                top=[[k[:80], ms, n] for k, ms, n in by_kernel[:15]], port_kernels=port)
 
 
 def serve_phase(profile: bool) -> dict:

@@ -1,47 +1,40 @@
-// Two-pass backward of the SBM blocked attention for Hopper (sm_90a), one
-// pair of kernels templated on the mod (sampled graph, expected graph).
+// Two-pass backward of the SBM blocked attention for Hopper (sm_90a) under
+// the expected graph, a pair of SIMT kernels: K8 and K9.  The sampled graph's
+// pair (K3/K4) runs on the tensor-core template of flex_bwd_tc.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_kernel_bwd_calls — the q-pass
 // (pallas_call at :498, body _bwd_q_body :389) and the k-pass (pallas_call at
 // :519, body _bwd_k_body :434), which share the per-tile math _bwd_tile
-// (:356-386) — under the two mods that have a kernel backward: sbm_sampled
-// with the straight-through estimator SBMSampledSpec.tile_dexp
-// (mods.py:196-198), and sbm_expected with the clip's vjp
+// (:356-386) — under sbm_expected with the clip's vjp
 // SBMExpectedSpec.tile_dexp (mods.py:254-261):
-//   * flex_bwd_q_sbm_{sampled,expected}: one block per (b, h, 64-row q-tile)
-//     walks the k-tiles and accumulates dq (B, H, N, dh) and dR (B, H, N, kk);
-//   * flex_bwd_k_sbm_{sampled,expected}: one block per (b, h, 64-column
-//     k-tile) walks the q-tiles and accumulates dk, dv (B, H, N, dh) and dK̂
-//     (B, H, N, kk).
+//   * flex_bwd_q_sbm_expected: one block per (b, h, 64-row q-tile) walks the
+//     k-tiles and accumulates dq (B, H, N, dh) and dR (B, H, N, kk);
+//   * flex_bwd_k_sbm_expected: one block per (b, h, 64-column k-tile) walks
+//     the q-tiles and accumulates dk, dv (B, H, N, dh) and dK̂ (B, H, N, kk).
 // Per entry (i, j) of a tile, with s = q_i·k_j / sqrt(dh), lse_i from the
 // forward (−1e30 on a row with no live weight), dvec_i = g_i·out_i, gs the
 // graph_sum cotangent of (b, h) and keep the dropout keep-field:
-//   a_raw = 1{u < clip(R_i·K̂_j, floor, .99)} · real,  a_eff = a_raw (1 − pad_j)
+//   a_raw = clip(R_i·K̂_j, floor, .99) · real,  a_eff = a_raw (1 − pad_j)
 //   e     = exp(min(s − lse_i, 80))   (0 on a dead row)
 //   dattn = (g_i·v_j) keep
 //   d_s   = e a_eff (dattn − dvec_i)               → dq_i, dk_j (·/sqrt(dh))
 //   d_a   = e (dattn − dvec_i)(1 − pad_j) + gs      (the pad gate only on
 //                                                   the attention term)
-//   d_exp = clamp(a_raw d_a, −1, 1)                 → dR_i += d_exp K̂_j,
+//   d_exp = d_a · c(R_i·K̂_j) · real                → dR_i += d_exp K̂_j,
 //                                                     dK̂_j += d_exp R_i
 //   dv_j += e a_eff keep g_i
-// Under the expected mod the weight is soft and nothing is drawn:
-//   a_raw = clip(R_i·K̂_j, floor, .99) · real
-//   d_exp = d_a · c(R_i·K̂_j) · real,   c(x) = 1 inside (floor, .99), 1/2 at
-//           x == floor or x == .99 (the even split jnp.clip's vjp gives a
-//           tie), 0 outside
-// and everything else is as above.
-// The sample and dropout bits are regenerated from the counter hash with the
-// forward's seeds, stride round_up(N, 128) and global indices
-// (hashrng.cuh), and R·K̂ᵀ is summed in the forward's order, so the graph is
-// the forward's graph bit for bit.
+// with c(x) = 1 inside (floor, .99), 1/2 at x == floor or x == .99 (the even
+// split jnp.clip's vjp gives a tie), 0 outside.  The dropout bits are
+// regenerated from the counter hash with the forward's seed, stride
+// round_up(N, 128) and global indices (hashrng.cuh), and R·K̂ᵀ is summed in
+// the forward's order, so the weights are the forward's bit for bit.
 //
 // What bounds it on an H100: at the training shape (B=64, H=8, N=150,
 // dh=64, kk=10) each pass moves about 15 MB and does about 2 GFLOP of f32
 // work, some 5 µs of HBM time and 30 µs of f32 pipe time at the data sheet's
 // peaks; the per-tile loop of one 64-row block (two dh-deep products per
-// entry, a hash and 10 cluster products per entry, and the accumulation
-// products) sets the time, since the grid is B·H·3 = 1536 blocks of 256
+// entry, 10 cluster products per entry, and the accumulation products) sets
+// the time, since the grid is B·H·3 = 1536 blocks of 256
 // threads over 132 SMs.
 //
 // Design:
@@ -51,10 +44,10 @@
 //     written once.  No atomics: every output row belongs to one block.
 //   * A tile whose effective weight is all zero skips the score products,
 //     but still adds d_exp(gs) into dR / dK̂: on padded key columns a_raw
-//     can be live while a_eff is 0 (flex_core.py:381-384).  Under the
-//     expected mod an entry with weight 0 whose clip gate is open (a tie at
-//     floor == 0) still needs e, so such a tile takes the full branch: the
-//     result does not depend on the tile size.
+//     is live while a_eff is 0 (flex_core.py:381-384).  An entry with weight
+//     0 whose clip gate is open (a tie at floor == 0) still needs e, so such
+//     a tile takes the full branch: the result does not depend on the tile
+//     size.
 //   * The cluster axis is kk wide (<= 16) in shared memory, not 128 lanes.
 //   * Simple SIMT f32, as in flex_fwd.cu: 256 threads, each owns a 4x4 block
 //     of the 64x64 tile for the entry math and 4 rows (q-pass) or 4 columns
@@ -79,8 +72,6 @@ constexpr int KSLOTS = BM * KKMAX / THREADS;  // (row, cluster) pairs per thread
 constexpr float NEG = -1e30f;
 constexpr float LIVE_LSE = -5e29f;  // lse above this: the row saw live weight
 
-enum { MOD_SBM_SAMPLED = 0, MOD_SBM_EXPECTED = 1 };
-
 struct Params {
   const float* q;         // (B, H, N, dh)
   const float* k;
@@ -88,7 +79,6 @@ struct Params {
   const float* r;         // (B, H, N, kk)  R = Q̂·S
   const float* kh;        // (B, H, N, kk)
   const float* pad;       // (B, N), 1.0 = padded key
-  const int32_t* sseed;   // (1,) Bernoulli stream seed (sampled mod only)
   const int32_t* dseed;   // (1,) dropout stream seed, read when rate > 0
   const float* lse;       // (B, H, N) forward log-sum-exp (before dropout)
   const float* dvec;      // (B, H, N) Σ_d g·out
@@ -126,20 +116,20 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, 
 // The entry math of one (q-tile, k-tile) pair for this thread's 4x4 entries
 // (rows ty*4+ii, columns tx+16*jj); writes d_s to Ds, d_exp to De and, when
 // As is given, e·a_eff·keep to As.  Returns whether the tile is live (some
-// a_eff > 0, or under the expected mod some zero-weight entry whose clip gate
-// is open on an unpadded key); block-uniform, and every thread must call it.
-template <int MOD, int DH>
+// a_eff > 0, or some zero-weight entry whose clip gate is open on an
+// unpadded key); block-uniform, and every thread must call it.
+template <int DH>
 __device__ bool tile_backward(const Params& p, const float* Qs, const float* Gs,
                               const float* Ks, const float* Vs, const float* Rs,
                               const float* Khs, const float* pads, const float* lses,
                               const float* dvecs, int row0, int col0, uint32_t bh,
-                              uint32_t sseed, uint32_t dseed, float gs, float* Ds, float* De,
+                              uint32_t dseed, float gs, float* Ds, float* De,
                               float* As) {
   constexpr int LD = DH + 1;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int N = p.N;
   float a_raw[4][4], a_eff[4][4];
-  float cgate[4][4];  // expected mod: the clip's vjp factor times the real gate
+  float cgate[4][4];  // the clip's vjp factor times the real gate
   int live_local = 0;
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
@@ -152,20 +142,15 @@ __device__ bool tile_backward(const Params& p, const float* Qs, const float* Gs,
         float ea = 0.f;
         for (int j = 0; j < p.kk; ++j)
           ea = __fadd_rn(ea, __fmul_rn(Rs[r * KKLD + j], Khs[c * KKLD + j]));
-        const float pr = fminf(fmaxf(ea, p.floor_), 0.99f);
-        if (MOD == MOD_SBM_SAMPLED) {
-          a = hash_uniform(sseed, bh, gr, gc, p.stride) < pr ? 1.f : 0.f;
-        } else {
-          a = pr;
-          cg = (ea > p.floor_ && ea < 0.99f) ? 1.f
-               : ((ea == p.floor_ || ea == 0.99f) ? 0.5f : 0.f);
-        }
+        a = fminf(fmaxf(ea, p.floor_), 0.99f);
+        cg = (ea > p.floor_ && ea < 0.99f) ? 1.f
+             : ((ea == p.floor_ || ea == 0.99f) ? 0.5f : 0.f);
       }
       a_raw[ii][jj] = a;
       a_eff[ii][jj] = a * (1.f - pads[c]);
       cgate[ii][jj] = cg;
       live_local |= (a_eff[ii][jj] > 0.f);
-      if (MOD == MOD_SBM_EXPECTED) live_local |= (cg > 0.f && pads[c] < 1.f);
+      live_local |= (cg > 0.f && pads[c] < 1.f);
     }
   }
   const bool live = __syncthreads_or(live_local);
@@ -232,9 +217,7 @@ __device__ bool tile_backward(const Params& p, const float* Qs, const float* Gs,
     for (int jj = 0; jj < 4; ++jj) {
       const int at = (ty * 4 + ii) * PLD + tx + 16 * jj;
       Ds[at] = d_s[ii][jj];
-      De[at] = MOD == MOD_SBM_SAMPLED
-                   ? fminf(fmaxf(a_raw[ii][jj] * d_a[ii][jj], -1.f), 1.f)
-                   : d_a[ii][jj] * cgate[ii][jj];
+      De[at] = d_a[ii][jj] * cgate[ii][jj];
       if (As) As[at] = att[ii][jj];
     }
   return live;
@@ -289,7 +272,7 @@ __device__ void load_k_side(const Params& p, const Tiles<DH>& t, size_t bh, int 
   }
 }
 
-template <int MOD, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS) bwd_q_kernel(Params p) {
   constexpr int LD = DH + 1;
   constexpr int DPT = DH / 16;
@@ -300,7 +283,6 @@ __global__ void __launch_bounds__(THREADS) bwd_q_kernel(Params p) {
   const int N = p.N, kk = p.kk;
   const size_t bh = (size_t)b * p.H + h;
   const int row0 = qt * BM;
-  const uint32_t sseed = MOD == MOD_SBM_SAMPLED ? (uint32_t)p.sseed[0] : 0u;
   const uint32_t dseed = p.rate > 0.f ? (uint32_t)p.dseed[0] : 0u;
   const float gs = p.gs[bh];
 
@@ -318,9 +300,9 @@ __global__ void __launch_bounds__(THREADS) bwd_q_kernel(Params p) {
     const int col0 = kt * BN;
     load_k_side<DH>(p, t, bh, b, col0, tid);
     __syncthreads();
-    const bool live = tile_backward<MOD, DH>(p, t.Qs, t.Gs, t.Ks, t.Vs, t.Rs, t.Khs, t.pads,
-                                        t.lses, t.dvecs, row0, col0, (uint32_t)bh, sseed,
-                                        dseed, gs, t.Ds, t.De, nullptr);
+    const bool live = tile_backward<DH>(p, t.Qs, t.Gs, t.Ks, t.Vs, t.Rs, t.Khs, t.pads,
+                                        t.lses, t.dvecs, row0, col0, (uint32_t)bh, dseed, gs,
+                                        t.Ds, t.De, nullptr);
     __syncthreads();
     if (live) {
       for (int c = 0; c < BN; ++c) {
@@ -366,7 +348,7 @@ __global__ void __launch_bounds__(THREADS) bwd_q_kernel(Params p) {
   }
 }
 
-template <int MOD, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS) bwd_k_kernel(Params p) {
   constexpr int LD = DH + 1;
   constexpr int DPT = DH / 16;
@@ -377,7 +359,6 @@ __global__ void __launch_bounds__(THREADS) bwd_k_kernel(Params p) {
   const int N = p.N, kk = p.kk;
   const size_t bh = (size_t)b * p.H + h;
   const int col0 = kt * BN;
-  const uint32_t sseed = MOD == MOD_SBM_SAMPLED ? (uint32_t)p.sseed[0] : 0u;
   const uint32_t dseed = p.rate > 0.f ? (uint32_t)p.dseed[0] : 0u;
   const float gs = p.gs[bh];
 
@@ -395,9 +376,9 @@ __global__ void __launch_bounds__(THREADS) bwd_k_kernel(Params p) {
     const int row0 = qt * BM;
     load_q_side<DH>(p, t, bh, row0, tid);
     __syncthreads();
-    const bool live = tile_backward<MOD, DH>(p, t.Qs, t.Gs, t.Ks, t.Vs, t.Rs, t.Khs, t.pads,
-                                        t.lses, t.dvecs, row0, col0, (uint32_t)bh, sseed,
-                                        dseed, gs, t.Ds, t.De, t.As);
+    const bool live = tile_backward<DH>(p, t.Qs, t.Gs, t.Ks, t.Vs, t.Rs, t.Khs, t.pads,
+                                        t.lses, t.dvecs, row0, col0, (uint32_t)bh, dseed, gs,
+                                        t.Ds, t.De, t.As);
     __syncthreads();
     if (live) {
       for (int r = 0; r < BM; ++r) {
@@ -452,82 +433,55 @@ __global__ void __launch_bounds__(THREADS) bwd_k_kernel(Params p) {
   }
 }
 
-template <int MOD, int DH>
+template <int DH>
 int launch(const Params& p, bool k_pass, cudaStream_t stream) {
   const size_t bytes = smem_floats<DH>(k_pass) * sizeof(float);
   if (bytes > 232448) return -2;  // over the 227 KB a block may use
-  const void* fn = k_pass ? (const void*)bwd_k_kernel<MOD, DH>
-                          : (const void*)bwd_q_kernel<MOD, DH>;
+  const void* fn = k_pass ? (const void*)bwd_k_kernel<DH> : (const void*)bwd_q_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + BM - 1) / BM, p.H, p.B);
-  if (k_pass) bwd_k_kernel<MOD, DH><<<grid, THREADS, bytes, stream>>>(p);
-  else bwd_q_kernel<MOD, DH><<<grid, THREADS, bytes, stream>>>(p);
+  if (k_pass) bwd_k_kernel<DH><<<grid, THREADS, bytes, stream>>>(p);
+  else bwd_q_kernel<DH><<<grid, THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // The head widths of ops/build.py HEAD_DIMS: 64 (python), 96 (java).
-template <int MOD>
 int dispatch(int dh, const Params& p, bool k_pass, cudaStream_t stream) {
-  if (dh == 64) return launch<MOD, 64>(p, k_pass, stream);
-  if (dh == 96) return launch<MOD, 96>(p, k_pass, stream);
+  if (dh == 64) return launch<64>(p, k_pass, stream);
+  if (dh == 96) return launch<96>(p, k_pass, stream);
   return -1;  // head width without an instantiation
 }
 
-template <int MOD>
 int run(const float* q, const float* k, const float* v, const float* r, const float* kh,
-        const float* pad, const int32_t* sseed, const int32_t* dseed, const float* lse,
-        const float* dvec, const float* gout, const float* gs, float* dq, float* dr,
-        float* dk, float* dv, float* dkh, int B, int H, int N, int DH, int KK, int stride,
-        float floor_, float scale, float rate, float keep_scale, bool k_pass, void* stream) {
+        const float* pad, const int32_t* dseed, const float* lse, const float* dvec,
+        const float* gout, const float* gs, float* dq, float* dr, float* dk, float* dv,
+        float* dkh, int B, int H, int N, int DH, int KK, int stride, float floor_,
+        float scale, float rate, float keep_scale, bool k_pass, void* stream) {
   if (KK < 1 || KK > KKMAX) return -3;
   if (rate > 0.f && dseed == nullptr) return -4;
-  if (MOD == MOD_SBM_SAMPLED && sseed == nullptr) return -5;
   Params p{};
   p.q = q; p.k = k; p.v = v; p.r = r; p.kh = kh; p.pad = pad;
-  p.sseed = sseed; p.dseed = dseed; p.lse = lse; p.dvec = dvec; p.gout = gout; p.gs = gs;
+  p.dseed = dseed; p.lse = lse; p.dvec = dvec; p.gout = gout; p.gs = gs;
   p.dq = dq; p.dr = dr; p.dk = dk; p.dv = dv; p.dkh = dkh;
   p.B = B; p.H = H; p.N = N; p.kk = KK; p.stride = (uint32_t)stride;
   p.floor_ = floor_; p.scale = scale; p.rate = rate; p.keep_scale = keep_scale;
-  return dispatch<MOD>(DH, p, k_pass, (cudaStream_t)stream);
+  return dispatch(DH, p, k_pass, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-extern "C" int flex_bwd_q_sbm_sampled(
-    const float* q, const float* k, const float* v, const float* r, const float* kh,
-    const float* pad, const int32_t* sseed, const int32_t* dseed, const float* lse,
-    const float* dvec, const float* gout, const float* gs, float* dq, float* dr, int B,
-    int H, int N, int DH, int KK, int stride, float floor_, float scale, float rate,
-    float keep_scale, void* stream) {
-  return run<MOD_SBM_SAMPLED>(q, k, v, r, kh, pad, sseed, dseed, lse, dvec, gout, gs, dq,
-                              dr, nullptr, nullptr, nullptr, B, H, N, DH, KK, stride,
-                              floor_, scale, rate, keep_scale, false, stream);
-}
-
-extern "C" int flex_bwd_k_sbm_sampled(
-    const float* q, const float* k, const float* v, const float* r, const float* kh,
-    const float* pad, const int32_t* sseed, const int32_t* dseed, const float* lse,
-    const float* dvec, const float* gout, const float* gs, float* dk, float* dv,
-    float* dkh, int B, int H, int N, int DH, int KK, int stride, float floor_, float scale,
-    float rate, float keep_scale, void* stream) {
-  return run<MOD_SBM_SAMPLED>(q, k, v, r, kh, pad, sseed, dseed, lse, dvec, gout, gs,
-                              nullptr, nullptr, dk, dv, dkh, B, H, N, DH, KK, stride,
-                              floor_, scale, rate, keep_scale, true, stream);
-}
-
-// The expected mod draws no graph: the argument lists are those of the
-// sampled mod without the sample seed.
+// The argument lists are those of the sampled pair (flex_bwd_tc.cu) without
+// the sample seed: the expected mod draws no graph.
 extern "C" int flex_bwd_q_sbm_expected(
     const float* q, const float* k, const float* v, const float* r, const float* kh,
     const float* pad, const int32_t* dseed, const float* lse, const float* dvec,
     const float* gout, const float* gs, float* dq, float* dr, int B, int H, int N, int DH,
     int KK, int stride, float floor_, float scale, float rate, float keep_scale,
     void* stream) {
-  return run<MOD_SBM_EXPECTED>(q, k, v, r, kh, pad, nullptr, dseed, lse, dvec, gout, gs, dq,
-                               dr, nullptr, nullptr, nullptr, B, H, N, DH, KK, stride,
-                               floor_, scale, rate, keep_scale, false, stream);
+  return run(q, k, v, r, kh, pad, dseed, lse, dvec, gout, gs, dq, dr, nullptr, nullptr,
+             nullptr, B, H, N, DH, KK, stride, floor_, scale, rate, keep_scale, false, stream);
 }
 
 extern "C" int flex_bwd_k_sbm_expected(
@@ -536,7 +490,6 @@ extern "C" int flex_bwd_k_sbm_expected(
     const float* gout, const float* gs, float* dk, float* dv, float* dkh, int B, int H,
     int N, int DH, int KK, int stride, float floor_, float scale, float rate,
     float keep_scale, void* stream) {
-  return run<MOD_SBM_EXPECTED>(q, k, v, r, kh, pad, nullptr, dseed, lse, dvec, gout, gs,
-                               nullptr, nullptr, dk, dv, dkh, B, H, N, DH, KK, stride,
-                               floor_, scale, rate, keep_scale, true, stream);
+  return run(q, k, v, r, kh, pad, dseed, lse, dvec, gout, gs, nullptr, nullptr, dk, dv, dkh,
+             B, H, N, DH, KK, stride, floor_, scale, rate, keep_scale, true, stream);
 }

@@ -13,9 +13,10 @@ hand-written Hopper kernels inside one ``torch.autograd.Function`` — the
 forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_sbm_expected``, tensor cores)
 or ``csrc/flex_fwd.cu`` (``flex_fwd_{cse,sbm_sampled,sbm_graph}``) and,
 for the sampled and the expected SBM mods, the two-pass
-backward ``csrc/flex_bwd.cu`` (``flex_bwd_q_sbm_{sampled,expected}``: dq, dR
-over k-tiles; ``flex_bwd_k_sbm_{sampled,expected}``: dk, dv, dK̂ over
-q-tiles).  The CSE and graph mods' backward is the autograd of
+backward (``flex_bwd_q_sbm_{sampled,expected}``: dq, dR over the keys;
+``flex_bwd_k_sbm_{sampled,expected}``: dk, dv, dK̂ over the query rows) —
+``csrc/flex_bwd_tc.cu`` (sampled, tensor cores) or ``csrc/flex_bwd.cu``
+(expected).  The CSE and graph mods' backward is the autograd of
 :func:`flex_reference` recomputed from the saved inputs, as the JAX package's
 reference backward is.  For CPU tensors it
 evaluates :func:`flex_reference`, the plain PyTorch composition of the same

@@ -3,7 +3,7 @@
 A copy of the JAX package's ``ops/hashrng.py``: a murmur3 finalizer over
 ``(seed, batch·head, global row, global col)`` gives the uniform draw of every
 attention pair.  The stream is a pure function of indices, so the CUDA kernels
-(``csrc/flex_fwd.cu``, ``csrc/flex_bwd.cu``) generate it tile by tile, the
+(``csrc/flex_fwd*.cu``, ``csrc/flex_bwd*.cu``) generate it tile by tile, the
 backward regenerates it, and :func:`uniform_field` materialises the same
 field for the plain path.
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the serving kernels (K1, K2, K5) and the training kernels (K6, K7 forward
-with dropout, K3/K4 backward, K8/K9 expected-graph backward with clip ties
-and whole padded key tiles) at the training shape and at ragged shapes.
+with dropout, K3/K4 backward at every bucket length and at serving and
+training batch sizes, K8/K9 expected-graph backward with clip ties and
+whole padded key tiles) at the training shape and at ragged shapes.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use), so
 they carry the ``cuda`` marker and skip elsewhere; run them on a GPU machine
@@ -325,22 +326,21 @@ def test_sbm_train_forward_matches_plain(dev, mod, b, n, dh):
     assert torch.equal(ex["skipped_blocks"], skips)
 
 
-@pytest.mark.parametrize("b,n,dh", [(64, 150, 64), (3, 37, 64), (3, 75, 64), (2, 130, 96)])
-def test_sbm_sampled_backward_matches_plain(dev, b, n, dh):
+def _sampled_grads(fn, q, k, v, spec, aux, rate, dseed, go):
+    """graph_sum and the gradients (q, k, v, R, K̂) of ``Σ out·go + 1e-3 ·
+    Σ graph_sum`` through ``fn`` (the kernels or the plain path)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
+    out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), rate, dseed)
+    loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
+    return ex["graph_sum"].detach(), torch.autograd.grad(loss, leaves)
+
+
+def _check_sampled_backward(q, k, v, spec, aux, rate, dseed, go):
     from csat_tpu_torch.ops import build, flex_core
 
-    q, k, v, spec, aux, dseed = _train_case("sbm_sampled", b, n, dh, dev, seed=1)
-    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev)
-
-    def grads(fn):
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
-        out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), RATE, dseed)
-        loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
-        return ex["graph_sum"].detach(), torch.autograd.grad(loss, leaves)
-
     before = build.launch_counts()
-    gsum, got = grads(flex_core.flex_attention)
-    ref_gsum, want = grads(flex_core.flex_reference)
+    gsum, got = _sampled_grads(flex_core.flex_attention, q, k, v, spec, aux, rate, dseed, go)
+    ref_gsum, want = _sampled_grads(flex_core.flex_reference, q, k, v, spec, aux, rate, dseed, go)
     torch.cuda.synchronize()
     after = build.launch_counts()
     for fn in ("flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled", "flex_bwd_k_sbm_sampled"):
@@ -352,7 +352,59 @@ def test_sbm_sampled_backward_matches_plain(dev, b, n, dh):
     same = gsum == ref_gsum
     assert same.float().mean() >= 0.9
     for name, a, w in zip(("q", "k", "v", "r", "k_hat"), got, want):
+        assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a[same], w[same], atol=GRAD_TOL, rtol=GRAD_TOL, msg=name)
+    return got
+
+
+# K3/K4 (the tensor-core kernels of csrc/flex_bwd_tc.cu) at every bucket
+# length, at serving and training batch sizes and at both head widths, with
+# and without attention dropout; and the ragged shapes of the first port
+@pytest.mark.parametrize("b,n,dh,rate", [
+    *[(b, n, dh, rate) for n in (37, 75, 150) for b in (1, 4, 64) for dh in (64, 96)
+      for rate in (0.0, RATE)],
+    (3, 37, 64, RATE), (3, 75, 64, RATE), (2, 130, 96, RATE)])
+def test_sbm_sampled_backward_matches_plain(dev, b, n, dh, rate):
+    q, k, v, spec, aux, dseed = _train_case("sbm_sampled", b, n, dh, dev, seed=1)
+    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    _check_sampled_backward(q, k, v, spec, aux, rate, dseed, go)
+
+
+def test_sampled_backward_repeats_bit_for_bit(dev):
+    """Two backward passes of K3/K4 on the same inputs give the same bits:
+    every output row belongs to one block and every sum runs in one order."""
+    from csat_tpu_torch.ops import flex_core
+
+    q, k, v, spec, aux, dseed = _train_case("sbm_sampled", 64, 150, 64, dev, seed=4, h=8)
+    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(dev)
+    first = _sampled_grads(flex_core.flex_attention, q, k, v, spec, aux, RATE, dseed, go)[1]
+    second = _sampled_grads(flex_core.flex_attention, q, k, v, spec, aux, RATE, dseed, go)[1]
+    for name, a, w in zip(("dq", "dk", "dv", "dr", "dkh"), first, second):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("n_real", [16, 20])
+def test_sampled_backward_with_keys_padded_past_a_row_group(dev, n_real):
+    """Every key from ``n_real`` on is padding in every sample: whole 16-key
+    groups past it carry no attention weight, so the kernels skip their
+    dh-deep products, yet their raw graph still brings the graph_sum
+    cotangent to dK̂ there."""
+    from csat_tpu_torch.ops.mods import sbm_sampled_mod
+
+    g = torch.Generator().manual_seed(n_real)
+    b, h, n, dh, kk = 4, 4, 150, 64, 10
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
+    q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
+    pad = torch.zeros((b, n), dtype=torch.bool)
+    pad[:, n_real:] = True
+    s_aff = torch.softmax(torch.randn(h, kk * kk, generator=g), -1).reshape(h, kk, kk).to(dev)
+    spec, aux = sbm_sampled_mod(rnd(b, h, n, kk).sigmoid(), rnd(b, h, n, kk).sigmoid(), s_aff,
+                                pad.to(dev), torch.tensor([11], dtype=torch.int32, device=dev))
+    dseed = torch.tensor([12], dtype=torch.int32, device=dev)
+    go = rnd(b, h, n, dh)
+    _, dk, dv, _, dkh = _check_sampled_backward(q, k, v, spec, aux, RATE, dseed, go)
+    assert dk[:, :, n_real:].abs().sum() == 0 and dv[:, :, n_real:].abs().sum() == 0
+    assert dkh[:, :, n_real:].abs().sum() > 0
 
 
 def test_kernel_backward_adds_graph_sum_cotangent_on_dead_tiles(dev):
