@@ -9,18 +9,20 @@ Phases, each printing JSON lines:
 2. ``build``   — compiles every CUDA kernel of the serving and training paths
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once, and counts the tensor-core
-   instructions in the SASS of K2 and of K3/K4 (``sass``: an instantiation
+   instructions in the SASS of K2/K6 and of K3/K4 (``sass``: an instantiation
    without any fails the run);
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
    and every bucket of the fit's plan (259×37, 128×75, 64×150), which each
    later phase checks against what it ran: max abs error (with its
    tolerance), exact skip counts, and times (CUDA events, median of several
-   runs; at the plan's smaller buckets K1, K2 and K3/K4 are timed, K1 and K2
-   beside SDPA with the same score bias or weight as an additive float mask;
-   K1 also on the distances and masks of the train phase's batch, K3/K4 on
-   what the first SBM layer of a training step on that batch gives them —
-   factors, padding, seeds and cotangents); every backward
+   runs; at the plan's smaller buckets K1, K2, K6 and K3/K4 are timed, K1 and
+   K2 beside SDPA with the same score bias or weight as an additive float
+   mask; K1 also on the distances and masks of the train phase's batch, K6
+   and K3/K4 on what the first SBM layer of a training step on that batch
+   gives them — factors, padding, seeds and cotangents — and K5 on what one
+   self-attention and one cross-attention launch of the serve phase's drain
+   gives it — pages, tables, masks, widths and merged lanes); every backward
    check also holds its forward's ``out`` and ``lse``; the expected-graph
    backward also on whole padded key tiles and on inputs with exact ties at
    both clip bounds, at the default floor and at floor 0, and without
@@ -39,8 +41,11 @@ Phases, each printing JSON lines:
    1e-4 relative; every parameter's max abs gradient error is written out),
    then 8 kernel steps on that batch must stay finite and end below the first
    step's loss; two backward passes from the same weights, batch and noise
-   must give bit-equal gradients; one ``noise_mode="shared"`` step runs the
-   graph kernel;
+   must give bit-equal gradients; each of the 4 SBM layers' kernel forward
+   and backward against the plain ones on the inputs that layer got in a
+   kernel step, so that both see the same sampled graph (no edge apart,
+   output within 1e-6 and every gradient within 1e-5, relative L2); one
+   ``noise_mode="shared"`` step runs the graph kernel;
    every training kernel must have launched in the step that uses it;
 6. ``expected_grad`` — the gradient of the same model's deterministic forward
    under ``eval_graph="expected"`` (``nll + sw · sparsity``, batch 64):
@@ -109,6 +114,9 @@ TRAIN_B = 64      # the configs' batch_size
 RATE = 0.2        # the configs' attention dropout
 TRAIN_STEPS = 8
 LOSS_RTOL, GNORM_RTOL = 1e-5, 1e-4
+# the same-graph gate: each SBM layer's kernel and plain paths on one set of
+# inputs, so the sampled graphs agree and only the arithmetic differs
+SAME_GRAPH_OUT_RTOL, SAME_GRAPH_GRAD_RTOL = 1e-6, 1e-5
 GS_COEF = 1e-3    # weight of Σ graph_sum in the backward checks' loss
 GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
 
@@ -117,8 +125,8 @@ GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
 CHECKED: set = set()
 
 #: library → the kernel instantiations in it that must hold tensor-core
-#: instructions: K2 at dh 64 and 96; K3 and K4 at dh 64 and 96
-TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 2, "flex_bwd_tc": 4}
+#: instructions: K2 and K6 at dh 64 and 96; K3 and K4 at dh 64 and 96
+TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 4, "flex_bwd_tc": 4}
 
 #: the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FUNCTIONS = ("flex_fwd_kernel", "flex_tc_kernel", "bwd_tc_kernel", "bwd_q_kernel",
@@ -202,7 +210,7 @@ def build_phase() -> None:
     for fn in build.KERNELS:
         build.kernel(fn)  # load and bind every entry point
     emit("build", seconds=seconds, libraries=sorted(build.SOURCES), kernels=sorted(build.KERNELS))
-    # K2 at dh 64 and 96; K3 and K4 (the q- and the k-pass) at dh 64 and 96
+    # K2 and K6 at dh 64 and 96; K3 and K4 (the q- and the k-pass) at dh 64 and 96
     for lib, n_fns in TENSOR_CORE_LIBRARIES.items():
         counts = tensor_core_instructions(build.library_path(lib))
         emit("sass", library=lib, tensor_core_instructions=counts)
@@ -304,17 +312,26 @@ def _near_draws(q, spec, aux):
     return (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
 
 
-def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=None) -> dict:
+def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=None,
+               captured=None) -> dict:
     """One forward kernel against its plain version at (B, N); ``timed``
     adds the times and the bound (left out for shapes checked for
     correctness only); ``rel_mask`` gives K1 a real batch's distances and
-    masks in place of random ones."""
+    masks in place of random ones; ``captured`` (from
+    :func:`capture_sbm_inputs`) gives K6 what an SBM layer of a training
+    step got."""
     from csat_tpu_torch.ops import build, flex_core
 
-    q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask)
-    train = mod in ("sbm_sampled", "sbm_graph")
-    rate = RATE if train else 0.0
-    dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if train else None
+    if captured is None:
+        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask)
+        train = mod in ("sbm_sampled", "sbm_graph")
+        rate = RATE if train else 0.0
+        dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if train else None
+    else:
+        q, k, v, spec, aux, rate, dseed = (captured[key] for key in (
+            "q", "k", "v", "spec", "aux", "rate", "dseed"))
+        b, n = q.shape[0], q.shape[2]
+    real_inputs = rel_mask is not None or captured is not None
     with torch.no_grad():
         out, ex = flex_core.flex_attention(q, k, v, spec, aux, rate, dseed)
         ref, rex = flex_core.flex_reference(q, k, v, spec, aux, rate, dseed)
@@ -380,8 +397,8 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
             _, w_eff = spec.full_weight(q, k, aux)
         w_eff = torch.broadcast_to(w_eff, (b, h, n, n))
         live = int((w_eff > 0).sum())
-        # K2 runs q·k and P·V on the tensor cores, R·K̂ and K6/K7 on f32 SIMT
-        tc_flops = live * 4 * dh if mod == "sbm_expected" else 0
+        # K2 and K6 run q·k and P·V on the tensor cores, R·K̂ and K7 on f32 SIMT
+        tc_flops = live * 4 * dh if mod in ("sbm_expected", "sbm_sampled") else 0
         simt_flops = 0 if tc_flops else live * 4 * dh
         if mod != "sbm_graph":
             simt_flops += b * h * n * n * 2 * spec.kk
@@ -398,7 +415,7 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
                skipped_blocks=int(skips.sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
                live_entries=live, flops=simt_flops + tc_flops, tensor_core_flops=tc_flops,
-               bytes=moved, inputs="random" if rel_mask is None else "train batch")
+               bytes=moved, inputs="train batch" if real_inputs else "random")
     emit("kernel", **rec)
     return rec
 
@@ -457,27 +474,28 @@ def expected_closed_form(q, k, v, aux, floor: float, go, gs_coef: float) -> dict
                 dkh=d_ea.transpose(-1, -2) @ r.double())
 
 
-def capture_sbm_inputs(cfg, batch, device="cuda") -> dict:
-    """What the first SBM layer gives ``flex_attention`` in one training
-    forward of the flagship model on ``batch`` (weights from ``SEED``), and the
-    cotangents that the backward of ``nll + sw · sparsity`` brings to its
-    ``out`` and ``graph_sum``: the real inputs of K6 and of K3/K4."""
+def capture_sbm_inputs(cfg, batch, device="cuda", layers: int = 1) -> list:
+    """What the first ``layers`` SBM layers give ``flex_attention`` in one
+    training forward of the flagship model on ``batch`` (weights from
+    ``SEED``, through the kernels), and the cotangents that the backward of
+    ``nll + sw · sparsity`` brings to their ``out`` and ``graph_sum``: the
+    real inputs of K6 and of K3/K4, one dict per layer."""
     from csat_tpu_torch.models import CSATrans, sbm
     from csat_tpu_torch.train import label_smoothing_loss
 
     model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
-    got = {}
+    got = []
     inner = sbm.flex_attention
 
     def recorder(q, k, v, spec, aux, rate=0.0, dseed=None):
         out, ex = inner(q, k, v, spec, aux, rate, dseed)
-        if not got:
-            got.update(q=q, k=k, v=v, spec=spec, aux=aux, rate=rate, dseed=dseed)
-            got["go"] = torch.zeros_like(out)
-            got["gs"] = torch.zeros_like(ex["graph_sum"])
-            out.register_hook(lambda g: got["go"].copy_(g))
+        if len(got) < layers:
+            rec = dict(q=q, k=k, v=v, spec=spec, aux=aux, rate=rate, dseed=dseed,
+                       go=torch.zeros_like(out), gs=torch.zeros_like(ex["graph_sum"]))
+            got.append(rec)
+            out.register_hook(lambda g, rec=rec: rec["go"].copy_(g))
             if ex["graph_sum"].requires_grad:
-                ex["graph_sum"].register_hook(lambda g: got["gs"].copy_(g))
+                ex["graph_sum"].register_hook(lambda g, rec=rec: rec["gs"].copy_(g))
         return out, ex
 
     sbm.flex_attention = recorder
@@ -489,8 +507,8 @@ def capture_sbm_inputs(cfg, batch, device="cuda") -> dict:
     finally:
         sbm.flex_attention = inner
     detach = lambda t: t.detach().clone().contiguous() if torch.is_tensor(t) else t
-    return {key: (tuple(detach(t) for t in val) if key == "aux" else detach(val))
-            for key, val in got.items()}
+    return [{key: (tuple(detach(t) for t in val) if key == "aux" else detach(val))
+             for key, val in rec.items()} for rec in got]
 
 
 def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
@@ -666,10 +684,59 @@ def _paged_inputs(dtype, side: str, gen, dev):
     return inputs, merge, lens
 
 
-def paged_check(dtype, side: str, gen, dev) -> dict:
+def capture_decode_inputs(cfg, samples, budgets, device="cuda") -> dict:
+    """The arguments of one self-attention and one cross-attention K5 launch
+    from the middle of the serving drain of ``samples`` (the serve phase's
+    requests, the flagship model from ``SEED`` on the card): real page pools,
+    tables, masks, widths and merged lanes.  A first drain counts each side's
+    launches; a second, from a fresh engine, keeps the middle one of each."""
+    from csat_tpu_torch.models import CSATrans, components
+    from csat_tpu_torch.serve import ServeEngine
+
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    inner = components.paged_attend
+    calls, keep, got = {"self": 0, "cross": 0}, {}, {}
+
+    def recorder(q, pages_k, pages_v, scale_k, scale_v, table, mask, width, *, idx=None,
+                 k_tok=None, v_tok=None):
+        side = "cross" if idx is None else "self"
+        if calls[side] == keep.get(side):
+            copy = lambda t: t.detach().clone().contiguous()
+            merge = {} if idx is None else dict(idx=copy(idx.to(torch.int32)),
+                                                k_tok=copy(k_tok.float()),
+                                                v_tok=copy(v_tok.float()))
+            got[side] = dict(inputs=[copy(q.float()), *(copy(t) for t in (
+                pages_k, pages_v, scale_k, scale_v, table, mask)), width], merge=merge,
+                call=calls[side], of=keep[side] * 2)
+        calls[side] += 1
+        return inner(q, pages_k, pages_v, scale_k, scale_v, table, mask, width, idx=idx,
+                     k_tok=k_tok, v_tok=v_tok)
+
+    components.paged_attend = recorder
+    try:
+        for _ in range(2):
+            engine = ServeEngine(model, cfg, device=device)
+            for sample, budget in zip(samples, budgets):
+                engine.submit(sample, budget)
+            engine.drain()
+            if not keep:
+                keep = {side: n // 2 for side, n in calls.items()}
+                calls = {side: 0 for side in calls}
+    finally:
+        components.paged_attend = inner
+    return got
+
+
+def paged_check(dtype, side: str, gen, dev, captured=None) -> dict:
+    """K5 against its plain version: on random ragged chains of ``dtype``
+    pages, or on ``captured`` (from :func:`capture_decode_inputs`)."""
     from csat_tpu_torch.ops import build, paged_decode as pd
 
-    inputs, merge, lens = _paged_inputs(dtype, side, gen, dev)
+    if captured is None:
+        inputs, merge, lens = _paged_inputs(dtype, side, gen, dev)
+    else:
+        inputs, merge = captured["inputs"], captured["merge"]
+        lens = (~inputs[6]).sum(dim=1).tolist()
     q, pk, pv, sk, sv, table, mask, width = inputs
     out, skipped = pd.paged_attend(*inputs, **merge)
     ref, ref_skip = pd._attend_reference(*inputs, merge.get("idx"), merge.get("k_tok"),
@@ -704,11 +771,13 @@ def paged_check(dtype, side: str, gen, dev) -> dict:
              + nbytes(q, table, mask, out, *merge.values()))
     flops = h * (lanes * 4 * dh + int(frozen.sum()) * width * dh)
     bound, bound_by = bound_ms(moved, flops)
-    rec = dict(kernel="paged_decode", side=side, dtype=str(dtype).replace("torch.", ""),
+    rec = dict(kernel="paged_decode", side=side, dtype=str(pk.dtype).replace("torch.", ""),
                width=width, chain_lens=lens, max_abs_err=err, tol=PAGED_TOL,
                skipped=int(skipped[:, 0].sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
-               lanes=lanes, flops=flops, bytes=moved)
+               lanes=lanes, flops=flops, bytes=moved,
+               inputs="random" if captured is None else
+               f"serve drain, {side} launch {captured['call']} of {captured['of']}")
     emit("kernel", **rec)
     return rec
 
@@ -757,16 +826,15 @@ def kernel_phase(dev) -> dict:
     # K2 at the expected-gradient path's shape, the floor-0 ties, and the
     # shapes of the fit's other buckets (the flagship bucket is above) for
     # the train kernels (K1, K6, K3, K4) and the eval encoder's (K1, K2);
-    # K1, K2, K3 and K4 are timed there too, the others checked without the
+    # K1, K2, K6, K3 and K4 are timed there too, K8/K9 checked without the
     # timing loops
     flex_check("sbm_expected", TRAIN_B, 150, gen, dev)
     bwd_check("sbm_expected", 4, 150, gen, dev, rate=0.0, variant="ties", floor=0.0, timed=False)
     for b, n in plan_shapes():
         if (b, n) == (TRAIN_B, 150):
             continue
-        for mod in ("cse", "sbm_expected"):
+        for mod in ("cse", "sbm_expected", "sbm_sampled"):
             flex_check(mod, b, n, gen, dev)
-        flex_check("sbm_sampled", b, n, gen, dev, timed=False)
         bwd_check("sbm_sampled", b, n, gen, dev)
         bwd_check("sbm_expected", b, n, gen, dev, rate=0.0, timed=False)
     # K1 on the train phase's batch (ASTs of 20-150 nodes padded to 150):
@@ -776,19 +844,29 @@ def kernel_phase(dev) -> dict:
     rel_mask = (torch.stack([batch.L, batch.T], dim=1).to(torch.int32).contiguous(),
                 torch.stack([batch.L_mask, batch.T_mask], dim=1).contiguous())
     cse_real = flex_check("cse", TRAIN_B, 150, gen, dev, rel_mask=rel_mask)
-    # K3/K4 on what the first SBM layer of a training step on that batch
-    # gives them: its factors, padding, seeds and cotangents
-    bwd_real = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev,
-                         captured=capture_sbm_inputs(cfg, batch))
+    # K6 and K3/K4 on what the first SBM layer of a training step on that
+    # batch gives them: its factors, padding, seeds and cotangents
+    first_sbm = capture_sbm_inputs(cfg, batch)[0]
+    sampled_real = flex_check("sbm_sampled", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    bwd_real = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    del first_sbm
+    # K5 on one self-attention and one cross-attention launch from the middle
+    # of the serve phase's drain
+    serve_cfg = flagship()
+    decode = capture_decode_inputs(serve_cfg, *make_requests(serve_cfg))
+    paged_real = {side: paged_check(None, side, gen, dev, captured=decode[side])
+                  for side in ("self", "cross")}
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             **{f"{fn}@train_batch": rec for fn, rec in bwd_real.items()},
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],
             "flex_fwd_sbm_sampled": train["sbm_sampled"],
+            "flex_fwd_sbm_sampled@train_batch": sampled_real,
             "flex_fwd_sbm_graph": train["sbm_graph"],
             **bwd, **bwd_exp,
-            "paged_decode": paged[(torch.float32, "cross")]}
+            "paged_decode": paged[(torch.float32, "cross")],
+            **{f"paged_decode@serve_{side}": rec for side, rec in paged_real.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1052,6 +1130,42 @@ def repeatable_backward(model, cfg, batch) -> dict:
     return {"params": len(first), "params_apart": apart}
 
 
+def same_graph_gate(cfg, batch, device="cuda") -> dict:
+    """Each SBM layer's kernels (K6 forward, K3/K4 backward) against the
+    plain forward and its autograd on the inputs and cotangents that layer got
+    in one kernel training step on ``batch``.  The graph is drawn in one
+    fixed order on both paths, so both see the same sampled graph and only
+    the arithmetic differs: no edge may be apart (net, per (batch, head)),
+    the output must agree within ``SAME_GRAPH_OUT_RTOL`` and every gradient
+    (q, k, v, R, K̂) within ``SAME_GRAPH_GRAD_RTOL``, relative in L2 norm."""
+    from csat_tpu_torch.ops import flex_core
+
+    rel = lambda a, w: (torch.linalg.vector_norm(a - w) / torch.linalg.vector_norm(w)).item()
+    layers = []
+    for i, cap in enumerate(capture_sbm_inputs(cfg, batch, device, layers=cfg.sbm_layers)):
+        q, k, v, spec, aux, rate, dseed, go, gs = (cap[key] for key in (
+            "q", "k", "v", "spec", "aux", "rate", "dseed", "go", "gs"))
+
+        def run(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
+            out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), rate, dseed)
+            loss = torch.sum(out * go) + torch.sum(gs * ex["graph_sum"])
+            grads = torch.autograd.grad(loss, leaves)
+            return out.detach(), ex["graph_sum"].detach(), loss.item(), grads
+
+        k_out, k_gs, k_loss, k_grads = run(flex_core.flex_attention)
+        p_out, p_gs, p_loss, p_grads = run(flex_core.flex_reference)
+        rec = dict(layer=i, edges=int(p_gs.sum()), edges_apart=int((k_gs - p_gs).abs().sum()),
+                   near_draws=int(_near_draws(q, spec, aux).sum()), out_rel=rel(k_out, p_out),
+                   loss_rel=abs(k_loss - p_loss) / abs(p_loss),
+                   grad_rel={name: rel(a, w) for name, a, w in zip(GRAD_NAMES, k_grads, p_grads)})
+        layers.append(rec)
+        if not (rec["edges_apart"] == 0 and rec["out_rel"] <= SAME_GRAPH_OUT_RTOL
+                and max(rec["grad_rel"].values()) <= SAME_GRAPH_GRAD_RTOL):
+            raise AssertionError(f"same-graph gate, SBM layer {i}: {rec}")
+    return dict(layers=layers, out_rtol=SAME_GRAPH_OUT_RTOL, grad_rtol=SAME_GRAPH_GRAD_RTOL)
+
+
 def train_phase(profile: bool) -> dict:
     from csat_tpu_torch.configs import get_config
     from csat_tpu_torch.ops import build, flex_core
@@ -1095,6 +1209,8 @@ def train_phase(profile: bool) -> dict:
         raise AssertionError(f"kernel vs plain step: loss rel {loss_rel}, grad-norm rel "
                              f"{gnorm_rel}, worst grads {worst}")
     del plain_model, plain_state, plain_step
+    same_graph = same_graph_gate(cfg, batch)
+    build.reset_launches()  # the gate's launches compare kernels; they do not count
 
     # TRAIN_STEPS more kernel steps on the same batch
     losses, times = [float(m_k["loss"])], []
@@ -1142,7 +1258,7 @@ def train_phase(profile: bool) -> dict:
         losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
         launches=counts, launches_per_step={fn: c / n_steps for fn, c in counts.items()},
         shared=dict(loss=float(m_s["loss"]), step_s=shared_s, launches=shared_counts),
-        repeatable_backward=repeat,
+        repeatable_backward=repeat, same_graph=same_graph,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
     emit("train", **rec)
     return rec

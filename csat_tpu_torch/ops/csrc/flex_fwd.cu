@@ -1,18 +1,14 @@
 // Blocked weighted-softmax attention forward for Hopper (sm_90a), one SIMT
-// kernel templated on the attention mod.  The expected-SBM mod (K2) runs on
-// the tensor-core kernel of flex_fwd_tc.cu.
+// kernel templated on the attention mod.  The two SBM mods whose weights
+// come from the factors R, K̂ (K2 expected, K6 sampled) run on the
+// tensor-core kernel of flex_fwd_tc.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under three mods of csat_tpu/ops/mods.py:
+// _fwd_body :230) under two mods of csat_tpu/ops/mods.py:
 //   * MOD_CSE          — CSESpec.tile_score (:430-439): disentangled L/T
 //                         relative bias s = (q·k + q·lk[rel_ij] + k·lq[rel_ji])
 //                         / sqrt(3 dk), -1e9 fill where the raw distance is 0,
 //                         weight = real-extent gate;
-//   * MOD_SBM_SAMPLED  — SBMSampledSpec.tile_weight_parts (:188-194): the
-//                         Bernoulli graph a = 1{u < clip(R·K̂ᵀ, floor, .99)} ·
-//                         real drawn in-kernel from the counter hash
-//                         (ops/hashrng.py:46-72) under the sample seed, weight
-//                         a · (1 - key_pad), graph_sum Σ a (padded keys too);
 //   * MOD_SBM_GRAPH    — SBMGraphSpec.tile_weight (:310-312): a materialised
 //                         0/1 graph tile read from device memory, weight
 //                         graph · (1 - key_pad).
@@ -31,9 +27,8 @@
 // latency of that loop (loads → weights → scores → row reductions → P·V) and
 // the occupancy of ~1 block per SM bound it.  The CSE mod triples the score
 // work (two gathered dot products per unmasked entry from the relative
-// tables; a masked entry takes the -1e9 fill without them); the sampled mod
-// adds 10 products and two 32-bit hashes per entry; the graph mod reads a
-// 4-byte weight per entry (46 MB at the training shape).
+// tables; a masked entry takes the -1e9 fill without them); the graph mod
+// reads a 4-byte weight per entry (46 MB at the training shape).
 //
 // Design:
 //   * The TPU kernel keeps a full (128, n_pad) f32 score row and weight row
@@ -52,15 +47,10 @@
 //   * The CSE relative tables lq/lk of this head (R x dh) sit in shared
 //     memory, so the c2p/p2c gathers index them directly (no lane-chunked
 //     gather as on the TPU).  The p2c term reads rel[j][i] (transposed).
-//   * The cluster axis (kk=10) is not padded to 128 lanes: R and K̂ tiles are
-//     kk wide (<= 16) in shared memory.  R·K̂ᵀ is summed j = 0, 1, … with
-//     one rounding per product and per sum (__fmul_rn/__fadd_rn, no FMA
-//     contraction), the order of ops/mods.py:exp_adjacency, so the plain path
-//     draws the identical Bernoulli graph.
-//   * The hash row stride is round_up(N, 128), the TPU tile, as the stream's
-//     definition requires; rows and columns are global indices and bh =
-//     b·H + h, so every tile regenerates its part of one field.  Dropout
-//     multiplies P only where it enters P·V, never the row sum l.
+//   * The dropout hash's row stride is round_up(N, 128), the TPU tile, as
+//     the stream's definition requires; rows and columns are global indices
+//     and bh = b·H + h, so every tile regenerates its part of one field.
+//     Dropout multiplies P only where it enters P·V, never the row sum l.
 //   * Simple SIMT f32: 256 threads, each owns a 4x4 block of the 64x64 score
 //     tile (rows ty*4.., columns tx+16*j) and the same 4 rows x dh/16 columns
 //     of the output accumulator; rows reduce over the 16 lanes that share
@@ -77,15 +67,10 @@ namespace {
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int THREADS = 256;
-constexpr int KKMAX = 16;
-constexpr int KKLD = KKMAX + 1;
 constexpr float NEG = -1e30f;
 constexpr float NEG_CSE = -1e9f;
 
-enum { MOD_CSE = 0, MOD_SBM_SAMPLED = 2, MOD_SBM_GRAPH = 3 };
-
-template <int MOD>
-__host__ __device__ constexpr bool uses_factors() { return MOD == MOD_SBM_SAMPLED; }
+enum { MOD_CSE = 0, MOD_SBM_GRAPH = 3 };
 
 struct Params {
   const float* q;
@@ -95,28 +80,23 @@ struct Params {
   const float* lk;
   const int32_t* rel;     // CSE: (B, 2, N, N)
   const uint8_t* mask;    // CSE: (B, 2, N, N), nonzero = masked
-  const float* r;         // SBM sampled: (B, H, N, kk)
-  const float* kh;        // SBM sampled: (B, H, N, kk)
   const float* graph;     // SBM graph: (B, H, N, N) 0/1
-  const float* pad;       // SBM: (B, N), 1.0 = padded key
-  const int32_t* sseed;   // SBM sampled: (1,) Bernoulli stream seed
+  const float* pad;       // SBM graph: (B, N), 1.0 = padded key
   const int32_t* dseed;   // (1,) dropout stream seed, read when rate > 0
   float* out;             // (B, H, N, dh)
   float* lse;             // (B, H, N)
   float* gsum_part;       // (B, H, n_qtiles)
   int32_t* skip_part;     // (B, H, n_qtiles)
-  int B, H, N, R, group, kk;
+  int B, H, N, R, group;
   uint32_t stride;        // hash row stride, round_up(N, 128)
-  float floor_, scale, rate, keep_scale;
+  float scale, rate, keep_scale;
 };
 
 template <int MOD, int DH>
 size_t smem_floats(int R) {
   constexpr int LD = DH + 1;
   size_t n = 2 * BM * LD + BN * DH + BM * (BN + 1);
-  if (MOD == MOD_CSE) n += 2 * (size_t)R * LD;
-  else if (uses_factors<MOD>()) n += BM * KKLD + BN * KKLD + BN;
-  else n += BN;
+  n += MOD == MOD_CSE ? 2 * (size_t)R * LD : BN;
   return n;
 }
 
@@ -132,9 +112,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   float* ext = Ps + BM * (BN + 1);
   float* Lq = ext;                     // CSE tables (R x LD)
   float* Lk = ext + (size_t)p.R * LD;
-  float* Rs = ext;                     // SBM factors
-  float* Khs = ext + BM * KKLD;
-  float* pads = uses_factors<MOD>() ? Khs + BN * KKLD : ext;
+  float* pads = ext;                   // SBM graph: the k-tile's key pads
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -146,7 +124,6 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   const int row0 = qt * BM;
   const int plane = (MOD == MOD_CSE) ? h / p.group : 0;
   const size_t plane_off = ((size_t)b * 2 + plane) * N * N;
-  const uint32_t sseed = (MOD == MOD_SBM_SAMPLED) ? (uint32_t)p.sseed[0] : 0u;
   const bool dropout = p.rate > 0.f;
   const uint32_t dseed = dropout ? (uint32_t)p.dseed[0] : 0u;
 
@@ -161,12 +138,6 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       const int r = i / DH, d = i % DH;
       Lq[r * LD + d] = lqh[i];
       Lk[r * LD + d] = lkh[i];
-    }
-  } else if (uses_factors<MOD>()) {
-    const float* rg = p.r + bh * N * p.kk;
-    for (int i = tid; i < BM * KKMAX; i += THREADS) {
-      const int r = i / KKMAX, j = i % KKMAX, gr = row0 + r;
-      Rs[r * KKLD + j] = (gr < N && j < p.kk) ? rg[(size_t)gr * p.kk + j] : 0.f;
     }
   }
 
@@ -190,14 +161,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       Ks[c * LD + d] = in ? kg[(size_t)gc * DH + d] : 0.f;
       Vs[c * DH + d] = in ? vg[(size_t)gc * DH + d] : 0.f;
     }
-    if (uses_factors<MOD>()) {
-      const float* khg = p.kh + bh * N * p.kk;
-      for (int i = tid; i < BN * KKMAX; i += THREADS) {
-        const int c = i / KKMAX, j = i % KKMAX, gc = col0 + c;
-        Khs[c * KKLD + j] = (gc < N && j < p.kk) ? khg[(size_t)gc * p.kk + j] : 0.f;
-      }
-    }
-    if (MOD != MOD_CSE) {
+    if (MOD == MOD_SBM_GRAPH) {
       for (int c = tid; c < BN; c += THREADS) {
         const int gc = col0 + c;
         pads[c] = gc < N ? p.pad[(size_t)b * N + gc] : 1.f;
@@ -218,17 +182,8 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
         float wr = 0.f;
         if (MOD == MOD_CSE) {
           wr = real ? 1.f : 0.f;
-        } else if (MOD == MOD_SBM_GRAPH) {
-          if (real) wr = p.graph[(bh * N + gr) * N + gc];
-        } else {
-          float ea = 0.f;
-          for (int j = 0; j < p.kk; ++j)
-            ea = __fadd_rn(ea, __fmul_rn(Rs[r * KKLD + j], Khs[c * KKLD + j]));
-          const float pr = fminf(fmaxf(ea, p.floor_), 0.99f);
-          if (real) {
-            const float u = hash_uniform(sseed, (uint32_t)bh, gr, gc, p.stride);
-            wr = u < pr ? 1.f : 0.f;
-          }
+        } else if (real) {
+          wr = p.graph[(bh * N + gr) * N + gc];
         }
         const float we = (MOD == MOD_CSE) ? wr : wr * (1.f - pads[c]);
         gsum += wr;
@@ -366,7 +321,7 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The head widths of ops/build.py HEAD_DIMS: 64 for every mod, and 96 for
+// The head widths of ops/build.py HEAD_DIMS: 64 for both mods, and 96 for
 // the SBM encoder of the java config (768 / 8 heads).
 template <int MOD>
 int dispatch(int dh, const Params& p, cudaStream_t stream) {
@@ -399,22 +354,6 @@ extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
   p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
   p.R = R; p.group = group;
   return dispatch<MOD_CSE>(DH, p, (cudaStream_t)stream);
-}
-
-extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float* v,
-                                    const float* r, const float* kh, const float* pad,
-                                    const int32_t* sseed, const int32_t* dseed,
-                                    float* out, float* lse, float* gsum_part,
-                                    int32_t* skip_part, int B, int H, int N, int DH,
-                                    int KK, int stride, float floor_, float scale,
-                                    float rate, float keep_scale, void* stream) {
-  if (KK < 1 || KK > KKMAX) return -3;
-  if (rate > 0.f && dseed == nullptr) return -4;
-  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
-  p.r = r; p.kh = kh; p.pad = pad; p.sseed = sseed; p.dseed = dseed;
-  p.kk = KK; p.stride = (uint32_t)stride; p.floor_ = floor_;
-  p.rate = rate; p.keep_scale = keep_scale;
-  return dispatch<MOD_SBM_SAMPLED>(DH, p, (cudaStream_t)stream);
 }
 
 extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v,

@@ -1,24 +1,36 @@
 // Blocked weighted-softmax attention forward on Hopper's tensor cores
-// (sm_90a) for the expected-SBM mod: the kernel K2 (flex_fwd_sbm_expected).
-// The CSE, sampled and graph mods (K1, K6, K7) stay on the SIMT template of
-// flex_fwd.cu.
+// (sm_90a) for the two SBM mods whose weights come from the factors R, K̂:
+// the kernels K2 (flex_fwd_sbm_expected) and K6 (flex_fwd_sbm_sampled), one
+// template with the mod as its parameter.  The CSE and graph mods (K1, K7)
+// stay on the SIMT template of flex_fwd.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under SBMExpectedSpec.tile_weight_parts
-// (csat_tpu/ops/mods.py:248-252): s = q·k / sqrt(dh), weight clip(R·K̂ᵀ,
-// floor, .99) · real · (1 - key_pad), R = Q̂·S formed outside, with hash
-// dropout on P (flex_core.py:214-219).  It computes out = Σ_j w_ij e^{s_ij}
-// keep_ij V_j / Σ_j w_ij e^{s_ij} (rows with no live weight exactly 0), lse
-// before dropout, Σ w_raw per q-tile and the dead (64-row, 64-column) tiles
-// per q-tile — the outputs, sentinels and argument list of the SIMT kernel
-// it replaces.
+// _fwd_body :230) under two mods of csat_tpu/ops/mods.py, with s = q·k /
+// sqrt(dh), R = Q̂·S formed outside and hash dropout on P
+// (flex_core.py:214-219):
+//   * SBMExpectedSpec.tile_weight_parts (:248-252): weight clip(R·K̂ᵀ,
+//     floor, .99) · real · (1 - key_pad);
+//   * SBMSampledSpec.tile_weight_parts (:188-194): the Bernoulli graph
+//     a = 1{u < clip(R·K̂ᵀ, floor, .99)} · real drawn in the kernel from the
+//     counter hash (ops/hashrng.py:46-72) under the sample seed, weight
+//     a · (1 - key_pad).
+// Both compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
+// with no live weight exactly 0), lse before dropout, Σ w_raw per q-tile
+// (graph_sum: padded keys too) and the dead (64-row, 64-column) tiles per
+// q-tile — the outputs, sentinels and argument lists of the SIMT kernels
+// they replaced.
 //
 // What bounds it on an H100: at B 64, N 150, dh 64 the call moves about
 // 90 MB (q, k, v, out, the factors) and needs about 2 GFLOP of dot products
 // and 0.3 GFLOP of R·K̂ᵀ: ~0.03 ms either way, so neither bound is near.
-// What limited the SIMT kernel was its arithmetic: every product was a
-// scalar FMA.  What limits this one is latency: a block is 4 warps, each a
-// long chain of dependent loads, products and barriers.
+// What limited the SIMT kernels was their arithmetic: every product was a
+// scalar FMA.  What limits this one is latency: a block is 4 warps at 255
+// registers, two blocks an SM, each warp a long chain of dependent loads,
+// 3xTF32 products and barriers.  Under the sampled mod the products take
+// about two thirds of the time, and the graph's per-entry work (R·K̂ᵀ in
+// order, one hash per real entry) most of the rest; capped at 168 or 128
+// registers (three or four blocks an SM) it was at most a few per cent
+// faster, with spills.
 //
 // Design:
 //   * Tensor cores, f32-faithful.  Q·Kᵀ and P·V run on mma.sync.m16n8k8
@@ -37,7 +49,22 @@
 //     tiles of a 150-node problem.
 //   * R·K̂ᵀ is summed j = 0, 1, … with one rounding per product and per sum
 //     (__fmul_rn/__fadd_rn, no FMA), as ops/mods.py:exp_adjacency and the
-//     backward kernels sum it, so the weights are the same bits.
+//     backward kernels sum it, so the weights are the same bits.  The
+//     sampled mod draws hash_uniform(sample seed, b·H + h, row, col, stride)
+//     at the global (query, key) indices of each entry a thread owns in the
+//     accumulator layout, with the hash row stride round_up(N, 128): the
+//     graph is the same bits that the plain path and K3/K4 draw.
+//   * The 3xTF32 split rounds both parts (cvt.rna), not the two-instruction
+//     truncating split of flex_bwd_tc.cu.  Under the sampled mod, whose
+//     output is the next SBM layer's input and so reaches that layer's
+//     graph, each pair of k-steps of Q·Kᵀ and each product of P·V also
+//     starts a fresh accumulator that is added in f32: the tensor core's
+//     accumulation rounds less finely than f32 adds, and a running sum of
+//     24 products per accumulator left the output 6e-6 from the plain path
+//     where this leaves 2e-6.  The expected mod keeps one accumulator.
+//   * The expected mod's loop is specialised on dropout (its callers run it
+//     at rate 0); the sampled mod keeps one copy that reads the rate, which
+//     costs it fewer registers.
 //   * Loads: K (with K̂ and the pad row) and V are copied with cp.async in
 //     two groups, so V arrives while the weights, Q·Kᵀ and the softmax run;
 //     Q is read once into registers.  Single-buffered: three k-tiles a block
@@ -46,6 +73,10 @@
 //     16 rows) and walks 64-column k-tiles; a k-tile with no live weight in
 //     the whole block is skipped and counted, so the count equals
 //     reference_block_skip at 64.  Warps whose rows all lie past N only load.
+//     Under the sampled mod a warp also skips, in both products, each
+//     8-column tile with no live weight in its 16 rows (keys past a
+//     sample's length, or no sampled edge): its P is exactly 0, so the
+//     result is the same bits.
 //   * NEG = -1e30 is the running max of a row that has seen no live weight.
 //     Dropout multiplies P where it enters P·V, never l.
 
@@ -65,6 +96,8 @@ constexpr int KKMAX = 16;
 constexpr int KKLD = KKMAX + 1;
 constexpr float NEG = -1e30f;
 
+enum { MOD_SBM_EXPECTED = 0, MOD_SBM_SAMPLED = 1 };
+
 struct Params {
   const float* q;
   const float* k;
@@ -80,6 +113,7 @@ struct Params {
   int B, H, N, kk;
   uint32_t stride;        // hash row stride, round_up(N, 128)
   float floor_, scale, rate, keep_scale;
+  const int32_t* sseed;   // (1,) Bernoulli stream seed (sampled mod only)
 };
 
 // ---- tensor-core helpers ---------------------------------------------------
@@ -185,8 +219,9 @@ __device__ __forceinline__ float4 row4(const float* row, bool in) {
 // Lane layout of one m16n8 accumulator: c[0], c[1] at (g, 2·tig + {0, 1}),
 // c[2], c[3] at (g + 8, 2·tig + {0, 1}); entry i of n8 tile t of a warp is
 // row wrow + g + 8·(i >> 1), column 8·t + 2·tig + (i & 1).
-template <int DH>
-__global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
+// DROPOUT: 0 off, 1 on, 2 as p.rate says
+template <int MOD, int DH, int DROPOUT>
+__device__ __forceinline__ void flex_tc_body(Params p) {
   constexpr int LD = DH + 4;     // V tile: ≡ 4 (mod 32), its fragment reads are conflict-free
   constexpr int LDK = DH + 16;   // K tile: ≡ 16 (mod 32), for the 16-byte pair loads
   constexpr int KS = DH / 8;     // k-steps of Q·Kᵀ = n8 tiles of P·V
@@ -209,8 +244,9 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   const int row0 = qt * BM, wrow = warp * 16;
   const int gr_[2] = {row0 + wrow + g, row0 + wrow + g + 8};
   const bool active = row0 + wrow < N;   // the warp has a real row
-  const bool dropout = p.rate > 0.f;
+  const bool dropout = DROPOUT == 1 || (DROPOUT == 2 && p.rate > 0.f);
   const uint32_t dseed = dropout ? (uint32_t)p.dseed[0] : 0u;
+  const uint32_t sseed = MOD == MOD_SBM_SAMPLED ? (uint32_t)p.sseed[0] : 0u;
 
   // Q fragments of the warp's 16 rows, f32, read once (permuted k)
   float qf[KS][4];
@@ -278,12 +314,27 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
         const int c = 8 * t + 2 * tig + (i & 1);
         const bool real = gr_[i >> 1] < N && col0 + c < N;
         const float pr = fminf(fmaxf(w[t][i], p.floor_), 0.99f);
-        const float wr = real ? pr : 0.f;
+        float wr;
+        if constexpr (MOD == MOD_SBM_EXPECTED)
+          wr = real ? pr : 0.f;
+        else  // the Bernoulli draw at the entry's global (query, key) indices
+          wr = real && hash_uniform(sseed, (uint32_t)bh, gr_[i >> 1], col0 + c, p.stride) < pr
+                   ? 1.f : 0.f;
         const float we = wr * (1.f - pads[c]);
         gsum += wr;
         w[t][i] = we;
         live_local |= (we > 0.f);
       }
+    // the sampled mod's n8 tiles with a live weight in the warp's 16 rows
+    // (warp-uniform): the products skip the others, whose P is 0
+    unsigned tiles = (1u << ntk) - 1u;
+    if constexpr (MOD == MOD_SBM_SAMPLED) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (!__any_sync(0xffffffffu, w[t][0] > 0.f || w[t][1] > 0.f || w[t][2] > 0.f ||
+                                          w[t][3] > 0.f))
+          tiles &= ~(1u << t);
+    }
     if (!__syncthreads_or(live_local)) {
       ++skips;  // block-uniform: every thread counts the same skips
       cp_wait<0>();  // V lands before the next tile
@@ -301,10 +352,18 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
         split4(qf[2 * pp + 1], h1, l1);
 #pragma unroll
         for (int t = 0; t < 8; ++t)
-          if (t < ntk) {
+          if (MOD == MOD_SBM_EXPECTED ? t < ntk : (tiles >> t & 1u)) {
             const float4 b = *reinterpret_cast<const float4*>(Ks + (8 * t + g) * LDK + d0);
-            mma3(sacc[t], h0, l0, b.x, b.y);
-            mma3(sacc[t], h1, l1, b.z, b.w);
+            if constexpr (MOD == MOD_SBM_EXPECTED) {
+              mma3(sacc[t], h0, l0, b.x, b.y);
+              mma3(sacc[t], h1, l1, b.z, b.w);
+            } else {  // a fresh accumulator per pair of k-steps, added in f32
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              mma3(part, h0, l0, b.x, b.y);
+              mma3(part, h1, l1, b.z, b.w);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) sacc[t][i] += part[i];
+            }
           }
       }
 
@@ -364,13 +423,22 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
       // rows are read in the same order ----
 #pragma unroll
       for (int t = 0; t < 8; ++t)
-        if (t < ntk) {
+        if (MOD == MOD_SBM_EXPECTED ? t < ntk : (tiles >> t & 1u)) {
           const float a[4] = {sacc[t][0], sacc[t][2], sacc[t][1], sacc[t][3]};
           uint32_t ah[4], al[4];
           split4(a, ah, al);
           const float* vp = Vs + (8 * t + 2 * tig) * LD + g;
 #pragma unroll
-          for (int dt = 0; dt < KS; ++dt) mma3(o[dt], ah, al, vp[8 * dt], vp[LD + 8 * dt]);
+          for (int dt = 0; dt < KS; ++dt) {
+            if constexpr (MOD == MOD_SBM_EXPECTED) {
+              mma3(o[dt], ah, al, vp[8 * dt], vp[LD + 8 * dt]);
+            } else {  // a fresh accumulator per product, added in f32
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              mma3(part, ah, al, vp[8 * dt], vp[LD + 8 * dt]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) o[dt][i] += part[i];
+            }
+          }
         }
     }
     __syncthreads();  // the tiles are free for the next k-tile
@@ -404,36 +472,63 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   }
 }
 
-template <int DH>
+// The expected mod's k-tile loop is specialised on dropout: its rate-0 copy
+// (every call on the serving, eval and expected-gradient paths) carries no
+// keep hash.  The sampled mod, which trains with dropout, keeps one copy
+// that asks p.rate: a second copy would cost it registers.
+template <int MOD, int DH>
+__global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
+  if constexpr (MOD == MOD_SBM_EXPECTED) {
+    if (p.rate > 0.f)
+      flex_tc_body<MOD, DH, 1>(p);
+    else
+      flex_tc_body<MOD, DH, 0>(p);
+  } else {
+    flex_tc_body<MOD, DH, 2>(p);
+  }
+}
+
+template <int MOD, int DH>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t bytes = smem_bytes(DH);
   cudaError_t err = cudaFuncSetAttribute(
-      flex_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flex_tc_kernel<MOD, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // the largest shared-memory carveout, so that the shared memory never
   // caps the blocks an SM holds below what the registers allow
-  err = cudaFuncSetAttribute(flex_tc_kernel<DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(flex_tc_kernel<MOD, DH>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + BM - 1) / BM, p.H, p.B);
-  flex_tc_kernel<DH><<<grid, THREADS, bytes, stream>>>(p);
+  flex_tc_kernel<MOD, DH><<<grid, THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-Params base(const float* q, const float* k, const float* v, float* out, float* lse,
-            float* gsum_part, int32_t* skip_part, int B, int H, int N, float scale) {
+// The head widths of ops/build.py HEAD_DIMS: 64, and 96 for the java
+// config's SBM encoder (768 / 8 heads).
+template <int MOD>
+int run(const float* q, const float* k, const float* v, const float* r, const float* kh,
+        const float* pad, const int32_t* sseed, const int32_t* dseed, float* out, float* lse,
+        float* gsum_part, int32_t* skip_part, int B, int H, int N, int DH, int KK, int stride,
+        float floor_, float scale, float rate, float keep_scale, void* stream) {
+  if (KK < 1 || KK > KKMAX) return -3;
+  if (rate > 0.f && dseed == nullptr) return -4;
+  if (MOD == MOD_SBM_SAMPLED && sseed == nullptr) return -5;
   Params p{};
-  p.q = q; p.k = k; p.v = v;
+  p.q = q; p.k = k; p.v = v; p.r = r; p.kh = kh; p.pad = pad;
+  p.sseed = sseed; p.dseed = dseed;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.scale = scale;
-  p.rate = 0.f; p.keep_scale = 1.f;
-  return p;
+  p.B = B; p.H = H; p.N = N; p.kk = KK;
+  p.stride = (uint32_t)stride; p.floor_ = floor_; p.scale = scale;
+  p.rate = rate; p.keep_scale = keep_scale;
+  if (DH == 64) return launch<MOD, 64>(p, (cudaStream_t)stream);
+  if (DH == 96) return launch<MOD, 96>(p, (cudaStream_t)stream);
+  return -1;  // head width without an instantiation
 }
 
 }  // namespace
 
-// The head widths of ops/build.py HEAD_DIMS: 64, and 96 for the java
-// config's SBM encoder (768 / 8 heads).
 extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float* v,
                                      const float* r, const float* kh, const float* pad,
                                      const int32_t* dseed, float* out, float* lse,
@@ -441,13 +536,19 @@ extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float
                                      int N, int DH, int KK, int stride, float floor_,
                                      float scale, float rate, float keep_scale,
                                      void* stream) {
-  if (KK < 1 || KK > KKMAX) return -3;
-  if (rate > 0.f && dseed == nullptr) return -4;
-  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
-  p.r = r; p.kh = kh; p.pad = pad; p.dseed = dseed; p.kk = KK;
-  p.stride = (uint32_t)stride; p.floor_ = floor_;
-  p.rate = rate; p.keep_scale = keep_scale;
-  if (DH == 64) return launch<64>(p, (cudaStream_t)stream);
-  if (DH == 96) return launch<96>(p, (cudaStream_t)stream);
-  return -1;  // head width without an instantiation
+  return run<MOD_SBM_EXPECTED>(q, k, v, r, kh, pad, nullptr, dseed, out, lse, gsum_part,
+                               skip_part, B, H, N, DH, KK, stride, floor_, scale, rate,
+                               keep_scale, stream);
+}
+
+extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float* v,
+                                    const float* r, const float* kh, const float* pad,
+                                    const int32_t* sseed, const int32_t* dseed,
+                                    float* out, float* lse, float* gsum_part,
+                                    int32_t* skip_part, int B, int H, int N, int DH,
+                                    int KK, int stride, float floor_, float scale,
+                                    float rate, float keep_scale, void* stream) {
+  return run<MOD_SBM_SAMPLED>(q, k, v, r, kh, pad, sseed, dseed, out, lse, gsum_part,
+                              skip_part, B, H, N, DH, KK, stride, floor_, scale, rate,
+                              keep_scale, stream);
 }

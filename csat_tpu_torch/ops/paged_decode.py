@@ -12,8 +12,9 @@ softmaxes and multiplies by V in one launch — and the plain gather path
 NULL_PAGE lanes: the plain path gathers the null page's contents, the kernel
 treats those lanes as zeros (as the TPU kernel does).  A row with at least
 one admissible lane cannot tell the difference (masked lanes get exactly zero
-weight); fully masked rows (frozen slots) may differ and are discarded by the
-engine.
+weight, and the kernel reads only the admissible ones); fully masked rows
+(frozen slots), the mean of their ``width`` V rows on both paths, may differ
+and are discarded by the engine.
 """
 
 from __future__ import annotations

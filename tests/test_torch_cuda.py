@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card:
-the serving kernels (K1, K2, K5) and the training kernels (K6, K7 forward
-with dropout, K3/K4 backward at every bucket length and at serving and
-training batch sizes, K8/K9 expected-graph backward with clip ties and
-whole padded key tiles) at the training shape and at ragged shapes.
+the serving kernels (K1, K2, K5 over every storage dtype at ragged widths)
+and the training kernels (K6 at every bucket length, batch size and head
+width, K7 forward with dropout, K3/K4 backward at every bucket length and at
+serving and training batch sizes, K8/K9 expected-graph backward with clip
+ties and whole padded key tiles) at the training shape and at ragged shapes.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use), so
 they carry the ``cuda`` marker and skip elsewhere; run them on a GPU machine
@@ -67,10 +68,11 @@ def test_flex_kernel_matches_plain(dev, mod, n, dh):
 
 
 def _tc_case(mod, b, n, dh, dev, seed):
-    """K1/K2 inputs at the flagship's heads, clusters and table length: per
-    sample, every key real, keys past 64 padded (whole dead key tiles), a
-    third real, or none; CSE also an all-masked row in sample 0."""
-    from csat_tpu_torch.ops.mods import cse_mod, sbm_expected_mod
+    """K1/K2/K6 inputs at the flagship's heads, clusters and table length:
+    per sample, every key real, keys past 64 padded (whole dead key tiles), a
+    third real, or none (every key padded); CSE also an all-masked row in
+    sample 0."""
+    from csat_tpu_torch.ops.mods import cse_mod, sbm_expected_mod, sbm_sampled_mod
 
     g = torch.Generator().manual_seed(seed)
     h, kk, r_len = 8, 10, 150
@@ -89,18 +91,24 @@ def _tc_case(mod, b, n, dh, dev, seed):
     for i, m in enumerate(n_real):
         pad[i, m:] = True
     s_aff = torch.softmax(torch.randn(h, kk * kk, generator=g), -1).reshape(h, kk, kk)
-    return q, k, v, *sbm_expected_mod(torch.sigmoid(rnd(b, h, n, kk)),
-                                      torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev), pad.to(dev))
+    r, kh = torch.sigmoid(rnd(b, h, n, kk)), torch.sigmoid(rnd(b, h, n, kk))
+    if mod == "sbm_sampled":
+        seed = torch.tensor([seed % 1000 + 5], dtype=torch.int32, device=dev)
+        return q, k, v, *sbm_sampled_mod(r, kh, s_aff.to(dev), pad.to(dev), seed)
+    return q, k, v, *sbm_expected_mod(r, kh, s_aff.to(dev), pad.to(dev))
 
 
 # K1 and the tensor-core K2 at every bucket length and at serving and
 # training batch sizes; K2 also at the java width (dh 96), with and without
-# dropout
+# dropout; the tensor-core K6 at every bucket length, batch size and head
+# width, with and without dropout
 @pytest.mark.parametrize("mod,b,n,dh,rate", [
     *[(mod, b, n, 64, 0.0) for mod in ("cse", "sbm_expected") for n in (37, 75, 150)
       for b in (1, 4, 64)],
     ("sbm_expected", 4, 150, 96, 0.0), ("sbm_expected", 4, 150, 96, 0.2),
-    ("sbm_expected", 64, 75, 96, 0.2), ("sbm_expected", 64, 150, 64, 0.2)])
+    ("sbm_expected", 64, 75, 96, 0.2), ("sbm_expected", 64, 150, 64, 0.2),
+    *[("sbm_sampled", b, n, dh, rate) for n in (37, 75, 150) for b in (1, 4, 64)
+      for dh in (64, 96) for rate in (0.0, 0.2)]])
 def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
     from csat_tpu_torch.ops import build, flex_core
 
@@ -113,11 +121,17 @@ def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
     assert build.launch_counts()[f"flex_fwd_{mod}"] == before + 1
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
     torch.testing.assert_close(ex["lse"], rex["lse"], atol=2e-5, rtol=0)
-    torch.testing.assert_close(ex["graph_sum"], rex["graph_sum"], rtol=1e-5, atol=1e-3)
+    if mod == "sbm_sampled":
+        # one draw order on both paths: the same graph, edge for edge
+        assert torch.equal(ex["graph_sum"], rex["graph_sum"])
+    else:
+        torch.testing.assert_close(ex["graph_sum"], rex["graph_sum"], rtol=1e-5, atol=1e-3)
     skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
     assert torch.equal(ex["skipped_blocks"], skips)
-    if mod == "sbm_expected" and b >= 2 and n > 64:
+    if mod != "cse" and b >= 2 and n > 64:
         assert skips.sum() > 0  # the sample padded past key 64 skips whole tiles
+    if mod != "cse" and b >= 4:  # sample 3 has every key padded: no live weight
+        assert torch.all(out[3] == 0) and torch.all(ex["lse"][3] == flex_core.NEG)
     if mod == "cse":  # the all-masked row is uniform over its real columns
         torch.testing.assert_close(out[0, 0, 1], v[0, 0].mean(dim=0), atol=2e-5, rtol=0)
 
@@ -194,34 +208,50 @@ def test_embedding_backward_repeats_bit_for_bit(dev):
     assert torch.equal(grad(), grad())
 
 
+# K5 at every storage dtype, both sides, and widths from one lane to the
+# cross side's 150, over chains with every lane admissible, a NULL page in
+# mid-table, one lane, and a frozen row.  The null page holds zeros, as the
+# kernel reads a NULL lane, so the plain path's gather agrees on every row.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("side", ["self", "cross"])
-def test_paged_kernel_matches_plain(dev, dtype, side):
-    from csat_tpu_torch.ops import paged_decode as pd
+@pytest.mark.parametrize("width", [1, 16, 17, 49, 150])
+def test_paged_kernel_matches_plain(dev, dtype, side, width):
+    from csat_tpu_torch.ops import build, paged_decode as pd
 
-    g = torch.Generator().manual_seed(1)
-    s, h, page, dh, nb, width = 4, 4, 8, 64, 5, 37
+    g = torch.Generator().manual_seed(width)
+    s, h, page, dh = 4, 8, 16, 64
+    nb = -(-width // page) + 1
     n_pages = 1 + s * nb
-    (pk, sk), (pv, sv) = (pd.quantize_kv(torch.randn(n_pages, h, page, dh, generator=g), dtype)
-                          for _ in range(2))
-    table = torch.zeros((s, nb), dtype=torch.int32)
+    raw = [torch.randn(n_pages, h, page, dh, generator=g) for _ in range(2)]
+    for r in raw:
+        r[pd.NULL_PAGE] = 0.0
+    (pk, sk), (pv, sv) = (pd.quantize_kv(r, dtype) for r in raw)
+    table = torch.full((s, nb), pd.NULL_PAGE, dtype=torch.int32)
     mask = torch.ones((s, width), dtype=torch.bool)
-    for i, ln in enumerate([37, 1, 12, 20]):
+    lens = [width, width, 1, 0]  # slot 3 is frozen: every lane masked
+    for i, ln in enumerate(lens):
         table[i, : -(-ln // page)] = torch.arange(1 + i * nb, 1 + i * nb + -(-ln // page))
         mask[i, :ln] = False
+    if width > 2 * page:  # slot 1: a NULL page in mid-table, its lanes masked
+        table[1, 1] = pd.NULL_PAGE
+        mask[1, page:2 * page] = True
     q = torch.randn(s, h, 1, dh, generator=g)
     merge = {}
     if side == "self":
-        merge = dict(idx=torch.tensor([36, 0, 11, 19], dtype=torch.int32),
+        merge = dict(idx=torch.tensor([width - 1, width // 2, 0, 0], dtype=torch.int32),
                      k_tok=torch.randn(s, h, 1, dh, generator=g),
                      v_tok=torch.randn(s, h, 1, dh, generator=g))
     inputs = [t.to(dev) for t in (q, pk, pv, sk, sv, table, mask)] + [width]
     merge = {key: t.to(dev) for key, t in merge.items()}
+    before = build.launch_counts()["paged_decode"]
     out, skipped = pd.paged_attend(*inputs, **merge)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["paged_decode"] == before + 1
     ref, ref_skip = pd.paged_attend(*[t.cpu() if torch.is_tensor(t) else t for t in inputs],
                                     **{key: t.cpu() for key, t in merge.items()})
     torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
     assert torch.equal(skipped.cpu(), ref_skip)
+    assert torch.equal(ref_skip, pd.reference_page_skip(table, h))
 
 
 def test_engine_on_card_serves_cpu_tokens(dev):

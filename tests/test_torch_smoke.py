@@ -1,0 +1,98 @@
+"""``chip_smoke.py``'s input captures and its same-graph gate, driven on the
+CPU at a narrow width through the plain paths: the serving drain's decode
+launches are recorded from its middle and replay to the output the drain
+computed, and each SBM layer's recorded inputs carry the real cotangents.
+On the card the same helpers feed the kernels."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from csat_tpu_torch.configs import get_config
+from csat_tpu_torch.data.dataset import batch_to_device, collate
+from csat_tpu_torch.data.synthetic import random_ast, request_sample, train_sample
+from csat_tpu_torch.models import CSATrans
+from csat_tpu_torch.ops import paged_decode as pd
+from csat_tpu_torch.serve import ServeEngine
+
+NARROW = dict(hidden_size=32, sbm_enc_dim=32, pegen_dim=16, pe_dim=8, num_heads=2,
+              dim_feed_forward=64)
+
+
+@pytest.fixture
+def small_vocab(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "SRC_VOCAB", 300)
+    monkeypatch.setattr(chip_smoke, "TGT_VOCAB", 400)
+
+
+def _train_batch(cfg, sizes, seed):
+    rng = np.random.default_rng(seed)
+    samples = [train_sample(random_ast(rng, n), cfg, 300, 400, rng) for n in sizes]
+    arrs = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+    return batch_to_device(collate(arrs, cfg.max_src_len), torch.device("cpu"))
+
+
+def test_capture_decode_inputs_keeps_the_middle_launch_of_each_side(small_vocab, monkeypatch):
+    from csat_tpu_torch.models import components
+
+    cfg = get_config("python", eval_graph="expected", serve_slots=4, max_tgt_len=12, **NARROW)
+    rng = np.random.default_rng(0)
+    samples = [request_sample(random_ast(rng, n), cfg, 300) for n in (20, 60, 150, 90, 33)]
+    budgets = [0, 3, 5, 0, 2]
+    got = chip_smoke.capture_decode_inputs(cfg, samples, budgets, device="cpu")
+    assert set(got) == {"self", "cross"}
+    # the drain is deterministic: a third drain's launch at the same index
+    # gets the same arguments and gives the output the capture replays to
+    outs = {}
+    inner = components.paged_attend
+    calls = {"self": 0, "cross": 0}
+
+    def recorder(*args, idx=None, k_tok=None, v_tok=None):
+        side = "cross" if idx is None else "self"
+        out = inner(*args, idx=idx, k_tok=k_tok, v_tok=v_tok)
+        if calls[side] == got[side]["call"]:
+            outs[side] = out[0].clone()
+        calls[side] += 1
+        return out
+
+    monkeypatch.setattr(components, "paged_attend", recorder)
+    model = CSATrans(cfg, 300, 400, device="cpu", seed=chip_smoke.SEED)
+    engine = ServeEngine(model, cfg, device="cpu")
+    for sample, budget in zip(samples, budgets):
+        engine.submit(sample, budget)
+    engine.drain()
+    for side, rec in got.items():
+        assert rec["call"] == rec["of"] // 2 and calls[side] in (rec["of"], rec["of"] + 1)
+        q, pk, pv, sk, sv, table, mask, width = rec["inputs"]
+        assert width == (cfg.max_src_len if side == "cross" else cfg.max_tgt_len - 1)
+        assert mask.shape == (cfg.serve_slots, width) and (~mask).any()
+        assert (rec["merge"] != {}) == (side == "self")
+        out, skipped = pd.paged_attend(*rec["inputs"], **rec["merge"])
+        torch.testing.assert_close(out, outs[side], atol=0, rtol=0)
+        assert torch.equal(skipped, pd.reference_page_skip(table, q.shape[1]))
+
+
+def test_capture_sbm_inputs_records_every_layer_with_its_cotangents(small_vocab):
+    cfg = get_config("python", noise_mode="counter", **NARROW)
+    batch = _train_batch(cfg, (20, 80, 150), seed=1)
+    layers = chip_smoke.capture_sbm_inputs(cfg, batch, "cpu", layers=cfg.sbm_layers)
+    assert len(layers) == cfg.sbm_layers
+    seeds = set()
+    for rec in layers:
+        b, h, n, dh = rec["q"].shape
+        assert (b, h, n) == (3, cfg.num_heads, cfg.max_src_len)
+        assert rec["rate"] == cfg.attention_dropout and rec["dseed"].shape == (1,)
+        assert rec["go"].abs().sum() > 0 and rec["gs"].abs().sum() > 0
+        seeds.add(int(rec["aux"][3]))
+    assert len(seeds) == cfg.sbm_layers  # every layer draws its graph under its own seed
+
+
+def test_same_graph_gate_passes_on_the_plain_path(small_vocab):
+    cfg = get_config("python", noise_mode="counter", **NARROW)
+    batch = _train_batch(cfg, (30, 150), seed=2)
+    res = chip_smoke.same_graph_gate(cfg, batch, device="cpu")
+    assert [rec["layer"] for rec in res["layers"]] == list(range(cfg.sbm_layers))
+    for rec in res["layers"]:
+        assert rec["edges"] > 0 and rec["edges_apart"] == 0
+        assert rec["out_rel"] == 0.0 and max(rec["grad_rel"].values()) == 0.0
