@@ -9,7 +9,7 @@ Phases, each printing JSON lines:
 2. ``build``   — compiles every CUDA kernel of the serving and training paths
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once, and counts the tensor-core
-   instructions in the SASS of K2/K6 and of K3/K4 (``sass``: an instantiation
+   instructions in the SASS of K2/K6/K7 and of K3/K4 (``sass``: an instantiation
    without any fails the run);
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
@@ -22,7 +22,10 @@ Phases, each printing JSON lines:
    and K3/K4 on what the first SBM layer of a training step on that batch
    gives them — factors, padding, seeds and cotangents — and K5 on what one
    self-attention and one cross-attention launch of the serve phase's drain
-   gives it — pages, tables, masks, widths and merged lanes); every backward
+   gives it — pages, tables, masks, widths and merged lanes); K7, the
+   graph kernel of the default noise mode, at every bucket at rate 0.2 and
+   at rate 0, at B 4 / N 150 at rate 0 and on the graph of the first SBM
+   layer of a ``noise_mode="shared"`` training step; every backward
    check also holds its forward's ``out`` and ``lse``; the expected-graph
    backward also on whole padded key tiles and on inputs with exact ties at
    both clip bounds, at the default floor and at floor 0, and without
@@ -44,9 +47,13 @@ Phases, each printing JSON lines:
    must give bit-equal gradients; each of the 4 SBM layers' kernel forward
    and backward against the plain ones on the inputs that layer got in a
    kernel step, so that both see the same sampled graph (no edge apart,
-   output within 1e-6 and every gradient within 1e-5, relative L2); one
-   ``noise_mode="shared"`` step runs the graph kernel;
+   output within 1e-6 and every gradient within 1e-5, relative L2);
    every training kernel must have launched in the step that uses it;
+   ``train_shared`` — the same in the config's default noise mode,
+   ``"shared"`` (the graph sampled through the STE from the train state's
+   generator, read by K7): kernel step against plain step, the same-graph
+   gate on each SBM layer's own graph (its cotangent included), 8 more
+   steps, every forward launch at a shape and rate phase 3 checked;
 6. ``expected_grad`` — the gradient of the same model's deterministic forward
    under ``eval_graph="expected"`` (``nll + sw · sparsity``, batch 64):
    through the kernels and through the plain paths on the card, loss within
@@ -61,10 +68,14 @@ Phases, each printing JSON lines:
    bucket shapes stepped, the train and eval kernels launched; a second
    ``Trainer`` restored from the epoch-1 checkpoint must reproduce every
    loss of epoch 2 bit for bit; then ``run_test`` scores BLEU / ROUGE-L /
-   METEOR;
+   METEOR; ``fit_default`` — a second ``Trainer.fit`` on the same corpus in
+   the config's own defaults (``noise_mode="shared"``,
+   ``eval_graph="sample"``): 2 epochs, every step finite, epoch loss
+   falling, K1 and K7 launched at every train bucket and in the eval
+   encoder, at shapes and rates phase 3 checked;
 8. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-7, its error, times and
-   bound.
+   TPU kernel it replaces, its launches in phases 4-7 by path, its error,
+   times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -119,30 +130,38 @@ LOSS_RTOL, GNORM_RTOL = 1e-5, 1e-4
 SAME_GRAPH_OUT_RTOL, SAME_GRAPH_GRAD_RTOL = 1e-6, 1e-5
 GS_COEF = 1e-3    # weight of Σ graph_sum in the backward checks' loss
 GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
+GRAPH_TOL = 5e-6  # K7 against plain, max abs: its output feeds the next layer's graph
 
 #: (kernel, B, N) held against its plain version in phase 3; each driven
 #: path must find the shapes it gave its kernels in here
 CHECKED: set = set()
+#: (forward kernel, B, N, dropout rate) held in phase 3: the default path's
+#: K7 runs at rate 0.2 in train steps and at rate 0 in the eval encoder
+CHECKED_RATES: set = set()
 
 #: library → the kernel instantiations in it that must hold tensor-core
-#: instructions: K2 and K6 at dh 64 and 96; K3 and K4 at dh 64 and 96
-TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 4, "flex_bwd_tc": 4}
+#: instructions: K2, K6 and K7 at dh 64 and 96; K3 and K4 at dh 64 and 96
+TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 6, "flex_bwd_tc": 4}
 
 #: the __global__ functions of csrc/*.cu, as the profiler names them
-PORT_KERNEL_FUNCTIONS = ("flex_fwd_kernel", "flex_tc_kernel", "bwd_tc_kernel", "bwd_q_kernel",
-                         "bwd_k_kernel", "paged_decode_kernel")
+PORT_KERNEL_FUNCTIONS = ("flex_fwd_kernel", "flex_tc_kernel", "flex_graph_kernel",
+                         "bwd_tc_kernel", "bwd_q_kernel", "bwd_k_kernel", "paged_decode_kernel")
 
 #: the kernels each driven path must launch
 PATH_KERNELS = {
     "serve": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode"),
     "train_counter": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
                       "flex_bwd_k_sbm_sampled"),
+    # the config's default noise mode: the materialised shared graph
     "train_shared": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
     "expected_grad": ("flex_fwd_cse", "flex_fwd_sbm_expected", "flex_bwd_q_sbm_expected",
                       "flex_bwd_k_sbm_expected"),
     # Trainer.fit: train steps (K1, K6, K3, K4) and the eval decode's encoder (K1, K2)
     "fit": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
             "flex_bwd_k_sbm_sampled", "flex_fwd_sbm_expected"),
+    # Trainer.fit in the config's defaults (noise_mode="shared",
+    # eval_graph="sample"): K1 and K7 in train steps and in the eval encoder
+    "fit_default": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
 }
 FIT_SAMPLES = (512, 64, 64)   # train / dev / test
 FIT_NODES = (10, 150)         # node counts, uniform: the corpus spreads over the buckets
@@ -210,7 +229,7 @@ def build_phase() -> None:
     for fn in build.KERNELS:
         build.kernel(fn)  # load and bind every entry point
     emit("build", seconds=seconds, libraries=sorted(build.SOURCES), kernels=sorted(build.KERNELS))
-    # K2 and K6 at dh 64 and 96; K3 and K4 (the q- and the k-pass) at dh 64 and 96
+    # K2, K6 and K7 at dh 64 and 96; K3 and K4 (the q- and the k-pass) at dh 64 and 96
     for lib, n_fns in TENSOR_CORE_LIBRARIES.items():
         counts = tensor_core_instructions(build.library_path(lib))
         emit("sass", library=lib, tensor_core_instructions=counts)
@@ -313,20 +332,21 @@ def _near_draws(q, spec, aux):
 
 
 def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=None,
-               captured=None) -> dict:
+               captured=None, rate=None) -> dict:
     """One forward kernel against its plain version at (B, N); ``timed``
     adds the times and the bound (left out for shapes checked for
     correctness only); ``rel_mask`` gives K1 a real batch's distances and
     masks in place of random ones; ``captured`` (from
-    :func:`capture_sbm_inputs`) gives K6 what an SBM layer of a training
-    step got."""
+    :func:`capture_sbm_inputs`) gives K6 or K7 what an SBM layer of a
+    training step got; ``rate`` replaces the dropout rate of random inputs
+    (default: ``RATE`` for the train mods, 0 for the others)."""
     from csat_tpu_torch.ops import build, flex_core
 
     if captured is None:
         q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask)
-        train = mod in ("sbm_sampled", "sbm_graph")
-        rate = RATE if train else 0.0
-        dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if train else None
+        if rate is None:
+            rate = RATE if mod in ("sbm_sampled", "sbm_graph") else 0.0
+        dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if rate else None
     else:
         q, k, v, spec, aux, rate, dseed = (captured[key] for key in (
             "q", "k", "v", "spec", "aux", "rate", "dseed"))
@@ -351,16 +371,19 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
                 / rex["graph_sum"].abs().clamp_min(1.0)).max().item()
     skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
     skip_equal = bool(torch.equal(ex["skipped_blocks"], skips))
-    gsum_tol = float("inf") if sampled else 1e-5  # sampled: the flip gate instead
-    if not (err <= FLEX_TOL and lse_err <= FLEX_TOL and gsum_err <= gsum_tol and near_ok
+    # sampled: the flip gate instead; graph: a count of 0/1 weights, exact
+    gsum_tol = {"sbm_sampled": float("inf"), "sbm_graph": 0.0}.get(mod, 1e-5)
+    tol = GRAPH_TOL if mod == "sbm_graph" else FLEX_TOL
+    if not (err <= tol and lse_err <= tol and gsum_err <= gsum_tol and near_ok
             and skip_equal and torch.isfinite(out).all()):
-        raise AssertionError(f"flex {mod} B={b} N={n}: err={err} lse_err={lse_err} "
+        raise AssertionError(f"flex {mod} B={b} N={n} rate={rate}: err={err} lse_err={lse_err} "
                              f"gsum_rel_err={gsum_err} flips={flips} near_ok={near_ok} "
                              f"skips equal={skip_equal}")
     CHECKED.add((f"flex_fwd_{mod}", b, n))
+    CHECKED_RATES.add((f"flex_fwd_{mod}", b, n, rate))
     if not timed:
         rec = dict(kernel=f"flex_fwd_{mod}", B=b, N=n, rate=rate, timed=False, max_abs_err=err,
-                   lse_max_abs_err=lse_err, tol=FLEX_TOL, flips=flips,
+                   lse_max_abs_err=lse_err, tol=tol, flips=flips,
                    near_draws=int(near.sum()), skipped_blocks=int(skips.sum()),
                    skip_equal=skip_equal)
         emit("kernel", **rec)
@@ -397,9 +420,8 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
             _, w_eff = spec.full_weight(q, k, aux)
         w_eff = torch.broadcast_to(w_eff, (b, h, n, n))
         live = int((w_eff > 0).sum())
-        # K2 and K6 run q·k and P·V on the tensor cores, R·K̂ and K7 on f32 SIMT
-        tc_flops = live * 4 * dh if mod in ("sbm_expected", "sbm_sampled") else 0
-        simt_flops = 0 if tc_flops else live * 4 * dh
+        # K2, K6 and K7 run q·k and P·V on the tensor cores, R·K̂ on f32 SIMT
+        tc_flops, simt_flops = live * 4 * dh, 0
         if mod != "sbm_graph":
             simt_flops += b * h * n * n * 2 * spec.kk
         if mod != "sbm_sampled":
@@ -411,7 +433,7 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
     moved = nbytes(q, k, v, *aux, ex["lse"], out)
     bound, bound_by = bound_ms(moved, simt_flops, tc_flops)
     rec = dict(kernel=fn, B=b, N=n, rate=rate, max_abs_err=err, lse_max_abs_err=lse_err,
-               tol=FLEX_TOL, flips=flips, near_draws=int(near.sum()),
+               tol=tol, flips=flips, near_draws=int(near.sum()),
                skipped_blocks=int(skips.sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
                live_entries=live, flops=simt_flops + tc_flops, tensor_core_flops=tc_flops,
@@ -797,6 +819,25 @@ def plan_shapes():
     return sorted({(s.batch_size, s.n) for s in plan_buckets(get_config("python", bucketing=True))})
 
 
+def graph_checks(dev) -> dict:
+    """K7 where the config's default path runs it, timed at each shape: every
+    bucket of the plan at rate 0.2 (train steps) and at rate 0 (the eval
+    encoder), B 4 / N 150 at rate 0, and what the first SBM layer of a
+    ``noise_mode="shared"`` training step on the train phase's batch gives it
+    (its graph, padding, dropout seed).  Its own generator: these inputs do
+    not depend on the checks run before."""
+    from csat_tpu_torch.configs import get_config
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    recs = {f"{b}x{n}@{rate}": flex_check("sbm_graph", b, n, gen, dev, rate=rate)
+            for b, n in plan_shapes() for rate in (RATE, 0.0)}
+    recs["4x150@0.0"] = flex_check("sbm_graph", 4, 150, gen, dev, rate=0.0)
+    cfg = get_config("python")  # the defaults: the shared graph
+    first_sbm = capture_sbm_inputs(cfg, train_batch(cfg, TRAIN_B))[0]
+    recs["train_batch"] = flex_check("sbm_graph", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    return recs
+
+
 def kernel_phase(dev) -> dict:
     from csat_tpu_torch.configs import get_config
 
@@ -809,8 +850,9 @@ def kernel_phase(dev) -> dict:
              for dt in (torch.float32, torch.bfloat16, torch.int8) for side in ("self", "cross")}
     flex.update({(mod, b, n): flex_check(mod, b, n, gen, dev)
                  for mod in mods for n, bs in FLEX_SHAPES for b in bs if b != 4})
-    # the training path: B 64, N 150 (the flagship bucket at batch_size)
-    train = {mod: flex_check(mod, TRAIN_B, 150, gen, dev) for mod in ("sbm_sampled", "sbm_graph")}
+    # the training path: B 64, N 150 (the flagship bucket at batch_size);
+    # K7's checks are graph_checks'
+    sampled = flex_check("sbm_sampled", TRAIN_B, 150, gen, dev)
     cse_train = flex_check("cse", TRAIN_B, 150, gen, dev)
     bwd = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev)
     # K8/K9: the training shape with and without dropout, a serving-sized
@@ -856,14 +898,15 @@ def kernel_phase(dev) -> dict:
     decode = capture_decode_inputs(serve_cfg, *make_requests(serve_cfg))
     paged_real = {side: paged_check(None, side, gen, dev, captured=decode[side])
                   for side in ("self", "cross")}
+    graph = graph_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             **{f"{fn}@train_batch": rec for fn, rec in bwd_real.items()},
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],
-            "flex_fwd_sbm_sampled": train["sbm_sampled"],
+            "flex_fwd_sbm_sampled": sampled,
             "flex_fwd_sbm_sampled@train_batch": sampled_real,
-            "flex_fwd_sbm_graph": train["sbm_graph"],
+            "flex_fwd_sbm_graph": graph["train_batch"],
             **bwd, **bwd_exp,
             "paged_decode": paged[(torch.float32, "cross")],
             **{f"paged_decode@serve_{side}": rec for side, rec in paged_real.items()}}
@@ -1057,23 +1100,48 @@ def train_batch(cfg, b: int):
     return batch_to_device(collate(arrs, cfg.max_src_len), torch.device("cuda"))
 
 
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def timed_step(step, state, batch):
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     state, metrics = step(state, batch)
-    torch.cuda.synchronize()
+    sync()
     return state, metrics, time.perf_counter() - t0
 
 
-def trainer(cfg, model=None):
+def trainer(cfg, model=None, device="cuda"):
     """(model, train state, train step) at ``cfg``: a fresh full-width model
     from ``SEED`` unless ``model`` is given."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
 
-    model = model or CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cuda", seed=SEED)
+    model = model or CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
     opt = default_optimizer(cfg)
     return model, create_train_state(model, opt, SEED), make_train_step(model, opt, cfg)
+
+
+@contextlib.contextmanager
+def flex_launches():
+    """Records (forward kernel, B, N, dropout rate, q.requires_grad) of every
+    flex forward launch made inside the block: a train step's q requires grad,
+    the eval decode's does not (``train/decode.py`` runs under ``no_grad``)."""
+    from csat_tpu_torch.ops import flex_core
+
+    inner, got = flex_core._kernel_fwd, []
+
+    def recorder(spec, q, k, v, aux, rate, dseed):
+        got.append((f"flex_fwd_{spec.name}", q.shape[0], q.shape[2], rate, q.requires_grad))
+        return inner(spec, q, k, v, aux, rate, dseed)
+
+    flex_core._kernel_fwd = recorder
+    try:
+        yield got
+    finally:
+        flex_core._kernel_fwd = inner
 
 
 def _check_launched(path: str, counts) -> None:
@@ -1090,6 +1158,16 @@ def _check_shapes(path: str, shapes) -> None:
     if missing:
         raise AssertionError(f"the {path} path ran kernels at shapes phase 3 did not check: "
                              f"{missing}")
+
+
+def _check_rates(path: str, launched) -> None:
+    """Every (forward kernel, B, N, dropout rate) the path launched
+    (:func:`flex_launches`) must be one phase 3 held against its plain
+    version."""
+    missing = sorted({rec[:4] for rec in launched} - CHECKED_RATES)
+    if missing:
+        raise AssertionError(f"the {path} path ran forward kernels at shapes or rates phase 3 "
+                             f"did not check: {missing}")
 
 
 def profile_steps(step, state, batch, n: int = 2) -> dict:
@@ -1130,63 +1208,28 @@ def repeatable_backward(model, cfg, batch) -> dict:
     return {"params": len(first), "params_apart": apart}
 
 
-def same_graph_gate(cfg, batch, device="cuda") -> dict:
-    """Each SBM layer's kernels (K6 forward, K3/K4 backward) against the
-    plain forward and its autograd on the inputs and cotangents that layer got
-    in one kernel training step on ``batch``.  The graph is drawn in one
-    fixed order on both paths, so both see the same sampled graph and only
-    the arithmetic differs: no edge may be apart (net, per (batch, head)),
-    the output must agree within ``SAME_GRAPH_OUT_RTOL`` and every gradient
-    (q, k, v, R, K̂) within ``SAME_GRAPH_GRAD_RTOL``, relative in L2 norm."""
-    from csat_tpu_torch.ops import flex_core
-
-    rel = lambda a, w: (torch.linalg.vector_norm(a - w) / torch.linalg.vector_norm(w)).item()
-    layers = []
-    for i, cap in enumerate(capture_sbm_inputs(cfg, batch, device, layers=cfg.sbm_layers)):
-        q, k, v, spec, aux, rate, dseed, go, gs = (cap[key] for key in (
-            "q", "k", "v", "spec", "aux", "rate", "dseed", "go", "gs"))
-
-        def run(fn):
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, aux[0], aux[1])]
-            out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[2:]), rate, dseed)
-            loss = torch.sum(out * go) + torch.sum(gs * ex["graph_sum"])
-            grads = torch.autograd.grad(loss, leaves)
-            return out.detach(), ex["graph_sum"].detach(), loss.item(), grads
-
-        k_out, k_gs, k_loss, k_grads = run(flex_core.flex_attention)
-        p_out, p_gs, p_loss, p_grads = run(flex_core.flex_reference)
-        rec = dict(layer=i, edges=int(p_gs.sum()), edges_apart=int((k_gs - p_gs).abs().sum()),
-                   near_draws=int(_near_draws(q, spec, aux).sum()), out_rel=rel(k_out, p_out),
-                   loss_rel=abs(k_loss - p_loss) / abs(p_loss),
-                   grad_rel={name: rel(a, w) for name, a, w in zip(GRAD_NAMES, k_grads, p_grads)})
-        layers.append(rec)
-        if not (rec["edges_apart"] == 0 and rec["out_rel"] <= SAME_GRAPH_OUT_RTOL
-                and max(rec["grad_rel"].values()) <= SAME_GRAPH_GRAD_RTOL):
-            raise AssertionError(f"same-graph gate, SBM layer {i}: {rec}")
-    return dict(layers=layers, out_rtol=SAME_GRAPH_OUT_RTOL, grad_rtol=SAME_GRAPH_GRAD_RTOL)
-
-
-def train_phase(profile: bool) -> dict:
-    from csat_tpu_torch.configs import get_config
+def step_gate(cfg, batch, device="cuda", err_file=None):
+    """One train step through the kernels and one through the plain paths
+    (``flex_core.select_impl`` patched to ``"reference"``) from the same
+    weights, generator state (so the same noise) and batch: loss within
+    ``LOSS_RTOL`` and global grad-norm within ``GNORM_RTOL``, relative.
+    Every parameter's max abs gradient error goes to ``OUT_DIR / err_file``
+    when one is named.  Returns ``(model, state, step, metrics, launches,
+    record)`` of the kernel side, after its step."""
     from csat_tpu_torch.ops import build, flex_core
 
-    cfg = get_config("python", noise_mode="counter")
-    batch = train_batch(cfg, cfg.batch_size)
-    model, state, step = trainer(cfg)
-    plain_model, plain_state, plain_step = trainer(cfg, copy.deepcopy(model))
-
-    # one step through the kernels, one through the plain paths on the card,
-    # from the same weights, seeds and batch
+    model, state, step = trainer(cfg, device=device)
+    plain_model, plain_state, plain_step = trainer(cfg, copy.deepcopy(model), device)
     build.reset_launches()
     state, m_k, first_s = timed_step(step, state, batch)
     counts = build.launch_counts()
-    flex_core_select = flex_core.select_impl
+    select = flex_core.select_impl
     flex_core.select_impl = lambda x: "reference"
     try:
         build.reset_launches()
         plain_state, m_p, plain_s = timed_step(plain_step, plain_state, batch)
     finally:
-        flex_core.select_impl = flex_core_select
+        flex_core.select_impl = select
     if any(build.launch_counts().values()):
         raise AssertionError(f"the plain step launched kernels: {build.launch_counts()}")
     loss_rel = abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"]))
@@ -1194,26 +1237,90 @@ def train_phase(profile: bool) -> dict:
     grad_err = {name: [(p.grad - pp.grad).abs().max().item(), pp.grad.abs().max().item()]
                 for (name, p), (_, pp) in zip(model.named_parameters(),
                                               plain_model.named_parameters())}
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "train_grad_err.json").write_text(json.dumps(
-        {"columns": ["max_abs_err", "plain_max_abs_grad"], "params": grad_err}, indent=1))
+    if err_file:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / err_file).write_text(json.dumps(
+            {"columns": ["max_abs_err", "plain_max_abs_grad"], "params": grad_err}, indent=1))
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1][0])[:5]
-    # edges the two steps' graphs differ by, net: the sampled graphs see
-    # inputs that differ by rounding (K1 against the plain CSE upstream), so
-    # draws within that rounding of their threshold may flip between steps
-    edges = cfg.batch_size * cfg.max_src_len ** 2 * cfg.num_heads * cfg.sbm_layers
+    # edges the two steps' graphs differ by, net: the graphs see inputs that
+    # differ by rounding (K1 against the plain CSE upstream), so draws within
+    # that rounding of their threshold may flip between steps
+    edges = batch.src_seq.shape[0] * cfg.max_src_len ** 2 * cfg.num_heads * cfg.sbm_layers
     step_flips = abs(float(m_k["sparsity"]) - float(m_p["sparsity"])) * edges
     grad_err = {name: err for name, (err, _) in grad_err.items()}
     if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL
             and all(np.isfinite(list(grad_err.values())))):
-        raise AssertionError(f"kernel vs plain step: loss rel {loss_rel}, grad-norm rel "
-                             f"{gnorm_rel}, worst grads {worst}")
-    del plain_model, plain_state, plain_step
-    same_graph = same_graph_gate(cfg, batch)
-    build.reset_launches()  # the gate's launches compare kernels; they do not count
+        raise AssertionError(f"{cfg.noise_mode}: kernel vs plain step: loss rel {loss_rel}, "
+                             f"grad-norm rel {gnorm_rel}, worst grads {worst}")
+    rec = dict(kernel_loss=float(m_k["loss"]), plain_loss=float(m_p["loss"]), loss_rel=loss_rel,
+               loss_rtol=LOSS_RTOL, kernel_grad_norm=float(m_k["grad_norm"]),
+               plain_grad_norm=float(m_p["grad_norm"]), grad_norm_rel=gnorm_rel,
+               grad_norm_rtol=GNORM_RTOL, grad_max_abs_err=max(grad_err.values()),
+               worst_grad_errs=worst, kernel_sparsity=float(m_k["sparsity"]),
+               plain_sparsity=float(m_p["sparsity"]), net_graph_edges_apart=step_flips,
+               plain_step_s=plain_s, first_step_s=first_s)
+    return model, state, step, m_k, counts, rec
 
-    # TRAIN_STEPS more kernel steps on the same batch
-    losses, times = [float(m_k["loss"])], []
+
+def _gate_leaves(spec, aux):
+    """The gradient names and the differentiable ``aux`` entries of a
+    same-graph gate: the factors R, K̂ of the sampled mod, the graph itself of
+    the graph mod (its cotangent flows back through the STE)."""
+    from csat_tpu_torch.ops.mods import SBMGraphSpec
+
+    if isinstance(spec, SBMGraphSpec):
+        return ("dq", "dk", "dv", "dgraph"), 1
+    return GRAD_NAMES, 2
+
+
+def same_graph_gate(cfg, batch, device="cuda") -> dict:
+    """Each SBM layer's kernels against the plain forward and its autograd on
+    the inputs and cotangents that layer got in one kernel training step on
+    ``batch`` — counter mode: K6 forward, K3/K4 backward, the graph drawn in
+    one fixed order on both paths; shared mode: K7 forward and the recomputed
+    plain backward, the graph an input.  So both see the same graph and only
+    the arithmetic differs: no edge may be apart (net, per (batch, head)),
+    the output must agree within ``SAME_GRAPH_OUT_RTOL`` and every gradient
+    (q, k, v and R, K̂ or the graph) within ``SAME_GRAPH_GRAD_RTOL``,
+    relative in L2 norm."""
+    from csat_tpu_torch.ops import flex_core
+
+    rel = lambda a, w: (torch.linalg.vector_norm(a - w) / torch.linalg.vector_norm(w)).item()
+    layers = []
+    for i, cap in enumerate(capture_sbm_inputs(cfg, batch, device, layers=cfg.sbm_layers)):
+        q, k, v, spec, aux, rate, dseed, go, gs = (cap[key] for key in (
+            "q", "k", "v", "spec", "aux", "rate", "dseed", "go", "gs"))
+        names, n_diff = _gate_leaves(spec, aux)
+
+        def run(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, *aux[:n_diff])]
+            out, ex = fn(*leaves[:3], spec, (*leaves[3:], *aux[n_diff:]), rate, dseed)
+            loss = torch.sum(out * go) + torch.sum(gs * ex["graph_sum"])
+            grads = torch.autograd.grad(loss, leaves)
+            return out.detach(), ex["graph_sum"].detach(), loss.item(), grads
+
+        k_out, k_gs, k_loss, k_grads = run(flex_core.flex_attention)
+        p_out, p_gs, p_loss, p_grads = run(flex_core.flex_reference)
+        rec = dict(layer=i, mod=spec.name, edges=int(p_gs.sum()),
+                   edges_apart=int((k_gs - p_gs).abs().sum()),
+                   near_draws=int(_near_draws(q, spec, aux).sum()), out_rel=rel(k_out, p_out),
+                   loss_rel=abs(k_loss - p_loss) / abs(p_loss),
+                   grad_rel={name: rel(a, w) for name, a, w in zip(names, k_grads, p_grads)})
+        layers.append(rec)
+        if not (rec["edges_apart"] == 0 and rec["out_rel"] <= SAME_GRAPH_OUT_RTOL
+                and max(rec["grad_rel"].values()) <= SAME_GRAPH_GRAD_RTOL):
+            raise AssertionError(f"same-graph gate, SBM layer {i}: {rec}")
+    return dict(layers=layers, out_rtol=SAME_GRAPH_OUT_RTOL, grad_rtol=SAME_GRAPH_GRAD_RTOL)
+
+
+def more_steps(step, state, batch, first_loss: float, counts: dict):
+    """``TRAIN_STEPS`` more kernel steps on ``batch``: each finite, the last
+    loss below the second (the first more step's).  Returns ``(state,
+    record)``; the launches of these steps are added to ``counts``."""
+    from csat_tpu_torch.ops import build
+
+    build.reset_launches()
+    losses, times = [first_loss], []
     for _ in range(TRAIN_STEPS):
         state, m, seconds = timed_step(step, state, batch)
         if m["nonfinite"] or not np.isfinite(float(m["loss"])):
@@ -1224,43 +1331,75 @@ def train_phase(profile: bool) -> dict:
     counts = {fn: counts[fn] + steps_counts[fn] for fn in counts}
     if not losses[-1] < losses[1]:
         raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    _check_launched("train_counter", counts)
+    n_steps = 1 + TRAIN_STEPS
+    return state, dict(losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
+                       launches=counts,
+                       launches_per_step={fn: c / n_steps for fn, c in counts.items()})
+
+
+def _widths(cfg) -> dict:
+    return dict(pegen=cfg.pegen_dim, enc=cfg.sbm_enc_dim, hidden=cfg.hidden_size,
+                heads=cfg.num_heads, cse_layers=cfg.num_layers, sbm_layers=cfg.sbm_layers,
+                dec_layers=cfg.decoder_layers, clusters=list(cfg.clusters),
+                max_src_len=cfg.max_src_len, max_tgt_len=cfg.max_tgt_len)
+
+
+def train_phase(profile: bool) -> dict:
+    """The counter noise mode (K6, K3, K4): the step gate, the same-graph
+    gate, ``TRAIN_STEPS`` more steps, bit-equal backward passes."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import build
+
+    cfg = get_config("python", noise_mode="counter")
+    batch = train_batch(cfg, cfg.batch_size)
+    model, state, step, m_k, counts, gate = step_gate(cfg, batch, err_file="train_grad_err.json")
+    same_graph = same_graph_gate(cfg, batch)
+    build.reset_launches()  # the gate's launches compare kernels; they do not count
+    state, steps = more_steps(step, state, batch, float(m_k["loss"]), counts)
+    _check_launched("train_counter", steps["launches"])
     _check_shapes("train_counter", [tuple(batch.src_seq.shape)])
     repeat = repeatable_backward(model, cfg, batch)
     trace = profile_steps(step, state, batch) if profile else None
-    del model, state, step
-
-    # one step of the config's default noise mode: the shared graph
-    shared_cfg = cfg.replace(noise_mode="shared")
-    _, sh_state, sh_step = trainer(shared_cfg)
-    build.reset_launches()
-    sh_state, m_s, shared_s = timed_step(sh_step, sh_state, batch)
-    shared_counts = build.launch_counts()
-    if m_s["nonfinite"] or not np.isfinite(float(m_s["loss"])):
-        raise AssertionError(f"non-finite shared-noise step: {m_s}")
-    _check_launched("train_shared", shared_counts)
-    _check_shapes("train_shared", [tuple(batch.src_seq.shape)])
-
-    n_steps = 1 + TRAIN_STEPS
-    rec = dict(model="python", noise_mode="counter", batch=cfg.batch_size, widths=dict(
-        pegen=cfg.pegen_dim, enc=cfg.sbm_enc_dim, hidden=cfg.hidden_size, heads=cfg.num_heads,
-        cse_layers=cfg.num_layers, sbm_layers=cfg.sbm_layers, dec_layers=cfg.decoder_layers,
-        clusters=list(cfg.clusters), max_src_len=cfg.max_src_len, max_tgt_len=cfg.max_tgt_len),
-        vocab=[SRC_VOCAB, TGT_VOCAB], dropout=cfg.dropout,
-        attention_dropout=cfg.attention_dropout, learning_rate=cfg.learning_rate,
-        kernel_loss=float(m_k["loss"]), plain_loss=float(m_p["loss"]), loss_rel=loss_rel,
-        loss_rtol=LOSS_RTOL, kernel_grad_norm=float(m_k["grad_norm"]),
-        plain_grad_norm=float(m_p["grad_norm"]), grad_norm_rel=gnorm_rel,
-        grad_norm_rtol=GNORM_RTOL, grad_max_abs_err=max(grad_err.values()),
-        worst_grad_errs=worst, kernel_sparsity=float(m_k["sparsity"]),
-        plain_sparsity=float(m_p["sparsity"]), net_graph_edges_apart=step_flips,
-        plain_step_s=plain_s, first_step_s=first_s,
-        losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
-        launches=counts, launches_per_step={fn: c / n_steps for fn, c in counts.items()},
-        shared=dict(loss=float(m_s["loss"]), step_s=shared_s, launches=shared_counts),
-        repeatable_backward=repeat, same_graph=same_graph,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
+    rec = dict(model="python", noise_mode="counter", batch=cfg.batch_size, widths=_widths(cfg),
+               vocab=[SRC_VOCAB, TGT_VOCAB], dropout=cfg.dropout,
+               attention_dropout=cfg.attention_dropout, learning_rate=cfg.learning_rate,
+               **gate, **steps, repeatable_backward=repeat, same_graph=same_graph,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
     emit("train", **rec)
+    return rec
+
+
+def train_shared_phase(profile: bool) -> dict:
+    """The config's default noise mode, ``"shared"``: the uniform noise comes
+    from the train state's generator, the graph is sampled through the STE
+    and K7 reads it (with K1 in the CSE layers; the graph mod's backward is
+    the recomputed plain one).  The step gate, the same-graph gate on each
+    SBM layer's own graph, ``TRAIN_STEPS`` more steps, and with ``profile``
+    two traced steps."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import build
+
+    cfg = get_config("python")
+    if cfg.noise_mode != "shared":
+        raise AssertionError(f"the python config's default noise mode is {cfg.noise_mode!r}")
+    batch = train_batch(cfg, cfg.batch_size)
+    with flex_launches() as launched:
+        model, state, step, m_s, counts, gate = step_gate(
+            cfg, batch, err_file="train_shared_grad_err.json")
+    same_graph = same_graph_gate(cfg, batch)
+    build.reset_launches()
+    with flex_launches() as more:
+        state, steps = more_steps(step, state, batch, float(m_s["loss"]), counts)
+    _check_launched("train_shared", steps["launches"])
+    _check_shapes("train_shared", [tuple(batch.src_seq.shape)])
+    _check_rates("train_shared", launched + more)
+    trace = profile_steps(step, state, batch) if profile else None
+    rec = dict(model="python", noise_mode=cfg.noise_mode, batch=cfg.batch_size,
+               widths=_widths(cfg), vocab=[SRC_VOCAB, TGT_VOCAB],
+               attention_dropout=cfg.attention_dropout, **gate, **steps,
+               same_graph=same_graph, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               profile=trace)
+    emit("train_shared", **rec)
     return rec
 
 
@@ -1350,13 +1489,12 @@ def _by_shape(steps):
     return out
 
 
-def fit_phase(profile: bool) -> dict:
-    from csat_tpu_torch.configs import get_config
-    from csat_tpu_torch.data.dataset import ASTDataset
+@contextlib.contextmanager
+def fit_corpus():
+    """A synthetic corpus in a temporary directory (``FIT_SAMPLES`` train /
+    dev / test ASTs of ``FIT_NODES`` nodes), removed afterwards.  Yields
+    ``(tmp, data_dir, seconds to make it)``."""
     from csat_tpu_torch.data.synthetic import make_corpus
-    from csat_tpu_torch.ops import build
-    from csat_tpu_torch.train import Trainer, run_test
-    from csat_tpu_torch.train.checkpoint import make_checkpoint_fn
 
     tmp = tempfile.mkdtemp(prefix="csat_fit_")
     try:
@@ -1364,99 +1502,169 @@ def fit_phase(profile: bool) -> dict:
         with contextlib.redirect_stdout(sys.stderr):  # keep stdout to the JSON lines
             data_dir = make_corpus(os.path.join(tmp, "corpus"), *FIT_SAMPLES, seed=SEED,
                                    max_ast_len=150, node_range=FIT_NODES)
-        corpus_s = time.perf_counter() - t0
-
-        def new_trainer(out):
-            cfg = get_config("python", data_dir=data_dir, output_dir=os.path.join(tmp, out),
-                             noise_mode="counter", eval_graph="expected", bucketing=True,
-                             num_epochs=FIT_EPOCHS, val_interval=1, save_interval=1,
-                             guard_check_every=1)
-            logs = []
-            tr = Trainer(cfg, log=logs.append)
-            sets = {split: ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab)
-                    for split in ("train", "dev", "test")}
-            return cfg, tr, sets, logs
-
-        cfg, tr, sets, logs = new_trainer("run_a")
-        ckpt = make_checkpoint_fn(tr.output_dir, retries=cfg.save_retries,
-                                  backoff_s=cfg.save_retry_backoff_s)
-        build.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, hist = tr.fit(sets["train"], sets["dev"], checkpoint_fn=ckpt)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        counts = build.launch_counts()
-        steps = hist["steps"]
-        if not all(np.isfinite(r["loss"]) for r in steps) or hist["nonfinite_steps"]:
-            raise AssertionError(f"non-finite train step in the fit: {hist['nonfinite_steps']}")
-        if not (len(hist["loss"]) == FIT_EPOCHS and hist["loss"][-1] < hist["loss"][0]):
-            raise AssertionError(f"epoch loss did not fall: {hist['loss']}")
-        shapes = _by_shape(steps)
-        if len(shapes) < 2:
-            raise AssertionError(f"fewer than two bucket shapes stepped: {list(shapes)}")
-        _check_launched("fit", counts)
-        # train steps come in the plan's shapes, and the eval decode pads
-        # every batch to its bucket's rows
-        _check_shapes("fit", {tuple(r["shape"][:2]) for r in steps} | set(plan_shapes()))
-        ck_dir = os.path.join(tr.output_dir, "checkpoints")
-        if sorted(os.listdir(ck_dir)) != [f"state_{e}.pt" for e in range(1, FIT_EPOCHS + 1)]:
-            raise AssertionError(f"checkpoints missing: {os.listdir(ck_dir)}")
-
-        # a second Trainer restored from the epoch-1 checkpoint replays epoch 2
-        cfg_b, tr_b, sets_b, _ = new_trainer("run_b")
-        os.makedirs(os.path.join(tr_b.output_dir, "checkpoints"))
-        shutil.copy(os.path.join(ck_dir, "state_1.pt"),
-                    os.path.join(tr_b.output_dir, "checkpoints", "state_1.pt"))
-        trace = None
-        if profile:
-            from torch.profiler import ProfilerActivity, profile as profiler
-
-            with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                _, hist_b = tr_b.fit(sets_b["train"], sets_b["dev"], resume=True)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            trace = _device_summary(prof, wall)
-        else:
-            _, hist_b = tr_b.fit(sets_b["train"], sets_b["dev"], resume=True)
-        want = [r for r in steps if r["epoch"] == 2]
-        got = hist_b["steps"]
-        if not (got and [r["shape"] for r in got] == [r["shape"] for r in want]):
-            raise AssertionError("the restored run stepped other batches")
-        # every step of the replayed epoch, not only the first
-        apart = [(i, g["loss"], w["loss"]) for i, (g, w) in enumerate(zip(got, want))
-                 if g["loss"] != w["loss"]]
-        if apart:
-            raise AssertionError(f"the restored run's losses differ from the uninterrupted "
-                                 f"run's (step, restored, uninterrupted): {apart}")
-
-        tr.model.load_state_dict(hist["best_params"], strict=True)
-        t0 = time.perf_counter()
-        scores = run_test(tr.model, sets["test"], cfg, tr.tgt_vocab,
-                          output_dir=tr.output_dir)
-        test_s = time.perf_counter() - t0
-        if not all(np.isfinite(v) for v in scores.values()):
-            raise AssertionError(f"test scores not finite: {scores}")
-        eval_tokens = len(sets["dev"]) * (cfg.max_tgt_len - 1)
-        rec = dict(
-            model="python", noise_mode="counter", eval_graph="expected", bucketing=True,
-            batch=cfg.batch_size, epochs=FIT_EPOCHS, samples=list(FIT_SAMPLES),
-            node_range=list(FIT_NODES), vocab=[tr.src_vocab.size(), tr.tgt_vocab.size()],
-            corpus_s=corpus_s, fit_s=fit_s, epoch_loss=hist["loss"],
-            step_losses=[r["loss"] for r in steps], steps=len(steps), by_shape=shapes,
-            val_bleu=hist["val_bleu"], best_bleu=hist["best_bleu"], eval_s=hist["eval_s"],
-            eval_tokens=eval_tokens,
-            eval_tokens_per_s=eval_tokens / statistics.median(hist["eval_s"]),
-            rollbacks=hist["rollbacks"], launches=counts,
-            restored_first_loss=got[0]["loss"], uninterrupted_first_loss=want[0]["loss"],
-            restored_steps_bit_equal=[len(want), len(want)],
-            test=scores, test_s=test_s, test_tokens=len(sets["test"]) * (cfg.max_tgt_len - 1),
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
-        emit("fit", **rec)
-        return rec
+        yield tmp, data_dir, time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fit_phase(profile: bool, corpus) -> dict:
+    """``Trainer.fit`` in the counter noise mode with the expected eval graph,
+    its restored replay and ``run_test``."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.train import Trainer, run_test
+    from csat_tpu_torch.train.checkpoint import make_checkpoint_fn
+
+    tmp, data_dir, corpus_s = corpus
+
+    def new_trainer(out):
+        cfg = get_config("python", data_dir=data_dir, output_dir=os.path.join(tmp, out),
+                         noise_mode="counter", eval_graph="expected", bucketing=True,
+                         num_epochs=FIT_EPOCHS, val_interval=1, save_interval=1,
+                         guard_check_every=1)
+        logs = []
+        tr = Trainer(cfg, log=logs.append)
+        sets = {split: ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab)
+                for split in ("train", "dev", "test")}
+        return cfg, tr, sets, logs
+
+    cfg, tr, sets, logs = new_trainer("run_a")
+    ckpt = make_checkpoint_fn(tr.output_dir, retries=cfg.save_retries,
+                              backoff_s=cfg.save_retry_backoff_s)
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = tr.fit(sets["train"], sets["dev"], checkpoint_fn=ckpt)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = build.launch_counts()
+    steps = hist["steps"]
+    if not all(np.isfinite(r["loss"]) for r in steps) or hist["nonfinite_steps"]:
+        raise AssertionError(f"non-finite train step in the fit: {hist['nonfinite_steps']}")
+    if not (len(hist["loss"]) == FIT_EPOCHS and hist["loss"][-1] < hist["loss"][0]):
+        raise AssertionError(f"epoch loss did not fall: {hist['loss']}")
+    shapes = _by_shape(steps)
+    if len(shapes) < 2:
+        raise AssertionError(f"fewer than two bucket shapes stepped: {list(shapes)}")
+    _check_launched("fit", counts)
+    # train steps come in the plan's shapes, and the eval decode pads
+    # every batch to its bucket's rows
+    _check_shapes("fit", {tuple(r["shape"][:2]) for r in steps} | set(plan_shapes()))
+    ck_dir = os.path.join(tr.output_dir, "checkpoints")
+    if sorted(os.listdir(ck_dir)) != [f"state_{e}.pt" for e in range(1, FIT_EPOCHS + 1)]:
+        raise AssertionError(f"checkpoints missing: {os.listdir(ck_dir)}")
+
+    # a second Trainer restored from the epoch-1 checkpoint replays epoch 2
+    cfg_b, tr_b, sets_b, _ = new_trainer("run_b")
+    os.makedirs(os.path.join(tr_b.output_dir, "checkpoints"))
+    shutil.copy(os.path.join(ck_dir, "state_1.pt"),
+                os.path.join(tr_b.output_dir, "checkpoints", "state_1.pt"))
+    trace = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, hist_b = tr_b.fit(sets_b["train"], sets_b["dev"], resume=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        trace = _device_summary(prof, wall)
+    else:
+        _, hist_b = tr_b.fit(sets_b["train"], sets_b["dev"], resume=True)
+    want = [r for r in steps if r["epoch"] == 2]
+    got = hist_b["steps"]
+    if not (got and [r["shape"] for r in got] == [r["shape"] for r in want]):
+        raise AssertionError("the restored run stepped other batches")
+    # every step of the replayed epoch, not only the first
+    apart = [(i, g["loss"], w["loss"]) for i, (g, w) in enumerate(zip(got, want))
+             if g["loss"] != w["loss"]]
+    if apart:
+        raise AssertionError(f"the restored run's losses differ from the uninterrupted "
+                             f"run's (step, restored, uninterrupted): {apart}")
+
+    tr.model.load_state_dict(hist["best_params"], strict=True)
+    t0 = time.perf_counter()
+    scores = run_test(tr.model, sets["test"], cfg, tr.tgt_vocab,
+                      output_dir=tr.output_dir)
+    test_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"test scores not finite: {scores}")
+    eval_tokens = len(sets["dev"]) * (cfg.max_tgt_len - 1)
+    rec = dict(
+        model="python", noise_mode="counter", eval_graph="expected", bucketing=True,
+        batch=cfg.batch_size, epochs=FIT_EPOCHS, samples=list(FIT_SAMPLES),
+        node_range=list(FIT_NODES), vocab=[tr.src_vocab.size(), tr.tgt_vocab.size()],
+        corpus_s=corpus_s, fit_s=fit_s, epoch_loss=hist["loss"],
+        step_losses=[r["loss"] for r in steps], steps=len(steps), by_shape=shapes,
+        val_bleu=hist["val_bleu"], best_bleu=hist["best_bleu"], eval_s=hist["eval_s"],
+        eval_tokens=eval_tokens,
+        eval_tokens_per_s=eval_tokens / statistics.median(hist["eval_s"]),
+        rollbacks=hist["rollbacks"], launches=counts,
+        restored_first_loss=got[0]["loss"], uninterrupted_first_loss=want[0]["loss"],
+        restored_steps_bit_equal=[len(want), len(want)],
+        test=scores, test_s=test_s, test_tokens=len(sets["test"]) * (cfg.max_tgt_len - 1),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, profile=trace)
+    emit("fit", **rec)
+    return rec
+
+
+def fit_default_phase(corpus) -> dict:
+    """``Trainer.fit`` in the config's own defaults (``noise_mode="shared"``,
+    ``eval_graph="sample"``): 2 bucketed epochs at batch 64 with validation
+    each epoch under the trainer's eval generator.  Every step finite, the
+    epoch loss falling, K1 and K7 launched at every train bucket (K7 at rate
+    0.2) and in the eval encoder (K7 at rate 0), each at a shape and rate
+    phase 3 checked."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.train import Trainer
+
+    tmp, data_dir, _ = corpus
+    cfg = get_config("python", data_dir=data_dir, output_dir=os.path.join(tmp, "run_default"),
+                     bucketing=True, num_epochs=FIT_EPOCHS, val_interval=1)
+    if (cfg.noise_mode, cfg.eval_graph) != ("shared", "sample"):
+        raise AssertionError(f"the python config's defaults are {cfg.noise_mode!r} / "
+                             f"{cfg.eval_graph!r}")
+    tr = Trainer(cfg, log=lambda msg: None)
+    sets = {split: ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab) for split in ("train", "dev")}
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with flex_launches() as launched:
+        _, hist = tr.fit(sets["train"], sets["dev"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = build.launch_counts()
+    steps = hist["steps"]
+    if not all(np.isfinite(r["loss"]) for r in steps) or hist["nonfinite_steps"]:
+        raise AssertionError(f"non-finite train step in the default fit: {hist['nonfinite_steps']}")
+    if not (len(hist["loss"]) == FIT_EPOCHS and hist["loss"][-1] < hist["loss"][0]):
+        raise AssertionError(f"default fit: epoch loss did not fall: {hist['loss']}")
+    _check_launched("fit_default", counts)
+    train_shapes = {tuple(r["shape"][:2]) for r in steps}
+    _check_shapes("fit_default", train_shapes | set(plan_shapes()))
+    _check_rates("fit_default", launched)
+    by_side = {}
+    for fn in PATH_KERNELS["fit_default"]:
+        for side, grad, rate in (("train", True, RATE), ("eval", False, 0.0)):
+            want_rate = rate if fn == "flex_fwd_sbm_graph" else 0.0
+            got = sorted({(b, n) for f, b, n, r, g in launched
+                          if f == fn and g == grad and r == want_rate})
+            by_side[f"{fn}@{side}"] = got
+            if not got or (side == "train" and not train_shapes <= set(got)):
+                raise AssertionError(f"default fit: {fn} at rate {want_rate} in the {side} "
+                                     f"path ran at {got}, train buckets {sorted(train_shapes)}")
+    eval_tokens = len(sets["dev"]) * (cfg.max_tgt_len - 1)
+    rec = dict(
+        model="python", noise_mode=cfg.noise_mode, eval_graph=cfg.eval_graph, bucketing=True,
+        batch=cfg.batch_size, epochs=FIT_EPOCHS, samples=list(FIT_SAMPLES[:2]),
+        fit_s=fit_s, epoch_loss=hist["loss"], steps=len(steps), by_shape=_by_shape(steps),
+        val_bleu=hist["val_bleu"], eval_s=hist["eval_s"], eval_tokens=eval_tokens,
+        eval_tokens_per_s=eval_tokens / statistics.median(hist["eval_s"]),
+        launches=counts, launch_shapes=by_side)
+    emit("fit_default", **rec)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1464,8 +1672,8 @@ def fit_phase(profile: bool) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace a serving run, two train steps and the restored fit "
-                         "epoch with torch.profiler")
+                    help="trace a serving run, two train steps of each noise mode and "
+                         "the restored fit epoch with torch.profiler")
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
@@ -1475,11 +1683,14 @@ def main(argv=None) -> int:
     measured = kernel_phase(dev)
     served = serve_phase(args.profile)
     trained = train_phase(args.profile)
+    shared = train_shared_phase(args.profile)
     expected = expected_grad_phase()
-    fitted = fit_phase(args.profile)
+    with fit_corpus() as corpus:
+        fitted = fit_phase(args.profile, corpus)
+        fitted_default = fit_default_phase(corpus)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
-               "train_shared": trained["shared"]["launches"],
-               "expected_grad": expected["launches"], "fit": fitted["launches"]}
+               "train_shared": shared["launches"], "expected_grad": expected["launches"],
+               "fit": fitted["launches"], "fit_default": fitted_default["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

@@ -44,7 +44,7 @@ KERNELS: Dict[str, str] = {
     "flex_fwd_cse": "flex_fwd",
     "flex_fwd_sbm_expected": "flex_fwd_tc",
     "flex_fwd_sbm_sampled": "flex_fwd_tc",
-    "flex_fwd_sbm_graph": "flex_fwd",
+    "flex_fwd_sbm_graph": "flex_fwd_tc",
     "flex_bwd_q_sbm_sampled": "flex_bwd_tc",
     "flex_bwd_k_sbm_sampled": "flex_bwd_tc",
     "flex_bwd_q_sbm_expected": "flex_bwd",

@@ -1,23 +1,16 @@
-// Blocked weighted-softmax attention forward for Hopper (sm_90a), one SIMT
-// kernel templated on the attention mod.  The two SBM mods whose weights
-// come from the factors R, K̂ (K2 expected, K6 sampled) run on the
-// tensor-core kernel of flex_fwd_tc.cu.
+// Blocked weighted-softmax attention forward for Hopper (sm_90a) under the
+// CSE mod: the SIMT kernel K1 (flex_fwd_cse).  The three SBM mods (K2
+// expected, K6 sampled, K7 graph) run on the tensor-core kernel of
+// flex_fwd_tc.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under two mods of csat_tpu/ops/mods.py:
-//   * MOD_CSE          — CSESpec.tile_score (:430-439): disentangled L/T
-//                         relative bias s = (q·k + q·lk[rel_ij] + k·lq[rel_ji])
-//                         / sqrt(3 dk), -1e9 fill where the raw distance is 0,
-//                         weight = real-extent gate;
-//   * MOD_SBM_GRAPH    — SBMGraphSpec.tile_weight (:310-312): a materialised
-//                         0/1 graph tile read from device memory, weight
-//                         graph · (1 - key_pad).
-// All compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
-// with no live weight are exactly 0), plus per-row lse (before dropout),
-// Σ w_raw (graph_sum) and the number of dead (q-tile, k-tile) blocks
-// (skipped_blocks).  keep_ij = 1{u ≥ rate} / (1 − rate) is the attention
-// dropout of flex_core.py:214-219, 276-281, drawn from the same hash under
-// the dropout seed (rate 0: keep = 1).
+// _fwd_body :230) under CSESpec.tile_score of csat_tpu/ops/mods.py
+// (:430-439): disentangled L/T relative bias s = (q·k + q·lk[rel_ij] +
+// k·lq[rel_ji]) / sqrt(3 dk), -1e9 fill where the raw distance is 0, weight
+// = real-extent gate.  It computes out = Σ_j w_ij e^{s_ij} V_j / Σ_j w_ij
+// e^{s_ij} (rows with no live weight are exactly 0), plus per-row lse,
+// Σ w (graph_sum) and the number of dead (q-tile, k-tile) blocks
+// (skipped_blocks).
 //
 // What bounds it on an H100: at the serving shapes (B <= 8, H=8, N<=150,
 // dh=64, f32) the whole call moves well under 10 MB and does a few hundred
@@ -27,8 +20,8 @@
 // latency of that loop (loads → weights → scores → row reductions → P·V) and
 // the occupancy of ~1 block per SM bound it.  The CSE mod triples the score
 // work (two gathered dot products per unmasked entry from the relative
-// tables; a masked entry takes the -1e9 fill without them); the graph mod
-// reads a 4-byte weight per entry (46 MB at the training shape).
+// tables; a masked entry takes the -1e9 fill without them).  The tensor-core
+// designs tried for it were slower on a real batch's masks (PERF.md).
 //
 // Design:
 //   * The TPU kernel keeps a full (128, n_pad) f32 score row and weight row
@@ -47,10 +40,6 @@
 //   * The CSE relative tables lq/lk of this head (R x dh) sit in shared
 //     memory, so the c2p/p2c gathers index them directly (no lane-chunked
 //     gather as on the TPU).  The p2c term reads rel[j][i] (transposed).
-//   * The dropout hash's row stride is round_up(N, 128), the TPU tile, as
-//     the stream's definition requires; rows and columns are global indices
-//     and bh = b·H + h, so every tile regenerates its part of one field.
-//     Dropout multiplies P only where it enters P·V, never the row sum l.
 //   * Simple SIMT f32: 256 threads, each owns a 4x4 block of the 64x64 score
 //     tile (rows ty*4.., columns tx+16*j) and the same 4 rows x dh/16 columns
 //     of the output accumulator; rows reduce over the 16 lanes that share
@@ -60,8 +49,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hashrng.cuh"
-
 namespace {
 
 constexpr int BM = 64;
@@ -70,37 +57,29 @@ constexpr int THREADS = 256;
 constexpr float NEG = -1e30f;
 constexpr float NEG_CSE = -1e9f;
 
-enum { MOD_CSE = 0, MOD_SBM_GRAPH = 3 };
-
 struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* lq;        // CSE: (H, R, dh)
+  const float* lq;        // (H, R, dh)
   const float* lk;
-  const int32_t* rel;     // CSE: (B, 2, N, N)
-  const uint8_t* mask;    // CSE: (B, 2, N, N), nonzero = masked
-  const float* graph;     // SBM graph: (B, H, N, N) 0/1
-  const float* pad;       // SBM graph: (B, N), 1.0 = padded key
-  const int32_t* dseed;   // (1,) dropout stream seed, read when rate > 0
+  const int32_t* rel;     // (B, 2, N, N)
+  const uint8_t* mask;    // (B, 2, N, N), nonzero = masked
   float* out;             // (B, H, N, dh)
   float* lse;             // (B, H, N)
   float* gsum_part;       // (B, H, n_qtiles)
   int32_t* skip_part;     // (B, H, n_qtiles)
   int B, H, N, R, group;
-  uint32_t stride;        // hash row stride, round_up(N, 128)
-  float scale, rate, keep_scale;
+  float scale;
 };
 
-template <int MOD, int DH>
+template <int DH>
 size_t smem_floats(int R) {
   constexpr int LD = DH + 1;
-  size_t n = 2 * BM * LD + BN * DH + BM * (BN + 1);
-  n += MOD == MOD_CSE ? 2 * (size_t)R * LD : BN;
-  return n;
+  return 2 * BM * LD + BN * DH + BM * (BN + 1) + 2 * (size_t)R * LD;
 }
 
-template <int MOD, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   constexpr int LD = DH + 1;     // padded row stride: conflict-free reads
   constexpr int DPT = DH / 16;   // output columns per thread
@@ -109,10 +88,8 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   float* Ks = Qs + BM * LD;
   float* Vs = Ks + BN * LD;
   float* Ps = Vs + BN * DH;
-  float* ext = Ps + BM * (BN + 1);
-  float* Lq = ext;                     // CSE tables (R x LD)
-  float* Lk = ext + (size_t)p.R * LD;
-  float* pads = ext;                   // SBM graph: the k-tile's key pads
+  float* Lq = Ps + BM * (BN + 1);      // the relative tables (R x LD)
+  float* Lk = Lq + (size_t)p.R * LD;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -122,16 +99,14 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   const float* kg = p.k + bh * N * DH;
   const float* vg = p.v + bh * N * DH;
   const int row0 = qt * BM;
-  const int plane = (MOD == MOD_CSE) ? h / p.group : 0;
+  const int plane = h / p.group;
   const size_t plane_off = ((size_t)b * 2 + plane) * N * N;
-  const bool dropout = p.rate > 0.f;
-  const uint32_t dseed = dropout ? (uint32_t)p.dseed[0] : 0u;
 
   for (int i = tid; i < BM * DH; i += THREADS) {
     const int r = i / DH, d = i % DH, gr = row0 + r;
     Qs[r * LD + d] = gr < N ? qg[(size_t)gr * DH + d] : 0.f;
   }
-  if (MOD == MOD_CSE) {
+  {
     const float* lqh = p.lq + (size_t)h * p.R * DH;
     const float* lkh = p.lk + (size_t)h * p.R * DH;
     for (int i = tid; i < p.R * DH; i += THREADS) {
@@ -161,12 +136,6 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       Ks[c * LD + d] = in ? kg[(size_t)gc * DH + d] : 0.f;
       Vs[c * DH + d] = in ? vg[(size_t)gc * DH + d] : 0.f;
     }
-    if (MOD == MOD_SBM_GRAPH) {
-      for (int c = tid; c < BN; c += THREADS) {
-        const int gc = col0 + c;
-        pads[c] = gc < N ? p.pad[(size_t)b * N + gc] : 1.f;
-      }
-    }
     __syncthreads();
 
     // weights of this thread's 4x4 entries
@@ -178,17 +147,10 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int c = tx + 16 * jj, gc = col0 + c;
-        const bool real = gr < N && gc < N;
-        float wr = 0.f;
-        if (MOD == MOD_CSE) {
-          wr = real ? 1.f : 0.f;
-        } else if (real) {
-          wr = p.graph[(bh * N + gr) * N + gc];
-        }
-        const float we = (MOD == MOD_CSE) ? wr : wr * (1.f - pads[c]);
+        const float wr = gr < N && gc < N ? 1.f : 0.f;
         gsum += wr;
-        w[ii][jj] = we;
-        live_local |= (we > 0.f);
+        w[ii][jj] = wr;
+        live_local |= (wr > 0.f);
       }
     }
     if (!__syncthreads_or(live_local)) {
@@ -220,7 +182,7 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       for (int jj = 0; jj < 4; ++jj) {
         const int c = tx + 16 * jj, gc = col0 + c;
         float sc = s[ii][jj] * p.scale;
-        if (MOD == MOD_CSE && w[ii][jj] > 0.f) {
+        if (w[ii][jj] > 0.f) {
           if (p.mask[plane_off + (size_t)gr * N + gc]) {
             sc = NEG_CSE;  // the fill replaces the score: no gathers needed
           } else {
@@ -241,7 +203,6 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
     // online max / sum over the 16 lanes that share each row
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
-      const int gr = row0 + ty * 4 + ii;
       float mt = NEG;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
@@ -253,12 +214,8 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
       float lt = 0.f;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const int gc = col0 + tx + 16 * jj;
         const float pr = w[ii][jj] > 0.f ? expf(s[ii][jj] - m_new) * w[ii][jj] : 0.f;
-        float keep = 1.f;
-        if (dropout && pr > 0.f)
-          keep = hash_uniform(dseed, (uint32_t)bh, gr, gc, p.stride) >= p.rate ? p.keep_scale : 0.f;
-        Ps[(ty * 4 + ii) * (BN + 1) + tx + 16 * jj] = pr * keep;
+        Ps[(ty * 4 + ii) * (BN + 1) + tx + 16 * jj] = pr;
         lt += pr;
       }
 #pragma unroll
@@ -309,62 +266,31 @@ __global__ void __launch_bounds__(THREADS) flex_fwd_kernel(Params p) {
   }
 }
 
-template <int MOD, int DH>
+template <int DH>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_floats<MOD, DH>(p.R) * sizeof(float);
+  const size_t bytes = smem_floats<DH>(p.R) * sizeof(float);
   if (bytes > 232448) return -2;  // over the 227 KB a block may use
   cudaError_t err = cudaFuncSetAttribute(
-      flex_fwd_kernel<MOD, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flex_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + BM - 1) / BM, p.H, p.B);
-  flex_fwd_kernel<MOD, DH><<<grid, THREADS, bytes, stream>>>(p);
+  flex_fwd_kernel<DH><<<grid, THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// The head widths of ops/build.py HEAD_DIMS: 64 for both mods, and 96 for
-// the SBM encoder of the java config (768 / 8 heads).
-template <int MOD>
-int dispatch(int dh, const Params& p, cudaStream_t stream) {
-  if (dh == 64) return launch<MOD, 64>(p, stream);
-  if constexpr (MOD != MOD_CSE) {
-    if (dh == 96) return launch<MOD, 96>(p, stream);
-  }
-  return -1;  // head width without an instantiation
-}
-
-Params base(const float* q, const float* k, const float* v, float* out, float* lse,
-            float* gsum_part, int32_t* skip_part, int B, int H, int N, float scale) {
-  Params p{};
-  p.q = q; p.k = k; p.v = v;
-  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.group = 1; p.scale = scale;
-  p.rate = 0.f; p.keep_scale = 1.f;
-  return p;
 }
 
 }  // namespace
 
+// The head width of ops/build.py HEAD_DIMS: 64 (CSE 512 / 8 heads).
 extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
                             const float* lq, const float* lk, const int32_t* rel,
                             const uint8_t* mask, float* out, float* lse,
                             float* gsum_part, int32_t* skip_part, int B, int H,
                             int N, int DH, int R, int group, float scale,
                             void* stream) {
-  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
-  p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
-  p.R = R; p.group = group;
-  return dispatch<MOD_CSE>(DH, p, (cudaStream_t)stream);
-}
-
-extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v,
-                                  const float* graph, const float* pad,
-                                  const int32_t* dseed, float* out, float* lse,
-                                  float* gsum_part, int32_t* skip_part, int B, int H,
-                                  int N, int DH, int stride, float scale, float rate,
-                                  float keep_scale, void* stream) {
-  if (rate > 0.f && dseed == nullptr) return -4;
-  Params p = base(q, k, v, out, lse, gsum_part, skip_part, B, H, N, scale);
-  p.graph = graph; p.pad = pad; p.dseed = dseed;
-  p.stride = (uint32_t)stride; p.rate = rate; p.keep_scale = keep_scale;
-  return dispatch<MOD_SBM_GRAPH>(DH, p, (cudaStream_t)stream);
+  if (DH != 64) return -1;  // head width without an instantiation
+  Params p{};
+  p.q = q; p.k = k; p.v = v; p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
+  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
+  p.B = B; p.H = H; p.N = N; p.R = R; p.group = group; p.scale = scale;
+  return launch<64>(p, (cudaStream_t)stream);
 }

@@ -1,11 +1,13 @@
 // Blocked weighted-softmax attention forward on Hopper's tensor cores
-// (sm_90a) for the two SBM mods whose weights come from the factors R, K̂:
-// the kernels K2 (flex_fwd_sbm_expected) and K6 (flex_fwd_sbm_sampled), one
-// template with the mod as its parameter.  The CSE and graph mods (K1, K7)
-// stay on the SIMT template of flex_fwd.cu.
+// (sm_90a) for the three SBM mods: K2 (flex_fwd_sbm_expected) and K6
+// (flex_fwd_sbm_sampled), whose weights come from the factors R, K̂, in one
+// template with the mod as its parameter, and K7 (flex_fwd_sbm_graph), whose
+// weights are a graph read from device memory, in a kernel of its own built
+// from the same parts (below, "the graph mod").  The CSE mod (K1) stays on
+// the SIMT kernel of flex_fwd.cu.
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under two mods of csat_tpu/ops/mods.py, with s = q·k /
+// _fwd_body :230) under three mods of csat_tpu/ops/mods.py, with s = q·k /
 // sqrt(dh), R = Q̂·S formed outside and hash dropout on P
 // (flex_core.py:214-219):
 //   * SBMExpectedSpec.tile_weight_parts (:248-252): weight clip(R·K̂ᵀ,
@@ -13,8 +15,10 @@
 //   * SBMSampledSpec.tile_weight_parts (:188-194): the Bernoulli graph
 //     a = 1{u < clip(R·K̂ᵀ, floor, .99)} · real drawn in the kernel from the
 //     counter hash (ops/hashrng.py:46-72) under the sample seed, weight
-//     a · (1 - key_pad).
-// Both compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
+//     a · (1 - key_pad);
+//   * SBMGraphSpec.tile_weight (:310-312): a materialised 0/1 graph (B, H,
+//     N, N), weight graph · (1 - key_pad).
+// All compute out = Σ_j w_ij e^{s_ij} keep_ij V_j / Σ_j w_ij e^{s_ij} (rows
 // with no live weight exactly 0), lse before dropout, Σ w_raw per q-tile
 // (graph_sum: padded keys too) and the dead (64-row, 64-column) tiles per
 // q-tile — the outputs, sentinels and argument lists of the SIMT kernels
@@ -488,20 +492,20 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
   }
 }
 
-template <int MOD, int DH>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(DH);
-  cudaError_t err = cudaFuncSetAttribute(
-      flex_tc_kernel<MOD, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// One block per (64-row q-tile, head, batch) with `bytes` of dynamic shared
+// memory, for either kernel of this file.
+template <typename P>
+int launch_grid(void (*kern)(P), const P& p, size_t bytes, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // the largest shared-memory carveout, so that the shared memory never
   // caps the blocks an SM holds below what the registers allow
-  err = cudaFuncSetAttribute(flex_tc_kernel<MOD, DH>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.N + BM - 1) / BM, p.H, p.B);
-  flex_tc_kernel<MOD, DH><<<grid, THREADS, bytes, stream>>>(p);
+  kern<<<grid, THREADS, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -522,9 +526,368 @@ int run(const float* q, const float* k, const float* v, const float* r, const fl
   p.B = B; p.H = H; p.N = N; p.kk = KK;
   p.stride = (uint32_t)stride; p.floor_ = floor_; p.scale = scale;
   p.rate = rate; p.keep_scale = keep_scale;
-  if (DH == 64) return launch<MOD, 64>(p, (cudaStream_t)stream);
-  if (DH == 96) return launch<MOD, 96>(p, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (DH == 64) return launch_grid(flex_tc_kernel<MOD, 64>, p, smem_bytes(64), st);
+  if (DH == 96) return launch_grid(flex_tc_kernel<MOD, 96>, p, smem_bytes(96), st);
   return -1;  // head width without an instantiation
+}
+
+// ---- the graph mod (K7) ---------------------------------------------------
+//
+// SBMGraphSpec.tile_weight: the weight is a materialised graph tile
+// (noise_mode="shared": sampled outside through the STE) times (1 − pad).
+// It follows the factor mods' tile loop — one 64-row q-tile a block of 4
+// warps, 64-column k-tiles, 3xTF32 mma.sync products with the rounding split
+// and a fresh accumulator per pair of k-steps of Q·Kᵀ and per product of
+// P·V, the n8-tile and dead k-tile skips, the same outputs and sentinels —
+// in a kernel of its own, so that the factor mods' code and register
+// allocation stay as they were (a third mod in their template made K2 spill).
+//
+// What bounds it on an H100: at B 64, N 150, dh 64 the call moves 125 MB
+// (46 MB of it the graph), 0.037 ms at 3.35 TB/s, and its products on the
+// live entries need ~0.004 ms at a third of the TF32 rate; like K2 and K6 it
+// is bound by latency, two blocks an SM (255 registers, 94.5 KB of shared
+// memory).
+// What its design does about that, beyond the factor mods' loop:
+//   * no R·K̂ᵀ and no sample hash: the weights are the graph tile, copied
+//     with cp.async beside K.  A graph row is N floats, so a row starts
+//     16-byte aligned only where N·4 is a multiple of 16 (N 150: every other
+//     row; N 75 and 37: one in four): the tile is copied in 4-byte pieces, a
+//     thread on one column of every other row, and reads 0 outside the
+//     N x N graph.  Its shared rows are GLD = 72 floats apart, so the float2
+//     reads of the accumulator layout are conflict-free.
+//   * K and V are split into their TF32 parts once a tile, by all threads
+//     (split_tile), not once per warp at every product.
+//   * the weights pass writes each entry's effective weight back into the
+//     graph tile, where only the same thread's softmax reads it: the weights
+//     are not held in registers across Q·Kᵀ and are not recomputed.
+//   * the dropout keep bits of a thread's 32 entries (a 32-bit mask) are
+//     drawn while the tile's copies are in flight, and compared as integers:
+//     u ≥ rate ⟺ top ≥ ceil(rate · 2^24), u = top · 2^-24 exactly.  The loop
+//     is specialised on dropout (the eval encoder runs at rate 0).
+//   * the row max is taken over the unscaled scores and scaled once (scale >
+//     0 keeps the order), and e^(s·scale − m) is ex2.approx of one FMA in
+//     base 2.  Its error against the plain path stays ~2e-6 max abs (f32
+//     expf: the same), the budget being 5e-6.
+//   * graph_sum of a 0/1 graph is an integer count, exact in f32.
+
+constexpr int GLD = BN + 8;  // graph tile row stride: ≡ 8 (mod 32)
+
+struct GraphParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* graph;     // (B, H, N, N), 0/1
+  const float* pad;       // (B, N), 1.0 = padded key
+  const int32_t* dseed;   // (1,) dropout stream seed, read when rate > 0
+  float* out;             // (B, H, N, dh)
+  float* lse;             // (B, H, N)
+  float* gsum_part;       // (B, H, n_qtiles)
+  int32_t* skip_part;     // (B, H, n_qtiles)
+  int B, H, N;
+  uint32_t stride;        // hash row stride, round_up(N, 128)
+  uint32_t keep_from;     // keep an entry iff its 24 hash bits ≥ ceil(rate · 2^24)
+  float scale, keep_scale;
+};
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+size_t graph_smem_bytes() {
+  // K and V tiles, each as TF32 high and low parts, the graph tile, the pad row
+  return ((size_t)2 * BN * ((DH + 16) + (DH + 4)) + (size_t)BM * GLD + BN) * sizeof(float);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a·b in 3xTF32 with b split already: as mma3, the small terms first
+__device__ __forceinline__ void mma3s(float (&d)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                      uint32_t bl0, uint32_t bl1) {
+  const uint32_t bh[2] = {bh0, bh1}, bl[2] = {bl0, bl1};
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// a (64, DH) f32 tile of row stride LDT, in place: its TF32 high parts (as
+// bits) stay, the low parts go to lo (same layout); every thread its own
+// float4s
+template <int DH, int LDT>
+__device__ __forceinline__ void split_tile(float* t, float* lo) {
+  constexpr int C4 = DH / 4;
+  for (int i = threadIdx.x; i < BN * C4; i += THREADS) {
+    const int off = (i / C4) * LDT + (i % C4) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(t + off);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(t + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+template <int DH, bool DROPOUT>
+__device__ __forceinline__ void graph_body(const GraphParams& p) {
+  constexpr int LD = DH + 4;     // V tile, as in flex_tc_body
+  constexpr int LDK = DH + 16;   // K tile, as in flex_tc_body
+  constexpr int KS = DH / 8;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[WARPS];
+  float* Ks = smem;
+  float* Vs = Ks + BN * LDK;
+  float* Gs = Vs + BN * LD;        // (BM, GLD)
+  float* pads = Gs + BM * GLD;     // (BN)
+  float* Kl = pads + BN;           // the low TF32 parts of K and V (split_tile)
+  float* Vl = Kl + BN * LDK;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int N = p.N;
+  const size_t bh = (size_t)b * p.H + h;
+  const float* qg = p.q + bh * N * DH;
+  const float* kg = p.k + bh * N * DH;
+  const float* vg = p.v + bh * N * DH;
+  const float* gg = p.graph + bh * N * N;
+  const int row0 = qt * BM, wrow = warp * 16;
+  const int gr_[2] = {row0 + wrow + g, row0 + wrow + g + 8};
+  const bool active = row0 + wrow < N;   // the warp has a real row
+  const uint32_t dseed = DROPOUT ? (uint32_t)p.dseed[0] : 0u;
+  const float c1 = p.scale * LOG2E;
+
+  float qf[KS][4];
+#pragma unroll
+  for (int pp = 0; pp < KS / 2; ++pp) {
+    const int d0 = 16 * pp + 4 * tig;
+    pair_frags(row4(qg + (size_t)gr_[0] * DH + d0, gr_[0] < N),
+               row4(qg + (size_t)gr_[1] * DH + d0, gr_[1] < N), qf[2 * pp], qf[2 * pp + 1]);
+  }
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float o[KS][4] = {};
+  float gsum = 0.f;
+  int skips = 0;
+  const int nkt = (N + BN - 1) / BN;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int col0 = kt * BN;
+    const int ntk = min(8, (N - col0 + 7) >> 3);
+
+    // ---- K, the graph tile and pads, then V in a second group ----
+    load_rows<DH, LDK>(Ks, kg, col0, N);
+    {  // a thread copies one column, every other row
+      static_assert(THREADS % BN == 0, "a thread keeps its graph column");
+      constexpr int RSTEP = THREADS / BN;
+      const int c = tid % BN, r0 = tid / BN;
+      const bool cin = col0 + c < N;
+      const float* src = gg + (size_t)(row0 + r0) * N + col0 + c;
+      float* dst = Gs + r0 * GLD + c;
+#pragma unroll 8
+      for (int r = r0; r < BM; r += RSTEP) {
+        const bool in = cin && row0 + r < N;
+        cp4(dst, in ? src : gg, in);
+        src += RSTEP * N;
+        dst += RSTEP * GLD;
+      }
+    }
+    for (int c = tid; c < BN; c += THREADS) {
+      const int gc = col0 + c;
+      cp4(pads + c, p.pad + (size_t)b * N + (gc < N ? gc : 0), gc < N);
+    }
+    cp_commit();
+    load_rows<DH, LD>(Vs, vg, col0, N);
+    cp_commit();
+
+    // ---- the keep bits while the copies land: bit 4·t + i ↔ entry i of
+    // n8 tile t (row gr_[i >> 1], column col0 + 8·t + 2·tig + (i & 1)) ----
+    uint32_t keep = 0u;
+    if (DROPOUT && active) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t bits = hash_bits(dseed, (uint32_t)bh, (uint32_t)gr_[i >> 1],
+                                          (uint32_t)(col0 + 8 * t + 2 * tig + (i & 1)), p.stride);
+          keep |= (uint32_t)((bits >> 8) >= p.keep_from) << (4 * t + i);
+        }
+    }
+    cp_wait<1>();
+    __syncthreads();
+    split_tile<DH, LDK>(Ks, Kl);  // the next barrier publishes it
+
+    // ---- weights and liveness ----
+    int live_local = 0;
+    unsigned tiles = (1u << ntk) - 1u;
+    {
+      // a thread reads its 32 entries and writes their effective weights
+      // back in place, for its own softmax (no other thread reads them)
+      float* g0 = Gs + (wrow + g) * GLD + 2 * tig;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        float2* e0 = reinterpret_cast<float2*>(g0 + 8 * t);
+        float2* e1 = reinterpret_cast<float2*>(g0 + 8 * GLD + 8 * t);
+        const float2 a0 = *e0, a1 = *e1;
+        const float2 pv = *reinterpret_cast<const float2*>(pads + 8 * t + 2 * tig);
+        gsum += a0.x + a0.y + a1.x + a1.y;  // the copy read 0 outside the N x N graph
+        const float2 w0 = make_float2(a0.x * (1.f - pv.x), a0.y * (1.f - pv.y));
+        const float2 w1 = make_float2(a1.x * (1.f - pv.x), a1.y * (1.f - pv.y));
+        *e0 = w0;
+        *e1 = w1;
+        const bool live = w0.x > 0.f || w0.y > 0.f || w1.x > 0.f || w1.y > 0.f;
+        live_local |= live;
+        // n8 tiles without a live weight in the warp's 16 rows (warp-uniform)
+        if (!__any_sync(0xffffffffu, live)) tiles &= ~(1u << t);
+      }
+    }
+    if (!__syncthreads_or(live_local)) {
+      ++skips;  // block-uniform: every thread counts the same skips
+      cp_wait<0>();  // V lands before the next tile
+      continue;
+    }
+
+    float sacc[8][4] = {};
+    if (active) {
+      // ---- S = Q·Kᵀ, a fresh accumulator per pair of k-steps ----
+#pragma unroll
+      for (int pp = 0; pp < KS / 2; ++pp) {
+        const int d0 = 16 * pp + 4 * tig;
+        uint32_t h0[4], l0[4], h1[4], l1[4];
+        split4(qf[2 * pp], h0, l0);
+        split4(qf[2 * pp + 1], h1, l1);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if (tiles >> t & 1u) {
+            const uint4 bh = *reinterpret_cast<const uint4*>(Ks + (8 * t + g) * LDK + d0);
+            const uint4 bl = *reinterpret_cast<const uint4*>(Kl + (8 * t + g) * LDK + d0);
+            // the first pair accumulates onto sacc's zeros: the same bits
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            float (&acc)[4] = pp == 0 ? sacc[t] : part;
+            mma3s(acc, h0, l0, bh.x, bh.y, bl.x, bl.y);
+            mma3s(acc, h1, l1, bh.z, bh.w, bl.z, bl.w);
+            if (pp > 0) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) sacc[t][i] += part[i];
+            }
+          }
+      }
+
+      // ---- online max / sum over the 4 lanes that share each row ----
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float we[8][2];  // the row's effective weights, as the weights pass left them
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float2 wv = *reinterpret_cast<const float2*>(
+              Gs + (wrow + g + 8 * hr) * GLD + 8 * t + 2 * tig);
+          we[t][0] = wv.x;
+          we[t][1] = wv.y;
+        }
+        // the max of the unscaled scores, scaled once (scale > 0 keeps the
+        // order); e^(s·scale − m) = 2^(s·scale·log2 e − m·log2 e)
+        float mt = NEG;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (we[t][e] > 0.f) mt = fmaxf(mt, sacc[t][2 * hr + e]);
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m[hr], mt * p.scale);
+        // (m − m_new) first: m == m_new must give exactly 1, also at the
+        // −1e30 sentinels, where an FMA of the two products would not
+        const float alpha = ex2((m[hr] - m_new) * LOG2E);
+        const float m2 = m_new * LOG2E;
+        float lt = 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * hr + e;
+            const float pr = we[t][e] > 0.f ? ex2(fmaf(sacc[t][i], c1, -m2)) * we[t][e] : 0.f;
+            // P, dropped out; the row sum takes pr
+            sacc[t][i] = DROPOUT ? (keep >> (4 * t + i) & 1u ? pr * p.keep_scale : 0.f) : pr;
+            lt += pr;
+          }
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        l[hr] = l[hr] * alpha + lt;
+        m[hr] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < KS; ++dt) {
+          o[dt][2 * hr] *= alpha;
+          o[dt][2 * hr + 1] *= alpha;
+        }
+      }
+    }
+
+    cp_wait<0>();
+    __syncthreads();  // V is in shared memory
+    split_tile<DH, LD>(Vs, Vl);
+    __syncthreads();
+
+    if (active) {
+      // ---- O += P·V, P straight from the S accumulators (permuted k, as in
+      // flex_tc_body), a fresh accumulator per product ----
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (tiles >> t & 1u) {
+          const float a[4] = {sacc[t][0], sacc[t][2], sacc[t][1], sacc[t][3]};
+          uint32_t ah[4], al[4];
+          split4(a, ah, al);
+          const uint32_t* vh = reinterpret_cast<const uint32_t*>(Vs) + (8 * t + 2 * tig) * LD + g;
+          const uint32_t* vl = reinterpret_cast<const uint32_t*>(Vl) + (8 * t + 2 * tig) * LD + g;
+#pragma unroll
+          for (int dt = 0; dt < KS; ++dt) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3s(part, ah, al, vh[8 * dt], vh[LD + 8 * dt], vl[8 * dt], vl[LD + 8 * dt]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[dt][i] += part[i];
+          }
+        }
+    }
+    __syncthreads();  // the tiles are free for the next k-tile
+  }
+
+  // ---- epilogue ----
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int gr = gr_[hr];
+    if (gr >= N) continue;
+    const bool live = l[hr] > 0.f;
+    const float inv = live ? 1.f / l[hr] : 0.f;
+    float* dst = p.out + (bh * N + gr) * DH + 2 * tig;
+#pragma unroll
+    for (int dt = 0; dt < KS; ++dt)
+      *reinterpret_cast<float2*>(dst + 8 * dt) =
+          make_float2(o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+    if (tig == 0) p.lse[bh * N + gr] = live ? m[hr] + logf(l[hr]) : NEG;
+  }
+
+  for (int off = 16; off > 0; off >>= 1) gsum += __shfl_xor_sync(0xffffffffu, gsum, off);
+  if (lane == 0) red[warp] = gsum;
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f;
+    for (int i = 0; i < WARPS; ++i) tot += red[i];
+    const size_t slot = bh * gridDim.x + qt;
+    p.gsum_part[slot] = tot;
+    p.skip_part[slot] = skips;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS) flex_graph_kernel(GraphParams p) {
+  if (p.keep_from > 0u)
+    graph_body<DH, true>(p);
+  else
+    graph_body<DH, false>(p);
 }
 
 }  // namespace
@@ -551,4 +914,24 @@ extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float*
   return run<MOD_SBM_SAMPLED>(q, k, v, r, kh, pad, sseed, dseed, out, lse, gsum_part,
                               skip_part, B, H, N, DH, KK, stride, floor_, scale, rate,
                               keep_scale, stream);
+}
+
+extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v,
+                                  const float* graph, const float* pad,
+                                  const int32_t* dseed, float* out, float* lse,
+                                  float* gsum_part, int32_t* skip_part, int B, int H,
+                                  int N, int DH, int stride, float scale, float rate,
+                                  float keep_scale, void* stream) {
+  if (rate > 0.f && dseed == nullptr) return -4;
+  GraphParams p{};
+  p.q = q; p.k = k; p.v = v; p.graph = graph; p.pad = pad; p.dseed = dseed;
+  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
+  p.B = B; p.H = H; p.N = N; p.stride = (uint32_t)stride;
+  // u = top · 2^-24 exactly, so u ≥ rate ⟺ top ≥ ceil(rate · 2^24); 0 = no dropout
+  p.keep_from = rate > 0.f ? (uint32_t)ceil((double)rate * 16777216.0) : 0u;
+  p.scale = scale; p.keep_scale = keep_scale;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (DH == 64) return launch_grid(flex_graph_kernel<64>, p, graph_smem_bytes<64>(), st);
+  if (DH == 96) return launch_grid(flex_graph_kernel<96>, p, graph_smem_bytes<96>(), st);
+  return -1;  // head width without an instantiation
 }

@@ -10,8 +10,8 @@ with the score ``s`` and the weight ``w`` defined by a mod
 before ·V (the normalizer and ``lse`` stay pre-dropout).
 :func:`flex_attention` is the one entry point: for CUDA tensors it runs the
 hand-written Hopper kernels inside one ``torch.autograd.Function`` — the
-forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_sbm_{expected,sampled}``, tensor
-cores) or ``csrc/flex_fwd.cu`` (``flex_fwd_{cse,sbm_graph}``) and,
+forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_sbm_{expected,sampled,graph}``,
+tensor cores) or ``csrc/flex_fwd.cu`` (``flex_fwd_cse``) and,
 for the sampled and the expected SBM mods, the two-pass
 backward (``flex_bwd_q_sbm_{sampled,expected}``: dq, dR over the keys;
 ``flex_bwd_k_sbm_{sampled,expected}``: dk, dv, dK̂ over the query rows) —

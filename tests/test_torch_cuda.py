@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the serving kernels (K1, K2, K5 over every storage dtype at ragged widths)
-and the training kernels (K6 at every bucket length, batch size and head
-width, K7 forward with dropout, K3/K4 backward at every bucket length and at
+and the training kernels (K6 and K7 at every bucket length, batch size and
+head width, with and without dropout, K3/K4 backward at every bucket length and at
 serving and training batch sizes, K8/K9 expected-graph backward with clip
 ties and whole padded key tiles) at the training shape and at ragged shapes.
 
@@ -294,7 +294,13 @@ SBM_TOL = 2e-5    # forward out / lse: summation order only
 GRAD_TOL = 1e-4   # backward, atol and rtol: summation order over N keys
 
 
-def _train_case(mod, b, n, dh, dev, seed=0, h=4):
+def _train_case(mod, b, n, dh, dev, seed=0, h=4, kind="random"):
+    """Inputs of the sampled or the graph mod; ``kind`` shapes the graph:
+    ``"random"`` 40 % edges, ``"clipped"`` drawn as the STE draws it, u <
+    clip(p, floor, .99), from mostly small p, ``"sparse"`` every p at the
+    floor (about 1 % edges, most 8-column tiles empty), ``"tail"`` 40 % edges
+    with every sample's keys padded past 64 or past a third (whole key
+    tiles)."""
     from csat_tpu_torch.ops.mods import sbm_graph_mod, sbm_sampled_mod
 
     g = torch.Generator().manual_seed(seed)
@@ -303,7 +309,10 @@ def _train_case(mod, b, n, dh, dev, seed=0, h=4):
     q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
     pad = torch.zeros((b, n), dtype=torch.bool)
     for i in range(b):
-        pad[i, max(1, n - 1 - (i * 37) % n):] = i > 0
+        if kind == "tail":
+            pad[i, (min(n - 1, 64), max(1, n // 3))[i % 2]:] = True
+        else:
+            pad[i, max(1, n - 1 - (i * 37) % n):] = i > 0
     pad = pad.to(dev)
     dseed = torch.tensor([777 + seed], dtype=torch.int32, device=dev)
     if mod == "sbm_sampled":
@@ -312,7 +321,10 @@ def _train_case(mod, b, n, dh, dev, seed=0, h=4):
                                     torch.sigmoid(2 * rnd(b, h, n, kk)), s_aff.to(dev), pad,
                                     torch.tensor([1234 + seed], dtype=torch.int32, device=dev))
     else:
-        graph = (torch.rand((b, h, n, n), generator=g) < 0.4).float().to(dev)
+        u = torch.rand((b, h, n, n), generator=g)
+        p = {"clipped": torch.rand((b, h, n, n), generator=g) ** 4,
+             "sparse": torch.zeros(())}.get(kind, torch.full((), 0.4))
+        graph = (u < torch.clamp(p, 0.01, 0.99)).float().to(dev)
         spec, aux = sbm_graph_mod(graph, pad)
     return q, k, v, spec, aux, dseed
 
@@ -333,18 +345,45 @@ def _near_rows(spec, aux):
     return near.any(-1), near.sum((-1, -2))
 
 
-@pytest.mark.parametrize("mod", ["sbm_sampled", "sbm_graph"])
-@pytest.mark.parametrize("b,n,dh", [(64, 150, 64), (3, 37, 64), (3, 75, 64), (2, 130, 96)])
-def test_sbm_train_forward_matches_plain(dev, mod, b, n, dh):
+GRAPH_KINDS = ("clipped", "sparse", "tail")
+GRAPH_TOL = 5e-6  # K7, max abs: its output feeds the next layer's graph
+
+
+# K6 and K7 with dropout at the ragged shapes of the first port; K7 (the
+# tensor-core graph forward) also at every bucket length, at serving and
+# training batch sizes and at both head widths, with and without dropout,
+# its graph floor-clipped random, mostly empty or with padded key tails
+# (each kind once per length and once per batch size)
+@pytest.mark.parametrize("mod,b,n,dh,rate,kind", [
+    *[(mod, b, n, dh, RATE, "random") for mod in ("sbm_sampled", "sbm_graph")
+      for b, n, dh in ((64, 150, 64), (3, 37, 64), (3, 75, 64), (2, 130, 96))],
+    *[("sbm_graph", b, n, dh, rate, GRAPH_KINDS[(i + j) % 3])
+      for i, n in enumerate((37, 75, 150)) for j, b in enumerate((1, 4, 64))
+      for dh in (64, 96) for rate in (0.0, RATE)]])
+def test_sbm_train_forward_matches_plain(dev, mod, b, n, dh, rate, kind):
     from csat_tpu_torch.ops import build, flex_core
 
-    q, k, v, spec, aux, dseed = _train_case(mod, b, n, dh, dev)
+    q, k, v, spec, aux, dseed = _train_case(mod, b, n, dh, dev, kind=kind)
     fn = f"flex_fwd_{mod}"
     before = build.launch_counts()[fn]
-    out, ex = flex_core.flex_attention(q, k, v, spec, aux, RATE, dseed)
-    ref, rex = flex_core.flex_reference(q, k, v, spec, aux, RATE, dseed)
+    out, ex = flex_core.flex_attention(q, k, v, spec, aux, rate, dseed)
+    ref, rex = flex_core.flex_reference(q, k, v, spec, aux, rate, dseed)
     torch.cuda.synchronize()
     assert build.launch_counts()[fn] == before + 1
+    skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
+    assert torch.equal(ex["skipped_blocks"], skips)
+    if mod == "sbm_graph":
+        # the graph is an input: graph_sum is the same count, the output
+        # within GRAPH_TOL everywhere, and a second launch the same bits
+        assert torch.equal(ex["graph_sum"], rex["graph_sum"])
+        torch.testing.assert_close(out, ref, atol=GRAPH_TOL, rtol=0)
+        torch.testing.assert_close(ex["lse"], rex["lse"], atol=GRAPH_TOL, rtol=0)
+        again, ex2 = flex_core.flex_attention(q, k, v, spec, aux, rate, dseed)
+        assert torch.equal(again, out) and torch.equal(ex2["lse"], ex["lse"])
+        assert torch.equal(ex2["graph_sum"], ex["graph_sum"])
+        if kind == "tail" and n > 64:
+            assert skips.sum() > 0  # keys padded past 64 leave whole tiles dead
+        return
     near_rows, near_count = _near_rows(spec, aux)
     # a draw may flip only within NEAR of its threshold: graph_sum moves by
     # at most the near draws of its (b, h), and only rows holding one differ
@@ -352,8 +391,6 @@ def test_sbm_train_forward_matches_plain(dev, mod, b, n, dh):
     keep = ~near_rows
     torch.testing.assert_close(out[keep], ref[keep], atol=SBM_TOL, rtol=0)
     torch.testing.assert_close(ex["lse"][keep], rex["lse"][keep], atol=SBM_TOL, rtol=0)
-    skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
-    assert torch.equal(ex["skipped_blocks"], skips)
 
 
 def _sampled_grads(fn, q, k, v, spec, aux, rate, dseed, go):

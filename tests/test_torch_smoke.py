@@ -1,8 +1,11 @@
-"""``chip_smoke.py``'s input captures and its same-graph gate, driven on the
-CPU at a narrow width through the plain paths: the serving drain's decode
-launches are recorded from its middle and replay to the output the drain
-computed, and each SBM layer's recorded inputs carry the real cotangents.
-On the card the same helpers feed the kernels."""
+"""``chip_smoke.py``'s input captures, its same-graph gates and its step
+gate, driven on the CPU at a narrow width through the plain paths: the
+serving drain's decode launches are recorded from its middle and replay to
+the output the drain computed, and each SBM layer's recorded inputs carry
+the real cotangents, in the counter noise mode and in the config's default
+shared mode (whose graph is an input).  On the card the same helpers feed
+the kernels.  Also ``Trainer.fit`` in the config's defaults (shared noise,
+sampled eval graph) repeats from its seed."""
 
 import numpy as np
 import pytest
@@ -96,3 +99,73 @@ def test_same_graph_gate_passes_on_the_plain_path(small_vocab):
     for rec in res["layers"]:
         assert rec["edges"] > 0 and rec["edges_apart"] == 0
         assert rec["out_rel"] == 0.0 and max(rec["grad_rel"].values()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the config's default training path: noise_mode="shared", eval_graph="sample"
+# ---------------------------------------------------------------------------
+
+def test_capture_sbm_inputs_records_the_shared_graph_and_its_cotangents(small_vocab):
+    cfg = get_config("python", **NARROW)
+    assert cfg.noise_mode == "shared"
+    batch = _train_batch(cfg, (20, 80, 150), seed=3)
+    layers = chip_smoke.capture_sbm_inputs(cfg, batch, "cpu", layers=cfg.sbm_layers)
+    assert len(layers) == cfg.sbm_layers
+    for rec in layers:
+        b, h, n, _ = rec["q"].shape
+        assert rec["spec"].name == "sbm_graph"
+        graph, pad = rec["aux"]
+        assert graph.shape == (b, h, n, n) and pad.shape == (b, n)
+        assert torch.all((graph == 0) | (graph == 1)) and graph.sum() > 0
+        assert torch.all((pad == 0) | (pad == 1)) and pad[2].sum() == 0 < pad[0].sum()
+        assert rec["rate"] == cfg.attention_dropout and rec["dseed"].shape == (1,)
+        assert rec["go"].abs().sum() > 0 and rec["gs"].abs().sum() > 0
+
+
+def test_shared_same_graph_gate_passes_on_the_plain_path(small_vocab):
+    cfg = get_config("python", **NARROW)
+    batch = _train_batch(cfg, (30, 150), seed=2)
+    res = chip_smoke.same_graph_gate(cfg, batch, device="cpu")
+    assert [rec["layer"] for rec in res["layers"]] == list(range(cfg.sbm_layers))
+    for rec in res["layers"]:
+        assert rec["mod"] == "sbm_graph" and set(rec["grad_rel"]) == {"dq", "dk", "dv", "dgraph"}
+        assert rec["edges"] > 0 and rec["edges_apart"] == 0
+        assert rec["out_rel"] == 0.0 and max(rec["grad_rel"].values()) == 0.0
+
+
+def test_shared_step_gate_passes_on_the_plain_path(small_vocab):
+    cfg = get_config("python", **NARROW)
+    batch = _train_batch(cfg, (30, 150), seed=4)
+    *_, metrics, launches, rec = chip_smoke.step_gate(cfg, batch, device="cpu")
+    assert np.isfinite(float(metrics["loss"])) and not any(launches.values())
+    assert rec["loss_rel"] == 0.0 and rec["grad_norm_rel"] == 0.0
+    assert rec["net_graph_edges_apart"] == 0.0 and rec["kernel_sparsity"] > 0
+
+
+def test_default_fit_repeats_from_its_seed(tmp_path):
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.data.synthetic import make_corpus
+    from csat_tpu_torch.train import Trainer
+    from csat_tpu_torch.train.loop import _decode_dataset
+
+    data_dir = make_corpus(str(tmp_path / "corpus"), 48, 16, 16, seed=0, max_ast_len=48)
+    runs = []
+    for run in ("a", "b"):
+        cfg = get_config("python", data_dir=data_dir, output_dir=str(tmp_path / run),
+                         num_epochs=1, val_interval=1, bucketing=True, max_src_len=48,
+                         max_tgt_len=10, batch_size=8, num_layers=1, sbm_layers=2,
+                         clusters=(4, 3), decoder_layers=2, tree_pos_width=4,
+                         tree_pos_height=8, **NARROW)
+        assert (cfg.noise_mode, cfg.eval_graph) == ("shared", "sample")
+        tr = Trainer(cfg, log=lambda msg: None, device="cpu")
+        train, dev = (ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab)
+                      for split in ("train", "dev"))
+        _, hist = tr.fit(train, dev)
+        gen = torch.Generator().manual_seed(cfg.seed + 777)
+        runs.append((hist, [y for y, _ in _decode_dataset(tr.model, dev, cfg, gen)]))
+    (hist_a, tokens_a), (hist_b, tokens_b) = runs
+    assert hist_a["steps"] and np.isfinite(hist_a["loss"]).all()
+    assert [r["loss"] for r in hist_a["steps"]] == [r["loss"] for r in hist_b["steps"]]
+    assert hist_a["loss"] == hist_b["loss"] and hist_a["val_bleu"] == hist_b["val_bleu"]
+    assert len(tokens_a) == len(tokens_b) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(tokens_a, tokens_b))
