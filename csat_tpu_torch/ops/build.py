@@ -35,7 +35,6 @@ SOURCES: Dict[str, Path] = {
     "flex_fwd_tc": _CSRC / "flex_fwd_tc.cu",
     "flex_fwd": _CSRC / "flex_fwd.cu",
     "flex_bwd_tc": _CSRC / "flex_bwd_tc.cu",
-    "flex_bwd": _CSRC / "flex_bwd.cu",
     "paged_decode": _CSRC / "paged_decode.cu",
 }
 
@@ -47,8 +46,8 @@ KERNELS: Dict[str, str] = {
     "flex_fwd_sbm_graph": "flex_fwd_tc",
     "flex_bwd_q_sbm_sampled": "flex_bwd_tc",
     "flex_bwd_k_sbm_sampled": "flex_bwd_tc",
-    "flex_bwd_q_sbm_expected": "flex_bwd",
-    "flex_bwd_k_sbm_expected": "flex_bwd",
+    "flex_bwd_q_sbm_expected": "flex_bwd_tc",
+    "flex_bwd_k_sbm_expected": "flex_bwd_tc",
     "paged_decode": "paged_decode",
 }
 

@@ -1,63 +1,84 @@
 // Two-pass backward of the SBM blocked attention on Hopper's tensor cores
-// (sm_90a) under the sampled graph: the kernels K3 (flex_bwd_q_sbm_sampled)
-// and K4 (flex_bwd_k_sbm_sampled).  The expected-graph pair (K8/K9) stays on
-// the SIMT template of flex_bwd.cu; the mod is a template parameter here so
-// that it can move over.
+// (sm_90a), one template with the mod as its parameter: under the sampled
+// graph the kernels K3 (flex_bwd_q_sbm_sampled) and K4
+// (flex_bwd_k_sbm_sampled), under the expected graph K8
+// (flex_bwd_q_sbm_expected) and K9 (flex_bwd_k_sbm_expected).
 //
 // Replaces: csat_tpu/ops/flex_core.py:_kernel_bwd_calls — the q-pass
 // (pallas_call at :498, body _bwd_q_body :389) and the k-pass (pallas_call at
 // :519, body _bwd_k_body :434), which share the per-tile math _bwd_tile
 // (:356-386) — under SBMSampledSpec.tile_dexp (the straight-through
-// estimator, mods.py:196-198):
+// estimator, mods.py:196-198) and SBMExpectedSpec.tile_dexp (the clip's vjp,
+// mods.py:254-261):
 //   * q-pass: one block per (b, h, 64-row q-tile) walks the keys and
 //     accumulates dq (B, H, N, dh) and dR (B, H, N, kk);
 //   * k-pass: one block per (b, h, 64-key k-tile) walks the query rows and
 //     accumulates dk, dv (B, H, N, dh) and dK̂ (B, H, N, kk).
-// Per entry (i, j), with s = q_i·k_j / sqrt(dh), lse_i from the forward
-// (−1e30 on a row with no live weight), dvec_i = g_i·out_i, gs the
+// Per entry (i, j), with x = R_i·K̂_j, s = q_i·k_j / sqrt(dh), lse_i from the
+// forward (−1e30 on a row with no live weight), dvec_i = g_i·out_i, gs the
 // graph_sum cotangent of (b, h) and keep the dropout keep-field:
-//   a_raw = 1{u < clip(R_i·K̂_j, floor, .99)} · real,  a_eff = a_raw (1 − pad_j)
+//   a_raw = 1{u < clip(x, floor, .99)} · real   (sampled)
+//         = clip(x, floor, .99) · real          (expected)
+//   a_eff = a_raw (1 − pad_j)
 //   e     = exp(min(s − lse_i, 80))   (0 on a dead row)
 //   d_s   = e a_eff ((g_i·v_j) keep − dvec_i)         → dq_i, dk_j (·/sqrt(dh))
 //   d_a   = e ((g_i·v_j) keep − dvec_i)(1 − pad_j) + gs
-//   d_exp = clamp(a_raw d_a, −1, 1)                   → dR_i += d_exp K̂_j,
-//                                                       dK̂_j += d_exp R_i
+//   d_exp = clamp(a_raw d_a, −1, 1)   (sampled)       → dR_i += d_exp K̂_j,
+//         = d_a · c(x) · real         (expected)        dK̂_j += d_exp R_i
 //   dv_j += e a_eff keep g_i
-// The graph is the forward's graph bit for bit: R·K̂ᵀ is summed j = 0, 1, …
-// with one rounding per product and per sum (__fmul_rn/__fadd_rn), as the
-// forward and ops/mods.py:exp_adjacency sum it, and the sample and dropout
-// bits are drawn from the counter hash (hashrng.cuh) at the global (query
-// row, key) indices under the forward's seeds and stride round_up(N, 128).
+// with c(x) = 1 inside (floor, .99), 1/2 at x == floor or x == .99 (the even
+// split jnp.clip's vjp gives a tie), 0 outside.  The graph is the forward's
+// graph bit for bit: R·K̂ᵀ is summed j = 0, 1, … with one rounding per
+// product and per sum (__fmul_rn/__fadd_rn), as the forward and
+// ops/mods.py:exp_adjacency sum it, and the sample and dropout bits are drawn
+// from the counter hash (hashrng.cuh) at the global (query row, key) indices
+// under the forward's seeds and stride round_up(N, 128).
 //
 // What bounds it on an H100: at the training shape (B 64, H 8, N 150, dh 64,
 // kk 10) the q-pass moves about 108 MB and the k-pass 128 MB, 32 and 38 µs
-// of HBM time; their dh-deep products (6·dh and 8·dh FLOP per live entry,
-// 14 % of the entries on the train batch) take 4-5 µs at the 3xTF32 rate
-// (495 / 3 TFLOP/s), and R·K̂ᵀ (2·kk per entry, f32) 3 µs.  Neither bound is
-// near: what sets the time is latency — a few 4-warp blocks per SM, each
-// warp a chain of shared-memory loads, 3xTF32 products and two barriers per
-// chunk — and the per-entry work of the graph, which both passes evaluate
-// (R·K̂ᵀ in the forward's order, the sample hash, the clamps), which stays
-// when the dh-deep products are skipped.
+// of HBM time; their dh-deep products (6·dh and 8·dh FLOP per live entry:
+// 14 % of the entries on the train batch, about 57 % under the expected mod,
+// where every real key is live) take 4-5 µs (17-22 µs expected) at the 3xTF32
+// rate (495 / 3 TFLOP/s), and R·K̂ᵀ (2·kk per entry, f32) 3 µs.  Neither
+// bound is near: what sets the time is latency — a few 4-warp blocks per SM,
+// each warp a chain of shared-memory loads, 3xTF32 products and two
+// barriers per chunk — and the per-entry work of the graph, which both
+// passes evaluate (R·K̂ᵀ in the forward's order, the sample hash or the clip
+// gates, the clamps), which stays when the dh-deep products are skipped.
+// At 14 % edges almost every tile of the sampled mod is live already, so the
+// expected mod's dense products cost it little more.
 //
 // Design:
-//   * One template serves both passes.  A block owns 64 rows of one side
-//     ("own": the q-tile, or the k-tile) in 4 warps of 16 and streams the
-//     other side in chunks of 16 ("chunk": keys, or query rows).  A warp's
-//     16 x 16 sub-tile is laid out as the m16n8 accumulators of two n8
-//     tiles: entry i of tile t is own row g + 8·(i >> 1), chunk index
-//     8·t + 2·tig + (i & 1) (g = lane / 4, tig = lane % 4).  The k-pass is
-//     the q-pass transposed — Sᵀ = K·Qᵀ, dPᵀ = V·Gᵀ — so dSᵀ and (P∘keep)ᵀ
-//     come out in the layout that dSᵀ·Q and Pᵀ·G take, and no tile of
-//     entries passes through shared memory in either pass.
+//   * One template serves both passes and both mods.  A block owns 64 rows
+//     of one side ("own": the q-tile, or the k-tile) in 4 warps of 16 and
+//     streams the other side in chunks of 16 ("chunk": keys, or query rows).
+//     A warp's 16 x 16 sub-tile is two n8 tiles, each laid out as an m16n8
+//     accumulator: entry i of tile t is own row g + 8·(i >> 1), chunk index
+//     8·t + 2·tig + (i & 1) (g = lane / 4, tig = lane % 4).  The warp holds
+//     TB of them at once (Tiling): the sampled q-pass both, so that the own
+//     rows' TF32 splits serve two tiles; the k-passes and the expected
+//     q-pass one, so that one tile's weights, S, dP, d_s, d_exp and P are
+//     live at a time and the precision below fits their register caps.
+//     The k-pass is the q-pass transposed — Sᵀ = K·Qᵀ, dPᵀ = V·Gᵀ — so dSᵀ
+//     and (P∘keep)ᵀ come out in the layout that dSᵀ·Q and Pᵀ·G take, and no
+//     tile of entries passes through shared memory in either pass.
 //   * Tensor cores, f32-faithful.  The five dh-deep products (S, dP and dQ;
 //     Sᵀ, dPᵀ, dK and dV) and the cluster products (dR = dE·K̂, dK̂ = dEᵀ·R)
 //     run on mma.sync.m16n8k8 TF32 in the 3xTF32 split, as K2 does in
 //     flex_fwd_tc.cu: x = hi + lo, a·b ≈ lo·hi + hi·lo + hi·hi with f32
-//     accumulation; hi is x with its low 13 mantissa bits cleared and lo the
-//     exact remainder, which the tensor core truncates to TF32 (two
-//     instructions a split, where K2's rounding conversions take more; the
-//     splits are redone by every warp and are a large share of the time).
+//     accumulation.  S, dP and the cluster products split by rounding (hi =
+//     x rounded to the nearest TF32, lo = x − hi), and dP starts a fresh
+//     accumulator at each k-step, added in f32; the accumulation products
+//     dQ, dK and dV split by truncation (hi = x with its low 13 mantissa bits
+//     cleared, one instruction less) into one accumulator.  A truncated
+//     split errs always toward 0, and so does the tensor core's running sum,
+//     so along a long sum their errors add instead of cancelling.  dR and
+//     dK̂ take them from d_a, where g·v − dvec cancels: with every product
+//     truncated, dR read 8.0–9.8e-6 in the counter same-graph gate against
+//     its 1e-5 limit and the expected mod's gate failed; rounded S/dP and
+//     the fresh dP accumulator read 2.9–3.2e-6 and pass it, for 7 %
+//     (q-pass) and 9 % (k-pass) more time on the train batch (PERF.md §6).
+//     The truncating dQ/dK/dV cost dR nothing.
 //     One TF32 product keeps about 3 decimal digits, which the 1e-4
 //     gradient tolerance would not survive.  The
 //     entries feed the accumulation products straight from the accumulator
@@ -75,22 +96,30 @@
 //     at that stride; the transposed factor chunk (stride ≡ 24) serves the
 //     R·K̂ᵀ sum and the cluster products' B operand as float2 reads.
 //   * Work follows N: a warp whose 16 own rows lie wholly past N only loads;
-//     n8 groups wholly past N are skipped in every product; a warp whose
-//     sub-tile has no live weight (a_eff = 0: keys past a sample's length,
-//     dead rows, no sampled edge) skips S, dP and the dh-deep accumulation
-//     products, and still adds clamp(a_raw·gs) into dR / dK̂ — on padded
-//     keys a_raw can be live while a_eff is 0; an entry without weight skips
-//     its exponential and dropout hash.  Every value that is skipped is an
-//     exact 0 (or gs itself), so the result does not depend on the tiling.
+//     n8 tiles wholly past N are skipped; TB tiles with no live weight
+//     (a_eff = 0: keys past a sample's length, dead rows, no sampled edge)
+//     skip S, dP and the dh-deep accumulation products, and still add their
+//     d_exp of gs alone into dR / dK̂ — on padded keys a_raw can be live
+//     while a_eff is 0; an entry without weight skips its exponential and
+//     dropout hash.  Under the expected mod every real key has weight
+//     (floor > 0), so the test that sends tiles to the cheap branch also
+//     reads the query rows' lse: a row with no live weight has e = 0 on
+//     every entry.  At floor 0 an entry of weight 0 whose clip gate is open
+//     (x == 0, c = 1/2) on a real key keeps its exponential, since d_a
+//     needs it.  Every value that is skipped is an exact 0 (or gs itself),
+//     so the result does not depend on the tiling.
 //   * No atomics: every output row belongs to one block, the sums run in a
 //     fixed order, and two runs give the same bits.
 //   * Occupancy.  Shared memory per block: 2·64·(dh + 4) + 64·17 + stages ·
 //     (2·16·(dh + 4) + 16·24 + 2·16) floats — 49,536 B (q-pass) and 59,904 B
 //     (k-pass) at dh 64, 70,016 B and 84,480 B at dh 96.  ptxas (CUDA 12.8,
-//     sm_90a, -Xptxas -v) allocates at dh 64 128 registers to the q-pass
-//     (4 blocks per SM) and 168 to the k-pass (3 blocks), at dh 96 254 and
-//     255 (2 blocks each), with no spills; chunks of 8 or 32, more stages
-//     and other block counts were slower on the train batch.
+//     sm_90a, -Xptxas -v) allocates at dh 64 128 registers to the sampled
+//     q-pass (4 blocks per SM), 163 to the expected q-pass and 168 to the
+//     k-passes (3 blocks), at dh 96 206 to 255 (2 blocks), with no spills.
+//     Chunks of 8 or 32, more stages and other block counts were slower on
+//     the train batch; with the precision above, every layout tried
+//     spilled at the sampled q-pass's 128 registers or lost its fourth
+//     block, except this one (PERF.md §6).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,23 +135,28 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int KKMAX = 16;
 constexpr int RLD = KKMAX + 1;  // row stride of the own factor rows
 
-// The streamed chunk of each pass: its rows, the chunks in flight, and the
-// blocks an SM is to hold at dh 64 (the register cap ptxas works to: 65,536
-// / (128 · blocks)); dh 96 holds two (its own tiles alone take 51 KB).
-template <bool KPASS>
-struct Tiling;
-template <>
-struct Tiling<false> {  // q-pass: 128 registers, 49.5 KB of shared memory
-  static constexpr int CH = 16, STAGES = 1, MIN_BLOCKS = 4;
-};
-template <>
-struct Tiling<true> {   // k-pass: dk and dv both accumulate, 168 registers
-  static constexpr int CH = 16, STAGES = 2, MIN_BLOCKS = 3;
-};
 constexpr float NEG = -1e30f;
 constexpr float LIVE_LSE = -5e29f;  // lse above this: the row saw live weight
 
 enum { MOD_SBM_SAMPLED = 0, MOD_SBM_EXPECTED = 1 };
+
+// Each pass's streamed chunk (its rows), the chunks in flight, the blocks an
+// SM is to hold at dh 64 (the register cap ptxas works to: 65,536 / (128 ·
+// blocks); dh 96 holds two, its own tiles alone take 51 KB) and the n8 tiles
+// a warp holds at once (TB).  Each choice is the fastest on the train batch
+// or the expected_grad batch that ptxas fits without spills.
+template <int MOD, bool KPASS>
+struct Tiling {  // k-pass, both mods: dk and dv both accumulate, 168 registers
+  static constexpr int CH = 16, STAGES = 2, MIN_BLOCKS = 3, TB = 1;
+};
+template <>
+struct Tiling<MOD_SBM_SAMPLED, false> {  // q-pass: 128 registers, 49.5 KB of shared memory
+  static constexpr int CH = 16, STAGES = 1, MIN_BLOCKS = 4, TB = 2;
+};
+template <>
+struct Tiling<MOD_SBM_EXPECTED, false> {  // its clip gates spill at 128 registers
+  static constexpr int CH = 16, STAGES = 1, MIN_BLOCKS = 3, TB = 1;
+};
 
 struct Params {
   const float* q;         // (B, H, N, dh)
@@ -149,11 +183,17 @@ struct Params {
 
 // ---- tensor-core helpers ------------------------------------------------------
 
-// x = hi + lo in two instructions: hi is x with its low 13 mantissa bits
-// cleared, lo = x − hi exactly; the tensor core reads lo as TF32, keeping
-// its top 11 significant bits, so hi + lo holds x to 2^-20 of its size
+// x = hi + lo.  Truncating (ROUND false), two instructions: hi is x with its
+// low 13 mantissa bits cleared, lo = x − hi exactly; the tensor core reads lo
+// as TF32, keeping its top 11 significant bits, so hi + lo holds x to 2^-20 of
+// its size, always erring toward 0.  Rounding (ROUND true), one integer add
+// more: hi = x rounded to the nearest TF32, ties away from 0 — the bits of
+// cvt.rna.tf32.f32 for every finite x below 2^128 (the SASS of cvt.rna is
+// several instructions longer) — and lo = x − hi, so hi + lo holds x to about
+// 2^-22 of its size, with errors of either sign.
+template <bool ROUND>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
+  hi = ((ROUND ? __float_as_uint(x) + 0x1000u : __float_as_uint(x))) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
@@ -165,20 +205,30 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+template <bool ROUND = false>
 __device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+  for (int i = 0; i < 4; ++i) split<ROUND>(a[i], hi[i], lo[i]);
 }
 
 // d += a·b in 3xTF32: the small cross terms first, the large term last
+template <bool ROUND = false>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0, float b1) {
   uint32_t bh[2], bl[2];
-  split(b0, bh[0], bl[0]);
-  split(b1, bh[1], bl[1]);
+  split<ROUND>(b0, bh[0], bl[0]);
+  split<ROUND>(b1, bh[1], bl[1]);
   mma_tf32(d, al, bh);
   mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
+}
+
+// The expected mod's weight and clip gate at x = R·K̂ᵀ: a = clip(x, floor,
+// .99); c = 1 inside (floor, .99), 1/2 at a bound (jnp.clip's vjp splits a
+// tie evenly), 0 outside
+__device__ __forceinline__ void clip_gate(float x, float floor_, float& a, float& c) {
+  a = fminf(fmaxf(x, floor_), 0.99f);
+  c = (x > floor_ && x < 0.99f) ? 1.f : ((x == floor_ || x == 0.99f) ? 0.5f : 0.f);
 }
 
 // ---- asynchronous copies -----------------------------------------------------
@@ -219,29 +269,30 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
 // row stride of a transposed factor chunk (KKMAX, CH): ≡ 24 (mod 32)
 __host__ __device__ constexpr int factor_ld(int ch) { return (ch + 8 + 31) / 32 * 32 - 8; }
 
-template <int DH, bool KPASS>
+template <int MOD, int DH, bool KPASS>
 __host__ __device__ constexpr int stage_floats() {
-  constexpr int CH = Tiling<KPASS>::CH;
+  constexpr int CH = Tiling<MOD, KPASS>::CH;
   return 2 * CH * (DH + 4) + KKMAX * factor_ld(CH) + 2 * CH;
 }
 
-template <int DH, bool KPASS>
+template <int MOD, int DH, bool KPASS>
 __host__ __device__ constexpr size_t smem_floats() {
   return 2 * (size_t)BT * (DH + 4) + BT * RLD +
-         Tiling<KPASS>::STAGES * (size_t)stage_floats<DH, KPASS>();
+         Tiling<MOD, KPASS>::STAGES * (size_t)stage_floats<MOD, DH, KPASS>();
 }
 
 // KPASS = false: own = query rows (Q, g_out, R, lse, dvec), chunk = keys
 // (K, V, K̂, pad) → dq, dR.  KPASS = true: own = keys (K, V, K̂, pad), chunk =
 // query rows (Q, g_out, R, lse, dvec) → dk, dv, dK̂.
 template <int MOD, int DH, bool KPASS>
-__global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<KPASS>::MIN_BLOCKS : 2)
+__global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<MOD, KPASS>::MIN_BLOCKS : 2)
     bwd_tc_kernel(Params p) {
   constexpr int LD = DH + 4;
   constexpr int KS = DH / 8;   // k-steps of the S-shaped products = n8 tiles of dq/dk/dv
-  constexpr int CH = Tiling<KPASS>::CH, NT = CH / 8, STAGES = Tiling<KPASS>::STAGES;
+  using T = Tiling<MOD, KPASS>;
+  constexpr int CH = T::CH, NT = CH / 8, STAGES = T::STAGES, TB = T::TB;
   constexpr int FLD = factor_ld(CH);
-  constexpr int STAGE = stage_floats<DH, KPASS>();
+  constexpr int STAGE = stage_floats<MOD, DH, KPASS>();
   extern __shared__ __align__(16) float smem[];
   float* O1 = smem;               // Q | K     (BT, LD)
   float* O2 = O1 + BT * LD;       // g_out | V (BT, LD)
@@ -312,7 +363,6 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<KPASS>::MIN_BLOCKS 
   };
 
   // own tiles and factor rows, with the first STAGES - 1 chunks, as the first group
-  const int nch = (N + CH - 1) / CH;
   load_rows<DH, BT>(O1, own1, own0, N);
   load_rows<DH, BT>(O2, own2, own0, N);
   for (int i = tid; i < BT * kk; i += THREADS) {
@@ -320,6 +370,7 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<KPASS>::MIN_BLOCKS 
     const bool in = gr < N;
     cp4(OF + r * RLD + j, ownf + (in ? (size_t)gr * kk + j : 0), in);
   }
+  const int nch = (N + CH - 1) / CH;  // chunks of the sweep
   for (int c = 0; c < STAGES - 1 && c < nch; ++c) load_chunk(c);
   cp_commit();
 
@@ -341,8 +392,12 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<KPASS>::MIN_BLOCKS 
   float acc2[KS][4] = {};   // dv (k-pass)
   float accf[2][4] = {};    // dR | dK̂
 
-  for (int c = 0; c < nch; ++c) {
-    if (c + STAGES - 1 < nch) load_chunk(c + STAGES - 1);
+  // chunks while c·CH < N: compared with N itself, so that no chunk count
+  // holds a register through the sweep
+  // (the one-stage q-pass compares c·CH with N: at its 128-register cap
+  // ptxas spilled the chunk count, which then held a register for nothing)
+  for (int c = 0; STAGES == 1 ? c * CH < N : c < nch; ++c) {
+    if (STAGES == 1 || c + STAGES - 1 < nch) load_chunk(c + STAGES - 1);
     cp_commit();  // an empty group past the last chunk keeps the count
     cp_wait<STAGES - 1>();
     __syncthreads();
@@ -357,165 +412,185 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<KPASS>::MIN_BLOCKS 
     const int ntn = min(NT, (N - c0 + 7) >> 3);  // n8 groups holding real indices
 
     if (active) {
-      // ---- the weights: R·K̂ᵀ in the forward's order, the graph, the gates ----
-      float ea[NT][4] = {};
-      const float* f0 = OF + (wo + g) * RLD;
+      const float* f0 = OF + (wo + g) * RLD;  // the warp's own factor rows g, g + 8
       const float* f1 = f0 + 8 * RLD;
-      for (int j = 0; j < kk; ++j) {
-        const float a0 = f0[j], a1 = f1[j];
+      // the warp's 16 x 16 sub-tile TB n8 tiles at a time: entry i of tile
+      // t = t0 + u is own row g + 8 (i >> 1), chunk index 8 t + 2 tig + (i & 1)
 #pragma unroll
-        for (int t = 0; t < NT; ++t)
-          if (t < ntn) {
-            const float2 fv = *reinterpret_cast<const float2*>(CF + j * FLD + 8 * t + 2 * tig);
-            ea[t][0] = __fadd_rn(ea[t][0], __fmul_rn(a0, fv.x));
-            ea[t][1] = __fadd_rn(ea[t][1], __fmul_rn(a0, fv.y));
-            ea[t][2] = __fadd_rn(ea[t][2], __fmul_rn(a1, fv.x));
-            ea[t][3] = __fadd_rn(ea[t][3], __fmul_rn(a1, fv.y));
-          }
-      }
-      float araw[NT][4], cg[NT][4], keyin[NT][4];  // keyin = 1 − pad of the entry's key
-      int live_l = 0, dlive_l = 0;
+      for (int t0 = 0; t0 < NT; t0 += TB) {
+        if (t0 >= ntn) break;  // n8 tiles wholly past N
+        // ---- the weights: R·K̂ᵀ in the forward's order, the graph, the gates ----
+        float ea[TB][4] = {};
+        for (int j = 0; j < kk; ++j) {
+          const float a0 = f0[j], a1 = f1[j];
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const float2 pv = KPASS ? make_float2(0.f, 0.f)
-                                : *reinterpret_cast<const float2*>(V0 + 8 * t + 2 * tig);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int o = orow[i >> 1], n = c0 + 8 * t + 2 * tig + (i & 1);
-          const int qrow = KPASS ? n : o, key = KPASS ? o : n;
-          const float pad = KPASS ? ov0[i >> 1] : ((i & 1) ? pv.y : pv.x);
-          float a = 0.f, gate = 0.f;
-          if (t < ntn && o < N && n < N) {
-            const float pr = fminf(fmaxf(ea[t][i], p.floor_), 0.99f);
-            if (MOD == MOD_SBM_SAMPLED) {
-              a = hash_uniform(sseed, (uint32_t)bh, qrow, key, p.stride) < pr ? 1.f : 0.f;
-            } else {
-              a = pr;
-              gate = (ea[t][i] > p.floor_ && ea[t][i] < 0.99f) ? 1.f
-                     : ((ea[t][i] == p.floor_ || ea[t][i] == 0.99f) ? 0.5f : 0.f);
-            }
-          }
-          araw[t][i] = a;
-          cg[t][i] = gate;
-          keyin[t][i] = 1.f - pad;
-          live_l |= (a * (1.f - pad) > 0.f);
-          if (MOD == MOD_SBM_SAMPLED) {
-            dlive_l |= (a > 0.f);
-          } else {
-            live_l |= (gate > 0.f && pad < 1.f);
-            dlive_l |= (gate > 0.f);
-          }
-        }
-      }
-      const bool live = __any_sync(0xffffffffu, live_l);
-      const bool dlive = __any_sync(0xffffffffu, dlive_l);
-
-      float ds[NT][4] = {}, de[NT][4], at[NT][4] = {};
-      if (live) {
-        // ---- S = own1·chunk1ᵀ and dP = own2·chunk2ᵀ (Q·Kᵀ, g·Vᵀ | K·Qᵀ, V·gᵀ) ----
-        float x[NT][4] = {}, y[NT][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const int d0 = 8 * ks + tig;
-          const float* a1p = O1 + (wo + g) * LD + d0;
-          const float* a2p = O2 + (wo + g) * LD + d0;
-          const float a1[4] = {a1p[0], a1p[8 * LD], a1p[4], a1p[8 * LD + 4]};
-          const float a2[4] = {a2p[0], a2p[8 * LD], a2p[4], a2p[8 * LD + 4]};
-          uint32_t h1[4], l1[4], h2[4], l2[4];
-          split4(a1, h1, l1);
-          split4(a2, h2, l2);
-#pragma unroll
-          for (int t = 0; t < NT; ++t)
-            if (t < ntn) {
-              const float* b1 = C1 + (8 * t + g) * LD + d0;
-              const float* b2 = C2 + (8 * t + g) * LD + d0;
-              mma3(x[t], h1, l1, b1[0], b1[4]);
-              mma3(y[t], h2, l2, b2[0], b2[4]);
+          for (int u = 0; u < TB; ++u)
+            if (t0 + u < ntn) {
+              const float2 fv =
+                  *reinterpret_cast<const float2*>(CF + j * FLD + 8 * (t0 + u) + 2 * tig);
+              ea[u][0] = __fadd_rn(ea[u][0], __fmul_rn(a0, fv.x));
+              ea[u][1] = __fadd_rn(ea[u][1], __fmul_rn(a0, fv.y));
+              ea[u][2] = __fadd_rn(ea[u][2], __fmul_rn(a1, fv.x));
+              ea[u][3] = __fadd_rn(ea[u][3], __fmul_rn(a1, fv.y));
             }
         }
-        // ---- the entries ----
+        // a_raw: the sampled edge, or the expected mod's clip weight, with
+        // its clip gate c; keyin = 1 − pad of the entry's key
+        float a_raw[TB][4], cg[TB][4], keyin[TB][4];
+        int live_l = 0, dlive_l = 0;
+        // the chunk's vectors: the pad gate (q-pass) or lse and dvec (k-pass)
+        float2 cv[TB], dv[TB];
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          float2 lv = make_float2(0.f, 0.f), dv = lv;
-          if (KPASS) {
-            lv = *reinterpret_cast<const float2*>(V0 + 8 * t + 2 * tig);
-            dv = *reinterpret_cast<const float2*>(V1 + 8 * t + 2 * tig);
-          }
+        for (int u = 0; u < TB; ++u) {
+          cv[u] = *reinterpret_cast<const float2*>(V0 + 8 * (t0 + u) + 2 * tig);
+          dv[u] = KPASS ? *reinterpret_cast<const float2*>(V1 + 8 * (t0 + u) + 2 * tig)
+                        : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < TB; ++u) {
+          const int t = t0 + u;
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float we = araw[t][i] * keyin[t][i];
-            if (MOD == MOD_SBM_SAMPLED && !(we > 0.f)) {
-              // no attention weight: d_s and P are 0, and the attention term
-              // of d_a is gated off (a padded key) or multiplied by a_raw = 0
-              de[t][i] = fminf(fmaxf(araw[t][i] * gs, -1.f), 1.f);
-              continue;
-            }
             const int o = orow[i >> 1], n = c0 + 8 * t + 2 * tig + (i & 1);
             const int qrow = KPASS ? n : o, key = KPASS ? o : n;
-            const float lse = KPASS ? ((i & 1) ? lv.y : lv.x) : ov0[i >> 1];
-            const float dvec = KPASS ? ((i & 1) ? dv.y : dv.x) : ov1[i >> 1];
-            const bool finite = lse > LIVE_LSE && qrow < N;
-            const float e = finite ? expf(fminf(x[t][i] * p.scale - lse, 80.f)) : 0.f;
-            float keep = 1.f;
-            if (dropout && we > 0.f)
-              keep = hash_uniform(dseed, (uint32_t)bh, qrow, key, p.stride) >= p.rate
-                         ? p.keep_scale : 0.f;
-            const float tt = y[t][i] * keep - dvec;
-            const float attn = e * we;
-            ds[t][i] = attn * tt;
-            const float d_a = e * tt * keyin[t][i] + gs;
-            de[t][i] = MOD == MOD_SBM_SAMPLED ? fminf(fmaxf(araw[t][i] * d_a, -1.f), 1.f)
-                                              : d_a * cg[t][i];
-            at[t][i] = attn * keep;
+            const float pad = KPASS ? ov0[i >> 1] : ((i & 1) ? cv[u].y : cv[u].x);
+            const float lse = KPASS ? ((i & 1) ? cv[u].y : cv[u].x) : ov0[i >> 1];
+            const bool in = t < ntn && o < N && n < N;
+            float a = 0.f, c = 0.f;
+            if (MOD == MOD_SBM_SAMPLED) {
+              if (in) {
+                const float pr = fminf(fmaxf(ea[u][i], p.floor_), 0.99f);
+                a = hash_uniform(sseed, (uint32_t)bh, qrow, key, p.stride) < pr ? 1.f : 0.f;
+              }
+              live_l |= (a * (1.f - pad) > 0.f);
+              dlive_l |= (a > 0.f);
+            } else {
+              if (in) clip_gate(ea[u][i], p.floor_, a, c);
+              // live: weight (or an open gate at weight 0) on a real key, in a
+              // query row that saw live weight in the forward
+              live_l |= ((a > 0.f || c > 0.f) && pad < 1.f && lse > LIVE_LSE);
+              dlive_l |= (c > 0.f);
+            }
+            a_raw[u][i] = a;
+            cg[u][i] = c;
+            keyin[u][i] = 1.f - pad;
           }
         }
-        // ---- dq += dS·K | dk += dSᵀ·Q, dv += (P∘keep)ᵀ·g: the chunk index
-        // permuted (k = tig <-> 2 tig, k = tig + 4 <-> 2 tig + 1), so the
-        // accumulators are the A operand; the chunk's rows read in that order ----
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-          if (t < ntn) {
-            const float a[4] = {ds[t][0], ds[t][2], ds[t][1], ds[t][3]};
-            uint32_t ah[4], al[4];
-            split4(a, ah, al);
-            const float* bp = C1 + (8 * t + 2 * tig) * LD + g;
-#pragma unroll
-            for (int dt = 0; dt < KS; ++dt) mma3(acc1[dt], ah, al, bp[8 * dt], bp[LD + 8 * dt]);
-            if (KPASS) {
-              const float a2[4] = {at[t][0], at[t][2], at[t][1], at[t][3]};
-              split4(a2, ah, al);
-              const float* bq = C2 + (8 * t + 2 * tig) * LD + g;
-#pragma unroll
-              for (int dt = 0; dt < KS; ++dt)
-                mma3(acc2[dt], ah, al, bq[8 * dt], bq[LD + 8 * dt]);
-            }
-          }
-      } else {
-        // no live weight in the sub-tile: the graph_sum term alone
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            de[t][i] = MOD == MOD_SBM_SAMPLED ? fminf(fmaxf(araw[t][i] * gs, -1.f), 1.f)
-                                              : gs * cg[t][i];
-      }
+        const bool live = __any_sync(0xffffffffu, live_l);
+        const bool dlive = __any_sync(0xffffffffu, dlive_l);
 
-      // ---- dR += dE·K̂ | dK̂ += dEᵀ·R, the factor chunk read transposed ----
-      if (dlive) {
+        float ds[TB][4] = {}, de[TB][4], at[TB][4] = {};
+        if (live) {
+          // ---- S = own1·chunk1ᵀ, dP = own2·chunk2ᵀ (Q·Kᵀ, g·Vᵀ | K·Qᵀ, V·gᵀ),
+          // rounded splits; dP a fresh accumulator per k-step, added in f32
+          // (d_a's g·v − dvec cancels: its error reaches dR undamped) ----
+          float x[TB][4] = {}, y[TB][4] = {};
 #pragma unroll
-        for (int t = 0; t < NT; ++t)
-          if (t < ntn) {
-            const float a[4] = {de[t][0], de[t][2], de[t][1], de[t][3]};
-            uint32_t ah[4], al[4];
-            split4(a, ah, al);
+          for (int ks = 0; ks < KS; ++ks) {
+            const int d0 = 8 * ks + tig;
+            const float* a1p = O1 + (wo + g) * LD + d0;
+            const float* a2p = O2 + (wo + g) * LD + d0;
+            const float a1[4] = {a1p[0], a1p[8 * LD], a1p[4], a1p[8 * LD + 4]};
+            const float a2[4] = {a2p[0], a2p[8 * LD], a2p[4], a2p[8 * LD + 4]};
+            uint32_t h1[4], l1[4], h2[4], l2[4];
+            split4<true>(a1, h1, l1);
+            split4<true>(a2, h2, l2);
 #pragma unroll
-            for (int jt = 0; jt < 2; ++jt)
-              if (8 * jt < kk) {
-                const float2 fv =
-                    *reinterpret_cast<const float2*>(CF + (8 * jt + g) * FLD + 8 * t + 2 * tig);
-                mma3(accf[jt], ah, al, fv.x, fv.y);
+            for (int u = 0; u < TB; ++u)
+              if (t0 + u < ntn) {
+                const float* b1 = C1 + (8 * (t0 + u) + g) * LD + d0;
+                const float* b2 = C2 + (8 * (t0 + u) + g) * LD + d0;
+                mma3<true>(x[u], h1, l1, b1[0], b1[4]);
+                float fr[4] = {};
+                mma3<true>(fr, h2, l2, b2[0], b2[4]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) y[u][e] += fr[e];
               }
           }
+          // ---- the entries ----
+#pragma unroll
+          for (int u = 0; u < TB; ++u) {
+            const int t = t0 + u;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float we = a_raw[u][i] * keyin[u][i];
+              const int o = orow[i >> 1], n = c0 + 8 * t + 2 * tig + (i & 1);
+              const int qrow = KPASS ? n : o, key = KPASS ? o : n;
+              const float lse = KPASS ? ((i & 1) ? cv[u].y : cv[u].x) : ov0[i >> 1];
+              const bool finite = lse > LIVE_LSE && qrow < N;
+              if (MOD == MOD_SBM_SAMPLED
+                      ? !(we > 0.f)
+                      : !(finite && (we > 0.f || (cg[u][i] > 0.f && keyin[u][i] > 0.f)))) {
+                // no attention weight (sampled: d_s and P are 0, and the
+                // attention term of d_a is gated off or multiplied by a_raw =
+                // 0), or e = 0 on a dead row: d_a is gs alone
+                de[u][i] = MOD == MOD_SBM_SAMPLED ? fminf(fmaxf(a_raw[u][i] * gs, -1.f), 1.f)
+                                                  : gs * cg[u][i];
+                continue;
+              }
+              const float dvec = KPASS ? ((i & 1) ? dv[u].y : dv[u].x) : ov1[i >> 1];
+              const float e = finite ? expf(fminf(x[u][i] * p.scale - lse, 80.f)) : 0.f;
+              float keep = 1.f;
+              if (dropout)
+                keep = hash_uniform(dseed, (uint32_t)bh, qrow, key, p.stride) >= p.rate
+                           ? p.keep_scale : 0.f;
+              const float tt = y[u][i] * keep - dvec;
+              const float attn = e * we;
+              ds[u][i] = attn * tt;
+              const float d_a = e * tt * keyin[u][i] + gs;
+              de[u][i] = MOD == MOD_SBM_SAMPLED ? fminf(fmaxf(a_raw[u][i] * d_a, -1.f), 1.f)
+                                                : d_a * cg[u][i];
+              at[u][i] = attn * keep;
+            }
+          }
+          // ---- dq += dS·K | dk += dSᵀ·Q, dv += (P∘keep)ᵀ·g: the chunk index
+          // permuted (k = tig <-> 2 tig, k = tig + 4 <-> 2 tig + 1), so the
+          // accumulators are the A operand; the chunk's rows read in that order ----
+#pragma unroll
+          for (int u = 0; u < TB; ++u)
+            if (t0 + u < ntn) {
+              const float a[4] = {ds[u][0], ds[u][2], ds[u][1], ds[u][3]};
+              uint32_t ah[4], al[4];
+              split4(a, ah, al);
+              const float* bp = C1 + (8 * (t0 + u) + 2 * tig) * LD + g;
+#pragma unroll
+              for (int dt = 0; dt < KS; ++dt) mma3(acc1[dt], ah, al, bp[8 * dt], bp[LD + 8 * dt]);
+              if (KPASS) {
+                const float a2[4] = {at[u][0], at[u][2], at[u][1], at[u][3]};
+                split4(a2, ah, al);
+                const float* bq = C2 + (8 * (t0 + u) + 2 * tig) * LD + g;
+#pragma unroll
+                for (int dt = 0; dt < KS; ++dt)
+                  mma3(acc2[dt], ah, al, bq[8 * dt], bq[LD + 8 * dt]);
+              }
+            }
+        } else {
+          // no live weight in the TB tiles: the graph_sum term alone
+#pragma unroll
+          for (int u = 0; u < TB; ++u)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              de[u][i] = MOD == MOD_SBM_SAMPLED ? fminf(fmaxf(a_raw[u][i] * gs, -1.f), 1.f)
+                                                : gs * cg[u][i];
+        }
+
+        // ---- dR += dE·K̂ | dK̂ += dEᵀ·R, the factor chunk read transposed ----
+        if (dlive) {
+#pragma unroll
+          for (int u = 0; u < TB; ++u)
+            if (t0 + u < ntn) {
+              const float a[4] = {de[u][0], de[u][2], de[u][1], de[u][3]};
+              uint32_t ah[4], al[4];
+              split4<true>(a, ah, al);
+#pragma unroll
+              for (int jt = 0; jt < 2; ++jt)
+                if (8 * jt < kk) {
+                  const float2 fv = *reinterpret_cast<const float2*>(
+                      CF + (8 * jt + g) * FLD + 8 * (t0 + u) + 2 * tig);
+                  mma3<true>(accf[jt], ah, al, fv.x, fv.y);
+                }
+            }
+        }
       }
     }
     __syncthreads();  // the stage is free for chunk c + STAGES
@@ -553,7 +628,7 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<KPASS>::MIN_BLOCKS 
 
 template <int MOD, int DH, bool KPASS>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_floats<DH, KPASS>() * sizeof(float);
+  const size_t bytes = smem_floats<MOD, DH, KPASS>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(bwd_tc_kernel<MOD, DH, KPASS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -616,4 +691,28 @@ extern "C" int flex_bwd_k_sbm_sampled(
   return run<MOD_SBM_SAMPLED, true>(q, k, v, r, kh, pad, sseed, dseed, lse, dvec, gout, gs,
                                     nullptr, nullptr, dk, dv, dkh, B, H, N, DH, KK, stride,
                                     floor_, scale, rate, keep_scale, stream);
+}
+
+// The expected pair's argument lists are the sampled pair's without the
+// sample seed: the expected mod draws no graph.
+extern "C" int flex_bwd_q_sbm_expected(
+    const float* q, const float* k, const float* v, const float* r, const float* kh,
+    const float* pad, const int32_t* dseed, const float* lse, const float* dvec,
+    const float* gout, const float* gs, float* dq, float* dr, int B, int H, int N, int DH,
+    int KK, int stride, float floor_, float scale, float rate, float keep_scale,
+    void* stream) {
+  return run<MOD_SBM_EXPECTED, false>(q, k, v, r, kh, pad, nullptr, dseed, lse, dvec, gout, gs,
+                                      dq, dr, nullptr, nullptr, nullptr, B, H, N, DH, KK,
+                                      stride, floor_, scale, rate, keep_scale, stream);
+}
+
+extern "C" int flex_bwd_k_sbm_expected(
+    const float* q, const float* k, const float* v, const float* r, const float* kh,
+    const float* pad, const int32_t* dseed, const float* lse, const float* dvec,
+    const float* gout, const float* gs, float* dk, float* dv, float* dkh, int B, int H,
+    int N, int DH, int KK, int stride, float floor_, float scale, float rate,
+    float keep_scale, void* stream) {
+  return run<MOD_SBM_EXPECTED, true>(q, k, v, r, kh, pad, nullptr, dseed, lse, dvec, gout, gs,
+                                     nullptr, nullptr, dk, dv, dkh, B, H, N, DH, KK, stride,
+                                     floor_, scale, rate, keep_scale, stream);
 }

@@ -59,13 +59,18 @@
 //     accumulator layout, with the hash row stride round_up(N, 128): the
 //     graph is the same bits that the plain path and K3/K4 draw.
 //   * The 3xTF32 split rounds both parts (cvt.rna), not the two-instruction
-//     truncating split of flex_bwd_tc.cu.  Under the sampled mod, whose
-//     output is the next SBM layer's input and so reaches that layer's
-//     graph, each pair of k-steps of Q·Kᵀ and each product of P·V also
-//     starts a fresh accumulator that is added in f32: the tensor core's
-//     accumulation rounds less finely than f32 adds, and a running sum of
-//     24 products per accumulator left the output 6e-6 from the plain path
-//     where this leaves 2e-6.  The expected mod keeps one accumulator.
+//     truncating split of flex_bwd_tc.cu's dh-deep products.  Each pair of
+//     k-steps of Q·Kᵀ and each product of P·V also starts a fresh
+//     accumulator that is added in f32: the tensor core's accumulation
+//     rounds less finely than f32 adds, and a running sum of 24 products
+//     per accumulator left the output 6e-6 from the plain path where this
+//     leaves 2e-6.  Under the sampled mod the output is the next SBM
+//     layer's input and so reaches that layer's graph; under the expected
+//     mod it feeds K8/K9 through dvec = g·out, and dR there weighs dvec's
+//     error by Σ_j e^{s − lse}, up to 1/floor times the attention's own
+//     sum: with one accumulator (out 7.8e-7 from plain, relative L2, on the
+//     expected_grad batch) dR missed the same-layer gate's 1e-5, with
+//     fresh ones (1.9e-7) it holds (PERF.md §6).
 //   * The expected mod's loop is specialised on dropout (its callers run it
 //     at rate 0); the sampled mod keeps one copy that reads the rate, which
 //     costs it fewer registers.
@@ -358,16 +363,12 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
         for (int t = 0; t < 8; ++t)
           if (MOD == MOD_SBM_EXPECTED ? t < ntk : (tiles >> t & 1u)) {
             const float4 b = *reinterpret_cast<const float4*>(Ks + (8 * t + g) * LDK + d0);
-            if constexpr (MOD == MOD_SBM_EXPECTED) {
-              mma3(sacc[t], h0, l0, b.x, b.y);
-              mma3(sacc[t], h1, l1, b.z, b.w);
-            } else {  // a fresh accumulator per pair of k-steps, added in f32
-              float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma3(part, h0, l0, b.x, b.y);
-              mma3(part, h1, l1, b.z, b.w);
+            // a fresh accumulator per pair of k-steps, added in f32
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(part, h0, l0, b.x, b.y);
+            mma3(part, h1, l1, b.z, b.w);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) sacc[t][i] += part[i];
-            }
+            for (int i = 0; i < 4; ++i) sacc[t][i] += part[i];
           }
       }
 
@@ -433,15 +434,11 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
           split4(a, ah, al);
           const float* vp = Vs + (8 * t + 2 * tig) * LD + g;
 #pragma unroll
-          for (int dt = 0; dt < KS; ++dt) {
-            if constexpr (MOD == MOD_SBM_EXPECTED) {
-              mma3(o[dt], ah, al, vp[8 * dt], vp[LD + 8 * dt]);
-            } else {  // a fresh accumulator per product, added in f32
-              float part[4] = {0.f, 0.f, 0.f, 0.f};
-              mma3(part, ah, al, vp[8 * dt], vp[LD + 8 * dt]);
+          for (int dt = 0; dt < KS; ++dt) {  // a fresh accumulator per product
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(part, ah, al, vp[8 * dt], vp[LD + 8 * dt]);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) o[dt][i] += part[i];
-            }
+            for (int i = 0; i < 4; ++i) o[dt][i] += part[i];
           }
         }
     }

@@ -13,10 +13,10 @@ hand-written Hopper kernels inside one ``torch.autograd.Function`` — the
 forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_sbm_{expected,sampled,graph}``,
 tensor cores) or ``csrc/flex_fwd.cu`` (``flex_fwd_cse``) and,
 for the sampled and the expected SBM mods, the two-pass
-backward (``flex_bwd_q_sbm_{sampled,expected}``: dq, dR over the keys;
-``flex_bwd_k_sbm_{sampled,expected}``: dk, dv, dK̂ over the query rows) —
-``csrc/flex_bwd_tc.cu`` (sampled, tensor cores) or ``csrc/flex_bwd.cu``
-(expected).  The CSE and graph mods' backward is the autograd of
+backward of ``csrc/flex_bwd_tc.cu`` (tensor cores, one template for both
+mods: ``flex_bwd_q_sbm_{sampled,expected}``, dq and dR over the keys;
+``flex_bwd_k_sbm_{sampled,expected}``, dk, dv and dK̂ over the query
+rows).  The CSE and graph mods' backward is the autograd of
 :func:`flex_reference` recomputed from the saved inputs, as the JAX package's
 reference backward is.  For CPU tensors it
 evaluates :func:`flex_reference`, the plain PyTorch composition of the same
@@ -46,7 +46,7 @@ __all__ = [
     "bwd_kernel_args", "keep_field",
 ]
 
-FLEX_BLOCK = 64  # the CUDA kernels' q-tile and k-tile (csrc/flex_{fwd,fwd_tc,bwd}.cu BM/BN)
+FLEX_BLOCK = 64  # the CUDA kernels' q-tile and k-tile (csrc/flex_{fwd,fwd_tc,bwd_tc}.cu)
 NEG = -1e30      # masked-max sentinel of a row that has seen no live weight
 
 
@@ -95,7 +95,7 @@ def _finalize(s: torch.Tensor, w: torch.Tensor, exact_ratio: bool = False):
     see the difference.  With ``exact_ratio`` those entries get the
     derivative itself, ``exp(min(s - lse, 80))`` in a row that has live
     weight and 0 in a row that has none (a row that is identically 0 passes
-    nothing back), as ``csrc/flex_bwd.cu`` and JAX's ``_bwd_tile`` compute
+    nothing back), as ``csrc/flex_bwd_tc.cu`` and JAX's ``_bwd_tile`` compute
     it.  A mod asks for it through ``spec.exact_weight_grad``."""
     live_e = w > 0
     m = torch.amax(torch.where(live_e, s, torch.full_like(s, NEG)), dim=-1, keepdim=True)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card:
 the serving kernels (K1, K2, K5 over every storage dtype at ragged widths)
 and the training kernels (K6 and K7 at every bucket length, batch size and
-head width, with and without dropout, K3/K4 backward at every bucket length and at
-serving and training batch sizes, K8/K9 expected-graph backward with clip
-ties and whole padded key tiles) at the training shape and at ragged shapes.
+head width, with and without dropout, K3/K4 and K8/K9 backward at every
+bucket length, at serving and training batch sizes and at both head widths,
+K8/K9 also with clip ties, whole padded key tiles and dead query rows) at the
+training shape and at ragged shapes.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use), so
 they carry the ``cuda`` marker and skip elsewhere; run them on a GPU machine
@@ -499,11 +500,17 @@ def test_kernel_backward_adds_graph_sum_cotangent_on_dead_tiles(dev):
         torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
+DEAD_FROM = (20, 70, 100, 150)  # "dead_rows": sample i's query rows from DEAD_FROM[i % 4] on
+
+
 def _expected_case(b, n, dh, dev, floor, variant, seed=2, h=4, kk=10):
     """Leaves (q, k, v, R, K̂) and the key-pad mask of an expected-mod call.
     ``ties``: exact ties of R·K̂ᵀ at both clip bounds (0.99, and ``floor``)
     and at 0; ``padded_tile``: every key from 60 on is padding in row 0, so
-    k-tiles 1.. are dead there."""
+    k-tiles 1.. are dead there; ``dead_rows``: sample i's rows and keys past
+    ``DEAD_FROM[i % 4]`` are padding, and those rows' R is 0 (at floor 0
+    they have no live weight: lse −1e30, and R·K̂ᵀ == 0 leaves the clip
+    gate half open)."""
     g = torch.Generator().manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, generator=g)
     q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
@@ -523,14 +530,36 @@ def _expected_case(b, n, dh, dev, floor, variant, seed=2, h=4, kk=10):
         r[:, :, 9] = 0.0                        # row 9: all 0 (dead at floor 0)
     if variant == "padded_tile":
         pad[0, 60:] = True
+    if variant == "dead_rows":
+        for i in range(b):
+            m = DEAD_FROM[i % 4]
+            pad[i] = False
+            pad[i, m:] = True
+            r[i, :, m:] = 0.0
     return [t.to(dev) for t in (q, k, v, r, kh)], pad.to(dev)
 
 
+def _expected_grads(fn, leaves0, spec, pad, rate, dseed, go):
+    """``out``, the extras and the gradients (q, k, v, R, K̂) of ``Σ out·go +
+    1e-3 · Σ graph_sum`` through ``fn`` (the kernels or the plain path)."""
+    leaves = [t.detach().clone().requires_grad_() for t in leaves0]
+    out, ex = fn(*leaves[:3], spec, (leaves[3], leaves[4], pad.float()), rate, dseed)
+    loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
+    return out.detach(), ex, torch.autograd.grad(loss, leaves)
+
+
+# K8/K9 (the expected mod on the tensor-core template of csrc/flex_bwd_tc.cu)
+# at K3/K4's grid — every bucket length, serving and training batch sizes,
+# both head widths, with and without dropout — and the ragged shapes of the
+# first port, with exact clip ties, whole padded key tiles and whole groups
+# of dead query rows, at the default floor and at floor 0
 @pytest.mark.parametrize("b,n,dh,rate,floor,variant", [
-    (64, 150, 64, RATE, 0.01, "plain"), (64, 150, 64, 0.0, 0.01, "plain"),
+    *[(b, n, dh, rate, 0.01, "plain") for n in (37, 75, 150) for b in (1, 4, 64)
+      for dh in (64, 96) for rate in (0.0, RATE)],
     (3, 37, 64, RATE, 0.01, "plain"), (3, 75, 64, 0.0, 0.01, "ties"),
     (2, 130, 96, RATE, 0.01, "ties"), (2, 150, 64, RATE, 0.0, "ties"),
-    (2, 150, 64, RATE, 0.01, "padded_tile"), (2, 150, 64, 0.0, 0.0, "padded_tile")])
+    (2, 150, 64, RATE, 0.01, "padded_tile"), (2, 150, 64, 0.0, 0.0, "padded_tile"),
+    (4, 150, 64, 0.0, 0.0, "dead_rows"), (4, 150, 96, RATE, 0.0, "dead_rows")])
 def test_sbm_expected_backward_matches_plain(dev, b, n, dh, rate, floor, variant):
     """K8/K9 (and K2 with dropout) against the plain recomputed backward;
     atol and rtol 1e-4 as K3/K4: summation order over N keys."""
@@ -547,15 +576,10 @@ def test_sbm_expected_backward_matches_plain(dev, b, n, dh, rate, floor, variant
         assert (ea == 0.99).any() and (ea == torch.tensor(floor, device=dev)).any()
         assert (ea == 0).any()
 
-    def grads(fn):
-        leaves = [t.detach().clone().requires_grad_() for t in leaves0]
-        out, ex = fn(*leaves[:3], spec, (leaves[3], leaves[4], pad.float()), rate, dseed)
-        loss = torch.sum(out * go) + 1e-3 * torch.sum(ex["graph_sum"])
-        return out.detach(), ex, torch.autograd.grad(loss, leaves)
-
     before = build.launch_counts()
-    out, ex, got = grads(flex_core.flex_attention)
-    ref, rex, want = grads(flex_core.flex_reference)
+    out, ex, got = _expected_grads(flex_core.flex_attention, leaves0, spec, pad, rate, dseed, go)
+    ref, rex, want = _expected_grads(flex_core.flex_reference, leaves0, spec, pad, rate, dseed,
+                                     go)
     torch.cuda.synchronize()
     after = build.launch_counts()
     for fn in ("flex_fwd_sbm_expected", "flex_bwd_q_sbm_expected", "flex_bwd_k_sbm_expected"):
@@ -565,9 +589,33 @@ def test_sbm_expected_backward_matches_plain(dev, b, n, dh, rate, floor, variant
     if variant == "padded_tile":
         assert ex["skipped_blocks"][0].min() >= 2 * 3   # k-tiles 1, 2 × 3 q-tiles
         assert got[4][0, :, 64:].abs().sum() > 0        # gs still reaches dK̂ there
+    if variant == "dead_rows":
+        for i in range(b):
+            m = DEAD_FROM[i % 4]
+            assert torch.all(ex["lse"][i, :, m:] == flex_core.NEG)  # no live weight
+            assert torch.all(out[i, :, m:] == 0)
+            if m < n:  # the half-open gate brings gs to their dR
+                assert got[3][i, :, m:].abs().min() > 0
     for name, a, w in zip(("q", "k", "v", "r", "k_hat"), got, want):
         assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a, w, atol=GRAD_TOL, rtol=GRAD_TOL, msg=name)
+
+
+def test_expected_backward_repeats_bit_for_bit(dev):
+    """Two backward passes of K8/K9 on the same inputs give the same bits:
+    every output row belongs to one block and every sum runs in one order."""
+    from csat_tpu_torch.ops import flex_core
+    from csat_tpu_torch.ops.mods import SBMExpectedSpec
+
+    leaves0, pad = _expected_case(64, 150, 64, dev, 0.01, "plain", seed=4, h=8)
+    spec = SBMExpectedSpec(n=150, heads=8, kk=10, floor=0.01)
+    dseed = torch.tensor([779], dtype=torch.int32, device=dev)
+    go = torch.randn(leaves0[0].shape, generator=torch.Generator().manual_seed(8)).to(dev)
+    for rate in (0.0, RATE):
+        first = _expected_grads(flex_core.flex_attention, leaves0, spec, pad, rate, dseed, go)[2]
+        second = _expected_grads(flex_core.flex_attention, leaves0, spec, pad, rate, dseed, go)[2]
+        for name, a, w in zip(("dq", "dk", "dv", "dr", "dkh"), first, second):
+            assert torch.equal(a, w), (name, rate)
 
 
 def test_mod_without_a_kernel_raises_on_the_card(dev):

@@ -3,9 +3,10 @@ gate, driven on the CPU at a narrow width through the plain paths: the
 serving drain's decode launches are recorded from its middle and replay to
 the output the drain computed, and each SBM layer's recorded inputs carry
 the real cotangents, in the counter noise mode and in the config's default
-shared mode (whose graph is an input).  On the card the same helpers feed
-the kernels.  Also ``Trainer.fit`` in the config's defaults (shared noise,
-sampled eval graph) repeats from its seed."""
+shared mode (whose graph is an input), and in the expected-graph
+gradient's deterministic forward; the backward work count the bounds read.
+On the card the same helpers feed the kernels.  Also ``Trainer.fit`` in the
+config's defaults (shared noise, sampled eval graph) repeats from its seed."""
 
 import numpy as np
 import pytest
@@ -99,6 +100,60 @@ def test_same_graph_gate_passes_on_the_plain_path(small_vocab):
     for rec in res["layers"]:
         assert rec["edges"] > 0 and rec["edges_apart"] == 0
         assert rec["out_rel"] == 0.0 and max(rec["grad_rel"].values()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the expected-graph gradient: eval_graph="expected", the deterministic forward
+# ---------------------------------------------------------------------------
+
+def test_capture_sbm_inputs_records_the_expected_graph_forward(small_vocab):
+    from csat_tpu_torch.ops.mods import SBMExpectedSpec
+
+    cfg = get_config("python", eval_graph="expected", **NARROW)
+    batch = _train_batch(cfg, (20, 80, 150), seed=5)
+    layers = chip_smoke.capture_sbm_inputs(cfg, batch, "cpu", layers=cfg.sbm_layers,
+                                           deterministic=True)
+    assert len(layers) == cfg.sbm_layers
+    for rec in layers:
+        b, h, n, _ = rec["q"].shape
+        assert isinstance(rec["spec"], SBMExpectedSpec) and rec["spec"].floor == cfg.sbm_floor
+        r, kh, pad = rec["aux"]
+        assert r.shape == kh.shape == (b, h, n, rec["spec"].kk) and pad.shape == (b, n)
+        assert rec["rate"] == 0.0 and rec["dseed"] is None
+        assert rec["inputs"] == "expected_grad batch"
+        assert rec["go"].abs().sum() > 0 and rec["gs"].abs().sum() > 0
+
+
+def test_expected_same_layer_gate_passes_on_the_plain_path(small_vocab):
+    cfg = get_config("python", eval_graph="expected", **NARROW)
+    batch = _train_batch(cfg, (30, 150), seed=6)
+    res = chip_smoke.same_graph_gate(cfg, batch, device="cpu", deterministic=True)
+    assert [rec["layer"] for rec in res["layers"]] == list(range(cfg.sbm_layers))
+    assert res["graph_sum_rtol"] == chip_smoke.SAME_GRAPH_GSUM_RTOL
+    for rec in res["layers"]:
+        assert rec["mod"] == "sbm_expected" and set(rec["grad_rel"]) == set(chip_smoke.GRAD_NAMES)
+        assert rec["graph_sum"] > 0 and rec["graph_sum_rel"] == 0.0
+        assert rec["out_rel"] == 0.0 and max(rec["grad_rel"].values()) == 0.0
+
+
+@pytest.mark.parametrize("mod", ["sbm_sampled", "sbm_expected"])
+def test_backward_work_counts_the_products_as_tensor_core_work(mod):
+    """B 1, H 1, N 3, kk 2, dh 4 by hand: 4 live entries (a_eff > 0) of 5
+    edges (a_raw > 0) of 9."""
+    from csat_tpu_torch.ops.mods import SBMExpectedSpec, SBMSampledSpec
+
+    spec = (SBMSampledSpec if mod == "sbm_sampled" else SBMExpectedSpec)(n=3, heads=1, kk=2,
+                                                                        floor=0.01)
+    a_raw = torch.tensor([[[[1.0, 0.0, 1.0], [0.0, 1.0, 0.0], [1.0, 1.0, 0.0]]]])
+    a_eff = a_raw * torch.tensor([1.0, 1.0, 0.0])  # key 2 padded: one edge loses its weight
+    work = chip_smoke.backward_work(spec, a_raw, a_eff, 4)
+    assert (work["live_entries"], work["edges"], work["entries"]) == (4, 5, 9)
+    cluster = (5 if mod == "sbm_sampled" else 9) * 2 * 2  # d_exp·K̂ per edge | per entry
+    rkt = 9 * 2 * 2                                       # R·K̂ᵀ per entry, f32
+    assert work["q"] == dict(flops=4 * 6 * 4 + cluster + rkt,
+                             tensor_core_flops=4 * 6 * 4 + cluster)
+    assert work["k"] == dict(flops=4 * 8 * 4 + cluster + rkt,
+                             tensor_core_flops=4 * 8 * 4 + cluster)
 
 
 # ---------------------------------------------------------------------------
