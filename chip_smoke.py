@@ -10,7 +10,7 @@ Phases, each printing JSON lines:
 2. ``build``   — compiles every CUDA kernel of the serving and training paths
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once, and counts the tensor-core
-   instructions in the SASS of K2/K6/K7 and of K3/K4/K8/K9 (``sass``: an
+   instructions in the SASS of K1/K2/K6/K7 and of K3/K4/K8/K9 (``sass``: an
    instantiation without any fails the run);
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
@@ -19,7 +19,8 @@ Phases, each printing JSON lines:
    tolerance), exact skip counts, and times (CUDA events, median of several
    runs; at the plan's smaller buckets every flex kernel is timed, K1 and
    K2 beside SDPA with the same score bias or weight as an additive float
-   mask; K1 also on the distances and masks of the train phase's batch, K6
+   mask; K1 also on the distances and masks of the train phase's batch and
+   of the serve phase's largest prefill group, K6
    and K3/K4 on what the first SBM layer of a training step on that batch
    gives them — factors, padding, seeds and cotangents —, K8/K9 on what the
    first SBM layer of the ``expected_grad`` phase's forward gives them, and
@@ -96,6 +97,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -150,11 +152,12 @@ CHECKED: set = set()
 CHECKED_RATES: set = set()
 
 #: library → the kernel instantiations in it that must hold tensor-core
-#: instructions: K2, K6 and K7 at dh 64 and 96; K3, K4, K8 and K9 at dh 64 and 96
-TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 6, "flex_bwd_tc": 8}
+#: instructions: K2, K6 and K7 at dh 64 and 96, K1 at 1, 2 and 4 slabs a
+#: block; K3, K4, K8 and K9 at dh 64 and 96
+TENSOR_CORE_LIBRARIES = {"flex_fwd_tc": 9, "flex_bwd_tc": 8}
 
 #: the __global__ functions of csrc/*.cu, as the profiler names them
-PORT_KERNEL_FUNCTIONS = ("flex_fwd_kernel", "flex_tc_kernel", "flex_graph_kernel",
+PORT_KERNEL_FUNCTIONS = ("flex_cse_kernel", "flex_tc_kernel", "flex_graph_kernel",
                          "bwd_tc_kernel", "paged_decode_kernel")
 
 #: the kernels each driven path must launch
@@ -239,12 +242,41 @@ def build_phase() -> None:
     for fn in build.KERNELS:
         build.kernel(fn)  # load and bind every entry point
     emit("build", seconds=seconds, libraries=sorted(build.SOURCES), kernels=sorted(build.KERNELS))
-    # K2, K6 and K7 at dh 64 and 96; K3 and K4 (the q- and the k-pass) at dh 64 and 96
+    # K1 at 1, 2 and 4 slabs a block, K2, K6 and K7 at dh 64 and 96; K3, K4,
+    # K8 and K9 at dh 64 and 96
     for lib, n_fns in TENSOR_CORE_LIBRARIES.items():
         counts = tensor_core_instructions(build.library_path(lib))
         emit("sass", library=lib, tensor_core_instructions=counts)
         if len(counts) < n_fns or not all(counts.values()):
             raise AssertionError(f"{lib} was built without tensor-core instructions: {counts}")
+    # registers and spills of every kernel function; K1's must not spill
+    usage = {lib: ptxas_usage(log) for lib, log in build.BUILD_LOG.items()}
+    emit("ptxas", usage=usage)
+    spilled = {fn: u for fn, u in usage.get("flex_fwd_tc", {}).items()
+               if "flex_cse_kernel" in fn and u["spill_stores"]}
+    if spilled:
+        raise AssertionError(f"K1 spills registers: {spilled}")
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill-store bytes per kernel function, from the
+    ``-Xptxas -v`` report of one library's build."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {"registers": None, "spill_stores": 0}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            usage[fn]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn]["registers"] = int(m.group(1))
+    return usage
 
 
 def tensor_core_instructions(lib: Path) -> dict:
@@ -414,8 +446,10 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
         # P·V, unless its whole row is masked: that row is the mean of V
         live = int((~mask).sum()) * spec.group
         empty_rows = int(mask.all(dim=-1).sum()) * spec.group
-        # matrix products, counted at the tensor-core rate as K2-K7's are
-        simt_flops, tc_flops = 0, live * 8 * dh + empty_rows * n * dh
+        # q·k and P·V at the tensor-core rate, as K2-K7's; the two dh-long
+        # gathered dot products of the bias at the f32 rate (K1 forms them
+        # on f32 SIMT)
+        simt_flops, tc_flops = live * 4 * dh, live * 4 * dh + empty_rows * n * dh
         # SDPA with the relative bias as an additive float mask, formed
         # outside the timing: (c2p + p2c)·scale, and -1e9 where masked (added
         # to the score where the kernel replaces it: a yardstick of time)
@@ -784,6 +818,42 @@ def capture_decode_inputs(cfg, samples, budgets, device="cuda") -> dict:
     return got
 
 
+def capture_cse_inputs(cfg, samples, budgets, device="cuda") -> dict:
+    """The arguments of K1's launch in the first CSE layer of the serving
+    drain's largest prefill group (most nodes, then most requests) for
+    ``samples`` (the serve phase's requests, the flagship model from
+    ``SEED`` on the card): q, k, v, the projected tables and the group's own
+    distances and masks."""
+    from csat_tpu_torch.models import CSATrans, cse
+    from csat_tpu_torch.serve import ServeEngine
+
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    inner = cse.flex_attention
+    got, shapes = {}, []
+
+    def recorder(q, k, v, spec, aux, *args, **kwargs):
+        key = (q.shape[2], q.shape[0])
+        shapes.append(key)
+        if key > got.get("key", (0, 0)):  # strictly larger: the group's first layer
+            copy = lambda t: t.detach().clone().contiguous()
+            got.update(key=key, q=copy(q), k=copy(k), v=copy(v), spec=spec,
+                       aux=tuple(copy(t) for t in aux))
+        return inner(q, k, v, spec, aux, *args, **kwargs)
+
+    cse.flex_attention = recorder
+    try:
+        engine = ServeEngine(model, cfg, device=device)
+        for sample, budget in zip(samples, budgets):
+            engine.submit(sample, budget)
+        engine.drain()
+    finally:
+        cse.flex_attention = inner
+    n, b = got.pop("key")
+    groups = len(shapes) // cfg.num_layers
+    return dict(got, rate=0.0, dseed=None,
+                inputs=f"serve prefill, largest of {groups} groups (B {b}, N {n}), first CSE layer")
+
+
 def paged_check(dtype, side: str, gen, dev, captured=None) -> dict:
     """K5 against its plain version: on random ragged chains of ``dtype``
     pages, or on ``captured`` (from :func:`capture_decode_inputs`)."""
@@ -938,10 +1008,15 @@ def kernel_phase(dev) -> dict:
     decode = capture_decode_inputs(serve_cfg, *make_requests(serve_cfg))
     paged_real = {side: paged_check(None, side, gen, dev, captured=decode[side])
                   for side in ("self", "cross")}
+    # K1 on the first CSE layer of the drain's largest prefill group: real
+    # ASTs' distances and masks at a serving batch size
+    cse_serve = flex_check("cse", 0, 0, gen, dev,
+                           captured=capture_cse_inputs(serve_cfg, *make_requests(serve_cfg)))
     graph = graph_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
+            "flex_fwd_cse@serve": cse_serve,
             **{f"{fn}@train_batch": rec for fn, rec in bwd_real.items()},
             **{f"{fn}@expected_grad_batch": rec for fn, rec in bwd_exp_real.items()},
             "flex_fwd_sbm_expected": flex[("sbm_expected", 4, 150)],

@@ -33,14 +33,13 @@ _REPO = Path(__file__).resolve().parents[2]
 #: library name → CUDA source
 SOURCES: Dict[str, Path] = {
     "flex_fwd_tc": _CSRC / "flex_fwd_tc.cu",
-    "flex_fwd": _CSRC / "flex_fwd.cu",
     "flex_bwd_tc": _CSRC / "flex_bwd_tc.cu",
     "paged_decode": _CSRC / "paged_decode.cu",
 }
 
 #: every kernel of the serving and training paths → the library that holds it
 KERNELS: Dict[str, str] = {
-    "flex_fwd_cse": "flex_fwd",
+    "flex_fwd_cse": "flex_fwd_tc",
     "flex_fwd_sbm_expected": "flex_fwd_tc",
     "flex_fwd_sbm_sampled": "flex_fwd_tc",
     "flex_fwd_sbm_graph": "flex_fwd_tc",

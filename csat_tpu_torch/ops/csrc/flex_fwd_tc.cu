@@ -1,13 +1,14 @@
 // Blocked weighted-softmax attention forward on Hopper's tensor cores
-// (sm_90a) for the three SBM mods: K2 (flex_fwd_sbm_expected) and K6
+// (sm_90a) for every mod: K2 (flex_fwd_sbm_expected) and K6
 // (flex_fwd_sbm_sampled), whose weights come from the factors R, K̂, in one
-// template with the mod as its parameter, and K7 (flex_fwd_sbm_graph), whose
-// weights are a graph read from device memory, in a kernel of its own built
-// from the same parts (below, "the graph mod").  The CSE mod (K1) stays on
-// the SIMT kernel of flex_fwd.cu.
+// template with the mod as its parameter; K7 (flex_fwd_sbm_graph), whose
+// weights are a graph read from device memory, and K1 (flex_fwd_cse), whose
+// score carries the disentangled relative bias, each in a kernel of its own
+// built from the same parts (below, "the graph mod" and "the CSE mod").
 //
 // Replaces: csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310, body
-// _fwd_body :230) under three mods of csat_tpu/ops/mods.py, with s = q·k /
+// _fwd_body :230) under the CSE mod (its own section below) and three mods
+// of csat_tpu/ops/mods.py, with s = q·k /
 // sqrt(dh), R = Q̂·S formed outside and hash dropout on P
 // (flex_core.py:214-219):
 //   * SBMExpectedSpec.tile_weight_parts (:248-252): weight clip(R·K̂ᵀ,
@@ -90,6 +91,7 @@
 //     Dropout multiplies P where it enters P·V, never l.
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -176,6 +178,12 @@ __device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(src), "r"(in ? 4 : 0));
+}
+
+// n of 4 bytes copied, the rest of the word zero-filled
+__device__ __forceinline__ void cp4n(void* dst, const void* src, int n) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" :: "r"(s), "l"(src), "r"(n));
 }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
@@ -490,7 +498,7 @@ __global__ void __launch_bounds__(THREADS) flex_tc_kernel(Params p) {
 }
 
 // One block per (64-row q-tile, head, batch) with `bytes` of dynamic shared
-// memory, for either kernel of this file.
+// memory, for the SBM kernels of this file.
 template <typename P>
 int launch_grid(void (*kern)(P), const P& p, size_t bytes, cudaStream_t stream) {
   cudaError_t err =
@@ -887,6 +895,447 @@ __global__ void __launch_bounds__(THREADS) flex_graph_kernel(GraphParams p) {
     graph_body<DH, false>(p);
 }
 
+
+// ---- the CSE mod (K1) -----------------------------------------------------
+//
+// Replaces csat_tpu/ops/flex_core.py:_fwd_call (pallas_call at :310) under
+// CSESpec.tile_score of csat_tpu/ops/mods.py (:430-439): the disentangled
+// L/T relative bias s_ij = (q_i·k_j + q_i·lk[rel_ij] + k_j·lq[rel_ji]) /
+// sqrt(3 dk) on an unmasked entry, the fill -1e9 in place of the score on a
+// masked one (a row whose every column is masked is then uniform over its
+// real columns), weight = the real-extent gate.  Heads h < group read plane 0
+// of rel/mask (L), the others plane 1 (T).
+//
+// What bounds it on an H100: at B 64, N 150 the call moves 93 MB (q, k, v,
+// out, rel, mask): 0.028 ms.  Its products need q·k and P·V on every real
+// entry and two dh-long dot products on each unmasked one; a real batch
+// leaves 11 % of the L plane and 0.3 % of the T plane unmasked, so the bias
+// is ~0.09 GMAC against ~2.4 GMAC for q·k and P·V.  Like K2, K6 and K7 it is
+// bound by latency, not by either roof: the scan of the mask and the
+// gathers of the bias are chains of dependent loads.
+// What its design does about that:
+//   * q·k and P·V as in the factor mods' template: 3xTF32 mma.sync with the
+//     rounding split, a fresh accumulator per pair of k-steps of Q·Kᵀ and per
+//     product of P·V, P from the accumulators, one 16-row slab a warp.
+//   * the bias first, for the block's rows over every column, only where
+//     the mask is clear and with no table in shared memory.  The block's
+//     mask rows arrive by cp.async together with the first K and V tiles.
+//     Each warp scans its rows 8 chunks of 32 entries at a time: a ballot
+//     over the staged mask bytes gives a chunk's unmasked bits (kept for the
+//     scores), rel[i][j] (coalesced) and rel[j][i] (one sector) are read for
+//     the unmasked entries only, and a prefix count lists them; the next 8
+//     chunks' reads fly while this list is worked.  Eight lanes take an
+//     entry, each two 16-byte pieces of q_i, k_j, lk[rel_ij] and lq[rel_ji]
+//     (rows from L1/L2: one head's tables are 77 KB, all eight 614 KB), a
+//     group 4 entries in flight, plain f32; (c2p + p2c)·scale goes to a
+//     (rows, N) bias tile.  A masked entry costs no load and no arithmetic.
+//   * then the k-tile loop of the template, whose score is q·k·scale + bias
+//     where the chunk's bit says unmasked and the fill -1e9 elsewhere.
+//   * the grid fills the card at serving batch sizes: a block always has 4
+//     warps, which all scan and form the bias, but holds 16·S q rows, S = 1,
+//     2 or 4 slabs, the fewest for which one wave of two blocks an SM (254
+//     registers) holds the grid; warps past S only work on the bias.  B 4,
+//     N 150 runs 160 blocks of 2 slabs where 64-row blocks gave 96.  Heads
+//     are the grid's outer index, so the blocks that run together read one
+//     head's tables, and the shared-memory carveout is what two blocks need,
+//     the rest of the SM's 256 KB staying L1.
+//   * the softmax subtracts before it exponentiates (2^((s − m)·log2 e),
+//     2^((m − m')·log2 e)) so that rows at the -1e9 fill, whose scores and
+//     max are equal, give exactly 1.
+//   * graph_sum and the skip count follow from the real gate: a 64-row
+//     q-tile's weight is its real rows × N, and every 64 × 64 tile of the
+//     grid holds a real entry, so none is dead (reference_block_skip is 0);
+//     the block that starts a 64-row q-tile writes both.
+
+constexpr float NEG_CSE = -1e9f;
+constexpr int CSE_CH = 8;               // chunks of 32 entries a warp lists at a time
+constexpr int LIST = 32 * CSE_CH;       // the entries they may hold
+
+struct CseParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* lq;        // (H, R, dh)
+  const float* lk;
+  const int32_t* rel;     // (B, 2, N, N)
+  const uint8_t* mask;    // (B, 2, N, N), nonzero = masked
+  float* out;             // (B, H, N, dh)
+  float* lse;             // (B, H, N)
+  float* gsum_part;       // (B, H, n_qtiles), 64-row q-tiles
+  int32_t* skip_part;     // (B, H, n_qtiles)
+  int B, H, N, R, group;
+  float scale;
+};
+
+// shared-memory layout of a block of S slabs (16·S q rows), in floats: the
+// K and V tiles, the bias of the block's rows over every column (row stride
+// bld ≡ 8 mod 32, so the accumulator layout's float2 reads are
+// conflict-free), the bits of their unmasked real entries (a word per 32
+// columns), each warp's list of entries (two words each) and the block's
+// mask rows (mw words a row: the aligned words that cover its N bytes)
+template <int S>
+struct CseTiles {
+  static constexpr int ROWS = 16 * S;
+  int bld, nh, mw;
+  __host__ __device__ explicit CseTiles(int n)
+      : bld(((n + 7) / 8 * 8 + 23) / 32 * 32 + 8), nh((n + 31) / 32), mw((n + 3) / 4 + 1) {}
+  __host__ __device__ int ks() const { return 0; }
+  __host__ __device__ int vs() const { return BN * (64 + 16); }
+  __host__ __device__ int bias() const { return vs() + BN * (64 + 4); }
+  __host__ __device__ int ubits() const { return bias() + ROWS * bld; }
+  __host__ __device__ int lists() const { return ubits() + ROWS * nh + (ROWS * nh) % 2; }
+  __host__ __device__ int mask() const { return lists() + WARPS * LIST * 2; }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)(mask() + ROWS * mw) * sizeof(float);
+  }
+};
+
+// q_i·lk[rel_ij] + k_j·lq[rel_ji] for a warp's list of `n` entries (row i in
+// the block, column j, rel_ij, rel_ji), eight lanes an entry, U entries a
+// group in flight; each lane holds two 16-byte pieces of the four rows (q_i
+// and k_j from L1, the table rows from L1/L2).  (c2p + p2c)·scale goes to
+// bias[i][j].
+template <int DH, int U>
+__device__ __forceinline__ void cse_bias_list(const uint2* list, int n, const float* qg,
+                                              const float* kg, const float* lkh,
+                                              const float* lqh, float* bias, int bld,
+                                              float scale, int lane) {
+  const int grp = lane >> 3, d0 = 4 * (lane & 7);
+  for (int base = 0; base < n; base += 4 * U) {
+    float acc[U];
+    int at[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + 4 * u + grp;
+      const uint2 e = list[idx < n ? idx : n - 1];
+      const int i = e.x & 0xffff, j = e.x >> 16, rij = e.y & 0xffff, rji = e.y >> 16;
+      at[u] = idx < n ? i * bld + j : -1;
+      const float* qr = qg + (size_t)i * DH + d0;
+      const float* kr = kg + (size_t)j * DH + d0;
+      const float* lkr = lkh + (size_t)rij * DH + d0;
+      const float* lqr = lqh + (size_t)rji * DH + d0;
+      float a = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(qr + 32 * half));
+        const float4 y = __ldg(reinterpret_cast<const float4*>(lkr + 32 * half));
+        const float4 z = __ldg(reinterpret_cast<const float4*>(kr + 32 * half));
+        const float4 w = __ldg(reinterpret_cast<const float4*>(lqr + 32 * half));
+        a = fmaf(x.x, y.x, a); a = fmaf(x.y, y.y, a);
+        a = fmaf(x.z, y.z, a); a = fmaf(x.w, y.w, a);
+        a = fmaf(z.x, w.x, a); a = fmaf(z.y, w.y, a);
+        a = fmaf(z.z, w.z, a); a = fmaf(z.w, w.w, a);
+      }
+      acc[u] = a;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], 4);
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], 2);
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], 1);
+      if ((lane & 7) == 0 && at[u] >= 0) bias[at[u]] = acc[u] * scale;
+    }
+  }
+}
+
+// One batch of CH chunks of a warp for the CSE bias, from its chunk q on.
+// The warp owns rows warp, warp + WARPS, ... of the block; its chunk q is
+// row warp + WARPS·(q / nh), columns 32·(q % nh) + lane.  un[c]: the lane's
+// entry is real and unmasked (the mask from the staged rows, whose first
+// word starts `skew` bytes before the row); rc[c] = row | column << 16;
+// rel[i][j] (coalesced) and rel[j][i] (one sector) are read for unmasked
+// entries only.
+template <int CH>
+__device__ __forceinline__ void cse_scan(int q, int nq, int nh, int N, int row0, int skew0,
+                                         const uint8_t* Mrows, int mw, const int32_t* relg,
+                                         int warp, int lane, bool (&un)[CH], uint32_t (&rc)[CH],
+                                         int (&rv)[CH], int (&rt)[CH]) {
+  int r = warp + WARPS * (q / nh), hh = q % nh;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = hh * 32 + lane;
+    const int skew = (skew0 + (row0 + r) * N) & 3;
+    un[c] = q + c < nq && col < N && Mrows[r * 4 * mw + skew + col] == 0;
+    rc[c] = (uint32_t)r | (uint32_t)col << 16;
+    if (++hh == nh) {
+      hh = 0;
+      r += WARPS;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int i = row0 + (int)(rc[c] & 0xffffu), j = (int)(rc[c] >> 16);
+    rv[c] = un[c] ? __ldg(relg + (size_t)i * N + j) : 0;
+    rt[c] = un[c] ? __ldg(relg + (size_t)j * N + i) : 0;
+  }
+}
+
+template <int DH, int S>
+__global__ void __launch_bounds__(THREADS) flex_cse_kernel(CseParams p) {
+  static_assert(DH == 64, "a bias lane holds two 16-byte pieces of a 64-wide row");
+  constexpr int ROWS = 16 * S, LDK = DH + 16, LD = DH + 4, KS = DH / 8;
+  extern __shared__ __align__(16) float smem[];
+  const int N = p.N;
+  const CseTiles<S> T(N);
+  const int bld = T.bld, nh = T.nh;
+  float* Ks = smem + T.ks();
+  float* Vs = smem + T.vs();
+  float* Bs = smem + T.bias();
+  uint32_t* ubits = reinterpret_cast<uint32_t*>(smem + T.ubits());
+
+  // heads outermost: the blocks that run together share a head's tables
+  const int qb = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t bh = (size_t)b * p.H + h;
+  const float* qg = p.q + bh * N * DH;
+  const float* kg = p.k + bh * N * DH;
+  const float* vg = p.v + bh * N * DH;
+  const size_t plane_off = ((size_t)b * 2 + h / p.group) * N * N;
+  const int32_t* relg = p.rel + plane_off;
+  const uint8_t* maskg = p.mask + plane_off;
+  const int row0 = qb * ROWS, wrow = warp * 16;
+  const int nr = min(ROWS, N - row0);  // the block's real rows
+  const int gr_[2] = {row0 + wrow + g, row0 + wrow + g + 8};
+  const bool active = warp < S && wrow < nr;  // a slab warp with a real row
+
+  // the block's mask rows, then the first k-tile's K and V, which fly while
+  // the bias is formed.  A mask row of N bytes starts 4-byte aligned only
+  // where N·4 divides its offset, so the copy takes the aligned words that
+  // cover it (reading nothing past the tensor's end) and the scan skips the
+  // row's first (base & 3) bytes
+  uint8_t* Mrows = reinterpret_cast<uint8_t*>(smem + T.mask());
+  {
+    const uintptr_t end = (uintptr_t)(p.mask + (size_t)p.B * 2 * N * N);
+    for (int i = tid; i < nr * T.mw; i += THREADS) {
+      const int r = i / T.mw, w = i % T.mw;
+      const uintptr_t a = ((uintptr_t)(maskg + (size_t)(row0 + r) * N) & ~(uintptr_t)3) + 4 * w;
+      const int n_in = a < end ? (int)min((uintptr_t)4, end - a) : 0;
+      cp4n(Mrows + 4 * i, reinterpret_cast<const void*>(n_in ? a : (uintptr_t)p.mask), n_in);
+    }
+  }
+  cp_commit();
+  load_rows<DH, LDK>(Ks, kg, 0, N);
+  cp_commit();
+  load_rows<DH, LD>(Vs, vg, 0, N);
+  cp_commit();
+  cp_wait<2>();
+  __syncthreads();  // the mask rows
+
+  // ---- the bias of the block's rows where the mask is clear, 8 chunks of
+  // a warp at a time (cse_scan); the chunks' unmasked bits go to ubits ----
+  {
+    uint2* list = reinterpret_cast<uint2*>(smem + T.lists()) + warp * LIST;
+    const float* lkh = p.lk + (size_t)h * p.R * DH;
+    const float* lqh = p.lq + (size_t)h * p.R * DH;
+    const float* qrows = qg + (size_t)row0 * DH;
+    // this warp's chunks: nh for each of its rows
+    const int nq = (nr > warp ? (nr - warp + WARPS - 1) / WARPS : 0) * nh;
+    const int skew0 = (int)((uintptr_t)maskg & 3);
+    bool un[CSE_CH];
+    uint32_t rc[CSE_CH];
+    int rv[CSE_CH], rt[CSE_CH];
+    if (nq > 0)
+      cse_scan(0, nq, nh, N, row0, skew0, Mrows, T.mw, relg, warp, lane, un, rc, rv, rt);
+    for (int q = 0; q < nq; q += CSE_CH) {
+      int n = 0;
+#pragma unroll
+      for (int c = 0; c < CSE_CH; ++c) {
+        const unsigned bits = __ballot_sync(0xffffffffu, un[c]);
+        if (lane == 0 && q + c < nq) ubits[(rc[c] & 0xffffu) * nh + (rc[c] >> 21)] = bits;
+        if (un[c])
+          list[n + __popc(bits & ((1u << lane) - 1u))] =
+              make_uint2(rc[c], (uint32_t)rv[c] | (uint32_t)rt[c] << 16);
+        n += __popc(bits);
+      }
+      __syncwarp();
+      // the next chunks' rel reads fly while these entries' bias is formed
+      if (q + CSE_CH < nq)
+        cse_scan(q + CSE_CH, nq, nh, N, row0, skew0, Mrows, T.mw, relg, warp, lane, un, rc, rv,
+                 rt);
+      cse_bias_list<DH, 4>(list, n, qrows, kg, lkh, lqh, Bs, bld, p.scale, lane);
+      __syncwarp();
+    }
+  }
+
+  float qf[KS][4] = {};
+  if (active) {
+#pragma unroll
+    for (int pp = 0; pp < KS / 2; ++pp) {
+      const int d = 16 * pp + 4 * tig;
+      pair_frags(row4(qg + (size_t)gr_[0] * DH + d, gr_[0] < N),
+                 row4(qg + (size_t)gr_[1] * DH + d, gr_[1] < N), qf[2 * pp], qf[2 * pp + 1]);
+    }
+  }
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float o[KS][4] = {};
+  const int nkt = (N + BN - 1) / BN;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int col0 = kt * BN;
+    const int nc = min(BN, N - col0);  // the tile's real keys
+    const int ntk = (nc + 7) >> 3;     // n8 column tiles holding them
+    if (kt > 0) {
+      load_rows<DH, LDK>(Ks, kg, col0, N);
+      cp_commit();
+      load_rows<DH, LD>(Vs, vg, col0, N);
+      cp_commit();
+    }
+    cp_wait<1>();
+    __syncthreads();  // K (and, at the first tile, every bias and bit)
+
+    float sacc[8][4] = {};
+    if (active) {
+      // ---- S = Q·Kᵀ, a fresh accumulator per pair of k-steps ----
+#pragma unroll
+      for (int pp = 0; pp < KS / 2; ++pp) {
+        const int d = 16 * pp + 4 * tig;
+        uint32_t h0[4], l0[4], h1[4], l1[4];
+        split4(qf[2 * pp], h0, l0);
+        split4(qf[2 * pp + 1], h1, l1);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          if (t < ntk) {
+            const float4 bk = *reinterpret_cast<const float4*>(Ks + (8 * t + g) * LDK + d);
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(part, h0, l0, bk.x, bk.y);
+            mma3(part, h1, l1, bk.z, bk.w);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sacc[t][i] += part[i];
+          }
+      }
+
+      // ---- scores: q·k·scale + bias where unmasked, the fill where masked;
+      // weight 1 on real entries; online max / sum over the row's quad ----
+      bool real[8][4];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wrow + g + 8 * hr;
+        const uint32_t* ub = ubits + r * nh + (col0 >> 5);
+        const uint64_t bits = gr_[hr] < N ? (uint64_t)ub[0] | (nc > 32 ? (uint64_t)ub[1] << 32 : 0)
+                                          : 0;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float2 bias = *reinterpret_cast<const float2*>(Bs + r * bld + col0 + 8 * t + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * hr + e, c = 8 * t + 2 * tig + e;
+            real[t][i] = gr_[hr] < N && c < nc;
+            sacc[t][i] = (bits >> c & 1u) ? fmaf(sacc[t][i], p.scale, e ? bias.y : bias.x)
+                                          : NEG_CSE;
+          }
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mt = NEG;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (real[t][2 * hr + e]) mt = fmaxf(mt, sacc[t][2 * hr + e]);
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m[hr], mt);
+        // differences first: at the fill, s == m_new gives exactly 1
+        const float alpha = ex2((m[hr] - m_new) * LOG2E);
+        float lt = 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * hr + e;
+            const float pr = real[t][i] ? ex2((sacc[t][i] - m_new) * LOG2E) : 0.f;
+            sacc[t][i] = pr;
+            lt += pr;
+          }
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        l[hr] = l[hr] * alpha + lt;
+        m[hr] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < KS; ++dt) {
+          o[dt][2 * hr] *= alpha;
+          o[dt][2 * hr + 1] *= alpha;
+        }
+      }
+    }
+
+    cp_wait<0>();
+    __syncthreads();  // V is in shared memory
+
+    if (active) {
+      // ---- O += P·V (permuted k, as in flex_tc_body), a fresh accumulator
+      // per product ----
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (t < ntk) {
+          const float a[4] = {sacc[t][0], sacc[t][2], sacc[t][1], sacc[t][3]};
+          uint32_t ah[4], al[4];
+          split4(a, ah, al);
+          const float* vp = Vs + (8 * t + 2 * tig) * LD + g;
+#pragma unroll
+          for (int dt = 0; dt < KS; ++dt) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(part, ah, al, vp[8 * dt], vp[LD + 8 * dt]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[dt][i] += part[i];
+          }
+        }
+    }
+    __syncthreads();  // the tiles are free for the next k-tile
+  }
+
+  // ---- epilogue ----
+  if (active) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int gr = gr_[hr];
+      if (gr >= N) continue;
+      const bool live = l[hr] > 0.f;
+      const float inv = live ? 1.f / l[hr] : 0.f;
+      float* dst = p.out + (bh * N + gr) * DH + 2 * tig;
+#pragma unroll
+      for (int dt = 0; dt < KS; ++dt)
+        *reinterpret_cast<float2*>(dst + 8 * dt) =
+            make_float2(o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
+      if (tig == 0) p.lse[bh * N + gr] = live ? m[hr] + logf(l[hr]) : NEG;
+    }
+  }
+  if (tid == 0 && row0 % BM == 0) {
+    const size_t slot = bh * ((N + BM - 1) / BM) + row0 / BM;
+    p.gsum_part[slot] = (float)(min(BM, N - row0) * N);
+    p.skip_part[slot] = 0;
+  }
+}
+
+// S = 1, 2 or 4 slabs a block: the fewest whose grid one wave of two blocks
+// an SM (252 registers) holds, else 4 (the fewest K/V tile copies)
+int cse_slabs(int B, int H, int N, int sms) {
+  for (int s = 1; s < 4; s *= 2)
+    if ((long)((N + 16 * s - 1) / (16 * s)) * H * B <= 2L * sms) return s;
+  return 4;
+}
+
+// grid (q blocks, B, H); shared memory carved out for the two blocks an SM
+// holds and no more, so that the rest of the SM's 256 KB caches rows (L1)
+template <int S>
+int launch_cse(const CseParams& p, cudaStream_t stream) {
+  auto kern = flex_cse_kernel<64, S>;
+  const size_t bytes = CseTiles<S>(p.N).bytes();
+  if (bytes > 232448) return -2;  // over the 227 KB a block may use
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int pct = (int)std::min<size_t>(100, (2 * (bytes + 1024) * 100 + 233471) / 233472);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.N + 16 * S - 1) / (16 * S), p.B, p.H);
+  kern<<<grid, THREADS, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float* v,
@@ -931,4 +1380,37 @@ extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v
   if (DH == 64) return launch_grid(flex_graph_kernel<64>, p, graph_smem_bytes<64>(), st);
   if (DH == 96) return launch_grid(flex_graph_kernel<96>, p, graph_smem_bytes<96>(), st);
   return -1;  // head width without an instantiation
+}
+
+// The head width of ops/build.py HEAD_DIMS: 64 (CSE 512 / 8 heads).
+extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
+                            const float* lq, const float* lk, const int32_t* rel,
+                            const uint8_t* mask, float* out, float* lse,
+                            float* gsum_part, int32_t* skip_part, int B, int H,
+                            int N, int DH, int R, int group, float scale,
+                            void* stream) {
+  if (DH != 64) return -1;  // head width without an instantiation
+  // 16-byte copies and loads of q, k, v and the table rows; the mask rows
+  // are copied in the aligned words that cover them
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)lq | (uintptr_t)lk) % 16 ||
+      (uintptr_t)mask % 4)
+    return -6;
+  CseParams p{};
+  p.q = q; p.k = k; p.v = v; p.lq = lq; p.lk = lk; p.rel = rel; p.mask = mask;
+  p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
+  p.B = B; p.H = H; p.N = N; p.R = R; p.group = group; p.scale = scale;
+  const cudaStream_t st = (cudaStream_t)stream;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  switch (cse_slabs(B, H, N, sms)) {
+    case 1: return launch_cse<1>(p, st);
+    case 2: return launch_cse<2>(p, st);
+    default: return launch_cse<4>(p, st);
+  }
 }

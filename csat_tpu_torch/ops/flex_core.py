@@ -10,8 +10,8 @@ with the score ``s`` and the weight ``w`` defined by a mod
 before ·V (the normalizer and ``lse`` stay pre-dropout).
 :func:`flex_attention` is the one entry point: for CUDA tensors it runs the
 hand-written Hopper kernels inside one ``torch.autograd.Function`` — the
-forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_sbm_{expected,sampled,graph}``,
-tensor cores) or ``csrc/flex_fwd.cu`` (``flex_fwd_cse``) and,
+forward ``csrc/flex_fwd_tc.cu`` (``flex_fwd_cse`` and
+``flex_fwd_sbm_{expected,sampled,graph}``, tensor cores) and,
 for the sampled and the expected SBM mods, the two-pass
 backward of ``csrc/flex_bwd_tc.cu`` (tensor cores, one template for both
 mods: ``flex_bwd_q_sbm_{sampled,expected}``, dq and dR over the keys;
@@ -46,7 +46,7 @@ __all__ = [
     "bwd_kernel_args", "keep_field",
 ]
 
-FLEX_BLOCK = 64  # the CUDA kernels' q-tile and k-tile (csrc/flex_{fwd,fwd_tc,bwd_tc}.cu)
+FLEX_BLOCK = 64  # the CUDA kernels' q-tile and k-tile (csrc/flex_{fwd_tc,bwd_tc}.cu)
 NEG = -1e30      # masked-max sentinel of a row that has seen no live weight
 
 
@@ -240,6 +240,9 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
         check_cuda("rel_k", lk, torch.float32, (h, spec.r_len, dh))
         check_cuda("rel", rel, torch.int32, (b, 2, n, n))
         check_cuda("mask", mask, torch.bool, (b, 2, n, n))
+        if mask.data_ptr() % 4:  # a view at an odd offset: the kernel copies aligned words
+            mask = mask.clone()
+            outs["mask"] = mask  # kept alive with the outputs
         fn = "flex_fwd_cse"
         args = [*qkv, lq.data_ptr(), lk.data_ptr(), rel.data_ptr(), mask.data_ptr(), *tail,
                 b, h, n, dh, spec.r_len, spec.group, spec.scale(dh), stream]

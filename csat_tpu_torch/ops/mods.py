@@ -9,8 +9,8 @@ Torch counterparts of the JAX package's ``ops/mods.py``: ``CSESpec`` +
 it over whole arrays (the plain path,
 :func:`~csat_tpu_torch.ops.flex_core.flex_reference`), ``full_weight_padded``
 gives the weight field on a padded geometry (the block-skip oracle).  The
-CUDA kernels (``csrc/flex_fwd_tc.cu``, ``csrc/flex_fwd.cu``,
-``csrc/flex_bwd_tc.cu``) compute the same definitions tile by tile.
+CUDA kernels (``csrc/flex_fwd_tc.cu``, ``csrc/flex_bwd_tc.cu``) compute
+the same definitions tile by tile.
 
 The SBM adjacency ``expA = R K̂ᵀ`` (``R = Q̂ S``) is summed one cluster at a
 time, as the kernels sum it (:func:`exp_adjacency`), so the sampled mod's

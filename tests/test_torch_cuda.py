@@ -137,37 +137,79 @@ def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
         torch.testing.assert_close(out[0, 0, 1], v[0, 0].mean(dim=0), atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("b,n", [(4, 37), (8, 75), (64, 150)])
-def test_cse_kernel_on_ast_distances(dev, b, n):
-    """K1 on the distances and masks of synthetic ASTs, as the serving and
-    training paths give it: most entries masked, the distances of the
-    unmasked ones in a narrow band around the offset, padded rows whose every
-    entry is masked."""
+def _ast_cse_case(b, n, variant, dev):
+    """K1 inputs from the distances and masks of ``b`` synthetic ASTs of up
+    to ``n`` nodes, as the serving and training paths give them (most entries
+    masked, the unmasked distances in a narrow band, rows and columns past an
+    AST's nodes masked), at the flagship's heads, width and table length.
+    ``variant`` edits the masks: ``t_only`` clears the L plane's mask nowhere
+    and the T plane's in a few entries of one 16 x 64 tile; ``empty_row``
+    masks every column of three rows; ``pad_tile`` cuts sample 0 to 40 nodes,
+    so that its key tiles past 64 are wholly padding."""
     import numpy as np
 
     from csat_tpu_torch.configs import get_config
     from csat_tpu_torch.data.dataset import collate
     from csat_tpu_torch.data.synthetic import random_ast, train_sample
-    from csat_tpu_torch.ops import flex_core
     from csat_tpu_torch.ops.mods import cse_mod
 
     cfg = get_config("python")
-    rng = np.random.default_rng(n)
-    samples = [train_sample(random_ast(rng, int(m)), cfg, 100, 100, rng)
-               for m in np.linspace(min(10, n), n, b).round()]
+    rng = np.random.default_rng(b * 1000 + n)
+    sizes = np.linspace(min(10, n), n, b).round().astype(int)
+    if variant == "pad_tile":
+        sizes[0] = 40
+    samples = [train_sample(random_ast(rng, int(m)), cfg, 100, 100, rng) for m in sizes]
     batch = collate({key: np.stack([x[key] for x in samples]) for key in samples[0]},
                     cfg.max_src_len)
-    rel = torch.from_numpy(np.stack([batch.L, batch.T], 1)[:, :, :n, :n].astype(np.int32))
-    mask = torch.from_numpy(np.stack([batch.L_mask, batch.T_mask], 1)[:, :, :n, :n].copy())
+    rel = np.stack([batch.L, batch.T], 1)[:, :, :n, :n].astype(np.int32)
+    mask = np.stack([batch.L_mask, batch.T_mask], 1)[:, :, :n, :n].copy()
+    if variant == "t_only":
+        mask[:] = True
+        mask[0, 1, 17, [3, 5, 40, 63]] = False
+        mask[0, 1, 30, 0] = False
+    elif variant == "empty_row":
+        mask[0, 0, 1, :] = True
+        mask[b - 1, 1, n - 1, :] = True
+        mask[0, 1, 16, :] = True
     g = torch.Generator().manual_seed(n)
     rnd = lambda *s: torch.randn(*s, generator=g).to(dev)
     q, k, v = rnd(b, 8, n, 64), rnd(b, 8, n, 64), rnd(b, 8, n, 64)
-    spec, aux = cse_mod(rnd(8, cfg.max_src_len, 64), rnd(8, cfg.max_src_len, 64), rel.to(dev),
-                        mask.to(dev))
+    spec, aux = cse_mod(rnd(8, cfg.max_src_len, 64), rnd(8, cfg.max_src_len, 64),
+                        torch.from_numpy(rel).to(dev), torch.from_numpy(mask).to(dev))
+    return q, k, v, spec, aux
+
+
+# real AST distances at B 1, 4 and 64 (one, two and four 16-row slabs a
+# block at N 150) and at the smaller buckets; a T-plane-only sparse tile;
+# rows whose every column is masked; N 100 and 130, whose last block holds
+# rows past N; sample 0 with its key tiles past 64 wholly padding
+@pytest.mark.parametrize("b,n,variant", [
+    (1, 150, "ast"), (4, 150, "ast"), (64, 150, "ast"), (4, 37, "ast"), (8, 75, "ast"),
+    (4, 150, "t_only"), (1, 150, "empty_row"), (64, 150, "empty_row"), (2, 100, "ast"),
+    (64, 130, "ast"), (4, 150, "pad_tile"), (64, 150, "pad_tile")])
+def test_cse_kernel_on_ast_distances(dev, b, n, variant):
+    """K1 on the distances and masks of synthetic ASTs, as the serving and
+    training paths give it, against the plain path: out and lse within
+    FLEX_TOL (2e-5), graph_sum and the skip count exact, one launch; a row
+    whose every column is masked is the mean of V over the real columns."""
+    from csat_tpu_torch.ops import build, flex_core
+
+    q, k, v, spec, aux = _ast_cse_case(b, n, variant, dev)
+    before = build.launch_counts()["flex_fwd_cse"]
     out, ex = flex_core.flex_attention(q, k, v, spec, aux)
     ref, rex = flex_core.flex_reference(q, k, v, spec, aux)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["flex_fwd_cse"] == before + 1
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
     torch.testing.assert_close(ex["lse"], rex["lse"], atol=2e-5, rtol=0)
+    assert torch.equal(ex["graph_sum"], rex["graph_sum"])
+    skips = flex_core.reference_block_skip(spec, aux, flex_core.geometry(q))
+    assert torch.equal(ex["skipped_blocks"], skips)
+    empty = aux[3].all(dim=-1).repeat_interleave(spec.group, dim=1)  # (B, H, N)
+    if variant == "empty_row":
+        assert empty[0, 0, 1] and empty[0, 4, 16]
+    for bi, hi, ri in empty.nonzero().tolist()[:64]:
+        torch.testing.assert_close(out[bi, hi, ri], v[bi, hi].mean(dim=0), atol=2e-5, rtol=0)
 
 
 def test_cse_plain_backward_repeats_bit_for_bit(dev):

@@ -5,7 +5,9 @@
   and ``flex_reference``.  ``out`` and ``graph_sum`` within 1e-5 — JAX's own
   kernel-vs-reference gate is 2e-6 (tests/test_ops.py); the margin covers
   torch's CPU summation order.  ``reference_block_skip`` at block 128 equals
-  JAX's oracle and the JAX kernel's realized count.
+  JAX's oracle and the JAX kernel's realized count.  The CSE mod also on
+  real ASTs' distances and masks (the inputs of the card's K1 cases: a
+  T-plane-only tile, all-masked rows, a sample whose key tiles are padding).
 * the expected mod's backward (the plain version of the ``flex_bwd_*_sbm_expected``
   kernels): dq, dk, dv, dR, dK̂ within 3e-5 of ``jax.grad`` through JAX's
   kernel backward (``bwd="kernel"``, interpret mode), at attention dropout 0
@@ -104,6 +106,68 @@ def test_cse_all_masked_row_is_uniform_over_real_columns():
     spec, aux = tmods.cse_mod(_t(lq), _t(lk), _t(rel), _t(mask))
     out, _ = tfc.flex_attention(_t(q), _t(k), _t(v), spec, aux)
     np.testing.assert_allclose(out[0, 0, 3].numpy(), v[0, 0].mean(0), atol=1e-6)
+
+
+def _ast_cse_inputs(n, variant, seed):
+    """CSE inputs on the distances and masks of synthetic ASTs (most entries
+    masked, the unmasked distances in a band), with the same edits as the
+    card test's K1 cases: ``t_only`` leaves a few T-plane entries of one
+    tile unmasked and nothing else; ``empty_row`` masks every column of
+    three rows; ``pad_tile`` cuts sample 0 to 10 nodes."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+
+    cfg = get_config("python")
+    rng = np.random.default_rng(seed)
+    sizes = [10 if variant == "pad_tile" else n - 9, n]
+    samples = [train_sample(random_ast(rng, m), cfg, 100, 100, rng) for m in sizes]
+    batch = collate({key: np.stack([x[key] for x in samples]) for key in samples[0]},
+                    cfg.max_src_len)
+    rel = np.stack([batch.L, batch.T], 1)[:, :, :n, :n].astype(np.int32)
+    mask = np.stack([batch.L_mask, batch.T_mask], 1)[:, :, :n, :n].copy()
+    if variant == "t_only":
+        mask[:] = True
+        mask[0, 1, 7, [3, 5, 20]] = False
+        mask[1, 1, 30, 0] = False
+    elif variant == "empty_row":
+        mask[0, 0, 1, :] = True
+        mask[1, 1, n - 1, :] = True
+        mask[0, 1, 16, :] = True
+    q, k, v = (rng.standard_normal((B, H, n, DH)).astype(np.float32) for _ in range(3))
+    lq, lk = (rng.standard_normal((H, cfg.max_src_len, DH)).astype(np.float32)
+              for _ in range(2))
+    return q, k, v, lq, lk, rel, mask
+
+
+@pytest.mark.parametrize("variant", ["ast", "t_only", "empty_row", "pad_tile"])
+def test_cse_on_ast_distances_matches_jax(variant):
+    """The CSE mod's plain path — the oracle the card holds K1 to — against
+    JAX's kernel (interpret mode) and reference on real ASTs' distances and
+    masks: the inputs of the card test's K1 cases at a small width.  Every
+    all-masked row is the mean of V over the real columns on both sides."""
+    from csat_tpu.ops import flex_core as jfc
+    from csat_tpu.ops import mods as jmods
+    from csat_tpu_torch.ops import flex_core as tfc
+    from csat_tpu_torch.ops import mods as tmods
+
+    n = 40
+    q, k, v, lq, lk, rel, mask = _ast_cse_inputs(n, variant, seed=11)
+    jspec, jaux = jmods.cse_mod(*(jnp.asarray(x) for x in (lq, lk, rel, mask)))
+    tspec, taux = tmods.cse_mod(*(_t(x) for x in (lq, lk, rel, mask)))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    t_out, t_ex = tfc.flex_attention(_t(q), _t(k), _t(v), tspec, taux)
+    for j_out, j_ex in (jfc.flex_attention(jq, jk, jv, jspec, jaux),
+                        jfc.flex_reference(jq, jk, jv, jspec, jaux)):
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(t_ex["graph_sum"].numpy(), np.asarray(j_ex["graph_sum"]),
+                                   rtol=1e-5, atol=1e-5)
+    empty = np.repeat(mask.all(-1), H // 2, axis=1)  # (B, H, N)
+    assert empty.any()  # padded rows at least
+    np.testing.assert_allclose(t_out.numpy()[empty],
+                               np.broadcast_to(v.mean(2)[:, :, None], v.shape)[empty], atol=1e-5)
+    skips = tfc.reference_block_skip(tspec, taux, tfc.geometry(_t(q)))
+    assert int(skips.sum()) == 0  # the CSE weight is the real gate: no tile is dead
 
 
 def test_sbm_block_skip_at_kernel_block_counts_padding():

@@ -4,7 +4,10 @@ serving drain's decode launches are recorded from its middle and replay to
 the output the drain computed, and each SBM layer's recorded inputs carry
 the real cotangents, in the counter noise mode and in the config's default
 shared mode (whose graph is an input), and in the expected-graph
-gradient's deterministic forward; the backward work count the bounds read.
+gradient's deterministic forward; K1's serve-path capture (the largest
+prefill group's first CSE layer) replays to that layer's output; the
+backward work count the bounds read and the build's register and spill
+reading.
 On the card the same helpers feed the kernels.  Also ``Trainer.fit`` in the
 config's defaults (shared noise, sampled eval graph) repeats from its seed."""
 
@@ -75,6 +78,59 @@ def test_capture_decode_inputs_keeps_the_middle_launch_of_each_side(small_vocab,
         out, skipped = pd.paged_attend(*rec["inputs"], **rec["merge"])
         torch.testing.assert_close(out, outs[side], atol=0, rtol=0)
         assert torch.equal(skipped, pd.reference_page_skip(table, q.shape[1]))
+
+
+def test_capture_cse_inputs_keeps_the_largest_prefill_group(small_vocab, monkeypatch):
+    """The serve-path K1 capture records the first CSE layer of the drain's
+    largest prefill group: its q, k, v, tables and the group's own distances
+    and masks, which give that layer's attention output again."""
+    from csat_tpu_torch.models import cse
+    from csat_tpu_torch.ops import flex_core
+
+    cfg = get_config("python", eval_graph="expected", serve_slots=4, max_tgt_len=12, **NARROW)
+    rng = np.random.default_rng(0)
+    samples = [request_sample(random_ast(rng, n), cfg, 300) for n in (20, 60, 150, 90, 33)]
+    budgets = [0, 3, 5, 0, 2]
+    got = chip_smoke.capture_cse_inputs(cfg, samples, budgets, device="cpu")
+    shapes, outs = [], {}
+    inner = cse.flex_attention
+
+    def recorder(q, k, v, spec, aux):
+        out = inner(q, k, v, spec, aux)
+        shapes.append((q.shape[2], q.shape[0]))
+        outs.setdefault(shapes[-1], out[0].clone())
+        return out
+
+    monkeypatch.setattr(cse, "flex_attention", recorder)
+    model = CSATrans(cfg, 300, 400, device="cpu", seed=chip_smoke.SEED)
+    engine = ServeEngine(model, cfg, device="cpu")
+    for sample, budget in zip(samples, budgets):
+        engine.submit(sample, budget)
+    engine.drain()
+    q, spec, (lq, lk, rel, mask) = got["q"], got["spec"], got["aux"]
+    assert (q.shape[2], q.shape[0]) == max(shapes) and len(shapes) % cfg.num_layers == 0
+    assert rel.shape == mask.shape == (q.shape[0], 2, q.shape[2], q.shape[2])
+    assert mask.any() and (~mask).any() and got["rate"] == 0.0 and got["dseed"] is None
+    out, _ = flex_core.flex_attention(got["q"], got["k"], got["v"], spec, got["aux"])
+    torch.testing.assert_close(out, outs[max(shapes)], atol=0, rtol=0)
+
+
+def test_ptxas_usage_reads_registers_and_spills_per_function():
+    """The build phase's register and spill reading, on an ``-Xptxas -v``
+    report of the form nvcc prints (one kernel that spills, one that does
+    not)."""
+    log = """ptxas info    : Compiling entry function '_Z1aILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi64EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z1bILi96EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bILi96EEvv
+    296 bytes stack frame, 348 bytes spill stores, 360 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 296 bytes cumulative stack size
+"""
+    assert chip_smoke.ptxas_usage(log) == {
+        "_Z1aILi64EEvv": {"registers": 254, "spill_stores": 0},
+        "_Z1bILi96EEvv": {"registers": 255, "spill_stores": 348}}
 
 
 def test_capture_sbm_inputs_records_every_layer_with_its_cotangents(small_vocab):
