@@ -34,7 +34,12 @@ Phases, each printing JSON lines:
    backward also on whole padded key tiles and on inputs with exact ties at
    both clip bounds, at the default floor and at floor 0, and without
    dropout against a float64 closed form that shares no code with the plain
-   version;
+   version; for the variants phase, K1 and K2 at every prefill group the
+   serve ladder can form (K2 at dh 64 and at java's dh 96), K7 and K1 at the
+   python variants' train batch, and, timed beside SDPA, K2 on the first SBM
+   layer of java's largest serving prefill group and K7 on that of a java
+   shared-noise step at B 64 (dh 96; the spill bytes of the dh-96 builds are
+   printed, not gated);
 4. ``serve``   — the flagship ``python`` model at full width (random weights
    from a seed, ``eval_graph="expected"``) serves 16 synthetic requests
    through ``ServeEngine``; every request must be OK, no page may leak, every
@@ -80,8 +85,20 @@ Phases, each printing JSON lines:
    ``eval_graph="sample"``): 2 epochs, every step finite, epoch loss
    falling, K1 and K7 launched at every train bucket and in the eval
    encoder, at shapes and rates phase 3 checked;
-8. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-7 by path, its error,
+8. ``variants`` — the paper's other encoders, each at its published widths
+   and full depth in its own defaults (``noise_mode="shared"``):
+   ``python_full_att``, ``python_lap``, ``python_seq``, ``python_treepos``
+   and ``python_triplet`` at B 16 — a kernel step against a plain step on
+   the card, 4 more steps whose loss must fall — and ``java`` at B 64 — the
+   step gate and the same-graph gate on each SBM layer at dh 96; then each
+   serves 4 (java 8) requests with ``eval_graph="expected"``, all OK, no page
+   leak, tokens equal between the kernels and the plain route on the card
+   up to a near tie; the tree positions and triplet ids fed in must not be
+   blank; every forward launch at a (B, N, rate, dh) phase 3 checked; the
+   lap line carries its ``eigh`` time, and the treepos model's PE goes
+   through the RQ2 probe (finite accuracies, no threshold);
+9. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-8 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -144,11 +161,12 @@ GS_COEF = 1e-3    # weight of Σ graph_sum in the backward checks' loss
 GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
 GRAPH_TOL = 5e-6  # K7 against plain, max abs: its output feeds the next layer's graph
 
-#: (kernel, B, N) held against its plain version in phase 3; each driven
+#: (kernel, B, N, dh) held against its plain version in phase 3; each driven
 #: path must find the shapes it gave its kernels in here
 CHECKED: set = set()
-#: (forward kernel, B, N, dropout rate) held in phase 3: the default path's
-#: K7 runs at rate 0.2 in train steps and at rate 0 in the eval encoder
+#: (forward kernel, B, N, dropout rate, dh) held in phase 3: the default
+#: path's K7 runs at rate 0.2 in train steps and at rate 0 in the eval
+#: encoder, java's SBM kernels at dh 96
 CHECKED_RATES: set = set()
 
 #: library → the kernel instantiations in it that must hold tensor-core
@@ -175,7 +193,21 @@ PATH_KERNELS = {
     # Trainer.fit in the config's defaults (noise_mode="shared",
     # eval_graph="sample"): K1 and K7 in train steps and in the eval encoder
     "fit_default": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    # the variants phase, train steps (shared noise) and serving: full
+    # attention keeps the CSE and drops the SBM kernels, the other PE
+    # variants drop the CSE; java runs the SBM kernels at dh 96
+    "python_full_att": ("flex_fwd_cse", "paged_decode"),
+    **{name: ("flex_fwd_sbm_graph", "flex_fwd_sbm_expected", "paged_decode")
+       for name in ("python_lap", "python_seq", "python_treepos", "python_triplet")},
+    "java": ("flex_fwd_cse", "flex_fwd_sbm_graph", "flex_fwd_sbm_expected", "paged_decode"),
 }
+#: the variants phase: (config, train batch, requests served); each config
+#: at its published widths and its own defaults (noise_mode="shared"); B 16
+#: keeps the five python variants' share of the run small
+VARIANTS = (("python_full_att", 16, 4), ("python_lap", 16, 4), ("python_seq", 16, 4),
+            ("python_treepos", 16, 4), ("python_triplet", 16, 4), ("java", TRAIN_B, 8))
+VARIANT_STEPS = 4
+PROBE_SAMPLES = 64
 FIT_SAMPLES = (512, 64, 64)   # train / dev / test
 FIT_NODES = (10, 150)         # node counts, uniform: the corpus spreads over the buckets
 FIT_EPOCHS = 2
@@ -251,7 +283,11 @@ def build_phase() -> None:
             raise AssertionError(f"{lib} was built without tensor-core instructions: {counts}")
     # registers and spills of every kernel function; K1's must not spill
     usage = {lib: ptxas_usage(log) for lib, log in build.BUILD_LOG.items()}
-    emit("ptxas", usage=usage)
+    # java's SBM width: the DH template argument 96, mangled Li96E; reported,
+    # not gated
+    emit("ptxas", usage=usage, spilled_at_dh96={
+        fn: u["spill_stores"] for fn, u in usage.get("flex_fwd_tc", {}).items()
+        if "Li96E" in fn})
     spilled = {fn: u for fn, u in usage.get("flex_fwd_tc", {}).items()
                if "flex_cse_kernel" in fn and u["spill_stores"]}
     if spilled:
@@ -300,11 +336,11 @@ def tensor_core_instructions(lib: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: float = 0.01,
-                 rel_mask=None):
+                 rel_mask=None, dh: int = 64):
     from csat_tpu_torch.ops.mods import (
         cse_mod, sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod)
 
-    h, dh, r_len, kk = 8, 64, 150, 10
+    h, r_len, kk = 8, 150, 10
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
     q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
     # padded keys in every row but the first; the short rows leave whole
@@ -374,18 +410,19 @@ def _near_draws(q, spec, aux):
 
 
 def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=None,
-               captured=None, rate=None) -> dict:
+               captured=None, rate=None, dh: int = 64) -> dict:
     """One forward kernel against its plain version at (B, N); ``timed``
     adds the times and the bound (left out for shapes checked for
     correctness only); ``rel_mask`` gives K1 a real batch's distances and
     masks in place of random ones; ``captured`` (from
     :func:`capture_sbm_inputs`) gives K6 or K7 what an SBM layer of a
     training step got; ``rate`` replaces the dropout rate of random inputs
-    (default: ``RATE`` for the train mods, 0 for the others)."""
+    (default: ``RATE`` for the train mods, 0 for the others); ``dh`` the
+    head width of random inputs."""
     from csat_tpu_torch.ops import build, flex_core
 
     if captured is None:
-        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask)
+        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask, dh=dh)
         if rate is None:
             rate = RATE if mod in ("sbm_sampled", "sbm_graph") else 0.0
         dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if rate else None
@@ -421,10 +458,12 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
         raise AssertionError(f"flex {mod} B={b} N={n} rate={rate}: err={err} lse_err={lse_err} "
                              f"gsum_rel_err={gsum_err} flips={flips} near_ok={near_ok} "
                              f"skips equal={skip_equal}")
-    CHECKED.add((f"flex_fwd_{mod}", b, n))
-    CHECKED_RATES.add((f"flex_fwd_{mod}", b, n, rate))
+    dh = q.shape[-1]
+    CHECKED.add((f"flex_fwd_{mod}", b, n, dh))
+    CHECKED_RATES.add((f"flex_fwd_{mod}", b, n, rate, dh))
     if not timed:
-        rec = dict(kernel=f"flex_fwd_{mod}", B=b, N=n, rate=rate, timed=False, max_abs_err=err,
+        rec = dict(kernel=f"flex_fwd_{mod}", B=b, N=n, dh=dh, rate=rate, timed=False,
+                   max_abs_err=err,
                    lse_max_abs_err=lse_err, tol=tol, flips=flips,
                    near_draws=int(near.sum()), skipped_blocks=int(skips.sum()),
                    skip_equal=skip_equal)
@@ -477,8 +516,8 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
                 q, k, v, attn_mask=logw))
     moved = nbytes(q, k, v, *aux, ex["lse"], out)
     bound, bound_by = bound_ms(moved, simt_flops, tc_flops)
-    rec = dict(kernel=fn, B=b, N=n, rate=rate, max_abs_err=err, lse_max_abs_err=lse_err,
-               tol=tol, flips=flips, near_draws=int(near.sum()),
+    rec = dict(kernel=fn, B=b, N=n, dh=dh, rate=rate, max_abs_err=err,
+               lse_max_abs_err=lse_err, tol=tol, flips=flips, near_draws=int(near.sum()),
                skipped_blocks=int(skips.sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
                live_entries=live, flops=simt_flops + tc_flops, tensor_core_flops=tc_flops,
@@ -702,7 +741,8 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
                     raise AssertionError(f"{label} {name}: {side} against the closed form, max "
                                          f"abs err {closed_errs[f'{side}_{name}']}")
     q_fn, k_fn = f"flex_bwd_q_{mod}", f"flex_bwd_k_{mod}"
-    CHECKED.update({(q_fn, b, n), (k_fn, b, n), (f"flex_fwd_{mod}", b, n)})
+    dh = q.shape[-1]
+    CHECKED.update({(q_fn, b, n, dh), (k_fn, b, n, dh), (f"flex_fwd_{mod}", b, n, dh)})
     if not timed:
         rec = dict(kernel=[q_fn, k_fn], B=b, N=n, rate=rate, variant=variant, floor=spec.floor,
                    timed=False, grad_errs=errs, fwd_max_abs_err=fwd_err, lse_max_abs_err=lse_err,
@@ -818,17 +858,19 @@ def capture_decode_inputs(cfg, samples, budgets, device="cuda") -> dict:
     return got
 
 
-def capture_cse_inputs(cfg, samples, budgets, device="cuda") -> dict:
-    """The arguments of K1's launch in the first CSE layer of the serving
-    drain's largest prefill group (most nodes, then most requests) for
-    ``samples`` (the serve phase's requests, the flagship model from
-    ``SEED`` on the card): q, k, v, the projected tables and the group's own
-    distances and masks."""
-    from csat_tpu_torch.models import CSATrans, cse
+def capture_prefill_inputs(cfg, samples, budgets, device="cuda", layer: str = "cse") -> dict:
+    """The arguments of the flex launch in the first CSE layer (K1; ``layer=
+    "sbm"``: the first SBM layer, K2) of the serving drain's largest prefill
+    group (most nodes, then most requests) for ``samples`` (a serve path's
+    requests, ``cfg``'s model from ``SEED`` on the card): q, k, v, and the
+    projected tables and the group's own distances and masks (K1) or its
+    cluster factors and padding (K2)."""
+    from csat_tpu_torch.models import CSATrans, cse, sbm
     from csat_tpu_torch.serve import ServeEngine
 
+    module, n_layers = (cse, cfg.num_layers) if layer == "cse" else (sbm, cfg.sbm_layers)
     model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
-    inner = cse.flex_attention
+    inner = module.flex_attention
     got, shapes = {}, []
 
     def recorder(q, k, v, spec, aux, *args, **kwargs):
@@ -840,18 +882,19 @@ def capture_cse_inputs(cfg, samples, budgets, device="cuda") -> dict:
                        aux=tuple(copy(t) for t in aux))
         return inner(q, k, v, spec, aux, *args, **kwargs)
 
-    cse.flex_attention = recorder
+    module.flex_attention = recorder
     try:
         engine = ServeEngine(model, cfg, device=device)
         for sample, budget in zip(samples, budgets):
             engine.submit(sample, budget)
         engine.drain()
     finally:
-        cse.flex_attention = inner
+        module.flex_attention = inner
     n, b = got.pop("key")
-    groups = len(shapes) // cfg.num_layers
+    groups = len(shapes) // n_layers
     return dict(got, rate=0.0, dseed=None,
-                inputs=f"serve prefill, largest of {groups} groups (B {b}, N {n}), first CSE layer")
+                inputs=f"{cfg.name} serve prefill, largest of {groups} groups (B {b}, N {n}), "
+                       f"first {layer.upper()} layer")
 
 
 def paged_check(dtype, side: str, gen, dev, captured=None) -> dict:
@@ -1011,9 +1054,11 @@ def kernel_phase(dev) -> dict:
     # K1 on the first CSE layer of the drain's largest prefill group: real
     # ASTs' distances and masks at a serving batch size
     cse_serve = flex_check("cse", 0, 0, gen, dev,
-                           captured=capture_cse_inputs(serve_cfg, *make_requests(serve_cfg)))
+                           captured=capture_prefill_inputs(serve_cfg, *make_requests(serve_cfg)))
     graph = graph_checks(dev)
+    variant = variant_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
+            **variant,
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             "flex_fwd_cse@serve": cse_serve,
@@ -1028,6 +1073,55 @@ def kernel_phase(dev) -> dict:
             **{f"paged_decode@serve_{side}": rec for side, rec in paged_real.items()}}
 
 
+def serve_shapes(cfg):
+    """(B, N) of every prefill group the serving engine can form at ``cfg``:
+    each bucket of its prefill ladder, from one request to its batch size."""
+    from csat_tpu_torch.serve.prefill import prefill_plan
+
+    return sorted({(b, spec.n) for spec in prefill_plan(cfg)
+                   for b in range(1, spec.batch_size + 1)})
+
+
+def variant_checks(dev) -> dict:
+    """The kernels where the variants phase runs them.  Checked only: K1
+    (dh 64) and K2 (dh 64 and 96) at every prefill group the serve ladder
+    can form, K7 at rate 0.2 and K1 at the python variants' train batch (B
+    16).  Checked and timed at java's SBM width, dh 96: K2 at B 4 and K7 at
+    B 64 (rate 0.2) on random inputs of the dh-64 records' shapes, and on
+    java's own inputs — K2 on the first SBM layer of its serving drain's
+    largest prefill group, K7 on the first SBM layer of a shared-noise
+    training step at B 64 (its graph, padding and dropout seed)."""
+    from csat_tpu_torch.configs import get_config
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for b, n in serve_shapes(flagship()):
+        for mod, dh in (("cse", 64), ("sbm_expected", 64), ("sbm_expected", 96)):
+            if (f"flex_fwd_{mod}", b, n, dh) not in CHECKED:
+                flex_check(mod, b, n, gen, dev, timed=False, dh=dh)
+    b_py = {b for name, b, _ in VARIANTS if name.startswith("python")}
+    for b in b_py:
+        flex_check("sbm_graph", b, 150, gen, dev, timed=False, rate=RATE)
+        flex_check("cse", b, 150, gen, dev, timed=False)
+    # beside the dh-64 records of kernel_phase: the same random shapes at dh 96
+    k2_random = flex_check("sbm_expected", 4, 150, gen, dev, dh=96)
+    k7_random = flex_check("sbm_graph", TRAIN_B, 150, gen, dev, rate=RATE, dh=96)
+    java = get_config("java", eval_graph="expected", serve_slots=8)
+    n_java = dict((name, n) for name, _, n in VARIANTS)["java"]
+    k2 = flex_check("sbm_expected", 0, 0, gen, dev, captured=capture_prefill_inputs(
+        java, *make_requests(java, n_java), layer="sbm"))
+    java_train = get_config("java")
+    first_sbm = capture_sbm_inputs(java_train, train_batch(java_train, TRAIN_B))[0]
+    first_sbm["inputs"] = "java train batch"
+    k7 = flex_check("sbm_graph", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    emit("dh96", **{
+        f"{name}@{inputs}": dict(ms=rec["ms"], B=rec["B"], N=rec["N"],
+                                 live_entries=rec["live_entries"])
+        for name, inputs, rec in (("K2", "java_serve", k2), ("K2", "random", k2_random),
+                                  ("K7", "java_train", k7), ("K7", "random", k7_random))})
+    return {"flex_fwd_sbm_expected@java_serve": k2, "flex_fwd_sbm_graph@java_train": k7,
+            "flex_fwd_sbm_expected@dh96": k2_random, "flex_fwd_sbm_graph@dh96": k7_random}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve the flagship model
 # ---------------------------------------------------------------------------
@@ -1038,14 +1132,14 @@ def flagship():
     return get_config("python", eval_graph="expected", serve_slots=8)
 
 
-def make_requests(cfg):
+def make_requests(cfg, n_requests: int = N_REQUESTS):
     from csat_tpu_torch.data.synthetic import random_ast, request_sample
 
     rng = np.random.default_rng(SEED)
-    sizes = np.linspace(20, cfg.max_src_len, N_REQUESTS).round().astype(int)
+    sizes = np.linspace(20, cfg.max_src_len, n_requests).round().astype(int)
     rng.shuffle(sizes)
     samples = [request_sample(random_ast(rng, int(n)), cfg, SRC_VOCAB) for n in sizes]
-    budgets = [BUDGETS[i % len(BUDGETS)] for i in range(N_REQUESTS)]
+    budgets = [BUDGETS[i % len(BUDGETS)] for i in range(n_requests)]
     return samples, budgets
 
 
@@ -1074,13 +1168,36 @@ class MarginLog:
         return out
 
 
-def serve(cfg, device: str, samples, budgets, profile: bool = False):
+@contextlib.contextmanager
+def plain_route():
+    """Inside the block every kernel wrapper on the card takes its plain
+    PyTorch version (``select_impl`` of ``ops/flex_core.py`` and
+    ``ops/paged_decode.py`` patched to ``"reference"``); fails if a kernel
+    launched there."""
+    from csat_tpu_torch.ops import build, flex_core, paged_decode
+
+    saved = flex_core.select_impl, paged_decode.select_impl
+    flex_core.select_impl = paged_decode.select_impl = lambda x: "reference"
+    before = build.launch_counts()
+    try:
+        yield
+    finally:
+        flex_core.select_impl, paged_decode.select_impl = saved
+    if build.launch_counts() != before:
+        raise AssertionError(f"the plain route launched kernels: {build.launch_counts()}")
+
+
+def serve(cfg, device: str, samples, budgets, profile: bool = False, plain: bool = False):
+    """``samples`` served by ``cfg``'s model from ``SEED`` on ``device``;
+    ``plain`` takes the plain route on the card.  A CPU or plain run logs each
+    step's top-2 log-prob gaps (``MarginLog``) and counts time in decode
+    calls, so that admissions name the step they happened at."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.ops import build
     from csat_tpu_torch.serve import ServeEngine
 
     model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
-    log = MarginLog(model) if device == "cpu" else None
+    log = MarginLog(model) if device == "cpu" or plain else None
     clock = (lambda: len(log.calls)) if log else time.monotonic
     engine = ServeEngine(model, cfg, device=device, clock=clock)
     ids = [engine.submit(s, b) for s, b in zip(samples, budgets)]
@@ -1088,7 +1205,8 @@ def serve(cfg, device: str, samples, budgets, profile: bool = False):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.drain()
+    with plain_route() if plain else contextlib.nullcontext():
+        engine.drain()
     if device == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1144,6 +1262,32 @@ def _device_summary(prof, wall: float, trace_name=None) -> dict:
                 top=[[k[:80], ms, n] for k, ms, n in by_kernel[:15]], port_kernels=port)
 
 
+def compare_tokens(results, ref, label: str):
+    """Each request's tokens in ``results`` equal to those of ``ref`` (a
+    :func:`serve` run with a ``MarginLog``) up to the first step where the
+    reference's top-2 log-prob gap is below ``TIE_MARGIN`` (a near tie may
+    resolve either way under rounding).  Returns ``(requests cut at a near
+    tie, tokens compared)``."""
+    mismatched, ties, compared = [], 0, 0
+    for g, c in zip(results, ref["results"]):
+        if not c.ok:
+            raise AssertionError(f"request {c.id} not OK on the reference run ({label})")
+        gaps = ref["log"].margins(c.admit_t, c.slot, len(c.tokens))
+        upto = next((j for j, gap in enumerate(gaps) if gap < TIE_MARGIN), None)
+        if upto is not None:
+            ties += 1
+            same = np.array_equal(g.tokens[:upto], c.tokens[:upto])
+            compared += upto
+        else:
+            same = np.array_equal(g.tokens, c.tokens)
+            compared += len(c.tokens)
+        if not same:
+            mismatched.append(c.id)
+    if mismatched:
+        raise AssertionError(f"{label} tokens differ for requests {mismatched}")
+    return ties, compared
+
+
 def serve_phase(profile: bool) -> dict:
     from csat_tpu_torch.ops import build
 
@@ -1160,23 +1304,7 @@ def serve_phase(profile: bool) -> dict:
     n_tokens = sum(len(r.tokens) for r in gpu["results"])
 
     cpu = serve(cfg, "cpu", samples, budgets)
-    mismatched, ties, compared = [], 0, 0
-    for g, c in zip(gpu["results"], cpu["results"]):
-        if not c.ok:
-            raise AssertionError(f"request {c.id} not OK on the CPU")
-        gaps = cpu["log"].margins(c.admit_t, c.slot, len(c.tokens))
-        upto = next((j for j, gap in enumerate(gaps) if gap < TIE_MARGIN), None)
-        if upto is not None:
-            ties += 1
-            same = np.array_equal(g.tokens[:upto], c.tokens[:upto])
-            compared += upto
-        else:
-            same = np.array_equal(g.tokens, c.tokens)
-            compared += len(c.tokens)
-        if not same:
-            mismatched.append(c.id)
-    if mismatched:
-        raise AssertionError(f"card and CPU tokens differ for requests {mismatched}")
+    ties, compared = compare_tokens(gpu["results"], cpu, "card and CPU")
     eng = gpu["engine"]
     rec = dict(model="python", eval_graph=cfg.eval_graph, widths=dict(
         pegen=cfg.pegen_dim, enc=cfg.sbm_enc_dim, hidden=cfg.hidden_size, heads=cfg.num_heads,
@@ -1242,15 +1370,17 @@ def trainer(cfg, model=None, device="cuda"):
 
 @contextlib.contextmanager
 def flex_launches():
-    """Records (forward kernel, B, N, dropout rate, q.requires_grad) of every
-    flex forward launch made inside the block: a train step's q requires grad,
-    the eval decode's does not (``train/decode.py`` runs under ``no_grad``)."""
+    """Records (forward kernel, B, N, dropout rate, dh, q.requires_grad) of
+    every flex forward launch made inside the block: a train step's q requires
+    grad, the eval decode's does not (``train/decode.py`` runs under
+    ``no_grad``)."""
     from csat_tpu_torch.ops import flex_core
 
     inner, got = flex_core._kernel_fwd, []
 
     def recorder(spec, q, k, v, aux, rate, dseed):
-        got.append((f"flex_fwd_{spec.name}", q.shape[0], q.shape[2], rate, q.requires_grad))
+        got.append((f"flex_fwd_{spec.name}", q.shape[0], q.shape[2], rate, q.shape[3],
+                    q.requires_grad))
         return inner(spec, q, k, v, aux, rate, dseed)
 
     flex_core._kernel_fwd = recorder
@@ -1266,21 +1396,29 @@ def _check_launched(path: str, counts) -> None:
         raise AssertionError(f"kernels never launched on the {path} path: {idle}")
 
 
-def _check_shapes(path: str, shapes) -> None:
+def _head_dim(fn: str, cfg) -> int:
+    """The head width ``cfg`` gives flex kernel ``fn``: the CSE's (pegen
+    width over the heads) for K1, the SBM encoder's for the others."""
+    return cfg.pegen_dim // cfg.num_heads if fn == "flex_fwd_cse" else cfg.head_dim
+
+
+def _check_shapes(path: str, shapes, cfg) -> None:
     """Every (B, N) the path gave its flex kernels must be one at which
-    phase 3 held them against their plain versions."""
-    missing = sorted((fn, b, n) for fn in PATH_KERNELS[path] if fn.startswith("flex_")
-                     for b, n in shapes if (fn, b, n) not in CHECKED)
+    phase 3 held them against their plain versions, at ``cfg``'s head
+    widths."""
+    missing = sorted((fn, b, n, _head_dim(fn, cfg)) for fn in PATH_KERNELS[path]
+                     if fn.startswith("flex_") for b, n in shapes
+                     if (fn, b, n, _head_dim(fn, cfg)) not in CHECKED)
     if missing:
         raise AssertionError(f"the {path} path ran kernels at shapes phase 3 did not check: "
                              f"{missing}")
 
 
 def _check_rates(path: str, launched) -> None:
-    """Every (forward kernel, B, N, dropout rate) the path launched
+    """Every (forward kernel, B, N, dropout rate, dh) the path launched
     (:func:`flex_launches`) must be one phase 3 held against its plain
     version."""
-    missing = sorted({rec[:4] for rec in launched} - CHECKED_RATES)
+    missing = sorted({rec[:5] for rec in launched} - CHECKED_RATES)
     if missing:
         raise AssertionError(f"the {path} path ran forward kernels at shapes or rates phase 3 "
                              f"did not check: {missing}")
@@ -1445,15 +1583,15 @@ def same_graph_gate(cfg, batch, device="cuda", deterministic: bool = False) -> d
     return res
 
 
-def more_steps(step, state, batch, first_loss: float, counts: dict):
-    """``TRAIN_STEPS`` more kernel steps on ``batch``: each finite, the last
-    loss below the second (the first more step's).  Returns ``(state,
-    record)``; the launches of these steps are added to ``counts``."""
+def more_steps(step, state, batch, first_loss: float, counts: dict, n: int = TRAIN_STEPS):
+    """``n`` more kernel steps on ``batch``: each finite, the last loss below
+    the second (the first more step's).  Returns ``(state, record)``; the
+    launches of these steps are added to ``counts``."""
     from csat_tpu_torch.ops import build
 
     build.reset_launches()
     losses, times = [first_loss], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n):
         state, m, seconds = timed_step(step, state, batch)
         if m["nonfinite"] or not np.isfinite(float(m["loss"])):
             raise AssertionError(f"non-finite train step: {m}")
@@ -1462,8 +1600,8 @@ def more_steps(step, state, batch, first_loss: float, counts: dict):
     steps_counts = build.launch_counts()
     counts = {fn: counts[fn] + steps_counts[fn] for fn in counts}
     if not losses[-1] < losses[1]:
-        raise AssertionError(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    n_steps = 1 + TRAIN_STEPS
+        raise AssertionError(f"loss did not fall over {n} steps: {losses}")
+    n_steps = 1 + n
     return state, dict(losses=losses, step_s=times, step_s_median=statistics.median(times[1:]),
                        launches=counts,
                        launches_per_step={fn: c / n_steps for fn, c in counts.items()})
@@ -1489,7 +1627,7 @@ def train_phase(profile: bool) -> dict:
     build.reset_launches()  # the gate's launches compare kernels; they do not count
     state, steps = more_steps(step, state, batch, float(m_k["loss"]), counts)
     _check_launched("train_counter", steps["launches"])
-    _check_shapes("train_counter", [tuple(batch.src_seq.shape)])
+    _check_shapes("train_counter", [tuple(batch.src_seq.shape)], cfg)
     repeat = repeatable_backward(model, cfg, batch)
     trace = profile_steps(step, state, batch) if profile else None
     rec = dict(model="python", noise_mode="counter", batch=cfg.batch_size, widths=_widths(cfg),
@@ -1523,7 +1661,7 @@ def train_shared_phase(profile: bool) -> dict:
     with flex_launches() as more:
         state, steps = more_steps(step, state, batch, float(m_s["loss"]), counts)
     _check_launched("train_shared", steps["launches"])
-    _check_shapes("train_shared", [tuple(batch.src_seq.shape)])
+    _check_shapes("train_shared", [tuple(batch.src_seq.shape)], cfg)
     _check_rates("train_shared", launched + more)
     trace = profile_steps(step, state, batch) if profile else None
     rec = dict(model="python", noise_mode=cfg.noise_mode, batch=cfg.batch_size,
@@ -1582,7 +1720,7 @@ def expected_grad_phase(profile: bool = False) -> dict:
     if any(build.launch_counts().values()):
         raise AssertionError(f"the plain pass launched kernels: {build.launch_counts()}")
     _check_launched("expected_grad", counts)
-    _check_shapes("expected_grad", [tuple(batch.src_seq.shape)])
+    _check_shapes("expected_grad", [tuple(batch.src_seq.shape)], cfg)
     loss_rel = abs(k_total - p_total) / abs(p_total)
     gnorm_rel = abs(k_gnorm - p_gnorm) / p_gnorm
     grad_err = {name: [(p.grad - pp.grad).abs().max().item(), pp.grad.abs().max().item()]
@@ -1696,7 +1834,7 @@ def fit_phase(profile: bool, corpus) -> dict:
     _check_launched("fit", counts)
     # train steps come in the plan's shapes, and the eval decode pads
     # every batch to its bucket's rows
-    _check_shapes("fit", {tuple(r["shape"][:2]) for r in steps} | set(plan_shapes()))
+    _check_shapes("fit", {tuple(r["shape"][:2]) for r in steps} | set(plan_shapes()), cfg)
     ck_dir = os.path.join(tr.output_dir, "checkpoints")
     if sorted(os.listdir(ck_dir)) != [f"state_{e}.pt" for e in range(1, FIT_EPOCHS + 1)]:
         raise AssertionError(f"checkpoints missing: {os.listdir(ck_dir)}")
@@ -1789,13 +1927,13 @@ def fit_default_phase(corpus) -> dict:
         raise AssertionError(f"default fit: epoch loss did not fall: {hist['loss']}")
     _check_launched("fit_default", counts)
     train_shapes = {tuple(r["shape"][:2]) for r in steps}
-    _check_shapes("fit_default", train_shapes | set(plan_shapes()))
+    _check_shapes("fit_default", train_shapes | set(plan_shapes()), cfg)
     _check_rates("fit_default", launched)
     by_side = {}
     for fn in PATH_KERNELS["fit_default"]:
         for side, grad, rate in (("train", True, RATE), ("eval", False, 0.0)):
             want_rate = rate if fn == "flex_fwd_sbm_graph" else 0.0
-            got = sorted({(b, n) for f, b, n, r, g in launched
+            got = sorted({(b, n) for f, b, n, r, _, g in launched
                           if f == fn and g == grad and r == want_rate})
             by_side[f"{fn}@{side}"] = got
             if not got or (side == "train" and not train_shapes <= set(got)):
@@ -1811,6 +1949,130 @@ def fit_default_phase(corpus) -> dict:
         launches=counts, launch_shapes=by_side)
     emit("fit_default", **rec)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the other encoders — PE variants, full attention, the java width
+# ---------------------------------------------------------------------------
+
+def _check_nonblank(where: str, tree_pos, triplet, num_node) -> dict:
+    """A batch's tree positions hold ones and its real nodes more than one
+    triplet id: a blank field would give a treepos model a zero PE and a
+    triplet model one id everywhere."""
+    tree_pos, triplet = np.asarray(tree_pos), np.asarray(triplet)
+    real = np.arange(triplet.shape[-1])[None, :] < np.asarray(num_node).reshape(-1, 1)
+    ids = len(np.unique(triplet.reshape(real.shape)[real]))
+    if not tree_pos.any() or ids < 2:
+        raise AssertionError(f"{where}: blank PE inputs ({int(tree_pos.sum())} tree-position "
+                             f"ones, {ids} distinct triplet ids)")
+    return dict(tree_pos_ones=int(tree_pos.sum()), triplet_ids=ids)
+
+
+def probe_run(model, cfg) -> dict:
+    """The RQ2 probe on the card: the post-expansion PE of ``model`` for
+    ``PROBE_SAMPLES`` synthetic ASTs, then ``run_probe(hops=3)``; the
+    accuracies must be finite (the weights are random: no threshold)."""
+    from csat_tpu_torch.data.ast_tools import ast_json_to_tree, tree_to_record, truncate_preorder
+    from csat_tpu_torch.data.dataset import batch_to_device, collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+    from csat_tpu_torch.probe import extract_pe, run_probe
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    sizes = np.linspace(20, cfg.max_src_len, PROBE_SAMPLES).round().astype(int)
+    asts = [random_ast(rng, int(n)) for n in sizes]
+    samples = [train_sample(a, cfg, SRC_VOCAB, TGT_VOCAB, rng) for a in asts]
+    records = [tree_to_record(truncate_preorder(ast_json_to_tree(a), cfg.max_src_len))
+               for a in asts]
+    arrs = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+    batch = batch_to_device(collate(arrs, cfg.max_src_len), torch.device("cuda"))
+    pe = extract_pe(model, batch, torch.Generator(device="cuda").manual_seed(SEED))
+    res = run_probe(pe, [np.maximum(r.parent_idx, 0) for r in records],
+                    [len(r) for r in records], [s["src_seq"] for s in samples], hops=3,
+                    epochs=100, device="cuda")
+    if not (res["n_pairs"] >= 8 and np.isfinite([res["train_acc"], res["test_acc"]]).all()):
+        raise AssertionError(f"probe: {res}")
+    return dict(res, samples=PROBE_SAMPLES, pe_shape=list(pe.shape),
+                seconds=time.perf_counter() - t0)
+
+
+def variant_phase(name: str, b: int, n_requests: int) -> dict:
+    """One registry config at its published widths and full depth, random
+    weights from ``SEED``, in its own defaults (``noise_mode="shared"``):
+    the step gate (kernel step against plain step on the card); java adds
+    the same-graph gate on each SBM layer (K7 and the plain backward at dh
+    96), the python variants ``VARIANT_STEPS`` more steps whose loss must
+    fall; then ``n_requests`` requests served with ``eval_graph="expected"``
+    through the kernels and through the plain route on the card: all OK, no
+    page leak, equal tokens up to a near tie.  The path's kernels must have
+    launched (the gate's kernel step, the steps and the kernel drain count),
+    every forward launch at a (B, N, rate, dh) phase 3 checked."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.models.pe import eigenvectors, padded_laplacian
+
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    if cfg.noise_mode != "shared":
+        raise AssertionError(f"{name}: default noise mode {cfg.noise_mode!r}")
+    batch = train_batch(cfg, b)
+    inputs = _check_nonblank(f"{name} train batch", batch.tree_pos, batch.triplet,
+                             batch.num_node)
+    with flex_launches() as launched:
+        model, state, step, m_k, counts, gate = step_gate(cfg, batch,
+                                                          err_file=f"{name}_grad_err.json")
+    rec = dict(model=name, use_pegen=cfg.use_pegen, full_att=cfg.full_att,
+               noise_mode=cfg.noise_mode, batch=b, widths=_widths(cfg), inputs=inputs,
+               loss_rel=gate["loss_rel"], grad_norm_rel=gate["grad_norm_rel"],
+               kernel_loss=gate["kernel_loss"], grad_max_abs_err=gate["grad_max_abs_err"],
+               first_step_s=gate["first_step_s"], plain_step_s=gate["plain_step_s"])
+    if cfg.use_pegen == "laplacian":
+        # the one eigh a step runs, on this batch's Laplacians
+        lap = padded_laplacian(torch.as_tensor(batch.adj, device="cuda"),
+                               torch.as_tensor(batch.num_node, device="cuda"))
+        rec["eigh_ms_per_step"] = cuda_ms(lambda: eigenvectors(lap), reps=5, trials=5)
+    more = []
+    if name == "java":
+        rec["same_graph"] = same_graph_gate(cfg, batch)
+    else:
+        with flex_launches() as more:
+            state, steps = more_steps(step, state, batch, float(m_k["loss"]), counts,
+                                      n=VARIANT_STEPS)
+        counts = steps["launches"]
+        rec.update(losses=steps["losses"], step_s_median=steps["step_s_median"])
+    if cfg.use_pegen == "treepos":
+        rec["probe"] = probe_run(model, cfg)
+    del model, state, step
+
+    serve_cfg = get_config(name, eval_graph="expected", serve_slots=8)
+    samples, budgets = make_requests(serve_cfg, n_requests)
+    _check_nonblank(f"{name} requests", [s["tree_pos"] for s in samples],
+                    [s["triplet"] for s in samples], [s["num_node"] for s in samples])
+    with flex_launches() as served_launches:
+        card = serve(serve_cfg, "cuda", samples, budgets)
+    plain = serve(serve_cfg, "cuda", samples, budgets, plain=True)
+    for run in (card, plain):
+        bad = [r.id for r in run["results"] if not r.ok]
+        leaks = run["engine"].page_leaks()
+        if bad or leaks:
+            raise AssertionError(f"{name} serving: requests not OK {bad}, {leaks} pages leaked")
+    ties, compared = compare_tokens(card["results"], plain, f"{name} kernel and plain")
+    counts = {fn: counts[fn] + card["counts"][fn] for fn in counts}
+    _check_launched(name, counts)
+    _check_rates(name, launched + more + served_launches)
+    rec.update(requests=n_requests, all_ok=True, page_leaks=0,
+               tokens=sum(len(r.tokens) for r in card["results"]), serve_s=card["seconds"],
+               plain_serve_s=plain["seconds"], tokens_equal=True, near_ties=ties,
+               tokens_compared=compared, launches={fn: c for fn, c in counts.items() if c},
+               seconds=time.perf_counter() - t0)
+    emit("variant", **rec)
+    return rec
+
+
+def variants_phase() -> dict:
+    t0 = time.perf_counter()
+    recs = {name: variant_phase(name, b, n) for name, b, n in VARIANTS}
+    emit("variants", seconds=time.perf_counter() - t0, configs=list(recs))
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1835,13 +2097,15 @@ def main(argv=None) -> int:
     with fit_corpus() as corpus:
         fitted = fit_phase(args.profile, corpus)
         fitted_default = fit_default_phase(corpus)
+    variants = variants_phase()
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
-               "fit": fitted["launches"], "fit_default": fitted_default["launches"]}
+               "fit": fitted["launches"], "fit_default": fitted_default["launches"],
+               **{name: rec["launches"] for name, rec in variants.items()}}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]
-        launches = {path: counts[fn] for path, counts in by_path.items() if counts[fn]}
+        launches = {path: counts[fn] for path, counts in by_path.items() if counts.get(fn)}
         kernels.append(dict(
             name=fn, route="cuda", source=str(build.SOURCES[lib].relative_to(REPO)),
             replaces=build.REPLACES[fn],

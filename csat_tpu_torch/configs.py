@@ -147,10 +147,13 @@ class Config:
             assert self.pe_dim == 0
         else:
             assert 0 < self.pe_dim < self.sbm_enc_dim
+        if self.use_pegen == "treepos":
+            assert self.pegen_dim % (self.tree_pos_width * self.tree_pos_height) == 0
 
 
-# the registry holds the variants the port serves (pegen PE, SBM encoder);
-# the reference's other PE variants and full attention return with their ports
+# the registry: one named variant per reference config file, as the JAX
+# package registers them (csat_tpu/configs.py:861-875); its long-AST and
+# pipeline-parallel entries need the parallel layer, which the port lacks
 _PY = Config(name="python", task_name="256_512_512_4_4_10_10_10_10_b64_tgt50_vanilla",
              lang="python", data_dir="./processed/tree_sitter_python")
 _JAVA = _PY.replace(name="java", task_name="128_768_512_4_4_10_10_10_10_b64_tgt50_10k_20k_java",
@@ -167,7 +170,23 @@ def _reg(cfg: Config) -> Config:
 
 
 _reg(_PY)
+_reg(_PY.replace(name="python_full_att", full_att=True))
+_reg(_PY.replace(name="python_lap", use_pegen="laplacian"))
+_reg(_PY.replace(name="python_seq", use_pegen="sequential", pe_dim=0, pegen_dim=0))
+_reg(_PY.replace(name="python_treepos", use_pegen="treepos"))
+_reg(_PY.replace(name="python_triplet", use_pegen="triplet"))
+_reg(_PY.replace(name="python_compare_asttrans",
+                 data_dir="./processed_ast_trans_data/tree_sitter_python"))
+_reg(_PY.replace(name="python_compare_codescribe",
+                 data_dir="./processed/compare_codescribe_python"))
 _reg(_JAVA)
+_reg(_JAVA.replace(name="java_full_att", full_att=True))
+_reg(_JAVA.replace(name="java_lap", use_pegen="laplacian"))
+_reg(_JAVA.replace(name="java_seq", use_pegen="sequential", pe_dim=0, pegen_dim=0))
+_reg(_JAVA.replace(name="java_treepos", use_pegen="treepos"))
+_reg(_JAVA.replace(name="java_triplet", use_pegen="triplet"))
+_reg(_JAVA.replace(name="java_compare_codescribe",
+                   data_dir="./processed/compare_codescribe_java"))
 
 
 def list_configs():

@@ -11,7 +11,9 @@ weights load into the model and gradients line up with each parameter's
 * a ``LayerNorm`` ``scale`` becomes ``weight``;
 * an ``Embeddings`` module's ``embedding`` table becomes its ``weight`` and its
   ``LayerNorm_0`` its ``norm``;
-* ``clusters`` ``(h·kk, dh)`` and ``L_q``/``T_q`` ``(R, d)`` keep their shape;
+* ``clusters`` ``(h·kk, dh)``, ``L_q``/``T_q`` ``(R, d)`` and the tree-PE
+  decays ``tree_pos_enc/p`` keep their shape; the triplet table
+  ``triplet_emb/embedding`` becomes ``triplet_emb.weight``;
 * flax's auto-named submodules get the port's names: ``layer_i`` →
   ``layers.i``, ``transformer_i`` → ``blocks.i``, ``DisentangledAttn_0`` /
   ``SBMAttention_0`` → ``attn``, ``ClusterProj_0`` → ``proj``,
@@ -54,7 +56,7 @@ _KNOWN = {
     "decoder", "generator", "L_q", "T_q", "wq", "wk", "wv", "wo", "l_q", "l_k",
     "t_q", "t_k", "pe_expand", "out", "clusters", "self_attn", "cross_attn",
     "q", "k", "v", "ff", "norm", "norm1", "norm2", "norm3", "bias", "kernel",
-    "scale",
+    "scale", "tree_pos_enc", "p", "triplet_emb",
 }
 
 

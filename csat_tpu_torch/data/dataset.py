@@ -318,9 +318,9 @@ def iterate_batches(
 
 def batch_to_device(batch: Batch, device: torch.device) -> Batch:
     """The model's inputs as tensors on ``device``, widened to the compute
-    dtypes (int64 token ids, int32 distances, bool masks); fields the model
-    never reads (``num_node``, ``adj``, ``tree_pos``, ``triplet``) stay on
-    the host."""
+    dtypes (int64 token ids, int32 distances, bool masks); the fields only
+    a PE variant reads (``num_node``, ``adj``, ``tree_pos``, ``triplet``)
+    stay on the host, and the model moves the one its variant reads."""
     def put(x, dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 

@@ -6,9 +6,11 @@ In the spirit of the JAX package's ``data/synthetic.py:40-90`` generator
 requests over every prefill bucket; ``request_sample``
 turns a JSON AST into the flagship-width sample dict the serving engine
 ingests, through the same tree → pre-order → L/T matrices pipeline the
-preprocessing runs; ``train_sample`` adds a random summary as the decoder
-input and target.  Token ids come from a stable hash of each node's value,
-so no vocabulary file is needed.
+preprocessing runs, with the tree positions and node triplets of the
+preprocessing's record (``serve/ingest.py:138-148`` in JAX), so every PE
+variant reads real structure; ``train_sample`` adds a random summary as the
+decoder input and target.  Token and triplet ids come from a stable hash of
+each node's value or triplet, so no vocabulary file is needed.
 
 ``gen_ast_nl`` and ``make_corpus`` are the port's copy of the JAX package's
 synthetic code-summarization corpus (``data/synthetic.py:40-114``): random
@@ -29,8 +31,11 @@ import numpy as np
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.data.ast_tools import (
-    ast_json_to_tree, build_matrices, truncate_preorder)
-from csat_tpu_torch.utils import BOS, EOS
+    ast_json_to_tree, build_matrices, tree_to_record, truncate_preorder)
+from csat_tpu_torch.data.dataset import gen_tree_positions, node_triplets
+from csat_tpu_torch.data.vocab import Vocab
+from csat_tpu_torch.models.pe import TRIPLET_VOCAB_FALLBACK
+from csat_tpu_torch.utils import BOS, EOS, UNK
 
 __all__ = ["random_ast", "request_sample", "train_sample", "gen_ast_nl", "grow_ast",
            "make_corpus"]
@@ -76,36 +81,53 @@ def random_ast(rng: np.random.Generator, num_nodes: int) -> List[dict]:
     return _to_json(labels, child_lists)
 
 
-def request_sample(ast_json: List[dict], cfg: Config,
-                   src_vocab_size: int) -> Dict[str, np.ndarray]:
+def _hash_id(text: str, size: int) -> int:
+    return 4 + zlib.crc32(text.encode()) % (size - 4)
+
+
+def request_sample(ast_json: List[dict], cfg: Config, src_vocab_size: int,
+                   trip_vocab: Optional[Vocab] = None) -> Dict[str, np.ndarray]:
     """A JSON AST → the flagship-width request sample (the fields
     ``serve.ingest.validate_sample`` checks).  Token id of a node: a stable
-    hash of its value into ``[4, src_vocab_size)``."""
+    hash of its value into ``[4, src_vocab_size)``.  ``tree_pos``: the
+    one-hot child-index chains of ``data.dataset.gen_tree_positions``.
+    Triplet id of a node: its id in ``trip_vocab`` (UNK when absent), or
+    without one a stable hash of its triplet into ``[4,
+    TRIPLET_VOCAB_FALLBACK[cfg.lang])``, the table a model without a
+    dictionary gets."""
     N = cfg.max_src_len
     seq = truncate_preorder(ast_json_to_tree(ast_json), N)
     L, T = build_matrices(seq, N)
+    rec = tree_to_record(seq)
     src_seq = np.zeros((N,), np.int32)
     for i, node in enumerate(seq):
-        value = ":".join(node.label.split(":")[1:-1])
-        src_seq[i] = 4 + zlib.crc32(value.encode()) % (src_vocab_size - 4)
-    tp_dim = cfg.tree_pos_width * cfg.tree_pos_height
+        src_seq[i] = _hash_id(":".join(node.label.split(":")[1:-1]), src_vocab_size)
+    tree_pos = np.zeros((N, cfg.tree_pos_width * cfg.tree_pos_height), np.uint8)
+    tp = gen_tree_positions(rec, cfg.tree_pos_width, cfg.tree_pos_height)
+    tree_pos[: tp.shape[0]] = tp
+    triplet = np.zeros((N,), np.int32)
+    trips = node_triplets(rec)
+    triplet[: len(trips)] = (
+        [trip_vocab.w2i.get(t, UNK) for t in trips] if trip_vocab is not None
+        else [_hash_id(t, TRIPLET_VOCAB_FALLBACK[cfg.lang]) for t in trips])
     return {
         "src_seq": src_seq,
         "L_raw": L.astype(np.int16),
         "T_raw": T.astype(np.int16),
         "num_node": np.asarray(len(seq), np.int32),
-        "tree_pos": np.zeros((N, tp_dim), np.uint8),
-        "triplet": np.zeros((N,), np.int32),
+        "tree_pos": tree_pos,
+        "triplet": triplet,
     }
 
 
 def train_sample(ast_json: List[dict], cfg: Config, src_vocab_size: int,
-                 tgt_vocab_size: int, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+                 tgt_vocab_size: int, rng: np.random.Generator,
+                 trip_vocab: Optional[Vocab] = None) -> Dict[str, np.ndarray]:
     """:func:`request_sample` plus a summary of 3 to ``max_tgt_len - 2``
     random words: ``tgt_seq`` (BOS, words…) and ``target`` (words…, EOS),
     PAD beyond, both ``max_tgt_len - 1`` wide — the collate's training
     fields."""
-    sample = request_sample(ast_json, cfg, src_vocab_size)
+    sample = request_sample(ast_json, cfg, src_vocab_size, trip_vocab)
     t = cfg.max_tgt_len
     words = rng.integers(4, tgt_vocab_size, int(rng.integers(3, t - 1)))
     seq = np.zeros((t,), np.int32)

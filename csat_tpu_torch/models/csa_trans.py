@@ -1,17 +1,22 @@
 """CSATrans: the encoder–decoder model, trained and served.
 
 Counterpart of the JAX package's ``models/csa_trans.py:72-261``: source
-embedding ``sbm_enc_dim - pe_dim`` wide, pegen CSE positional encodings,
-the SBM encoder, and a decoder run teacher-forced over the whole target
-(``forward``, the training pass) or stepped one token per slot over the
-paged KV pool (``decode_step``, serving).  Only the ``pegen`` PE variant is
-ported; the others raise.
+embedding ``sbm_enc_dim - pe_dim`` wide, one of the five positional
+encodings (``cfg.use_pegen``: ``pegen`` — the CSE stack over a second token
+embedding; ``laplacian``, ``treepos``, ``triplet`` — ``models/pe.py``;
+``sequential`` — a sinusoidal table added inside the encoder), the SBM
+encoder (or full attention under ``cfg.full_att``), and a decoder run
+teacher-forced over the whole target (``forward``, the training pass) or
+stepped one token per slot over the paged KV pool (``decode_step``,
+serving).  Submodules carry flax's names (``src_pe_embedding``, ``pegen``,
+``tree_pos_enc``, ``triplet_emb``) and exist only for their variant.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -20,35 +25,54 @@ from csat_tpu_torch.data.dataset import Batch
 from csat_tpu_torch.models.components import Decoder, Embeddings, Generator, make_std_mask
 from csat_tpu_torch.models.cse import CSE
 from csat_tpu_torch.models.init import init_params
+from csat_tpu_torch.models.pe import (
+    TRIPLET_VOCAB_FALLBACK, TreePositionalEncodings, TripletEmbedding, laplacian_pe)
 from csat_tpu_torch.models.sbm import SBMEncoder
 from csat_tpu_torch.utils import PAD, resolve_device
+
+
+def _on(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A batch field the PE variants read as a tensor on ``device``:
+    ``data.dataset.batch_to_device`` leaves ``num_node``, ``adj``,
+    ``tree_pos`` and ``triplet`` on the host, since the pegen models never
+    read them."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=dtype)
 
 
 class CSATrans(nn.Module):
     """Built on ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``) with weights drawn from ``seed`` (default
     ``cfg.seed``) — or load converted flax weights afterwards
-    (``convert.load_flax_params``)."""
+    (``convert.load_flax_params``).  ``triplet_vocab_size`` sizes the
+    triplet table (0: the reference's per-language fallback;
+    ``train.state.make_model`` checks it against the dictionary on disk)."""
 
     def __init__(self, cfg: Config, src_vocab_size: int, tgt_vocab_size: int,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, triplet_vocab_size: int = 0):
         super().__init__()
-        if cfg.use_pegen != "pegen":
-            raise NotImplementedError(
-                f"use_pegen={cfg.use_pegen!r}: only 'pegen' is ported; the other "
-                "PE variants are queued in ROADMAP.md")
         device = resolve_device(device)
         self.cfg = cfg
         self.src_vocab_size = src_vocab_size
         self.tgt_vocab_size = tgt_vocab_size
+        self.triplet_vocab_size = 0
         self.src_embedding = Embeddings(src_vocab_size, cfg.src_emb_dim, cfg.dropout,
                                         pad_row=cfg.pad_row)
         self.tgt_embedding = Embeddings(tgt_vocab_size, cfg.hidden_size, cfg.dropout,
                                         with_pos=True, pad_row=cfg.pad_row)
-        self.src_pe_embedding = Embeddings(src_vocab_size, cfg.pegen_dim, cfg.dropout,
-                                           pad_row=cfg.pad_row)
-        self.pegen = CSE(cfg)
+        if cfg.use_pegen == "pegen":
+            self.src_pe_embedding = Embeddings(src_vocab_size, cfg.pegen_dim, cfg.dropout,
+                                               pad_row=cfg.pad_row)
+            self.pegen = CSE(cfg)
+        elif cfg.use_pegen == "treepos":
+            self.tree_pos_enc = TreePositionalEncodings(
+                cfg.tree_pos_height, cfg.tree_pos_width,
+                cfg.pegen_dim // (cfg.tree_pos_height * cfg.tree_pos_width))
+        elif cfg.use_pegen == "triplet":
+            self.triplet_vocab_size = triplet_vocab_size or TRIPLET_VOCAB_FALLBACK[cfg.lang]
+            self.triplet_emb = TripletEmbedding(self.triplet_vocab_size, cfg.pegen_dim)
         self.encoder = SBMEncoder(cfg)
         self.decoder = Decoder(cfg.decoder_layers, cfg.hidden_size, cfg.num_heads,
                                cfg.dim_feed_forward, cfg.dropout)
@@ -70,27 +94,48 @@ class CSATrans(nn.Module):
         (``data.dataset.batch_to_device``) → ``(memory (B, N, hidden),
         sparsity scalar)``, without gradients (serving's prefill).  Sampled
         graphs draw from ``gen``, a generator on the model's device."""
-        return self.encode_with_grad(batch, deterministic, gen)
+        return self._encode(batch, deterministic, gen)[:2]
 
-    def encode_with_grad(self, batch: Batch, deterministic: bool = True,
-                         gen: Optional[torch.Generator] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """:meth:`encode` under autograd: the encoder half of the training
-        pass (``deterministic=False`` drops and samples from ``gen``)."""
+    @torch.no_grad()
+    def encode_pe(self, batch: Batch, deterministic: bool = True,
+                  gen: Optional[torch.Generator] = None):
+        """:meth:`encode` plus the post-expansion PE ``(B, N, pe_dim)`` the
+        encoder concatenates to the token embedding — the probe's input
+        (None for ``sequential``, which has none)."""
+        return self._encode(batch, deterministic, gen)
+
+    def _encode(self, batch: Batch, deterministic: bool, gen: Optional[torch.Generator]):
+        """The encoder half under autograd → ``(memory, sparsity, pe)``
+        (``deterministic=False`` drops and samples from ``gen``)."""
+        cfg = self.cfg
+        dev = batch.src_seq.device
         src_mask = batch.src_seq == PAD
         src_emb = self.src_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
-        pe_emb = self.src_pe_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
-        src_pe = self.pegen(pe_emb, batch.L, batch.T, batch.L_mask, batch.T_mask,
-                            deterministic, gen)
-        memory, sparsities = self.encoder(src_emb, src_pe, src_mask, deterministic, gen)
-        sparsity = torch.mean(torch.stack([torch.mean(s) for s in sparsities]))
-        return memory, sparsity
+        if cfg.use_pegen == "pegen":
+            pe_emb = self.src_pe_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
+            src_pe = self.pegen(pe_emb, batch.L, batch.T, batch.L_mask, batch.T_mask,
+                                deterministic, gen)
+        elif cfg.use_pegen == "laplacian":
+            src_pe = laplacian_pe(_on(batch.adj, dev, torch.float32),
+                                  _on(batch.num_node, dev, torch.long), cfg.pegen_dim)
+        elif cfg.use_pegen == "treepos":
+            src_pe = self.tree_pos_enc(_on(batch.tree_pos, dev, torch.float32))
+        elif cfg.use_pegen == "triplet":
+            src_pe = self.triplet_emb(_on(batch.triplet, dev, torch.long))
+        else:  # sequential: the encoder adds its sinusoidal table
+            src_pe = None
+        memory, sparsities, pe = self.encoder(src_emb, src_pe, src_mask, deterministic, gen)
+        if cfg.full_att:
+            sparsity = torch.ones((), device=dev)
+        else:
+            sparsity = torch.mean(torch.stack([torch.mean(s) for s in sparsities]))
+        return memory, sparsity, pe
 
     def forward(self, batch: Batch, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced pass → ``(log_probs (B, T, V), sparsity scalar)``,
         the training forward of the JAX ``CSATrans.__call__``."""
-        memory, sparsity = self.encode_with_grad(batch, deterministic, gen)
+        memory, sparsity, _ = self._encode(batch, deterministic, gen)
         tgt = self.tgt_embedding(batch.tgt_seq, deterministic=deterministic, gen=gen)
         dec = self.decoder.teacher_forced(tgt, memory, make_std_mask(batch.tgt_seq, PAD),
                                           batch.src_seq == PAD, deterministic, gen)

@@ -1,12 +1,15 @@
 """Seeded initialization, the JAX package's distributions in PyTorch.
 
-Dense kernels, embeddings and the CSE relative tables are xavier-uniform,
-biases and LayerNorm shifts zero, LayerNorm scales one, and the SBM
-``clusters`` orthogonal — as the flax modules initialize them.  All draws come
-from one CPU ``torch.Generator`` walked over the parameters in a fixed order
-and are then copied to the model's device, so a seed gives the same weights
-on the CPU and on the card (the bits differ from flax's: ``jax.random`` is
-not reproduced; converted flax params are the way to share weights).
+Dense kernels, embeddings (the triplet table too) and the CSE relative
+tables are xavier-uniform, biases and LayerNorm shifts zero, LayerNorm
+scales one, the SBM ``clusters`` orthogonal and the tree-PE decays ``p``
+uniform in [0.7, 0.999) — as the flax modules initialize them.  All draws
+come from one CPU ``torch.Generator`` walked over ``named_parameters()`` in
+registration order (which a variant's modules only extend: the pegen
+models' order and weights are what they were), built before the model moves
+to its device and copied there, so a seed gives the same weights on the CPU
+and on the card (the bits differ from flax's: ``jax.random`` is not
+reproduced; converted flax params are the way to share weights).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ def init_params(model: nn.Module, seed: int) -> None:
             val = torch.zeros(p.shape)
         elif leaf == "clusters":
             val = _orthogonal(tuple(p.shape), g)
+        elif leaf == "p":  # TreePositionalEncodings' decays
+            val = torch.empty(p.shape).uniform_(0.7, 0.999, generator=g)
         else:  # Linear weights, embedding tables, L_q / T_q
             val = _xavier(tuple(p.shape), g)
         p.copy_(val.to(p.device))

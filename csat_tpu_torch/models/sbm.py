@@ -14,7 +14,11 @@ Counterpart of the JAX package's ``models/sbm.py:69-375`` (the reference's
   serving graph).
 
 Attention dropout (``attention_dropout``, training only) is the hash
-keep-field under a per-layer dropout seed.  Seeds and noise come from the
+keep-field under a per-layer dropout seed.  ``full_att`` configs replace the
+SBM attention with :class:`FullAttention` (``sbm.py:214-240``), dense masked
+softmax in plain PyTorch as JAX leaves it to XLA; the ``sequential`` PE
+variant adds a sinusoidal table to the token embedding in place of the
+projected PE (``sbm.py:315-320``).  Seeds and noise come from the
 caller's explicit ``torch.Generator`` (:func:`draw_seed`, where JAX calls
 ``draw_counter_seed``).  ``ClusterProj`` drops at 0.2 whatever
 ``cfg.dropout`` is, as the JAX module hard-codes it.
@@ -22,6 +26,7 @@ caller's explicit ``torch.Generator`` (:func:`draw_seed`, where JAX calls
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -29,7 +34,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from csat_tpu_torch.configs import Config
-from csat_tpu_torch.models.components import LN_EPS, dropout, merge_heads, split_heads
+from csat_tpu_torch.models.components import (
+    LN_EPS, dropout, merge_heads, sinusoidal_rows, split_heads)
 from csat_tpu_torch.models.ste import bernoulli_noise, sample_graph
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod
@@ -104,9 +110,35 @@ class SBMAttention(nn.Module):
         return out, torch.sum(extras["graph_sum"], dim=0) / (b * n * n)
 
 
+def l1_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Divide by ``max(‖x‖₁, eps)`` over the last axis (torch
+    ``F.normalize(p=1)``, the JAX ``l1_normalize``)."""
+    return x / torch.clamp(torch.sum(torch.abs(x), dim=-1, keepdim=True), min=eps)
+
+
+class FullAttention(nn.Module):
+    """Dense masked softmax attention, in JAX's order: scores over √dh,
+    ``-inf`` on padded keys, softmax, ``l1_normalize``, dropout (keep mask
+    from the caller's generator), then the product with V.  No parameters;
+    no sparsity."""
+
+    def __init__(self, head_dim: int, attention_dropout: float):
+        super().__init__()
+        self.head_dim = head_dim
+        self.attention_dropout = attention_dropout
+
+    def forward(self, q, k, v, key_pad, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None):
+        dot = torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(self.head_dim)
+        dot = dot.masked_fill(key_pad[:, None, None, :], float("-inf"))
+        attn = l1_normalize(torch.softmax(dot, dim=-1))
+        attn = dropout(attn, self.attention_dropout, deterministic, gen)
+        return torch.einsum("bhnm,bhmd->bhnd", attn, v), None
+
+
 class SBMBlock(nn.Module):
-    """Pre-norm block: SBM attention + GELU MLP, each with dropout before
-    its residual."""
+    """Pre-norm block: SBM (or, under ``full_att``, dense) attention + GELU
+    MLP, each with dropout before its residual."""
 
     def __init__(self, cfg: Config, layer_idx: int):
         super().__init__()
@@ -115,9 +147,12 @@ class SBMBlock(nn.Module):
         self.dropout = cfg.dropout
         self.attn_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
-        self.attn = SBMAttention(cfg.num_heads, cfg.head_dim, cfg.clusters[layer_idx],
-                                 cfg.sbm_floor, cfg.noise_mode, cfg.eval_graph,
-                                 cfg.attention_dropout)
+        if cfg.full_att:
+            self.attn = FullAttention(cfg.head_dim, cfg.attention_dropout)
+        else:
+            self.attn = SBMAttention(cfg.num_heads, cfg.head_dim, cfg.clusters[layer_idx],
+                                     cfg.sbm_floor, cfg.noise_mode, cfg.eval_graph,
+                                     cfg.attention_dropout)
         self.ff_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.fc1 = nn.Linear(d, d)
         self.fc2 = nn.Linear(d, d)
@@ -135,25 +170,37 @@ class SBMBlock(nn.Module):
 
 
 class SBMEncoder(nn.Module):
-    """``concat([src_emb, pe_expand(pe)])`` → SBM blocks → LayerNorm →
-    zero padded positions AFTER the norm (reference quirk) → ``out``."""
+    """``concat([src_emb, pe_expand(pe)])`` (or, for ``sequential``,
+    ``src_emb`` plus the sinusoidal table's first N rows) → blocks →
+    LayerNorm → zero padded positions AFTER the norm (reference quirk) →
+    ``out``.  Returns ``(x, per-layer sparsities, pe)``: a sparsity is None
+    under ``full_att``, and ``pe`` is the post-expansion PE the probe reads
+    (None for ``sequential``)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.full_att:
-            raise NotImplementedError(
-                "full-attention encoders (full_att=True) are queued in ROADMAP.md")
-        self.pe_expand = nn.Linear(cfg.pegen_dim, cfg.pe_dim)
+        self.sequential = cfg.use_pegen == "sequential"
+        if not self.sequential:
+            self.pe_expand = nn.Linear(cfg.pegen_dim, cfg.pe_dim)
         self.blocks = nn.ModuleList(SBMBlock(cfg, i) for i in range(cfg.sbm_layers))
         self.norm = nn.LayerNorm(cfg.sbm_enc_dim, eps=LN_EPS)
         self.out = nn.Linear(cfg.sbm_enc_dim, cfg.hidden_size)
 
     def forward(self, src_emb, src_pe, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None):
-        x = torch.cat([src_emb, self.pe_expand(src_pe)], dim=-1)
+        if self.sequential:
+            # the leading rows of the max_src_len table: a bucketed batch
+            # (N < max_src_len) adds the same rows as a full-width one
+            pe = None
+            n = src_emb.shape[1]
+            x = src_emb + sinusoidal_rows(torch.arange(n, device=src_emb.device),
+                                          src_emb.shape[-1])[None]
+        else:
+            pe = self.pe_expand(src_pe)
+            x = torch.cat([src_emb, pe], dim=-1)
         sparsities = []
         for block in self.blocks:
             x, sparsity = block(x, key_pad, deterministic, gen)
             sparsities.append(sparsity)
         x = self.norm(x) * (1.0 - key_pad.to(x.dtype))[:, :, None]
-        return self.out(x), sparsities
+        return self.out(x), sparsities, pe

@@ -119,7 +119,8 @@ class ServeEngine:
         req = Request(id=self._next_id, sample=sample, limit=limit, submit_t=now)
         self._next_id += 1
         try:
-            validate_sample(sample, self.cfg, self.model.src_vocab_size)
+            validate_sample(sample, self.cfg, self.model.src_vocab_size,
+                            self.model.triplet_vocab_size)
         except PoisonRequestError as e:
             self._finish(req, RequestStatus.FAILED, error=f"poison request: {e}")
             return req.id

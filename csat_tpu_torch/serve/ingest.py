@@ -21,9 +21,12 @@ _SAMPLE_FIELDS = {"src_seq": 1, "L_raw": 2, "T_raw": 2, "num_node": 0,
 
 
 def validate_sample(sample: Dict[str, np.ndarray], cfg: Config,
-                    src_vocab_size: int = 0) -> None:
+                    src_vocab_size: int = 0, triplet_vocab_size: int = 0) -> None:
     """Required keys, flagship-width shapes, integer dtypes,
-    ``1 <= num_node <= max_src_len`` and token ids in ``[0, vocab)``."""
+    ``1 <= num_node <= max_src_len``, token ids in ``[0, vocab)`` and, with
+    ``triplet_vocab_size`` (a triplet model's table), triplet ids in ``[0,
+    triplet_vocab_size)``: on the card an id past the table is a device-side
+    assert that ends the process, where JAX clips it."""
     if not isinstance(sample, dict):
         raise PoisonRequestError(
             f"sample must be a dict of arrays, got {type(sample).__name__}")
@@ -54,3 +57,9 @@ def validate_sample(sample: Dict[str, np.ndarray], cfg: Config,
     if src_vocab_size and src.max() >= src_vocab_size:
         raise PoisonRequestError(
             f"src_seq token id {int(src.max())} >= src vocab size {src_vocab_size}")
+    if triplet_vocab_size:
+        trip = np.asarray(sample["triplet"])
+        if trip.min() < 0 or trip.max() >= triplet_vocab_size:
+            raise PoisonRequestError(
+                f"triplet ids span [{int(trip.min())}, {int(trip.max())}], outside the "
+                f"triplet table [0, {triplet_vocab_size})")

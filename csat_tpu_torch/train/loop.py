@@ -50,7 +50,8 @@ from csat_tpu_torch.train.checkpoint import (
 from csat_tpu_torch.train.decode import decode_fn
 from csat_tpu_torch.train.loss import label_smoothing_loss
 from csat_tpu_torch.train.optimizer import AdamW
-from csat_tpu_torch.train.state import TrainState, create_train_state, default_optimizer
+from csat_tpu_torch.train.state import (
+    TrainState, create_train_state, default_optimizer, make_model, triplet_dictionary)
 from csat_tpu_torch.utils import resolve_device
 
 __all__ = ["make_train_step", "evaluate_bleu", "run_test", "Trainer"]
@@ -179,8 +180,9 @@ class Trainer:
         self.log = log
         self.device = resolve_device(device)
         self.src_vocab, self.tgt_vocab = load_vocab(cfg.data_dir)
-        self.model = CSATrans(cfg, self.src_vocab.size(), self.tgt_vocab.size(),
-                              device=self.device)
+        # the triplet table is sized by the dictionary on disk, as in JAX
+        self.model = make_model(cfg, self.src_vocab.size(), self.tgt_vocab.size(),
+                                triplet_dictionary(cfg)[1], device=self.device)
         self.optimizer = default_optimizer(cfg)
         self.train_step = make_train_step(self.model, self.optimizer, cfg)
         self.decode_fn = decode_fn(self.model)

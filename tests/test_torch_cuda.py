@@ -672,3 +672,104 @@ def test_mod_without_a_kernel_raises_on_the_card(dev):
     q = torch.zeros((1, 1, 8, 64), device=dev)
     with pytest.raises(NotImplementedError, match="unknown"):
         flex_core.flex_attention(q, q, q, Unknown(), ())
+
+
+# ---------------------------------------------------------------------------
+# the other encoders: the laplacian PE, full attention and treepos on the
+# card, and the java width's SBM kernels on java's own inputs
+# ---------------------------------------------------------------------------
+
+def _ast_adjacency(n_pad, sizes, seed):
+    """(adj, num_node) of random ASTs padded to ``n_pad`` through the collate."""
+    import numpy as np
+
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import collate
+    from csat_tpu_torch.data.synthetic import random_ast, request_sample
+
+    cfg = get_config("python", max_src_len=n_pad)
+    rng = np.random.default_rng(seed)
+    samples = [request_sample(random_ast(rng, int(m)), cfg, 100) for m in sizes]
+    arrs = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    arrs["tgt_seq"] = arrs["target"] = np.zeros((len(sizes), 1), np.int32)
+    batch = collate(arrs, n_pad)
+    return torch.as_tensor(batch.adj), torch.as_tensor(batch.num_node)
+
+
+@pytest.mark.parametrize("n_pad", [37, 75, 150])
+def test_laplacian_pe_on_card_meets_invariants(dev, n_pad):
+    """The card's eigenvectors (cuSOLVER, in float64) form a basis of the
+    same eigenspaces as the CPU's: the same zero padding, orthonormal
+    columns, ``‖Lv − λv‖ ≤ 1e-4`` and eigenvalues within 1e-5 of the
+    CPU's."""
+    from csat_tpu_torch.models.pe import laplacian_pe, padded_laplacian
+
+    adj, num_node = _ast_adjacency(n_pad, (n_pad, n_pad - 6, n_pad // 2, 7), seed=n_pad)
+    card = laplacian_pe(adj.to(dev), num_node.to(dev), n_pad).cpu().double()
+    cpu = laplacian_pe(adj, num_node, n_pad).double()
+    lap = padded_laplacian(adj, num_node).double()
+    for i, n in enumerate(num_node.tolist()):
+        assert not card[i, n:].any() and not card[i, :, n:].any()
+        v, w, lp = card[i, :n, :n], cpu[i, :n, :n], lap[i, :n, :n]
+        torch.testing.assert_close(v.T @ v, torch.eye(n, dtype=v.dtype), atol=1e-5, rtol=0)
+        lam = torch.einsum("ji,jk,ki->i", v, lp, v)
+        assert (lp @ v - v * lam).abs().max() <= 1e-4
+        torch.testing.assert_close(lam, torch.einsum("ji,jk,ki->i", w, lp, w), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["python_full_att", "python_treepos"])
+def test_variant_forward_on_card_matches_cpu(dev, name):
+    """A full-attention and a treepos model (heads 64 wide, as the kernels
+    are built) from one seed: the card's deterministic forward, through K1
+    or K2, equals the CPU's plain forward within FLEX_TOL."""
+    import numpy as np
+
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import batch_to_device, collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+
+    cfg = get_config(name, eval_graph="expected", num_heads=2, hidden_size=128,
+                     sbm_enc_dim=128, pegen_dim=128, pe_dim=64, dim_feed_forward=256,
+                     num_layers=2, sbm_layers=2, clusters=(10, 10), decoder_layers=1)
+    rng = np.random.default_rng(1)
+    samples = [train_sample(random_ast(rng, n), cfg, 500, 700, rng) for n in (20, 150, 90, 7)]
+    arrs = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    batch = collate(arrs, cfg.max_src_len)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = CSATrans(cfg, 500, 700, device=device, seed=4)
+        before = build.launch_counts()
+        with torch.no_grad():
+            out[device] = model(batch_to_device(batch, torch.device(device)))[0].cpu()
+        launched = {fn for fn, c in build.launch_counts().items() if c > before[fn]}
+        kernel = "flex_fwd_cse" if cfg.full_att else "flex_fwd_sbm_expected"
+        assert launched == ({kernel} if device == "cuda" else set())
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=2e-5, rtol=0)
+
+
+def test_dh96_kernels_on_java_captured_inputs(dev):
+    """K2 and K7 at java's SBM width (dh 96) on what java's first SBM layer
+    gives them: the largest prefill group of a serving drain (K2) and a
+    shared-noise training step at B 64 (K7, its graph and dropout seed)."""
+    import chip_smoke
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import flex_core
+
+    serve_cfg = get_config("java", eval_graph="expected", serve_slots=8, max_tgt_len=8)
+    k2 = chip_smoke.capture_prefill_inputs(serve_cfg, *chip_smoke.make_requests(serve_cfg, 8),
+                                           layer="sbm")
+    train_cfg = get_config("java")
+    k7 = chip_smoke.capture_sbm_inputs(train_cfg, chip_smoke.train_batch(train_cfg, 64))[0]
+    for cap, tol in ((k2, 2e-5), (k7, GRAPH_TOL)):
+        q, k, v, spec, aux, rate, dseed = (cap[key] for key in (
+            "q", "k", "v", "spec", "aux", "rate", "dseed"))
+        assert q.shape[-1] == 96
+        out, ex = flex_core.flex_attention(q, k, v, spec, aux, rate, dseed)
+        ref, rex = flex_core.flex_reference(q, k, v, spec, aux, rate, dseed)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+        torch.testing.assert_close(ex["lse"], rex["lse"], atol=tol, rtol=0)
+        assert torch.equal(ex["skipped_blocks"],
+                           flex_core.reference_block_skip(spec, aux, flex_core.geometry(q)))

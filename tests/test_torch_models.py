@@ -121,7 +121,7 @@ def test_sbm_encoder_matches_jax(models):
 
     j_x, j_sp = jmodel.apply({"params": params}, src_emb, src_pe, key_pad, method=run)
     with torch.no_grad():
-        t_x, t_sp = tmodel.encoder(torch.from_numpy(src_emb), torch.from_numpy(src_pe),
+        t_x, t_sp, _ = tmodel.encoder(torch.from_numpy(src_emb), torch.from_numpy(src_pe),
                                    torch.from_numpy(key_pad))
     np.testing.assert_allclose(t_x.numpy(), _np(j_x), atol=ACT_TOL, rtol=0)
     for a, bb in zip(t_sp, j_sp):
@@ -228,13 +228,14 @@ def test_generator_reference_form_and_log_softmax(models):
         np.testing.assert_allclose(t.numpy(), _np(j), atol=1e-4, rtol=1e-6)
 
 
-def test_unported_variants_raise(models):
-    from csat_tpu_torch.models import CSATrans
+def test_parallel_only_configs_absent():
+    """The port registers every JAX registry entry that runs on one chip;
+    the long-AST and pipeline-parallel entries wait for the parallel layer."""
+    from csat_tpu.configs import list_configs as jax_list
+    from csat_tpu_torch.configs import get_config, list_configs
 
-    _, tcfg, _, _, _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CSATrans(tcfg.replace(use_pegen="laplacian"), 200, 300, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CSATrans(tcfg.replace(full_att=True), 200, 300, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CSATrans(tcfg.replace(use_pegen="triplet"), 200, 300, device="cpu")
+    parallel_only = {"python_long", "java_long", "python_pp"}
+    assert set(jax_list()) - set(list_configs()) == parallel_only
+    for name in parallel_only:
+        with pytest.raises(KeyError):
+            get_config(name)

@@ -91,7 +91,7 @@ def test_capture_cse_inputs_keeps_the_largest_prefill_group(small_vocab, monkeyp
     rng = np.random.default_rng(0)
     samples = [request_sample(random_ast(rng, n), cfg, 300) for n in (20, 60, 150, 90, 33)]
     budgets = [0, 3, 5, 0, 2]
-    got = chip_smoke.capture_cse_inputs(cfg, samples, budgets, device="cpu")
+    got = chip_smoke.capture_prefill_inputs(cfg, samples, budgets, device="cpu")
     shapes, outs = [], {}
     inner = cse.flex_attention
 
@@ -113,6 +113,73 @@ def test_capture_cse_inputs_keeps_the_largest_prefill_group(small_vocab, monkeyp
     assert mask.any() and (~mask).any() and got["rate"] == 0.0 and got["dseed"] is None
     out, _ = flex_core.flex_attention(got["q"], got["k"], got["v"], spec, got["aux"])
     torch.testing.assert_close(out, outs[max(shapes)], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["python_treepos", "java"])
+def test_capture_prefill_inputs_of_the_sbm_layer(small_vocab, monkeypatch, name):
+    """The serve-path K2 capture (java's, at dh 96 on the card) records the
+    first SBM layer of the drain's largest prefill group, which gives that
+    layer's output again; a PE variant's requests carry real tree positions
+    and more than one triplet id."""
+    from csat_tpu_torch.models import sbm
+    from csat_tpu_torch.ops import flex_core
+
+    cfg = get_config(name, eval_graph="expected", serve_slots=4, max_tgt_len=12,
+                     **dict(NARROW, pegen_dim=128 if name.endswith("treepos") else 16))
+    samples, budgets = chip_smoke.make_requests(cfg, 5)
+    inputs = chip_smoke._check_nonblank(name, [s["tree_pos"] for s in samples],
+                                        [s["triplet"] for s in samples],
+                                        [s["num_node"] for s in samples])
+    assert inputs["tree_pos_ones"] > 0 and inputs["triplet_ids"] > 1
+    got = chip_smoke.capture_prefill_inputs(cfg, samples, budgets, device="cpu", layer="sbm")
+    shapes, outs = [], {}
+    inner = sbm.flex_attention
+
+    def recorder(q, k, v, spec, aux, *args):
+        out = inner(q, k, v, spec, aux, *args)
+        shapes.append((q.shape[2], q.shape[0]))
+        outs.setdefault(shapes[-1], out[0].clone())
+        return out
+
+    monkeypatch.setattr(sbm, "flex_attention", recorder)
+    engine = ServeEngine(CSATrans(cfg, 300, 400, device="cpu", seed=chip_smoke.SEED), cfg,
+                         device="cpu")
+    for sample, budget in zip(samples, budgets):
+        engine.submit(sample, budget)
+    engine.drain()
+    assert (got["q"].shape[2], got["q"].shape[0]) == max(shapes)
+    assert got["spec"].name == "sbm_expected" and got["inputs"].startswith(f"{name} serve")
+    out, _ = flex_core.flex_attention(got["q"], got["k"], got["v"], got["spec"], got["aux"])
+    torch.testing.assert_close(out, outs[max(shapes)], atol=0, rtol=0)
+
+
+def test_blank_pe_inputs_fail_the_check():
+    """Zero tree positions, or one triplet id on every real node, fail."""
+    pos = np.zeros((2, 5, 8), np.uint8)
+    trip = np.full((2, 5), 7, np.int32)
+    with pytest.raises(AssertionError, match="blank"):
+        chip_smoke._check_nonblank("t", pos, trip, [5, 3])
+    pos[0, 1, 2] = 1
+    with pytest.raises(AssertionError, match="blank"):
+        chip_smoke._check_nonblank("t", pos, trip, [5, 3])
+    trip[1, 4] = 9  # a pad node's id does not count
+    with pytest.raises(AssertionError, match="blank"):
+        chip_smoke._check_nonblank("t", pos, trip, [5, 3])
+    trip[1, 2] = 9
+    assert chip_smoke._check_nonblank("t", pos, trip, [5, 3]) == dict(
+        tree_pos_ones=1, triplet_ids=2)
+
+
+def test_serve_shapes_cover_every_prefill_group():
+    """Every (B, N) an admission can give the encoder: each bucket of the
+    prefill ladder from one request to its batch size."""
+    from csat_tpu_torch.serve.prefill import prefill_plan
+
+    cfg = chip_smoke.flagship()
+    shapes = chip_smoke.serve_shapes(cfg)
+    assert {n for _, n in shapes} == {spec.n for spec in prefill_plan(cfg)} == {37, 75, 150}
+    assert len(shapes) == sum(spec.batch_size for spec in prefill_plan(cfg)) == 20
+    assert (8, 37) in shapes and (4, 150) in shapes and (5, 150) not in shapes
 
 
 def test_ptxas_usage_reads_registers_and_spills_per_function():

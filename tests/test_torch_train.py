@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import SRC_V, TGT_V, TRIP_V, configs, jax_model_and_params, torch_model
+from torch_parity import jax_train_step, train_setup
 
 GRAD_TOL = 3e-5
 
@@ -223,101 +223,16 @@ def test_adamw_update_matches_jax(weight_decay):
 # one whole train step
 # ---------------------------------------------------------------------------
 
-N_REAL = (75, 30, 80)
-SEEDS = {("sample", 0): 11, ("dropout", 0): 2**31 - 5, ("sample", 1): 123456,
-         ("dropout", 1): 7}
-
-
-class _Draws:
-    """Per-name call counters: the n-th draw of a name is SBM layer n's, in
-    both packages (each draws its sample seed, then its dropout seed, layer by
-    layer)."""
-
-    def __init__(self):
-        self.calls = {}
-
-    def next(self, name):
-        i = self.calls.get(name, 0)
-        self.calls[name] = i + 1
-        return i
-
-
-def _train_setup(mode, monkeypatch):
-    from csat_tpu.data.dataset import collate as jcollate
-    from csat_tpu.data.toy import random_request_sample
-    from csat_tpu.models import sbm as jsbm
-    from csat_tpu_torch.data.dataset import batch_to_device, collate as tcollate
-    from csat_tpu_torch.models import sbm as tsbm
-
-    jcfg, tcfg = configs(max_src_len=80, bucket_src_lens=(), sbm_layers=2, clusters=(4, 3),
-                         dropout=0.0, attention_dropout=0.2, noise_mode=mode)
-    jcfg = jcfg.replace(backend="pallas")
-    jmodel, params = jax_model_and_params(jcfg, seed=2)
-    tmodel = torch_model(tcfg, params)
-
-    samples = [random_request_sample(jcfg, SRC_V, TRIP_V, n, seed=40 + i)
-               for i, n in enumerate(N_REAL)]
-    rng = np.random.default_rng(6)
-    tgt = rng.integers(4, TGT_V, (len(samples), jcfg.max_tgt_len)).astype(np.int32)
-    tgt[1, 4:] = 0
-    arrs = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-    arrs["tgt_seq"], arrs["target"] = tgt[:, :-1], tgt[:, 1:]
-    jbatch = jcollate(arrs, jcfg.max_src_len)
-    tbatch = batch_to_device(tcollate(arrs, tcfg.max_src_len), torch.device("cpu"))
-
-    class ClusterProj(jsbm.ClusterProj):  # JAX fixes 0.2; disabled here only
-        dropout: float = 0.0
-
-    monkeypatch.setattr(jsbm, "ClusterProj", ClusterProj)
-    monkeypatch.setattr(tsbm.ClusterProj, "dropout", 0.0)
-    b, n = arrs["src_seq"].shape
-    h = jcfg.num_heads
-    noise = [np.random.default_rng(60 + i).random((b, h, n, n)).astype(np.float32)
-             for i in range(jcfg.sbm_layers)]
-    jdraws, tdraws = _Draws(), _Draws()
-    monkeypatch.setattr(jsbm, "draw_counter_seed", lambda module, name: jnp.int32(
-        SEEDS[(name, jdraws.next(name))]))
-    monkeypatch.setattr(tsbm, "draw_seed", lambda gen, name: torch.tensor(
-        [SEEDS[(name, tdraws.next(name))]], dtype=torch.int32))
-    monkeypatch.setattr(jsbm, "bernoulli_noise", lambda key, shape: jnp.asarray(
-        noise[jdraws.next("noise")]))
-    monkeypatch.setattr(tsbm, "bernoulli_noise", lambda gen, shape: torch.from_numpy(
-        noise[tdraws.next("noise")]))
-    return jcfg, tcfg, jmodel, params, tmodel, jbatch, tbatch, jdraws, tdraws
-
-
-def _keeping_grads(tx):
-    """``tx`` whose state also holds the gradients of its last update, so
-    the gradients of JAX's own train step can be read back after it."""
-    import optax
-
-    def init(params):
-        return tx.init(params), jax.tree.map(jnp.zeros_like, params)
-
-    def update(grads, state, params=None):
-        updates, inner = tx.update(grads, state[0], params)
-        return updates, (inner, grads)
-
-    return optax.GradientTransformation(init, update)
-
-
 @pytest.mark.parametrize("mode", ["counter", "shared"])
 def test_train_step_matches_jax(mode, monkeypatch):
-    from csat_tpu.train.loop import make_train_step as jmake_step
-    from csat_tpu.train.state import TrainState as JTrainState, default_optimizer as jopt
     from csat_tpu_torch.convert import convert_params
     from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
 
     (jcfg, tcfg, jmodel, params, tmodel, jbatch, tbatch,
-     jdraws, tdraws) = _train_setup(mode, monkeypatch)
+     jdraws, tdraws) = train_setup(mode, monkeypatch)
 
-    tx = _keeping_grads(jopt(jcfg))
-    jparams = jax.tree.map(jnp.asarray, params)
-    jstate = JTrainState(step=jnp.zeros([], jnp.int32), params=jparams,
-                         opt_state=tx.init(jparams), rng=jax.random.key(0))
-    jstate, j_metrics = jmake_step(jmodel, tx, jcfg)(jstate, jbatch)
+    jstate, j_metrics, j_grads = jax_train_step(jcfg, jmodel, params, jbatch)
     assert not bool(j_metrics["nonfinite"])
-    j_grads = jstate.opt_state[1]
 
     opt = default_optimizer(tcfg)
     state = create_train_state(tmodel, opt, seed=0)
@@ -344,7 +259,7 @@ def test_guard_skips_a_nonfinite_step(monkeypatch):
     parameters and moments stay, and the bad-step counter rises."""
     from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
 
-    _, tcfg, _, _, tmodel, _, tbatch, _, _ = _train_setup("counter", monkeypatch)
+    _, tcfg, _, _, tmodel, _, tbatch, _, _ = train_setup("counter", monkeypatch)
     opt = default_optimizer(tcfg)
     state = create_train_state(tmodel, opt, seed=0)
     before = {k: p.detach().clone() for k, p in state.params.items()}
