@@ -39,7 +39,10 @@ Phases, each printing JSON lines:
    python variants' train batch, and, timed beside SDPA, K2 on the first SBM
    layer of java's largest serving prefill group and K7 on that of a java
    shared-noise step at B 64 (dh 96; the spill bytes of the dh-96 builds are
-   printed, not gated);
+   printed, not gated), and K6, K3/K4 and K8/K9 at dh 96 on random inputs
+   and on the first SBM layer of a java counter step and of java's
+   expected-graph forward; for the precision phase, K5 on one self- and one
+   cross-attention launch of its bf16-page and its int8-page drains;
 4. ``serve``   — the flagship ``python`` model at full width (random weights
    from a seed, ``eval_graph="expected"``) serves 16 synthetic requests
    through ``ServeEngine``; every request must be OK, no page may leak, every
@@ -90,15 +93,29 @@ Phases, each printing JSON lines:
    ``python_full_att``, ``python_lap``, ``python_seq``, ``python_treepos``
    and ``python_triplet`` at B 16 — a kernel step against a plain step on
    the card, 4 more steps whose loss must fall — and ``java`` at B 64 — the
-   step gate and the same-graph gate on each SBM layer at dh 96; then each
+   step gate and the same-graph gate on each SBM layer at dh 96, then in
+   ``noise_mode="counter"`` the same two gates (K6, K3, K4) and the
+   expected-graph gradient gate with its same-layer gate (K2, K8, K9), at the
+   python gates' limits; then each
    serves 4 (java 8) requests with ``eval_graph="expected"``, all OK, no page
    leak, tokens equal between the kernels and the plain route on the card
    up to a near tie; the tree positions and triplet ids fed in must not be
    blank; every forward launch at a (B, N, rate, dh) phase 3 checked; the
    lap line carries its ``eigh`` time, and the treepos model's PE goes
    through the RQ2 probe (finite accuracies, no threshold);
-9. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-8 by path, its error,
+9. ``precision`` — the flagship model in the JAX package's production
+   precision, ``compute_dtype="bfloat16"`` (bf16 layers, f32 attention
+   islands, f32 master weights), on the train batch at B 64: a kernel step
+   against a plain step in the default noise mode (loss within 1e-3 and
+   grad-norm within 1e-2 relative), the same-graph gate on each SBM layer's
+   f32 inputs in both noise modes at the f32 limits, 8 more steps whose loss
+   must fall, the bf16 and the f32 step timed in turns, one step from
+   ``init_scheme="reference"`` weights; then 16 requests served at (bf16
+   compute, bf16 pages) and at (f32 compute, int8 pages) through the kernels
+   and through the plain route: all OK, no leak, tokens equal up to a near
+   tie, K5's launches counted by storage dtype;
+10. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-9 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -160,6 +177,21 @@ SAME_GRAPH_GSUM_RTOL = 1e-6
 GS_COEF = 1e-3    # weight of Σ graph_sum in the backward checks' loss
 GRAD_NAMES = ("dq", "dk", "dv", "dr", "dkh")
 GRAPH_TOL = 5e-6  # K7 against plain, max abs: its output feeds the next layer's graph
+# the precision phase, bf16 compute: a kernel step against a plain step.  The
+# kernels' f32 outputs differ from the plain path's by rounding (≤ 2e-5); the
+# cast back to bf16 turns one f32 ulp at a rounding boundary into a bf16 ulp,
+# which spreads through the later layers, so the gate is bf16-sized
+BF16_LOSS_RTOL, BF16_GNORM_RTOL = 1e-3, 1e-2
+# served tokens at bf16 compute are compared up to a top-2 log-prob gap this
+# small: a logit of a few units carries a bf16 ulp of about 1e-2, and a
+# rounding flip upstream moves it by that much (as tests/test_torch_precision.py)
+BF16_TIE = 0.05
+# the first decode step's log-probs of a drain's first admitted slots, the
+# kernel route against the plain route on the card (relative L2), by compute
+# dtype: f32 differs by the kernels' rounding; bf16 by what a rounding flip
+# spreads into (added after this gate's first card run, which compared 9 of
+# 514 bf16 tokens before a 0.05 near tie: the tie rule alone says little)
+FIRST_STEP_LOGP_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 #: (kernel, B, N, dh) held against its plain version in phase 3; each driven
 #: path must find the shapes it gave its kernels in here
@@ -199,8 +231,23 @@ PATH_KERNELS = {
     "python_full_att": ("flex_fwd_cse", "paged_decode"),
     **{name: ("flex_fwd_sbm_graph", "flex_fwd_sbm_expected", "paged_decode")
        for name in ("python_lap", "python_seq", "python_treepos", "python_triplet")},
-    "java": ("flex_fwd_cse", "flex_fwd_sbm_graph", "flex_fwd_sbm_expected", "paged_decode"),
+    # java also takes a counter-mode step gate and the expected-graph
+    # gradient: its SBM kernels at dh 96 forward and backward
+    "java": ("flex_fwd_cse", "flex_fwd_sbm_graph", "flex_fwd_sbm_expected", "paged_decode",
+             "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled", "flex_bwd_k_sbm_sampled",
+             "flex_bwd_q_sbm_expected", "flex_bwd_k_sbm_expected"),
+    # the precision phase: bf16 training in the default (shared) noise mode,
+    # serving at (bf16 compute, bf16 pages) and (f32 compute, int8 pages)
+    "precision_train": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    **{f"precision_serve_{pages}": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
+       for pages in ("bfloat16", "int8")},
 }
+#: java's dh-96 kernels that only its counter gate and expected-graph
+#: gradient run (at its train batch, B 64 / N 150)
+JAVA_GATE_KERNELS = ("flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled", "flex_bwd_k_sbm_sampled",
+                     "flex_bwd_q_sbm_expected", "flex_bwd_k_sbm_expected")
+#: the precision phase's serving runs: (compute dtype, KV page dtype)
+PRECISION_SERVES = (("bfloat16", "bfloat16"), ("float32", "int8"))
 #: the variants phase: (config, train batch, requests served); each config
 #: at its published widths and its own defaults (noise_mode="shared"); B 16
 #: keeps the five python variants' share of the run small
@@ -656,7 +703,7 @@ def backward_work(spec, a_raw, a_eff, dh: int) -> dict:
 
 def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
               variant: str = "plain", floor: float = 0.01, timed: bool = True,
-              captured=None) -> dict:
+              captured=None, dh: int = 64) -> dict:
     """The two backward passes of the sampled mod (K3/K4) or the expected mod
     (K8/K9) against the plain autograd of ``flex_reference`` on the same
     inputs; the forward's ``out`` and ``lse`` of the same call are held
@@ -666,12 +713,13 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
     it is checked).  Without dropout the expected mod's kernel and plain
     results are also held against :func:`expected_closed_form`.  ``captured``
     (from :func:`capture_sbm_inputs`) replaces the random inputs, the output
-    cotangent and the graph_sum cotangent with a real batch's."""
+    cotangent and the graph_sum cotangent with a real batch's; ``dh`` is the
+    head width of random inputs."""
     from csat_tpu_torch.ops import build, flex_core
     from csat_tpu_torch.ops.mods import exp_adjacency
 
     if captured is None:
-        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor)
+        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor, dh=dh)
         dseed = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
         go = torch.randn(q.shape, generator=gen).to(dev)
         gs = torch.full((b, q.shape[1]), GS_COEF, device=dev)
@@ -770,7 +818,7 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
         moved = inputs + nbytes(*outs)
         bound, bound_by = bound_ms(moved, flops - tc_flops, tc_flops)
         errs_fn = {key: errs[key] for key in (("dq", "dr") if "_q_" in fn else ("dk", "dv", "dkh"))}
-        recs[fn] = dict(kernel=fn, B=b, N=n, rate=rate, variant=variant, floor=spec.floor,
+        recs[fn] = dict(kernel=fn, B=b, N=n, dh=dh, rate=rate, variant=variant, floor=spec.floor,
                         max_abs_err=max(errs_fn.values()), fwd_max_abs_err=fwd_err,
                         lse_max_abs_err=lse_err, closed_form_errs=closed_errs,
                         grad_errs=errs_fn, tol=f"{GRAD_TOL} (1 + |plain|)", flips=flips,
@@ -1057,8 +1105,9 @@ def kernel_phase(dev) -> dict:
                            captured=capture_prefill_inputs(serve_cfg, *make_requests(serve_cfg)))
     graph = graph_checks(dev)
     variant = variant_checks(dev)
+    precision = precision_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
-            **variant,
+            **variant, **precision,
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             "flex_fwd_cse@serve": cse_serve,
@@ -1113,13 +1162,65 @@ def variant_checks(dev) -> dict:
     first_sbm = capture_sbm_inputs(java_train, train_batch(java_train, TRAIN_B))[0]
     first_sbm["inputs"] = "java train batch"
     k7 = flex_check("sbm_graph", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    # java's counter-mode step gate and expected-graph gradient: K6, K3/K4
+    # and K8/K9 at dh 96 on random inputs of the dh-64 records' shapes and on
+    # java's own — the first SBM layer of a counter step and of the
+    # deterministic expected-graph forward on its train batch (drawn after
+    # the inputs above, which stay as they were)
+    k6_random = flex_check("sbm_sampled", TRAIN_B, 150, gen, dev, dh=96)
+    k34_random = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev, dh=96)
+    flex_check("sbm_expected", TRAIN_B, 150, gen, dev, dh=96)  # the gradient's forward
+    k89_random = bwd_check("sbm_expected", TRAIN_B, 150, gen, dev, rate=0.0, dh=96)
+    java_counter = get_config("java", noise_mode="counter")
+    first_sbm = capture_sbm_inputs(java_counter, train_batch(java_counter, TRAIN_B))[0]
+    first_sbm["inputs"] = "java train batch, counter"
+    k6 = flex_check("sbm_sampled", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    k34 = bwd_check("sbm_sampled", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    java_exp = get_config("java", eval_graph="expected")
+    first_sbm = capture_sbm_inputs(java_exp, train_batch(java_exp, TRAIN_B), deterministic=True)[0]
+    first_sbm["inputs"] = "java expected_grad batch"
+    k89 = bwd_check("sbm_expected", TRAIN_B, 150, gen, dev, captured=first_sbm)
+    del first_sbm
+    timed = (("K2", "java_serve", k2), ("K2", "random", k2_random),
+             ("K7", "java_train", k7), ("K7", "random", k7_random),
+             ("K6", "java_train", k6), ("K6", "random", k6_random),
+             *((name, inputs, recs[fn]) for inputs, recs in (
+                 ("java_train", k34), ("random", k34_random)) for name, fn in (
+                 ("K3", "flex_bwd_q_sbm_sampled"), ("K4", "flex_bwd_k_sbm_sampled"))),
+             *((name, inputs, recs[fn]) for inputs, recs in (
+                 ("java_expected_grad", k89), ("random", k89_random)) for name, fn in (
+                 ("K8", "flex_bwd_q_sbm_expected"), ("K9", "flex_bwd_k_sbm_expected"))))
     emit("dh96", **{
-        f"{name}@{inputs}": dict(ms=rec["ms"], B=rec["B"], N=rec["N"],
+        f"{name}@{inputs}": dict(ms=rec["ms"], bound_ms=rec["bound_ms"],
+                                 plain_ms=rec["plain_ms"], B=rec["B"], N=rec["N"],
                                  live_entries=rec["live_entries"])
-        for name, inputs, rec in (("K2", "java_serve", k2), ("K2", "random", k2_random),
-                                  ("K7", "java_train", k7), ("K7", "random", k7_random))})
+        for name, inputs, rec in timed})
     return {"flex_fwd_sbm_expected@java_serve": k2, "flex_fwd_sbm_graph@java_train": k7,
-            "flex_fwd_sbm_expected@dh96": k2_random, "flex_fwd_sbm_graph@dh96": k7_random}
+            "flex_fwd_sbm_expected@dh96": k2_random, "flex_fwd_sbm_graph@dh96": k7_random,
+            "flex_fwd_sbm_sampled@java_train": k6, "flex_fwd_sbm_sampled@dh96": k6_random,
+            **{f"{fn}@java_train": rec for fn, rec in k34.items()},
+            **{f"{fn}@java_expected_grad": rec for fn, rec in k89.items()},
+            **{f"{fn}@dh96": rec for fn, rec in (*k34_random.items(), *k89_random.items())}}
+
+
+def precision_checks(dev) -> dict:
+    """K5 on one self- and one cross-attention launch from the middle of each
+    serving drain of the precision phase (``PRECISION_SERVES``: bf16 pages
+    under bf16 compute, int8 pages under f32 compute): the stored bytes, the
+    f32 scales, the tables and merged lanes those drains give it."""
+    from csat_tpu_torch.serve.pages import KV_PAGE_DTYPES
+
+    gen = torch.Generator().manual_seed(SEED + 6)  # unused: the inputs are captured
+    recs = {}
+    for compute, pages in PRECISION_SERVES:
+        cfg = flagship().replace(compute_dtype=compute, serve_kv_page_dtype=pages)
+        decode = capture_decode_inputs(cfg, *make_requests(cfg))
+        for side in ("self", "cross"):
+            if decode[side]["inputs"][1].dtype != KV_PAGE_DTYPES[pages]:
+                raise AssertionError(f"the {pages} drain stored {decode[side]['inputs'][1].dtype}")
+            recs[f"paged_decode@serve_{pages}_{side}"] = paged_check(
+                None, side, gen, dev, captured=decode[side])
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1145,14 +1246,18 @@ def make_requests(cfg, n_requests: int = N_REQUESTS):
 
 class MarginLog:
     """Wraps ``model.decode_step`` to record, per call, each slot's position
-    and the gap between its two largest log-probs."""
+    and the gap between its two largest log-probs, and the first call's
+    log-probs (``first``, on the host)."""
 
     def __init__(self, model):
         self.calls = []
+        self.first = None
         inner = model.decode_step
 
         def decode_step(tok, pos, caches, src_mask, prev_pad):
             log_probs, steps = inner(tok, pos, caches, src_mask, prev_pad)
+            if self.first is None:
+                self.first = log_probs.detach().to(torch.float32).cpu()
             top2 = torch.topk(log_probs, 2, dim=-1).values
             self.calls.append((pos.tolist(), (top2[:, 0] - top2[:, 1]).tolist()))
             return log_probs, steps
@@ -1187,17 +1292,19 @@ def plain_route():
         raise AssertionError(f"the plain route launched kernels: {build.launch_counts()}")
 
 
-def serve(cfg, device: str, samples, budgets, profile: bool = False, plain: bool = False):
+def serve(cfg, device: str, samples, budgets, profile: bool = False, plain: bool = False,
+          margins: bool = False):
     """``samples`` served by ``cfg``'s model from ``SEED`` on ``device``;
-    ``plain`` takes the plain route on the card.  A CPU or plain run logs each
-    step's top-2 log-prob gaps (``MarginLog``) and counts time in decode
-    calls, so that admissions name the step they happened at."""
+    ``plain`` takes the plain route on the card.  A CPU or plain run (or any
+    with ``margins``) logs each step's top-2 log-prob gaps (``MarginLog``)
+    and counts time in decode calls, so that admissions name the step they
+    happened at."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.ops import build
     from csat_tpu_torch.serve import ServeEngine
 
     model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
-    log = MarginLog(model) if device == "cpu" or plain else None
+    log = MarginLog(model) if device == "cpu" or plain or margins else None
     clock = (lambda: len(log.calls)) if log else time.monotonic
     engine = ServeEngine(model, cfg, device=device, clock=clock)
     ids = [engine.submit(s, b) for s, b in zip(samples, budgets)]
@@ -1257,15 +1364,18 @@ def _device_summary(prof, wall: float, trace_name=None) -> dict:
         prof.export_chrome_trace(str(OUT_DIR / trace_name))
     port = [[k[:80], ms, n] for k, ms, n in by_kernel
             if any(f"(anonymous namespace)::{fn}" in k for fn in PORT_KERNEL_FUNCTIONS)]
+    # the matrix products cuBLAS runs (its GEMM and GEMV kernels, by name)
+    gemm_ms = sum(ms for k, ms, _ in by_kernel if re.search(r"gemm|gemv|xmma|cutlass", k, re.I))
     return dict(wall_s=wall, device_busy_ms=busy_ms,
                 device_busy_share=busy_ms / 1e3 / wall if wall else None,
+                gemm_ms=gemm_ms, gemm_share_of_busy=gemm_ms / busy_ms if busy_ms else None,
                 top=[[k[:80], ms, n] for k, ms, n in by_kernel[:15]], port_kernels=port)
 
 
-def compare_tokens(results, ref, label: str):
+def compare_tokens(results, ref, label: str, margin: float = TIE_MARGIN):
     """Each request's tokens in ``results`` equal to those of ``ref`` (a
     :func:`serve` run with a ``MarginLog``) up to the first step where the
-    reference's top-2 log-prob gap is below ``TIE_MARGIN`` (a near tie may
+    reference's top-2 log-prob gap is below ``margin`` (a near tie may
     resolve either way under rounding).  Returns ``(requests cut at a near
     tie, tokens compared)``."""
     mismatched, ties, compared = [], 0, 0
@@ -1273,7 +1383,7 @@ def compare_tokens(results, ref, label: str):
         if not c.ok:
             raise AssertionError(f"request {c.id} not OK on the reference run ({label})")
         gaps = ref["log"].margins(c.admit_t, c.slot, len(c.tokens))
-        upto = next((j for j, gap in enumerate(gaps) if gap < TIE_MARGIN), None)
+        upto = next((j for j, gap in enumerate(gaps) if gap < margin), None)
         if upto is not None:
             ties += 1
             same = np.array_equal(g.tokens[:upto], c.tokens[:upto])
@@ -1390,6 +1500,26 @@ def flex_launches():
         flex_core._kernel_fwd = inner
 
 
+@contextlib.contextmanager
+def paged_launches():
+    """Counts K5's launches inside the block by the storage dtype of the
+    pages it read."""
+    from csat_tpu_torch.ops import paged_decode
+
+    inner, got = paged_decode._attend_kernel, {}
+
+    def recorder(q, pages_k, *rest):
+        key = str(pages_k.dtype).replace("torch.", "")
+        got[key] = got.get(key, 0) + 1
+        return inner(q, pages_k, *rest)
+
+    paged_decode._attend_kernel = recorder
+    try:
+        yield got
+    finally:
+        paged_decode._attend_kernel = inner
+
+
 def _check_launched(path: str, counts) -> None:
     idle = [fn for fn in PATH_KERNELS[path] if counts[fn] <= 0]
     if idle:
@@ -1462,11 +1592,12 @@ def repeatable_backward(model, cfg, batch) -> dict:
     return {"params": len(first), "params_apart": apart}
 
 
-def step_gate(cfg, batch, device="cuda", err_file=None):
+def step_gate(cfg, batch, device="cuda", err_file=None, loss_rtol: float = LOSS_RTOL,
+              gnorm_rtol: float = GNORM_RTOL):
     """One train step through the kernels and one through the plain paths
     (``flex_core.select_impl`` patched to ``"reference"``) from the same
     weights, generator state (so the same noise) and batch: loss within
-    ``LOSS_RTOL`` and global grad-norm within ``GNORM_RTOL``, relative.
+    ``loss_rtol`` and global grad-norm within ``gnorm_rtol``, relative.
     Every parameter's max abs gradient error goes to ``OUT_DIR / err_file``
     when one is named.  Returns ``(model, state, step, metrics, launches,
     record)`` of the kernel side, after its step."""
@@ -1502,14 +1633,14 @@ def step_gate(cfg, batch, device="cuda", err_file=None):
     edges = batch.src_seq.shape[0] * cfg.max_src_len ** 2 * cfg.num_heads * cfg.sbm_layers
     step_flips = abs(float(m_k["sparsity"]) - float(m_p["sparsity"])) * edges
     grad_err = {name: err for name, (err, _) in grad_err.items()}
-    if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL
+    if not (loss_rel <= loss_rtol and gnorm_rel <= gnorm_rtol
             and all(np.isfinite(list(grad_err.values())))):
         raise AssertionError(f"{cfg.noise_mode}: kernel vs plain step: loss rel {loss_rel}, "
                              f"grad-norm rel {gnorm_rel}, worst grads {worst}")
     rec = dict(kernel_loss=float(m_k["loss"]), plain_loss=float(m_p["loss"]), loss_rel=loss_rel,
-               loss_rtol=LOSS_RTOL, kernel_grad_norm=float(m_k["grad_norm"]),
+               loss_rtol=loss_rtol, kernel_grad_norm=float(m_k["grad_norm"]),
                plain_grad_norm=float(m_p["grad_norm"]), grad_norm_rel=gnorm_rel,
-               grad_norm_rtol=GNORM_RTOL, grad_max_abs_err=max(grad_err.values()),
+               grad_norm_rtol=gnorm_rtol, grad_max_abs_err=max(grad_err.values()),
                worst_grad_errs=worst, kernel_sparsity=float(m_k["sparsity"]),
                plain_sparsity=float(m_p["sparsity"]), net_graph_edges_apart=step_flips,
                plain_step_s=plain_s, first_step_s=first_s)
@@ -1677,32 +1808,31 @@ def train_shared_phase(profile: bool) -> dict:
 # phase 6: the expected-graph gradient of the whole model
 # ---------------------------------------------------------------------------
 
-def expected_grad_phase(profile: bool = False) -> dict:
+def expected_grad_gate(cfg, batch, err_file: str, device: str = "cuda"):
     """``model(batch, deterministic=True)`` under ``eval_graph="expected"``,
-    ``nll + sw · sparsity``, ``backward()``: the kernels (K1, K2 forward;
-    K8, K9 backward) against the plain paths on the card, same weights; then
-    the same-layer gate (:func:`same_graph_gate` on this forward's inputs);
-    with ``profile`` one more kernel pass under torch.profiler, whose
-    ``port_kernels`` give K8 + K9 device time over their launches."""
-    from csat_tpu_torch.configs import get_config
+    ``nll + sw · sparsity``, ``backward()``, through the kernels (K1 or none,
+    K2 forward; K8, K9 backward) and through the plain paths on the card from
+    the same weights: loss within ``LOSS_RTOL`` and global grad-norm within
+    ``GNORM_RTOL``, relative, every parameter's error written to ``OUT_DIR /
+    err_file``; the cluster embeddings must get a gradient through the
+    graph.  Returns ``(model, grad_pass, launches of the kernel pass,
+    record)``."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.ops import build, flex_core
     from csat_tpu_torch.resilience.guards import global_norm
     from csat_tpu_torch.train import label_smoothing_loss
 
-    cfg = get_config("python", eval_graph="expected")
-    batch = train_batch(cfg, cfg.batch_size)
-    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cuda", seed=SEED)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
     plain_model = copy.deepcopy(model)
 
     def grad_pass(m):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         log_probs, sparsity = m(batch, deterministic=True)
         nll = label_smoothing_loss(log_probs, batch.target, cfg.smoothing)
         total = nll + cfg.sw * sparsity
         total.backward()
-        torch.cuda.synchronize()
+        sync()
         grads = {name: p.grad for name, p in m.named_parameters()}
         return (float(total.detach()), float(nll.detach()), float(global_norm(grads)),
                 time.perf_counter() - t0)
@@ -1719,24 +1849,43 @@ def expected_grad_phase(profile: bool = False) -> dict:
         flex_core.select_impl = select
     if any(build.launch_counts().values()):
         raise AssertionError(f"the plain pass launched kernels: {build.launch_counts()}")
-    _check_launched("expected_grad", counts)
-    _check_shapes("expected_grad", [tuple(batch.src_seq.shape)], cfg)
     loss_rel = abs(k_total - p_total) / abs(p_total)
     gnorm_rel = abs(k_gnorm - p_gnorm) / p_gnorm
     grad_err = {name: [(p.grad - pp.grad).abs().max().item(), pp.grad.abs().max().item()]
                 for (name, p), (_, pp) in zip(model.named_parameters(),
                                               plain_model.named_parameters())}
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "expected_grad_err.json").write_text(json.dumps(
+    (OUT_DIR / err_file).write_text(json.dumps(
         {"columns": ["max_abs_err", "plain_max_abs_grad"], "params": grad_err}, indent=1))
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1][0])[:5]
     finite = all(np.isfinite(err) for err, _ in grad_err.values())
     if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL and finite):
-        raise AssertionError(f"expected-graph gradient, kernel vs plain: loss rel {loss_rel}, "
-                             f"grad-norm rel {gnorm_rel}, worst grads {worst}")
+        raise AssertionError(f"{cfg.name} expected-graph gradient, kernel vs plain: loss rel "
+                             f"{loss_rel}, grad-norm rel {gnorm_rel}, worst grads {worst}")
     graph_grads = [err for name, (err, mx) in grad_err.items() if "clusters" in name and mx > 0]
     if len(graph_grads) != cfg.sbm_layers:
         raise AssertionError("the cluster embeddings got no gradient through the graph")
+    rec = dict(kernel_loss=k_total, plain_loss=p_total, loss_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               kernel_grad_norm=k_gnorm, plain_grad_norm=p_gnorm, grad_norm_rel=gnorm_rel,
+               grad_norm_rtol=GNORM_RTOL,
+               grad_max_abs_err=max(err for err, _ in grad_err.values()),
+               worst_grad_errs=worst, kernel_pass_s=k_s, plain_pass_s=p_s)
+    return model, grad_pass, counts, rec
+
+
+def expected_grad_phase(profile: bool = False) -> dict:
+    """The expected-graph gradient gate (:func:`expected_grad_gate`) on the
+    flagship model; then the same-layer gate (:func:`same_graph_gate` on
+    this forward's inputs); with ``profile`` one more kernel pass under
+    torch.profiler, whose ``port_kernels`` give K8 + K9 device time over
+    their launches."""
+    from csat_tpu_torch.configs import get_config
+
+    cfg = get_config("python", eval_graph="expected")
+    batch = train_batch(cfg, cfg.batch_size)
+    model, grad_pass, counts, gate = expected_grad_gate(cfg, batch, "expected_grad_err.json")
+    _check_launched("expected_grad", counts)
+    _check_shapes("expected_grad", [tuple(batch.src_seq.shape)], cfg)
     # each SBM layer's K2 and K8/K9 against the plain path on its own inputs
     same_layer = same_graph_gate(cfg, batch, deterministic=True)
     trace = None
@@ -1747,13 +1896,8 @@ def expected_grad_phase(profile: bool = False) -> dict:
         with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = grad_pass(model)[3]
         trace = _device_summary(prof, wall)
-    rec = dict(model="python", eval_graph="expected", batch=cfg.batch_size,
-               kernel_loss=k_total, plain_loss=p_total, loss_rel=loss_rel, loss_rtol=LOSS_RTOL,
-               kernel_grad_norm=k_gnorm, plain_grad_norm=p_gnorm, grad_norm_rel=gnorm_rel,
-               grad_norm_rtol=GNORM_RTOL,
-               grad_max_abs_err=max(err for err, _ in grad_err.values()),
-               worst_grad_errs=worst, kernel_pass_s=k_s, plain_pass_s=p_s, launches=counts,
-               same_layer=same_layer, profile=trace)
+    rec = dict(model="python", eval_graph="expected", batch=cfg.batch_size, **gate,
+               launches=counts, same_layer=same_layer, profile=trace)
     emit("expected_grad", **rec)
     return rec
 
@@ -2033,6 +2177,7 @@ def variant_phase(name: str, b: int, n_requests: int) -> dict:
     more = []
     if name == "java":
         rec["same_graph"] = same_graph_gate(cfg, batch)
+        rec.update(java_gates(cfg, batch, counts, launched))
     else:
         with flex_launches() as more:
             state, steps = more_steps(step, state, batch, float(m_k["loss"]), counts,
@@ -2068,6 +2213,39 @@ def variant_phase(name: str, b: int, n_requests: int) -> dict:
     return rec
 
 
+def java_gates(cfg, batch, counts: dict, launched: list) -> dict:
+    """Java's SBM kernels at dh 96 that its default path leaves out: a
+    ``noise_mode="counter"`` step gate with the same-graph gate on each SBM
+    layer (K6, K3, K4), and the expected-graph gradient gate with the
+    same-layer gate (K2, K8, K9), on java's own train batch, at the python
+    gates' limits.  Adds the kernel runs' launches to ``counts`` and their
+    forward launches to ``launched``; every one of these kernels must have
+    launched, at a shape phase 3 checked."""
+    counter = cfg.replace(noise_mode="counter")
+    with flex_launches() as got:
+        _, _, _, _, c_counts, c_gate = step_gate(counter, batch,
+                                                 err_file="java_counter_grad_err.json")
+    c_same = same_graph_gate(counter, batch)
+    expected = cfg.replace(eval_graph="expected")
+    with flex_launches() as got_e:
+        _, _, e_counts, e_gate = expected_grad_gate(expected, batch, "java_expected_grad_err.json")
+    e_same = same_graph_gate(expected, batch, deterministic=True)
+    launched.extend(got + got_e)
+    for fn in counts:
+        counts[fn] += c_counts[fn] + e_counts[fn]
+    b, n = batch.src_seq.shape
+    idle = [fn for fn in JAVA_GATE_KERNELS if not (c_counts[fn] or e_counts[fn])]
+    unchecked = [fn for fn in JAVA_GATE_KERNELS if (fn, b, n, cfg.head_dim) not in CHECKED]
+    if idle or unchecked:
+        raise AssertionError(f"java gates: kernels never launched {idle}, unchecked at "
+                             f"(B {b}, N {n}, dh {cfg.head_dim}): {unchecked}")
+    keep = ("loss_rel", "grad_norm_rel", "kernel_loss", "grad_max_abs_err")
+    return dict(counter_gate={k: c_gate[k] for k in keep + ("net_graph_edges_apart",)},
+                counter_same_graph=c_same,
+                expected_grad_gate={k: e_gate[k] for k in keep},
+                expected_same_layer=e_same)
+
+
 def variants_phase() -> dict:
     t0 = time.perf_counter()
     recs = {name: variant_phase(name, b, n) for name, b, n in VARIANTS}
@@ -2076,13 +2254,164 @@ def variants_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the production precision — bf16 compute, bf16 / int8 KV pages,
+# the reference initialisation
+# ---------------------------------------------------------------------------
+
+def alternating_step_times(runs: dict, batch, rounds: int = 4) -> dict:
+    """Median step seconds of each named ``(step, state)`` in ``runs`` on
+    ``batch``, the runs taken in turns (a b, b a, ...) so that neither gets
+    the card's quieter moments."""
+    names = list(runs)
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            step, state = runs[name]
+            state, m, seconds = timed_step(step, state, batch)
+            runs[name] = (step, state)
+            times[name].append(seconds)
+    return {name: dict(median_s=statistics.median(t), step_s=t) for name, t in times.items()}
+
+
+def precision_phase(profile: bool) -> dict:
+    """The flagship ``python`` model at its published widths and full depth
+    in the JAX package's production precision, ``compute_dtype="bfloat16"``
+    (bf16 layers, f32 attention islands, f32 master weights), on the train
+    batch of phases 5-6 (B 64): a kernel step against a plain step in the
+    default (shared) noise mode within ``BF16_LOSS_RTOL`` /
+    ``BF16_GNORM_RTOL``; the same-graph gate on each SBM layer's f32 inputs
+    in both noise modes at the f32 limits; ``TRAIN_STEPS`` more bf16 steps
+    whose loss must fall, the parameters still f32; the bf16 and the f32
+    step timed in turns (and, with ``profile``, traced: device busy share
+    and the GEMMs' share); one step from ``init_scheme="reference"``
+    weights; then 16 requests served at each of ``PRECISION_SERVES``
+    through the kernels and through the plain route on the card: all OK, no
+    page leak, tokens equal up to a near tie (``BF16_TIE`` at bf16
+    compute), the first decode step's log-probs within
+    ``FIRST_STEP_LOGP_RTOL``, K5's launches counted by the pages' storage
+    dtype (the kernel drain logs margins too: its seconds include a host
+    read a step)."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.models.init import reference_bound
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve.pages import KV_PAGE_DTYPES
+
+    t0 = time.perf_counter()
+    cfg = get_config("python", compute_dtype="bfloat16")
+    if cfg.noise_mode != "shared":
+        raise AssertionError(f"the python config's default noise mode is {cfg.noise_mode!r}")
+    batch = train_batch(cfg, TRAIN_B)
+    with flex_launches() as launched:
+        model, state, step, m_k, counts, gate = step_gate(
+            cfg, batch, err_file="precision_grad_err.json", loss_rtol=BF16_LOSS_RTOL,
+            gnorm_rtol=BF16_GNORM_RTOL)
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"compute_dtype='bfloat16' built a {model.dtype} model")
+    same_graph = {mode: same_graph_gate(cfg.replace(noise_mode=mode), batch)
+                  for mode in ("shared", "counter")}
+    build.reset_launches()
+    with flex_launches() as more:
+        state, steps = more_steps(step, state, batch, float(m_k["loss"]), counts)
+    wrong = sorted({str(p.dtype) for p in state.params.values()} - {"torch.float32"})
+    if wrong:
+        raise AssertionError(f"master weights left f32: {wrong}")
+    counts = steps["launches"]
+
+    # the same batch in f32 and in bf16, in turns
+    f32_model, f32_state, f32_step = trainer(get_config("python"))
+    times = alternating_step_times({"float32": (f32_step, f32_state), "bfloat16": (step, state)},
+                                   batch)
+    traces = None
+    if profile:
+        traces = {"float32": profile_steps(f32_step, f32_state, batch),
+                  "bfloat16": profile_steps(step, state, batch)}
+    del f32_model, f32_state, f32_step, model, state, step
+
+    # a step from the reference scheme's weights: every redrawn parameter
+    # inside its bound
+    ref_cfg = cfg.replace(init_scheme="reference")
+    ref_model, ref_state, ref_step = trainer(ref_cfg)
+    redrawn = {}
+    for name, p in ref_model.named_parameters():
+        bound = reference_bound(ref_model, name)
+        if bound is not None:
+            redrawn[name] = [float(p.abs().max()), bound]
+            if not 0.5 * bound < float(p.abs().max()) <= bound:
+                raise AssertionError(f"reference init: {name} max {redrawn[name][0]}, bound {bound}")
+    build.reset_launches()
+    with flex_launches() as ref_launched:
+        ref_state, m_ref, ref_s = timed_step(ref_step, ref_state, batch)
+    if m_ref["nonfinite"] or not np.isfinite(float(m_ref["loss"])):
+        raise AssertionError(f"reference-init step not finite: {m_ref}")
+    counts = {fn: c + build.launch_counts()[fn] for fn, c in counts.items()}
+    del ref_model, ref_state, ref_step
+    _check_launched("precision_train", counts)
+    _check_shapes("precision_train", [tuple(batch.src_seq.shape)], cfg)
+    _check_rates("precision_train", launched + more + ref_launched)
+
+    served = {}
+    paths = {"precision_train": counts}
+    for compute, pages in PRECISION_SERVES:
+        scfg = flagship().replace(compute_dtype=compute, serve_kv_page_dtype=pages)
+        samples, budgets = make_requests(scfg)
+        with flex_launches() as s_launched, paged_launches() as by_dtype:
+            card = serve(scfg, "cuda", samples, budgets, margins=True)
+        plain = serve(scfg, "cuda", samples, budgets, plain=True)
+        # the first decode call: the same slots, admitted in the first tick
+        first_k, first_p = card["log"].first, plain["log"].first
+        first_rel = float(torch.linalg.vector_norm(first_k - first_p)
+                          / torch.linalg.vector_norm(first_p))
+        if first_rel > FIRST_STEP_LOGP_RTOL[compute]:
+            raise AssertionError(f"({compute}, {pages}): first-step log-probs, kernel route "
+                                 f"against plain, relative L2 {first_rel}")
+        for run in (card, plain):
+            bad = [r.id for r in run["results"] if not r.ok]
+            leaks = run["engine"].page_leaks()
+            if bad or leaks:
+                raise AssertionError(f"serving at ({compute}, {pages} pages): requests not OK "
+                                     f"{bad}, {leaks} pages leaked")
+        stored = card["engine"]._pool.pages[0]["k"].dtype
+        if stored != KV_PAGE_DTYPES[pages]:
+            raise AssertionError(f"serve_kv_page_dtype={pages!r} allocated {stored} pages")
+        margin = BF16_TIE if compute == "bfloat16" else TIE_MARGIN
+        ties, compared = compare_tokens(card["results"], plain, f"({compute}, {pages}) kernel "
+                                        "and plain", margin=margin)
+        path = f"precision_serve_{pages}"
+        _check_launched(path, card["counts"])
+        _check_rates(path, s_launched)
+        if by_dtype != {pages: card["counts"]["paged_decode"]}:
+            raise AssertionError(f"K5 launches by storage dtype {by_dtype}, counted "
+                                 f"{card['counts']['paged_decode']}")
+        paths[path] = card["counts"]
+        served[f"{compute}/{pages}"] = dict(
+            requests=len(samples), all_ok=True, page_leaks=0, page_dtype=pages,
+            tokens=sum(len(r.tokens) for r in card["results"]), serve_s=card["seconds"],
+            plain_serve_s=plain["seconds"], first_step_logp_rel=first_rel,
+            first_step_logp_max_abs=float((first_k - first_p).abs().max()),
+            first_step_logp_rtol=FIRST_STEP_LOGP_RTOL[compute], tokens_equal=True,
+            tie_margin=margin,
+            near_ties=ties, tokens_compared=compared, paged_decode_by_dtype=by_dtype,
+            launches={fn: c for fn, c in card["counts"].items() if c})
+    rec = dict(model="python", compute_dtype=cfg.compute_dtype, noise_mode=cfg.noise_mode,
+               batch=TRAIN_B, widths=_widths(cfg), **gate, same_graph=same_graph,
+               losses=steps["losses"], bf16_step_s_median=steps["step_s_median"],
+               alternating_step_s=times, profile=traces,
+               reference_init=dict(redrawn=len(redrawn), loss=float(m_ref["loss"]),
+                                   step_s=ref_s, max_over_bound=max(
+                                       m / b for m, b in redrawn.values())),
+               served=served, launches=paths, seconds=time.perf_counter() - t0)
+    emit("precision", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a serving run, two train steps of each noise mode, one "
-                         "expected-graph gradient pass and the restored fit epoch with "
-                         "torch.profiler")
+                         "expected-graph gradient pass, the restored fit epoch and two "
+                         "train steps each in f32 and bf16 with torch.profiler")
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
@@ -2098,10 +2427,12 @@ def main(argv=None) -> int:
         fitted = fit_phase(args.profile, corpus)
         fitted_default = fit_default_phase(corpus)
     variants = variants_phase()
+    precision = precision_phase(args.profile)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
-               **{name: rec["launches"] for name, rec in variants.items()}}
+               **{name: rec["launches"] for name, rec in variants.items()},
+               **precision["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

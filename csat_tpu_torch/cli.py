@@ -9,7 +9,9 @@ Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU
 (``--device`` stands where the JAX CLI has ``--platform``).  Without a GPU and
 without ``--device cpu`` it raises.  ``--set field=value`` overrides any config
 field (the value is parsed as a Python literal), e.g. the widths of a small
-run, ``nonfinite_guard=False`` or ``bucket_src_lens=(37,75)``.  Serving has its own entry points (``serve.ServeEngine``).
+run, ``nonfinite_guard=False``, ``bucket_src_lens=(37,75)``, the
+production precision ``compute_dtype='bfloat16'`` or
+``init_scheme='reference'``.  Serving has its own entry points (``serve.ServeEngine``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parse(argv)
+    import torch
 
     from csat_tpu_torch.configs import get_config, list_configs
     from csat_tpu_torch.data.dataset import ASTDataset
@@ -73,11 +76,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     trainer = Trainer(cfg, device=args.device)
     test_ds = ASTDataset(cfg, "test", trainer.src_vocab, trainer.tgt_vocab)
+    # the test decode's sampled graphs (eval_graph="sample") draw from the
+    # seed, as the JAX CLI's key(cfg.seed)
+    test_gen = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
 
     if args.is_test:
         params = restore_params(args.checkpoint_dir or trainer.output_dir)
         trainer.model.load_state_dict(params, strict=True)
-        scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab,
+        scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab, test_gen,
                           output_dir=trainer.output_dir)
         print(json.dumps(scores))
         return
@@ -92,7 +98,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     # persist the best-by-val-BLEU weights and score them on the test split
     save_params(trainer.output_dir, history["best_params"])
     trainer.model.load_state_dict(history["best_params"], strict=True)
-    scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab,
+    scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab, test_gen,
                       output_dir=trainer.output_dir)
     print(json.dumps({"val_best_bleu": history["best_bleu"], **scores}))
 

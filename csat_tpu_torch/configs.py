@@ -4,12 +4,18 @@ reads, under the same names and defaults, plus the named registry.
 Field names are identical to the reference's so one set of overrides builds
 both configs.  The trainer's fields are here (data paths, epochs, validation
 and save intervals, bucketing, eval decode, guard rollback, checkpoint
-retries).  Fields that only select JAX/TPU machinery (``backend``, meshes,
-compilation caches, AOT warm-up, ``flex_bwd``), trainer machinery the port
-does not carry yet (prefetch, profiling, telemetry, watchdog, preemption
-signals) or serving features outside this port are absent: the port picks
-kernel or plain path by the device a tensor lies on, and a field it never
-reads is not one it pretends to honour.
+retries), and the precision axes: ``compute_dtype`` (bf16 compute with f32
+attention islands), ``init_scheme`` (flax's or the reference's realised
+initialisation) and ``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages).
+Fields that only select JAX/TPU machinery (``backend``, meshes, compilation
+caches, AOT warm-up, ``flex_bwd``), trainer machinery the port does not carry
+yet (prefetch, profiling, telemetry, watchdog, preemption signals, the data
+error budget) or serving features outside this port (prefix cache, KV
+tiering, the rectangle layout, deadlines, fleets) are absent, and so is
+``param_dtype``, which the JAX package declares but reads nowhere (its master
+weights are f32 whatever it says): the port picks kernel or plain path by the
+device a tensor lies on, and a field it never reads is not one it pretends to
+honour.
 """
 
 from __future__ import annotations
@@ -103,6 +109,21 @@ class Config:
     serve_page_size: int = 16
     serve_num_pages: int = 0
 
+    # precision: "bfloat16" runs the dense layers, LayerNorms and residual
+    # stream in bf16 with the attention bodies (CSE and SBM cores, the
+    # decoder's scores, softmax and ·V, the paged decode) as f32 islands and
+    # the output head and loss in f32; the parameters stay f32 master weights
+    compute_dtype: str = "float32"
+    # "flax": per-module xavier; "reference": the reference's realised
+    # distributions (packed-fan decoder q/k/v kernels, U(±1/√fan_in) Linear
+    # biases outside attention; models/init.py)
+    init_scheme: str = "flax"
+    # storage dtype of the paged KV pool: "float32", "bfloat16" or "int8"
+    # (rows quantized on write with an f32 per-row scale, dequantized on
+    # read); the paged layout, which quantized pages require, is the port's
+    # only one
+    serve_kv_page_dtype: str = "float32"
+
     # reference-compat quirk flags (same meanings as the JAX package)
     generator_dropout: bool = True
     pad_row: str = "zero"
@@ -126,6 +147,10 @@ class Config:
         assert self.cse_empty_rows in ("uniform", "zero"), self.cse_empty_rows
         assert self.eval_graph in ("sample", "expected"), self.eval_graph
         assert self.noise_mode in ("shared", "counter"), self.noise_mode
+        assert self.compute_dtype in ("float32", "bfloat16"), self.compute_dtype
+        assert self.init_scheme in ("flax", "reference"), self.init_scheme
+        assert self.serve_kv_page_dtype in ("float32", "bfloat16", "int8"), (
+            self.serve_kv_page_dtype)
         assert 0.0 <= self.dropout < 1.0 and 0.0 <= self.attention_dropout < 1.0
         assert self.sbm_enc_dim % self.num_heads == 0
         assert self.hidden_size % self.num_heads == 0

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["convert_params", "load_flax_params", "flatten", "load_train_state",
+__all__ = ["convert_params", "load_flax_params", "flatten", "flax_path", "load_train_state",
            "export_tree", "export_train_state"]
 
 _SEGMENT = {
@@ -98,6 +98,44 @@ def _map_path(path: Tuple[str, ...]) -> Tuple[str, str]:
     elif leaf == "scale":
         names[-1] = "weight"
     return ".".join(names), leaf
+
+
+_NORMS = {"norm", "norm1", "norm2", "norm3", "attn_norm", "ff_norm"}
+_TABLES = {"src_embedding", "tgt_embedding", "src_pe_embedding", "triplet_emb"}
+
+
+def flax_path(name: str) -> str:
+    """The inverse of the map above: a port parameter name → its flax path,
+    ``/``-joined (``decoder.layers.0.self_attn.q.weight`` →
+    ``decoder/layer_0/self_attn/q/kernel``)."""
+    parts = name.split(".")
+    top = parts[0]
+    out = []
+    i = 0
+    while i < len(parts):
+        seg = parts[i]
+        if seg in ("layers", "blocks"):
+            out.append(("layer_" if seg == "layers" else "transformer_") + parts[i + 1])
+            i += 2
+            continue
+        if i == len(parts) - 1 and seg == "weight":
+            prev = parts[i - 1]
+            seg = "scale" if prev in _NORMS else "embedding" if prev in _TABLES else "kernel"
+        elif seg == "attn":
+            seg = "DisentangledAttn_0" if top == "pegen" else "SBMAttention_0"
+        elif seg == "proj":
+            seg = "ClusterProj_0"
+        elif seg == "ff" and top == "pegen":
+            seg = "FeedForward_0"
+        elif seg in ("attn_norm", "ff_norm"):
+            seg = "LayerNorm_0" if seg == "attn_norm" else "LayerNorm_1"
+        elif seg == "norm" and name != "decoder.norm." + parts[-1]:
+            seg = "LayerNorm_0"
+        elif re.fullmatch(r"fc\d+", seg):
+            seg = f"Dense_{int(seg[2:]) - 1}"
+        out.append(seg)
+        i += 1
+    return "/".join(out)
 
 
 def convert_params(flax_params: Mapping, model: Optional[nn.Module] = None

@@ -12,6 +12,16 @@ masked-score fill, and the Generator's ``log(max(softmax, 1e-30))`` form
 when ``generator_dropout`` is set.  Dropout runs where the flax modules put
 it, only when ``deterministic`` is False, with its keep mask drawn from the
 caller's explicit ``torch.Generator``.
+
+Precision follows flax's ``dtype`` semantics module by module (not
+``torch.autocast``, whose op lists put the casts elsewhere): the parameters
+are f32 master weights; each module computes in its ``dtype`` (the config's
+``compute_dtype``) by casting its input and weights, as ``Dense(dtype=…)``
+does (:func:`dense`); LayerNorms compute in f32 and return ``dtype``
+(:func:`layer_norm`); the attention scores, softmax, dropout and ·V are an
+f32 island (:func:`attention`, the paged decode) whose merged heads are cast
+back to ``dtype`` before the output projection; the output head and its
+log-softmax stay f32.  In f32 every cast is the identity.
 """
 
 from __future__ import annotations
@@ -30,6 +40,62 @@ LN_EPS = 1e-5
 NEG_INF = -1e9
 
 
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` applied as flax's ``Dense(dtype=dtype)`` over f32
+    parameters: input, weight and bias cast to ``dtype``, the product
+    rounded to it, then the bias added in it — two roundings in bf16, as
+    XLA's (``F.linear`` with a bf16 bias fuses the add: one rounding).  In
+    f32, ``layer`` itself."""
+    if dtype == torch.float32:
+        return layer(x.to(dtype))
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``norm`` as flax's ``LayerNorm(dtype=dtype)``: statistics, scale and
+    shift in f32, the result rounded to ``dtype``.  An f32 ``x`` goes
+    through ``norm`` itself.  A lower-precision ``x`` is cast to f32 twice,
+    as flax casts it: once for the statistics (``E[x]`` and ``E[x²]``, the
+    variance ``E[x²] − E[x]²`` clipped at 0) and once for ``x − E[x]``, so
+    that the backward rounds each cast's cotangent to ``x``'s dtype before
+    adding them, as JAX's does."""
+    if x.dtype == torch.float32:
+        return norm(x).to(dtype)
+    xs = x.to(torch.float32)
+    mean = xs.mean(dim=-1, keepdim=True)
+    var = torch.clamp(torch.square(xs).mean(dim=-1, keepdim=True) - torch.square(mean), min=0.0)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight
+    return ((x.to(torch.float32) - mean) * mul + norm.bias).to(dtype)
+
+
+class _Erfc(torch.autograd.Function):
+    """``erfc`` whose backward is JAX's, ``(−2/√π · g) · exp(−x²)`` op by op
+    in ``x``'s dtype (torch's own rounds those products in another order)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.special.erfc(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c = float(torch.tensor(-2.0 / math.sqrt(math.pi), dtype=x.dtype))
+        return (c * g) * torch.exp(-torch.square(x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU.  In f32 ``F.gelu``; in another dtype flax's
+    ``nn.gelu(approximate=False)`` expression, ``0.5·x·erfc(−x·√½)`` with
+    √½ in that dtype, op by op, forward and backward, each result rounded
+    to it as jnp's are (``F.gelu`` rounds only its result, and lands an ulp
+    from JAX's where they differ)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    sqrt_half = float(torch.tensor(0.5 ** 0.5, dtype=x.dtype))
+    return 0.5 * x * _Erfc.apply(-x * sqrt_half)
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as flax applies it (``where(keep, x / (1 - rate),
@@ -40,7 +106,10 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if gen is None:
         raise ValueError("dropout in training mode needs an explicit torch.Generator")
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    # flax divides by the keep probability as a weak-typed scalar: in bf16,
+    # by 1 - rate rounded to bf16
+    keep_prob = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def subsequent_mask(size: int, device=None) -> torch.Tensor:
@@ -75,25 +144,42 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+              rate: float = 0.0, deterministic: bool = True,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The decoder's f32 attention island: ``q`` (B, H, Tq, dh) over ``k``/
+    ``v`` (B, H, Tk, dh), whatever their dtype, scores over √dh, -1e9 where
+    ``mask`` (broadcastable bool, True = disallowed), softmax, dropout at
+    ``rate``, ·V — all in f32.  → (B, H, Tq, dh) f32."""
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    scores = torch.where(mask, torch.full_like(scores, NEG_INF), scores)
+    attn = dropout(torch.softmax(scores, dim=-1), rate, deterministic, gen)
+    return torch.einsum("bhqk,bhkd->bhqd", attn, v)
+
+
 class Embeddings(nn.Module):
     """Token embedding → optional sinusoidal position → LayerNorm → dropout.
     PAD lookups are zeroed (``pad_row="zero"``) or keep the table's row with
     its gradient blocked (``"frozen"``, the reference's padding_idx row)."""
 
     def __init__(self, vocab_size: int, hidden_size: int, dropout: float = 0.0,
-                 with_pos: bool = False, pad_row: str = "zero"):
+                 with_pos: bool = False, pad_row: str = "zero",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab_size, hidden_size))
         self.norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.dropout = dropout
         self.with_pos = with_pos
         self.pad_row = pad_row
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 deterministic: bool = True, gen: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """``pos`` (B,) gives every row its own position (one token per
-        slot); None uses positions ``0..T-1``."""
+        slot); None uses positions ``0..T-1``.  The lookup and the position
+        add are f32, the LayerNorm returns ``dtype``."""
         # indexing, not F.embedding: its backward on the card is index_put_
         # with accumulate, which sorts the indices and adds the rows of a
         # repeated token in a fixed order; F.embedding's adds them in an
@@ -111,37 +197,51 @@ class Embeddings(nn.Module):
                     torch.arange(x.shape[-1], device=x.device), dim)[None]
             else:
                 emb = emb + sinusoidal_rows(pos, dim)[:, None, :]
-        return dropout(self.norm(emb), self.dropout, deterministic, gen)
+        return dropout(layer_norm(self.norm, emb, self.dtype), self.dropout, deterministic, gen)
 
 
 class FeedForward(nn.Module):
     """Linear → exact GELU → dropout → Linear."""
 
-    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model)
         self.dropout = dropout
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = F.gelu(self.fc1(x), approximate="none")
-        return self.fc2(dropout(h, self.dropout, deterministic, gen))
+        h = gelu(dense(self.fc1, x, self.dtype))
+        return dense(self.fc2, dropout(h, self.dropout, deterministic, gen), self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
-    """Separate q/k/v/out projections; whole-sequence attention with
-    attention-weight dropout (training), or decode-time attention through
-    the paged KV pool (serving)."""
+    """Separate q/k/v/out projections in ``dtype``; whole-sequence attention
+    with attention-weight dropout (training), or decode-time attention
+    through the paged KV pool (serving) — either an f32 island."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
+        self.dtype = dtype
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
+
+    def project(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) through one of the q/k/v projections → split heads
+        (B, H, T, dh) in ``dtype``."""
+        return split_heads(dense(layer, x, self.dtype), self.num_heads)
+
+    def merge_out(self, out4: torch.Tensor) -> torch.Tensor:
+        """The f32 island's (B, H, T, dh) heads merged, cast back to
+        ``dtype`` and through the output projection."""
+        return dense(self.out, merge_heads(out4).to(self.dtype), self.dtype)
 
     def attend(self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor,
                deterministic: bool = True, gen: Optional[torch.Generator] = None
@@ -149,18 +249,14 @@ class MultiHeadAttention(nn.Module):
         """``q_in`` (B, Tq, D) attends over ``kv_in`` (B, Tk, D); ``mask``
         bool, broadcastable to (B, H, Tq, Tk), True on disallowed keys
         (score filled with -1e9 before the softmax)."""
-        q = split_heads(self.q(q_in), self.num_heads)
-        k = split_heads(self.k(kv_in), self.num_heads)
-        v = split_heads(self.v(kv_in), self.num_heads)
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
-        scores = torch.where(mask, torch.full_like(scores, NEG_INF), scores)
-        attn = dropout(torch.softmax(scores, dim=-1), self.dropout, deterministic, gen)
-        return self.out(merge_heads(torch.einsum("bhqk,bhkd->bhqd", attn, v)))
+        q, k, v = (self.project(w, x) for w, x in ((self.q, q_in), (self.k, kv_in),
+                                                      (self.v, kv_in)))
+        return self.merge_out(attention(q, k, v, mask, self.dropout, deterministic, gen))
 
     def project_kv(self, kv_in: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Split-head K/V of the encoder memory, computed once at prefill."""
-        return {"k": split_heads(self.k(kv_in), self.num_heads),
-                "v": split_heads(self.v(kv_in), self.num_heads)}
+        """Split-head K/V of the encoder memory in ``dtype``, computed once
+        at prefill."""
+        return {"k": self.project(self.k, kv_in), "v": self.project(self.v, kv_in)}
 
     def attend_self(self, x: torch.Tensor, mask: torch.Tensor,
                     cache: Dict[str, torch.Tensor]
@@ -168,66 +264,76 @@ class MultiHeadAttention(nn.Module):
         """Self attention of one token per slot over its page chain, the
         current token merged at ``cache["idx"]``.  ``mask`` (S, width) True
         on disallowed lanes.  Returns ``(out, k_step, v_step)``; the caller
-        writes ``k_step``/``v_step`` (S, H, 1, dh) into the pages."""
-        q = split_heads(self.q(x), self.num_heads)
-        k = split_heads(self.k(x), self.num_heads)
-        v = split_heads(self.v(x), self.num_heads)
+        writes ``k_step``/``v_step`` (S, H, 1, dh), in ``dtype``, into the
+        pages."""
+        q, k, v = (self.project(w, x) for w in (self.q, self.k, self.v))
         out4, _ = paged_attend(
             q, cache["pages_k"], cache["pages_v"], cache["scale_k"],
             cache["scale_v"], cache["table"], mask, cache["width"],
             idx=cache["idx"], k_tok=k, v_tok=v)
-        return self.out(merge_heads(out4)), k, v
+        return self.merge_out(out4), k, v
 
     def attend_cross(self, x: torch.Tensor, mask: torch.Tensor,
                      kv: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Cross attention of one token per slot over the encoder memory's
         pages.  ``mask`` (S, mem_len) True on padded keys."""
-        q = split_heads(self.q(x), self.num_heads)
         out4, _ = paged_attend(
-            q, kv["pages_k"], kv["pages_v"], kv["scale_k"], kv["scale_v"],
-            kv["table"], mask, kv["width"])
-        return self.out(merge_heads(out4))
+            self.project(self.q, x), kv["pages_k"], kv["pages_v"], kv["scale_k"],
+            kv["scale_v"], kv["table"], mask, kv["width"])
+        return self.merge_out(out4)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm self-attention, cross-attention and FFN sublayers, each
-    followed by dropout before its residual."""
+    followed by dropout before its residual; the residual stream in
+    ``dtype``."""
 
-    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
-        self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout)
-        self.ff = FeedForward(d_model, d_ff, dropout)
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, dtype)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout, dtype)
+        self.ff = FeedForward(d_model, d_ff, dropout, dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = dropout
+        self.dtype = dtype
+
+    def normed(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """``x`` through LayerNorm ``norm{i}``, in ``dtype``."""
+        return layer_norm(getattr(self, f"norm{i}"), x, self.dtype)
 
     def teacher_forced(self, tgt, memory, tgt_mask, mem_mask, deterministic, gen):
         drop = lambda x: dropout(x, self.dropout, deterministic, gen)
-        normed = self.norm1(tgt)
+        normed = self.normed(1, tgt)
         tgt = tgt + drop(self.self_attn.attend(normed, normed, tgt_mask, deterministic, gen))
-        tgt = tgt + drop(self.cross_attn.attend(self.norm2(tgt), memory, mem_mask,
+        tgt = tgt + drop(self.cross_attn.attend(self.normed(2, tgt), memory, mem_mask,
                                                 deterministic, gen))
-        return tgt + drop(self.ff(self.norm3(tgt), deterministic, gen))
+        return tgt + drop(self.ff(self.normed(3, tgt), deterministic, gen))
 
     def forward(self, tgt, self_mask, mem_mask, cache):
-        h, k_step, v_step = self.self_attn.attend_self(self.norm1(tgt), self_mask, cache["self"])
+        h, k_step, v_step = self.self_attn.attend_self(self.normed(1, tgt), self_mask,
+                                                       cache["self"])
         tgt = tgt + h
-        tgt = tgt + self.cross_attn.attend_cross(self.norm2(tgt), mem_mask, cache["cross"])
-        tgt = tgt + self.ff(self.norm3(tgt))
+        tgt = tgt + self.cross_attn.attend_cross(self.normed(2, tgt), mem_mask, cache["cross"])
+        tgt = tgt + self.ff(self.normed(3, tgt))
         return tgt, k_step, v_step
 
 
 class Decoder(nn.Module):
-    """Stack of :class:`DecoderLayer` + final LayerNorm."""
+    """Stack of :class:`DecoderLayer` + final LayerNorm (in ``dtype``)."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, d_ff: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, num_heads, d_ff, dropout) for _ in range(num_layers))
+            DecoderLayer(d_model, num_heads, d_ff, dropout, dtype) for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dtype = dtype
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self.norm, x, self.dtype)
 
     def teacher_forced(self, tgt, memory, tgt_mask, memory_key_pad,
                        deterministic: bool = True, gen: Optional[torch.Generator] = None):
@@ -238,19 +344,20 @@ class Decoder(nn.Module):
         mem_mask = memory_key_pad[:, None, None, :]
         for layer in self.layers:
             tgt = layer.teacher_forced(tgt, memory, self_mask, mem_mask, deterministic, gen)
-        return self.norm(tgt)
+        return self.final_norm(tgt)
 
     def forward(self, tgt, self_mask, mem_mask, caches: List[Dict]):
         steps = []
         for layer, cache in zip(self.layers, caches):
             tgt, k_step, v_step = layer(tgt, self_mask, mem_mask, cache)
             steps.append((k_step, v_step))
-        return self.norm(tgt), steps
+        return self.final_norm(tgt), steps
 
 
 class Generator(nn.Module):
-    """Output head: linear → dropout → softmax → log(max(p, 1e-30)) (the
-    reference's order) or plain ``log_softmax`` without dropout."""
+    """Output head, f32 whatever the compute dtype: linear → dropout →
+    softmax → log(max(p, 1e-30)) (the reference's order) or plain
+    ``log_softmax`` without dropout."""
 
     def __init__(self, d_model: int, vocab_size: int, reference_dropout: bool = True,
                  dropout: float = 0.0):
@@ -261,7 +368,7 @@ class Generator(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        logits = self.fc1(x)
+        logits = dense(self.fc1, x, torch.float32)
         if self.reference_dropout:
             logits = dropout(logits, self.dropout, deterministic, gen)
             return torch.log(torch.clamp(torch.softmax(logits, dim=-1), min=1e-30))

@@ -10,6 +10,12 @@ teacher-forced over the whole target (``forward``, the training pass) or
 stepped one token per slot over the paged KV pool (``decode_step``,
 serving).  Submodules carry flax's names (``src_pe_embedding``, ``pegen``,
 ``tree_pos_enc``, ``triplet_emb``) and exist only for their variant.
+
+``dtype`` is the compute dtype ``cfg.compute_dtype`` names (bf16 or f32, as
+the JAX ``make_model`` picks it): the parameters stay f32 master weights,
+every module computes in ``dtype`` with f32 attention islands
+(``models/components.py``), the PE inputs are cast to it, and the
+log-probabilities come out f32.
 """
 
 from __future__ import annotations
@@ -44,9 +50,9 @@ def _on(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 class CSATrans(nn.Module):
     """Built on ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``) with weights drawn from ``seed`` (default
-    ``cfg.seed``) — or load converted flax weights afterwards
-    (``convert.load_flax_params``).  ``triplet_vocab_size`` sizes the
-    triplet table (0: the reference's per-language fallback;
+    ``cfg.seed``) under ``cfg.init_scheme`` — or load converted flax weights
+    afterwards (``convert.load_flax_params``).  ``triplet_vocab_size`` sizes
+    the triplet table (0: the reference's per-language fallback;
     ``train.state.make_model`` checks it against the dictionary on disk)."""
 
     def __init__(self, cfg: Config, src_vocab_size: int, tgt_vocab_size: int,
@@ -54,32 +60,34 @@ class CSATrans(nn.Module):
                  seed: Optional[int] = None, triplet_vocab_size: int = 0):
         super().__init__()
         device = resolve_device(device)
+        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.cfg = cfg
+        self.dtype = dtype
         self.src_vocab_size = src_vocab_size
         self.tgt_vocab_size = tgt_vocab_size
         self.triplet_vocab_size = 0
         self.src_embedding = Embeddings(src_vocab_size, cfg.src_emb_dim, cfg.dropout,
-                                        pad_row=cfg.pad_row)
+                                        pad_row=cfg.pad_row, dtype=dtype)
         self.tgt_embedding = Embeddings(tgt_vocab_size, cfg.hidden_size, cfg.dropout,
-                                        with_pos=True, pad_row=cfg.pad_row)
+                                        with_pos=True, pad_row=cfg.pad_row, dtype=dtype)
         if cfg.use_pegen == "pegen":
             self.src_pe_embedding = Embeddings(src_vocab_size, cfg.pegen_dim, cfg.dropout,
-                                               pad_row=cfg.pad_row)
-            self.pegen = CSE(cfg)
+                                               pad_row=cfg.pad_row, dtype=dtype)
+            self.pegen = CSE(cfg, dtype)
         elif cfg.use_pegen == "treepos":
             self.tree_pos_enc = TreePositionalEncodings(
                 cfg.tree_pos_height, cfg.tree_pos_width,
                 cfg.pegen_dim // (cfg.tree_pos_height * cfg.tree_pos_width))
         elif cfg.use_pegen == "triplet":
             self.triplet_vocab_size = triplet_vocab_size or TRIPLET_VOCAB_FALLBACK[cfg.lang]
-            self.triplet_emb = TripletEmbedding(self.triplet_vocab_size, cfg.pegen_dim)
-        self.encoder = SBMEncoder(cfg)
+            self.triplet_emb = TripletEmbedding(self.triplet_vocab_size, cfg.pegen_dim, dtype)
+        self.encoder = SBMEncoder(cfg, dtype)
         self.decoder = Decoder(cfg.decoder_layers, cfg.hidden_size, cfg.num_heads,
-                               cfg.dim_feed_forward, cfg.dropout)
+                               cfg.dim_feed_forward, cfg.dropout, dtype)
         self.generator = Generator(cfg.hidden_size, tgt_vocab_size,
                                    reference_dropout=cfg.generator_dropout,
                                    dropout=cfg.dropout)
-        init_params(self, cfg.seed if seed is None else seed)
+        init_params(self, cfg.seed if seed is None else seed, cfg.init_scheme)
         self.to(device)
         self.eval()
 
@@ -117,9 +125,10 @@ class CSATrans(nn.Module):
                                 deterministic, gen)
         elif cfg.use_pegen == "laplacian":
             src_pe = laplacian_pe(_on(batch.adj, dev, torch.float32),
-                                  _on(batch.num_node, dev, torch.long), cfg.pegen_dim)
+                                  _on(batch.num_node, dev, torch.long),
+                                  cfg.pegen_dim).to(self.dtype)
         elif cfg.use_pegen == "treepos":
-            src_pe = self.tree_pos_enc(_on(batch.tree_pos, dev, torch.float32))
+            src_pe = self.tree_pos_enc(_on(batch.tree_pos, dev, torch.float32)).to(self.dtype)
         elif cfg.use_pegen == "triplet":
             src_pe = self.triplet_emb(_on(batch.triplet, dev, torch.long))
         else:  # sequential: the encoder adds its sinusoidal table
@@ -162,15 +171,18 @@ class CSATrans(nn.Module):
         dec_out, steps = self.decoder(emb, self_mask, src_mask, caches)
         return self.generator(dec_out[:, -1]), steps
 
-    def init_page_pool(self, num_pages: int, page_size: int) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed per-layer f32 K/V page arrays ``(num_pages, H, page, dh)``
-        with f32 per-row scales of 1.0 (untouched pages, the null page
-        included, dequantize to exact zeros)."""
+    def init_page_pool(self, num_pages: int, page_size: int,
+                       kv_dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed per-layer K/V page arrays ``(num_pages, H, page, dh)``
+        stored in ``kv_dtype`` (f32, bf16 or int8) with f32 per-row scales
+        of 1.0 (untouched pages, the null page included, dequantize to exact
+        zeros)."""
         cfg = self.cfg
         shape = (num_pages, cfg.num_heads, page_size, cfg.hidden_size // cfg.num_heads)
         dev = self.device
         return [
-            {"k": torch.zeros(shape, device=dev), "v": torch.zeros(shape, device=dev),
+            {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
              "k_scale": torch.ones(shape[:-1] + (1,), device=dev),
              "v_scale": torch.ones(shape[:-1] + (1,), device=dev)}
             for _ in self.decoder.layers

@@ -6,7 +6,10 @@ the ``cse`` mod through :func:`~csat_tpu_torch.ops.flex_core.flex_attention`:
 the CUDA kernel on the card, the plain path on the CPU.  The L and T distance
 planes fan out to ``H/2`` pseudo-heads each inside the mod.  The attention
 carries no attention dropout (as in JAX); the residual branches and the FFN
-drop at ``cfg.dropout`` in training mode.
+drop at ``cfg.dropout`` in training mode.  In bf16 (``dtype``) the
+projections, LayerNorms and residual stream run in bf16, the relative tables
+are stacked in bf16, and q/k/v and the projected tables go to f32 before the
+kernel; its output is cast back before ``wo`` (the JAX module's casts).
 """
 
 from __future__ import annotations
@@ -17,24 +20,27 @@ import torch
 from torch import nn
 
 from csat_tpu_torch.configs import Config
-from csat_tpu_torch.models.components import LN_EPS, FeedForward, dropout, merge_heads
+from csat_tpu_torch.models.components import (
+    LN_EPS, FeedForward, dense, dropout, layer_norm, merge_heads)
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import cse_mod
 
 
 class DisentangledAttn(nn.Module):
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         d, h = cfg.pegen_dim, cfg.num_heads
         self.cfg = cfg
+        self.dtype = dtype
         self.dk = d // h
         self.half = h // 2  # L-heads then T-heads
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
         self.l_q, self.l_k, self.t_q, self.t_k = (
             nn.Linear(d, self.dk * self.half) for _ in range(4))
 
-    def _heads(self, t: torch.Tensor) -> torch.Tensor:
-        """(R, half·dk) → (half, R, dk)."""
+    def _heads(self, layer: nn.Linear, table: torch.Tensor) -> torch.Tensor:
+        """A (R, d) table through ``layer`` → (half, R, dk)."""
+        t = dense(layer, table, self.dtype)
         return t.reshape(t.shape[0], self.half, self.dk).transpose(0, 1)
 
     def forward(self, x, rel_tables, rel, mask):
@@ -42,55 +48,59 @@ class DisentangledAttn(nn.Module):
         (B, 2, N, N) int32 offset distances; ``mask`` (B, 2, N, N) bool."""
         b, n, _ = x.shape
         h = self.cfg.num_heads
-        q, k, v = (w(x).reshape(b, n, h, self.dk).transpose(1, 2).contiguous()
-                   for w in (self.wq, self.wk, self.wv))
+        q, k, v = (dense(w, x, self.dtype).reshape(b, n, h, self.dk).transpose(1, 2)
+                   .to(torch.float32).contiguous() for w in (self.wq, self.wk, self.wv))
         l_table, t_table = rel_tables[0], rel_tables[1]
-        rel_q = torch.cat([self._heads(self.l_q(l_table)), self._heads(self.t_q(t_table))])
-        rel_k = torch.cat([self._heads(self.l_k(l_table)), self._heads(self.t_k(t_table))])
+        rel_q = torch.cat([self._heads(self.l_q, l_table),
+                           self._heads(self.t_q, t_table)]).to(torch.float32)
+        rel_k = torch.cat([self._heads(self.l_k, l_table),
+                           self._heads(self.t_k, t_table)]).to(torch.float32)
         spec, aux = cse_mod(rel_q, rel_k, rel, mask)
         out, _ = flex_attention(q, k, v, spec, aux)
         if self.cfg.cse_empty_rows == "zero":
             # rows with no related pair take nothing from attention
             empty = mask.all(dim=-1).repeat_interleave(self.half, dim=1)  # (B, H, N)
             out = torch.where(empty[..., None], torch.zeros_like(out), out)
-        return self.wo(merge_heads(out))
+        return dense(self.wo, merge_heads(out).to(self.dtype), self.dtype)
 
 
 class CSELayer(nn.Module):
     """Pre-norm disentangled attention + FFN."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attn_norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
-        self.attn = DisentangledAttn(cfg)
+        self.attn = DisentangledAttn(cfg, dtype)
         self.ff_norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
-        self.ff = FeedForward(cfg.pegen_dim, cfg.pegen_dim, cfg.dropout)
+        self.ff = FeedForward(cfg.pegen_dim, cfg.pegen_dim, cfg.dropout, dtype)
         self.dropout = cfg.dropout
+        self.dtype = dtype
 
     def forward(self, x, rel_tables, rel, mask, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None):
-        h = self.attn(self.attn_norm(x), rel_tables, rel, mask)
+        h = self.attn(layer_norm(self.attn_norm, x, self.dtype), rel_tables, rel, mask)
         x = x + dropout(h, self.dropout, deterministic, gen)
-        h = self.ff(self.ff_norm(x), deterministic, gen)
+        h = self.ff(layer_norm(self.ff_norm, x, self.dtype), deterministic, gen)
         return x + dropout(h, self.dropout, deterministic, gen)
 
 
 class CSE(nn.Module):
     """Stack of CSE layers producing the per-node positional encoding."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.L_q = nn.Parameter(torch.empty(cfg.max_src_len, cfg.pegen_dim))
         self.T_q = nn.Parameter(torch.empty(cfg.max_src_len, cfg.pegen_dim))
-        self.layers = nn.ModuleList(CSELayer(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(CSELayer(cfg, dtype) for _ in range(cfg.num_layers))
         self.norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
+        self.dtype = dtype
 
     def forward(self, src_pe_emb, L, T, L_mask, T_mask, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None):
         rel = torch.stack([L, T], dim=1).to(torch.int32)
         mask = torch.stack([L_mask, T_mask], dim=1)
-        rel_tables = torch.stack([self.L_q, self.T_q])
+        rel_tables = torch.stack([self.L_q, self.T_q]).to(self.dtype)
         x = src_pe_emb
         for layer in self.layers:
             x = layer(x, rel_tables, rel, mask, deterministic, gen)
-        return self.norm(x)
+        return layer_norm(self.norm, x, self.dtype)

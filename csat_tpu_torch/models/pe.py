@@ -105,13 +105,14 @@ def laplacian_pe(adj: torch.Tensor, num_node: torch.Tensor, pegen_dim: int) -> t
 
 class TripletEmbedding(nn.Module):
     """Node-triplet ids ``(B, N)`` → ``(B, N, pegen_dim)`` rows of the table
-    ``weight``."""
+    ``weight``, cast to ``dtype``."""
 
-    def __init__(self, vocab_size: int, pegen_dim: int):
+    def __init__(self, vocab_size: int, pegen_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab_size, pegen_dim))
+        self.dtype = dtype
 
     def forward(self, triplet: torch.Tensor) -> torch.Tensor:
         # indexing, as Embeddings does: its backward adds repeated ids' rows
         # in a fixed order
-        return self.weight[triplet]
+        return self.weight[triplet].to(self.dtype)

@@ -22,6 +22,12 @@ projected PE (``sbm.py:315-320``).  Seeds and noise come from the
 caller's explicit ``torch.Generator`` (:func:`draw_seed`, where JAX calls
 ``draw_counter_seed``).  ``ClusterProj`` drops at 0.2 whatever
 ``cfg.dropout`` is, as the JAX module hard-codes it.
+
+The attention is an f32 island whatever the compute dtype (``sbm.py:17,
+259-260`` of the JAX package): a block's LayerNorms, projections, MLP and
+residual stream run in its ``dtype``, and q/k/v go to f32 before the cluster
+memberships, the graph and the kernels; the sparsity term stays f32 and the
+merged heads are cast back before ``wo``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from torch.nn import functional as F
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.models.components import (
-    LN_EPS, dropout, merge_heads, sinusoidal_rows, split_heads)
+    LN_EPS, dense, dropout, gelu, layer_norm, merge_heads, sinusoidal_rows, split_heads)
 from csat_tpu_torch.models.ste import bernoulli_noise, sample_graph
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod
@@ -140,11 +146,12 @@ class SBMBlock(nn.Module):
     """Pre-norm block: SBM (or, under ``full_att``, dense) attention + GELU
     MLP, each with dropout before its residual."""
 
-    def __init__(self, cfg: Config, layer_idx: int):
+    def __init__(self, cfg: Config, layer_idx: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         d = cfg.sbm_enc_dim
         self.num_heads = cfg.num_heads
         self.dropout = cfg.dropout
+        self.dtype = dtype
         self.attn_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
         if cfg.full_att:
@@ -160,13 +167,15 @@ class SBMBlock(nn.Module):
     def forward(self, x, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None):
         drop = lambda t: dropout(t, self.dropout, deterministic, gen)
-        h = self.attn_norm(x)
-        q, k, v = (split_heads(w(h), self.num_heads).contiguous()
+        lin = lambda layer, t: dense(layer, t, self.dtype)
+        h = layer_norm(self.attn_norm, x, self.dtype)
+        # the f32 island
+        q, k, v = (split_heads(lin(w, h), self.num_heads).to(torch.float32).contiguous()
                    for w in (self.wq, self.wk, self.wv))
         out, sparsity = self.attn(q, k, v, key_pad, deterministic, gen)
-        x = x + drop(self.wo(merge_heads(out)))
-        h = drop(F.gelu(self.fc1(self.ff_norm(x)), approximate="none"))
-        return x + drop(self.fc2(h)), sparsity
+        x = x + drop(lin(self.wo, merge_heads(out).to(self.dtype)))
+        h = drop(gelu(lin(self.fc1, layer_norm(self.ff_norm, x, self.dtype))))
+        return x + drop(lin(self.fc2, h)), sparsity
 
 
 class SBMEncoder(nn.Module):
@@ -177,14 +186,15 @@ class SBMEncoder(nn.Module):
     under ``full_att``, and ``pe`` is the post-expansion PE the probe reads
     (None for ``sequential``)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.sequential = cfg.use_pegen == "sequential"
         if not self.sequential:
             self.pe_expand = nn.Linear(cfg.pegen_dim, cfg.pe_dim)
-        self.blocks = nn.ModuleList(SBMBlock(cfg, i) for i in range(cfg.sbm_layers))
+        self.blocks = nn.ModuleList(SBMBlock(cfg, i, dtype) for i in range(cfg.sbm_layers))
         self.norm = nn.LayerNorm(cfg.sbm_enc_dim, eps=LN_EPS)
         self.out = nn.Linear(cfg.sbm_enc_dim, cfg.hidden_size)
+        self.dtype = dtype
 
     def forward(self, src_emb, src_pe, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None):
@@ -194,13 +204,13 @@ class SBMEncoder(nn.Module):
             pe = None
             n = src_emb.shape[1]
             x = src_emb + sinusoidal_rows(torch.arange(n, device=src_emb.device),
-                                          src_emb.shape[-1])[None]
+                                          src_emb.shape[-1])[None].to(self.dtype)
         else:
-            pe = self.pe_expand(src_pe)
+            pe = dense(self.pe_expand, src_pe, self.dtype)
             x = torch.cat([src_emb, pe], dim=-1)
         sparsities = []
         for block in self.blocks:
             x, sparsity = block(x, key_pad, deterministic, gen)
             sparsities.append(sparsity)
-        x = self.norm(x) * (1.0 - key_pad.to(x.dtype))[:, :, None]
-        return self.out(x), sparsities, pe
+        x = layer_norm(self.norm, x, self.dtype) * (1.0 - key_pad.to(self.dtype))[:, :, None]
+        return dense(self.out, x, self.dtype), sparsities, pe

@@ -155,7 +155,7 @@ def extract_pe(model, batch, gen: Optional[torch.Generator] = None) -> np.ndarra
     _, _, pe = model.encode_pe(batch, deterministic=True, gen=gen)
     if pe is None:
         raise ValueError("this PE variant produces no probe-visible encoding")
-    return pe.cpu().numpy()
+    return pe.to(torch.float32).cpu().numpy()
 
 
 def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``serve/engine.py`` with the same public
 door — ``submit`` / ``poll`` / ``tick`` / ``drain`` / ``generate`` and
-``page_leaks`` — over ``cfg.serve_slots`` decode slots whose K/V live in f32
-pages.  Each :meth:`tick` is one scheduler round:
+``page_leaks`` — over ``cfg.serve_slots`` decode slots whose K/V live in
+pages of ``cfg.serve_kv_page_dtype`` (f32, or bf16 / int8 rows quantized on
+write with f32 per-row scales), under the model's compute dtype.  Each
+:meth:`tick` is one scheduler round:
 
 1. **retire** — rows that emitted EOS or spent their token budget hand their
    tokens back (``OK``) and free their pages; a row whose log-probs went
@@ -18,8 +20,8 @@ pages.  Each :meth:`tick` is one scheduler round:
 
 A sample that fails validation resolves ``FAILED`` at submit.  Prefix cache,
 KV tiering, the rectangle layout, meshes, fleets, fault drills, deadlines,
-priorities, warm start, observability and the network front door are not
-part of this port yet.
+priorities, warm start, the stats summary (``effective_slots`` among it),
+observability and the network front door are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ class ServeEngine:
         self.specs = prefill_plan(cfg)
         self.geo = page_geometry(cfg)
         self._allocator = PageAllocator(self.geo.num_pages)
-        self._pool = init_paged_pool(model, self.num_slots, self.geo)
+        self._pool = init_paged_pool(model, self.num_slots, self.geo, cfg.serve_kv_page_dtype)
         self._step = build_paged_decode_step(model, self.geo)
         self._slots: List[Optional[Request]] = [None] * self.num_slots
         self._plans: List[Optional[PagePlan]] = [None] * self.num_slots

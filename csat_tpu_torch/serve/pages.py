@@ -6,7 +6,11 @@ owns two fixed-width int32 page-table rows, ``self_pt`` (ceil(steps/page)
 entries) and ``cross_pt`` (ceil(mem_len/page)).  One page id addresses the
 same slice of every layer's arrays.  Page 0 is the reserved null page:
 unallocated table entries point at it and frozen rows' dead writes land in
-it.
+it.  Pages store ``cfg.serve_kv_page_dtype`` (f32, bf16 or int8) beside f32
+per-row scales: rows are quantized on write (:func:`quantize_kv`, at the
+decode scatter here and at prefill), dequantized on read — by the
+paged-decode kernel from the stored bytes on the card, by the plain gather
+path on the CPU.
 
 Unlike the JAX pool, which is an immutable pytree donated through compiled
 programs, :class:`PagedPool` is updated IN PLACE: the decode step writes
@@ -27,9 +31,12 @@ from csat_tpu_torch.ops.paged_decode import NULL_PAGE, quantize_kv
 from csat_tpu_torch.utils import EOS, PAD
 
 __all__ = [
-    "NULL_PAGE", "PageGeometry", "page_geometry", "PageAllocator", "PagedPool",
-    "chain_table_row", "init_paged_pool", "build_paged_decode_step",
+    "NULL_PAGE", "KV_PAGE_DTYPES", "PageGeometry", "page_geometry", "PageAllocator",
+    "PagedPool", "chain_table_row", "init_paged_pool", "build_paged_decode_step",
 ]
+
+#: ``serve_kv_page_dtype`` → storage dtype of the K/V page arrays
+KV_PAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 class PageGeometry(NamedTuple):
@@ -123,11 +130,13 @@ def chain_table_row(chain: Sequence[int], width: int) -> np.ndarray:
     return row
 
 
-def init_paged_pool(model, num_slots: int, geo: PageGeometry) -> PagedPool:
-    """Every slot frozen (``limit = 0``) with null page tables."""
+def init_paged_pool(model, num_slots: int, geo: PageGeometry,
+                    kv_dtype: str = "float32") -> PagedPool:
+    """Every slot frozen (``limit = 0``) with null page tables, the pages
+    stored in ``kv_dtype`` (a ``serve_kv_page_dtype`` name)."""
     dev = model.device
     return PagedPool(
-        pages=model.init_page_pool(geo.num_pages, geo.page),
+        pages=model.init_page_pool(geo.num_pages, geo.page, KV_PAGE_DTYPES[kv_dtype]),
         self_pt=torch.full((num_slots, geo.sp), NULL_PAGE, dtype=torch.int32, device=dev),
         cross_pt=torch.full((num_slots, geo.cp), NULL_PAGE, dtype=torch.int32, device=dev),
         src_mask=torch.ones((num_slots, geo.mem_len), dtype=torch.bool, device=dev),

@@ -7,9 +7,11 @@ transform).  ``T - 1`` is the width of ``batch.tgt_seq``, so length-bucketed
 batches decode at their bucket's capacity.
 
 * :func:`greedy_decode` keeps a rectangular per-layer KV cache
-  ``(B, H, T - 1, dh)`` and the cross-attention K/V projected once from the
-  memory; ``prev_pad`` reproduces the reference's ``make_std_mask(ys, 0)``: a
-  *generated* PAD token is masked out of later self attention.
+  ``(B, H, T - 1, dh)`` in the model's compute dtype and the cross-attention
+  K/V projected once from the memory, and attends over them in f32, as the
+  decoder's attention island does; ``prev_pad`` reproduces the reference's
+  ``make_std_mask(ys, 0)``: a *generated* PAD token is masked out of later
+  self attention.
 * :func:`greedy_decode_early_eos` (``cfg.decode_early_eos``) runs the same
   steps and stops once every row has emitted ``</s>``; positions after the
   exit stay PAD, and each row's prefix up to its first EOS is identical.
@@ -23,49 +25,41 @@ forward.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
 
 from csat_tpu_torch.data.dataset import Batch
-from csat_tpu_torch.models.components import NEG_INF, merge_heads, split_heads
+from csat_tpu_torch.models.components import attention
 from csat_tpu_torch.utils import BOS, EOS, PAD
 
 __all__ = ["greedy_decode", "greedy_decode_early_eos", "decode_fn"]
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor):
-    """One query per row: ``q`` (B, H, 1, dh) over ``k``/``v`` (B, H, W, dh),
-    ``mask`` (B, W) True on disallowed keys (-1e9 fill, as the decoder's
-    teacher-forced attention)."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
-    scores = torch.where(mask[:, None, None, :], torch.full_like(scores, NEG_INF), scores)
-    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v)
-
-
 def _decode_step(model, tok, i: int, caches, src_mask, prev_pad):
     """One lockstep decoder step at position ``i`` over the rectangular
     cache (the JAX ``CSATrans.decode_step`` with a scalar position).
-    Returns log-probs (B, V); writes this step's self K/V into ``caches``."""
+    Returns log-probs (B, V); writes this step's self K/V, in the model's
+    compute dtype, into ``caches``."""
     steps = prev_pad.shape[1]
     pos = torch.full((tok.shape[0],), i, dtype=torch.long, device=tok.device)
     x = model.tgt_embedding(tok, pos=pos)
     future = torch.arange(steps, device=tok.device)[None, :] > i
-    self_mask = prev_pad | future
+    self_mask = (prev_pad | future)[:, None, None, :]
+    cross_mask = src_mask[:, None, None, :]
     for layer, cache in zip(model.decoder.layers, caches):
-        attn, h = layer.self_attn, layer.self_attn.num_heads
-        normed = layer.norm1(x)
-        cache["k"][:, :, i] = split_heads(attn.k(normed), h)[:, :, 0]
-        cache["v"][:, :, i] = split_heads(attn.v(normed), h)[:, :, 0]
-        out = _attend(split_heads(attn.q(normed), h), cache["k"], cache["v"], self_mask)
-        x = x + attn.out(merge_heads(out))
+        attn = layer.self_attn
+        normed = layer.normed(1, x)
+        cache["k"][:, :, i] = attn.project(attn.k, normed)[:, :, 0]
+        cache["v"][:, :, i] = attn.project(attn.v, normed)[:, :, 0]
+        out = attention(attn.project(attn.q, normed), cache["k"], cache["v"], self_mask)
+        x = x + attn.merge_out(out)
         cross = layer.cross_attn
-        out = _attend(split_heads(cross.q(layer.norm2(x)), h), cache["cross_k"],
-                      cache["cross_v"], src_mask)
-        x = x + cross.out(merge_heads(out))
-        x = x + layer.ff(layer.norm3(x))
-    return model.generator(model.decoder.norm(x)[:, -1])
+        out = attention(cross.project(cross.q, layer.normed(2, x)), cache["cross_k"],
+                        cache["cross_v"], cross_mask)
+        x = x + cross.merge_out(out)
+        x = x + layer.ff(layer.normed(3, x))
+    return model.generator(model.decoder.final_norm(x)[:, -1])
 
 
 @torch.no_grad()
@@ -79,7 +73,8 @@ def _greedy(model, batch: Batch, gen: Optional[torch.Generator], early_eos: bool
     caches = []
     for layer in model.decoder.layers:
         kv = layer.cross_attn.project_kv(memory)
-        caches.append({"k": torch.zeros(shape, device=dev), "v": torch.zeros(shape, device=dev),
+        caches.append({"k": torch.zeros(shape, dtype=model.dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=model.dtype, device=dev),
                        "cross_k": kv["k"], "cross_v": kv["v"]})
     prev_pad = torch.zeros((b, steps), dtype=torch.bool, device=dev)  # BOS is not pad
     tok = torch.full((b, 1), BOS, dtype=torch.long, device=dev)

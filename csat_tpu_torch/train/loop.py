@@ -17,10 +17,16 @@ Counterpart of the JAX package's ``train/loop.py``:
   ``request_stop`` — from a mid-epoch snapshot by replaying the epoch's
   deterministic batch sequence.
 
+The step runs the model in its compute dtype (``cfg.compute_dtype``: f32,
+or bf16 with f32 attention islands), takes the loss in f32 and brings f32
+gradients to the f32 master weights, with the non-finite guard as in f32;
+the weights start from ``cfg.init_scheme``'s draw (``models/init.py``).
+
 PyTorch runs eagerly, so a bucket shape needs no compiled program: the JAX
 trainer's program cache and AOT warm-up have no counterpart.  Its prefetch
-threads, mesh placement, watchdog, signal handling, fault injector and
-telemetry registry are not carried over.
+threads, mesh placement, watchdog, signal handling (preemption), data error
+budget, fault injector, scalar logs and telemetry registry are not carried
+over.
 """
 
 from __future__ import annotations

@@ -50,11 +50,15 @@ def make_model(cfg: Config, src_vocab_size: int, tgt_vocab_size: int,
                triplet_vocab_size: int = 0,
                device: Optional[Union[str, torch.device]] = None,
                seed: Optional[int] = None) -> CSATrans:
-    """:class:`CSATrans` with the JAX ``make_model``'s guard: a triplet
-    model left to the reference's fallback table size (``triplet_vocab_size``
-    0) is refused with ``ValueError`` when the dictionary on disk — the
-    source of the ids the dataset emits — does not fit in it.  On the card an
-    id past the table is a device-side assert that ends the process."""
+    """:class:`CSATrans` in the compute dtype ``cfg.compute_dtype`` names
+    (bf16 or f32, as the JAX ``make_model`` picks it), its weights drawn under
+    ``cfg.init_scheme`` (the reference scheme's redraw is where the JAX
+    package's ``create_train_state`` applies it: at initialisation), with the
+    JAX ``make_model``'s guard: a triplet model left to the reference's
+    fallback table size (``triplet_vocab_size`` 0) is refused with
+    ``ValueError`` when the dictionary on disk — the source of the ids the
+    dataset emits — does not fit in it.  On the card an id past the table is
+    a device-side assert that ends the process."""
     if cfg.use_pegen == "triplet" and triplet_vocab_size == 0:
         path, size = triplet_dictionary(cfg)
         fallback = TRIPLET_VOCAB_FALLBACK[cfg.lang]

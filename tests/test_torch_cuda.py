@@ -773,3 +773,126 @@ def test_dh96_kernels_on_java_captured_inputs(dev):
         torch.testing.assert_close(ex["lse"], rex["lse"], atol=tol, rtol=0)
         assert torch.equal(ex["skipped_blocks"],
                            flex_core.reference_block_skip(spec, aux, flex_core.geometry(q)))
+
+
+# the production precision: bf16 compute with f32 attention islands, bf16 /
+# int8 KV pages, and java's dh-96 SBM kernels under its counter gate and
+# expected-graph gradient, at a small size (heads 64 and 96 wide, as the
+# kernels are built)
+SMALL_DH64 = dict(num_heads=2, hidden_size=128, sbm_enc_dim=128, pegen_dim=128, pe_dim=64,
+                  dim_feed_forward=256, num_layers=2, sbm_layers=2, clusters=(10, 10),
+                  decoder_layers=1)
+
+
+def _small_batch(cfg, sizes=(20, 150, 90, 7), seed=1):
+    import numpy as np
+
+    from csat_tpu_torch.data.dataset import collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+
+    rng = np.random.default_rng(seed)
+    samples = [train_sample(random_ast(rng, n), cfg, 500, 700, rng) for n in sizes]
+    return collate({k: np.stack([s[k] for s in samples]) for k in samples[0]}, cfg.max_src_len)
+
+
+@pytest.mark.parametrize("compute,pages", [("bfloat16", "bfloat16"), ("float32", "int8"),
+                                           ("bfloat16", "int8")])
+def test_paged_kernel_on_quantized_drain(dev, compute, pages):
+    """K5 on one self- and one cross-attention launch from the middle of a
+    drain whose pool stores ``pages``: the kernel reads the stored bytes and
+    equals the plain path's dequantise-on-read within 1e-5."""
+    import chip_smoke
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import build, paged_decode as pd
+    from csat_tpu_torch.serve.pages import KV_PAGE_DTYPES
+
+    cfg = get_config("python", eval_graph="expected", serve_slots=4, max_tgt_len=12,
+                     compute_dtype=compute, serve_kv_page_dtype=pages)
+    got = chip_smoke.capture_decode_inputs(cfg, *chip_smoke.make_requests(cfg, 6))
+    for side in ("self", "cross"):
+        inputs, merge = got[side]["inputs"], got[side]["merge"]
+        assert inputs[1].dtype == KV_PAGE_DTYPES[pages]
+        before = build.launch_counts()["paged_decode"]
+        out, skipped = pd.paged_attend(*inputs, **merge)
+        ref, ref_skip = pd._attend_reference(*inputs, merge.get("idx"), merge.get("k_tok"),
+                                             merge.get("v_tok"))
+        torch.cuda.synchronize()
+        assert build.launch_counts()["paged_decode"] == before + 1
+        live = ~inputs[6].all(dim=1)
+        torch.testing.assert_close(out[live], ref[live], atol=1e-5, rtol=0)
+        assert torch.equal(skipped, ref_skip)
+
+
+def test_bf16_model_forward_on_card_matches_cpu(dev):
+    """The same bf16 model from one seed, its deterministic expected-graph
+    forward on the card (K1, K2, cuBLAS bf16 GEMMs) and on the CPU (plain
+    paths): log-probs within 1e-2 relative L2.  The two sum their bf16
+    products in other orders, and a rounding flip spreads through the later
+    layers at bf16's resolution (2^-8 relative); f32, by contrast, agrees
+    within 2e-5 (``test_variant_forward_on_card_matches_cpu``)."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import batch_to_device
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+
+    cfg = get_config("python", eval_graph="expected", compute_dtype="bfloat16", **SMALL_DH64)
+    batch = _small_batch(cfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = CSATrans(cfg, 500, 700, device=device, seed=4)
+        assert model.dtype == torch.bfloat16
+        before = build.launch_counts()
+        with torch.no_grad():
+            out[device] = model(batch_to_device(batch, torch.device(device)))[0].cpu()
+        launched = {fn for fn, c in build.launch_counts().items() if c > before[fn]}
+        assert launched == ({"flex_fwd_cse", "flex_fwd_sbm_expected"} if device == "cuda"
+                            else set())
+    assert out["cuda"].dtype == torch.float32
+    rel = torch.linalg.vector_norm(out["cuda"] - out["cpu"]) / torch.linalg.vector_norm(out["cpu"])
+    assert float(rel) <= 1e-2, float(rel)
+
+
+@pytest.mark.parametrize("mode", ["shared", "counter"])
+def test_bf16_step_and_same_graph_gates(dev, mode):
+    """A bf16 kernel step against a bf16 plain step on the card within the
+    precision phase's limits, and each SBM layer's kernels against the plain
+    ones on that layer's f32 inputs at the f32 limits (0 edges apart)."""
+    import chip_smoke
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import batch_to_device
+
+    cfg = get_config("python", compute_dtype="bfloat16", noise_mode=mode, **SMALL_DH64)
+    batch = batch_to_device(_small_batch(cfg), dev)
+    model, state, _, metrics, launches, rec = chip_smoke.step_gate(
+        cfg, batch, loss_rtol=chip_smoke.BF16_LOSS_RTOL, gnorm_rtol=chip_smoke.BF16_GNORM_RTOL)
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.params.values())
+    kernel = "flex_fwd_sbm_graph" if mode == "shared" else "flex_fwd_sbm_sampled"
+    assert launches["flex_fwd_cse"] > 0 and launches[kernel] > 0
+    res = chip_smoke.same_graph_gate(cfg, batch)
+    assert all(layer["ok"] and layer["edges_apart"] == 0 for layer in res["layers"])
+
+
+def test_dh96_counter_and_expected_gates(dev, tmp_path, monkeypatch):
+    """Java's SBM width (dh 96) through the counter gate (K6, K3, K4) and
+    the expected-graph gradient (K2, K8, K9), kernels against the plain paths
+    on the card at the f32 limits."""
+    import chip_smoke
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import batch_to_device
+
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    cfg = get_config("java", **{**SMALL_DH64, "sbm_enc_dim": 192, "pe_dim": 64})
+    assert cfg.head_dim == 96
+    batch = batch_to_device(_small_batch(cfg), dev)
+    counter = cfg.replace(noise_mode="counter")
+    *_, launches, _ = chip_smoke.step_gate(counter, batch)
+    assert all(launches[fn] > 0 for fn in ("flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+                                           "flex_bwd_k_sbm_sampled"))
+    assert all(layer["ok"] for layer in chip_smoke.same_graph_gate(counter, batch)["layers"])
+    expected = cfg.replace(eval_graph="expected")
+    _, _, counts, _ = chip_smoke.expected_grad_gate(expected, batch, "err.json")
+    assert all(counts[fn] > 0 for fn in ("flex_fwd_sbm_expected", "flex_bwd_q_sbm_expected",
+                                         "flex_bwd_k_sbm_expected"))
+    res = chip_smoke.same_graph_gate(expected, batch, deterministic=True)
+    assert all(layer["ok"] for layer in res["layers"])

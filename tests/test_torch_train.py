@@ -51,8 +51,18 @@ def test_config_training_fields_match_jax():
         assert f.name in jdefaults, f.name
         assert f.default == jdefaults[f.name], (f.name, f.default, jdefaults[f.name])
     for name in ("dropout", "attention_dropout", "noise_mode", "sbm_floor", "sw",
-                 "learning_rate", "smoothing", "batch_size", "nonfinite_guard"):
+                 "learning_rate", "smoothing", "batch_size", "nonfinite_guard",
+                 "compute_dtype", "init_scheme", "serve_kv_page_dtype"):
         assert name in {f.name for f in dataclasses.fields(Config)}, name
+    # the precision fields' vocabularies are JAX's (the port also refuses a
+    # compute dtype JAX would quietly take as f32)
+    for field, good, bad in (("compute_dtype", "bfloat16", "float16"),
+                             ("init_scheme", "reference", "xavier"),
+                             ("serve_kv_page_dtype", "int8", "fp8")):
+        Config(**{field: good}).validate()
+        JConfig(**{field: good}).validate()
+        with pytest.raises(AssertionError):
+            Config(**{field: bad}).validate()
 
 
 def _sbm_inputs(n, seed, b=2, h=3, dh=16, kk=4):
