@@ -114,8 +114,28 @@ Phases, each printing JSON lines:
    compute, bf16 pages) and at (f32 compute, int8 pages) through the kernels
    and through the plain route: all OK, no leak, tokens equal up to a near
    tie, K5's launches counted by storage dtype;
-10. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-9 by path, its error,
+10. ``resilience`` — the trainer's resilience and telemetry on the flagship
+   at its published widths, batch 64, in its defaults (shared noise, sampled
+   eval graph), bucketed on the fit phases' corpus: the host-device syncs of
+   a train step between guard reads, counted and named by line (none may
+   come from the guard, and ``guarded_apply`` alone must sync nothing); the
+   guarded AdamW update's cost against the unguarded one and a
+   three-``where``-per-tensor form; a NaN step that leaves parameters and
+   moments bitwise unchanged and is counted once (the watchdog's device
+   probe on, untripped); three NaN steps rolled back once, the replay
+   finite; the command line SIGTERM'd mid-epoch exiting 75, then
+   ``--resume`` reproducing an uninterrupted run's every loss bit for bit,
+   each run its own process; a child whose ``StepWatchdog`` sees its stream
+   wedged exiting 76; the watchdog's host leg tripping on a hung step with
+   its diagnostics and post-mortem, its device leg on a stream wedged by
+   ``torch.cuda._sleep`` while the host still beats; two corrupt batches
+   quarantined on the planned chunks through the prefetch thread and a
+   third raising; the registry's counters equal to the history's, the
+   scalar log's cadence, a profiled epoch's traces; an epoch's syncs per
+   step; epochs with prefetch 0 and 2 in turns, every loss bitwise equal,
+   with their wall and ``train.data`` seconds and busy share printed;
+11. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-10 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -239,6 +259,8 @@ PATH_KERNELS = {
     # the precision phase: bf16 training in the default (shared) noise mode,
     # serving at (bf16 compute, bf16 pages) and (f32 compute, int8 pages)
     "precision_train": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    # the resilience phase: Trainer.fit epochs in the defaults, no validation
+    "resilience": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
     **{f"precision_serve_{pages}": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
        for pages in ("bfloat16", "int8")},
 }
@@ -1724,7 +1746,7 @@ def more_steps(step, state, batch, first_loss: float, counts: dict, n: int = TRA
     losses, times = [first_loss], []
     for _ in range(n):
         state, m, seconds = timed_step(step, state, batch)
-        if m["nonfinite"] or not np.isfinite(float(m["loss"])):
+        if bool(m["nonfinite"]) or not np.isfinite(float(m["loss"])):
             raise AssertionError(f"non-finite train step: {m}")
         losses.append(float(m["loss"]))
         times.append(seconds)
@@ -1908,7 +1930,10 @@ def expected_grad_phase(profile: bool = False) -> dict:
 
 def _by_shape(steps):
     """Per batch shape (B, N, T-1): step count and median seconds (the first
-    step of a shape, which pays one-off allocation, left out when it can be)."""
+    step of a shape, which pays one-off allocation, left out when it can be).
+    The seconds are ``Trainer.fit``'s: the host's time to issue a step, which
+    is the whole step only where the guard is read every step (the fit
+    phase's ``guard_check_every=1``)."""
     out = {}
     for shape in sorted({tuple(r["shape"]) for r in steps}):
         secs = [r["seconds"] for r in steps if tuple(r["shape"]) == shape]
@@ -2341,7 +2366,7 @@ def precision_phase(profile: bool) -> dict:
     build.reset_launches()
     with flex_launches() as ref_launched:
         ref_state, m_ref, ref_s = timed_step(ref_step, ref_state, batch)
-    if m_ref["nonfinite"] or not np.isfinite(float(m_ref["loss"])):
+    if bool(m_ref["nonfinite"]) or not np.isfinite(float(m_ref["loss"])):
         raise AssertionError(f"reference-init step not finite: {m_ref}")
     counts = {fn: c + build.launch_counts()[fn] for fn, c in counts.items()}
     del ref_model, ref_state, ref_step
@@ -2405,6 +2430,639 @@ def precision_phase(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the trainer's resilience and telemetry
+# ---------------------------------------------------------------------------
+
+#: the modules a sync the guard made would be issued from
+GUARD_MODULES = ("resilience/guards.py", "train/optimizer.py")
+#: one corrupt-batch drill's batch ordinals, under a budget of their count
+QUARANTINED = (1, 4)
+#: the scalar log's cadence in the telemetry drill
+SCALAR_EVERY = 2
+#: the CLI's SIGTERM: sent once epoch 1's scalar log shows this iteration
+PREEMPT_AT_IT = 3
+#: the watchdog drills' timeouts, seconds: the host leg in a fit, the device
+#: leg against a stream wedged for WEDGE_S
+HOST_LEG_S, DEVICE_LEG_S, WEDGE_S = 2.0, 0.5, 2.0
+
+
+def resilience_trainer(data_dir: str, out: str, device: str = "cuda", log=None, **kw):
+    """``(Trainer, train set)``: the ``python`` config in its defaults
+    (shared noise, sampled eval graph), bucketed, one epoch, on the corpus at
+    ``data_dir``; ``kw`` overrides config fields."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.train import Trainer
+
+    cfg = get_config("python", **{"data_dir": data_dir, "output_dir": out, "bucketing": True,
+                                  "num_epochs": 1, **kw})
+    tr = Trainer(cfg, log=log or (lambda msg: None), device=device)
+    return tr, ASTDataset(cfg, "train", tr.src_vocab, tr.tgt_vocab)
+
+
+def _sync_site(stack) -> str:
+    """A sync's site: the innermost frame of this repository on its Python
+    stack, and the innermost frame of all where that is another."""
+    def where(frame):
+        path = Path(frame.filename).resolve()
+        try:
+            return f"{path.relative_to(REPO)}:{frame.lineno}", True
+        except ValueError:
+            return f"{path.name}:{frame.lineno}", False
+
+    inner = where(stack[-1])[0]
+    ours = next((site for site, mine in map(where, reversed(stack)) if mine), inner)
+    return ours if ours == inner else f"{ours} (via {inner})"
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Records every host-device synchronisation inside the block
+    (``torch.cuda.set_sync_debug_mode("warn")``), by its site
+    (:func:`_sync_site`), in any thread."""
+    import traceback
+    import warnings
+
+    caught = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if Path(f.filename).name != "warnings.py"]
+            caught.append(_sync_site(stack))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()  # the block's syncs only
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _tally(sites) -> dict:
+    out = {}
+    for site in sites:
+        out[site] = out.get(site, 0) + 1
+    return out
+
+
+def step_syncs(tr, ds, steps: int = 3) -> dict:
+    """The syncs of train steps between guard reads, step by step and by the
+    line that made them, on a batch already on the card; the guard's own (any
+    from ``GUARD_MODULES``) fail the gate, and so does any sync of
+    ``guarded_apply`` run alone under ``set_sync_debug_mode("error")``."""
+    from csat_tpu_torch.data.dataset import batch_to_device
+    from csat_tpu_torch.resilience import guarded_apply
+
+    state = tr.init_state()
+    batch = batch_to_device(next(iter(tr._train_batches(ds, 1))), tr.device)
+    state, m = tr.train_step(state, batch)  # allocations and handles of a first step
+    bad = m["bad_steps"]
+    sync()
+    per_step, sites = [], []
+    for _ in range(steps):
+        with counted_syncs() as caught:
+            state, m = tr.train_step(state, batch, bad_steps=bad)
+            bad = m["bad_steps"]
+        per_step.append(len(caught))
+        sites += caught
+    sites = _tally(sites)
+    guard_sites = {s: n for s, n in sites.items() if any(g in s for g in GUARD_MODULES)}
+    if guard_sites:
+        raise AssertionError(f"the guard synchronises with the host: {guard_sites}")
+    grads = {k: p.grad for k, p in state.params.items()}
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        guarded_apply(tr.optimizer, state.params, grads, state.opt_state, m["total"], bad)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    return dict(per_step=per_step, sites=sites, guard_syncs=0)
+
+
+def _copies_state(site: str) -> bool:
+    """Whether a sync's site copies train-state tensors to the host (the
+    rollback anchor, the best parameters): a line with ``.to("cpu", copy=True)``."""
+    import linecache
+
+    path, _, line = site.split(" ")[0].rpartition(":")
+    return 'to("cpu", copy=True)' in linecache.getline(str(REPO / path), int(line))
+
+
+def fit_syncs(tr, ds) -> dict:
+    """One epoch of ``Trainer.fit`` (prefetch and guard-check cadence as
+    configured) under the sync counter: its syncs by site, and per step
+    those that do not copy train-state tensors to the host (the rollback
+    anchor at the epoch's start and the best parameters at the end copy one
+    tensor at a time)."""
+    with counted_syncs() as caught:
+        _, hist = tr.fit(ds, None)
+    sites = _tally(caught)
+    n = len(hist["steps"])
+    copies = sum(c for site, c in sites.items() if _copies_state(site))
+    return dict(steps=n, syncs=len(caught), state_copy_syncs=copies,
+                other_per_step=(len(caught) - copies) / max(1, n), sites=sites)
+
+
+def _bits(tensors) -> list:
+    return [t.detach().reshape(-1).view(torch.int32).clone() for t in tensors]
+
+
+def check_registry(tr, hist) -> dict:
+    """The trainer's registry counters equal its ``history`` counters, and its
+    Prometheus text carries their ``TYPE`` lines."""
+    snap = tr.registry.snapshot()
+    want = {"train_steps_total": len(hist["steps"]), "train_epochs_total": len(hist["loss"]),
+            "train_quarantined_total": hist["quarantined"]}
+    for key in ("rollbacks", "nonfinite_steps", "step_snapshots"):
+        if hist[key]:
+            want[f"train_{key}_total"] = hist[key]
+    got = {k: snap.get(k) for k in want}
+    text = tr.registry.prometheus()
+    missing = [k for k in want if f"# TYPE {k} counter" not in text]
+    if got != want or missing:
+        raise AssertionError(f"registry {got} against history {want}; TYPE lines missing "
+                             f"for {missing}")
+    return got
+
+
+def _events(tr) -> list:
+    return [name for _, name, _, _ in tr.obs.events()]
+
+
+def nan_step_drill(data_dir: str, out: str, device: str = "cuda", nan_at: int = 2,
+                   watchdog_timeout_s: float = 5.0, **kw) -> dict:
+    """A NaN loss at step ``nan_at`` of an epoch with the guard read every
+    step and the watchdog's device probe on: the parameters and both moments
+    after that step are bitwise those before it, the fit counts one
+    non-finite step and records ``fault.nan_guard``, the probe never trips."""
+    from csat_tpu_torch.resilience import FaultInjector
+
+    tr, ds = resilience_trainer(data_dir, out, device, guard_check_every=1,
+                                watchdog_timeout_s=watchdog_timeout_s,
+                                watchdog_device_probe=True, **kw)
+    tripped = []
+    tr.watchdog_on_timeout = lambda: tripped.append(True)
+    tr.fault_injector = FaultInjector(nan_loss_steps=(nan_at,))
+    inner, calls, around = tr.train_step, [], {}
+
+    def watched(state, batch, **kwargs):
+        tensors = lambda: (list(state.params.values()) + list(state.opt_state.mu.values())
+                           + list(state.opt_state.nu.values()))
+        if len(calls) == nan_at:
+            around["before"] = _bits(tensors())
+        state, metrics = inner(state, batch, **kwargs)
+        if len(calls) == nan_at:
+            around["after"] = _bits(tensors())
+            around["nonfinite"] = bool(metrics["nonfinite"])
+        calls.append(1)
+        return state, metrics
+
+    tr.train_step = watched
+    _, hist = tr.fit(ds, None)
+    changed = sum(not torch.equal(a, b) for a, b in zip(around["before"], around["after"]))
+    if changed or not around["nonfinite"]:
+        raise AssertionError(f"NaN step {nan_at}: {changed} of {len(around['before'])} "
+                             f"parameter / moment tensors changed, nonfinite "
+                             f"{around['nonfinite']}")
+    if hist["nonfinite_steps"] != 1 or "fault.nan_guard" not in _events(tr) or tripped:
+        raise AssertionError(f"NaN drill: nonfinite_steps {hist['nonfinite_steps']}, events "
+                             f"{sorted(set(_events(tr)))}, watchdog tripped {bool(tripped)}")
+    return dict(nan_at=nan_at, tensors_unchanged=len(around["before"]),
+                nonfinite_steps=hist["nonfinite_steps"], probe_tripped=False,
+                steps=len(hist["steps"]), registry=check_registry(tr, hist))
+
+
+def rollback_drill(data_dir: str, out: str, device: str = "cuda", nan_at=(2, 3, 4),
+                   **kw) -> dict:
+    """Three consecutive NaN steps, the guard read every step: one rollback
+    to the epoch-start snapshot, and the replayed epoch finite."""
+    from csat_tpu_torch.resilience import FaultInjector
+
+    tr, ds = resilience_trainer(data_dir, out, device, guard_check_every=1, **kw)
+    tr.fault_injector = FaultInjector(nan_loss_steps=nan_at)
+    state, hist = tr.fit(ds, None)
+    replay = hist["steps"][nan_at[-1] + 1:]
+    finite = all(np.isfinite(r["loss"]) for r in replay) and np.isfinite(hist["loss"][0])
+    if hist["rollbacks"] != 1 or not finite or "fault.rollback" not in _events(tr):
+        raise AssertionError(f"rollback drill: rollbacks {hist['rollbacks']}, epoch loss "
+                             f"{hist['loss']}, events {sorted(set(_events(tr)))}")
+    return dict(nan_at=list(nan_at), rollbacks=1, nonfinite_steps=hist["nonfinite_steps"],
+                replayed_steps=len(replay), epoch_loss=hist["loss"][0], final_step=state.step,
+                registry=check_registry(tr, hist))
+
+
+def _quarantined_chunks(tr) -> list:
+    """The sample indices of every batch the error budget quarantined, from
+    its log lines in the trainer's flight recorder."""
+    return [json.loads(m.group(1)) for _, name, _, fields in tr.obs.events() if name == "log"
+            for m in [re.search(r"quarantined malformed batch \(samples (\[[^\]]*\])",
+                                fields["msg"])] if m]
+
+
+def quarantine_drill(data_dir: str, out: str, device: str = "cuda", **kw) -> dict:
+    """``QUARANTINED`` corrupt batches under a budget of as many, through the
+    prefetch thread in a profiled epoch with the scalar log every
+    ``SCALAR_EVERY`` iterations: quarantined on exactly the planned chunks,
+    the epoch finishes; one more corrupt batch raises
+    ``DataErrorBudgetExceeded``; the scalar log, the registry, the profiler
+    trace and ``host_trace.json`` as the telemetry gates want them."""
+    from csat_tpu_torch.obs import load_chrome_trace, validate_chrome_trace
+    from csat_tpu_torch.resilience import DataErrorBudgetExceeded, FaultInjector
+
+    budget = len(QUARANTINED)
+    tr, ds = resilience_trainer(data_dir, out, device, data_error_budget=budget, prefetch=2,
+                                profile=True, scalar_log=True, scalar_log_every=SCALAR_EVERY,
+                                **kw)
+    plan = []
+    for i, _ in enumerate(tr._train_batches(ds, 1, batch_hook=lambda c, b: plan.append(
+            np.asarray(c).tolist()) or b)):
+        pass
+    tr.fault_injector = FaultInjector(corrupt_batches=QUARANTINED)
+    _, hist = tr.fit(ds, None)
+    want = [plan[i] for i in QUARANTINED]
+    got = _quarantined_chunks(tr)
+    if hist["quarantined"] != budget or got != want or len(hist["steps"]) != len(plan) - budget:
+        raise AssertionError(f"quarantine: {hist['quarantined']} batches, chunks {got}, planned "
+                             f"{want}, {len(hist['steps'])} steps of {len(plan)} batches")
+    with open(os.path.join(tr.output_dir, "scalars.jsonl")) as f:
+        its = [r["it"] for r in map(json.loads, f) if "it" in r]
+    if its != list(range(0, len(hist["steps"]), SCALAR_EVERY)):
+        raise AssertionError(f"scalars.jsonl it records {its}")
+    trace_files = os.listdir(os.path.join(tr.output_dir, "trace"))
+    host = load_chrome_trace(os.path.join(tr.output_dir, "host_trace.json"))
+    errors = validate_chrome_trace(host)
+    spans = {e["name"] for e in host["traceEvents"]}
+    if not trace_files or errors or not {"train.data", "train.step"} <= spans:
+        raise AssertionError(f"profiled epoch: trace {trace_files}, host trace errors "
+                             f"{errors[:5]}, spans {sorted(spans)}")
+    registry = check_registry(tr, hist)
+
+    over, _ = resilience_trainer(data_dir, out + "_over", device, data_error_budget=budget,
+                                 prefetch=2, **kw)
+    over.fault_injector = FaultInjector(corrupt_batches=range(budget + 1))
+    try:
+        over.fit(ds, None)
+    except DataErrorBudgetExceeded as e:
+        exceeded = str(e)[:160]
+    else:
+        raise AssertionError("a corrupt batch past the budget did not raise")
+    return dict(budget=budget, corrupt_batches=list(QUARANTINED), quarantined_chunks=got,
+                steps=len(hist["steps"]), planned_batches=len(plan), scalar_its=its,
+                trace_files=sorted(trace_files), host_trace_events=len(host["traceEvents"]),
+                phase_s=hist["phase_s"], registry=registry, exceeded=exceeded)
+
+
+def host_leg_drill(data_dir: str, out: str, device: str = "cuda", hang_at: int = 1,
+                   **kw) -> dict:
+    """A hung step in a fit (``hang_at``, right after the first beat, so no
+    slow step before it can trip the watchdog first): the host leg trips
+    within ``HOST_LEG_S``, writes ``watchdog_diagnostics.txt`` and a
+    post-mortem holding ``fault.watchdog`` and ``fault.injected.hang``; the
+    recording timeout action ends the hang and the epoch finishes."""
+    import threading
+
+    from csat_tpu_torch.obs import EventRecorder
+    from csat_tpu_torch.resilience import FaultInjector
+
+    tr, ds = resilience_trainer(data_dir, out, device, watchdog_timeout_s=HOST_LEG_S, **kw)
+    tripped = threading.Event()
+    tr.watchdog_on_timeout = tripped.set
+    tr.fault_injector = FaultInjector(hang_at_step=hang_at, hang_seconds=60.0,
+                                      sleep=lambda s: tripped.wait(s))
+    t0 = time.perf_counter()
+    _, hist = tr.fit(ds, None)
+    pm = os.path.join(tr.output_dir, "postmortem", "postmortem_train_watchdog.jsonl")
+    names = {e["name"] for e in EventRecorder.load(pm)[1]} if os.path.exists(pm) else set()
+    diag = os.path.exists(os.path.join(tr.output_dir, "watchdog_diagnostics.txt"))
+    if not (tripped.is_set() and diag and {"fault.watchdog", "fault.injected.hang"} <= names):
+        raise AssertionError(f"host leg: tripped {tripped.is_set()}, diagnostics {diag}, "
+                             f"post-mortem events {sorted(names)}")
+    return dict(timeout_s=HOST_LEG_S, hang_at=hang_at, fit_s=time.perf_counter() - t0,
+                steps=len(hist["steps"]), postmortem_events=sorted(names))
+
+
+def device_leg_drill() -> dict:
+    """The training stream wedged by ``torch.cuda._sleep`` for ``WEDGE_S``
+    while the host keeps beating: the device leg trips (``no completed device
+    probe``) before the wedge clears."""
+    import threading
+
+    from csat_tpu_torch.resilience import StepWatchdog, device_liveness_probe
+
+    probe = device_liveness_probe("cuda")
+    probe()
+    tripped, what = threading.Event(), []
+    with StepWatchdog(DEVICE_LEG_S, on_timeout=tripped.set, log=lambda m: None, probe=probe,
+                      probe_interval_s=0.05, on_trip=lambda w, s: what.append((w, s))) as wd:
+        t0 = time.perf_counter()
+        # clock64 cycles at up to 2 GHz: at least WEDGE_S; the wedge's real
+        # length is measured below
+        torch.cuda._sleep(int(WEDGE_S * 2e9))
+        beats = 0
+        while not tripped.is_set() and time.perf_counter() - t0 < 4 * WEDGE_S:
+            wd.beat()
+            beats += 1
+            time.sleep(0.02)
+        tripped_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wedge_s = time.perf_counter() - t0
+    if not tripped.is_set() or what[0][0] != "no completed device probe" or tripped_s >= wedge_s:
+        raise AssertionError(f"device leg: tripped {tripped.is_set()} ({what}) after "
+                             f"{tripped_s:.2f} s of a {wedge_s:.2f} s wedge, {beats} beats")
+    return dict(timeout_s=DEVICE_LEG_S, tripped_after_s=tripped_s, wedge_s=wedge_s,
+                beats_while_wedged=beats, what=what[0][0])
+
+
+WATCHDOG_CHILD = """
+import time
+import torch
+from csat_tpu_torch.resilience import StepWatchdog, device_liveness_probe
+probe = device_liveness_probe("cuda")
+probe()
+wd = StepWatchdog(1.0, probe=probe, probe_interval_s=0.1).start()
+torch.cuda._sleep(int(1e10))
+end = time.monotonic() + 60
+while time.monotonic() < end:
+    wd.beat()
+    time.sleep(0.05)
+"""
+
+
+def cli_args(data_dir: str, out: str, device: str = "cuda", sets=(), epochs: int = 2) -> list:
+    """The port's command line training the ``python`` config bucketed on
+    ``data_dir`` into ``out``, with every iteration in ``scalars.jsonl``."""
+    args = [sys.executable, "-m", "csat_tpu_torch.cli", "--config", "python", "--data_dir",
+            data_dir, "--epochs", str(epochs), "--bucketing", "--set", f"output_dir={out!r}",
+            "--set", "scalar_log=True", "--set", "scalar_log_every=1", "--set", "val_interval=99"]
+    for field, value in dict(sets).items():
+        args += ["--set", f"{field}={value!r}"]
+    return args + (["--device", device] if device != "cuda" else [])
+
+
+def _it_losses(out: str) -> list:
+    """Every ``it`` record's ``(epoch, loss)`` in a run's ``scalars.jsonl``."""
+    path = next(Path(out).rglob("scalars.jsonl"))
+    return [(r["epoch"], r["loss"]) for r in map(json.loads, path.read_text().splitlines())
+            if "it" in r]
+
+
+def _reached(out: str, it: int) -> bool:
+    for path in Path(out).rglob("scalars.jsonl"):
+        lines = path.read_text().split("\n")[:-1]  # complete lines only
+        if any(r.get("epoch") == 1 and r.get("it", -1) >= it for r in map(json.loads, lines)):
+            return True
+    return False
+
+
+def start_cli_drills(tmp: str, data_dir: str, device: str = "cuda", sets=()) -> dict:
+    """Starts the command-line drills, each its own process: an uninterrupted
+    run; a run that gets a real SIGTERM once its scalar log shows iteration
+    ``PREEMPT_AT_IT`` of epoch 1, followed — as soon as it has exited 75 — by
+    a ``--resume`` run in its output dir (a thread watches, signals and
+    resumes); and on the card a ``StepWatchdog`` child on its default action
+    with its stream wedged."""
+    import signal
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+
+    def start(args):
+        return subprocess.Popen(args, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    outs = {name: os.path.join(tmp, f"cli_{name}") for name in ("uninterrupted", "preempted")}
+    procs = {name: start(cli_args(data_dir, out, device, sets)) for name, out in outs.items()}
+    if device == "cuda":
+        procs["watchdog"] = start([sys.executable, "-c", WATCHDOG_CHILD])
+    child, out = procs["preempted"], outs["preempted"]
+    done = {}
+
+    def watch():
+        while child.poll() is None and not _reached(out, PREEMPT_AT_IT):
+            time.sleep(0.01)
+        if child.poll() is None:
+            child.send_signal(signal.SIGTERM)
+        done["preempted"] = (child.wait(),) + child.communicate()
+        if done["preempted"][0] == 75:
+            done["before"] = _it_losses(out)
+            done["resume_t0"] = time.perf_counter()
+            done["resumed"] = start(cli_args(data_dir, out, device, sets) + ["--resume"])
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return dict(procs=procs, outs=outs, done=done, watcher=watcher, t0=time.perf_counter())
+
+
+def finish_cli_drills(started: dict) -> dict:
+    """Waits for the command-line drills and gates them: the preempted run
+    exits 75 with the ``preempted`` line, the watchdog child exits 76, and
+    the ``--resume`` run completes the preempted one so that its per-step
+    losses and the preempted run's are, bit for bit, the uninterrupted
+    run's."""
+    done, results = started["done"], {}
+    try:
+        started["watcher"].join(timeout=600)
+        for name, proc in list(started["procs"].items()) + [("resumed", done.get("resumed"))]:
+            if name != "preempted" and proc is not None:
+                stdout, stderr = proc.communicate(timeout=600)
+                results[name] = (proc.returncode, stdout, stderr)
+    finally:
+        for proc in list(started["procs"].values()) + [done.get("resumed")]:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+    code, stdout, stderr = done.get("preempted", (None, "", ""))
+    if code != 75:
+        raise AssertionError(f"the preempted CLI exited {code}, not 75: {stderr[-2000:]}")
+    stopped = json.loads(stdout.strip().splitlines()[-1])
+    if not (stopped.get("preempted") is True and "resume_from" in stopped):
+        raise AssertionError(f"the preempted CLI printed {stopped}")
+    for name in ("uninterrupted", "resumed"):
+        if results[name][0] != 0:
+            raise AssertionError(f"the {name} CLI exited {results[name][0]}: "
+                                 f"{results[name][2][-2000:]}")
+    rec = dict(preempted=stopped, exit_preempted=75)
+    if "watchdog" in results:
+        code_w, _, err_w = results["watchdog"]
+        if code_w != 76 or "no completed device probe" not in err_w:
+            raise AssertionError(f"the watchdog child exited {code_w}, not 76: {err_w[-2000:]}")
+        rec["exit_watchdog"] = 76
+    before = done["before"]
+    every = _it_losses(started["outs"]["preempted"])
+    want = _it_losses(started["outs"]["uninterrupted"])
+    if len(before) != _done(stopped, want) or every != want:
+        apart = [(i, a, b) for i, (a, b) in enumerate(zip(every, want)) if a != b][:5]
+        raise AssertionError(f"preempted + resumed CLI losses against the uninterrupted run's: "
+                             f"{len(before)} before the stop, {len(every)} against "
+                             f"{len(want)}, first apart {apart}")
+    rec.update(steps=len(want), steps_before_stop=len(before), losses_bit_equal=len(want),
+               resume_s=time.perf_counter() - done["resume_t0"],
+               drills_s=time.perf_counter() - started["t0"])
+    return rec
+
+
+def _done(stopped: dict, want: list) -> int:
+    """How many of the uninterrupted run's steps a stop at ``stopped``'s
+    (epoch, iterations done) had taken."""
+    return sum(1 for e, _ in want if e < stopped["epoch"]) + stopped["iterations_done"]
+
+
+def prefetch_readings(data_dir: str, out: str, device: str = "cuda", order=(0, 2, 2, 0),
+                      profile_order=(0, 2), **kw) -> dict:
+    """One epoch per entry of ``order`` (prefetch depth), in turns, from one
+    Trainer whose initial parameters are fixed (so each epoch starts from the
+    same weights and seed): every step's loss bitwise equal across all of
+    them; each epoch's wall seconds and ``train.data`` seconds, and — for
+    ``profile_order``, under ``torch.profiler`` — the device's busy share.
+    Readings, not limits.  Returns the record and the trainer."""
+    from csat_tpu_torch.obs import EventRecorder
+
+    tr, ds = resilience_trainer(data_dir, os.path.join(out, "prefetch"), device, **kw)
+    tr.initial_params = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+    base = tr.cfg
+    runs, losses = [], []
+    for i, depth in enumerate(tuple(order) + tuple(profile_order)):
+        tr.cfg = base.replace(prefetch=depth)
+        tr.obs = EventRecorder(capacity=base.obs_events, component="train")  # per-run totals
+        profiled = i >= len(order)
+        prof = None
+        if profiled and device == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        sync()
+        t0 = time.perf_counter()
+        _, hist = tr.fit(ds, None)
+        sync()
+        wall = time.perf_counter() - t0
+        rec = dict(prefetch=depth, profiled=profiled, wall_s=wall, steps=len(hist["steps"]),
+                   data_s=hist["phase_s"].get("train.data", 0.0),
+                   step_s=hist["phase_s"].get("train.step", 0.0))
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            summary = _device_summary(prof, wall)
+            rec.update(device_busy_ms=summary["device_busy_ms"],
+                       device_busy_share=summary["device_busy_share"])
+        runs.append(rec)
+        losses.append([r["loss"] for r in hist["steps"]])
+    tr.cfg = base
+    apart = [i for i, run in enumerate(losses) if run != losses[0]]
+    if apart:
+        raise AssertionError(f"prefetch changed the losses: runs {apart} differ from run 0 "
+                             f"({[r['prefetch'] for r in runs]})")
+    return dict(runs=runs, losses_bit_equal=len(losses[0])), (tr, ds)
+
+
+def guard_update_costs(tr, ds, reps: int = 10) -> dict:
+    """The AdamW update on the full model's parameters and this batch's
+    gradients, three ways, in turns: unguarded, guarded as the port does it
+    (the moments' buffers kept and selected with one ``torch.where`` each, the
+    update times ``ok``), and guarded with three ``torch.where`` per
+    parameter tensor: host seconds per call with the device's work done, and
+    kernel launches per call (``torch.profiler``).  A reading for the choice
+    of the guarded form, not a limit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from csat_tpu_torch.data.dataset import batch_to_device
+
+    state = tr.init_state()
+    batch = batch_to_device(next(iter(tr._train_batches(ds, 1))), tr.device)
+    state, _ = tr.train_step(state, batch)
+    opt, params = tr.optimizer, state.params
+    grads = {k: p.grad for k, p in params.items()}
+    ok = torch.ones((), dtype=torch.bool, device=tr.device)
+
+    @torch.no_grad()
+    def per_tensor():
+        keys = list(params)
+        old = [(params[k].clone(), opt_mu[k].clone(), opt_nu[k].clone()) for k in keys]
+        opt.update(params, grads, state.opt_state)
+        for k, (p0, m0, v0) in zip(keys, old):
+            for t, t0 in ((params[k], p0), (opt_mu[k], m0), (opt_nu[k], v0)):
+                torch.where(ok, t, t0, out=t)
+
+    opt_mu, opt_nu = state.opt_state.mu, state.opt_state.nu
+    forms = {"unguarded": lambda: opt.update(params, grads, state.opt_state),
+             "flat_where": lambda: opt.update(params, grads, state.opt_state, ok=ok),
+             "per_tensor_where": per_tensor}
+    out = {name: dict(host_ms=[]) for name in forms}
+    for r in range(4):
+        for name in (list(forms) if r % 2 == 0 else list(forms)[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                forms[name]()
+            sync()
+            out[name]["host_ms"].append((time.perf_counter() - t0) / reps * 1e3)
+    for name, fn in forms.items():
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        out[name].update(ms=statistics.median(out[name]["host_ms"]),
+                         launches=sum(e.count for e in prof.key_averages()
+                                      if e.device_type == torch.autograd.DeviceType.CUDA))
+    return dict(param_tensors=len(params), **out)
+
+
+def resilience_phase(corpus) -> dict:
+    """The trainer's resilience and telemetry on the ``python`` config at its
+    published widths, batch 64, in its defaults (shared noise, sampled eval
+    graph), bucketed on the fit phases' corpus; each gate raises:
+
+    (a) the guard: the syncs of a train step between guard reads, by line —
+    none from the guard, and ``guarded_apply`` alone syncs nothing; a NaN
+    step leaves parameters and moments bitwise unchanged, counts once and
+    records ``fault.nan_guard`` (with the device probe on, untripped); three
+    NaN steps roll back once and the replay is finite; (b) prefetch 0 and 2
+    give bitwise-equal losses (epoch wall, ``train.data`` seconds and busy
+    share printed); (c) the CLI, SIGTERM'd at iteration ``PREEMPT_AT_IT``,
+    exits 75, and ``--resume`` reproduces an uninterrupted CLI run's every
+    loss; (d) the watchdog's host leg trips on a hung step with its
+    post-mortem, its device leg on a wedged stream while beats continue, and
+    a child on the default action exits 76; (e) two corrupt batches under a
+    budget of 2 are quarantined on the planned chunks through the prefetch
+    thread, a third raises; (f) registry = history counters, the scalar
+    log's cadence, a profiled epoch's traces."""
+    from csat_tpu_torch.ops import build
+
+    tmp, data_dir, _ = corpus
+    out = os.path.join(tmp, "resilience")
+    t0 = time.perf_counter()
+    build.reset_launches()
+    started = start_cli_drills(tmp, data_dir)
+    with flex_launches() as launched:
+        tr, ds = resilience_trainer(data_dir, os.path.join(out, "syncs"))
+        syncs = step_syncs(tr, ds)
+        guard_costs = guard_update_costs(tr, ds)
+        del tr
+        nan = nan_step_drill(data_dir, os.path.join(out, "nan"))
+        rollback = rollback_drill(data_dir, os.path.join(out, "rollback"))
+        quarantine = quarantine_drill(data_dir, os.path.join(out, "quarantine"))
+        cli = finish_cli_drills(started)
+        host_leg = host_leg_drill(data_dir, os.path.join(out, "host_leg"))
+        device_leg = device_leg_drill()
+        prefetch, (tr, ds) = prefetch_readings(data_dir, out)
+        loop_syncs = fit_syncs(tr, ds)
+        del tr
+    counts = build.launch_counts()
+    _check_launched("resilience", counts)
+    _check_rates("resilience", launched)
+    rec = dict(model="python", noise_mode="shared", eval_graph="sample", batch=TRAIN_B,
+               step_syncs=syncs, fit_syncs=loop_syncs, guard_update=guard_costs, nan_step=nan,
+               rollback=rollback, prefetch=prefetch, cli=cli, host_leg=host_leg,
+               device_leg=device_leg, quarantine=quarantine, launches=counts,
+               seconds=time.perf_counter() - t0)
+    emit("resilience", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2426,13 +3084,14 @@ def main(argv=None) -> int:
     with fit_corpus() as corpus:
         fitted = fit_phase(args.profile, corpus)
         fitted_default = fit_default_phase(corpus)
-    variants = variants_phase()
-    precision = precision_phase(args.profile)
+        variants = variants_phase()
+        precision = precision_phase(args.profile)
+        resilience = resilience_phase(corpus)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
-               **precision["launches"]}
+               **precision["launches"], "resilience": resilience["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

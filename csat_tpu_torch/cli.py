@@ -11,7 +11,13 @@ without ``--device cpu`` it raises.  ``--set field=value`` overrides any config
 field (the value is parsed as a Python literal), e.g. the widths of a small
 run, ``nonfinite_guard=False``, ``bucket_src_lens=(37,75)``, the
 production precision ``compute_dtype='bfloat16'`` or
-``init_scheme='reference'``.  Serving has its own entry points (``serve.ServeEngine``).
+``init_scheme='reference'``.  The resilience and telemetry flags are the JAX
+command line's.  Training streams ``scalars.jsonl`` into the output dir
+(``--set scalar_log=False`` turns it off).  A SIGTERM or SIGINT during
+training saves a resumable snapshot, prints one ``{"preempted": true, ...}``
+line and exits 75; a stalled step under ``--watchdog_timeout_s`` exits 76;
+either run continues with ``--resume``.  Serving has its own entry points
+(``serve.ServeEngine``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,29 @@ def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "smallest fitting (N, T) bucket with node-budget batch sizes")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; never falls back on its own")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the first epoch with torch.profiler (output_dir/trace) and "
+                        "write its host phase spans as output_dir/host_trace.json")
+    p.add_argument("--no_guard", action="store_true",
+                   help="disable the in-step non-finite guard")
+    p.add_argument("--watchdog_timeout_s", type=float, default=-1.0,
+                   help="abort (resumable, exit 76) when no train step completes for this "
+                        "long; 0 disables, default keeps the config's value")
+    p.add_argument("--watchdog_device_probe", action="store_true",
+                   help="add the device-liveness leg to the step watchdog (catches a "
+                        "stalled device while the host still enqueues steps)")
+    p.add_argument("--data_error_budget", type=int, default=-1,
+                   help="malformed training batches to quarantine-and-skip before failing "
+                        "loud; default keeps the config's value")
+    p.add_argument("--snapshot_every_steps", type=int, default=-1,
+                   help="refresh the guard's rollback snapshot every N known-good "
+                        "iterations; 0 = at epoch starts, default keeps the config's value")
+    p.add_argument("--scalar_log_every", type=int, default=-1,
+                   help="per-iteration scalars.jsonl cadence (0 = epoch records only; "
+                        "default keeps the config's value)")
+    p.add_argument("--metrics_file", default="",
+                   help="append JSONL training-metrics snapshots here (at each epoch "
+                        "boundary)")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="FIELD=VALUE", help="override a config field")
     return p.parse_args(argv)
@@ -54,6 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from csat_tpu_torch.configs import get_config, list_configs
     from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.resilience import EXIT_PREEMPTED, Preempted
     from csat_tpu_torch.train.checkpoint import (
         make_checkpoint_fn, restore_params, save_params)
     from csat_tpu_torch.train.loop import Trainer, run_test
@@ -72,6 +102,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         overrides["batch_size"] = args.batch_size
     if args.bucketing:
         overrides["bucketing"] = True
+    if args.profile:
+        overrides["profile"] = True
+    if args.no_guard:
+        overrides["nonfinite_guard"] = False
+    if args.watchdog_timeout_s >= 0:
+        overrides["watchdog_timeout_s"] = args.watchdog_timeout_s
+    if args.watchdog_device_probe:
+        overrides["watchdog_device_probe"] = True
+    if args.data_error_budget >= 0:
+        overrides["data_error_budget"] = args.data_error_budget
+    if args.snapshot_every_steps >= 0:
+        overrides["snapshot_every_steps"] = args.snapshot_every_steps
+    if args.scalar_log_every >= 0:
+        overrides["scalar_log_every"] = args.scalar_log_every
+    if args.metrics_file:
+        overrides["obs_metrics_file"] = args.metrics_file
+    overrides.setdefault("scalar_log", True)
     cfg = get_config(args.config, **overrides)
 
     trainer = Trainer(cfg, device=args.device)
@@ -94,7 +141,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                  backoff_s=cfg.save_retry_backoff_s)
     # --resume honours an explicit --checkpoint_dir, else the output dir
     resume = (args.checkpoint_dir or True) if args.resume else False
-    _, history = trainer.fit(train_ds, val_ds, checkpoint_fn=ckpt_fn, resume=resume)
+    try:
+        _, history = trainer.fit(train_ds, val_ds, checkpoint_fn=ckpt_fn, resume=resume)
+    except Preempted as p:
+        # the snapshot is already on disk: exit resumable (EX_TEMPFAIL), so a
+        # supervisor restarts with --resume and loses at most one step
+        print(json.dumps({"preempted": True, "epoch": p.epoch,
+                          "iterations_done": p.iterations_done, "resume_from": p.directory}),
+              flush=True)
+        raise SystemExit(EXIT_PREEMPTED)
     # persist the best-by-val-BLEU weights and score them on the test split
     save_params(trainer.output_dir, history["best_params"])
     trainer.model.load_state_dict(history["best_params"], strict=True)

@@ -3,15 +3,17 @@ reads, under the same names and defaults, plus the named registry.
 
 Field names are identical to the reference's so one set of overrides builds
 both configs.  The trainer's fields are here (data paths, epochs, validation
-and save intervals, bucketing, eval decode, guard rollback, checkpoint
-retries), and the precision axes: ``compute_dtype`` (bf16 compute with f32
-attention islands), ``init_scheme`` (flax's or the reference's realised
-initialisation) and ``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages).
-Fields that only select JAX/TPU machinery (``backend``, meshes, compilation
-caches, AOT warm-up, ``flex_bwd``), trainer machinery the port does not carry
-yet (prefetch, profiling, telemetry, watchdog, preemption signals, the data
-error budget) or serving features outside this port (prefix cache, KV
-tiering, the rectangle layout, deadlines, fleets) are absent, and so is
+and save intervals, bucketing, eval decode, input prefetch, profiling, the
+scalar log and telemetry, guard rollback, preemption saves, the step
+watchdog, the data error budget, checkpoint retries), and the precision
+axes: ``compute_dtype`` (bf16 compute with f32 attention islands),
+``init_scheme`` (flax's or the reference's realised initialisation) and
+``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages).  Fields that only
+select JAX/TPU machinery (``backend``, meshes, compilation caches, AOT
+warm-up, ``flex_bwd``), telemetry of parts the port does not carry yet
+(request traces, SLOs, calibration, the bench history) or serving features
+outside this port (prefix cache, KV tiering, the rectangle layout,
+deadlines, fleets) are absent, and so is
 ``param_dtype``, which the JAX package declares but reads nowhere (its master
 weights are f32 whatever it says): the port picks kernel or plain path by the
 device a tensor lies on, and a field it never reads is not one it pretends to
@@ -89,17 +91,46 @@ class Config:
     is_test: bool = False
     output_dir: str = "./outputs"
 
-    # resilience: the in-step non-finite guard; roll back to the last good
-    # snapshot after this many consecutive guarded steps (0 = never), read
-    # the counter every guard_check_every steps, give up after
+    # host input pipeline: collate, widen and copy to the device up to this
+    # many batches ahead on a worker thread (train/loop.py:prefetch_batches);
+    # 0 = synchronous
+    prefetch: int = 2
+
+    # observability: one profiled epoch (torch.profiler trace under
+    # output_dir/trace plus host_trace.json); scalars.jsonl with an `it`
+    # record every scalar_log_every iterations (0 = epoch records only);
+    # the flight recorder's ring (0 = off); post-mortem dumps ("auto" =
+    # output_dir/postmortem, "" = none); JSONL metrics snapshots ("" = off)
+    # and their cadence.  All host-side: no device syncs (the `it` records
+    # read the loss, so they sync at their cadence, only when scalar_log)
+    profile: bool = False
+    scalar_log: bool = False
+    scalar_log_every: int = 50
+    obs_events: int = 4096
+    obs_postmortem_dir: str = "auto"
+    obs_metrics_file: str = ""
+    obs_metrics_every_s: float = 10.0
+
+    # resilience: the in-step non-finite guard (decided on the device); roll
+    # back to the last good snapshot after this many consecutive guarded
+    # steps (0 = never); read the device counter every guard_check_every
+    # steps (each read is a host-device sync); give up after
     # guard_max_rollbacks; refresh the snapshot every snapshot_every_steps
-    # known-good iterations (0 = at epoch starts only); bounded retry
-    # around checkpoint saves
+    # known-good iterations (0 = at epoch starts only); SIGTERM/SIGINT → a
+    # final snapshot + resume marker (preempt_save); abort resumably (exit
+    # 76) when no step completes for watchdog_timeout_s (0 = off), with a
+    # device-liveness probe (watchdog_device_probe); quarantine up to
+    # data_error_budget malformed batches (0 = fail on the first); bounded
+    # retry around checkpoint saves
     nonfinite_guard: bool = True
     guard_rollback_after: int = 3
     guard_check_every: int = 16
     guard_max_rollbacks: int = 3
     snapshot_every_steps: int = 0
+    preempt_save: bool = True
+    watchdog_timeout_s: float = 0.0
+    watchdog_device_probe: bool = False
+    data_error_budget: int = 0
     save_retries: int = 3
     save_retry_backoff_s: float = 0.5
 
@@ -167,6 +198,11 @@ class Config:
         assert self.guard_check_every >= 1, self.guard_check_every
         assert self.guard_max_rollbacks >= 0, self.guard_max_rollbacks
         assert self.snapshot_every_steps >= 0, self.snapshot_every_steps
+        assert self.watchdog_timeout_s >= 0, self.watchdog_timeout_s
+        assert self.data_error_budget >= 0, self.data_error_budget
+        assert self.scalar_log_every >= 0, self.scalar_log_every
+        assert self.obs_events >= 0, self.obs_events
+        assert self.obs_metrics_every_s > 0, self.obs_metrics_every_s
         assert self.save_retries >= 1, self.save_retries
         if self.use_pegen == "sequential":
             assert self.pe_dim == 0

@@ -165,7 +165,11 @@ class ASTDataset:
         else:
             self.arrays = self._build(split_dir, src_vocab, tgt_vocab)
             if use_cache:
-                np.savez_compressed(cache, **self.arrays)
+                # written aside and renamed: a process loading the corpus
+                # beside this one sees no cache or a whole one, never a torn file
+                tmp = f"{cache}.{os.getpid()}.tmp.npz"
+                np.savez_compressed(tmp, **self.arrays)
+                os.replace(tmp, cache)
         self.size = int(self.arrays["src_seq"].shape[0])
 
     def _build(self, split_dir: str, src_vocab: Vocab, tgt_vocab: Vocab) -> Dict[str, np.ndarray]:
@@ -316,20 +320,18 @@ def iterate_batches(
         yield batch
 
 
+#: the fields a batch carries to the device, with their compute dtypes
+DEVICE_FIELDS = (("src_seq", torch.long), ("tgt_seq", torch.long), ("target", torch.long),
+                 ("L", torch.int32), ("T", torch.int32), ("L_mask", torch.bool),
+                 ("T_mask", torch.bool))
+
+
 def batch_to_device(batch: Batch, device: torch.device) -> Batch:
     """The model's inputs as tensors on ``device``, widened to the compute
-    dtypes (int64 token ids, int32 distances, bool masks); the fields only
-    a PE variant reads (``num_node``, ``adj``, ``tree_pos``, ``triplet``)
-    stay on the host, and the model moves the one its variant reads."""
-    def put(x, dtype):
-        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
-
-    return batch._replace(
-        src_seq=put(batch.src_seq, torch.long),
-        tgt_seq=put(batch.tgt_seq, torch.long),
-        target=put(batch.target, torch.long),
-        L=put(batch.L, torch.int32),
-        T=put(batch.T, torch.int32),
-        L_mask=put(batch.L_mask, torch.bool),
-        T_mask=put(batch.T_mask, torch.bool),
-    )
+    dtypes (int64 token ids, int32 distances, bool masks; ``DEVICE_FIELDS``);
+    the fields only a PE variant reads (``num_node``, ``adj``, ``tree_pos``,
+    ``triplet``) stay on the host, and the model moves the one its variant
+    reads."""
+    return batch._replace(**{
+        name: torch.as_tensor(np.asarray(getattr(batch, name))).to(device=device, dtype=dtype)
+        for name, dtype in DEVICE_FIELDS})

@@ -3,17 +3,20 @@
 Counterpart of the JAX package's ``resilience/guards.py``.
 :func:`guarded_apply`: the optimizer update runs only when the loss and the
 global gradient norm are finite, so one NaN/Inf step leaves parameters and
-moments untouched and the consecutive-bad counter rises.  JAX decides on the
-device under ``lax.cond``; here the verdict is read on the host, one sync per
-step.  :func:`host_snapshot` / :func:`restore_snapshot`: a host copy of the
-whole train state (parameters, AdamW moments, step, the noise generator's
-state) that the trainer rolls back to after consecutive guarded steps; a
-run whose rollbacks are exhausted raises :class:`TrainingDivergedError`.
+moments untouched and the consecutive-bad counter rises.  As JAX decides on
+the device under ``lax.cond``, the verdict here stays on the device: ``ok``
+is a 0-d bool tensor the optimizer selects with, the counter a 0-d int32
+tensor, and the guard reads nothing on the host — the trainer reads the
+counter every ``guard_check_every`` steps.  :func:`host_snapshot` /
+:func:`restore_snapshot`: a host copy of the whole train state (parameters,
+AdamW moments, step, the noise generator's state) that the trainer rolls
+back to after consecutive guarded steps; a run whose rollbacks are
+exhausted raises :class:`TrainingDivergedError`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -32,16 +35,17 @@ def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def guarded_apply(optimizer, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                  opt_state, total_loss: torch.Tensor, bad_steps: int
-                  ) -> Tuple[bool, torch.Tensor, int]:
-    """Apply ``optimizer`` in place only when ``total_loss`` and the grad
-    norm are finite.  Returns ``(ok, grad_norm, bad_steps)``, the counter
-    reset on a good step."""
+                  opt_state, total_loss: torch.Tensor, bad_steps: Union[int, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Apply ``optimizer`` in place only where ``total_loss`` and the grad
+    norm are finite, without a host read.  Returns ``(ok, grad_norm,
+    bad_steps)``: ``ok`` a 0-d bool tensor, ``bad_steps`` (an int or the
+    previous step's tensor on input) a 0-d int32 tensor, ``where(ok, 0,
+    bad_steps + 1)``."""
     gnorm = global_norm(grads)
-    ok = bool(torch.isfinite(total_loss) & torch.isfinite(gnorm))
-    if ok:
-        optimizer.update(params, grads, opt_state)
-    return ok, gnorm, 0 if ok else bad_steps + 1
+    ok = torch.isfinite(total_loss) & torch.isfinite(gnorm)
+    optimizer.update(params, grads, opt_state, ok=ok)
+    return ok, gnorm, torch.where(ok, 0, bad_steps + 1).to(torch.int32)
 
 
 class HostSnapshot(NamedTuple):

@@ -10,15 +10,14 @@ synchronous (the JAX package's asynchronous orbax manager has no
 counterpart here); :func:`make_checkpoint_fn` wraps them in bounded retry.
 
 A mid-epoch snapshot lives under ``<checkpoints>/preempt`` beside a resume
-marker (the marker half of the JAX package's ``resilience/preemption.py``):
-which epoch was in flight, how many of its iterations the state contains,
-and the batch plan that count addresses.  ``Trainer.fit(resume=...)`` replays
-that epoch's deterministic batch sequence and skips the completed iterations.
+marker (``resilience/preemption.py``, re-exported here): which epoch was in
+flight, how many of its iterations the state contains, and the batch plan
+that count addresses.  ``Trainer.fit(resume=...)`` replays that epoch's
+deterministic batch sequence and skips the completed iterations.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import re
 from typing import Callable, Dict, Optional, Tuple
@@ -26,6 +25,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from csat_tpu_torch.resilience.guards import HostSnapshot, host_snapshot, restore_snapshot
+from csat_tpu_torch.resilience.preemption import (
+    Preempted, preempt_dir, read_resume_marker, snapshot_step, write_resume_marker)
 from csat_tpu_torch.resilience.retry import retry
 from csat_tpu_torch.train.state import TrainState
 
@@ -35,10 +36,6 @@ __all__ = ["save_state", "restore_state", "latest_step", "restore_latest", "save
 
 MAX_TO_KEEP = 3
 _STATE_RE = re.compile(r"state_(\d+)\.pt$")
-_MARKER = "resume_marker.json"
-# step keys are integers; (epoch, iteration) is encoded injectively so a
-# second stop in the same epoch gets a fresh key
-_STEP_STRIDE = 10_000_000
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -110,14 +107,17 @@ def restore_params(directory: str, name: str = "best_model") -> Dict[str, torch.
 
 
 def make_checkpoint_fn(directory: str, retries: int = 3, backoff_s: float = 0.5,
-                       save: Optional[Callable[[str, TrainState, int], None]] = None
-                       ) -> Callable[[TrainState, int], None]:
+                       save: Optional[Callable[[str, TrainState, int], None]] = None,
+                       injector=None) -> Callable[[TrainState, int], None]:
     """Periodic-save hook for ``Trainer.fit``: ``fn(state, epoch)`` writes
     ``<directory>/checkpoints/state_<epoch>.pt`` under bounded retry with
-    exponential backoff.  ``save`` is injectable (a drill substitutes a
-    flaky one); ``fn.directory`` is where the checkpoints go."""
+    exponential backoff.  ``save`` is injectable, and a fault injector's
+    ``flaky_save`` wraps it (a drill's failing saves); ``fn.directory`` is
+    where the checkpoints go."""
     ck_dir = os.path.join(directory, "checkpoints")
     save = save or save_state
+    if injector is not None:
+        save = injector.flaky_save(save)
 
     def fn(state: TrainState, epoch: int) -> None:
         retry(save, ck_dir, state, epoch, attempts=retries, backoff_s=backoff_s,
@@ -125,71 +125,3 @@ def make_checkpoint_fn(directory: str, retries: int = 3, backoff_s: float = 0.5,
 
     fn.directory = ck_dir
     return fn
-
-
-class Preempted(RuntimeError):
-    """Raised by the training loop after a requested stop's snapshot is on disk."""
-
-    def __init__(self, directory: str, epoch: int, iterations_done: int):
-        super().__init__(
-            f"stopped during epoch {epoch} after {iterations_done} "
-            f"iterations; resumable checkpoint at {directory}")
-        self.directory = directory
-        self.epoch = epoch
-        self.iterations_done = iterations_done
-
-
-def preempt_dir(checkpoint_dir: str) -> str:
-    """The mid-epoch snapshot directory under a run's checkpoint dir."""
-    return os.path.join(checkpoint_dir, "preempt")
-
-
-def snapshot_step(epoch: int, iterations_done: int) -> int:
-    """Step key of a mid-epoch snapshot."""
-    assert 0 <= iterations_done < _STEP_STRIDE, iterations_done
-    return int(epoch) * _STEP_STRIDE + int(iterations_done)
-
-
-def write_resume_marker(checkpoint_dir: str, epoch: int, iterations_done: int,
-                        plan: Optional[str] = None) -> str:
-    """Record that the snapshot holds mid-epoch state: ``epoch`` is the
-    epoch in flight and ``iterations_done`` how many of its iterations the
-    saved state already contains.  ``plan`` names the deterministic batch
-    sequence the count addresses (``data.bucketing.plan_signature`` plus the
-    host count); a resume under another plan is refused.  Written atomically
-    (rename) next to the snapshot."""
-    d = preempt_dir(checkpoint_dir)
-    os.makedirs(d, exist_ok=True)
-    path = os.path.join(d, _MARKER)
-    marker = {"epoch": int(epoch), "iterations_done": int(iterations_done),
-              "step": snapshot_step(epoch, iterations_done)}
-    if plan is not None:
-        marker["plan"] = str(plan)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(marker, f)
-    os.replace(tmp, path)
-    return path
-
-
-def read_resume_marker(checkpoint_dir: str) -> Optional[dict]:
-    """The resume marker, or None when there is none, it is malformed, or
-    the snapshot it names is not the newest one on disk (a stale marker is
-    ignored rather than trusted)."""
-    d = preempt_dir(checkpoint_dir)
-    path = os.path.join(d, _MARKER)
-    if not os.path.exists(path):
-        return None
-    try:
-        with open(path) as f:
-            marker = json.load(f)
-        out = {"epoch": int(marker["epoch"]),
-               "iterations_done": int(marker["iterations_done"]),
-               "step": int(marker["step"])}
-    except (ValueError, KeyError, TypeError):
-        return None
-    if latest_step(d) != out["step"]:
-        return None
-    if "plan" in marker:
-        out["plan"] = str(marker["plan"])
-    return out

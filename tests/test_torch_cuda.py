@@ -4,7 +4,9 @@ and the training kernels (K6 and K7 at every bucket length, batch size and
 head width, with and without dropout, K3/K4 and K8/K9 backward at every
 bucket length, at serving and training batch sizes and at both head widths,
 K8/K9 also with clip ties, whole padded key tiles and dead query rows) at the
-training shape and at ragged shapes.
+training shape and at ragged shapes; and the trainer's resilience pieces that
+need the card: the guarded AdamW update bitwise on the card, the prefetch
+thread's copy stream, the watchdog's device probe on a wedged stream.
 
 These need a CUDA device and ``nvcc`` (the kernels build at first use), so
 they carry the ``cuda`` marker and skip elsewhere; run them on a GPU machine
@@ -896,3 +898,117 @@ def test_dh96_counter_and_expected_gates(dev, tmp_path, monkeypatch):
                                          "flex_bwd_k_sbm_expected"))
     res = chip_smoke.same_graph_gate(expected, batch, deterministic=True)
     assert all(layer["ok"] for layer in res["layers"])
+
+
+# ---------------------------------------------------------------------------
+# the trainer's resilience on the card: the device-side guard, the prefetch
+# copy stream, the watchdog's device probe
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.detach().reshape(-1).view(torch.int32)
+
+
+def test_guarded_update_on_card_is_bitwise(dev):
+    """AdamW on the card: a rejected (``ok`` false) update with NaN
+    gradients leaves parameters, moments and count bitwise as they were; an
+    accepted one is bitwise the unguarded update."""
+    from csat_tpu_torch.train.optimizer import AdamW
+
+    g = torch.Generator().manual_seed(0)
+    shapes = {"w": (512, 2048), "b": (2048,), "s": (), "e": (37, 7)}
+    params = {k: torch.randn(s, generator=g).to(dev) for k, s in shapes.items()}
+    twin = {k: p.clone() for k, p in params.items()}
+    opt = AdamW(1e-4, eps=1e-6)
+    st, st_twin = opt.init(params), opt.init(twin)
+    for _ in range(3):
+        grads = {k: torch.randn(s, generator=g).to(dev) for k, s in shapes.items()}
+        opt.update(params, grads, st, ok=torch.ones((), dtype=torch.bool, device=dev))
+        opt.update(twin, grads, st_twin)
+    for a, b in ((params, twin), (st.mu, st_twin.mu), (st.nu, st_twin.nu)):
+        for k in a:
+            assert torch.equal(_bits(a[k]), _bits(b[k])), k
+    before = [_bits(t).clone() for d in (params, st.mu, st.nu) for t in d.values()]
+    nan = {k: torch.full(s, float("nan"), device=dev) for k, s in shapes.items()}
+    opt.update(params, nan, st, ok=torch.zeros((), dtype=torch.bool, device=dev))
+    after = [_bits(t) for d in (params, st.mu, st.nu) for t in d.values()]
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert int(st.count) == 3
+
+
+def _host_batches(n_batches, b=8, n=64, seed=0):
+    import numpy as np
+
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+
+    cfg = get_config("python", max_src_len=n)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        samples = [train_sample(random_ast(rng, int(rng.integers(10, n))), cfg, 300, 400, rng)
+                   for _ in range(b)]
+        out.append(collate({k: np.stack([s[k] for s in samples]) for k in samples[0]}, n))
+    return out
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_prefetch_copy_stream_delivers_the_plain_batches(dev, depth):
+    """``prefetch_batches`` on the card while the consuming stream is busy
+    (a queued ``torch.cuda._sleep``): the copies run on the worker's stream,
+    the consumer's stream waits for them, and every field equals
+    ``batch_to_device``'s, on the card in its compute dtype."""
+    from csat_tpu_torch.data.dataset import DEVICE_FIELDS, batch_to_device
+    from csat_tpu_torch.train.loop import prefetch_batches
+
+    batches = _host_batches(6)
+    want = [batch_to_device(b, dev) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))  # ~0.1 s of the consumer's stream busy
+    got = []
+    for batch in prefetch_batches(iter(batches), dev, depth=depth):
+        # read on the consumer's stream right away: correct only if it waited
+        got.append({name: getattr(batch, name).clone() for name, _ in DEVICE_FIELDS})
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for name, dtype in DEVICE_FIELDS:
+            t = g[name]
+            assert t.device.type == "cuda" and t.dtype == dtype == getattr(w, name).dtype
+            assert torch.equal(t, getattr(w, name)), name
+
+
+def test_device_probe_trips_on_a_wedged_stream(dev):
+    """The probe queues behind the training stream: with that stream wedged
+    by ``torch.cuda._sleep`` the watchdog's device leg trips while the host
+    keeps beating; with the stream free it does not."""
+    import threading
+    import time
+
+    from csat_tpu_torch.resilience import StepWatchdog, device_liveness_probe
+
+    probe = device_liveness_probe(dev)
+    probe()
+    tripped, what = threading.Event(), []
+    with StepWatchdog(0.4, on_timeout=tripped.set, log=lambda m: None, probe=probe,
+                      probe_interval_s=0.05, on_trip=lambda w, s: what.append(w)) as wd:
+        t0 = time.monotonic()
+        torch.cuda._sleep(int(4e9))  # ~2 s
+        while not tripped.is_set() and time.monotonic() - t0 < 6:
+            wd.beat()
+            time.sleep(0.02)
+    torch.cuda.synchronize()
+    assert tripped.is_set() and what == ["no completed device probe"]
+
+    healthy = threading.Event()
+    with StepWatchdog(0.4, on_timeout=healthy.set, log=lambda m: None, probe=probe,
+                      probe_interval_s=0.05) as wd:
+        end = time.monotonic() + 1.0
+        x = torch.ones(256, 256, device=dev)
+        while time.monotonic() < end:
+            x = (x @ x).clamp_(-1, 1)  # the stream busy with short kernels
+            wd.beat()
+            time.sleep(0.02)
+    torch.cuda.synchronize()
+    assert not healthy.is_set()

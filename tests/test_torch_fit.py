@@ -6,8 +6,10 @@ seed), start from the same weights (JAX's init, converted) and must agree:
 * (a) ``greedy_decode`` tokens are identical to JAX's with
   ``eval_graph="expected"``, at the fixed shape and at bucketed shapes, and
   the early-EOS decoder keeps every row's prefix up to its first EOS;
-* (b) a 1-epoch ``Trainer.fit``: every step's loss within 1e-4 of the JAX
-  ``Trainer``'s on the same batches, ``evaluate_bleu`` equal to 1e-6.  Model
+* (b) a 1-epoch ``Trainer.fit``, with the prefetch thread and without:
+  every step's loss within 1e-4 of the JAX ``Trainer``'s on the same
+  batches, ``evaluate_bleu`` equal to 1e-6; with and without the thread,
+  every loss bitwise equal.  Model
   dropout is 0 (flax draws it from ``jax.random``, which cannot be
   reproduced); attention dropout 0.2 comes from the shared hash stream, and
   the per-layer sample/dropout seeds are handed to both packages (JAX traces
@@ -37,6 +39,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIT = dict(
     pe_dim=8, pegen_dim=16, sbm_enc_dim=32, hidden_size=32, num_heads=2, num_layers=1,
@@ -193,26 +199,38 @@ def test_early_eos_decode_keeps_prefix_to_first_eos(corpora, jax_init, tmp_path)
 # (b) one epoch against the JAX trainer
 # ---------------------------------------------------------------------------
 
-def test_fit_losses_and_bleu_match_jax(corpora, jax_init, tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_fit(corpora, jax_init, tmp_path_factory):
+    """One epoch of the JAX ``Trainer`` from ``jax_init``'s weights, with the
+    fixed hash-stream seeds: its per-step losses and its history."""
     from csat_tpu.train import Trainer as JTrainer
 
-    _fixed_seeds(monkeypatch)
     jcfg, params = jax_init
-    jtr = JTrainer(jcfg.replace(output_dir=str(tmp_path / "j")), log=lambda m: None)
-    jtr.initial_params = params
-    jlosses = []
-    cache = jtr.program_cache
+    with pytest.MonkeyPatch.context() as mp:
+        _fixed_seeds(mp)
+        jtr = JTrainer(jcfg.replace(output_dir=str(tmp_path_factory.mktemp("j"))),
+                       log=lambda m: None)
+        jtr.initial_params = params
+        jlosses = []
+        cache = jtr.program_cache
 
-    def recording(state, batch, **kw):
-        state, metrics = cache(state, batch, **kw)
-        jlosses.append(metrics["loss"])
-        return state, metrics
+        def recording(state, batch, **kw):
+            state, metrics = cache(state, batch, **kw)
+            jlosses.append(metrics["loss"])
+            return state, metrics
 
-    jtr.program_cache = recording
-    _, jhist = jtr.fit(*_datasets(jtr, jtr.cfg, "jax"))
-    jlosses = [float(x) for x in jlosses]
+        jtr.program_cache = recording
+        _, jhist = jtr.fit(*_datasets(jtr, jtr.cfg, "jax"))
+    return [float(x) for x in jlosses], jhist
 
-    tcfg, ttr = _port_trainer(corpora, tmp_path / "t", params)
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_fit_losses_and_bleu_match_jax(corpora, jax_init, jax_fit, tmp_path, monkeypatch,
+                                       prefetch):
+    _fixed_seeds(monkeypatch)
+    _, params = jax_init
+    jlosses, jhist = jax_fit
+    tcfg, ttr = _port_trainer(corpora, tmp_path / "t", params, prefetch=prefetch)
     state, thist = ttr.fit(*_datasets(ttr, tcfg, "torch"))
     tlosses = [r["loss"] for r in thist["steps"]]
     assert len(tlosses) == len(jlosses) == 12 and state.step == 12
@@ -223,6 +241,20 @@ def test_fit_losses_and_bleu_match_jax(corpora, jax_init, tmp_path, monkeypatch)
     assert jep == tep == 1 and abs(jbleu - tbleu) <= 1e-6
     assert abs(thist["best_bleu"] - jhist["best_bleu"]) <= 1e-6
     assert all(r["shape"] == (8, 48, 9) for r in thist["steps"])
+
+
+def test_prefetch_leaves_every_loss_bitwise_equal(corpora, jax_init, tmp_path):
+    """The same bucketed 2-epoch fit with ``prefetch=0`` (the plain loop) and
+    ``prefetch=2`` (the worker thread): every step's loss, every epoch's
+    mean and the final parameters equal bit for bit."""
+    runs = [_fit(corpora, tmp_path / f"p{depth}", jax_init[1], prefetch=depth)
+            for depth in (0, 2)]
+    (_, state_0, hist_0), (_, state_2, hist_2) = runs
+    assert [r["loss"] for r in hist_0["steps"]] == [r["loss"] for r in hist_2["steps"]]
+    assert [r["shape"] for r in hist_0["steps"]] == [r["shape"] for r in hist_2["steps"]]
+    assert hist_0["loss"] == hist_2["loss"] and hist_0["val_bleu"] == hist_2["val_bleu"]
+    for k in state_0.params:
+        assert torch.equal(state_0.params[k], state_2.params[k]), k
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ both packages (:func:`train_setup`)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 MICRO = dict(
@@ -16,6 +17,18 @@ MICRO = dict(
     tree_pos_height=8, eval_graph="expected", serve_slots=4, bucket_src_lens=(24, 48),
 )
 SRC_V, TGT_V, TRIP_V = 200, 300, 50
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """A module's torch CPU work on one intra-op thread, restored after it.
+    At micro widths the intra-op threads only add overhead, and the suite's
+    workers share the host's cores: eight threads in each of several workers
+    oversubscribe them and slow every worker many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def configs(name="python", **kw):
