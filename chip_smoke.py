@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also trace serving, train steps, the expected-graph
-                                       # gradient and a fit epoch
+                                       # gradient, a fit epoch and the serving trace
 
 Phases, each printing JSON lines:
 
@@ -134,8 +134,28 @@ Phases, each printing JSON lines:
    scalar log's cadence, a profiled epoch's traces; an epoch's syncs per
    step; epochs with prefetch 0 and 2 in turns, every loss bitwise equal,
    with their wall and ``train.data`` seconds and busy share printed;
-11. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-10 by path, its error,
+11. ``serving`` — the serving engine as production runs it: the flagship at
+   full width, 8 slots, the default prefix cache (64 entries), random
+   weights from a seed, ``eval_graph="expected"``: 32 requests (8 exact
+   repeats of one of the four before them, budgets and AST sizes skewed as
+   ``bench.py``'s, Poisson arrivals in decode steps) driven twice from a
+   cold cache — every request OK, tokens equal between the runs and to the
+   CPU plain run up to a near tie, prefix hits > 0 each equal to its
+   original, no page or chain leaked, exactly one device read on every tick
+   that only decodes (counted by site), no kernel library built or loaded
+   after the first run; the drill matrix of the JAX package's serving tests
+   on one engine under a virtual clock (poison at submit, ``reject`` and
+   ``shed_oldest``, deadlines queued and in flight, a NaN slot FAILED with
+   the others exact, a wedged slot reaped, a prefill failure, a decode fault
+   rebuilt with the tokens of a clean run, retries exhausted then the
+   rebuild cap, ``shed_all``, a prefix hit on the NaN drill's scrubbed self
+   page, exact, and the tick watchdog tripped by its callback), each leaving
+   every request terminal once, no leak and a post-mortem; the command line
+   on a checkpoint of a short fit: ``summarize`` equal to the engine, a
+   ``serve`` process fed malformed lines and SIGTERM'd mid-stream answering
+   every line and exiting 0;
+12. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-11 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -263,6 +283,9 @@ PATH_KERNELS = {
     "resilience": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
     **{f"precision_serve_{pages}": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
        for pages in ("bfloat16", "int8")},
+    # the serving engine as production runs it: prefix-cache misses prefill
+    # (K1, K2), hits attach, every slot decodes (K5)
+    "serving": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode"),
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -1447,8 +1470,8 @@ def serve_phase(profile: bool) -> dict:
         # one drain of a closed batch of 16: a smoke reading, not a
         # throughput measurement (no arrivals, one short window)
         all_ok=True, page_leaks=leaks, tokens=n_tokens, seconds=gpu["seconds"],
-        smoke_tokens_per_s=n_tokens / gpu["seconds"], ticks=eng.n_ticks,
-        decode_steps=eng.n_decode_steps, prefills=eng.n_prefills,
+        smoke_tokens_per_s=n_tokens / gpu["seconds"], ticks=eng.ticks,
+        decode_steps=eng.stats.decode_steps, prefills=eng.prefills,
         launches=gpu["counts"], launches_per_request={
             fn: c / len(samples) for fn, c in gpu["counts"].items()},
         cpu_seconds=cpu["seconds"], cpu_tokens_equal=True, near_ties=ties, tokens_compared=compared,
@@ -3063,13 +3086,561 @@ def resilience_phase(corpus) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the serving engine as production runs it
+# ---------------------------------------------------------------------------
+
+SERVING_REQUESTS, SERVING_REPEATS = 32, 8
+#: snippets the serving command line summarises (raw Python through the
+#: stdlib-ast extractor)
+CLI_SNIPPETS = (
+    "def add(a, b):\n    return a + b\n",
+    "def parseHTTPResponse(raw_bytes, max_len=10):\n    head, _, body = raw_bytes.partition(b'x')\n"
+    "    if len(body) > max_len:\n        raise ValueError('too long')\n    return head, body\n",
+    "def walk(tree):\n    for child in tree.children:\n        yield from walk(child)\n    yield tree\n",
+    "class Stack:\n    def push(self, item):\n        self.items.append(item)\n",
+)
+
+
+class DrillClock:
+    """The drills' virtual clock: moves only when a drill advances it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def serving_trace(cfg, n: int = SERVING_REQUESTS, repeats: int = SERVING_REPEATS) -> dict:
+    """``bench.py``'s serving protocol: AST sizes with the corpora's small
+    skew (lognormal, median ≈ 0.3·N), token budgets skewed the same way
+    (short summaries dominate), ``repeats`` requests exact repeats of one of
+    the four before them (near-duplicate code arrives close together, so
+    its chain is still cached or even live), arrivals a seeded Poisson
+    process in decode-step units at ~1.4× the pool's service rate
+    (``bench.py:736``)."""
+    from csat_tpu_torch.data.synthetic import random_ast, request_sample
+
+    rng = np.random.default_rng(SEED + 13)
+    steps = cfg.max_tgt_len - 1
+    sizes = np.clip((cfg.max_src_len * rng.lognormal(-1.2, 0.6, n)).astype(int), 4,
+                    cfg.max_src_len)
+    budgets = np.clip((steps * rng.lognormal(-1.0, 0.5, n)).astype(int), 2, steps)
+    samples = [request_sample(random_ast(rng, int(k)), cfg, SRC_VOCAB) for k in sizes]
+    origin = list(range(n))
+    for i in sorted(rng.choice(np.arange(1, n), repeats, replace=False).tolist()):
+        origin[i] = origin[max(0, i - int(rng.integers(1, 5)))]
+        samples[i] = samples[origin[i]]
+    arrivals = np.cumsum(rng.exponential(
+        scale=float(budgets.mean()) / cfg.serve_slots / 1.4, size=n))
+    return dict(samples=samples, budgets=[int(b) for b in budgets], arrivals=arrivals,
+                origin=origin, sizes=[int(s) for s in sizes])
+
+
+def drive_trace(engine, trace, count_syncs: bool = False) -> dict:
+    """One run of ``trace`` from a cold prefix cache and fresh stats:
+    requests arrive when the engine's decode-step count reaches their
+    arrival (an idle gap jumps the count, as ``bench.py`` does).  With
+    ``count_syncs`` every tick runs under :func:`counted_syncs`, tagged with
+    whether it admitted or resolved a request."""
+    engine.reset_stats()
+    if engine._prefix is not None:
+        for _, chain in engine._prefix.evict_for(1 << 30):
+            engine._allocator.free(chain)
+    samples, budgets, arrivals = trace["samples"], trace["budgets"], trace["arrivals"]
+    ids, ticks, nxt = [], [], 0
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while nxt < len(samples) or engine.occupancy or engine.queue_depth:
+        while nxt < len(samples) and arrivals[nxt] <= engine.stats.decode_steps:
+            ids.append(engine.submit(samples[nxt], budgets[nxt]))
+            nxt += 1
+        admitted, done, steps = (engine.stats.admitted, len(engine._results),
+                                 engine.stats.decode_steps)
+        with counted_syncs() if count_syncs else contextlib.nullcontext([]) as caught:
+            live = engine.tick()
+        if count_syncs:
+            ticks.append(dict(syncs=list(caught), admitted=engine.stats.admitted > admitted,
+                              resolved=len(engine._results) > done,
+                              decoded=engine.stats.decode_steps > steps))
+        if not live and not engine.queue_depth and nxt < len(samples):
+            engine.stats.decode_steps = int(np.ceil(arrivals[nxt]))
+    engine.drain()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hits = {fields["id"] for _, name, _, fields in engine.obs.events()
+            if name == "req.admit" and fields and fields.get("hit")}
+    return dict(results=[engine.poll(i) for i in ids], wall=wall, ticks=ticks,
+                hits=[i for i, rid in enumerate(ids) if rid in hits],
+                summary=engine.stats.summary(wall_s=wall))
+
+
+def check_trace_run(run: dict, trace: dict, label: str) -> dict:
+    """All OK, prefix hits > 0, each hit's tokens its original's (the
+    shorter budget's tokens a prefix of the longer's)."""
+    res = run["results"]
+    bad = [r.id for r in res if not r.ok]
+    if bad:
+        raise AssertionError(f"{label}: requests not OK: {bad}")
+    if not run["hits"]:
+        raise AssertionError(f"{label}: no prefix-cache hit in a trace with repeats")
+    for i in run["hits"]:
+        a, b = res[i].tokens, res[trace["origin"][i]].tokens
+        k = min(len(a), len(b))
+        if trace["origin"][i] == i or not np.array_equal(a[:k], b[:k]):
+            raise AssertionError(f"{label}: hit {i}'s tokens differ from its original's")
+    return dict(hits=len(run["hits"]), tokens=sum(len(r.tokens) for r in res))
+
+
+def reads_per_tick(ticks) -> dict:
+    """Host syncs of the ticks that only decoded (a decode step, no
+    admission, no request resolved): each must be exactly the one status
+    read; the other ticks' syncs are tallied by site."""
+    pure = [t for t in ticks if t["decoded"] and not t["admitted"] and not t["resolved"]]
+    counts = [len(t["syncs"]) for t in pure]
+    if not pure or set(counts) != {1}:
+        raise AssertionError(f"decode-only ticks read the device {sorted(set(counts))} times "
+                             f"(must be once): {_tally(s for t in pure for s in t['syncs'])}")
+    return dict(decode_only_ticks=len(pure), reads_per_tick=counts[0], ticks=len(ticks),
+                sites_decode_only=_tally(s for t in pure for s in t["syncs"]),
+                sites_other_ticks=_tally(s for t in ticks if t not in pure
+                                         for s in t["syncs"]))
+
+
+def _bucket0(cfg, n: int, seed: int):
+    """``n`` small requests (5-16 nodes): one prefill bucket, so the i-th
+    submitted request lands in slot i."""
+    from csat_tpu_torch.data.synthetic import random_ast, request_sample
+
+    rng = np.random.default_rng(SEED + 7000 * seed)
+    return [request_sample(random_ast(rng, 5 + i % 12), cfg, SRC_VOCAB) for i in range(n)]
+
+
+def _clean_tokens(model, cfg, device, samples, budget):
+    """The same requests through a fresh engine with no fault: the
+    reference the drills' survivors must equal."""
+    from csat_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, cfg, device=device, clock=DrillClock())
+    res = eng.generate(samples, max_new_tokens=budget)
+    eng.close()
+    return [r.tokens for r in res]
+
+
+def _drill_done(eng, ids, reason) -> dict:
+    """After a drill: every request terminal exactly once (its trace too),
+    no page or chain leaked, a post-mortem on disk for ``reason``."""
+    from csat_tpu_torch.obs import EventRecorder
+
+    for rid in ids:
+        r = eng.poll(rid)
+        if r is None or r.status not in ("OK", "FAILED", "TIMEOUT", "REJECTED", "SHED"):
+            raise AssertionError(f"request {rid} not terminal: {r and r.status}")
+        if eng.tracer.finished_count(r.trace_id) != 1:
+            raise AssertionError(f"request {rid}: {eng.tracer.finished_count(r.trace_id)} traces")
+    if eng.occupancy or eng.queue_depth or eng.page_leaks() or eng.chain_leaks():
+        raise AssertionError(f"after the drill: {eng.occupancy} live, {eng.queue_depth} queued, "
+                             f"{eng.page_leaks()} pages leaked")
+    names = []
+    if reason:
+        path = os.path.join(eng._postmortem_dir, f"postmortem_serve_{reason}.jsonl")
+        if not os.path.exists(path):
+            raise AssertionError(f"no post-mortem for {reason}")
+        names = [e["name"] for e in EventRecorder.load(path)[1]]
+    return dict(statuses=[eng.poll(r).status for r in ids], postmortem=reason,
+                postmortem_events=len(names))
+
+
+def _same(tokens_a, tokens_b, label):
+    for i, (a, b) in enumerate(zip(tokens_a, tokens_b)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: request {i}'s tokens differ from a clean run's")
+
+
+def serving_drills(model, cfg, device: str, out: str) -> dict:
+    """The drill matrix of the JAX package's serving tests, on one engine
+    under a virtual clock: poison at submit; ``reject`` and ``shed_oldest``;
+    deadlines queued and in flight; a NaN slot retiring FAILED with the
+    others exact; a wedged slot reaped; a prefill failure; a decode fault
+    rebuilding with the resubmitted tokens a clean run's; retries exhausted,
+    then the rebuild cap; ``shed_all``; a prefix hit on NaN-scrubbed self
+    pages, exact; and, on an engine of its own, the tick watchdog tripped by
+    callback.  After each: every request terminal once, no leak, a
+    post-mortem for the reason."""
+    import threading
+
+    from csat_tpu_torch.resilience import DataErrorBudgetExceeded, ErrorBudget, FaultInjector
+    from csat_tpu_torch.serve import ServeEngine
+
+    clock = DrillClock()
+    base = cfg.replace(obs_postmortem_dir=os.path.join(out, "postmortem"))
+    eng = ServeEngine(model, base, device=device, clock=clock)
+    S = cfg.serve_slots
+    rec = {}
+
+    def reset(**over):
+        eng.cfg = base.replace(**over)
+        eng.fault_injector = None
+        eng._rebuilds = 0
+
+    # poison at submit, under a budget of 2
+    reset()
+    eng._poison_budget = ErrorBudget(2, log=lambda m: None)
+    good = _bucket0(cfg, 2, 1)
+    ids = [eng.submit(FaultInjector.poison_sample(good[0], m)) for m in ("missing_key", "dtype")]
+    try:
+        eng.submit(FaultInjector.poison_sample(good[0], "oversize"))
+        raise AssertionError("the third poison submit did not exhaust the budget")
+    except DataErrorBudgetExceeded:
+        pass
+    eng._poison_budget = ErrorBudget(cfg.serve_poison_budget, log=lambda m: None)
+    ids += [r.id for r in eng.generate(good, max_new_tokens=3)]
+    rec["poison"] = _drill_done(eng, ids, "FAILED")
+    if rec["poison"]["statuses"] != ["FAILED", "FAILED", "OK", "OK"]:
+        raise AssertionError(f"poison drill: {rec['poison']}")
+
+    # admission control: reject, then shed_oldest
+    reset(serve_max_queue=2)
+    samples = _bucket0(cfg, 4, 2)
+    ids = [eng.submit(s, max_new_tokens=2) for s in samples[:3]]
+    eng.cfg = eng.cfg.replace(serve_queue_policy="shed_oldest")
+    ids.append(eng.submit(samples[3], max_new_tokens=2))
+    eng.drain()
+    rec["admission"] = _drill_done(eng, ids, "SHED")
+    if rec["admission"]["statuses"] != ["SHED", "OK", "REJECTED", "OK"]:
+        raise AssertionError(f"admission drill: {rec['admission']}")
+
+    # deadlines: queued, then in flight, on the virtual clock
+    reset()
+    samples = _bucket0(cfg, 2, 3)
+    ids = [eng.submit(samples[0], max_new_tokens=5, deadline_s=4.0)]
+    clock.advance(10.0)
+    eng.tick()
+    ids.append(eng.submit(samples[1], max_new_tokens=8, deadline_s=4.0))
+    eng.tick()
+    eng.tick()
+    clock.advance(10.0)
+    eng.tick()
+    rec["deadlines"] = _drill_done(eng, ids, "TIMEOUT")
+    partial = eng.poll(ids[1]).n_tokens
+    if rec["deadlines"]["statuses"] != ["TIMEOUT", "TIMEOUT"] or not 0 < partial <= 8:
+        raise AssertionError(f"deadline drill: {rec['deadlines']}, {partial} partial tokens")
+    rec["deadlines"]["in_flight_tokens"] = partial
+
+    # a NaN slot: FAILED with its clean prefix, the others exact; then a
+    # prefix hit whose fresh self page is the poisoned one
+    reset()
+    samples = _bucket0(cfg, S, 5)
+    clean = _clean_tokens(model, base, device, samples, 6)
+    eng.fault_injector = FaultInjector(serve_nan_logits=[(eng.ticks + 1, 0)])
+    ids = [eng.submit(s, max_new_tokens=6) for s in samples]
+    eng.tick()
+    victim_pages = set(eng._slot_meta[0].self_chain)
+    eng.tick()
+    eng.tick()
+    eng.fault_injector = None
+    if eng.poll(ids[0]) is None or eng.poll(ids[0]).status != "FAILED":
+        raise AssertionError("NaN drill: the poisoned slot did not retire FAILED")
+    ids.append(eng.submit(samples[1], max_new_tokens=6))  # cached: a hit
+    eng.tick()
+    hit = next(r for r in eng._slots if r is not None and r.id == ids[-1])
+    reused = victim_pages & set(eng._slot_meta[hit.slot].self_chain)
+    eng.drain()
+    rec["nan_slot"] = _drill_done(eng, ids, "FAILED")
+    victim = eng.poll(ids[0])
+    if "non-finite logits" not in victim.error or victim.n_tokens != 1:
+        raise AssertionError(f"NaN drill: victim {victim.error!r}, {victim.n_tokens} tokens")
+    _same([victim.tokens], [clean[0][:1]], "NaN drill victim")
+    _same([eng.poll(r).tokens for r in ids[1:S]], clean[1:], "NaN drill survivors")
+    if not reused:
+        raise AssertionError("NaN drill: the hit did not land on the poisoned page")
+    _same([eng.poll(ids[-1]).tokens], [clean[1]], "prefix hit on scrubbed pages")
+    rec["nan_slot"].update(hit_reused_poisoned_pages=len(reused), hit_tokens_exact=True)
+
+    # a wedged slot, reaped
+    reset()
+    samples = _bucket0(cfg, S, 6)
+    clean = _clean_tokens(model, base, device, samples, 4)
+    eng.fault_injector = FaultInjector(serve_wedge_slots=[(eng.ticks + 1, 0)])
+    ids = [eng.submit(s, max_new_tokens=4) for s in samples]
+    eng.drain()
+    rec["wedge"] = _drill_done(eng, ids, "FAILED")
+    if "stuck slot reaped" not in (eng.poll(ids[0]).error or "") or eng.stats.reaped < 1:
+        raise AssertionError(f"wedge drill: {eng.poll(ids[0]).error!r}")
+    _same([eng.poll(r).tokens for r in ids[1:]], clean[1:], "wedge drill survivors")
+
+    # a prefill failure: its chunk FAILED, the pool still serving
+    reset()
+    samples = _bucket0(cfg, 2, 8)
+    eng.fault_injector = FaultInjector(serve_prefill_fail_calls=[eng.prefills])
+    ids = [eng.submit(s, max_new_tokens=3) for s in samples]
+    eng.drain()
+    eng.fault_injector = None
+    ids += [r.id for r in eng.generate(samples, max_new_tokens=3)]
+    rec["prefill_fault"] = _drill_done(eng, ids, "FAILED")
+    if rec["prefill_fault"]["statuses"] != ["FAILED", "FAILED", "OK", "OK"]:
+        raise AssertionError(f"prefill drill: {rec['prefill_fault']}")
+
+    # a decode fault: rebuild, resubmit, tokens a clean run's
+    reset()
+    samples = _bucket0(cfg, S + 2, 9)
+    clean = _clean_tokens(model, base, device, samples, 4)
+    eng.fault_injector = FaultInjector(serve_decode_fail_ticks=[eng.ticks + 1])
+    rebuilds = eng.stats.rebuilds
+    ids = [eng.submit(s, max_new_tokens=4) for s in samples]
+    eng.drain()
+    rec["rebuild"] = _drill_done(eng, ids, "rebuild")
+    if set(rec["rebuild"]["statuses"]) != {"OK"} or eng.stats.rebuilds != rebuilds + 1:
+        raise AssertionError(f"rebuild drill: {rec['rebuild']}")
+    _same([eng.poll(r).tokens for r in ids], clean, "rebuild drill")
+    rec["rebuild"]["resubmitted"] = sum(eng.poll(r).attempts for r in ids)
+
+    # retries exhausted, then the rebuild cap
+    reset(serve_max_retries=0, serve_max_rebuilds=4)
+    samples = _bucket0(cfg, 2, 10)
+    eng.fault_injector = FaultInjector(serve_decode_fail_ticks=[eng.ticks])
+    ids = [eng.submit(s, max_new_tokens=3) for s in samples]
+    eng.drain()
+    eng.cfg = base.replace(serve_max_rebuilds=0)
+    eng.fault_injector = FaultInjector(serve_decode_fail_ticks=[eng.ticks])
+    ids.append(eng.submit(samples[0], max_new_tokens=3))
+    try:
+        eng.drain()
+        raise AssertionError("the rebuild cap did not propagate the fault")
+    except RuntimeError as e:
+        if "serve_max_rebuilds" not in str(e):
+            raise
+    eng.fault_injector = None
+    eng._rebuilds = 0
+    eng.drain()
+    rec["retries_cap"] = _drill_done(eng, ids, "rebuild_cap")
+    if rec["retries_cap"]["statuses"] != ["FAILED", "FAILED", "OK"]:
+        raise AssertionError(f"retries drill: {rec['retries_cap']}")
+
+    # shed_all: queued and in flight
+    reset()
+    ids = [eng.submit(s, max_new_tokens=8) for s in _bucket0(cfg, S + 2, 11)]
+    eng.tick()
+    eng.tick()
+    shed = eng.shed_all("drill")
+    rec["shed_all"] = _drill_done(eng, ids, "SHED")
+    if shed != len(ids) or set(rec["shed_all"]["statuses"]) != {"SHED"}:
+        raise AssertionError(f"shed_all drill: {rec['shed_all']}")
+    eng.close()
+
+    # the tick watchdog on an engine of its own: the hang advances the
+    # virtual clock and asks the watchdog to look — tripped by its callback
+    wclock, tripped = DrillClock(), threading.Event()
+    weng = ServeEngine(model, base.replace(serve_watchdog_timeout_s=3.0), device=device,
+                       clock=wclock, watchdog_on_timeout=tripped.set)
+
+    def hang(seconds):
+        wclock.advance(seconds)
+        weng._watchdog.check()
+
+    weng.fault_injector = FaultInjector(serve_hang_at_tick=1, hang_seconds=8.0, sleep=hang)
+    reqs = weng.generate(_bucket0(cfg, 2, 12), max_new_tokens=4)
+    rec["watchdog"] = _drill_done(weng, [r.id for r in reqs], "watchdog")
+    weng.close()
+    if not tripped.is_set() or set(rec["watchdog"]["statuses"]) != {"OK"}:
+        raise AssertionError(f"watchdog drill: tripped {tripped.is_set()}, {rec['watchdog']}")
+    return rec
+
+
+def serving_checkpoint(data_dir: str, out: str, device: str = "cuda", **kw) -> str:
+    """A short fit on the corpus at ``data_dir`` (one bucketed epoch, no
+    validation) whose parameters are saved where the trainer saves its best
+    model; returns that directory."""
+    from csat_tpu_torch.train.checkpoint import save_params
+
+    tr, ds = resilience_trainer(data_dir, out, device=device, **kw)
+    tr.fit(ds, None)
+    save_params(tr.output_dir, dict(tr.model.named_parameters()))
+    return tr.output_dir
+
+
+def serving_cli(data_dir: str, ckpt: str, tmp: str, device: str = "cuda", sets=()) -> dict:
+    """The command line on that checkpoint: ``summarize`` of
+    ``CLI_SNIPPETS`` in this process, held against ``ServeEngine`` on the
+    same snippets; then a ``serve`` process fed a JSONL burst with malformed
+    lines, SIGTERM'd once its first response is out: every line answered,
+    exit 0 (the JAX serve loop's)."""
+    import io
+    import signal
+
+    from csat_tpu_torch.serve import cli
+
+    base = ["--config", "python", "--data_dir", data_dir, "--checkpoint_dir", ckpt,
+            "--device", device, "--postmortem_dir", os.path.join(tmp, "cli_pm"),
+            "--set", "eval_graph='expected'", "--max_new_tokens", "8"]
+    for k, v in dict(sets).items():
+        base += ["--set", f"{k}={v!r}"]
+    files = []
+    for i, src in enumerate(CLI_SNIPPETS):
+        files.append(os.path.join(tmp, f"snippet_{i}.py"))
+        with open(files[-1], "w") as f:
+            f.write(src)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        cli.main(["summarize", *base, *files])
+    summaries = [json.loads(line) for line in buf.getvalue().splitlines()]
+    engine, cfg, src_vocab, trip_vocab = cli.build_engine(cli._parser().parse_args(base))
+    ids = [cli._ingest(engine, cfg, src_vocab, trip_vocab, s, 8) for s in CLI_SNIPPETS]
+    engine.drain()
+    words = [" ".join(engine.words(engine.poll(i))) for i in ids]
+    engine.close()
+    if [s.get("status") for s in summaries] != ["OK"] * len(files) or words != [
+            s["summary"] for s in summaries]:
+        raise AssertionError(f"summarize differs from ServeEngine: {summaries} / {words}")
+
+    lines = [json.dumps({"id": f"r{i}", "code": s}) for i, s in enumerate(CLI_SNIPPETS)]
+    lines[1:1] = ["42", json.dumps({"id": "nocode"}), json.dumps({"id": "syn", "code": "def f(:"})]
+    lines.append(json.dumps({"id": "late", "code": CLI_SNIPPETS[0], "priority": "hi"}))
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out_path, err_path = os.path.join(tmp, "serve.out"), os.path.join(tmp, "serve.err")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-m", "csat_tpu_torch.cli", "serve", *base],
+                                cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=out_f,
+                                stderr=err_f, text=True)
+        try:
+            proc.stdin.write("\n".join(lines) + "\n")  # one burst; stdin stays open
+            proc.stdin.flush()
+            deadline = time.monotonic() + 300
+            while proc.poll() is None and time.monotonic() < deadline:
+                with open(out_path) as f:
+                    if f.readline().endswith("\n"):  # the first response is out
+                        break
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdin.close()
+    with open(out_path) as f, open(err_path) as g:
+        rest, err = f.read(), g.read()
+    answered = {str(json.loads(x)["id"]): json.loads(x) for x in rest.splitlines() if x.strip()}
+    want = {"r0", "r1", "r2", "r3", "0", "nocode", "syn", "late"}
+    if proc.returncode != 0 or set(answered) != want or "shutdown signal" not in err:
+        raise AssertionError(f"serve process: exit {proc.returncode}, answered "
+                             f"{sorted(answered)}, stderr tail {err[-600:]}")
+    failed = sorted(k for k, v in answered.items() if v["status"] == "FAILED")
+    if failed != sorted(["0", "nocode", "syn", "late"]):
+        raise AssertionError(f"serve process: FAILED lines {failed}")
+    drained = re.search(r"draining (\d+) request", err)
+    return dict(summarize=len(summaries), summarize_equals_engine=True,
+                in_flight_at_signal=int(drained.group(1)) if drained else None,
+                serve_exit=proc.returncode, serve_lines=len(lines),
+                serve_answered=len(answered), serve_failed_lines=len(failed),
+                serve_ok={k: v["status"] for k, v in answered.items() if k.startswith("r")},
+                serve_stats=json.loads(err.strip().splitlines()[-1]),
+                serve_s=time.perf_counter() - t0)
+
+
+def serving_phase(corpus, card: str = "", profile: bool = False) -> dict:
+    """The flagship at full width, 8 slots, the default prefix cache (64):
+    the trace of ``serving_trace`` driven twice from a cold cache (the second
+    under the sync counter) — all OK, equal tokens between the runs and to
+    the CPU plain run up to ``TIE_MARGIN``, prefix hits each equal to their
+    original, no leak, one device read per decode-only tick, no kernel
+    library built after the first run; the drill matrix; the command line
+    on a checkpoint of its own.  Launches of K1, K2, K5 are counted over the
+    two trace runs; ``profile`` adds a third run under torch.profiler (the
+    device's busy share of the drain).  ``card`` (``nvidia-smi``'s name and
+    power limit) goes on the line beside the readings."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import ServeEngine
+
+    tmp, data_dir, _ = corpus
+    out = os.path.join(tmp, "serving")
+    t0 = time.perf_counter()
+    cfg = flagship()
+    if cfg.serve_prefix_cache != 64:
+        raise AssertionError(f"prefix cache {cfg.serve_prefix_cache}, not the default 64")
+    trace = serving_trace(cfg)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cuda", seed=SEED)
+    engine = ServeEngine(model, cfg.replace(obs_postmortem_dir=os.path.join(out, "pm")),
+                         device="cuda")
+    build.reset_launches()
+    with flex_launches() as launched:
+        first = drive_trace(engine, trace)
+        libs, builds = set(build._LIBS), dict(build.BUILD_LOG)
+        second = drive_trace(engine, trace, count_syncs=True)
+    counts = build.launch_counts()
+    if set(build._LIBS) != libs or build.BUILD_LOG != builds:
+        raise AssertionError("a kernel library was built or loaded after warm-up")
+    _check_launched("serving", counts)
+    _check_rates("serving", launched)
+    checked = check_trace_run(first, trace, "serving, run 1")
+    check_trace_run(second, trace, "serving, run 2")
+    for a, b in zip(first["results"], second["results"]):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"serving: request {a.id}'s tokens differ between the runs")
+    if engine.page_leaks() or engine.chain_leaks():
+        raise AssertionError(f"serving: {engine.page_leaks()} pages leaked")
+    reads = reads_per_tick(second["ticks"])
+    traced = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            third = drive_trace(engine, trace)
+        traced = _device_summary(prof, third["wall"])
+    engine.close()
+
+    cpu_model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cpu", seed=SEED)
+    log = MarginLog(cpu_model)
+    cpu_engine = ServeEngine(cpu_model, cfg, device="cpu", clock=lambda: len(log.calls))
+    t_cpu = time.perf_counter()
+    cpu = drive_trace(cpu_engine, trace)
+    cpu_s = time.perf_counter() - t_cpu
+    ties, compared = compare_tokens(first["results"], dict(results=cpu["results"], log=log),
+                                    "serving: card and CPU")
+    del cpu_model, cpu_engine
+
+    drills = serving_drills(model, cfg, "cuda", out)
+    del model, engine
+    ckpt = serving_checkpoint(data_dir, os.path.join(out, "fit"))
+    cli_rec = serving_cli(data_dir, ckpt, out)
+    s = first["summary"]
+    rec = dict(
+        card=card, model="python", eval_graph=cfg.eval_graph, slots=cfg.serve_slots,
+        prefix_cache=cfg.serve_prefix_cache, requests=len(trace["samples"]),
+        repeats=SERVING_REPEATS, budgets=trace["budgets"], num_nodes=trace["sizes"],
+        all_ok=True, page_leaks=0, chain_leaks=0, hits=checked["hits"],
+        hits_second_run=len(second["hits"]), tokens=checked["tokens"],
+        outcomes={k: s[k] for k in ("retired", "failed", "timeouts", "rejected", "shed",
+                                     "rebuilds")},
+        prefix_hit_rate=s["prefix_hit_rate"], effective_slots=s["effective_slots"],
+        kv_page_occupancy=s["kv_page_occupancy"], kv_page_peak=s["kv_page_peak"],
+        latency_p50_s=s["latency_p50_s"], latency_p95_s=s["latency_p95_s"],
+        drain_wall_s=first["wall"], drain_wall_s_counted=second["wall"],
+        tokens_per_s=checked["tokens"] / first["wall"], decode_steps=s["decode_steps"],
+        prefill_calls=s["prefill_calls"], programs=s["compiles"], **reads,
+        runs_tokens_equal=True, cpu_tokens_equal=True, near_ties=ties,
+        tokens_compared=compared, tie_margin=TIE_MARGIN, cpu_seconds=cpu_s,
+        launches=counts, drills=drills, cli=cli_rec, profile=traced,
+        seconds=time.perf_counter() - t0)
+    emit("serving", **rec)
+    return rec
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a serving run, two train steps of each noise mode, one "
-                         "expected-graph gradient pass, the restored fit epoch and two "
-                         "train steps each in f32 and bf16 with torch.profiler")
+                         "expected-graph gradient pass, the restored fit epoch, two "
+                         "train steps each in f32 and bf16 and a third run of the "
+                         "serving trace with torch.profiler")
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
@@ -3087,11 +3658,13 @@ def main(argv=None) -> int:
         variants = variants_phase()
         precision = precision_phase(args.profile)
         resilience = resilience_phase(corpus)
+        serving = serving_phase(corpus, smi, args.profile)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
-               **precision["launches"], "resilience": resilience["launches"]}
+               **precision["launches"], "resilience": resilience["launches"],
+               "serving": serving["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

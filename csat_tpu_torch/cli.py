@@ -1,9 +1,11 @@
-"""Train / test entry point of the port.
+"""Train / test / serve entry point of the port.
 
-The train half of the JAX package's ``cli.py``::
+The JAX package's ``cli.py``::
 
     python -m csat_tpu_torch.cli --config python --data_dir ./processed/tree_sitter_python
     python -m csat_tpu_torch.cli --config python --data_dir DIR --is_test --checkpoint_dir OUT
+    python -m csat_tpu_torch.cli summarize --config python --data_dir DIR --checkpoint_dir OUT f.py
+    python -m csat_tpu_torch.cli serve --config python --data_dir DIR --checkpoint_dir OUT
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU
 (``--device`` stands where the JAX CLI has ``--platform``).  Without a GPU and
@@ -16,8 +18,9 @@ command line's.  Training streams ``scalars.jsonl`` into the output dir
 (``--set scalar_log=False`` turns it off).  A SIGTERM or SIGINT during
 training saves a resumable snapshot, prints one ``{"preempted": true, ...}``
 line and exits 75; a stalled step under ``--watchdog_timeout_s`` exits 76;
-either run continues with ``--resume``.  Serving has its own entry points
-(``serve.ServeEngine``).
+either run continues with ``--resume``.  ``summarize`` and ``serve`` go to
+the serving command line (``serve/cli.py``), as the JAX ``cli.py`` dispatches
+them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import ast
 import json
+import sys
 from typing import Optional, Sequence
 
 __all__ = ["main"]
@@ -78,6 +82,12 @@ def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("serve", "summarize", "top"):
+        from csat_tpu_torch.serve.cli import main as serve_main
+
+        serve_main(argv)
+        return
     args = _parse(argv)
     import torch
 

@@ -5,19 +5,22 @@ Field names are identical to the reference's so one set of overrides builds
 both configs.  The trainer's fields are here (data paths, epochs, validation
 and save intervals, bucketing, eval decode, input prefetch, profiling, the
 scalar log and telemetry, guard rollback, preemption saves, the step
-watchdog, the data error budget, checkpoint retries), and the precision
-axes: ``compute_dtype`` (bf16 compute with f32 attention islands),
+watchdog, the data error budget, checkpoint retries), the serving engine's
+(the slot and page pools, the prefix cache, admission control, deadlines,
+priorities and brownout, the tick watchdog, the poison budget, rebuild and
+retry caps, the reaper's margin, request traces), and the precision axes:
+``compute_dtype`` (bf16 compute with f32 attention islands),
 ``init_scheme`` (flax's or the reference's realised initialisation) and
 ``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages).  Fields that only
 select JAX/TPU machinery (``backend``, meshes, compilation caches, AOT
 warm-up, ``flex_bwd``), telemetry of parts the port does not carry yet
-(request traces, SLOs, calibration, the bench history) or serving features
-outside this port (prefix cache, KV tiering, the rectangle layout,
-deadlines, fleets) are absent, and so is
-``param_dtype``, which the JAX package declares but reads nowhere (its master
-weights are f32 whatever it says): the port picks kernel or plain path by the
-device a tensor lies on, and a field it never reads is not one it pretends to
-honour.
+(SLOs, calibration, the bench history) or serving features outside this port
+(KV tiering, the rectangle layout — so ``serve_kv_layout``, paged being the
+port's only layout —, warm start, serve meshes, fleets, autoscale and the
+network front door) are absent, and so is ``param_dtype``, which the JAX
+package declares but reads nowhere (its master weights are f32 whatever it
+says): the port picks kernel or plain path by the device a tensor lies on,
+and a field it never reads is not one it pretends to honour.
 """
 
 from __future__ import annotations
@@ -154,6 +157,40 @@ class Config:
     # read); the paged layout, which quantized pages require, is the port's
     # only one
     serve_kv_page_dtype: str = "float32"
+    # cross-request prefix cache (serve/prefix.py): entries mapping a content
+    # hash of a request's encoder input to a refcounted cross-KV page chain,
+    # so an identical resubmission skips prefill and shares the pages; 0 = off
+    serve_prefix_cache: int = 64
+    # admission control: queue bound (0 = unbounded) and what a full queue
+    # does — "reject" the newcomer, or "shed_oldest" (the least important
+    # queued request, FIFO-oldest within its tier)
+    serve_max_queue: int = 0
+    serve_queue_policy: str = "reject"
+    # default per-request deadline, seconds from submit (0 = none)
+    serve_deadline_s: float = 0.0
+    # tick watchdog: trip when no scheduler tick completes for this long while
+    # work is in flight (0 = off; default action: exit 76)
+    serve_watchdog_timeout_s: float = 0.0
+    # malformed samples refused at submit before the budget raises
+    serve_poison_budget: int = 64
+    # pool rebuilds after device faults before the fault propagates; a
+    # request's resubmissions across rebuilds
+    serve_max_rebuilds: int = 2
+    serve_max_retries: int = 1
+    # an admitted row not retired within limit + this many ticks is reaped
+    serve_reap_margin: int = 4
+    # tenant tiers (0 = most important; 1 = single-class FIFO); brownout caps
+    # tiers > 0 at serve_brownout_max_new_tokens once the queue crosses
+    # serve_brownout_queue_frac of serve_max_queue; REJECTED / SHED carry a
+    # retry hint of serve_retry_after_s scaled by queue depth (0 = none)
+    serve_priority_classes: int = 1
+    serve_brownout_queue_frac: float = 0.75
+    serve_brownout_max_new_tokens: int = 8
+    serve_retry_after_s: float = 0.5
+    # request traces (obs/rtrace.py): finished traces kept (0 = tracing off)
+    # and the longest ones kept past ring eviction
+    obs_traces: int = 256
+    obs_trace_slowest: int = 8
 
     # reference-compat quirk flags (same meanings as the JAX package)
     generator_dropout: bool = True
@@ -191,6 +228,24 @@ class Config:
         assert self.serve_page_size >= 1, self.serve_page_size
         assert self.serve_num_pages >= 0, self.serve_num_pages
         assert self.serve_prefill_budget >= 0, self.serve_prefill_budget
+        assert self.serve_prefix_cache >= 0, self.serve_prefix_cache
+        assert self.serve_max_queue >= 0, self.serve_max_queue
+        assert self.serve_queue_policy in ("reject", "shed_oldest"), (
+            self.serve_queue_policy)
+        assert self.serve_deadline_s >= 0, self.serve_deadline_s
+        assert self.serve_watchdog_timeout_s >= 0, self.serve_watchdog_timeout_s
+        assert self.serve_poison_budget >= 0, self.serve_poison_budget
+        assert self.serve_max_rebuilds >= 0, self.serve_max_rebuilds
+        assert self.serve_max_retries >= 0, self.serve_max_retries
+        assert self.serve_reap_margin >= 1, self.serve_reap_margin
+        assert self.serve_priority_classes >= 1, self.serve_priority_classes
+        assert 0 < self.serve_brownout_queue_frac <= 1, (
+            self.serve_brownout_queue_frac)
+        assert self.serve_brownout_max_new_tokens >= 0, (
+            self.serve_brownout_max_new_tokens)
+        assert self.serve_retry_after_s >= 0, self.serve_retry_after_s
+        assert self.obs_traces >= 0, self.obs_traces
+        assert self.obs_trace_slowest >= 0, self.obs_trace_slowest
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens
         assert all(t >= 2 for t in self.bucket_tgt_lens), self.bucket_tgt_lens
         assert self.bucket_token_budget >= 0, self.bucket_token_budget

@@ -1,6 +1,6 @@
-"""Deterministic fault injection for the trainer's resilience machinery.
+"""Deterministic fault injection for the resilience machinery.
 
-The train hooks of the JAX package's ``resilience/faults.py``.  Every
+The train and serve hooks of the JAX package's ``resilience/faults.py``.  Every
 mechanism in this package exists because of a failure that is hard to
 reproduce on demand, so none of them can be trusted on faith.  The injector
 creates each fault at a chosen step:
@@ -17,11 +17,32 @@ creates each fault at a chosen step:
 * **failing saves** — a wrapper that makes the first N checkpoint saves
   raise, exercising the bounded retry.
 
+The serving engine (``serve/engine.py``) consults the injector at exact
+scheduler points, so every serving failure mode is reproducible on a chosen
+tick:
+
+* **NaN logits** — poison one slot's self-attention KV (its pages' scales)
+  before a chosen tick's decode, exercising the per-row retire-as-FAILED
+  guard;
+* **prefill failure** — a chosen prefill call raises, standing in for a
+  device fault inside admission;
+* **tick hang** — a host stall inside ``ServeEngine.tick``, the wedged
+  dispatch the tick watchdog bounds (``sleep`` is injectable, so a drill
+  can advance a virtual clock instead of waiting);
+* **wedged slot** — silently freeze a slot's row (limit → 0) without
+  telling the scheduler, exercising the stuck-slot reaper;
+* **decode fault** — the decode dispatch raises on a chosen tick,
+  exercising the bounded rebuild-and-resubmit;
+* **poison sample** — :meth:`poison_sample` malforms a request payload,
+  exercising the submit-time quarantine.
+
 Step ordinals are global train-step attempts (0-based, counted by the
 Trainer across epochs within one ``fit`` call); batch ordinals count batches
-produced by the training iterator.  Both are deterministic for a fixed
-config, which is what makes the drills' assertions exact.  The serving
-engine's fault hooks are not ported with this module.
+produced by the training iterator; tick ordinals count engine ticks and
+prefill ordinals prefill calls (both 0-based).  All are deterministic for a
+fixed config and trace, which is what makes the drills' assertions exact.
+The JAX package's KV-tier faults (spill storms, corrupt tiers) wait for the
+port's tiering.
 """
 
 from __future__ import annotations
@@ -52,6 +73,11 @@ class FaultInjector:
         hang_seconds: float = 0.0,
         save_failures: int = 0,
         sleep: Callable[[float], None] = time.sleep,
+        serve_nan_logits: Collection[tuple] = (),
+        serve_prefill_fail_calls: Collection[int] = (),
+        serve_hang_at_tick: Optional[int] = None,
+        serve_wedge_slots: Collection[tuple] = (),
+        serve_decode_fail_ticks: Collection[int] = (),
     ) -> None:
         self.nan_loss_steps = frozenset(int(s) for s in nan_loss_steps)
         self.spike_steps = frozenset(int(s) for s in spike_steps)
@@ -65,6 +91,13 @@ class FaultInjector:
         self._sleep = sleep
         self._batch_ordinal = 0
         self.injected_saves_failed = 0
+        # serve faults: (tick, slot) pairs for cache poison / wedge, call
+        # ordinals for prefill failure, tick ordinals for decode failure
+        self.serve_nan_logits = {int(t): int(s) for t, s in serve_nan_logits}
+        self.serve_prefill_fail_calls = frozenset(int(c) for c in serve_prefill_fail_calls)
+        self.serve_hang_at_tick = serve_hang_at_tick
+        self.serve_wedge_slots = {int(t): int(s) for t, s in serve_wedge_slots}
+        self.serve_decode_fail_ticks = frozenset(int(t) for t in serve_decode_fail_ticks)
         # optional flight recorder (obs/events.py): the trainer attaches its
         # own, so every fired fault is stamped into the SAME timeline the
         # post-mortem dumps — a drill's dump shows cause next to effect
@@ -106,9 +139,51 @@ class FaultInjector:
             handler.trigger()
         return True
 
+    # -- serve faults (consulted by ServeEngine.tick / admission) -----------
+
+    def nan_logits_slot(self, tick: int) -> Optional[int]:
+        """Slot whose self-KV should be NaN-poisoned before this tick's
+        decode (None = no fault).  The poison reaches the logits once the
+        row attends to a poisoned cached position, i.e. on rows with
+        ``pos >= 1`` — inject after the row's first step."""
+        slot = self.serve_nan_logits.get(tick)
+        if slot is not None:
+            self._note("nan_logits", tick=tick, slot=slot)
+        return slot
+
+    def wedge_slot(self, tick: int) -> Optional[int]:
+        """Slot whose row should be silently frozen at this tick (the host
+        scheduler is NOT told — the row just stops retiring)."""
+        slot = self.serve_wedge_slots.get(tick)
+        if slot is not None:
+            self._note("wedge_slot", tick=tick, slot=slot)
+        return slot
+
+    def maybe_hang_tick(self, tick: int) -> None:
+        """Host stall inside the scheduler tick — the wedged dispatch the
+        tick watchdog turns into a bounded outage."""
+        if self.serve_hang_at_tick is not None and tick == self.serve_hang_at_tick:
+            self._note("hang_tick", tick=tick, seconds=self.hang_seconds)
+            self._sleep(self.hang_seconds)
+
+    def maybe_fail_prefill(self, call_ordinal: int) -> None:
+        """Raise on the configured prefill call ordinals — a device fault
+        inside admission."""
+        if call_ordinal in self.serve_prefill_fail_calls:
+            self._note("prefill_fail", call=call_ordinal)
+            raise RuntimeError(f"injected prefill failure at call {call_ordinal}")
+
+    def maybe_fail_decode(self, tick: int) -> None:
+        """Raise on the configured decode ticks — a device fault escaping the
+        decode dispatch, exercising rebuild-and-resubmit."""
+        if tick in self.serve_decode_fail_ticks:
+            self._note("decode_fail", tick=tick)
+            raise RuntimeError(f"injected decode fault at tick {tick}")
+
     @staticmethod
     def poison_sample(sample: dict, mode: str = "missing_key") -> dict:
-        """A malformed copy of a sample: ``missing_key`` drops a required
+        """A malformed copy of a sample (a training row or a request):
+        ``missing_key`` drops a required
         field, ``oversize`` claims more nodes than max_src_len, ``dtype``
         turns token ids into floats, ``shape`` truncates the source row —
         each a distinct way real data goes wrong."""

@@ -92,6 +92,7 @@ class StepWatchdog:
         probe: Optional[Callable[[], None]] = None,
         probe_interval_s: Optional[float] = None,
         on_trip: Optional[Callable[[str, float], None]] = None,
+        clock: Callable[[], float] = time.monotonic,
     ) -> None:
         assert timeout_s > 0, timeout_s
         self.timeout_s = float(timeout_s)
@@ -102,6 +103,10 @@ class StepWatchdog:
         # exists.  Runs on the monitor thread; its exceptions are swallowed
         # — telemetry must never mask the abort itself
         self._on_trip = on_trip
+        # the time base of beats and probes: wall time in production; a
+        # drill passes a virtual clock and calls check() itself, so the trip
+        # depends on no thread's timing
+        self._clock = clock
         self._diag_path = diag_path
         self._log = log
         self._lock = threading.Lock()
@@ -128,7 +133,7 @@ class StepWatchdog:
                                             daemon=True)
             self._thread.start()
         if self._probe is not None and self._probe_thread is None:
-            self._last_probe = time.monotonic()  # grace until the first probe
+            self._last_probe = self._clock()  # grace until the first probe
             self._probe_thread = threading.Thread(target=self._run_probe,
                                                   name="device-probe", daemon=True)
             self._probe_thread.start()
@@ -156,7 +161,7 @@ class StepWatchdog:
     def beat(self) -> None:
         """Record progress and arm (or re-arm) the monitor."""
         with self._lock:
-            self._last_beat = time.monotonic()
+            self._last_beat = self._clock()
             self._armed = True
 
     def disarm(self) -> None:
@@ -173,23 +178,36 @@ class StepWatchdog:
     def _run(self) -> None:
         poll = self.timeout_s / 4.0
         while not self._stop.wait(poll):
-            with self._lock:
-                armed, last = self._armed, self._last_beat
-                last_probe = self._last_probe
-            now = time.monotonic()
-            if not armed:
-                continue
-            if now - last > self.timeout_s:
-                self._trip(now - last, "no completed step")
+            if self.check():
                 return
+
+    def check(self) -> bool:
+        """One look at the beats (the monitor thread's poll): trip when the
+        armed watchdog has seen no beat — or, with the device leg, no
+        completed probe — within the timeout.  Returns whether it has
+        tripped; it trips at most once."""
+        with self._lock:
+            if self._tripped.is_set():
+                return True
+            armed, last = self._armed, self._last_beat
+            last_probe = self._last_probe
+            now = self._clock()
+            if not armed:
+                return False
+            if now - last > self.timeout_s:
+                stalled, what = now - last, "no completed step"
             # device leg: host beats can keep flowing while the device is
             # wedged — a stalled PROBE is the authoritative device-down
             # signal.  The window adds one probe interval so a probe in
             # flight at the deadline is not a false positive
-            if (self._probe is not None
+            elif (self._probe is not None
                     and now - last_probe > self.timeout_s + self._probe_interval):
-                self._trip(now - last_probe, "no completed device probe")
-                return
+                stalled, what = now - last_probe, "no completed device probe"
+            else:
+                return False
+            self._tripped.set()
+        self._trip(stalled, what)
+        return True
 
     def _run_probe(self) -> None:
         while not self._stop.wait(self._probe_interval):
@@ -198,10 +216,9 @@ class StepWatchdog:
             except Exception:  # noqa: BLE001 — a failing device must trip, not
                 continue       # crash the thread: staleness accumulates until the check fires
             with self._lock:
-                self._last_probe = time.monotonic()
+                self._last_probe = self._clock()
 
     def _trip(self, stalled_s: float, what: str = "no completed step") -> None:
-        self._tripped.set()
         if self._on_trip is not None:
             try:
                 self._on_trip(what, stalled_s)

@@ -1,4 +1,11 @@
-"""Request validation (the JAX package's ``serve/ingest.py:65-115``)."""
+"""Request ingestion: raw source code → engine samples, and validation.
+
+The JAX package's ``serve/ingest.py``: :func:`sample_from_source` runs one
+code snippet through the L0 extractor (``data/extract.py``, the stdlib-``ast``
+backend), the L1 distance matrices (``data/ast_tools.py``) and the vocab —
+exactly the offline preprocessing pipeline, per request — and
+:func:`validate_sample` refuses malformed samples at submit.
+"""
 
 from __future__ import annotations
 
@@ -7,8 +14,13 @@ from typing import Dict
 import numpy as np
 
 from csat_tpu_torch.configs import Config
+from csat_tpu_torch.data.ast_tools import (
+    ast_json_to_tree, build_matrices, tree_to_record, truncate_preorder)
+from csat_tpu_torch.data.dataset import gen_tree_positions, node_triplets
+from csat_tpu_torch.data.extract import source_to_ast_json
+from csat_tpu_torch.utils import UNK
 
-__all__ = ["PoisonRequestError", "validate_sample"]
+__all__ = ["PoisonRequestError", "sample_from_source", "validate_sample"]
 
 
 class PoisonRequestError(ValueError):
@@ -63,3 +75,38 @@ def validate_sample(sample: Dict[str, np.ndarray], cfg: Config,
             raise PoisonRequestError(
                 f"triplet ids span [{int(trip.min())}, {int(trip.max())}], outside the "
                 f"triplet table [0, {triplet_vocab_size})")
+
+
+def sample_from_source(source: str, cfg: Config, src_vocab, trip_vocab=None,
+                       language: str = "") -> Dict[str, np.ndarray]:
+    """One code snippet → a request sample (``src_vocab`` / ``trip_vocab``
+    are ``data.vocab.Vocab``s; raises ``SyntaxError`` and the like on
+    unparseable input — callers report that per request)."""
+    N = cfg.max_src_len
+    nodes = source_to_ast_json(source, language or cfg.lang)
+    seq = truncate_preorder(ast_json_to_tree(nodes), N)
+    L, T = build_matrices(seq, N)
+    rec = tree_to_record(seq)
+    n = len(rec)
+
+    src_seq = np.zeros((N,), np.int32)
+    ast_tokens = [":".join(e.split(":")[1:-1]) for e in rec.labels[:N]]
+    src_seq[: len(ast_tokens)] = [src_vocab.w2i.get(t, UNK) for t in ast_tokens]
+
+    tp_dim = cfg.tree_pos_width * cfg.tree_pos_height
+    tree_pos = np.zeros((N, tp_dim), np.uint8)
+    tp = gen_tree_positions(rec, cfg.tree_pos_width, cfg.tree_pos_height)
+    tree_pos[: tp.shape[0]] = tp
+
+    triplet = np.zeros((N,), np.int32)
+    trips = node_triplets(rec)
+    triplet[: len(trips)] = (
+        [trip_vocab.w2i.get(t, UNK) for t in trips] if trip_vocab else [UNK] * len(trips))
+    return {
+        "src_seq": src_seq,
+        "L_raw": L[:N, :N].astype(np.int16),
+        "T_raw": T[:N, :N].astype(np.int16),
+        "num_node": np.asarray(min(n, N), np.int32),
+        "tree_pos": tree_pos,
+        "triplet": triplet,
+    }

@@ -15,7 +15,11 @@ path on the CPU.
 Unlike the JAX pool, which is an immutable pytree donated through compiled
 programs, :class:`PagedPool` is updated IN PLACE: the decode step writes
 each token's K/V into its page and advances the slot state on the tensors
-themselves.
+themselves, and so do the two admission-side surgeries of the JAX package's
+``:452-563``: :func:`attach` brings prefix-cache hits live without running
+the encoder, and :func:`release` retires rows frozen outside the decode
+step (NaN guard, timeout, reap, shed).  Neither is a kernel there or here:
+both are a few indexed writes on the pool's tensors.
 """
 
 from __future__ import annotations
@@ -28,15 +32,19 @@ import torch
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.ops.paged_decode import NULL_PAGE, quantize_kv
-from csat_tpu_torch.utils import EOS, PAD
+from csat_tpu_torch.utils import BOS, EOS, PAD
 
 __all__ = [
-    "NULL_PAGE", "KV_PAGE_DTYPES", "PageGeometry", "page_geometry", "PageAllocator",
-    "PagedPool", "chain_table_row", "init_paged_pool", "build_paged_decode_step",
+    "NULL_PAGE", "KV_PAGE_DTYPES", "KV_PAGE_RATIO", "PageGeometry", "page_geometry",
+    "PageAllocator", "PagedPool", "chain_table_row", "init_paged_pool", "admit_slot_state",
+    "scrub_pages", "attach", "release", "build_paged_decode_step",
 ]
 
 #: ``serve_kv_page_dtype`` → storage dtype of the K/V page arrays
 KV_PAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+#: f32 bytes of a page over its stored bytes: the equal-memory multiplier a
+#: quantized pool funds (``ServeStats.summary``'s ``effective_slots``)
+KV_PAGE_RATIO = {"float32": 1, "bfloat16": 2, "int8": 4}
 
 
 class PageGeometry(NamedTuple):
@@ -46,6 +54,17 @@ class PageGeometry(NamedTuple):
     cp: int         # cross page-table width = ceil(mem_len / page)
     steps: int      # decode budget capacity (max_tgt_len - 1)
     mem_len: int    # encoder memory width (max_src_len)
+
+    @property
+    def usable(self) -> int:
+        """Allocatable pages (the null page is reserved)."""
+        return self.num_pages - 1
+
+    @property
+    def rect_pages_per_slot(self) -> int:
+        """Pages one worst-case slot occupies — the equal-memory yardstick of
+        ``effective_slots``."""
+        return self.sp + self.cp
 
     def self_pages(self, limit: int) -> int:
         return max(1, -(-int(limit) // self.page))
@@ -88,6 +107,10 @@ class PageAllocator:
     @property
     def used_pages(self) -> int:
         return len(self._used)
+
+    @property
+    def usable(self) -> int:
+        return self.num_pages - 1
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """``n`` pages, or None (and no state change) when the pool cannot
@@ -147,6 +170,75 @@ def init_paged_pool(model, num_slots: int, geo: PageGeometry,
         prev_pad=torch.zeros((num_slots, geo.steps), dtype=torch.bool, device=dev),
         toks=torch.full((num_slots, geo.steps), PAD, dtype=torch.long, device=dev),
     )
+
+
+def _ids(values, device) -> torch.Tensor:
+    return torch.tensor(list(values), dtype=torch.long, device=device)
+
+
+def admit_slot_state(pool: PagedPool, ids: torch.Tensor, limits: Sequence[int],
+                     smask: torch.Tensor) -> None:
+    """The decode state every admission path resets at rows ``ids`` — BOS
+    start token, position 0, a budget clamped to the token capacity, cleared
+    done / prev_pad / toks — and the rows' source pad mask ``smask`` (b,
+    mem_len): one definition for prefill and attach, as the JAX package's
+    ``serve/slots.py:admit_slot_state``."""
+    t_cap = pool.toks.shape[1]
+    pool.src_mask[ids] = smask
+    # index_fill_ takes its value as a scalar argument; `x[ids] = v` would
+    # first copy a one-element tensor to the card, a host sync each
+    pool.tok.index_fill_(0, ids, BOS)
+    pool.pos.index_fill_(0, ids, 0)
+    pool.limit[ids] = torch.tensor([min(int(x), t_cap) for x in limits],
+                                   dtype=torch.int32, device=ids.device)
+    pool.done.index_fill_(0, ids, False)
+    pool.prev_pad.index_fill_(0, ids, False)
+    pool.toks.index_fill_(0, ids, PAD)
+
+
+def scrub_pages(pool: PagedPool, chains: Sequence[Sequence[int]]) -> None:
+    """Zero the freshly allocated pages of ``chains`` (scales to 1.0, so they
+    dequantize to exact zeros): a freed page may hold a predecessor's values
+    — NaN after a NaN drill — and a masked lane's weight of 0 times a NaN
+    still poisons the softmax."""
+    scrub = _ids((p for c in chains for p in c), pool.self_pt.device)
+    for e in pool.pages:
+        for key in ("k", "v"):
+            e[key].index_fill_(0, scrub, 0)
+            e[f"{key}_scale"].index_fill_(0, scrub, 1.0)
+
+
+@torch.no_grad()
+def attach(pool: PagedPool, geo: PageGeometry, slot_ids: Sequence[int],
+           limits: Sequence[int], self_chains: Sequence[Sequence[int]],
+           cross_chains: Sequence[Sequence[int]], smask: np.ndarray) -> None:
+    """Bring ``slot_ids`` live WITHOUT running the encoder — the prefix-cache
+    hit path (the JAX package's ``build_attach``), in place: each row's
+    cross chain already holds an identical earlier request's projections,
+    so only its page-table rows, source mask ``smask`` (b, mem_len; True =
+    pad key), BOS and budget are written, after its freshly allocated self
+    pages are scrubbed (:func:`scrub_pages` — the miss path's prefill
+    scrubs them too)."""
+    dev = pool.self_pt.device
+    scrub_pages(pool, self_chains)
+    ids = _ids(slot_ids, dev)
+    pool.self_pt[ids] = torch.from_numpy(
+        np.stack([chain_table_row(c, geo.sp) for c in self_chains])).to(dev)
+    pool.cross_pt[ids] = torch.from_numpy(
+        np.stack([chain_table_row(c, geo.cp) for c in cross_chains])).to(dev)
+    admit_slot_state(pool, ids, limits, torch.from_numpy(np.asarray(smask, bool)).to(dev))
+
+
+@torch.no_grad()
+def release(pool: PagedPool, slots: Sequence[int]) -> None:
+    """Retire ``slots`` on the pool (the JAX package's ``build_release``), in
+    place: zero the budget (the decode step's ``act`` gate) AND null the
+    page-table rows, so the rows' per-tick dead writes land on the null page
+    instead of pages the free list may hand to another request."""
+    ids = _ids(slots, pool.self_pt.device)
+    pool.limit.index_fill_(0, ids, 0)
+    pool.self_pt.index_fill_(0, ids, NULL_PAGE)
+    pool.cross_pt.index_fill_(0, ids, NULL_PAGE)
 
 
 def build_paged_decode_step(model, geo: PageGeometry):

@@ -19,8 +19,9 @@ from csat_tpu_torch.configs import Config
 from csat_tpu_torch.data.bucketing import src_bucket_ladder
 from csat_tpu_torch.data.dataset import Batch, batch_to_device, collate
 from csat_tpu_torch.ops.paged_decode import quantize_kv
-from csat_tpu_torch.serve.pages import PagedPool, PageGeometry, chain_table_row
-from csat_tpu_torch.utils import BOS, PAD
+from csat_tpu_torch.serve.pages import (
+    PagedPool, PageGeometry, admit_slot_state, chain_table_row, scrub_pages)
+from csat_tpu_torch.utils import PAD
 
 __all__ = ["PrefillSpec", "prefill_plan", "assign_prefill_bucket", "collate_requests",
            "paged_prefill"]
@@ -90,12 +91,10 @@ def paged_prefill(model, cfg: Config, geo: PageGeometry, pool: PagedPool, n: int
         return x.reshape(b, h, cpn, page, dh).transpose(1, 2).reshape(b * cpn, h, page, dh)
 
     flat_cross = torch.tensor([p for c in cross_chains for p in c], dtype=torch.long, device=dev)
-    scrub = torch.tensor([p for c in self_chains for p in c], dtype=torch.long, device=dev)
+    scrub_pages(pool, self_chains)
     for e, kv in zip(pool.pages, cross):
         for key in ("k", "v"):
             vals, scale = quantize_kv(paginate(kv[key]), e[key].dtype)
-            e[key][scrub] = 0
-            e[f"{key}_scale"][scrub] = 1.0
             e[key][flat_cross] = vals
             e[f"{key}_scale"][flat_cross] = scale
 
@@ -106,13 +105,4 @@ def paged_prefill(model, cfg: Config, geo: PageGeometry, pool: PagedPool, n: int
         np.stack([chain_table_row(c, geo.cp) for c in cross_chains])).to(dev)
     smask = torch.ones((b, geo.mem_len), dtype=torch.bool, device=dev)
     smask[:, :n] = batch.src_seq == PAD
-    pool.src_mask[ids] = smask
-    t_cap = pool.toks.shape[1]
-    pool.tok[ids] = BOS
-    pool.pos[ids] = 0
-    pool.limit[ids] = torch.tensor([min(int(x), t_cap) for x in limits],
-                                   dtype=torch.int32, device=dev)
-    pool.done[ids] = False
-    pool.prev_pad[ids] = False
-    pool.toks[ids] = PAD
-
+    admit_slot_state(pool, ids, limits, smask)

@@ -1012,3 +1012,127 @@ def test_device_probe_trips_on_a_wedged_stream(dev):
             time.sleep(0.02)
     torch.cuda.synchronize()
     assert not healthy.is_set()
+
+
+# ---------------------------------------------------------------------------
+# serving as production runs it: shared cross chains, scrubbed reuse, the
+# admission-side surgeries
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_paged_kernel_on_a_cross_chain_shared_by_slots(dev, dtype):
+    """A prefix-cache hit: three slots' tables name one cross chain (two with
+    the same mask, one a shorter request's); K5 against its plain version,
+    and each sharer's output equal to the same query on a private copy of
+    the chain."""
+    from csat_tpu_torch.ops import build, paged_decode as pd
+
+    g = torch.Generator().manual_seed(11)
+    s, h, page, dh, width = 4, 8, 16, 64, 150
+    nb = -(-width // page)
+    n_pages = 1 + 2 * nb
+    raw = [torch.randn(n_pages, h, page, dh, generator=g) for _ in range(2)]
+    for r in raw:
+        r[pd.NULL_PAGE] = 0.0
+    (pk, sk), (pv, sv) = (pd.quantize_kv(r, dtype) for r in raw)
+    shared = torch.arange(1, 1 + nb, dtype=torch.int32)
+    private = torch.arange(1 + nb, 1 + 2 * nb, dtype=torch.int32)
+    for x in (pk, pv, sk, sv):  # the private chain: a copy of the shared one
+        x[1 + nb:1 + 2 * nb] = x[1:1 + nb]
+    table = torch.stack([shared, shared, shared, private])
+    mask = torch.ones((s, width), dtype=torch.bool)
+    mask[0, :120] = mask[1, :120] = mask[3, :120] = False
+    mask[2, :37] = False
+    q0 = torch.randn(1, h, 1, dh, generator=g)
+    q = torch.cat([q0, torch.randn(1, h, 1, dh, generator=g), torch.randn(1, h, 1, dh,
+                                                                           generator=g), q0])
+    inputs = [t.to(dev) for t in (q, pk, pv, sk, sv, table, mask)] + [width]
+    before = build.launch_counts()["paged_decode"]
+    out, _ = pd.paged_attend(*inputs)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["paged_decode"] == before + 1
+    ref, _ = pd.paged_attend(*[t.cpu() if torch.is_tensor(t) else t for t in inputs])
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
+    assert torch.equal(out[0], out[3])  # shared chain = a private copy, bit for bit
+
+
+def _drill_cfg():
+    from csat_tpu_torch.configs import get_config
+
+    return get_config("python", eval_graph="expected", serve_slots=4, max_tgt_len=12)
+
+
+def test_paged_kernel_on_self_pages_reused_after_a_nan_drill(dev, tmp_path):
+    """A NaN drill poisons slot 0's self page; the request retires FAILED and
+    its page goes back to the free list; a prefix hit admitted next gets that
+    page, scrubbed by ``attach``, and decodes exactly its original's tokens —
+    on the card (K5) as on the CPU (the plain path)."""
+    import numpy as np
+
+    from csat_tpu_torch.data.synthetic import random_ast, request_sample
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.resilience import FaultInjector
+    from csat_tpu_torch.serve import ServeEngine
+
+    cfg = _drill_cfg().replace(obs_postmortem_dir=str(tmp_path))
+    rng = np.random.default_rng(1)
+    samples = [request_sample(random_ast(rng, 5 + i), cfg, 500) for i in range(4)]
+    got = {}
+    for device in ("cuda", "cpu"):
+        eng = ServeEngine(CSATrans(cfg, 500, 700, device=device, seed=3), cfg, device=device,
+                          fault_injector=FaultInjector(serve_nan_logits=[(1, 0)]))
+        ids = [eng.submit(s, 6) for s in samples]
+        eng.tick()
+        victim = set(eng._slot_meta[0].self_chain)
+        eng.tick()
+        eng.tick()
+        eng.fault_injector = None
+        assert eng.poll(ids[0]).status == "FAILED"
+        hit = eng.submit(samples[1], 6)
+        eng.tick()
+        slot = next(r.slot for r in eng._slots if r is not None and r.id == hit)
+        assert victim & set(eng._slot_meta[slot].self_chain)
+        eng.drain()
+        assert eng.stats.prefix_hits == 1 and eng.page_leaks() == 0
+        res = [eng.poll(i) for i in ids + [hit]]
+        assert all(r.ok for r in res[1:])
+        np.testing.assert_array_equal(res[-1].tokens, res[1].tokens)
+        got[device] = [r.tokens.tolist() for r in res]
+        eng.close()
+    assert got["cuda"] == got["cpu"]
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+def test_attach_and_release_on_card_equal_cpu(dev, kv):
+    """``attach`` (scrub fresh self pages, tables, mask, BOS, budget) and
+    ``release`` (budget 0, null tables) on the card leave the pool exactly as
+    on the CPU."""
+    import numpy as np
+
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.serve.pages import attach, init_paged_pool, page_geometry, release
+
+    cfg = _drill_cfg().replace(serve_kv_page_dtype=kv)
+    geo = page_geometry(cfg)
+    pools = {}
+    for device in ("cuda", "cpu"):
+        pool = init_paged_pool(CSATrans(cfg, 500, 700, device=device, seed=3), 4, geo, kv)
+        g = torch.Generator().manual_seed(5)
+        for e in pool.pages:
+            for key in ("k", "v"):
+                vals = torch.randn(e[key].shape, generator=g) * 20
+                e[key].copy_(vals.to(e[key].dtype).to(device))
+                e[f"{key}_scale"].copy_(torch.rand(e[f"{key}_scale"].shape, generator=g))
+            e["k_scale"][3] = float("nan")  # a page a NaN drill poisoned
+        smask = np.ones((2, geo.mem_len), bool)
+        smask[0, :30] = smask[1, :75] = False
+        attach(pool, geo, [2, 0], [6, 11], [[3], [4]], [[7, 8], [7, 8, 9, 10, 11]], smask)
+        release(pool, [0, 3])
+        pools[device] = pool
+    for name in ("self_pt", "cross_pt", "src_mask", "tok", "pos", "limit", "done", "prev_pad",
+                 "toks"):
+        assert torch.equal(getattr(pools["cuda"], name).cpu(), getattr(pools["cpu"], name)), name
+    for a, b in zip(pools["cuda"].pages, pools["cpu"].pages):
+        for key in a:
+            assert torch.equal(a[key].cpu(), b[key]), key  # no NaN left: page 3 was scrubbed
+        assert torch.equal(a["k_scale"][3], torch.ones_like(a["k_scale"][3]))

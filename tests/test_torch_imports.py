@@ -1,7 +1,9 @@
 """The port stands alone: no file of ``csat_tpu_torch/`` nor ``chip_smoke.py``
 imports JAX, flax or the JAX package, every module imports with those
-blocked and without ``nvcc``, and ``chip_smoke.py`` fails without a GPU or
-without the package beside it."""
+blocked and without ``nvcc``, ``chip_smoke.py`` fails without a GPU or
+without the package beside it, and the port's copies of JAX-free modules
+(the prefix cache, the request tracer, the serve stats, the identifier
+splitters of the extractor) define exactly what their originals do."""
 
 import ast
 import os
@@ -59,7 +61,7 @@ def test_every_module_imports_with_jax_blocked_and_no_nvcc():
     )
     res = _run(["-c", code], cwd=REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    assert int(res.stdout.split()[-1]) >= 55
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
@@ -71,3 +73,32 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     res = _run(["chip_smoke.py"], cwd=tmp_path, env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def _defs(path: Path):
+    """Top-level statements of a module as AST dumps, by name, docstring and
+    imports left out, the package's own name normalised."""
+    tree = ast.parse(path.read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)) or (
+                isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)):
+            continue
+        name = getattr(node, "name", None) or ast.dump(node)[:60]
+        out[name] = ast.dump(node).replace("csat_tpu_torch", "csat_tpu")
+    return out
+
+
+# the port's copies of JAX-free modules of the JAX package: every definition
+# is the original's, statement for statement (the extractor's stdlib backend
+# is held to the original by its outputs, tests/test_torch_serve_cli.py)
+COPIES = [("serve/prefix.py", None), ("obs/rtrace.py", None), ("serve/stats.py", None),
+          ("data/extract.py", ("split_camelcase", "split_identifier_into_parts"))]
+
+
+@pytest.mark.parametrize("rel,names", COPIES, ids=[c[0] for c in COPIES])
+def test_copies_equal_their_originals(rel, names):
+    port, ref = _defs(REPO / "csat_tpu_torch" / rel), _defs(REPO / "csat_tpu" / rel)
+    if names is None:  # a whole-module copy
+        assert sorted(port) == sorted(ref)
+    assert all(port[n] == ref[n] for n in names or ref), rel

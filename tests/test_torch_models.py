@@ -23,6 +23,10 @@ import torch
 
 from torch_parity import (
     configs, jax_model_and_params, request_samples, torch_model)
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ACT_TOL = 2e-5
 LOGP_TOL = 1e-4

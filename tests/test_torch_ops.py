@@ -24,6 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 B, H, DH, R = 2, 4, 8, 40
 
 

@@ -51,6 +51,10 @@ import torch
 from torch_parity import (
     TGT_V, configs, jax_model_and_params, request_samples, step_batch, torch_model,
     train_setup)
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(num_layers=2, sbm_layers=2, decoder_layers=2, clusters=(4, 3), hidden_size=32,
              pegen_dim=16, num_heads=2, dim_feed_forward=64, max_src_len=80,

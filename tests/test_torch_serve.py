@@ -13,6 +13,10 @@ import pytest
 import torch
 
 from torch_parity import configs, jax_model_and_params, request_samples, torch_model
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BUDGETS = [9, 3, 6, 9, 1, 5]
 
@@ -39,7 +43,7 @@ def test_port_engine_serves_same_tokens_as_jax(served):
     from csat_tpu_torch.serve import RequestStatus, ServeEngine
 
     jcfg, tcfg, jmodel, params, samples, bad = served
-    jeng = JServeEngine(jmodel, params, jcfg.replace(backend="pallas", serve_prefix_cache=0))
+    jeng = JServeEngine(jmodel, params, jcfg.replace(backend="pallas"))
     try:
         j_res, j_bad = _run(jeng, samples, bad)
         assert jeng.page_leaks() == 0
@@ -49,7 +53,7 @@ def test_port_engine_serves_same_tokens_as_jax(served):
     teng = ServeEngine(torch_model(tcfg, params), tcfg, device="cpu")
     t_res, t_bad = _run(teng, samples, bad)
     assert teng.page_leaks() == 0
-    assert teng.occupancy == 0 and teng.n_prefills >= 2
+    assert teng.occupancy == 0 and teng.prefills >= 2
 
     assert t_bad.status == j_bad.status == RequestStatus.FAILED == "FAILED"
     assert "poison" in t_bad.error

@@ -22,6 +22,10 @@ from csat_tpu_torch.data.synthetic import random_ast, request_sample, train_samp
 from csat_tpu_torch.models import CSATrans
 from csat_tpu_torch.ops import paged_decode as pd
 from csat_tpu_torch.serve import ServeEngine
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NARROW = dict(hidden_size=32, sbm_enc_dim=32, pegen_dim=16, pe_dim=8, num_heads=2,
               dim_feed_forward=64)

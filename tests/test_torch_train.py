@@ -34,6 +34,10 @@ import pytest
 import torch
 
 from torch_parity import jax_train_step, train_setup
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GRAD_TOL = 3e-5
 

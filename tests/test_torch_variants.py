@@ -47,6 +47,10 @@ import torch
 from torch_parity import (
     SRC_V, TRIP_V, configs, jax_model_and_params, jax_train_step, request_samples,
     step_batch, torch_model, train_setup)
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
+# one intra-op thread: the suite's workers share the host's cores
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGP_TOL = 1e-4
 PE_TOL = 1e-5
