@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --profile    # also trace serving, train steps, the expected-graph
-                                       # gradient, a fit epoch and the serving trace
+                                       # gradient, a fit epoch, the serving trace and two
+                                       # python_long steps
 
 Phases, each printing JSON lines:
 
@@ -154,8 +155,22 @@ Phases, each printing JSON lines:
    on a checkpoint of a short fit: ``summarize`` equal to the engine, a
    ``serve`` process fed malformed lines and SIGTERM'd mid-stream answering
    every line and exiting 0;
-12. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-11 by path, its error,
+12. ``long_ast`` — the long-AST configs, ``python_long`` and ``java_long``
+   (N 512, counter noise, remat, SBM heads of 64 and 96), at their published
+   widths: (a) for each, at B 64 in its defaults, the step gate, the
+   same-graph gate on each SBM layer and 8 more steps whose loss must fall;
+   (b) a kernel step with remat on against one with it off, loss the same
+   bits, grad-norm within 1e-6, the peak memory of each; (c) a world-1 NCCL
+   group driving a one-epoch ``Trainer.fit`` of python_long with validation
+   on a synthetic corpus of 200 to 512 nodes; (d) two gloo ranks in two
+   processes, both on ``cuda:0``, each taking half of the B 64 batch (rank
+   1's hash streams at bh0 = 32 · 8), against the one-process B 64 step
+   at python_long's own dropout (loss within 1e-5, grad-norm within 1e-4,
+   parameters the same bits on both ranks); (e) for each, 8 requests of 300 to 512 nodes
+   served through the kernels and the plain route, tokens equal up to a near
+   tie; phase 3 checks and times their kernels at N 512 (``n512`` line);
+13. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-12 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -286,6 +301,14 @@ PATH_KERNELS = {
     # the serving engine as production runs it: prefix-cache misses prefill
     # (K1, K2), hits attach, every slot decodes (K5)
     "serving": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode"),
+    # the long-AST configs at N 512: counter-mode train steps (K1, K6, K3,
+    # K4; java's SBM at dh 96) and serving (K1, K2, K5); the world-1 NCCL fit
+    # (train steps and the sampled eval encoder); the two gloo ranks
+    **{name: ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+              "flex_bwd_k_sbm_sampled", "flex_fwd_sbm_expected", "paged_decode")
+       for name in ("python_long", "java_long")},
+    **{path: ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+              "flex_bwd_k_sbm_sampled") for path in ("long_fit", "long_dp")},
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -303,6 +326,17 @@ PROBE_SAMPLES = 64
 FIT_SAMPLES = (512, 64, 64)   # train / dev / test
 FIT_NODES = (10, 150)         # node counts, uniform: the corpus spreads over the buckets
 FIT_EPOCHS = 2
+#: the long-AST phase: its configs, the train batch's and the corpus's AST
+#: sizes, the fit corpus (train / dev / test), the served requests' sizes and
+#: count, the data-parallel gate's ranks and their time limit
+LONG_CONFIGS = ("python_long", "java_long")
+LONG_NODES = (200, 512)
+LONG_FIT_SAMPLES = (128, 64, 64)
+LONG_SERVE_NODES = (300, 512)
+LONG_SERVE_REQUESTS = 8
+DP_RANKS = 2
+DP_TIMEOUT_S = 300.0
+REMAT_GNORM_RTOL = 1e-6  # remat on against off: the recompute's order of sums
 
 
 def emit(phase: str, **fields) -> None:
@@ -428,11 +462,14 @@ def tensor_core_instructions(lib: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: float = 0.01,
-                 rel_mask=None, dh: int = 64):
+                 rel_mask=None, dh: int = 64, bh0: int = 0, r_len: int = 150):
+    """Random inputs of one flex launch at the flagship's heads and clusters;
+    ``r_len`` is the CSE's table length (``max_src_len``), ``bh0`` the
+    batch·head offset of the hash streams (a data-parallel rank's rows)."""
     from csat_tpu_torch.ops.mods import (
         cse_mod, sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod)
 
-    h, r_len, kk = 8, 150, 10
+    h, kk = 8, 10
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
     q, k, v = rnd(b, h, n, dh), rnd(b, h, n, dh), rnd(b, h, n, dh)
     # padded keys in every row but the first; the short rows leave whole
@@ -460,15 +497,15 @@ def _flex_inputs(mod: str, b: int, n: int, gen: torch.Generator, dev, floor: flo
         if mod == "sbm_expected":
             spec, aux = sbm_expected_mod(torch.sigmoid(rnd(b, h, n, kk)),
                                          torch.sigmoid(rnd(b, h, n, kk)), s_aff.to(dev),
-                                         pad.to(dev), floor=floor)
+                                         pad.to(dev), floor=floor, bh0=bh0)
         elif mod == "sbm_sampled":
             seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, dtype=torch.int32)
             spec, aux = sbm_sampled_mod(torch.sigmoid(2 * rnd(b, h, n, kk)),
                                         torch.sigmoid(2 * rnd(b, h, n, kk)), s_aff.to(dev),
-                                        pad.to(dev), seed.to(dev))
+                                        pad.to(dev), seed.to(dev), bh0=bh0)
         else:
             graph = (torch.rand((b, h, n, n), generator=gen) < 0.4).float()
-            spec, aux = sbm_graph_mod(graph.to(dev), pad.to(dev))
+            spec, aux = sbm_graph_mod(graph.to(dev), pad.to(dev), bh0)
     return q, k, v, spec, aux
 
 
@@ -498,11 +535,19 @@ def _near_draws(q, spec, aux):
     r, kh, _, sseed = aux
     b, h, n, _ = r.shape
     p = torch.clamp(exp_adjacency(r, kh), spec.floor, 0.99)
-    return (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
+    return (uniform_field(sseed, b, h, n, n, spec.stride, bh0=spec.bh0) - p).abs() <= NEAR
+
+
+def _plain_reps(n: int) -> dict:
+    """``cuda_ms`` repeats of a plain-path or library timing: at N 512 one
+    plain call materialises a dozen (B, H, N, N) fields and takes tens of
+    ms, so the long path's timings take fewer (the kernels' keep theirs)."""
+    return dict(reps=3, trials=3) if n >= 512 else {}
 
 
 def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=None,
-               captured=None, rate=None, dh: int = 64) -> dict:
+               captured=None, rate=None, dh: int = 64, bh0: int = 0,
+               r_len: int = 150) -> dict:
     """One forward kernel against its plain version at (B, N); ``timed``
     adds the times and the bound (left out for shapes checked for
     correctness only); ``rel_mask`` gives K1 a real batch's distances and
@@ -510,11 +555,14 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
     :func:`capture_sbm_inputs`) gives K6 or K7 what an SBM layer of a
     training step got; ``rate`` replaces the dropout rate of random inputs
     (default: ``RATE`` for the train mods, 0 for the others); ``dh`` the
-    head width of random inputs."""
+    head width of random inputs; ``bh0`` the batch·head offset of their
+    hash streams (rank 1 of a data-parallel step), ``r_len`` K1's table
+    length."""
     from csat_tpu_torch.ops import build, flex_core
 
     if captured is None:
-        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask, dh=dh)
+        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, rel_mask=rel_mask, dh=dh,
+                                          bh0=bh0, r_len=r_len)
         if rate is None:
             rate = RATE if mod in ("sbm_sampled", "sbm_graph") else 0.0
         dseed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev) if rate else None
@@ -555,7 +603,7 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
     CHECKED_RATES.add((f"flex_fwd_{mod}", b, n, rate, dh))
     if not timed:
         rec = dict(kernel=f"flex_fwd_{mod}", B=b, N=n, dh=dh, rate=rate, timed=False,
-                   max_abs_err=err,
+                   bh0=getattr(spec, "bh0", 0), max_abs_err=err,
                    lse_max_abs_err=lse_err, tol=tol, flips=flips,
                    near_draws=int(near.sum()), skipped_blocks=int(skips.sum()),
                    skip_equal=skip_equal)
@@ -566,7 +614,8 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
     lib = build.kernel(fn)
     ms = cuda_ms(lambda: lib(*args))
     with torch.no_grad():
-        plain_ms = cuda_ms(lambda: flex_core.flex_reference(q, k, v, spec, aux, rate, dseed))
+        plain_ms = cuda_ms(lambda: flex_core.flex_reference(q, k, v, spec, aux, rate, dseed),
+                           **_plain_reps(n))
     _, h, _, dh = q.shape
     library_ms = None
     # operations this run's inputs need, not the most they could
@@ -587,7 +636,7 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
         with torch.no_grad():
             bias = cse_bias(q, k, spec, aux)
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias, scale=spec.scale(dh)))
+            q, k, v, attn_mask=bias, scale=spec.scale(dh)), **_plain_reps(n))
     else:
         # q·k and P·V on live-weight entries; for the factor mods R·K̂ on
         # every entry, since graph_sum counts the weight of padded keys too
@@ -605,11 +654,12 @@ def flex_check(mod: str, b: int, n: int, gen, dev, timed: bool = True, rel_mask=
             # graph mod without its dropout: SDPA draws its own dropout bits)
             logw = torch.log(w_eff.contiguous())
             library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=logw))
+                q, k, v, attn_mask=logw), **_plain_reps(n))
     moved = nbytes(q, k, v, *aux, ex["lse"], out)
     bound, bound_by = bound_ms(moved, simt_flops, tc_flops)
-    rec = dict(kernel=fn, B=b, N=n, dh=dh, rate=rate, max_abs_err=err,
-               lse_max_abs_err=lse_err, tol=tol, flips=flips, near_draws=int(near.sum()),
+    rec = dict(kernel=fn, B=b, N=n, dh=dh, rate=rate, bh0=getattr(spec, "bh0", 0),
+               max_abs_err=err, lse_max_abs_err=lse_err, tol=tol, flips=flips,
+               near_draws=int(near.sum()),
                skipped_blocks=int(skips.sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
                live_entries=live, flops=simt_flops + tc_flops, tensor_core_flops=tc_flops,
@@ -748,7 +798,7 @@ def backward_work(spec, a_raw, a_eff, dh: int) -> dict:
 
 def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
               variant: str = "plain", floor: float = 0.01, timed: bool = True,
-              captured=None, dh: int = 64) -> dict:
+              captured=None, dh: int = 64, bh0: int = 0) -> dict:
     """The two backward passes of the sampled mod (K3/K4) or the expected mod
     (K8/K9) against the plain autograd of ``flex_reference`` on the same
     inputs; the forward's ``out`` and ``lse`` of the same call are held
@@ -759,12 +809,13 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
     results are also held against :func:`expected_closed_form`.  ``captured``
     (from :func:`capture_sbm_inputs`) replaces the random inputs, the output
     cotangent and the graph_sum cotangent with a real batch's; ``dh`` is the
-    head width of random inputs."""
+    head width of random inputs, ``bh0`` the batch·head offset of their hash
+    streams."""
     from csat_tpu_torch.ops import build, flex_core
     from csat_tpu_torch.ops.mods import exp_adjacency
 
     if captured is None:
-        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor, dh=dh)
+        q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev, floor, dh=dh, bh0=bh0)
         dseed = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
         go = torch.randn(q.shape, generator=gen).to(dev)
         gs = torch.full((b, q.shape[1]), GS_COEF, device=dev)
@@ -853,7 +904,7 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
     lib_q, lib_k = build.kernel(q_fn), build.kernel(k_fn)
     ms_q, ms_k = cuda_ms(lambda: lib_q(*q_args)), cuda_ms(lambda: lib_k(*k_args))
     plain_ms = cuda_ms(lambda: torch.autograd.grad(p_loss, p_leaves, retain_graph=True),
-                       reps=5, trials=5)
+                       **(_plain_reps(n) or dict(reps=5, trials=5)))
     with torch.no_grad():
         work = backward_work(spec, *spec.full_weight(q, k, aux), q.shape[-1])
     inputs = nbytes(q, k, v, *aux, lse, dvec, go, gs)
@@ -864,7 +915,7 @@ def bwd_check(mod: str, b: int, n: int, gen, dev, rate: float = RATE,
         bound, bound_by = bound_ms(moved, flops - tc_flops, tc_flops)
         errs_fn = {key: errs[key] for key in (("dq", "dr") if "_q_" in fn else ("dk", "dv", "dkh"))}
         recs[fn] = dict(kernel=fn, B=b, N=n, dh=dh, rate=rate, variant=variant, floor=spec.floor,
-                        max_abs_err=max(errs_fn.values()), fwd_max_abs_err=fwd_err,
+                        bh0=spec.bh0, max_abs_err=max(errs_fn.values()), fwd_max_abs_err=fwd_err,
                         lse_max_abs_err=lse_err, closed_form_errs=closed_errs,
                         grad_errs=errs_fn, tol=f"{GRAD_TOL} (1 + |plain|)", flips=flips,
                         near_draws=int(near.sum()), ms=ms, plain_ms=plain_ms,
@@ -1005,7 +1056,13 @@ def paged_check(dtype, side: str, gen, dev, captured=None) -> dict:
     ref, ref_skip = pd._attend_reference(*inputs, merge.get("idx"), merge.get("k_tok"),
                                          merge.get("v_tok"))
     torch.cuda.synchronize()
-    live = ~mask.all(dim=1)
+    # rows the engine reads: a row with an admissible lane, unless its table
+    # row is all NULL_PAGE — a slot that finished this drain nulls its own
+    # tables while its mask stays; on a NULL lane the kernel reads zeros and
+    # the plain path the null page, which frozen rows write (by design, and
+    # the engine discards both rows)
+    nulled = ~mask.all(dim=1) & ~(table != pd.NULL_PAGE).any(dim=1)
+    live = ~mask.all(dim=1) & ~nulled
     err = (out[live] - ref[live]).abs().max().item()
     skip_equal = bool(torch.equal(skipped, pd.reference_page_skip(table, q.shape[1])))
     if not (err <= PAGED_TOL and skip_equal and torch.isfinite(out[live]).all()):
@@ -1038,7 +1095,8 @@ def paged_check(dtype, side: str, gen, dev, captured=None) -> dict:
                width=width, chain_lens=lens, max_abs_err=err, tol=PAGED_TOL,
                skipped=int(skipped[:, 0].sum()), skip_equal=skip_equal, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
-               lanes=lanes, flops=flops, bytes=moved,
+               lanes=lanes, flops=flops, bytes=moved, rows_compared=int(live.sum()),
+               rows_nulled=int(nulled.sum()),
                inputs="random" if captured is None else
                f"serve drain, {side} launch {captured['call']} of {captured['of']}")
     emit("kernel", **rec)
@@ -1151,8 +1209,9 @@ def kernel_phase(dev) -> dict:
     graph = graph_checks(dev)
     variant = variant_checks(dev)
     precision = precision_checks(dev)
+    long = long_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
-            **variant, **precision,
+            **variant, **precision, **long,
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             "flex_fwd_cse@serve": cse_serve,
@@ -1577,11 +1636,11 @@ def _head_dim(fn: str, cfg) -> int:
     return cfg.pegen_dim // cfg.num_heads if fn == "flex_fwd_cse" else cfg.head_dim
 
 
-def _check_shapes(path: str, shapes, cfg) -> None:
-    """Every (B, N) the path gave its flex kernels must be one at which
-    phase 3 held them against their plain versions, at ``cfg``'s head
-    widths."""
-    missing = sorted((fn, b, n, _head_dim(fn, cfg)) for fn in PATH_KERNELS[path]
+def _check_shapes(path: str, shapes, cfg, kernels=None) -> None:
+    """Every (B, N) the path gave its flex kernels (``kernels``, default the
+    path's) must be one at which phase 3 held them against their plain
+    versions, at ``cfg``'s head widths."""
+    missing = sorted((fn, b, n, _head_dim(fn, cfg)) for fn in kernels or PATH_KERNELS[path]
                      if fn.startswith("flex_") for b, n in shapes
                      if (fn, b, n, _head_dim(fn, cfg)) not in CHECKED)
     if missing:
@@ -3634,13 +3693,432 @@ def serving_phase(corpus, card: str = "", profile: bool = False) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: long ASTs and data parallelism — python_long / java_long at N 512
+# ---------------------------------------------------------------------------
+
+def long_batch(cfg, b: int, nodes=LONG_NODES, device: str = "cuda"):
+    """``b`` synthetic ASTs spread over ``nodes`` (200..512) with random
+    summaries, collated at ``cfg.max_src_len`` onto ``device``."""
+    from csat_tpu_torch.data.dataset import batch_to_device, collate
+    from csat_tpu_torch.data.synthetic import random_ast, train_sample
+
+    rng = np.random.default_rng(SEED + 12)
+    sizes = np.linspace(nodes[0], nodes[1], b).round().astype(int)
+    rng.shuffle(sizes)
+    samples = [train_sample(random_ast(rng, int(n)), cfg, SRC_VOCAB, TGT_VOCAB, rng)
+               for n in sizes]
+    arrs = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+    return batch_to_device(collate(arrs, cfg.max_src_len), torch.device(device))
+
+
+def long_serve_cfg(name: str):
+    from csat_tpu_torch.configs import get_config
+
+    return get_config(name, eval_graph="expected", serve_slots=8)
+
+
+def long_requests(cfg, n_requests: int = LONG_SERVE_REQUESTS):
+    """``n_requests`` requests of ``LONG_SERVE_NODES`` (300..512) nodes with
+    the serve phase's budgets."""
+    from csat_tpu_torch.data.synthetic import random_ast, request_sample
+
+    rng = np.random.default_rng(SEED + 13)
+    sizes = np.linspace(*LONG_SERVE_NODES, n_requests).round().astype(int)
+    rng.shuffle(sizes)
+    samples = [request_sample(random_ast(rng, int(n)), cfg, SRC_VOCAB) for n in sizes]
+    return samples, [BUDGETS[i % len(BUDGETS)] for i in range(n_requests)]
+
+
+def long_serve_shapes(cfg, samples):
+    """(B, N) of every prefill group the engine can form from ``samples``:
+    every batch size up to the bucket's at each bucket they fall in."""
+    from csat_tpu_torch.serve.prefill import assign_prefill_bucket, prefill_plan
+
+    plan = prefill_plan(cfg)
+    used = {assign_prefill_bucket(plan, int(s["num_node"])) for s in samples}
+    return sorted((b, plan[k].n) for k in used for b in range(1, plan[k].batch_size + 1))
+
+
+def long_checks(dev) -> dict:
+    """The kernels where the ``long_ast`` phase runs them, at N 512.  Checked
+    and timed: K1 on random inputs with python_long's 512-row tables and on
+    its train batch's real distances; K6 (rate 0.2) and K3/K4 at dh 64 and 96
+    on random inputs, on the first SBM layer of a python_long and of a
+    java_long step, and at a data-parallel rank's half batch (B 32) with the
+    batch·head offset of rank 1 of 2 (bh0 = 32 · 8); K1 and K2 (dh 64 and 96)
+    on the first CSE / SBM layer of each config's serving drain's largest
+    prefill group; K5 on one self and one cross launch of python_long's
+    drain.  Checked only: K6 at rate 0 (the fit's sampled eval encoder), K1
+    at B 32 (the ranks' CSE), K1 and K2 at every prefill group the long
+    requests form."""
+    from csat_tpu_torch.configs import get_config
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    py = get_config("python_long")
+    b, n = TRAIN_B, py.max_src_len
+    recs = {"flex_fwd_cse@n512": flex_check("cse", b, n, gen, dev, r_len=n)}
+    batch = long_batch(py, b)
+    rel_mask = (torch.stack([batch.L, batch.T], dim=1).to(torch.int32).contiguous(),
+                torch.stack([batch.L_mask, batch.T_mask], dim=1).contiguous())
+    recs["flex_fwd_cse@long_train_batch"] = flex_check("cse", b, n, gen, dev,
+                                                       rel_mask=rel_mask, r_len=n)
+    del batch, rel_mask
+    for dh in (64, 96):
+        recs[f"flex_fwd_sbm_sampled@n512_dh{dh}"] = flex_check("sbm_sampled", b, n, gen, dev,
+                                                               dh=dh)
+        recs.update({f"{fn}@n512_dh{dh}": rec for fn, rec in bwd_check(
+            "sbm_sampled", b, n, gen, dev, dh=dh).items()})
+    flex_check("sbm_sampled", b, n, gen, dev, rate=0.0, timed=False)
+    half = b // DP_RANKS
+    bh0 = half * py.num_heads  # rank 1 of 2
+    recs["flex_fwd_sbm_sampled@bh0"] = flex_check("sbm_sampled", half, n, gen, dev, bh0=bh0)
+    recs.update({f"{fn}@bh0": rec for fn, rec in bwd_check(
+        "sbm_sampled", half, n, gen, dev, bh0=bh0).items()})
+    flex_check("cse", half, n, gen, dev, timed=False, r_len=n)
+    for name in LONG_CONFIGS:
+        cfg = get_config(name)
+        first = capture_sbm_inputs(cfg, long_batch(cfg, b))[0]
+        if not (first["go"].abs().sum() > 0 and first["gs"].abs().sum() > 0):
+            raise AssertionError(f"{name}: the captured cotangents are zero")
+        first["inputs"] = f"{name} train batch"
+        recs[f"flex_fwd_sbm_sampled@{name}"] = flex_check("sbm_sampled", b, n, gen, dev,
+                                                          captured=first)
+        recs.update({f"{fn}@{name}": rec for fn, rec in bwd_check(
+            "sbm_sampled", b, n, gen, dev, captured=first).items()})
+        del first
+    for name in LONG_CONFIGS:
+        cfg = long_serve_cfg(name)
+        samples, budgets = long_requests(cfg)
+        for bb, nn in long_serve_shapes(cfg, samples):
+            for mod, dh in (("cse", 64), ("sbm_expected", cfg.head_dim)):
+                if (f"flex_fwd_{mod}", bb, nn, dh) not in CHECKED:
+                    flex_check(mod, bb, nn, gen, dev, timed=False, dh=dh, r_len=nn)
+        recs[f"flex_fwd_cse@{name}_serve"] = flex_check(
+            "cse", 0, 0, gen, dev, captured=capture_prefill_inputs(cfg, samples, budgets))
+        recs[f"flex_fwd_sbm_expected@{name}_serve"] = flex_check(
+            "sbm_expected", 0, 0, gen, dev,
+            captured=capture_prefill_inputs(cfg, samples, budgets, layer="sbm"))
+        if name == "python_long":
+            decode = capture_decode_inputs(cfg, samples, budgets)
+            for side in ("self", "cross"):
+                recs[f"paged_decode@{name}_serve_{side}"] = paged_check(
+                    None, side, gen, dev, captured=decode[side])
+    emit("n512", **{key: dict(ms=rec["ms"], bound_ms=rec["bound_ms"],
+                              plain_ms=rec["plain_ms"], library_ms=rec.get("library_ms"),
+                              B=rec.get("B"), N=rec.get("N"), dh=rec.get("dh"),
+                              bh0=rec.get("bh0", 0))
+                    for key, rec in recs.items()})
+    return recs
+
+
+def long_train(name: str, profile: bool) -> dict:
+    """(a) ``name`` in its defaults (counter noise, remat, dropout 0.2) at B
+    64, N 512: the step gate, the same-graph gate on each SBM layer, 8 more
+    steps whose loss must fall; then (e) 8 requests of 300 to 512 nodes
+    served through the kernels and through the plain route on the card,
+    tokens equal up to a near tie.  Every forward launch at a (B, N, rate,
+    dh) phase 3 checked."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(name)
+    if not (cfg.remat and cfg.noise_mode == "counter" and cfg.max_src_len == 512):
+        raise AssertionError(f"{name}: not the long-AST config: {cfg}")
+    batch = long_batch(cfg, cfg.batch_size)
+    with flex_launches() as launched:
+        model, state, step, m_k, counts, gate = step_gate(cfg, batch,
+                                                          err_file=f"{name}_grad_err.json")
+    same = same_graph_gate(cfg, batch)
+    build.reset_launches()
+    with flex_launches() as more:
+        state, steps = more_steps(step, state, batch, float(m_k["loss"]), counts)
+    counts = steps["launches"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trace = profile_steps(step, state, batch) if profile else None
+    del model, state, step
+
+    cfg_s = long_serve_cfg(name)
+    samples, budgets = long_requests(cfg_s)
+    with flex_launches() as served:
+        card = serve(cfg_s, "cuda", samples, budgets)
+    plain = serve(cfg_s, "cuda", samples, budgets, plain=True)
+    for run in (card, plain):
+        bad = [r.id for r in run["results"] if not r.ok]
+        if bad or run["engine"].page_leaks():
+            raise AssertionError(f"{name} serving: requests not OK {bad}, "
+                                 f"{run['engine'].page_leaks()} pages leaked")
+    ties, compared = compare_tokens(card["results"], plain, f"{name} kernel and plain")
+    counts = {fn: counts[fn] + card["counts"][fn] for fn in counts}
+    _check_launched(name, counts)
+    _check_shapes(name, [tuple(batch.src_seq.shape)], cfg, kernels=PATH_KERNELS["long_fit"])
+    _check_rates(name, launched + more + served)
+    rec = dict(model=name, noise_mode=cfg.noise_mode, remat=cfg.remat, batch=cfg.batch_size,
+               widths=_widths(cfg), sbm_head_dim=cfg.head_dim, **gate, same_graph=same,
+               losses=steps["losses"], step_s=steps["step_s"],
+               step_s_median=steps["step_s_median"], peak_mem_gb=peak, profile=trace,
+               requests=len(samples), request_nodes=[int(s["num_node"]) for s in samples],
+               serve_s=card["seconds"], plain_serve_s=plain["seconds"],
+               tokens=sum(len(r.tokens) for r in card["results"]), near_ties=ties,
+               tokens_compared=compared, launches={fn: c for fn, c in counts.items() if c},
+               seconds=time.perf_counter() - t0)
+    emit("long_train", **rec)
+    return rec
+
+
+def remat_compare(name: str = "python_long") -> dict:
+    """(b) One kernel step with remat on and one with remat off from the
+    same weights, generator and batch: the loss the same bits, the grad-norm
+    within 1e-6 relative; the peak memory of each step."""
+    from csat_tpu_torch.configs import get_config
+
+    cfg = get_config(name)
+    batch = long_batch(cfg, cfg.batch_size)
+    on = trainer(cfg)
+    off = trainer(cfg.replace(remat=False), copy.deepcopy(on[0]))
+    got = {}
+    for label, (_, state, step) in (("on", on), ("off", off)):
+        sync()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, m, seconds = timed_step(step, state, batch)
+        got[label] = dict(metrics=m, step_s=seconds,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          above_resident_gb=(torch.cuda.max_memory_allocated() - resident) / 1e9)
+    m_on, m_off = got["on"].pop("metrics"), got["off"].pop("metrics")
+    gnorm_rel = abs(float(m_on["grad_norm"]) / float(m_off["grad_norm"]) - 1)
+    if not (torch.equal(m_on["loss"], m_off["loss"]) and gnorm_rel <= REMAT_GNORM_RTOL):
+        raise AssertionError(f"remat on against off: loss {float(m_on['loss'])} / "
+                             f"{float(m_off['loss'])}, grad-norm rel {gnorm_rel}")
+    rec = dict(model=name, loss=float(m_on["loss"]), loss_bitwise_equal=True,
+               grad_norm_rel=gnorm_rel, grad_norm_rtol=REMAT_GNORM_RTOL, **{
+                   f"remat_{label}": r for label, r in got.items()})
+    emit("remat", **rec)
+    return rec
+
+
+@contextlib.contextmanager
+def process_group(backend: str, world: int, rank: int, store: str):
+    """This process in a ``torch.distributed`` group through a ``file://``
+    store, left at the end."""
+    from csat_tpu_torch.parallel import host
+
+    host.initialize_multihost(backend, f"file://{store}", world, rank)
+    try:
+        yield
+    finally:
+        host.shutdown()
+
+
+def long_fit(tmp: str) -> dict:
+    """(c) A world-1 NCCL group driving ``Trainer.fit`` of python_long for
+    one epoch with validation on a synthetic corpus of 200 to 512 nodes
+    (``LONG_FIT_SAMPLES``): every collective of the data-parallel step runs
+    (as identities), every step finite, the validation BLEU read, rank 0's
+    checkpoint written, the kernels launched at checked shapes and rates."""
+    import torch.distributed as dist
+
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.data.synthetic import make_corpus
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.train.checkpoint import make_checkpoint_fn
+    from csat_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        data_dir = make_corpus(os.path.join(tmp, "long_corpus"), *LONG_FIT_SAMPLES, seed=SEED,
+                               max_ast_len=512, node_range=LONG_NODES)
+    corpus_s = time.perf_counter() - t0
+    cfg = get_config("python_long", data_dir=data_dir, output_dir=os.path.join(tmp, "long_out"),
+                     num_epochs=1, val_interval=1, save_interval=1, guard_check_every=1)
+    logs = []
+    with process_group("nccl", 1, 0, os.path.join(tmp, "nccl_store")):
+        tr = Trainer(cfg, log=logs.append, device="cuda")
+        backend = dist.get_backend()
+        if backend != "nccl" or tr.mesh.group is None or tr.mesh.data != 1:
+            raise AssertionError(f"long fit: not a world-1 NCCL mesh ({backend}, {tr.mesh})")
+        train_ds = ASTDataset(cfg, "train", tr.src_vocab, tr.tgt_vocab)
+        val_ds = ASTDataset(cfg, "dev", tr.src_vocab, tr.tgt_vocab)
+        ckpt = make_checkpoint_fn(tr.output_dir)
+        build.reset_launches()
+        t1 = time.perf_counter()
+        with flex_launches() as launched:
+            _, hist = tr.fit(train_ds, val_ds, checkpoint_fn=ckpt)
+        sync()
+        fit_s = time.perf_counter() - t1
+        counts = build.launch_counts()
+        plan = tr._plan_id()
+    losses = [s["loss"] for s in hist["steps"]]
+    if not (losses and np.all(np.isfinite(losses)) and hist["val_bleu"]
+            and os.path.exists(os.path.join(ckpt.directory, "state_1.pt"))
+            and plan.endswith("@hosts=1")):
+        raise AssertionError(f"long fit: losses {losses}, val {hist['val_bleu']}, plan {plan}")
+    _check_launched("long_fit", counts)
+    _check_rates("long_fit", launched)
+    rec = dict(model="python_long", backend=backend, world=1, corpus=list(LONG_FIT_SAMPLES),
+               nodes=list(LONG_NODES), corpus_s=corpus_s, fit_s=fit_s, steps=len(losses),
+               losses=losses, epoch_loss=hist["loss"], val_bleu=hist["val_bleu"],
+               eval_s=hist["eval_s"], by_shape=_by_shape(hist["steps"]), plan=plan,
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("long_fit", **rec)
+    return rec
+
+
+def dp_rank(rank: int, world: int, store: str, out: str) -> None:
+    """(d) One rank of the two-process gloo step on ``cuda:0``: this rank's
+    half of the B 64 N 512 batch through the kernels (rank 1's hash streams
+    at bh0 = 32 · 8), the gradients summed through gloo; writes its metrics,
+    kernel launches (with the bh0 each took) and parameters after the step
+    under ``out``."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.ops import build, flex_core
+    from csat_tpu_torch.parallel.mesh import broadcast_params, build_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    with process_group("gloo", world, rank, store):
+        cfg = get_config("python_long")
+        batch = long_batch(cfg, TRAIN_B)
+        half = TRAIN_B // world
+        mine = batch._replace(**{f: getattr(batch, f)[rank * half:(rank + 1) * half]
+                                 for f in batch._fields})
+        _, state, step = trainer(cfg)
+        broadcast_params(state.params, build_mesh(cfg.mesh_shape))
+        seen = []
+        fwd, bwd = flex_core.kernel_args, flex_core.bwd_kernel_args
+
+        def fwd_rec(spec, q, *a, **kw):
+            seen.append((f"flex_fwd_{spec.name}", q.shape[0], q.shape[2], q.shape[3],
+                         getattr(spec, "bh0", 0)))
+            return fwd(spec, q, *a, **kw)
+
+        def bwd_rec(spec, q, *a, **kw):
+            seen.append((f"flex_bwd_{spec.name}", q.shape[0], q.shape[2], q.shape[3], spec.bh0))
+            return bwd(spec, q, *a, **kw)
+
+        flex_core.kernel_args, flex_core.bwd_kernel_args = fwd_rec, bwd_rec
+        build.reset_launches()
+        state, m, seconds = timed_step(step, state, mine)
+        flex_core.kernel_args, flex_core.bwd_kernel_args = fwd, bwd
+        flat = torch.cat([p.detach().reshape(-1) for p in state.params.values()]).cpu()
+        torch.save(flat, os.path.join(out, f"dp_params_{rank}.pt"))
+        rec = dict(rank=rank, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   nonfinite=bool(m["nonfinite"]), step_s=seconds, rows=[rank * half, half],
+                   launches=build.launch_counts(), seen=sorted(set(seen)))
+        with open(os.path.join(out, f"dp_rank_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def dp_gate(tmp: str) -> dict:
+    """(d) Two gloo ranks in two processes, both on ``cuda:0``, each taking
+    half of the B 64 N 512 batch through the kernels, against the
+    one-process B 64 step, at python_long's own dropout (model, cluster
+    projection and attention 0.2: each rank's masks are its rows' slices of
+    the global draw): loss within 1e-5 and grad-norm within 1e-4 relative,
+    the parameters after the step the same bits on both ranks, rank 1's K6,
+    K3 and K4 launched at bh0 = 32 · 8.  The parameters' largest difference
+    from the one-process step is recorded.  Gloo stages a CUDA all-reduce
+    through the host: the step time is no speed figure."""
+    from csat_tpu_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config("python_long")
+    batch = long_batch(cfg, TRAIN_B)
+    _, state, step = trainer(cfg)
+    state, m_one, one_s = timed_step(step, state, batch)
+    one = dict(loss=float(m_one["loss"]), grad_norm=float(m_one["grad_norm"]), step_s=one_s)
+    one_params = torch.cat([p.detach().reshape(-1) for p in state.params.values()]).cpu()
+    del state, step, batch
+    torch.cuda.empty_cache()
+    # each rank a fresh interpreter importing this file as a module (whatever
+    # script is the main one), its output on stderr
+    store = os.path.join(tmp, "gloo_store")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+         f"import chip_smoke; chip_smoke.dp_rank({r}, {DP_RANKS}, {store!r}, {tmp!r})"],
+        cwd=str(REPO), stdout=sys.stderr, stderr=sys.stderr) for r in range(DP_RANKS)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    hung = []
+    for r, p in enumerate(procs):
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung.append(r)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(10)
+    if hung or any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"two-rank step: ranks hung {hung}, exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"dp_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    params = [torch.load(os.path.join(tmp, f"dp_params_{r}.pt")) for r in range(DP_RANKS)]
+    loss_rel = abs(ranks[0]["loss"] / one["loss"] - 1)
+    gnorm_rel = abs(ranks[0]["grad_norm"] / one["grad_norm"] - 1)
+    same_params = all(torch.equal(params[0], p) for p in params[1:])
+    params_vs_one = float(torch.max(torch.abs(params[0] - one_params)))
+    same_metrics = all((r["loss"], r["grad_norm"], r["nonfinite"]) == (
+        ranks[0]["loss"], ranks[0]["grad_norm"], ranks[0]["nonfinite"]) for r in ranks)
+    offset = {tuple(s[:1]) for s in ranks[1]["seen"] if s[4] == TRAIN_B // DP_RANKS * 8}
+    wanted = {("flex_fwd_sbm_sampled",), ("flex_bwd_sbm_sampled",)}
+    if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL and same_params and same_metrics
+            and not ranks[0]["nonfinite"] and wanted <= offset):
+        raise AssertionError(f"two-rank step against one process: loss rel {loss_rel}, "
+                             f"grad-norm rel {gnorm_rel}, parameters equal {same_params}, "
+                             f"metrics equal {same_metrics}, offset launches {offset}")
+    counts = {fn: sum(r["launches"][fn] for r in ranks) for fn in ranks[0]["launches"]}
+    _check_launched("long_dp", counts)
+    shapes = sorted({(s[1], s[2]) for r in ranks for s in r["seen"]})
+    _check_shapes("long_dp", shapes, cfg)
+    rec = dict(model="python_long", ranks=DP_RANKS, backend="gloo", device="cuda:0",
+               dropout=cfg.dropout, attention_dropout=cfg.attention_dropout, one_process=one,
+               rank_records=[{k: r[k] for k in ("rank", "loss", "grad_norm", "rows", "step_s")}
+                             for r in ranks],
+               loss_rel=loss_rel, loss_rtol=LOSS_RTOL, grad_norm_rel=gnorm_rel,
+               grad_norm_rtol=GNORM_RTOL, params_bitwise_equal=same_params,
+               params_max_abs_vs_one_process=params_vs_one,
+               offset_launches=sorted(s for s in ranks[1]["seen"] if s[4]),
+               launches={fn: c for fn, c in counts.items() if c},
+               note="gloo stages the CUDA all-reduce through the host: a correctness gate, "
+                    "not a speed figure", seconds=time.perf_counter() - t0)
+    emit("long_dp", **rec)
+    return rec
+
+
+def long_ast_phase(profile: bool) -> dict:
+    """Phase 12: (a) and (e) for each long config, (b) remat on against off,
+    (c) the world-1 NCCL fit, (d) the two-rank gloo step."""
+    t0 = time.perf_counter()
+    recs = {name: long_train(name, profile) for name in LONG_CONFIGS}
+    recs["remat"] = remat_compare()
+    tmp = tempfile.mkdtemp(prefix="csat_long_")
+    try:
+        recs["long_fit"] = long_fit(tmp)
+        recs["long_dp"] = dp_gate(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("long_ast", seconds=time.perf_counter() - t0, paths=list(recs))
+    return {"launches": {path: recs[path]["launches"]
+                         for path in (*LONG_CONFIGS, "long_fit", "long_dp")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a serving run, two train steps of each noise mode, one "
                          "expected-graph gradient pass, the restored fit epoch, two "
-                         "train steps each in f32 and bf16 and a third run of the "
-                         "serving trace with torch.profiler")
+                         "train steps each in f32 and bf16, a third run of the "
+                         "serving trace and two steps of each long-AST config with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
@@ -3659,12 +4137,13 @@ def main(argv=None) -> int:
         precision = precision_phase(args.profile)
         resilience = resilience_phase(corpus)
         serving = serving_phase(corpus, smi, args.profile)
+    long_ast = long_ast_phase(args.profile)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
-               "serving": serving["launches"]}
+               "serving": serving["launches"], **long_ast["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

@@ -21,6 +21,17 @@ line and exits 75; a stalled step under ``--watchdog_timeout_s`` exits 76;
 either run continues with ``--resume``.  ``summarize`` and ``serve`` go to
 the serving command line (``serve/cli.py``), as the JAX ``cli.py`` dispatches
 them.
+
+Data parallelism: under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) each process joins the
+group — NCCL on the card, gloo with ``--device cpu`` — binds
+``cuda:LOCAL_RANK`` and trains
+on its shard of every epoch; the config's mesh must cover the processes
+(the long-AST configs' ``("data", -1)`` does; others take ``--set
+"mesh_shape=(('data', -1),)"``).  Only rank 0 prints the lines above,
+writes checkpoints and scores the test split::
+
+    torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_long --data_dir DIR
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from __future__ import annotations
 import argparse
 import ast
 import json
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -91,15 +103,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parse(argv)
     import torch
 
-    from csat_tpu_torch.configs import get_config, list_configs
-    from csat_tpu_torch.data.dataset import ASTDataset
-    from csat_tpu_torch.resilience import EXIT_PREEMPTED, Preempted
-    from csat_tpu_torch.train.checkpoint import (
-        make_checkpoint_fn, restore_params, save_params)
-    from csat_tpu_torch.train.loop import Trainer, run_test
+    from csat_tpu_torch.configs import cli_config
+    from csat_tpu_torch.parallel import host
 
-    if args.config not in list_configs():
-        raise SystemExit(f"unknown config {args.config!r}; choose from {list_configs()}")
     overrides = {}
     for item in args.overrides:
         field, _, value = item.partition("=")
@@ -129,15 +135,42 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.metrics_file:
         overrides["obs_metrics_file"] = args.metrics_file
     overrides.setdefault("scalar_log", True)
-    cfg = get_config(args.config, **overrides)
+    cfg = cli_config(args.config, overrides)
 
-    trainer = Trainer(cfg, device=args.device)
+    device, primary = args.device, True
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # a torchrun process: join the group, bind this process's card
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        on_card = device is None or torch.device(device).type == "cuda"
+        if on_card:
+            device = f"cuda:{local}"
+            torch.cuda.set_device(local)
+        host.initialize_multihost("nccl" if on_card else "gloo")
+        primary = host.is_primary()
+    try:
+        _run(args, cfg, device, primary)
+    finally:
+        host.shutdown()
+
+
+def _run(args: argparse.Namespace, cfg, device, primary: bool) -> None:
+    import torch
+
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.resilience import EXIT_PREEMPTED, Preempted
+    from csat_tpu_torch.train.checkpoint import (
+        make_checkpoint_fn, restore_params, save_params)
+    from csat_tpu_torch.train.loop import Trainer, run_test
+
+    trainer = Trainer(cfg, device=device, log=print if primary else (lambda msg: None))
     test_ds = ASTDataset(cfg, "test", trainer.src_vocab, trainer.tgt_vocab)
     # the test decode's sampled graphs (eval_graph="sample") draw from the
     # seed, as the JAX CLI's key(cfg.seed)
     test_gen = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
 
     if args.is_test:
+        if not primary:
+            return
         params = restore_params(args.checkpoint_dir or trainer.output_dir)
         trainer.model.load_state_dict(params, strict=True)
         scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab, test_gen,
@@ -156,10 +189,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     except Preempted as p:
         # the snapshot is already on disk: exit resumable (EX_TEMPFAIL), so a
         # supervisor restarts with --resume and loses at most one step
-        print(json.dumps({"preempted": True, "epoch": p.epoch,
-                          "iterations_done": p.iterations_done, "resume_from": p.directory}),
-              flush=True)
+        if primary:
+            print(json.dumps({"preempted": True, "epoch": p.epoch,
+                              "iterations_done": p.iterations_done,
+                              "resume_from": p.directory}), flush=True)
         raise SystemExit(EXIT_PREEMPTED)
+    if not primary:
+        return
     # persist the best-by-val-BLEU weights and score them on the test split
     save_params(trainer.output_dir, history["best_params"])
     trainer.model.load_state_dict(history["best_params"], strict=True)

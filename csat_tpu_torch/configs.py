@@ -11,9 +11,16 @@ priorities and brownout, the tick watchdog, the poison budget, rebuild and
 retry caps, the reaper's margin, request traces), and the precision axes:
 ``compute_dtype`` (bf16 compute with f32 attention islands),
 ``init_scheme`` (flax's or the reference's realised initialisation) and
-``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages).  Fields that only
-select JAX/TPU machinery (``backend``, meshes, compilation caches, AOT
-warm-up, ``flex_bwd``), telemetry of parts the port does not carry yet
+``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages), and the parallel
+layer's: ``mesh_shape`` (its ``data`` axis runs data-parallel over
+``torch.distributed``, ``parallel/mesh.py``), ``remat`` (each CSE layer and
+SBM block recomputed in the backward), ``seq_impl`` and the pipeline's
+``pipeline_stages`` / ``pipeline_microbatches``, validated by the JAX rules.
+A ``model``, ``seq`` or ``pipe`` axis larger than 1 and a pipeline of more
+than one stage (so ``python_pp``) are refused with :data:`NEXT_PARALLEL_SLICE`:
+tensor parallelism, the ring and GPipe are not ported yet.  Fields that only
+select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
+``flex_bwd``), telemetry of parts the port does not carry yet
 (SLOs, calibration, the bench history) or serving features outside this port
 (KV tiering, the rectangle layout — so ``serve_kv_layout``, paged being the
 port's only layout —, warm start, serve meshes, fleets, autoscale and the
@@ -27,6 +34,12 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+#: the refusal of what the data-parallel slice of the parallel layer leaves out
+NEXT_PARALLEL_SLICE = (
+    "not ported yet: tensor parallelism (a 'model' axis), the ring (a 'seq' axis), "
+    "GPipe (a 'pipe' axis, pipeline_stages > 1, python_pp) and serve meshes come "
+    "with the next parallel slice; the port runs the 'data' axis only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +155,22 @@ class Config:
     serve_prefill_budget: int = 0
     serve_page_size: int = 16
     serve_num_pages: int = 0
+
+    # the parallel layer: named mesh axes, a size of -1 filled with the
+    # process count (parallel/mesh.py:build_mesh); the "data" axis is data
+    # parallelism over torch.distributed.  seq_impl selects the
+    # sequence-parallel attention of a "seq" axis ("ring" requires counter
+    # noise; without a seq axis it changes nothing); pipeline_stages > 1
+    # splits the SBM blocks into GPipe stages over a "pipe" axis
+    # (microbatches 0 = the stage count)
+    mesh_shape: Tuple[Tuple[str, int], ...] = (("data", 1), ("model", 1))
+    seq_impl: str = "allgather"
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 0
+    # recompute each CSE layer and SBM block in the backward instead of
+    # keeping its activations (torch.utils.checkpoint): the long-AST memory
+    # lever, the JAX package's nn.remat
+    remat: bool = False
 
     # precision: "bfloat16" runs the dense layers, LayerNorms and residual
     # stream in bf16 with the attention bodies (CSE and SBM cores, the
@@ -259,6 +288,7 @@ class Config:
         assert self.obs_events >= 0, self.obs_events
         assert self.obs_metrics_every_s > 0, self.obs_metrics_every_s
         assert self.save_retries >= 1, self.save_retries
+        self._validate_parallel()
         if self.use_pegen == "sequential":
             assert self.pe_dim == 0
         else:
@@ -266,10 +296,67 @@ class Config:
         if self.use_pegen == "treepos":
             assert self.pegen_dim % (self.tree_pos_width * self.tree_pos_height) == 0
 
+    def _validate_parallel(self) -> None:
+        """The JAX package's rules for the parallel fields
+        (``csat_tpu/configs.py:581-598, 734-810``), then the refusal of the
+        axes the port does not run yet."""
+        axes = dict(self.mesh_shape)
+        assert len(axes) == len(self.mesh_shape), f"repeated mesh axis in {self.mesh_shape}"
+        assert all(size == -1 or size >= 1 for size in axes.values()), self.mesh_shape
+        assert list(axes.values()).count(-1) <= 1, f"more than one -1 in {self.mesh_shape}"
+        assert self.seq_impl in ("allgather", "ring"), self.seq_impl
+        if self.seq_impl == "ring" and self.noise_mode != "counter" and not self.full_att:
+            # full_att models never Bernoulli-sample, so ring works there
+            raise ValueError(
+                "seq_impl='ring' requires noise_mode='counter': every device must be able "
+                "to regenerate any (q, k) block's Bernoulli draws from global indices")
+        if self.eval_graph == "expected" and axes.get("seq", 1) > 1:
+            raise ValueError("eval_graph='expected' does not compose with a sharded 'seq' "
+                             "mesh axis (ring configs keep eval_graph='sample')")
+        if self.bucketing:
+            if self.pipeline_stages > 1:
+                raise ValueError("bucketing does not compose with pipeline_stages>1 (v1): "
+                                 "per-bucket batch sizes vary")
+            if axes.get("seq", 1) > 1:
+                raise ValueError("bucketing does not compose with a sharded 'seq' mesh axis "
+                                 "(v1): bucket node counts need not divide the seq shard count")
+        # the device feed ships offset distances as int16 in the JAX package
+        # (its data/dataset.py:Batch): beyond this bound they would wrap
+        assert self.max_src_len < 2 ** 15, (
+            f"max_src_len={self.max_src_len} exceeds the int16 compressed batch feed")
+        assert self.pipeline_stages >= 0 and self.pipeline_microbatches >= 0
+        if self.pipeline_stages > 1:
+            if self.sbm_layers % self.pipeline_stages:
+                raise ValueError(f"pipeline_stages={self.pipeline_stages} must divide "
+                                 f"sbm_layers={self.sbm_layers}")
+            if not self.full_att and len(set(self.clusters)) != 1:
+                raise ValueError("pipeline execution stacks stage params — clusters must be "
+                                 f"uniform, got {self.clusters}")
+            if any(name in ("model", "seq") and size != 1 for name, size in axes.items()):
+                raise ValueError("pipeline_stages>1 composes with the 'data' mesh axis only")
+            if axes.get("pipe") != self.pipeline_stages:
+                raise ValueError(f"pipeline_stages={self.pipeline_stages} needs a ('pipe', "
+                                 f"{self.pipeline_stages}) axis in mesh_shape (got "
+                                 f"{self.mesh_shape})")
+            n_micro = self.pipeline_microbatches or self.pipeline_stages
+            data = axes.get("data", 1)
+            divisor = n_micro if data == -1 else data * n_micro
+            if self.batch_size % divisor:
+                raise ValueError(f"batch_size={self.batch_size} must divide evenly into "
+                                 f"data_shards×microbatches (= {divisor})")
+        unported = [f"{name}={size}" for name, size in self.mesh_shape
+                    if name != "data" and size != 1]
+        if self.pipeline_stages > 1:
+            unported.append(f"pipeline_stages={self.pipeline_stages}")
+        if unported:
+            raise NotImplementedError(f"{self.name}: {', '.join(unported)} is "
+                                      f"{NEXT_PARALLEL_SLICE}")
+
 
 # the registry: one named variant per reference config file, as the JAX
-# package registers them (csat_tpu/configs.py:861-875); its long-AST and
-# pipeline-parallel entries need the parallel layer, which the port lacks
+# package registers them (csat_tpu/configs.py:861-890), with its long-AST
+# entries (N 512, remat, counter noise, data-parallel over every process);
+# its pipeline-parallel entry, python_pp, waits for the next parallel slice
 _PY = Config(name="python", task_name="256_512_512_4_4_10_10_10_10_b64_tgt50_vanilla",
              lang="python", data_dir="./processed/tree_sitter_python")
 _JAVA = _PY.replace(name="java", task_name="128_768_512_4_4_10_10_10_10_b64_tgt50_10k_20k_java",
@@ -303,6 +390,17 @@ _reg(_JAVA.replace(name="java_treepos", use_pegen="treepos"))
 _reg(_JAVA.replace(name="java_triplet", use_pegen="triplet"))
 _reg(_JAVA.replace(name="java_compare_codescribe",
                    data_dir="./processed/compare_codescribe_java"))
+# Long-AST stress configs (max_ast_len=512, data-parallel over every
+# process): the JAX entries' fields, seq_impl="ring" a no-op without a seq axis
+_reg(_JAVA.replace(name="java_long", task_name="long_ast_512", max_src_len=512,
+                   mesh_shape=(("data", -1),), noise_mode="counter", remat=True,
+                   seq_impl="ring"))
+_reg(_PY.replace(name="python_long", task_name="long_ast_512", max_src_len=512,
+                 mesh_shape=(("data", -1),), noise_mode="counter", remat=True,
+                 seq_impl="ring"))
+
+#: registry entries of the JAX package the port refuses, with the reason
+_NOT_PORTED = {"python_pp": f"python_pp (GPipe over a 'pipe' axis) is {NEXT_PARALLEL_SLICE}"}
 
 
 def list_configs():
@@ -310,9 +408,24 @@ def list_configs():
 
 
 def get_config(name: str, **overrides) -> Config:
-    """Look up a named variant; keyword overrides are applied on top."""
+    """Look up a named variant; keyword overrides are applied on top.  An
+    entry of the JAX registry the port does not run yet raises
+    ``NotImplementedError`` naming the slice it waits for."""
+    if name in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[name])
     cfg = _REGISTRY[name]
     if overrides:
         cfg = cfg.replace(**overrides)
         cfg.validate()
     return cfg
+
+
+def cli_config(name: str, overrides: dict) -> Config:
+    """:func:`get_config` for a command line: an unknown name, or a part
+    the port refuses (``NotImplementedError``), exits with its one line."""
+    if name not in _REGISTRY and name not in _NOT_PORTED:
+        raise SystemExit(f"unknown config {name!r}; choose from {list_configs()}")
+    try:
+        return get_config(name, **overrides)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))

@@ -97,19 +97,61 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            gen: Optional[torch.Generator]) -> torch.Tensor:
+            gen: Optional[torch.Generator], shard=None) -> torch.Tensor:
     """Inverted dropout as flax applies it (``where(keep, x / (1 - rate),
     0)``), with the keep mask drawn from ``gen`` on ``x``'s device; the
-    identity when ``deterministic`` or ``rate == 0``."""
+    identity when ``deterministic`` or ``rate == 0``.  ``x``'s leading axis
+    is the batch.  With ``shard`` (a
+    :class:`~csat_tpu_torch.parallel.mesh.DataShard`) the mask is drawn at
+    the global batch's shape and ``x``'s rows take their slice of it: every
+    process of a data-parallel step advances ``gen`` alike and drops what one
+    process would drop for these rows of the global batch."""
     if deterministic or rate == 0.0:
         return x
     if gen is None:
         raise ValueError("dropout in training mode needs an explicit torch.Generator")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    row0, rows = (0, x.shape[0]) if shard is None else (shard.row0, shard.rows)
+    u = torch.rand((rows,) + tuple(x.shape[1:]), generator=gen, device=x.device)
+    keep = u[row0:row0 + x.shape[0]] >= rate
     # flax divides by the keep probability as a weak-typed scalar: in bf16,
     # by 1 - rate rounded to bf16
     keep_prob = float(torch.tensor(1.0 - rate, dtype=x.dtype))
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def remat(fn, generators, *args):
+    """``fn(*args)`` with its activations dropped after the forward and
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant):
+    the JAX package's ``nn.remat``.  The recompute must draw what the
+    forward drew — the dropout masks and the hash seeds, or it would sample
+    another graph — so each explicit generator in ``generators`` (None
+    entries are skipped) is set back to its state at the forward's start
+    for the recompute and restored to its current state after it.
+    Checkpoint's own stash covers only the default generators, which the
+    model never draws from.  Outside autograd (``torch.no_grad``) it is the
+    plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    gens = [g for g in generators if g is not None]
+    start = [g.get_state() for g in gens]
+    calls = []
+
+    def run(*a):
+        if not calls:  # the forward
+            calls.append(1)
+            return fn(*a)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, start):
+            g.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def subsequent_mask(size: int, device=None) -> torch.Tensor:
@@ -146,7 +188,7 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
               rate: float = 0.0, deterministic: bool = True,
-              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+              gen: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
     """The decoder's f32 attention island: ``q`` (B, H, Tq, dh) over ``k``/
     ``v`` (B, H, Tk, dh), whatever their dtype, scores over √dh, -1e9 where
     ``mask`` (broadcastable bool, True = disallowed), softmax, dropout at
@@ -154,7 +196,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Ten
     q, k, v = (t.to(torch.float32) for t in (q, k, v))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
     scores = torch.where(mask, torch.full_like(scores, NEG_INF), scores)
-    attn = dropout(torch.softmax(scores, dim=-1), rate, deterministic, gen)
+    attn = dropout(torch.softmax(scores, dim=-1), rate, deterministic, gen, shard)
     return torch.einsum("bhqk,bhkd->bhqd", attn, v)
 
 
@@ -175,8 +217,8 @@ class Embeddings(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
-                deterministic: bool = True, gen: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                deterministic: bool = True, gen: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         """``pos`` (B,) gives every row its own position (one token per
         slot); None uses positions ``0..T-1``.  The lookup and the position
         add are f32, the LayerNorm returns ``dtype``."""
@@ -197,7 +239,8 @@ class Embeddings(nn.Module):
                     torch.arange(x.shape[-1], device=x.device), dim)[None]
             else:
                 emb = emb + sinusoidal_rows(pos, dim)[:, None, :]
-        return dropout(layer_norm(self.norm, emb, self.dtype), self.dropout, deterministic, gen)
+        return dropout(layer_norm(self.norm, emb, self.dtype), self.dropout, deterministic, gen,
+                       shard)
 
 
 class FeedForward(nn.Module):
@@ -212,9 +255,9 @@ class FeedForward(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
         h = gelu(dense(self.fc1, x, self.dtype))
-        return dense(self.fc2, dropout(h, self.dropout, deterministic, gen), self.dtype)
+        return dense(self.fc2, dropout(h, self.dropout, deterministic, gen, shard), self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -244,14 +287,14 @@ class MultiHeadAttention(nn.Module):
         return dense(self.out, merge_heads(out4).to(self.dtype), self.dtype)
 
     def attend(self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor,
-               deterministic: bool = True, gen: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
+               deterministic: bool = True, gen: Optional[torch.Generator] = None,
+               shard=None) -> torch.Tensor:
         """``q_in`` (B, Tq, D) attends over ``kv_in`` (B, Tk, D); ``mask``
         bool, broadcastable to (B, H, Tq, Tk), True on disallowed keys
         (score filled with -1e9 before the softmax)."""
         q, k, v = (self.project(w, x) for w, x in ((self.q, q_in), (self.k, kv_in),
                                                       (self.v, kv_in)))
-        return self.merge_out(attention(q, k, v, mask, self.dropout, deterministic, gen))
+        return self.merge_out(attention(q, k, v, mask, self.dropout, deterministic, gen, shard))
 
     def project_kv(self, kv_in: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Split-head K/V of the encoder memory in ``dtype``, computed once
@@ -304,13 +347,14 @@ class DecoderLayer(nn.Module):
         """``x`` through LayerNorm ``norm{i}``, in ``dtype``."""
         return layer_norm(getattr(self, f"norm{i}"), x, self.dtype)
 
-    def teacher_forced(self, tgt, memory, tgt_mask, mem_mask, deterministic, gen):
-        drop = lambda x: dropout(x, self.dropout, deterministic, gen)
+    def teacher_forced(self, tgt, memory, tgt_mask, mem_mask, deterministic, gen, shard=None):
+        drop = lambda x: dropout(x, self.dropout, deterministic, gen, shard)
         normed = self.normed(1, tgt)
-        tgt = tgt + drop(self.self_attn.attend(normed, normed, tgt_mask, deterministic, gen))
+        tgt = tgt + drop(self.self_attn.attend(normed, normed, tgt_mask, deterministic, gen,
+                                               shard))
         tgt = tgt + drop(self.cross_attn.attend(self.normed(2, tgt), memory, mem_mask,
-                                                deterministic, gen))
-        return tgt + drop(self.ff(self.normed(3, tgt), deterministic, gen))
+                                                deterministic, gen, shard))
+        return tgt + drop(self.ff(self.normed(3, tgt), deterministic, gen, shard))
 
     def forward(self, tgt, self_mask, mem_mask, cache):
         h, k_step, v_step = self.self_attn.attend_self(self.normed(1, tgt), self_mask,
@@ -336,14 +380,16 @@ class Decoder(nn.Module):
         return layer_norm(self.norm, x, self.dtype)
 
     def teacher_forced(self, tgt, memory, tgt_mask, memory_key_pad,
-                       deterministic: bool = True, gen: Optional[torch.Generator] = None):
+                       deterministic: bool = True, gen: Optional[torch.Generator] = None,
+                       shard=None):
         """Whole target sequence at once: ``tgt`` (B, T, D) embeddings,
         ``tgt_mask`` (B, T, T) from :func:`make_std_mask`, ``memory_key_pad``
         (B, N) True on padded nodes."""
         self_mask = tgt_mask[:, None]
         mem_mask = memory_key_pad[:, None, None, :]
         for layer in self.layers:
-            tgt = layer.teacher_forced(tgt, memory, self_mask, mem_mask, deterministic, gen)
+            tgt = layer.teacher_forced(tgt, memory, self_mask, mem_mask, deterministic, gen,
+                                       shard)
         return self.final_norm(tgt)
 
     def forward(self, tgt, self_mask, mem_mask, caches: List[Dict]):
@@ -367,9 +413,9 @@ class Generator(nn.Module):
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
         logits = dense(self.fc1, x, torch.float32)
         if self.reference_dropout:
-            logits = dropout(logits, self.dropout, deterministic, gen)
+            logits = dropout(logits, self.dropout, deterministic, gen, shard)
             return torch.log(torch.clamp(torch.softmax(logits, dim=-1), min=1e-30))
         return torch.log_softmax(logits, dim=-1)

@@ -112,17 +112,22 @@ class CSATrans(nn.Module):
         (None for ``sequential``, which has none)."""
         return self._encode(batch, deterministic, gen)
 
-    def _encode(self, batch: Batch, deterministic: bool, gen: Optional[torch.Generator]):
+    def _encode(self, batch: Batch, deterministic: bool, gen: Optional[torch.Generator],
+                shard=None):
         """The encoder half under autograd → ``(memory, sparsity, pe)``
-        (``deterministic=False`` drops and samples from ``gen``)."""
+        (``deterministic=False`` drops and samples from ``gen``; ``shard``,
+        a :class:`~csat_tpu_torch.parallel.mesh.DataShard`, places the batch
+        in a data-parallel step's global batch)."""
         cfg = self.cfg
         dev = batch.src_seq.device
         src_mask = batch.src_seq == PAD
-        src_emb = self.src_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
+        src_emb = self.src_embedding(batch.src_seq, deterministic=deterministic, gen=gen,
+                                     shard=shard)
         if cfg.use_pegen == "pegen":
-            pe_emb = self.src_pe_embedding(batch.src_seq, deterministic=deterministic, gen=gen)
+            pe_emb = self.src_pe_embedding(batch.src_seq, deterministic=deterministic, gen=gen,
+                                           shard=shard)
             src_pe = self.pegen(pe_emb, batch.L, batch.T, batch.L_mask, batch.T_mask,
-                                deterministic, gen)
+                                deterministic, gen, shard)
         elif cfg.use_pegen == "laplacian":
             src_pe = laplacian_pe(_on(batch.adj, dev, torch.float32),
                                   _on(batch.num_node, dev, torch.long),
@@ -133,7 +138,8 @@ class CSATrans(nn.Module):
             src_pe = self.triplet_emb(_on(batch.triplet, dev, torch.long))
         else:  # sequential: the encoder adds its sinusoidal table
             src_pe = None
-        memory, sparsities, pe = self.encoder(src_emb, src_pe, src_mask, deterministic, gen)
+        memory, sparsities, pe = self.encoder(src_emb, src_pe, src_mask, deterministic, gen,
+                                              shard)
         if cfg.full_att:
             sparsity = torch.ones((), device=dev)
         else:
@@ -141,14 +147,20 @@ class CSATrans(nn.Module):
         return memory, sparsity, pe
 
     def forward(self, batch: Batch, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                gen: Optional[torch.Generator] = None,
+                shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced pass → ``(log_probs (B, T, V), sparsity scalar)``,
-        the training forward of the JAX ``CSATrans.__call__``."""
-        memory, sparsity, _ = self._encode(batch, deterministic, gen)
-        tgt = self.tgt_embedding(batch.tgt_seq, deterministic=deterministic, gen=gen)
+        the training forward of the JAX ``CSATrans.__call__``.  ``shard``
+        (a :class:`~csat_tpu_torch.parallel.mesh.DataShard`) makes it this
+        process's share of a data-parallel step on the global batch: the
+        sampled graphs and the sparsity are the global batch's (its
+        sparsity is this process's term of the global mean)."""
+        memory, sparsity, _ = self._encode(batch, deterministic, gen, shard)
+        tgt = self.tgt_embedding(batch.tgt_seq, deterministic=deterministic, gen=gen,
+                                 shard=shard)
         dec = self.decoder.teacher_forced(tgt, memory, make_std_mask(batch.tgt_seq, PAD),
-                                          batch.src_seq == PAD, deterministic, gen)
-        return self.generator(dec, deterministic, gen), sparsity
+                                          batch.src_seq == PAD, deterministic, gen, shard)
+        return self.generator(dec, deterministic, gen, shard), sparsity
 
     @torch.no_grad()
     def project_cross_kv(self, memory: torch.Tensor) -> List[Dict[str, torch.Tensor]]:

@@ -10,6 +10,9 @@ drop at ``cfg.dropout`` in training mode.  In bf16 (``dtype``) the
 projections, LayerNorms and residual stream run in bf16, the relative tables
 are stacked in bf16, and q/k/v and the projected tables go to f32 before the
 kernel; its output is cast back before ``wo`` (the JAX module's casts).
+Under ``cfg.remat`` each layer is recomputed in the backward
+(:func:`~csat_tpu_torch.models.components.remat`), its dropout redrawn from
+the generator's state at the forward.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.models.components import (
-    LN_EPS, FeedForward, dense, dropout, layer_norm, merge_heads)
+    LN_EPS, FeedForward, dense, dropout, layer_norm, merge_heads, remat)
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import cse_mod
 
@@ -77,11 +80,11 @@ class CSELayer(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, rel_tables, rel, mask, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None, shard=None):
         h = self.attn(layer_norm(self.attn_norm, x, self.dtype), rel_tables, rel, mask)
-        x = x + dropout(h, self.dropout, deterministic, gen)
-        h = self.ff(layer_norm(self.ff_norm, x, self.dtype), deterministic, gen)
-        return x + dropout(h, self.dropout, deterministic, gen)
+        x = x + dropout(h, self.dropout, deterministic, gen, shard)
+        h = self.ff(layer_norm(self.ff_norm, x, self.dtype), deterministic, gen, shard)
+        return x + dropout(h, self.dropout, deterministic, gen, shard)
 
 
 class CSE(nn.Module):
@@ -94,13 +97,17 @@ class CSE(nn.Module):
         self.layers = nn.ModuleList(CSELayer(cfg, dtype) for _ in range(cfg.num_layers))
         self.norm = nn.LayerNorm(cfg.pegen_dim, eps=LN_EPS)
         self.dtype = dtype
+        self.remat = cfg.remat
 
     def forward(self, src_pe_emb, L, T, L_mask, T_mask, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None, shard=None):
         rel = torch.stack([L, T], dim=1).to(torch.int32)
         mask = torch.stack([L_mask, T_mask], dim=1)
         rel_tables = torch.stack([self.L_q, self.T_q]).to(self.dtype)
         x = src_pe_emb
         for layer in self.layers:
-            x = layer(x, rel_tables, rel, mask, deterministic, gen)
+            if self.remat:  # recomputed in the backward (JAX cse.py:165)
+                x = remat(layer, (gen,), x, rel_tables, rel, mask, deterministic, gen, shard)
+            else:
+                x = layer(x, rel_tables, rel, mask, deterministic, gen, shard)
         return layer_norm(self.norm, x, self.dtype)

@@ -20,7 +20,16 @@ softmax in plain PyTorch as JAX leaves it to XLA; the ``sequential`` PE
 variant adds a sinusoidal table to the token embedding in place of the
 projected PE (``sbm.py:315-320``).  Seeds and noise come from the
 caller's explicit ``torch.Generator`` (:func:`draw_seed`, where JAX calls
-``draw_counter_seed``).  ``ClusterProj`` drops at 0.2 whatever
+``draw_counter_seed``).  Under data parallelism the caller also passes a
+:class:`~csat_tpu_torch.parallel.mesh.DataShard`: the hash streams then run
+at the rows' global batch·head index (``bh0 = row0 · H``), the shared noise
+and the model-dropout masks are the rows' slices of draws at the global
+batch's shape (so every process draws the same hash seeds), and the
+sparsity is normalised by the global batch — what one process would compute
+for these rows of the global batch.  Under ``cfg.remat`` each block is
+recomputed in the backward with the generator set back to its state at the
+forward, so the recompute samples the same graph and drops the same
+units.  ``ClusterProj`` drops at 0.2 whatever
 ``cfg.dropout`` is, as the JAX module hard-codes it.
 
 The attention is an f32 island whatever the compute dtype (``sbm.py:17,
@@ -41,7 +50,7 @@ from torch.nn import functional as F
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.models.components import (
-    LN_EPS, dense, dropout, gelu, layer_norm, merge_heads, sinusoidal_rows, split_heads)
+    LN_EPS, dense, dropout, gelu, layer_norm, merge_heads, remat, sinusoidal_rows, split_heads)
 from csat_tpu_torch.models.ste import bernoulli_noise, sample_graph
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod
@@ -68,9 +77,10 @@ class ClusterProj(nn.Module):
         self.fc2 = nn.Linear(head_dim, head_dim)
         self.fc3 = nn.Linear(head_dim, head_dim)
 
-    def forward(self, x, deterministic: bool = True, gen: Optional[torch.Generator] = None):
-        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen))
-        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen))
+    def forward(self, x, deterministic: bool = True, gen: Optional[torch.Generator] = None,
+                shard=None):
+        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen, shard))
+        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen, shard))
         return self.fc3(h)
 
 
@@ -89,31 +99,37 @@ class SBMAttention(nn.Module):
         self.proj = ClusterProj(head_dim)
 
     def forward(self, q, k, v, key_pad, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None, shard=None):
         b, h, n, dh = q.shape
+        # where the rows sit in the global batch (one process: row 0, b rows)
+        row0, rows = (0, b) if shard is None else (shard.row0, shard.rows)
+        bh0 = row0 * h
         c = self.clusters.reshape(h, self.kk, dh)
         dist = torch.einsum("hkd,hjd->hkj", c, c)
         s_aff = torch.softmax(dist.reshape(h, self.kk * self.kk), dim=-1).reshape(h, self.kk, self.kk)
-        q_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(q, deterministic, gen), c))
-        k_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(k, deterministic, gen), c))
+        q_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(q, deterministic, gen, shard), c))
+        k_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(k, deterministic, gen, shard), c))
 
         rate = 0.0 if deterministic else self.attention_dropout
         expected = deterministic and self.eval_graph == "expected"
         if not expected and gen is None:
             raise ValueError("a sampled SBM graph needs an explicit torch.Generator")
         if expected:
-            spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor)
+            spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor, bh0)
         elif self.noise_mode == "counter":
             spec, aux = sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad,
-                                        draw_seed(gen, "sample"), self.floor)
+                                        draw_seed(gen, "sample"), self.floor, bh0)
         else:
             exp_a = torch.einsum("bhnk,hkj,bhmj->bhnm", q_hat, s_aff, k_hat)
-            graph = sample_graph(exp_a, bernoulli_noise(gen, (b, h, n, n)), self.floor)
-            spec, aux = sbm_graph_mod(graph, key_pad)
+            # the global batch's noise, of which these rows take their slice
+            noise = bernoulli_noise(gen, (rows, h, n, n))[row0:row0 + b]
+            graph = sample_graph(exp_a, noise, self.floor)
+            spec, aux = sbm_graph_mod(graph, key_pad, bh0)
         drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
         out, extras = flex_attention(q, k, v, spec, aux, rate, drop_seed)
-        # per-head sparsity Σ graph / (b·n·n) over the padded node axis
-        return out, torch.sum(extras["graph_sum"], dim=0) / (b * n * n)
+        # per-head sparsity Σ graph / (b·n·n) over the padded node axis, b the
+        # global batch's rows: the processes' terms sum to the global mean
+        return out, torch.sum(extras["graph_sum"], dim=0) / (rows * n * n)
 
 
 def l1_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -134,11 +150,11 @@ class FullAttention(nn.Module):
         self.attention_dropout = attention_dropout
 
     def forward(self, q, k, v, key_pad, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None, shard=None):
         dot = torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(self.head_dim)
         dot = dot.masked_fill(key_pad[:, None, None, :], float("-inf"))
         attn = l1_normalize(torch.softmax(dot, dim=-1))
-        attn = dropout(attn, self.attention_dropout, deterministic, gen)
+        attn = dropout(attn, self.attention_dropout, deterministic, gen, shard)
         return torch.einsum("bhnm,bhmd->bhnd", attn, v), None
 
 
@@ -165,14 +181,14 @@ class SBMBlock(nn.Module):
         self.fc2 = nn.Linear(d, d)
 
     def forward(self, x, key_pad, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None):
-        drop = lambda t: dropout(t, self.dropout, deterministic, gen)
+                gen: Optional[torch.Generator] = None, shard=None):
+        drop = lambda t: dropout(t, self.dropout, deterministic, gen, shard)
         lin = lambda layer, t: dense(layer, t, self.dtype)
         h = layer_norm(self.attn_norm, x, self.dtype)
         # the f32 island
         q, k, v = (split_heads(lin(w, h), self.num_heads).to(torch.float32).contiguous()
                    for w in (self.wq, self.wk, self.wv))
-        out, sparsity = self.attn(q, k, v, key_pad, deterministic, gen)
+        out, sparsity = self.attn(q, k, v, key_pad, deterministic, gen, shard)
         x = x + drop(lin(self.wo, merge_heads(out).to(self.dtype)))
         h = drop(gelu(lin(self.fc1, layer_norm(self.ff_norm, x, self.dtype))))
         return x + drop(lin(self.fc2, h)), sparsity
@@ -195,9 +211,10 @@ class SBMEncoder(nn.Module):
         self.norm = nn.LayerNorm(cfg.sbm_enc_dim, eps=LN_EPS)
         self.out = nn.Linear(cfg.sbm_enc_dim, cfg.hidden_size)
         self.dtype = dtype
+        self.remat = cfg.remat
 
     def forward(self, src_emb, src_pe, key_pad, deterministic: bool = True,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None, shard=None):
         if self.sequential:
             # the leading rows of the max_src_len table: a bucketed batch
             # (N < max_src_len) adds the same rows as a full-width one
@@ -210,7 +227,10 @@ class SBMEncoder(nn.Module):
             x = torch.cat([src_emb, pe], dim=-1)
         sparsities = []
         for block in self.blocks:
-            x, sparsity = block(x, key_pad, deterministic, gen)
+            if self.remat:  # recomputed in the backward (JAX sbm.py:357-361)
+                x, sparsity = remat(block, (gen,), x, key_pad, deterministic, gen, shard)
+            else:
+                x, sparsity = block(x, key_pad, deterministic, gen, shard)
             sparsities.append(sparsity)
         x = layer_norm(self.norm, x, self.dtype) * (1.0 - key_pad.to(self.dtype))[:, :, None]
         return dense(self.out, x, self.dtype), sparsities, pe

@@ -55,10 +55,14 @@
 //   * R·K̂ᵀ is summed j = 0, 1, … with one rounding per product and per sum
 //     (__fmul_rn/__fadd_rn, no FMA), as ops/mods.py:exp_adjacency and the
 //     backward kernels sum it, so the weights are the same bits.  The
-//     sampled mod draws hash_uniform(sample seed, b·H + h, row, col, stride)
-//     at the global (query, key) indices of each entry a thread owns in the
-//     accumulator layout, with the hash row stride round_up(N, 128): the
-//     graph is the same bits that the plain path and K3/K4 draw.
+//     sampled mod draws hash_uniform(sample seed, bh0 + b·H + h, row, col,
+//     stride) at the global (query, key) indices of each entry a thread owns
+//     in the accumulator layout, with the hash row stride round_up(N, 128):
+//     the graph is the same bits that the plain path and K3/K4 draw.  bh0 =
+//     b0·H, from the launch, puts a data-parallel process holding rows
+//     [b0, b0 + B) of the global batch at its rows' global batch·head
+//     index, so every process draws its slice of the one global graph and
+//     dropout field (0 on one process).
 //   * The 3xTF32 split rounds both parts (cvt.rna), not the two-instruction
 //     truncating split of flex_bwd_tc.cu's dh-deep products.  Each pair of
 //     k-steps of Q·Kᵀ and each product of P·V also starts a fresh
@@ -123,6 +127,7 @@ struct Params {
   int32_t* skip_part;     // (B, H, n_qtiles)
   int B, H, N, kk;
   uint32_t stride;        // hash row stride, round_up(N, 128)
+  uint32_t bh0;           // batch·head offset of the hash streams (data parallelism)
   float floor_, scale, rate, keep_scale;
   const int32_t* sseed;   // (1,) Bernoulli stream seed (sampled mod only)
 };
@@ -335,7 +340,8 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
         if constexpr (MOD == MOD_SBM_EXPECTED)
           wr = real ? pr : 0.f;
         else  // the Bernoulli draw at the entry's global (query, key) indices
-          wr = real && hash_uniform(sseed, (uint32_t)bh, gr_[i >> 1], col0 + c, p.stride) < pr
+          wr = real && hash_uniform(sseed, (uint32_t)bh + p.bh0, gr_[i >> 1], col0 + c,
+                                      p.stride) < pr
                    ? 1.f : 0.f;
         const float we = wr * (1.f - pads[c]);
         gsum += wr;
@@ -409,8 +415,8 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
             const float pr = we > 0.f ? expf(sacc[t][i] - m_new) * we : 0.f;
             float keep = 1.f;
             if (dropout && pr > 0.f)
-              keep = hash_uniform(dseed, (uint32_t)bh, gr_[hr], col0 + 8 * t + 2 * tig + e,
-                                  p.stride) >= p.rate ? p.keep_scale : 0.f;
+              keep = hash_uniform(dseed, (uint32_t)bh + p.bh0, gr_[hr],
+                                  col0 + 8 * t + 2 * tig + e, p.stride) >= p.rate ? p.keep_scale : 0.f;
             sacc[t][i] = pr * keep;  // P, dropped out; the row sum takes pr
             lt += pr;
           }
@@ -520,8 +526,9 @@ template <int MOD>
 int run(const float* q, const float* k, const float* v, const float* r, const float* kh,
         const float* pad, const int32_t* sseed, const int32_t* dseed, float* out, float* lse,
         float* gsum_part, int32_t* skip_part, int B, int H, int N, int DH, int KK, int stride,
-        float floor_, float scale, float rate, float keep_scale, void* stream) {
+        int bh0, float floor_, float scale, float rate, float keep_scale, void* stream) {
   if (KK < 1 || KK > KKMAX) return -3;
+  if (bh0 < 0) return -7;
   if (rate > 0.f && dseed == nullptr) return -4;
   if (MOD == MOD_SBM_SAMPLED && sseed == nullptr) return -5;
   Params p{};
@@ -529,7 +536,7 @@ int run(const float* q, const float* k, const float* v, const float* r, const fl
   p.sseed = sseed; p.dseed = dseed;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
   p.B = B; p.H = H; p.N = N; p.kk = KK;
-  p.stride = (uint32_t)stride; p.floor_ = floor_; p.scale = scale;
+  p.stride = (uint32_t)stride; p.bh0 = (uint32_t)bh0; p.floor_ = floor_; p.scale = scale;
   p.rate = rate; p.keep_scale = keep_scale;
   const cudaStream_t st = (cudaStream_t)stream;
   if (DH == 64) return launch_grid(flex_tc_kernel<MOD, 64>, p, smem_bytes(64), st);
@@ -591,6 +598,7 @@ struct GraphParams {
   int32_t* skip_part;     // (B, H, n_qtiles)
   int B, H, N;
   uint32_t stride;        // hash row stride, round_up(N, 128)
+  uint32_t bh0;           // batch·head offset of the dropout stream (data parallelism)
   uint32_t keep_from;     // keep an entry iff its 24 hash bits ≥ ceil(rate · 2^24)
   float scale, keep_scale;
 };
@@ -718,7 +726,7 @@ __device__ __forceinline__ void graph_body(const GraphParams& p) {
       for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const uint32_t bits = hash_bits(dseed, (uint32_t)bh, (uint32_t)gr_[i >> 1],
+          const uint32_t bits = hash_bits(dseed, (uint32_t)bh + p.bh0, (uint32_t)gr_[i >> 1],
                                           (uint32_t)(col0 + 8 * t + 2 * tig + (i & 1)), p.stride);
           keep |= (uint32_t)((bits >> 8) >= p.keep_from) << (4 * t + i);
         }
@@ -1342,11 +1350,11 @@ extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float
                                      const float* r, const float* kh, const float* pad,
                                      const int32_t* dseed, float* out, float* lse,
                                      float* gsum_part, int32_t* skip_part, int B, int H,
-                                     int N, int DH, int KK, int stride, float floor_,
-                                     float scale, float rate, float keep_scale,
+                                     int N, int DH, int KK, int stride, int bh0,
+                                     float floor_, float scale, float rate, float keep_scale,
                                      void* stream) {
   return run<MOD_SBM_EXPECTED>(q, k, v, r, kh, pad, nullptr, dseed, out, lse, gsum_part,
-                               skip_part, B, H, N, DH, KK, stride, floor_, scale, rate,
+                               skip_part, B, H, N, DH, KK, stride, bh0, floor_, scale, rate,
                                keep_scale, stream);
 }
 
@@ -1355,10 +1363,10 @@ extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float*
                                     const int32_t* sseed, const int32_t* dseed,
                                     float* out, float* lse, float* gsum_part,
                                     int32_t* skip_part, int B, int H, int N, int DH,
-                                    int KK, int stride, float floor_, float scale,
+                                    int KK, int stride, int bh0, float floor_, float scale,
                                     float rate, float keep_scale, void* stream) {
   return run<MOD_SBM_SAMPLED>(q, k, v, r, kh, pad, sseed, dseed, out, lse, gsum_part,
-                              skip_part, B, H, N, DH, KK, stride, floor_, scale, rate,
+                              skip_part, B, H, N, DH, KK, stride, bh0, floor_, scale, rate,
                               keep_scale, stream);
 }
 
@@ -1366,13 +1374,14 @@ extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v
                                   const float* graph, const float* pad,
                                   const int32_t* dseed, float* out, float* lse,
                                   float* gsum_part, int32_t* skip_part, int B, int H,
-                                  int N, int DH, int stride, float scale, float rate,
-                                  float keep_scale, void* stream) {
+                                  int N, int DH, int stride, int bh0, float scale,
+                                  float rate, float keep_scale, void* stream) {
   if (rate > 0.f && dseed == nullptr) return -4;
+  if (bh0 < 0) return -7;
   GraphParams p{};
   p.q = q; p.k = k; p.v = v; p.graph = graph; p.pad = pad; p.dseed = dseed;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.stride = (uint32_t)stride;
+  p.B = B; p.H = H; p.N = N; p.stride = (uint32_t)stride; p.bh0 = (uint32_t)bh0;
   // u = top · 2^-24 exactly, so u ≥ rate ⟺ top ≥ ceil(rate · 2^24); 0 = no dropout
   p.keep_from = rate > 0.f ? (uint32_t)ceil((double)rate * 16777216.0) : 0u;
   p.scale = scale; p.keep_scale = keep_scale;

@@ -142,11 +142,13 @@ class _WeightedSoftmax(torch.autograd.Function):
         return attn * t, d_w, None
 
 
-def keep_field(seed, b: int, h: int, n: int, stride: int, rate: float, device=None):
+def keep_field(seed, b: int, h: int, n: int, stride: int, rate: float, device=None,
+               bh0: int = 0):
     """Dropout ``keep / (1 - rate)`` field (B, H, N, N) from the hash stream
     under ``seed``: ``1{u >= rate} · 1/(1 - rate)`` (JAX ``keep_field``,
-    ``flex_core.py:214-219``), the same bits the kernels draw per tile."""
-    u = uniform_field(seed, b, h, n, n, stride, device)
+    ``flex_core.py:214-219``), the same bits the kernels draw per tile;
+    ``bh0`` the batch·head offset of a data-parallel process's rows."""
+    u = uniform_field(seed, b, h, n, n, stride, device, bh0)
     return (u >= rate).to(torch.float32) * (1.0 / (1.0 - rate))
 
 
@@ -164,7 +166,8 @@ def flex_reference(q, k, v, spec, aux, dropout_rate: float = 0.0,
     attn, lse = _WeightedSoftmax.apply(s, w_eff, spec.exact_weight_grad)
     gsum = torch.sum(torch.broadcast_to(w_raw, s.shape), dim=(2, 3))
     if dropout_rate > 0.0:
-        attn = attn * keep_field(dropout_seed, b, h, n, spec.stride, dropout_rate, q.device)
+        attn = attn * keep_field(dropout_seed, b, h, n, spec.stride, dropout_rate, q.device,
+                                 spec.bh0)
     out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
     return out, {
         "graph_sum": gsum,
@@ -203,6 +206,15 @@ def _dropout_args(q, rate: float, dseed):
         return None, 0.0, 1.0
     check_cuda("dropout_seed", dseed, torch.int32, (1,))
     return dseed.data_ptr(), float(rate), 1.0 / (1.0 - float(rate))
+
+
+def _bh0(spec) -> int:
+    """The spec's batch·head offset as the kernels take it: an int below
+    2³¹, the hash index ``bh0 + b·H + h`` wrapping in uint32 as the plain
+    path's does."""
+    if not 0 <= spec.bh0 < 2**31:
+        raise ValueError(f"batch·head offset {spec.bh0} outside [0, 2^31)")
+    return int(spec.bh0)
 
 
 def _sbm_factor_args(spec, aux, b, h, n):
@@ -249,12 +261,13 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
     elif isinstance(spec, SBMExpectedSpec):
         fn = "flex_fwd_sbm_expected"
         args = [*qkv, *_sbm_factor_args(spec, aux, b, h, n), dptr, *tail, b, h, n, dh,
-                spec.kk, spec.stride, spec.floor, spec.scale(dh), rate, keep_scale, stream]
+                spec.kk, spec.stride, _bh0(spec), spec.floor, spec.scale(dh), rate, keep_scale,
+                stream]
     elif isinstance(spec, SBMSampledSpec):
         check_cuda("sample_seed", aux[3], torch.int32, (1,))
         fn = "flex_fwd_sbm_sampled"
         args = [*qkv, *_sbm_factor_args(spec, aux, b, h, n), aux[3].data_ptr(), dptr, *tail,
-                b, h, n, dh, spec.kk, spec.stride, spec.floor, spec.scale(dh), rate,
+                b, h, n, dh, spec.kk, spec.stride, _bh0(spec), spec.floor, spec.scale(dh), rate,
                 keep_scale, stream]
     elif isinstance(spec, SBMGraphSpec):
         graph, padf = aux
@@ -262,7 +275,7 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
         check_cuda("key_pad", padf, torch.float32, (b, n))
         fn = "flex_fwd_sbm_graph"
         args = [*qkv, graph.data_ptr(), padf.data_ptr(), dptr, *tail, b, h, n, dh,
-                spec.stride, spec.scale(dh), rate, keep_scale, stream]
+                spec.stride, _bh0(spec), spec.scale(dh), rate, keep_scale, stream]
     else:
         raise NotImplementedError(f"no CUDA kernel for mod {spec.name!r}")
     build.check_head_dim(fn, dh)
@@ -294,8 +307,8 @@ def bwd_kernel_args(spec, q, k, v, aux, lse, dvec, g_out, gs, rate: float = 0.0,
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *_sbm_factor_args(spec, aux, b, h, n),
             *([aux[3].data_ptr()] if sampled else []), dptr, lse.data_ptr(),
             dvec.data_ptr(), g_out.data_ptr(), gs.data_ptr()]
-    tail = [b, h, n, dh, spec.kk, spec.stride, spec.floor, spec.scale(dh), rate, keep_scale,
-            stream]
+    tail = [b, h, n, dh, spec.kk, spec.stride, _bh0(spec), spec.floor, spec.scale(dh), rate,
+            keep_scale, stream]
     q_args = head + [grads["dq"].data_ptr(), grads["dr"].data_ptr()] + tail
     k_args = head + [grads[key].data_ptr() for key in ("dk", "dv", "dkh")] + tail
     return q_fn, q_args, k_fn, k_args, grads

@@ -2,7 +2,8 @@
 
 A copy of the JAX package's ``ops/hashrng.py``: a murmur3 finalizer over
 ``(seed, batch·head, global row, global col)`` gives the uniform draw of every
-attention pair.  The stream is a pure function of indices, so the CUDA kernels
+attention pair; batch·head is global too (``bh0``), so a data-parallel
+process draws its rows' slice of the one global field.  The stream is a pure function of indices, so the CUDA kernels
 (``csrc/flex_fwd*.cu``, ``csrc/flex_bwd*.cu``) generate it tile by tile, the
 backward regenerates it, and :func:`uniform_field` materialises the same
 field for the plain path.
@@ -75,8 +76,8 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return top.to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _bh_rows_cols(b: int, h: int, n_rows: int, n_cols: int, device):
-    bh = (torch.arange(b, device=device)[:, None] * h
+def _bh_rows_cols(b: int, h: int, n_rows: int, n_cols: int, device, bh0: int = 0):
+    bh = (bh0 + torch.arange(b, device=device)[:, None] * h
           + torch.arange(h, device=device)[None, :])[:, :, None, None]
     rows = torch.arange(n_rows, device=device)[None, None, :, None]
     cols = torch.arange(n_cols, device=device)[None, None, None, :]
@@ -84,11 +85,15 @@ def _bh_rows_cols(b: int, h: int, n_rows: int, n_cols: int, device):
 
 
 def uniform_field(seed: IntLike, b: int, h: int, n_rows: int, n_cols: int,
-                  stride: int, device=None) -> torch.Tensor:
+                  stride: int, device=None, bh0: int = 0) -> torch.Tensor:
     """The full (B, H, n_rows, n_cols) uniform field the kernels generate tile
-    by tile — the plain path's copy of exactly the tensor they avoid."""
+    by tile — the plain path's copy of exactly the tensor they avoid.
+    ``bh0`` offsets the batch·head index: a process holding rows ``[b0, b0 +
+    B)`` of a global batch of ``H`` heads passes ``b0 · H`` and draws the
+    rows' slice of the global field, as one process over the whole batch
+    would (the JAX ring's ``bh = (b0 + b)·H + h``)."""
     if device is None and torch.is_tensor(seed):
         device = seed.device
-    bh, rows, cols = _bh_rows_cols(b, h, n_rows, n_cols, device)
+    bh, rows, cols = _bh_rows_cols(b, h, n_rows, n_cols, device, bh0)
     return bits_to_uniform(hash_bits(seed, bh, rows, cols, stride))
 

@@ -175,6 +175,10 @@ class _SBMBase:
     gradient into a weight of exactly 0 sets it."""
 
     exact_weight_grad = False
+    #: batch·head offset of the hash streams (the sampled graph and the
+    #: attention-dropout keep field): ``b0 · heads`` on a process holding rows
+    #: ``[b0, b0 + B)`` of the global batch; a dataclass field of each spec
+    bh0 = 0
 
     def scale(self, dh: int) -> float:
         return 1.0 / math.sqrt(dh)
@@ -196,6 +200,7 @@ class SBMExpectedSpec(_SBMBase):
     heads: int
     kk: int
     floor: float
+    bh0: int = 0
 
     name = "sbm_expected"
     # at floor == 0 an entry with R·K̂ᵀ == 0 has weight 0 and a half-open clip
@@ -227,6 +232,7 @@ class SBMSampledSpec(_SBMBase):
     heads: int
     kk: int
     floor: float
+    bh0: int = 0
 
     name = "sbm_sampled"
 
@@ -235,7 +241,7 @@ class SBMSampledSpec(_SBMBase):
 
         r, kh, padf, sseed = aux
         b, h, n, _ = r.shape
-        noise = uniform_field(sseed, b, h, n, n, self.stride, r.device)
+        noise = uniform_field(sseed, b, h, n, n, self.stride, r.device, self.bh0)
         graph = sample_graph(exp_adjacency(r, kh), noise, self.floor)
         return graph, graph * (1.0 - padf)[:, None, None, :]
 
@@ -243,7 +249,7 @@ class SBMSampledSpec(_SBMBase):
         r, kh, padf, sseed = aux
         rp, khp = _pad_nodes(r, n_pad), _pad_nodes(kh, n_pad)
         padp = torch.nn.functional.pad(padf, (0, n_pad - self.n), value=1.0)
-        noise = uniform_field(sseed, b, h, n_pad, n_pad, self.stride, r.device)
+        noise = uniform_field(sseed, b, h, n_pad, n_pad, self.stride, r.device, self.bh0)
         p = torch.clamp(exp_adjacency(rp, khp), self.floor, 0.99)
         a_raw = (noise < p).to(torch.float32) * _real_gate(self.n, n_pad, r.device)
         return a_raw * (1.0 - padp[:, None, None, :])
@@ -257,6 +263,7 @@ class SBMGraphSpec(_SBMBase):
 
     n: int
     heads: int
+    bh0: int = 0
 
     name = "sbm_graph"
 
@@ -283,29 +290,33 @@ def cse_mod(rel_q, rel_k, rel, mask):
     return CSESpec(n=n, heads=h, dk=dk, r_len=r_len), aux
 
 
-def sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, floor: float = 0.01):
+def sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, floor: float = 0.01, bh0: int = 0):
     """``q_hat``/``k_hat`` (B, H, N, kk) memberships, ``s_aff`` (H, kk, kk)
-    cluster affinity, ``key_pad`` (B, N) truthy on padded keys."""
+    cluster affinity, ``key_pad`` (B, N) truthy on padded keys; ``bh0`` the
+    batch·head offset of the dropout stream (:attr:`_SBMBase.bh0`)."""
     b, h, n, kk = q_hat.shape
     r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
     aux = (r.contiguous(), k_hat.contiguous(), key_pad.to(torch.float32).contiguous())
-    return SBMExpectedSpec(n=n, heads=h, kk=kk, floor=float(floor)), aux
+    return SBMExpectedSpec(n=n, heads=h, kk=kk, floor=float(floor), bh0=int(bh0)), aux
 
 
-def sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad, sample_seed, floor: float = 0.01):
+def sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad, sample_seed, floor: float = 0.01,
+                    bh0: int = 0):
     """Counter-mode sampled graph.  ``R = Q̂ S`` is formed here, so the
     cotangent of ``R`` reaches ``Q̂`` and ``S`` through plain autograd;
     ``sample_seed`` is a (1,) int32 tensor on the data's device (the kernels
-    read it there: no host sync)."""
+    read it there: no host sync); ``bh0`` the batch·head offset of the hash
+    streams."""
     b, h, n, kk = q_hat.shape
     r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
     seed = torch.as_tensor(sample_seed, dtype=torch.int32, device=q_hat.device).reshape(1)
     aux = (r.contiguous(), k_hat.contiguous(), key_pad.to(torch.float32).contiguous(), seed)
-    return SBMSampledSpec(n=n, heads=h, kk=kk, floor=float(floor)), aux
+    return SBMSampledSpec(n=n, heads=h, kk=kk, floor=float(floor), bh0=int(bh0)), aux
 
 
-def sbm_graph_mod(graph, key_pad):
-    """``graph`` (B, H, N, N) 0/1 f32, ``key_pad`` (B, N) truthy on padded keys."""
+def sbm_graph_mod(graph, key_pad, bh0: int = 0):
+    """``graph`` (B, H, N, N) 0/1 f32, ``key_pad`` (B, N) truthy on padded
+    keys; ``bh0`` the batch·head offset of the dropout stream."""
     b, h, n, _ = graph.shape
     aux = (graph.contiguous(), key_pad.to(torch.float32).contiguous())
-    return SBMGraphSpec(n=n, heads=h), aux
+    return SBMGraphSpec(n=n, heads=h, bh0=int(bh0)), aux

@@ -16,12 +16,13 @@ encodes the *in-progress* epoch and iteration, which would collide with the
 boundary checkpoints' completed-epoch keys in one directory.
 
 :func:`coordinated_trigger` and :func:`abort_barrier` are the multi-process
-gates of the JAX package (every process agrees to stop at the same step and
-rendezvouses before the save).  The port runs one training process, so here
-they are their one-process forms: the local flag, and no barrier.  The
-multi-process form needs the port's parallel layer, which it does not have
-yet; both raise when a ``torch.distributed`` group of more than one process
-is initialised, rather than let one process save alone.
+gates of the JAX package (``preemption.py:108-172``): under a
+``torch.distributed`` group of several processes every process polls the
+flag of all of them — an all-reduce MAX on the host group
+(``parallel/host.py``), which reads nothing from the card — so a SIGTERM to
+one process stops every process at the same step boundary, and they
+rendezvous before the save, which rank 0 alone writes.  On one process they
+are the local flag and no barrier.
 """
 
 from __future__ import annotations
@@ -101,27 +102,39 @@ class PreemptionHandler:
                 signal.signal(s, old)
 
 
-def _refuse_multi_process(what: str) -> None:
+def coordinated_trigger(handler: PreemptionHandler) -> bool:
+    """Whether any process has been asked to stop.  On one process that is
+    ``handler.triggered``; under a group of several, the local flags are
+    all-reduced with MAX over the host group, so every process gets the
+    same answer at the same step, and a process that learns of another's
+    stop latches it on its own handler."""
+    from csat_tpu_torch.parallel import host
+
+    if host.world() <= 1:
+        return handler.triggered
+    import torch
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what}: the multi-process form is not ported; a stop must be agreed by "
-            "every process before any of them saves")
-
-
-def coordinated_trigger(handler: PreemptionHandler) -> bool:
-    """Whether any process has been asked to stop.  On the one process the
-    port trains in, that is ``handler.triggered``."""
-    _refuse_multi_process("coordinated_trigger")
-    return handler.triggered
+    flag = torch.tensor([1 if handler.triggered else 0], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=host.host_group())
+    stop = bool(flag.item())
+    if stop and not handler.triggered:
+        handler.trigger()
+    return stop
 
 
 def abort_barrier(tag: str = "preempt_save") -> str:
-    """The sync point entered immediately before the preemption save; returns
-    how it synced: ``"single"`` (one process — nothing to sync)."""
-    _refuse_multi_process(f"abort_barrier({tag!r})")
-    return "single"
+    """The sync point every process enters immediately before the preemption
+    save; returns how it synced: ``"single"`` (one process — nothing to
+    sync) or ``"barrier"`` (every process arrived).  A failed rendezvous
+    propagates: it means some process is not entering the save."""
+    from csat_tpu_torch.parallel import host
+
+    del tag  # names the call site for readers; the rendezvous is the same
+    if host.world() <= 1:
+        return "single"
+    host.barrier()
+    return "barrier"
 
 
 def preempt_dir(checkpoint_dir: str) -> str:

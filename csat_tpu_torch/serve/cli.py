@@ -154,15 +154,13 @@ def build_engine(args):
     """Config / vocabs / params / engine bring-up shared by both subcommands;
     returns ``(engine, cfg, src_vocab, trip_vocab)``."""
     _refuse_later(args)
-    from csat_tpu_torch.configs import get_config, list_configs
+    from csat_tpu_torch.configs import cli_config
     from csat_tpu_torch.data.vocab import Vocab, load_vocab
     from csat_tpu_torch.serve.engine import ServeEngine
     from csat_tpu_torch.train.checkpoint import restore_params
     from csat_tpu_torch.train.state import make_model
     from csat_tpu_torch.utils import resolve_device
 
-    if args.config not in list_configs():
-        raise SystemExit(f"unknown config {args.config!r}; choose from {list_configs()}")
     overrides = {}
     for item in args.overrides:
         field, _, value = item.partition("=")
@@ -180,7 +178,7 @@ def build_engine(args):
             overrides[field] = value
     if args.metrics_every_s > 0:
         overrides["obs_metrics_every_s"] = args.metrics_every_s
-    cfg = get_config(args.config, **overrides)
+    cfg = cli_config(args.config, overrides)
     device = resolve_device(args.device)
 
     src_vocab, tgt_vocab = load_vocab(cfg.data_dir)

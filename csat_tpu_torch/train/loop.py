@@ -33,8 +33,12 @@ gradients to the f32 master weights, with the non-finite guard as in f32;
 the weights start from ``cfg.init_scheme``'s draw (``models/init.py``).
 
 PyTorch runs eagerly, so a bucket shape needs no compiled program: the JAX
-trainer's program cache and AOT warm-up have no counterpart, nor has its
-mesh placement (the port trains on one device).
+trainer's program cache and AOT warm-up have no counterpart.  Its mesh's
+``data`` axis is data parallelism over ``torch.distributed``
+(``parallel/mesh.py``): each process of the group steps on its own shard of
+every epoch, the gradients are summed in the step, the validation decode is
+sharded and its sums reduced, and rank 0 alone writes checkpoints, the
+scalar log and the resume marker, with barriers around them.
 """
 
 from __future__ import annotations
@@ -60,6 +64,9 @@ from csat_tpu_torch.data.vocab import Vocab, load_vocab
 from csat_tpu_torch.metrics import batch_bleu, bleu_output_transform, eval_accuracies
 from csat_tpu_torch.models import CSATrans
 from csat_tpu_torch.obs import EventRecorder, MetricsFile, MetricsRegistry, write_chrome_trace
+from csat_tpu_torch.parallel import host
+from csat_tpu_torch.parallel.mesh import (
+    DataShard, Mesh, allreduce_grads, allreduce_sums, broadcast_params, build_mesh)
 from csat_tpu_torch.resilience.guards import (
     TrainingDivergedError, global_norm, guarded_apply, host_snapshot, restore_snapshot)
 from csat_tpu_torch.resilience.preemption import (
@@ -74,12 +81,13 @@ from csat_tpu_torch.train.loss import label_smoothing_loss
 from csat_tpu_torch.train.optimizer import AdamW
 from csat_tpu_torch.train.state import (
     TrainState, create_train_state, default_optimizer, make_model, triplet_dictionary)
-from csat_tpu_torch.utils import resolve_device
+from csat_tpu_torch.utils import PAD, resolve_device
 
 __all__ = ["make_train_step", "evaluate_bleu", "prefetch_batches", "run_test", "Trainer"]
 
 
-def make_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: Config
+def make_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: Config,
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch, bad_steps=0, loss_scale=1.0) → (state,
     metrics)``.  ``batch`` holds tensors on the model's device
@@ -90,21 +98,48 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: Config
     ``total``, ``grad_norm``, and with ``cfg.nonfinite_guard`` (the
     default) ``nonfinite`` and ``bad_steps`` — a non-finite loss or
     grad-norm skips the update; ``bad_steps`` is the consecutive count,
-    threaded from one step's metrics to the next call."""
+    threaded from one step's metrics to the next call.
+
+    The randomness (the hash seeds of the sampled graphs and the attention
+    dropout, the shared mode's graph noise, the model-dropout masks) comes
+    from ``state.generator``.
+
+    Data parallelism (``mesh``, default ``build_mesh(cfg.mesh_shape)`` over
+    the current ``torch.distributed`` group): each process passes its own
+    rows of the global batch — the rank-ordered concatenation of the
+    processes' batches — and the step equals the one-process step on the
+    global batch.  The graphs are drawn at the rows' global indices, the
+    NLL is normalised by the global count of non-PAD targets (one small
+    all-reduce before the forward), the sparsity by the global row count,
+    the gradients are summed with one flat all-reduce per dtype before the
+    guarded update, and the metrics are the global batch's; the guard
+    decides on the summed gradients, so every process decides alike and
+    the parameters stay the same bits everywhere.  The graph noise and the
+    dropout masks are the rows' slices of draws at the global batch's shape,
+    so every process draws the same hash seeds and the masks one process
+    would draw.  Nothing is read on the host."""
+    mesh = mesh if mesh is not None else build_mesh(cfg.mesh_shape)
 
     def train_step(state: TrainState, batch: Batch, bad_steps=0,
                    loss_scale: float = 1.0):
         for p in state.params.values():
             p.grad = None
-        log_probs, sparsity = model(batch, deterministic=False, gen=state.generator)
-        nll = label_smoothing_loss(log_probs, batch.target, cfg.smoothing)
+        row0, rows = mesh.rows(batch.src_seq.shape[0])
+        shard = DataShard(row0=row0, rows=rows * mesh.data)
+        log_probs, sparsity = model(batch, deterministic=False, gen=state.generator,
+                                    shard=shard)
+        ntokens = allreduce_sums(torch.sum(batch.target != PAD), mesh)
+        nll = label_smoothing_loss(log_probs, batch.target, cfg.smoothing, ntokens)
         total = (nll + cfg.sw * sparsity) * loss_scale
         total.backward()
         grads = {k: p.grad for k, p in state.params.items()}
-        metrics = {"loss": nll.detach(), "sparsity": sparsity.detach(), "total": total.detach()}
+        allreduce_grads(list(grads.values()), mesh)
+        nll, sparsity, total = allreduce_sums(
+            torch.stack([nll.detach(), sparsity.detach(), total.detach()]), mesh)
+        metrics = {"loss": nll, "sparsity": sparsity, "total": total}
         if cfg.nonfinite_guard:
             ok, gnorm, bad = guarded_apply(optimizer, state.params, grads, state.opt_state,
-                                           total.detach(), bad_steps)
+                                           total, bad_steps)
             metrics.update(grad_norm=gnorm, nonfinite=~ok, bad_steps=bad)
         else:
             optimizer.update(state.params, grads, state.opt_state)
@@ -123,7 +158,8 @@ def _pad_batch(batch: Batch, size: int, max_src_len: Optional[int] = None) -> Tu
 
 
 def _decode_dataset(model: CSATrans, dataset: ASTDataset, cfg: Config,
-                    gen: Optional[torch.Generator] = None, decode: Optional[Callable] = None
+                    gen: Optional[torch.Generator] = None, decode: Optional[Callable] = None,
+                    num_shards: int = 1, shard_index: int = 0
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield ``(y_pred, target)`` per batch, tail-padded to a static shape.
 
@@ -133,15 +169,19 @@ def _decode_dataset(model: CSATrans, dataset: ASTDataset, cfg: Config,
     unchanged.  Eval buckets the NODE axis only: a T bucket is chosen by the
     sample's REFERENCE length, so decoding ``t - 1`` steps would truncate
     hypotheses as a function of the label — metrics get the full
-    ``max_tgt_len - 1`` decode budget whatever the bucketing."""
+    ``max_tgt_len - 1`` decode budget whatever the bucketing.  ``num_shards``
+    / ``shard_index`` decode one process's share of the dataset (the JAX
+    ``host_shard``)."""
     decode = decode or decode_fn(model)
     if cfg.bucketing:
         eval_cfg = cfg.replace(bucket_tgt_lens=(cfg.max_tgt_len,))
         batches = ((batch, spec.batch_size) for spec, batch in iterate_bucketed_batches(
-            dataset, eval_cfg, shuffle=False, drop_last=False, with_spec=True))
+            dataset, eval_cfg, shuffle=False, drop_last=False, num_shards=num_shards,
+            shard_index=shard_index, with_spec=True))
     else:
         batches = ((batch, cfg.batch_size) for batch in iterate_batches(
-            dataset, cfg.batch_size, shuffle=False, drop_last=False))
+            dataset, cfg.batch_size, shuffle=False, drop_last=False, num_shards=num_shards,
+            shard_index=shard_index))
     for batch, rows in batches:
         batch, real = _pad_batch(batch, rows, max_src_len=cfg.max_src_len)
         target = np.asarray(batch.target)[:real]
@@ -151,16 +191,31 @@ def _decode_dataset(model: CSATrans, dataset: ASTDataset, cfg: Config,
 
 def evaluate_bleu(model: CSATrans, dataset: ASTDataset, cfg: Config, tgt_vocab: Vocab,
                   gen: Optional[torch.Generator] = None,
-                  decode: Optional[Callable] = None) -> float:
+                  decode: Optional[Callable] = None, mesh: Optional[Mesh] = None) -> float:
     """Mean per-sentence smoothed BLEU over greedy decodes (the reference's
-    BLEU4 validation metric)."""
+    BLEU4 validation metric).  With a data-parallel ``mesh`` each process
+    decodes its share of the dataset and the sums are reduced over the
+    processes (the JAX ``host_shard`` and ``_allreduce_sums``): every
+    process returns the same score."""
+    shards = (1, 0) if mesh is None else (mesh.data, mesh.rank)
     total, count = 0.0, 0
-    for y_pred, target in _decode_dataset(model, dataset, cfg, gen, decode):
+    for y_pred, target in _decode_dataset(model, dataset, cfg, gen, decode, *shards):
         hyps, refs = bleu_output_transform(y_pred, target, tgt_vocab.i2w)
         scores = batch_bleu(hyps, refs)
         total += float(np.sum(scores))
         count += len(scores)
+    if mesh is not None and mesh.group is not None:
+        sums = allreduce_sums(torch.tensor([total, float(count)], dtype=torch.float64,
+                                           device=_collective_device(model.device)), mesh)
+        total, count = float(sums[0]), int(sums[1])
     return total / count if count else 0.0
+
+
+def _collective_device(device: torch.device) -> torch.device:
+    """Where a collective's tensor lives: the card under NCCL, else the CPU."""
+    import torch.distributed as dist
+
+    return device if dist.get_backend() == "nccl" else torch.device("cpu")
 
 
 def run_test(model: CSATrans, dataset: ASTDataset, cfg: Config, tgt_vocab: Vocab,
@@ -319,16 +374,20 @@ class Trainer:
         self.obs = EventRecorder(capacity=cfg.obs_events, component="train")
         self._log_sink = log
         self.log = self._log
+        self.device = resolve_device(device)
+        # the data axis over the torch.distributed group (one process without
+        # one); rank 0 alone writes checkpoints, logs and metrics files
+        self.mesh = build_mesh(cfg.mesh_shape)
+        self.primary = self.mesh.rank == 0
         self.metrics_file = (MetricsFile(cfg.obs_metrics_file, self.registry,
                                          every_s=cfg.obs_metrics_every_s)
-                             if cfg.obs_metrics_file else None)
-        self.device = resolve_device(device)
+                             if cfg.obs_metrics_file and self.primary else None)
         self.src_vocab, self.tgt_vocab = load_vocab(cfg.data_dir)
         # the triplet table is sized by the dictionary on disk, as in JAX
         self.model = make_model(cfg, self.src_vocab.size(), self.tgt_vocab.size(),
                                 triplet_dictionary(cfg)[1], device=self.device)
         self.optimizer = default_optimizer(cfg)
-        self.train_step = make_train_step(self.model, self.optimizer, cfg)
+        self.train_step = make_train_step(self.model, self.optimizer, cfg, self.mesh)
         self.decode_fn = decode_fn(self.model)
         self.output_dir = os.path.join(cfg.output_dir, cfg.project_name, cfg.task_name)
         self.initial_params: Optional[Dict[str, torch.Tensor]] = None
@@ -350,7 +409,12 @@ class Trainer:
         if pm == "auto":
             pm = os.path.join(self.output_dir, "postmortem")
         if pm:
-            self.obs.postmortem(pm, reason)
+            self.obs.postmortem(self._per_rank(pm), reason)
+
+    def _per_rank(self, path: str) -> str:
+        """``path`` for rank 0, ``path-rank<r>`` for the other processes of a
+        data-parallel run: their own files beside rank 0's."""
+        return path if self.primary else f"{path}-rank{self.mesh.rank}"
 
     def _watchdog_trip(self, what: str, stalled_s: float) -> None:
         self.obs.emit("fault.watchdog", what=what, stalled_s=round(stalled_s, 3))
@@ -359,7 +423,7 @@ class Trainer:
     def _scalar(self, **rec) -> None:
         """Append one record to ``scalars.jsonl`` (the JSONL stream standing
         in for the reference's TensorBoard logger), when ``cfg.scalar_log``."""
-        if not self.cfg.scalar_log:
+        if not (self.cfg.scalar_log and self.primary):
             return
         os.makedirs(self.output_dir, exist_ok=True)
         with open(os.path.join(self.output_dir, "scalars.jsonl"), "a") as f:
@@ -369,12 +433,19 @@ class Trainer:
         self._stop = True
 
     def _stop_requested(self, preempt: PreemptionHandler) -> bool:
-        return self._stop or coordinated_trigger(preempt)
+        """Whether to stop at this step boundary: agreed by every process
+        (a request on one of them stops them all at the same boundary)."""
+        if self._stop:
+            preempt.trigger()
+        return coordinated_trigger(preempt)
 
     def init_state(self) -> TrainState:
+        """A fresh train state; under data parallelism every process starts
+        from rank 0's parameters, checked equal to its own."""
         if self.initial_params is not None:
             self.model.load_state_dict(self.initial_params, strict=True)
         state = create_train_state(self.model, self.optimizer, self.cfg.seed)
+        broadcast_params(state.params, self.mesh)
         n_params = sum(p.numel() for p in state.params.values())
         self.log(f"num_param: {n_params}")
         return state
@@ -384,17 +455,20 @@ class Trainer:
         plan's signature (fixed shape or bucket grid) plus the host count.
         A marker's ``iterations_done`` only addresses a position within the
         sequence these pin down."""
-        return f"{plan_signature(self.cfg)}@hosts=1"
+        return f"{plan_signature(self.cfg)}@hosts={self.mesh.data}"
 
     def _train_batches(self, train_ds: ASTDataset, epoch: int, batch_hook=None,
                        on_batch_error=None) -> Iterable[Batch]:
         """One epoch's training batches: the fixed-shape iterator, or the
         length-bucketed one under ``cfg.bucketing`` — shuffled from
         ``cfg.seed + epoch`` either way, with the same resilience hooks, so
-        the mid-epoch resume's skip is oblivious to which is active."""
+        the mid-epoch resume's skip is oblivious to which is active.  Each
+        process of a data-parallel run reads its own shard in lockstep with
+        the others (every shard yields as many batches, of the same shapes)."""
         cfg = self.cfg
         hooks = dict(shuffle=True, seed=cfg.seed + epoch, batch_hook=batch_hook,
-                     on_batch_error=on_batch_error)
+                     on_batch_error=on_batch_error, num_shards=self.mesh.data,
+                     shard_index=self.mesh.rank)
         if cfg.bucketing:
             return iterate_bucketed_batches(train_ds, cfg, **hooks)
         return iterate_batches(train_ds, cfg.batch_size, **hooks)
@@ -402,16 +476,20 @@ class Trainer:
     def _preempt_save(self, ck_dir: str, state: TrainState, epoch: int, it_done: int) -> None:
         """Final synchronous snapshot + resume marker (the SIGTERM path),
         under bounded retry: one flaky-filesystem blip must not cost the
-        snapshot."""
+        snapshot.  Every process enters it at the same step boundary (the
+        stop is agreed, ``coordinated_trigger``); rank 0 alone writes, and the
+        others wait until the snapshot and the marker are on disk."""
         synced = abort_barrier("preempt_save")
         self.log(f"preemption: saving synchronous snapshot (epoch {epoch}, {it_done} "
                  f"iterations done) under {ck_dir} [abort sync: {synced}]")
         self.obs.emit("fault.preemption", epoch=epoch, it_done=it_done, abort_sync=synced)
-        with self.obs.span("train.checkpoint"):
-            retry(save_state, preempt_dir(ck_dir), state, snapshot_step(epoch, it_done),
-                  attempts=self.cfg.save_retries, backoff_s=self.cfg.save_retry_backoff_s,
-                  desc="preemption checkpoint", log=self.log)
-        write_resume_marker(ck_dir, epoch, it_done, plan=self._plan_id())
+        if self.primary:
+            with self.obs.span("train.checkpoint"):
+                retry(save_state, preempt_dir(ck_dir), state, snapshot_step(epoch, it_done),
+                      attempts=self.cfg.save_retries, backoff_s=self.cfg.save_retry_backoff_s,
+                      desc="preemption checkpoint", log=self.log)
+            write_resume_marker(ck_dir, epoch, it_done, plan=self._plan_id())
+        host.barrier()
 
     def _resume(self, state: TrainState, ckpt_dir: str) -> Tuple[TrainState, int, int, bool]:
         """→ ``(state, start_epoch, skip_iterations, resumed)``.  A stop
@@ -458,10 +536,11 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.__exit__(None, None, None)
-        trace_dir = os.path.join(self.output_dir, "trace")
+        trace_dir = self._per_rank(os.path.join(self.output_dir, "trace"))
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, "device_trace.json"))
-        write_chrome_trace(os.path.join(self.output_dir, "host_trace.json"), self.obs)
+        write_chrome_trace(self._per_rank(os.path.join(self.output_dir, "host_trace.json")),
+                           self.obs)
 
     def fit(self, train_ds: ASTDataset, val_ds: Optional[ASTDataset] = None,
             num_epochs: Optional[int] = None,
@@ -546,7 +625,8 @@ class Trainer:
                     probe()
                 watchdog = stack.enter_context(StepWatchdog(
                     cfg.watchdog_timeout_s, on_timeout=self.watchdog_on_timeout,
-                    diag_path=os.path.join(self.output_dir, "watchdog_diagnostics.txt"),
+                    diag_path=self._per_rank(os.path.join(self.output_dir,
+                                                          "watchdog_diagnostics.txt")),
                     log=self.log, probe=probe, on_trip=self._watchdog_trip))
             for epoch in range(start_epoch, num_epochs + 1):
                 if self._stop_requested(preempt):
@@ -689,7 +769,7 @@ class Trainer:
                     t_eval = time.perf_counter()
                     with obs.span("train.eval"):
                         bleu = evaluate_bleu(self.model, val_ds, cfg, self.tgt_vocab, eval_gen,
-                                             self.decode_fn)
+                                             self.decode_fn, self.mesh)
                     history["eval_s"].append(time.perf_counter() - t_eval)
                     history["val_bleu"].append((epoch, bleu))
                     bleu_gauge.set(bleu)
@@ -698,7 +778,7 @@ class Trainer:
                         history["best_bleu"] = bleu
                         best_params = {k: p.detach().to("cpu", copy=True)
                                        for k, p in state.params.items()}
-                        if checkpoint_fn is not None:
+                        if checkpoint_fn is not None and self.primary:
                             # persist the best immediately so a later kill +
                             # resume keeps it
                             save_params(self.output_dir, best_params)
@@ -706,8 +786,10 @@ class Trainer:
                                 json.dump({"bleu": bleu, "epoch": epoch}, f)
                     msg += f" val_bleu={bleu:.4f}"
                 if checkpoint_fn is not None and epoch % cfg.save_interval == 0:
-                    with obs.span("train.checkpoint"):
-                        checkpoint_fn(state, epoch)
+                    if self.primary:
+                        with obs.span("train.checkpoint"):
+                            checkpoint_fn(state, epoch)
+                    host.barrier()  # every process resumes from what rank 0 wrote
                 self.log(msg)
                 if self.metrics_file is not None:
                     self.metrics_file.maybe_write(extra={"epoch": epoch}, force=True)

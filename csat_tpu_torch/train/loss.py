@@ -10,6 +10,8 @@ mean NLL of the non-PAD tokens.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from csat_tpu_torch.utils import PAD
@@ -18,9 +20,13 @@ __all__ = ["label_smoothing_loss"]
 
 
 def label_smoothing_loss(log_probs: torch.Tensor, target: torch.Tensor,
-                         smoothing: float = 0.0) -> torch.Tensor:
+                         smoothing: float = 0.0,
+                         ntokens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``log_probs`` (..., V) log-probabilities, ``target`` (...) token ids
-    → scalar loss."""
+    → scalar loss.  ``ntokens`` replaces the normaliser, the count of
+    ``target``'s non-PAD tokens: a data-parallel process passes the global
+    batch's count, so its loss is its term of the global batch's mean and
+    the processes' terms (and gradients) sum to it."""
     v = log_probs.shape[-1]
     x = log_probs.reshape(-1, v).to(torch.float32)
     t = target.reshape(-1).long()
@@ -32,5 +38,6 @@ def label_smoothing_loss(log_probs: torch.Tensor, target: torch.Tensor,
     log_td = torch.where(true_dist > 0, torch.log(torch.clamp(true_dist, min=1e-30)),
                          torch.zeros_like(true_dist))
     loss = torch.sum(true_dist * (log_td - x))
-    ntokens = torch.sum(t != PAD)
+    if ntokens is None:
+        ntokens = torch.sum(t != PAD)
     return loss / torch.clamp(ntokens, min=1).to(torch.float32)

@@ -15,6 +15,8 @@ conftest imports JAX, which a GPU machine need not have).  ``chip_smoke.py``
 holds the same comparisons at the flagship shapes.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -111,7 +113,11 @@ def _tc_case(mod, b, n, dh, dev, seed):
     ("sbm_expected", 4, 150, 96, 0.0), ("sbm_expected", 4, 150, 96, 0.2),
     ("sbm_expected", 64, 75, 96, 0.2), ("sbm_expected", 64, 150, 64, 0.2),
     *[("sbm_sampled", b, n, dh, rate) for n in (37, 75, 150) for b in (1, 4, 64)
-      for dh in (64, 96) for rate in (0.0, 0.2)]])
+      for dh in (64, 96) for rate in (0.0, 0.2)],
+    # the long-AST configs' N 512 (python_long dh 64, java_long dh 96)
+    ("cse", 4, 512, 64, 0.0), ("sbm_expected", 4, 512, 64, 0.0),
+    ("sbm_expected", 4, 512, 96, 0.0),
+    *[("sbm_sampled", 4, 512, dh, rate) for dh in (64, 96) for rate in (0.0, 0.2)]])
 def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
     from csat_tpu_torch.ops import build, flex_core
 
@@ -139,7 +145,7 @@ def test_tensor_core_kernel_matches_plain(dev, mod, b, n, dh, rate):
         torch.testing.assert_close(out[0, 0, 1], v[0, 0].mean(dim=0), atol=2e-5, rtol=0)
 
 
-def _ast_cse_case(b, n, variant, dev):
+def _ast_cse_case(b, n, variant, dev, config="python"):
     """K1 inputs from the distances and masks of ``b`` synthetic ASTs of up
     to ``n`` nodes, as the serving and training paths give them (most entries
     masked, the unmasked distances in a narrow band, rows and columns past an
@@ -155,7 +161,7 @@ def _ast_cse_case(b, n, variant, dev):
     from csat_tpu_torch.data.synthetic import random_ast, train_sample
     from csat_tpu_torch.ops.mods import cse_mod
 
-    cfg = get_config("python")
+    cfg = get_config(config)
     rng = np.random.default_rng(b * 1000 + n)
     sizes = np.linspace(min(10, n), n, b).round().astype(int)
     if variant == "pad_tile":
@@ -339,13 +345,14 @@ SBM_TOL = 2e-5    # forward out / lse: summation order only
 GRAD_TOL = 1e-4   # backward, atol and rtol: summation order over N keys
 
 
-def _train_case(mod, b, n, dh, dev, seed=0, h=4, kind="random"):
+def _train_case(mod, b, n, dh, dev, seed=0, h=4, kind="random", bh0=0):
     """Inputs of the sampled or the graph mod; ``kind`` shapes the graph:
     ``"random"`` 40 % edges, ``"clipped"`` drawn as the STE draws it, u <
     clip(p, floor, .99), from mostly small p, ``"sparse"`` every p at the
     floor (about 1 % edges, most 8-column tiles empty), ``"tail"`` 40 % edges
     with every sample's keys padded past 64 or past a third (whole key
-    tiles)."""
+    tiles).  ``bh0`` is the batch·head offset of the hash streams (a
+    data-parallel process's rows)."""
     from csat_tpu_torch.ops.mods import sbm_graph_mod, sbm_sampled_mod
 
     g = torch.Generator().manual_seed(seed)
@@ -364,13 +371,14 @@ def _train_case(mod, b, n, dh, dev, seed=0, h=4, kind="random"):
         s_aff = torch.softmax(torch.randn(h, kk * kk, generator=g), -1).reshape(h, kk, kk)
         spec, aux = sbm_sampled_mod(torch.sigmoid(2 * rnd(b, h, n, kk)),
                                     torch.sigmoid(2 * rnd(b, h, n, kk)), s_aff.to(dev), pad,
-                                    torch.tensor([1234 + seed], dtype=torch.int32, device=dev))
+                                    torch.tensor([1234 + seed], dtype=torch.int32, device=dev),
+                                    bh0=bh0)
     else:
         u = torch.rand((b, h, n, n), generator=g)
         p = {"clipped": torch.rand((b, h, n, n), generator=g) ** 4,
              "sparse": torch.zeros(())}.get(kind, torch.full((), 0.4))
         graph = (u < torch.clamp(p, 0.01, 0.99)).float().to(dev)
-        spec, aux = sbm_graph_mod(graph, pad)
+        spec, aux = sbm_graph_mod(graph, pad, bh0)
     return q, k, v, spec, aux, dseed
 
 
@@ -386,7 +394,7 @@ def _near_rows(spec, aux):
     r, kh, _, sseed = aux
     b, h, n, _ = r.shape
     p = torch.clamp(exp_adjacency(r, kh), spec.floor, 0.99)
-    near = (uniform_field(sseed, b, h, n, n, spec.stride) - p).abs() <= NEAR
+    near = (uniform_field(sseed, b, h, n, n, spec.stride, bh0=spec.bh0) - p).abs() <= NEAR
     return near.any(-1), near.sum((-1, -2))
 
 
@@ -475,7 +483,9 @@ def _check_sampled_backward(q, k, v, spec, aux, rate, dseed, go):
 @pytest.mark.parametrize("b,n,dh,rate", [
     *[(b, n, dh, rate) for n in (37, 75, 150) for b in (1, 4, 64) for dh in (64, 96)
       for rate in (0.0, RATE)],
-    (3, 37, 64, RATE), (3, 75, 64, RATE), (2, 130, 96, RATE)])
+    (3, 37, 64, RATE), (3, 75, 64, RATE), (2, 130, 96, RATE),
+    # the long-AST configs' N 512
+    (2, 512, 64, RATE), (2, 512, 96, RATE), (4, 512, 64, 0.0)])
 def test_sbm_sampled_backward_matches_plain(dev, b, n, dh, rate):
     q, k, v, spec, aux, dseed = _train_case("sbm_sampled", b, n, dh, dev, seed=1)
     go = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev)
@@ -1136,3 +1146,59 @@ def test_attach_and_release_on_card_equal_cpu(dev, kv):
         for key in a:
             assert torch.equal(a[key].cpu(), b[key]), key  # no NaN left: page 3 was scrubbed
         assert torch.equal(a["k_scale"][3], torch.ones_like(a["k_scale"][3]))
+
+
+# ---------------------------------------------------------------------------
+# the long-AST configs and data parallelism
+# ---------------------------------------------------------------------------
+
+# K1 on real AST distances at N 512 with python_long's relative tables (512
+# rows): ASTs of 10 to 512 nodes, and of 10 to 300 nodes at N 300
+@pytest.mark.parametrize("b,n", [(2, 512), (8, 512), (4, 300)])
+def test_cse_kernel_on_long_ast_distances(dev, b, n):
+    from csat_tpu_torch.ops import flex_core
+
+    q, k, v, spec, aux = _ast_cse_case(b, n, "ast", dev, config="python_long")
+    assert spec.r_len == 512
+    out, ex = flex_core.flex_attention(q, k, v, spec, aux)
+    ref, rex = flex_core.flex_reference(q, k, v, spec, aux)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(ex["lse"], rex["lse"], atol=2e-5, rtol=0)
+    assert torch.equal(ex["skipped_blocks"],
+                       flex_core.reference_block_skip(spec, aux, flex_core.geometry(q)))
+
+
+# K6, K3/K4 and K7 at a batch·head offset (rank r of a data-parallel step
+# holding rows [b0, b0 + B) of 8 heads: bh0 = 8·b0) against the plain path,
+# whose field at the offset is the slice of the global one
+@pytest.mark.parametrize("mod,b,n,dh,b0", [
+    ("sbm_sampled", 4, 150, 64, 32), ("sbm_sampled", 2, 512, 64, 32),
+    ("sbm_sampled", 2, 512, 96, 32), ("sbm_graph", 4, 150, 64, 32),
+    ("sbm_graph", 2, 512, 96, 1)])
+def test_kernels_at_a_batch_head_offset_match_the_plain_slice(dev, mod, b, n, dh, b0):
+    from csat_tpu_torch.ops import build, flex_core
+    from csat_tpu_torch.ops.hashrng import uniform_field
+
+    h = 8
+    q, k, v, spec, aux, dseed = _train_case(mod, b, n, dh, dev, seed=3, h=h, bh0=b0 * h)
+    assert spec.bh0 == b0 * h
+    whole = uniform_field(dseed, b0 + b, h, n, n, spec.stride)
+    assert torch.equal(uniform_field(dseed, b, h, n, n, spec.stride, bh0=spec.bh0),
+                       whole[b0:])
+    out, ex = flex_core.flex_attention(q, k, v, spec, aux, RATE, dseed)
+    ref, rex = flex_core.flex_reference(q, k, v, spec, aux, RATE, dseed)
+    at_zero, _ = flex_core.flex_attention(q, k, v, dataclasses.replace(spec, bh0=0), aux,
+                                          RATE, dseed)
+    torch.cuda.synchronize()
+    assert not torch.equal(at_zero, out)  # the offset moves the draws
+    if mod == "sbm_graph":
+        torch.testing.assert_close(out, ref, atol=GRAPH_TOL, rtol=0)
+        return
+    near_rows, near_count = _near_rows(spec, aux)
+    assert torch.all((ex["graph_sum"] - rex["graph_sum"]).abs() <= near_count)
+    torch.testing.assert_close(out[~near_rows], ref[~near_rows], atol=SBM_TOL, rtol=0)
+    go = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    before = build.launch_counts()
+    _check_sampled_backward(q, k, v, spec, aux, RATE, dseed, go)
+    assert build.launch_counts()["flex_bwd_q_sbm_sampled"] == before["flex_bwd_q_sbm_sampled"] + 1

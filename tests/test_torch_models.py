@@ -16,6 +16,8 @@ activations, and the vocab-wide softmax/log of the generator amplifies
 them on log-probs.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -232,14 +234,19 @@ def test_generator_reference_form_and_log_softmax(models):
         np.testing.assert_allclose(t.numpy(), _np(j), atol=1e-4, rtol=1e-6)
 
 
-def test_parallel_only_configs_absent():
-    """The port registers every JAX registry entry that runs on one chip;
-    the long-AST and pipeline-parallel entries wait for the parallel layer."""
-    from csat_tpu.configs import list_configs as jax_list
+@pytest.mark.parametrize("name", ["python_long", "java_long", "python_pp"])
+def test_parallel_only_configs_absent(name):
+    """The port registers every JAX registry entry but ``python_pp``: the
+    long-AST entries carry the JAX entries' fields, and ``python_pp``
+    (GPipe) is refused naming the next parallel slice."""
+    from csat_tpu.configs import get_config as jax_config, list_configs as jax_list
     from csat_tpu_torch.configs import get_config, list_configs
 
-    parallel_only = {"python_long", "java_long", "python_pp"}
-    assert set(jax_list()) - set(list_configs()) == parallel_only
-    for name in parallel_only:
-        with pytest.raises(KeyError):
+    assert set(jax_list()) - set(list_configs()) == {"python_pp"}
+    if name == "python_pp":
+        with pytest.raises(NotImplementedError, match="next parallel slice"):
             get_config(name)
+        return
+    tcfg, jcfg = get_config(name), jax_config(name)
+    for field in dataclasses.fields(tcfg):
+        assert getattr(tcfg, field.name) == getattr(jcfg, field.name), field.name

@@ -107,8 +107,8 @@ def _splice_jax_islands(monkeypatch, jcfg, tcfg):
         fn = lambda q, k, v, lq, lk: (jflex(q, k, v, *jcse_mod(lq, lk, rel, mask))[0],)
         return _JaxIsland.apply(fn, q, k, v, aux[0], aux[1])[0], None
 
-    def sbm_island(self, q, k, v, key_pad, deterministic=True, gen=None):
-        assert deterministic and tcfg.eval_graph == "expected"
+    def sbm_island(self, q, k, v, key_pad, deterministic=True, gen=None, shard=None):
+        assert deterministic and tcfg.eval_graph == "expected" and shard is None
         h, dh = q.shape[1], q.shape[3]
         pad = jnp.asarray(key_pad.numpy())
         module = jsbm.SBMAttention(h, dh, self.kk, 0.0, backend="xla",
@@ -125,8 +125,8 @@ def _splice_jax_islands(monkeypatch, jcfg, tcfg):
         return _JaxIsland.apply(fn, q, k, v, self.clusters,
                                 *(t for fc in fcs for t in (fc.weight, fc.bias)))
 
-    def mha_island(q, k, v, mask, rate=0.0, deterministic=True, gen=None):
-        assert deterministic or rate == 0.0
+    def mha_island(q, k, v, mask, rate=0.0, deterministic=True, gen=None, shard=None):
+        assert (deterministic or rate == 0.0) and shard is None
         m = jnp.asarray(mask.numpy())
 
         def fn(q, k, v):
