@@ -169,8 +169,20 @@ Phases, each printing JSON lines:
    parameters the same bits on both ranks); (e) for each, 8 requests of 300 to 512 nodes
    served through the kernels and the plain route, tokens equal up to a near
    tie; phase 3 checks and times their kernels at N 512 (``n512`` line);
-13. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-12 by path, its error,
+13. ``parallel`` — the ``seq`` and ``pipe`` mesh axes, each as two gloo
+   ranks in fresh interpreters sharing ``cuda:0`` against one process: (a)
+   python_pp at ``("pipe", 2)``, B 64 in 4 microbatches, N 150 — a step
+   (loss within 1e-5, grad-norm within 1e-4, the parameters the same bits
+   on both ranks), 8 steps, 8 ASTs decoded on the sampled (K6 in the
+   stages) and the expected graph (K2) up to a near tie; (b) python_long at
+   ``("seq", 2)``, B 64, N 512 — the first SBM layer's ΣA the same bits as
+   the one-process step's, the ring against K6 on layers 0 and 3's own
+   gathered inputs (ΣA the same bits), the step at the python gates'
+   limits, 8 ASTs decoded up to a near tie, the ranks' step times and peak
+   memory beside one process's; phase 3 checks their kernels' shapes
+   (``pp_micro`` line);
+14. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-13 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -309,6 +321,13 @@ PATH_KERNELS = {
        for name in ("python_long", "java_long")},
     **{path: ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
               "flex_bwd_k_sbm_sampled") for path in ("long_fit", "long_dp")},
+    # the parallel phase: python_pp's stages (K6, K3, K4 in training, K6 and
+    # K2 in the decodes) behind the CSE (K1); python_long under the seq axis:
+    # the CSE on whole rows (K1), the SBM stack the ring (plain PyTorch, as
+    # it is plain jnp in JAX), train and eval alike
+    "parallel_pp": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+                    "flex_bwd_k_sbm_sampled", "flex_fwd_sbm_expected"),
+    "parallel_seq": ("flex_fwd_cse",),
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -1210,8 +1229,9 @@ def kernel_phase(dev) -> dict:
     variant = variant_checks(dev)
     precision = precision_checks(dev)
     long = long_checks(dev)
+    parallel = parallel_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
-            **variant, **precision, **long,
+            **variant, **precision, **long, **parallel,
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             "flex_fwd_cse@serve": cse_serve,
@@ -1543,9 +1563,9 @@ def serve_phase(profile: bool) -> dict:
 # phase 5: train the flagship model
 # ---------------------------------------------------------------------------
 
-def train_batch(cfg, b: int):
+def train_batch(cfg, b: int, device: str = "cuda"):
     """``b`` synthetic ASTs spread over 20..max_src_len nodes with random
-    summaries, collated at the flagship width onto the card."""
+    summaries, collated at the flagship width onto ``device`` (the card)."""
     from csat_tpu_torch.data.dataset import batch_to_device, collate
     from csat_tpu_torch.data.synthetic import random_ast, train_sample
 
@@ -1555,7 +1575,7 @@ def train_batch(cfg, b: int):
     samples = [train_sample(random_ast(rng, int(n)), cfg, SRC_VOCAB, TGT_VOCAB, rng)
                for n in sizes]
     arrs = {key: np.stack([s[key] for s in samples]) for key in samples[0]}
-    return batch_to_device(collate(arrs, cfg.max_src_len), torch.device("cuda"))
+    return batch_to_device(collate(arrs, cfg.max_src_len), torch.device(device))
 
 
 def sync() -> None:
@@ -4111,6 +4131,475 @@ def long_ast_phase(profile: bool) -> dict:
                          for path in (*LONG_CONFIGS, "long_fit", "long_dp")}}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the seq and pipe mesh axes, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2
+PAR_STEPS = 8           # python_pp steps on the ranks (the first one gated)
+PAR_DECODE = 8          # ASTs greedy-decoded on the ranks and in one process
+PAR_SEQ_B = TRAIN_B     # python_long's batch at seq 2 (cut to 32 if the phase runs past 150 s)
+PAR_TIMEOUT_S = 600.0
+RING_GATE_LAYERS = (0, 3)  # the SBM layers whose ring inputs the same-graph gate replays
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Records (kernel, B, N, rate, dh) of every flex forward and (kernel, B,
+    N, dh) of every flex backward launch inside the block."""
+    from csat_tpu_torch.ops import flex_core
+
+    fwd, bwd = flex_core.kernel_args, flex_core.bwd_kernel_args
+    got = {"fwd": [], "bwd": []}
+
+    def fwd_rec(spec, q, k, v, aux, rate=0.0, dseed=None):
+        got["fwd"].append((f"flex_fwd_{spec.name}", q.shape[0], q.shape[2], float(rate),
+                           q.shape[3]))
+        return fwd(spec, q, k, v, aux, rate, dseed)
+
+    def bwd_rec(spec, q, *a, **kw):
+        got["bwd"].append((f"flex_bwd_{spec.name}", q.shape[0], q.shape[2], q.shape[3]))
+        return bwd(spec, q, *a, **kw)
+
+    flex_core.kernel_args, flex_core.bwd_kernel_args = fwd_rec, bwd_rec
+    try:
+        yield got
+    finally:
+        flex_core.kernel_args, flex_core.bwd_kernel_args = fwd, bwd
+
+
+def greedy_with_gaps(model, batch, shard=None, seed: int = SEED):
+    """Greedy decode of ``batch`` (eval mode, sampled graphs from a
+    generator seeded with ``seed``) → ``(tokens (B, T-1), top-2 log-prob gap
+    per row and step)``: the gaps say where two tokens were a near tie."""
+    from csat_tpu_torch.train import decode as dec
+
+    inner, gaps = dec._decode_step, []
+
+    def step(*a, **kw):
+        logp = inner(*a, **kw)
+        top = torch.topk(logp.float(), 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).cpu())
+        return logp
+
+    dec._decode_step = step
+    try:
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        toks = dec.greedy_decode(model, batch, gen, shard)
+    finally:
+        dec._decode_step = inner
+    return toks.cpu().numpy(), torch.stack(gaps, dim=1).numpy()
+
+
+def tokens_up_to_tie(toks, ref, ref_gaps, label: str, margin: float = TIE_MARGIN) -> dict:
+    """``toks`` equal to ``ref`` row by row, or first apart at a step where
+    the reference's top two log-probs were within ``margin``."""
+    apart, ties = 0, 0
+    for row in range(ref.shape[0]):
+        diff = np.nonzero(toks[row] != ref[row])[0]
+        if diff.size == 0:
+            continue
+        apart += 1
+        if ref_gaps[row, diff[0]] >= margin:
+            raise AssertionError(f"{label}: row {row} first differs at step {diff[0]} with a "
+                                 f"top-2 gap of {ref_gaps[row, diff[0]]} >= {margin}")
+        ties += 1
+    return dict(rows=int(ref.shape[0]), tokens=int(ref.size), rows_apart=apart,
+                near_ties=ties, min_gap=float(ref_gaps.min()))
+
+
+def _par_cfg(kind: str, overrides=None):
+    """python_pp over ("data", 1) × ("pipe", 2), or python_long over
+    ("data", 1) × ("seq", 2); ``overrides`` (narrow widths) only for the
+    CPU rehearsal of the phase."""
+    from csat_tpu_torch.configs import get_config
+
+    over = dict(overrides or {})
+    if kind == "pp":
+        return get_config("python_pp", mesh_shape=(("data", 1), ("pipe", PAR_RANKS)), **over)
+    return get_config("python_long", mesh_shape=(("data", 1), ("seq", PAR_RANKS)), **over)
+
+
+def _par_batch(kind: str, cfg, device: str):
+    if kind == "pp":
+        return train_batch(cfg, TRAIN_B, device)
+    return long_batch(cfg, PAR_SEQ_B, nodes=(min(LONG_NODES[0], cfg.max_src_len // 2),
+                                             cfg.max_src_len), device=device)
+
+
+def _rows(batch, n: int):
+    return batch._replace(**{f: getattr(batch, f)[:n] for f in batch._fields})
+
+
+def _flat_params(state) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in state.params.values()]).cpu()
+
+
+def _reset_peak(device: str) -> int:
+    """Reset the card's peak-memory counter → the bytes allocated now (0 on
+    the CPU)."""
+    if device != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak(device: str) -> int:
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
+                  device: str = "cuda", overrides=None) -> None:
+    """One rank of a two-process gloo gate on ``cuda:0`` (``kind`` "pp": the
+    pipe axis, "seq": the seq axis): the decode of ``PAR_DECODE`` ASTs at the
+    initial parameters (python_pp also on the expected graph, through K2 in
+    the stages), then the train steps, the kernels' launches counted from 0
+    just before and read just after; writes its record and parameters under
+    ``out``."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.models import sbm as tsbm
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.parallel import ring as ring_mod
+    from csat_tpu_torch.parallel.mesh import broadcast_params, build_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2 if device == "cuda" else 1)
+    cfg = _par_cfg(kind, overrides)
+    with process_group("gloo", world, rank, store):
+        mesh = build_mesh(cfg.mesh_shape)
+        batch = _par_batch(kind, cfg, device)
+        model, state, step = trainer(cfg, device=device)
+        broadcast_params(state.params, mesh)
+        few = _rows(batch, PAR_DECODE)
+        gsums = []
+        ring = tsbm.ring_sbm_attention
+
+        def ring_rec(*a, **kw):
+            out_, gs = ring(*a, **kw)
+            gsums.append(gs.detach().cpu())
+            return out_, gs
+
+        tsbm.ring_sbm_attention = ring_rec
+        # the inputs and outputs of the ring's body in the gated layers of the
+        # timed step's forward, for the same-graph gate (RING_GATE_LAYERS)
+        inner_ring, caps, calls = ring_mod._ring, [], []
+
+        def ring_body(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate, floor, bh0):
+            out_, spars = inner_ring(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate,
+                                     floor, bh0)
+            if calls and len(calls) <= cfg.sbm_layers and len(calls) - 1 in RING_GATE_LAYERS:
+                cpu = lambda t: None if t is None else t.detach().cpu().clone()
+                caps.append(dict(layer=len(calls) - 1, q=cpu(q), k=cpu(k), v=cpu(v), r=cpu(r),
+                                 k_hat=cpu(k_hat), key_pad=cpu(key_pad), sseed=cpu(sseed),
+                                 dseed=cpu(dseed), rate=rate, floor=floor, bh0=bh0,
+                                 out=cpu(out_), spars=cpu(spars)))
+            if calls:
+                calls.append(1)
+            return out_, spars
+
+        ring_mod._ring = ring_body
+        build.reset_launches()
+        rec = dict(rank=rank, mesh=mesh.shape)
+        with recorded_launches() as seen:
+            toks, gaps = greedy_with_gaps(model, few, mesh.decode_shard(PAR_DECODE))
+            rec["tokens"], rec["gaps"] = toks.tolist(), gaps.tolist()
+            if kind == "pp":
+                exp = CSATrans(cfg.replace(eval_graph="expected"), SRC_VOCAB, TGT_VOCAB,
+                               device=device, seed=SEED)
+                exp.load_state_dict(model.state_dict())
+                toks, gaps = greedy_with_gaps(exp, few, mesh.decode_shard(PAR_DECODE))
+                rec["tokens_expected"], rec["gaps_expected"] = toks.tolist(), gaps.tolist()
+                del exp
+            gsums.clear()
+            calls.append(1)  # from here on: the timed step's forward
+            base = _reset_peak(device)
+            state, m, seconds = timed_step(step, state, batch)
+            peak = _peak(device)
+            calls.clear()
+            rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       sparsity=float(m["sparsity"]), nonfinite=bool(m["nonfinite"]),
+                       step_s=seconds, peak_gb=peak / 1e9, peak_above_start_gb=(peak - base) / 1e9,
+                       graph_sums=[g.tolist() for g in gsums])
+            torch.save(_flat_params(state), os.path.join(out, f"par_{kind}_params_{rank}.pt"))
+            losses, times = [rec["loss"]], [seconds]
+            # python_pp's 8 steps; python_long's second step, timed past warm-up
+            for _ in range(PAR_STEPS - 1 if kind == "pp" else 1):
+                state, m, seconds = timed_step(step, state, batch)
+                losses.append(float(m["loss"]))
+                times.append(seconds)
+            rec.update(losses=losses, step_times=times)
+        tsbm.ring_sbm_attention = ring
+        ring_mod._ring = inner_ring
+        if caps:
+            torch.save(caps, os.path.join(out, f"par_{kind}_ring_{rank}.pt"))
+        rec.update(launches=build.launch_counts(), fwd=sorted(set(seen["fwd"])),
+                   bwd=sorted(set(seen["bwd"])))
+        with open(os.path.join(out, f"par_{kind}_rank_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def _run_ranks(kind: str, tmp: str, device: str = "cuda", overrides=None) -> list:
+    # each rank a fresh interpreter importing this file as a module, its
+    # output on stderr
+    store = os.path.join(tmp, f"gloo_{kind}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+         f"import chip_smoke; chip_smoke.parallel_rank({kind!r}, {r}, {PAR_RANKS}, {store!r}, "
+         f"{tmp!r}, {device!r}, {overrides!r})"], cwd=str(REPO), stdout=sys.stderr,
+        stderr=sys.stderr) for r in range(PAR_RANKS)]
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    hung = []
+    for r, p in enumerate(procs):
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung.append(r)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(10)
+    if hung or any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{kind} ranks: hung {hung}, exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(tmp, f"par_{kind}_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    params = [torch.load(os.path.join(tmp, f"par_{kind}_params_{r}.pt"))
+              for r in range(PAR_RANKS)]
+    ranks[0]["same_params"] = all(torch.equal(params[0], p) for p in params[1:])
+    ranks[0]["params0"] = params[0]
+    return ranks
+
+
+def _one_process(kind: str, cfg, batch, device: str = "cuda") -> dict:
+    """The one-process side on the card: python_pp's microbatched step
+    (``pipeline_reference_mesh``: the sequential microbatched loop with the
+    wavefront's keys) and its decodes, or python_long's counter step (ΣA of
+    each layer recorded) and decode."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.models import sbm as tsbm
+    from csat_tpu_torch.parallel.mesh import build_mesh, pipeline_reference_mesh
+    from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
+
+    mesh = (pipeline_reference_mesh(cfg.mesh_shape) if kind == "pp"
+            else build_mesh((("data", 1),)))
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    opt = default_optimizer(cfg)
+    state = create_train_state(model, opt, SEED)
+    step = make_train_step(model, opt, cfg, mesh)
+    few = _rows(batch, PAR_DECODE)
+    rec = {}
+    rec["tokens"], rec["gaps"] = greedy_with_gaps(model, few, mesh.decode_shard(PAR_DECODE))
+    if kind == "pp":  # the expected graph in one process: no mesh, the plain loop
+        exp = CSATrans(cfg.replace(eval_graph="expected"), SRC_VOCAB, TGT_VOCAB, device=device,
+                       seed=SEED)
+        rec["tokens_expected"], rec["gaps_expected"] = greedy_with_gaps(exp, few)
+        del exp
+    gsums, first = [], {}
+    flex = tsbm.flex_attention
+
+    def flex_rec(q, k, v, spec, aux, *a, **kw):
+        out_, ex = flex(q, k, v, spec, aux, *a, **kw)
+        if spec.name == "sbm_sampled" and len(gsums) < cfg.sbm_layers:
+            gsums.append(ex["graph_sum"].detach().cpu())  # the forward's, not remat's recompute
+            if not first:  # the first SBM layer's q and R, beside the ranks' own
+                first.update(q=q.detach().cpu(), r=aux[0].detach().cpu())
+        return out_, ex
+
+    tsbm.flex_attention = flex_rec
+    try:
+        base = _reset_peak(device)
+        state, m, seconds = timed_step(step, state, batch)
+    finally:
+        tsbm.flex_attention = flex
+    peak = _peak(device)
+    rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               sparsity=float(m["sparsity"]), step_s=seconds, peak_gb=peak / 1e9,
+               peak_above_start_gb=(peak - base) / 1e9, graph_sums=gsums, first=first,
+               params=_flat_params(state))
+    state, _, rec["second_step_s"] = timed_step(step, state, batch)  # past warm-up
+    return rec
+
+
+def ring_same_graph(tmp: str, one: dict, device: str = "cuda") -> dict:
+    """The seq ranks' ring on the gated layers' own inputs, gathered to whole
+    rows, against K6 (the plain path on the CPU) on them: ΣA the same bits,
+    the output within ``FLEX_TOL``.  Also how far those inputs are from the
+    one-process step's first SBM layer (the ranks form q on N/2 rows, one
+    process on N: the GEMMs may round apart, and a draw near its threshold
+    then flips)."""
+    from csat_tpu_torch.ops.flex_core import flex_attention
+    from csat_tpu_torch.ops.mods import SBMSampledSpec
+
+    caps = [torch.load(os.path.join(tmp, f"par_seq_ring_{r}.pt")) for r in range(PAR_RANKS)]
+    recs = []
+    for i, layer in enumerate(caps[0]):
+        parts = [c[i] for c in caps]
+        cat = lambda key, dim: torch.cat([p[key] for p in parts], dim=dim).to(device)
+        q, k, v, r, kh = (cat(key, 2) for key in ("q", "k", "v", "r", "k_hat"))
+        padf = cat("key_pad", 1).to(torch.float32).contiguous()
+        b, h, n, _ = q.shape
+        spec = SBMSampledSpec(n=n, heads=h, kk=r.shape[-1], floor=layer["floor"],
+                              bh0=layer["bh0"])
+        aux = (r.contiguous(), kh.contiguous(), padf, layer["sseed"].to(device))
+        dseed = None if layer["dseed"] is None else layer["dseed"].to(device)
+        with torch.no_grad():
+            out, ex = flex_attention(q.contiguous(), k.contiguous(), v.contiguous(), spec, aux,
+                                     layer["rate"], dseed)
+        ring_gs = sum(p["spars"] for p in parts)
+        ring_out = torch.cat([p["out"] for p in parts], dim=2)
+        gs_equal = torch.equal(ex["graph_sum"].cpu(), ring_gs)
+        out_err = float(torch.max(torch.abs(out.cpu() - ring_out)))
+        rec = dict(layer=layer["layer"], graph_sum_equal=gs_equal,
+                   graph_sum_entries_apart=int(torch.sum(ex["graph_sum"].cpu() != ring_gs)),
+                   out_max_abs_err=out_err, tol=FLEX_TOL)
+        if layer["layer"] == 0 and one.get("first"):
+            rec["inputs_max_abs_vs_one_process"] = {
+                key: float(torch.max(torch.abs(one["first"][key] - val.cpu())))
+                for key, val in (("q", q), ("r", r))}
+        if not (gs_equal and out_err <= FLEX_TOL):
+            raise AssertionError(f"seq: the ring against K6 on layer {layer['layer']}'s own "
+                                 f"inputs: {rec}")
+        recs.append(rec)
+    return {"layers": recs}
+
+
+def parallel_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> dict:
+    """(a) ``kind="pp"``: python_pp at its published widths over ("data",
+    1) × ("pipe", 2), B 64 (4 microbatches of 16), N 150, against the
+    one-process microbatched step: loss within 1e-5 and grad-norm within
+    1e-4 relative, the parameters the same bits on both ranks; 8 steps
+    finite; 8 ASTs decoded to the one-process tokens up to a near tie on the
+    sampled graph (K6 in the stages, the reference mesh's keys) and on the
+    expected graph (K2 in the stages, against the plain one-process loop).
+    (b) ``kind="seq"``: python_long over ("data", 1) × ("seq", 2), B 64, N
+    512, against the one-process counter step: ΣA of each layer the same
+    bits, the step at the python gates' limits, the parameters the same bits
+    on both ranks, 8 ASTs decoded to the one-process tokens up to a near
+    tie; the ring step's time and each rank's peak memory beside the
+    one-process step's.  Both: gloo stages the collectives through the host,
+    so no time here is a speed figure.  ``device`` and ``overrides`` (narrow
+    widths) serve the CPU rehearsal only."""
+    t0 = time.perf_counter()
+    cfg = _par_cfg(kind, overrides)
+    batch = _par_batch(kind, cfg, device)
+    one = _one_process(kind, cfg, batch, device)
+    del batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ranks = _run_ranks(kind, tmp, device, overrides)
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss"] / one["loss"] - 1)
+    gnorm_rel = abs(r0["grad_norm"] / one["grad_norm"] - 1)
+    same_metrics = all((r["loss"], r["grad_norm"], r["sparsity"]) == (
+        r0["loss"], r0["grad_norm"], r0["sparsity"]) for r in ranks)
+    params_vs_one = float(torch.max(torch.abs(r0["params0"] - one["params"])))
+    finite = all(np.all(np.isfinite(r["losses"])) and not r["nonfinite"] for r in ranks)
+    rec = dict(model=cfg.name, mesh=r0["mesh"], ranks=PAR_RANKS, backend="gloo",
+               device="cuda:0", batch=TRAIN_B if kind == "pp" else PAR_SEQ_B,
+               nodes=cfg.max_src_len, one_process=dict(
+                   loss=one["loss"], grad_norm=one["grad_norm"], step_s=one["step_s"],
+                   second_step_s=one["second_step_s"],
+                   peak_gb=one["peak_gb"], peak_above_start_gb=one["peak_above_start_gb"]),
+               loss=r0["loss"], grad_norm=r0["grad_norm"], loss_rel=loss_rel,
+               loss_rtol=LOSS_RTOL, grad_norm_rel=gnorm_rel, grad_norm_rtol=GNORM_RTOL,
+               params_bitwise_equal=r0["same_params"], metrics_equal=same_metrics,
+               params_max_abs_vs_one_process=params_vs_one,
+               rank_step_s=[r["step_s"] for r in ranks],
+               rank_peak_gb=[r["peak_gb"] for r in ranks],
+               rank_peak_above_start_gb=[r["peak_above_start_gb"] for r in ranks])
+    decodes = {"sampled": [tokens_up_to_tie(np.array(r["tokens"]), one["tokens"],
+                                            one["gaps"], f"{kind} rank {r['rank']}")
+                           for r in ranks]}
+    if kind == "pp":
+        decodes["expected"] = [tokens_up_to_tie(np.array(r["tokens_expected"]),
+                                                one["tokens_expected"], one["gaps_expected"],
+                                                f"{kind} rank {r['rank']} expected")
+                               for r in ranks]
+        rec.update(losses=r0["losses"], step_times=r0["step_times"], microbatches=4)
+    else:
+        rec.update(rank_second_step_s=[r["step_times"][1] for r in ranks])
+        layers_seen = [len(r["graph_sums"]) for r in ranks]
+        if not (all(n == cfg.sbm_layers for n in layers_seen)
+                and len(one["graph_sums"]) == cfg.sbm_layers):
+            raise AssertionError(f"seq: ΣA of {layers_seen} ring layers, "
+                                 f"{len(one['graph_sums'])} one-process layers")
+        # ΣA per layer against the one-process step: the first SBM layer sees
+        # the same inputs and must draw the same graph; past it the ring's
+        # output (plain PyTorch) and K6's round apart, so a later layer's
+        # draw near its threshold may flip — a reading there, and the gate
+        # on each gated layer's own inputs is ring_same_graph's
+        apart = [[int(np.sum(np.array(g) != one_g.numpy()))
+                  for g, one_g in zip(r["graph_sums"], one["graph_sums"])] for r in ranks]
+        net = [float(sum(np.sum(np.abs(np.array(g) - one_g.numpy()))
+                         for g, one_g in zip(r["graph_sums"], one["graph_sums"])))
+               for r in ranks]
+        rec.update(graph_sum_entries_apart_by_layer=apart, net_edges_apart=net,
+                   graph_sums_equal=all(a == 0 for row in apart for a in row),
+                   same_graph=ring_same_graph(tmp, one, device))
+        if any(row[0] for row in apart):
+            raise AssertionError(f"seq: the first SBM layer's ΣA apart from one process: {apart}")
+    rec["decode"] = decodes
+    if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL and r0["same_params"]
+            and same_metrics and finite):
+        raise AssertionError(f"{kind}: two ranks against one process: loss rel {loss_rel}, "
+                             f"grad-norm rel {gnorm_rel}, parameters equal {r0['same_params']}, "
+                             f"metrics equal {same_metrics}, finite {finite}")
+    path = f"parallel_{kind}"
+    counts = {fn: sum(r["launches"][fn] for r in ranks) for fn in r0["launches"]}
+    _check_launched(path, counts)
+    launched = {tuple(f) for r in ranks for f in r["fwd"]}
+    _check_rates(path, launched)
+    shapes = sorted({(f[1], f[2]) for r in ranks for f in r["bwd"]})
+    _check_shapes(path, shapes, cfg, kernels=[k for k in PATH_KERNELS[path]
+                                              if k.startswith("flex_bwd")])
+    rec.update(launches={fn: c for fn, c in counts.items() if c},
+               forward_launch_shapes=sorted(launched), backward_launch_shapes=shapes,
+               note="gloo stages every collective through the host: a correctness gate, "
+                    "not a speed figure", seconds=time.perf_counter() - t0)
+    emit(path, **rec)
+    return rec
+
+
+def parallel_phase() -> dict:
+    """Phase 13: (a) python_pp over a pipe axis and (b) python_long over a
+    seq axis, each as two gloo ranks on ``cuda:0`` against one process."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="csat_parallel_")
+    try:
+        recs = {kind: parallel_gate(kind, tmp) for kind in ("pp", "seq")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("parallel", seconds=time.perf_counter() - t0, paths=[f"parallel_{k}" for k in recs])
+    return {"launches": {f"parallel_{k}": rec["launches"] for k, rec in recs.items()}}
+
+
+def parallel_checks(dev) -> dict:
+    """The kernels where the ``parallel`` phase runs them: K6 (rate 0.2) and
+    K3/K4 at a python_pp microbatch (B 16, N 150), timed; checked only: K6
+    at rate 0 and K2 at a decode microbatch (B 2), K1 at the decoded rows (B
+    8, N 150 and N 512)."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    mb = TRAIN_B // 4
+    recs = {"flex_fwd_sbm_sampled@pp_micro": flex_check("sbm_sampled", mb, 150, gen, dev)}
+    recs.update({f"{fn}@pp_micro": rec for fn, rec in bwd_check(
+        "sbm_sampled", mb, 150, gen, dev).items()})
+    dmb = PAR_DECODE // 4
+    flex_check("sbm_sampled", dmb, 150, gen, dev, rate=0.0, timed=False)
+    flex_check("sbm_expected", dmb, 150, gen, dev, timed=False)
+    flex_check("cse", PAR_DECODE, 150, gen, dev, timed=False)
+    flex_check("cse", PAR_DECODE, 512, gen, dev, timed=False, r_len=512)
+    emit("pp_micro", **{key: dict(ms=rec["ms"], bound_ms=rec["bound_ms"],
+                                  plain_ms=rec["plain_ms"], library_ms=rec.get("library_ms"),
+                                  B=rec.get("B"), N=rec.get("N"))
+                        for key, rec in recs.items()})
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4138,12 +4627,14 @@ def main(argv=None) -> int:
         resilience = resilience_phase(corpus)
         serving = serving_phase(corpus, smi, args.profile)
     long_ast = long_ast_phase(args.profile)
+    parallel = parallel_phase()
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
-               "serving": serving["launches"], **long_ast["launches"]}
+               "serving": serving["launches"], **long_ast["launches"],
+               **parallel["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

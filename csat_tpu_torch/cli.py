@@ -22,16 +22,20 @@ either run continues with ``--resume``.  ``summarize`` and ``serve`` go to
 the serving command line (``serve/cli.py``), as the JAX ``cli.py`` dispatches
 them.
 
-Data parallelism: under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) each process joins the
-group — NCCL on the card, gloo with ``--device cpu`` — binds
-``cuda:LOCAL_RANK`` and trains
-on its shard of every epoch; the config's mesh must cover the processes
-(the long-AST configs' ``("data", -1)`` does; others take ``--set
-"mesh_shape=(('data', -1),)"``).  Only rank 0 prints the lines above,
-writes checkpoints and scores the test split::
+Data, sequence and pipeline parallelism: under ``torchrun`` (its ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) each
+process joins the group — NCCL on the card, gloo with ``--device cpu`` —
+binds ``cuda:LOCAL_RANK`` and trains on its data shard of every epoch; the
+config's mesh must cover the processes (the long-AST configs' ``("data",
+-1)`` and python_pp's ``("data", -1), ("pipe", 2)`` do; others take
+``--set "mesh_shape=(('data', -1),)"``).  A ``seq`` axis runs the long
+configs' ring, a ``pipe`` axis python_pp's GPipe stages.  Only rank 0
+prints the lines above, writes checkpoints and scores the test split::
 
     torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_long --data_dir DIR
+    torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_long --data_dir DIR \\
+        --set "mesh_shape=(('data', -1), ('seq', 2))"
+    torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_pp --data_dir DIR
 """
 
 from __future__ import annotations

@@ -12,13 +12,14 @@ retry caps, the reaper's margin, request traces), and the precision axes:
 ``compute_dtype`` (bf16 compute with f32 attention islands),
 ``init_scheme`` (flax's or the reference's realised initialisation) and
 ``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages), and the parallel
-layer's: ``mesh_shape`` (its ``data`` axis runs data-parallel over
+layer's: ``mesh_shape`` (its ``data``, ``seq`` and ``pipe`` axes run over
 ``torch.distributed``, ``parallel/mesh.py``), ``remat`` (each CSE layer and
-SBM block recomputed in the backward), ``seq_impl`` and the pipeline's
-``pipeline_stages`` / ``pipeline_microbatches``, validated by the JAX rules.
-A ``model``, ``seq`` or ``pipe`` axis larger than 1 and a pipeline of more
-than one stage (so ``python_pp``) are refused with :data:`NEXT_PARALLEL_SLICE`:
-tensor parallelism, the ring and GPipe are not ported yet.  Fields that only
+SBM block recomputed in the backward), ``seq_impl`` (the ring over a ``seq``
+axis, ``parallel/ring.py``) and the pipeline's ``pipeline_stages`` /
+``pipeline_microbatches`` (GPipe over a ``pipe`` axis,
+``parallel/pipeline.py``), validated by the JAX rules.  A ``model`` axis
+larger than 1 is refused with :data:`NEXT_PARALLEL_SLICE`: tensor
+parallelism is not ported yet.  Fields that only
 select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
 ``flex_bwd``), telemetry of parts the port does not carry yet
 (SLOs, calibration, the bench history) or serving features outside this port
@@ -35,11 +36,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-#: the refusal of what the data-parallel slice of the parallel layer leaves out
+#: the refusal of what the port's parallel layer leaves out
 NEXT_PARALLEL_SLICE = (
-    "not ported yet: tensor parallelism (a 'model' axis), the ring (a 'seq' axis), "
-    "GPipe (a 'pipe' axis, pipeline_stages > 1, python_pp) and serve meshes come "
-    "with the next parallel slice; the port runs the 'data' axis only")
+    "not ported yet: tensor parallelism (a 'model' axis) and serve meshes come with "
+    "the next parallel slice; the port runs the 'data', 'seq' and 'pipe' axes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,8 +298,8 @@ class Config:
 
     def _validate_parallel(self) -> None:
         """The JAX package's rules for the parallel fields
-        (``csat_tpu/configs.py:581-598, 734-810``), then the refusal of the
-        axes the port does not run yet."""
+        (``csat_tpu/configs.py:581-598, 734-818``), then the refusal of the
+        axis the port does not run yet."""
         axes = dict(self.mesh_shape)
         assert len(axes) == len(self.mesh_shape), f"repeated mesh axis in {self.mesh_shape}"
         assert all(size == -1 or size >= 1 for size in axes.values()), self.mesh_shape
@@ -345,18 +345,16 @@ class Config:
                 raise ValueError(f"batch_size={self.batch_size} must divide evenly into "
                                  f"data_shards×microbatches (= {divisor})")
         unported = [f"{name}={size}" for name, size in self.mesh_shape
-                    if name != "data" and size != 1]
-        if self.pipeline_stages > 1:
-            unported.append(f"pipeline_stages={self.pipeline_stages}")
+                    if name not in ("data", "seq", "pipe") and size != 1]
         if unported:
             raise NotImplementedError(f"{self.name}: {', '.join(unported)} is "
                                       f"{NEXT_PARALLEL_SLICE}")
 
 
 # the registry: one named variant per reference config file, as the JAX
-# package registers them (csat_tpu/configs.py:861-890), with its long-AST
-# entries (N 512, remat, counter noise, data-parallel over every process);
-# its pipeline-parallel entry, python_pp, waits for the next parallel slice
+# package registers them (csat_tpu/configs.py:861-895), with its long-AST
+# entries (N 512, remat, counter noise, data-parallel over every process,
+# the ring under a seq axis) and its pipeline-parallel entry
 _PY = Config(name="python", task_name="256_512_512_4_4_10_10_10_10_b64_tgt50_vanilla",
              lang="python", data_dir="./processed/tree_sitter_python")
 _JAVA = _PY.replace(name="java", task_name="128_768_512_4_4_10_10_10_10_b64_tgt50_10k_20k_java",
@@ -391,7 +389,8 @@ _reg(_JAVA.replace(name="java_triplet", use_pegen="triplet"))
 _reg(_JAVA.replace(name="java_compare_codescribe",
                    data_dir="./processed/compare_codescribe_java"))
 # Long-AST stress configs (max_ast_len=512, data-parallel over every
-# process): the JAX entries' fields, seq_impl="ring" a no-op without a seq axis
+# process): the JAX entries' fields; seq_impl="ring" takes the SBM stack
+# under a seq axis, e.g. --set "mesh_shape=(('data', -1), ('seq', 2))"
 _reg(_JAVA.replace(name="java_long", task_name="long_ast_512", max_src_len=512,
                    mesh_shape=(("data", -1),), noise_mode="counter", remat=True,
                    seq_impl="ring"))
@@ -399,8 +398,14 @@ _reg(_PY.replace(name="python_long", task_name="long_ast_512", max_src_len=512,
                  mesh_shape=(("data", -1),), noise_mode="counter", remat=True,
                  seq_impl="ring"))
 
+# the 4 SBM blocks as 2 GPipe stages over a pipe axis, composed with the
+# data axis (4 microbatches, counter noise)
+_reg(_PY.replace(name="python_pp", task_name="pp2_gpipe",
+                 mesh_shape=(("data", -1), ("pipe", 2)),
+                 pipeline_stages=2, pipeline_microbatches=4, noise_mode="counter"))
+
 #: registry entries of the JAX package the port refuses, with the reason
-_NOT_PORTED = {"python_pp": f"python_pp (GPipe over a 'pipe' axis) is {NEXT_PARALLEL_SLICE}"}
+_NOT_PORTED = {}
 
 
 def list_configs():

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from csat_tpu_torch.ops.hashrng import KeyedStream
 from csat_tpu_torch.ops.paged_decode import paged_attend
 from csat_tpu_torch.utils import PAD
 
@@ -96,8 +97,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * _Erfc.apply(-x * sqrt_half)
 
 
+def uniform(gen, shape, device) -> torch.Tensor:
+    """Uniform [0, 1) f32 of ``shape`` from ``gen``: a ``torch.Generator``
+    on ``device``, or a pipeline stage's
+    :class:`~csat_tpu_torch.ops.hashrng.KeyedStream`."""
+    if isinstance(gen, KeyedStream):
+        return gen.rand(shape)
+    return torch.rand(tuple(shape), generator=gen, device=device)
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            gen: Optional[torch.Generator], shard=None) -> torch.Tensor:
+            gen: Optional[torch.Generator], shard=None, node_axis: Optional[int] = None
+            ) -> torch.Tensor:
     """Inverted dropout as flax applies it (``where(keep, x / (1 - rate),
     0)``), with the keep mask drawn from ``gen`` on ``x``'s device; the
     identity when ``deterministic`` or ``rate == 0``.  ``x``'s leading axis
@@ -105,14 +116,23 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     :class:`~csat_tpu_torch.parallel.mesh.DataShard`) the mask is drawn at
     the global batch's shape and ``x``'s rows take their slice of it: every
     process of a data-parallel step advances ``gen`` alike and drops what one
-    process would drop for these rows of the global batch."""
+    process would drop for these rows of the global batch.  When the shard
+    splits the node axis (``shard.nodes``, inside the SBM stack under a
+    ``seq`` axis) and ``x``'s ``node_axis`` is that axis, the mask is drawn
+    at the whole node count and the shard's node rows are kept too."""
     if deterministic or rate == 0.0:
         return x
     if gen is None:
         raise ValueError("dropout in training mode needs an explicit torch.Generator")
     row0, rows = (0, x.shape[0]) if shard is None else (shard.row0, shard.rows)
-    u = torch.rand((rows,) + tuple(x.shape[1:]), generator=gen, device=x.device)
-    keep = u[row0:row0 + x.shape[0]] >= rate
+    shape = [rows] + list(x.shape[1:])
+    split = shard is not None and shard.nodes is not None and node_axis is not None
+    if split:
+        shape[node_axis] = shard.nodes
+    u = uniform(gen, shape, x.device)[row0:row0 + x.shape[0]]
+    if split:
+        u = u.narrow(node_axis, shard.node0, x.shape[node_axis])
+    keep = u >= rate
     # flax divides by the keep probability as a weak-typed scalar: in bf16,
     # by 1 - rate rounded to bf16
     keep_prob = float(torch.tensor(1.0 - rate, dtype=x.dtype))

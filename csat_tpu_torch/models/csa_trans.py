@@ -97,12 +97,16 @@ class CSATrans(nn.Module):
 
     @torch.no_grad()
     def encode(self, batch: Batch, deterministic: bool = True,
-               gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               gen: Optional[torch.Generator] = None,
+               shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``batch`` with tensors on the model's device
         (``data.dataset.batch_to_device``) → ``(memory (B, N, hidden),
         sparsity scalar)``, without gradients (serving's prefill).  Sampled
-        graphs draw from ``gen``, a generator on the model's device."""
-        return self._encode(batch, deterministic, gen)[:2]
+        graphs draw from ``gen``, a generator on the model's device; ``shard``
+        (a :class:`~csat_tpu_torch.parallel.mesh.DataShard`) runs the encoder
+        along its ``seq`` or ``pipe`` axis (every process of the axis gets
+        the whole memory)."""
+        return self._encode(batch, deterministic, gen, shard)[:2]
 
     @torch.no_grad()
     def encode_pe(self, batch: Batch, deterministic: bool = True,

@@ -12,7 +12,9 @@ are stacked in bf16, and q/k/v and the projected tables go to f32 before the
 kernel; its output is cast back before ``wo`` (the JAX module's casts).
 Under ``cfg.remat`` each layer is recomputed in the backward
 (:func:`~csat_tpu_torch.models.components.remat`), its dropout redrawn from
-the generator's state at the forward.
+the generator's state at the forward.  Under a ``seq`` or ``pipe`` axis
+every process runs the CSE on whole rows (the kernel's q rows are all N):
+the SBM stack takes its own node rows after it.
 """
 
 from __future__ import annotations

@@ -29,8 +29,22 @@ sparsity is normalised by the global batch — what one process would compute
 for these rows of the global batch.  Under ``cfg.remat`` each block is
 recomputed in the backward with the generator set back to its state at the
 forward, so the recompute samples the same graph and drops the same
-units.  ``ClusterProj`` drops at 0.2 whatever
-``cfg.dropout`` is, as the JAX module hard-codes it.
+units.
+
+Under a ``seq`` axis (``shard.seq``) the block stack keeps this process's
+N/P node rows: with ``seq_impl="ring"`` and counter noise the sampled
+attention is the ring (``parallel/ring.py``, JAX ``sbm.py:158-176``; full
+attention its dense ring), otherwise the attention gathers whole rows
+(``all_gather_axis``), runs the kernels on them and keeps its rows; the
+model-dropout masks are drawn at the whole node count and sliced; the
+encoder output is gathered before the decoder.  A block is then not
+recomputed as a whole (a recompute would repeat its collectives): the ring
+recomputes its block scores instead.  Under a ``pipe`` axis
+(``shard.pipe``, ``cfg.pipeline_stages`` > 1) the blocks run as the GPipe
+wavefront (``parallel/pipeline.py``, JAX ``sbm.py:336-356``), each
+(layer, microbatch) drawing from its own
+:class:`~csat_tpu_torch.ops.hashrng.KeyedStream`.  ``ClusterProj`` drops
+at 0.2 whatever ``cfg.dropout`` is, as the JAX module hard-codes it.
 
 The attention is an f32 island whatever the compute dtype (``sbm.py:17,
 259-260`` of the JAX package): a block's LayerNorms, projections, MLP and
@@ -41,6 +55,7 @@ merged heads are cast back before ``wo``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -53,14 +68,24 @@ from csat_tpu_torch.models.components import (
     LN_EPS, dense, dropout, gelu, layer_norm, merge_heads, remat, sinusoidal_rows, split_heads)
 from csat_tpu_torch.models.ste import bernoulli_noise, sample_graph
 from csat_tpu_torch.ops.flex_core import flex_attention
+from csat_tpu_torch.ops.hashrng import KeyedStream
 from csat_tpu_torch.ops.mods import sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod
+from csat_tpu_torch.parallel.collectives import all_gather_axis
+from csat_tpu_torch.parallel.mesh import DataShard
+from csat_tpu_torch.parallel.pipeline import draw_streams, gpipe_blocks, pipeline_ready
+from csat_tpu_torch.parallel.ring import (
+    node_block, ring_active, ring_full_attention, ring_sbm_attention)
 
 
 def draw_seed(gen: torch.Generator, name: str) -> torch.Tensor:
     """A (1,) int32 seed in [0, 2³¹ − 1) for the ``name`` ("sample" or
     "dropout") hash stream, drawn from ``gen`` on its own device — no host
-    sync; the kernels read it there."""
-    del name  # one generator serves both streams; the name documents the call
+    sync; the kernels read it there.  A pipeline stage's
+    :class:`~csat_tpu_torch.ops.hashrng.KeyedStream` hands out its
+    (layer, microbatch) seed of that name."""
+    if isinstance(gen, KeyedStream):
+        return gen.seed(name)
+    # one generator serves both streams; the name documents the call
     return torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device,
                          dtype=torch.int32)
 
@@ -79,8 +104,9 @@ class ClusterProj(nn.Module):
 
     def forward(self, x, deterministic: bool = True, gen: Optional[torch.Generator] = None,
                 shard=None):
-        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen, shard))
-        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen, shard))
+        # x is (B, H, N, dh): the node axis is 2
+        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen, shard, 2))
+        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen, shard, 2))
         return self.fc3(h)
 
 
@@ -89,11 +115,13 @@ class SBMAttention(nn.Module):
     Returns ``(out, per-head sparsity)``."""
 
     def __init__(self, num_heads: int, head_dim: int, num_clusters: int, floor: float,
-                 noise_mode: str, eval_graph: str, attention_dropout: float):
+                 noise_mode: str, eval_graph: str, attention_dropout: float,
+                 seq_impl: str = "allgather"):
         super().__init__()
         self.num_heads, self.head_dim, self.kk = num_heads, head_dim, num_clusters
         self.floor = floor
         self.noise_mode, self.eval_graph = noise_mode, eval_graph
+        self.seq_impl = seq_impl
         self.attention_dropout = attention_dropout
         self.clusters = nn.Parameter(torch.empty(num_heads * num_clusters, head_dim))
         self.proj = ClusterProj(head_dim)
@@ -114,6 +142,21 @@ class SBMAttention(nn.Module):
         expected = deterministic and self.eval_graph == "expected"
         if not expected and gen is None:
             raise ValueError("a sampled SBM graph needs an explicit torch.Generator")
+        split = ring_active(shard)  # this process holds node rows of a seq axis
+        if split and self.seq_impl == "ring" and self.noise_mode == "counter" and not expected:
+            # the K/V/K̂ blocks rotate over the seq axis; the counter stream
+            # samples the one-process graph (JAX sbm.py:158-176)
+            sample_seed = draw_seed(gen, "sample")
+            drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
+            out, graph_sums = ring_sbm_attention(
+                q, k, v, q_hat, k_hat, s_aff, key_pad, sample_seed, shard.seq, rate, drop_seed,
+                self.floor, bh0)
+            return out, torch.sum(graph_sums, dim=0) / (rows * shard.nodes * shard.nodes)
+        if split:  # whole rows on every process, this process's rows kept
+            q, k, v, q_hat, k_hat = (all_gather_axis(t, shard.seq, 2)
+                                     for t in (q, k, v, q_hat, k_hat))
+            key_pad = all_gather_axis(key_pad.to(torch.float32), shard.seq, 1) > 0.5
+            nl, n = n, shard.nodes
         if expected:
             spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor, bh0)
         elif self.noise_mode == "counter":
@@ -127,6 +170,8 @@ class SBMAttention(nn.Module):
             spec, aux = sbm_graph_mod(graph, key_pad, bh0)
         drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
         out, extras = flex_attention(q, k, v, spec, aux, rate, drop_seed)
+        if split:
+            out = out[:, :, shard.node0:shard.node0 + nl]
         # per-head sparsity Σ graph / (b·n·n) over the padded node axis, b the
         # global batch's rows: the processes' terms sum to the global mean
         return out, torch.sum(extras["graph_sum"], dim=0) / (rows * n * n)
@@ -144,18 +189,35 @@ class FullAttention(nn.Module):
     from the caller's generator), then the product with V.  No parameters;
     no sparsity."""
 
-    def __init__(self, head_dim: int, attention_dropout: float):
+    def __init__(self, head_dim: int, attention_dropout: float, seq_impl: str = "allgather"):
         super().__init__()
         self.head_dim = head_dim
         self.attention_dropout = attention_dropout
+        self.seq_impl = seq_impl
 
     def forward(self, q, k, v, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None):
+        split = ring_active(shard)
+        if split and self.seq_impl == "ring":
+            # the dense ring: dropout from the counter keep-field (JAX
+            # sbm.py:222-233), the distribution of the generator's mask
+            rate = 0.0 if deterministic else self.attention_dropout
+            drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
+            return ring_full_attention(q, k, v, key_pad, shard.seq, rate, drop_seed,
+                                       shard.row0 * q.shape[1]), None
+        if split:  # whole rows on every process, this process's rows kept
+            nl = q.shape[2]
+            q, k, v = (all_gather_axis(t, shard.seq, 2) for t in (q, k, v))
+            key_pad = all_gather_axis(key_pad.to(torch.float32), shard.seq, 1) > 0.5
         dot = torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(self.head_dim)
         dot = dot.masked_fill(key_pad[:, None, None, :], float("-inf"))
         attn = l1_normalize(torch.softmax(dot, dim=-1))
-        attn = dropout(attn, self.attention_dropout, deterministic, gen, shard)
-        return torch.einsum("bhnm,bhmd->bhnd", attn, v), None
+        attn = dropout(attn, self.attention_dropout, deterministic, gen,
+                       dataclasses.replace(shard, nodes=None) if split else shard)
+        out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
+        if split:
+            out = out[:, :, shard.node0:shard.node0 + nl]
+        return out, None
 
 
 class SBMBlock(nn.Module):
@@ -171,18 +233,18 @@ class SBMBlock(nn.Module):
         self.attn_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
         if cfg.full_att:
-            self.attn = FullAttention(cfg.head_dim, cfg.attention_dropout)
+            self.attn = FullAttention(cfg.head_dim, cfg.attention_dropout, cfg.seq_impl)
         else:
             self.attn = SBMAttention(cfg.num_heads, cfg.head_dim, cfg.clusters[layer_idx],
                                      cfg.sbm_floor, cfg.noise_mode, cfg.eval_graph,
-                                     cfg.attention_dropout)
+                                     cfg.attention_dropout, cfg.seq_impl)
         self.ff_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.fc1 = nn.Linear(d, d)
         self.fc2 = nn.Linear(d, d)
 
     def forward(self, x, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None):
-        drop = lambda t: dropout(t, self.dropout, deterministic, gen, shard)
+        drop = lambda t: dropout(t, self.dropout, deterministic, gen, shard, 1)
         lin = lambda layer, t: dense(layer, t, self.dtype)
         h = layer_norm(self.attn_norm, x, self.dtype)
         # the f32 island
@@ -212,6 +274,9 @@ class SBMEncoder(nn.Module):
         self.out = nn.Linear(cfg.sbm_enc_dim, cfg.hidden_size)
         self.dtype = dtype
         self.remat = cfg.remat
+        self.stages = cfg.pipeline_stages
+        self.n_micro = cfg.pipeline_microbatches or cfg.pipeline_stages
+        self.num_heads = cfg.num_heads
 
     def forward(self, src_emb, src_pe, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None):
@@ -225,12 +290,62 @@ class SBMEncoder(nn.Module):
         else:
             pe = dense(self.pe_expand, src_pe, self.dtype)
             x = torch.cat([src_emb, pe], dim=-1)
+        if pipeline_ready(self.stages, shard):
+            x, sparsities = self._wavefront(x, key_pad, deterministic, gen, shard)
+        else:
+            x, sparsities, key_pad = self._blocks(x, key_pad, deterministic, gen, shard)
+        x = layer_norm(self.norm, x, self.dtype) * (1.0 - key_pad.to(self.dtype))[:, :, None]
+        x = dense(self.out, x, self.dtype)
+        if ring_active(shard):  # every process's node rows, for the decoder
+            x = all_gather_axis(x, shard.seq, 1)
+        return x, sparsities, pe
+
+    def _blocks(self, x, key_pad, deterministic, gen, shard):
+        """The sequential loop.  Under a ``seq`` axis the stack keeps this
+        process's node rows (the ring rotates the K/V blocks, or a non-ring
+        attention gathers whole rows); each block is then not recomputed as a
+        whole, since a recompute would repeat its collectives — the ring
+        recomputes its block scores instead.  → ``(x, sparsities, the
+        rows' key_pad)``."""
+        remat_blocks = self.remat
+        if ring_active(shard):
+            n = x.shape[1]
+            n0, nl = node_block(n, shard.seq)
+            x, key_pad = x[:, n0:n0 + nl], key_pad[:, n0:n0 + nl]
+            shard = dataclasses.replace(shard, node0=n0, nodes=n)
+            remat_blocks = False
         sparsities = []
         for block in self.blocks:
-            if self.remat:  # recomputed in the backward (JAX sbm.py:357-361)
+            if remat_blocks:  # recomputed in the backward (JAX sbm.py:357-361)
                 x, sparsity = remat(block, (gen,), x, key_pad, deterministic, gen, shard)
             else:
                 x, sparsity = block(x, key_pad, deterministic, gen, shard)
             sparsities.append(sparsity)
-        x = layer_norm(self.norm, x, self.dtype) * (1.0 - key_pad.to(self.dtype))[:, :, None]
-        return dense(self.out, x, self.dtype), sparsities, pe
+        return x, sparsities, key_pad
+
+    def _wavefront(self, x, key_pad, deterministic, gen, shard):
+        """The blocks as a GPipe wavefront over ``shard.pipe``
+        (``parallel/pipeline.py``; JAX ``sbm.py:336-356, 377-421``): each
+        (layer, microbatch) with its own stream, each microbatch hashed from
+        batch row 0.  → ``(x, per-layer sparsities)``."""
+        layers = len(self.blocks)
+        streams = draw_streams(gen, layers, self.n_micro, not deterministic)
+        full_att = isinstance(self.blocks[0].attn, FullAttention)
+
+        def block_apply(l, xm, padm, stream):
+            stream.set_state(0)
+            mshard = DataShard(row0=0, rows=xm.shape[0])
+            if self.remat:
+                y, sp = remat(self.blocks[l], (stream,), xm, padm, deterministic, stream, mshard)
+            else:
+                y, sp = self.blocks[l](xm, padm, deterministic, stream, mshard)
+            if sp is None:  # full attention reports no sparsity
+                sp = torch.zeros((self.num_heads,), dtype=torch.float32, device=xm.device)
+            return y, sp
+
+        pipe = shard.pipe
+        mine = range(pipe.index * layers // pipe.size, (pipe.index + 1) * layers // pipe.size)
+        params = [p for l in mine for p in self.blocks[l].parameters()]
+        x, sparsity = gpipe_blocks(block_apply, params, x, key_pad, streams, self.n_micro, pipe,
+                                   layers, shard.pipe_data_groups, shard.rows // x.shape[0])
+        return x, [None] * layers if full_att else list(sparsity)

@@ -13,12 +13,15 @@ from typing import Sequence
 
 import torch
 
+from csat_tpu_torch.models.components import uniform
+
 __all__ = ["sample_graph", "bernoulli_noise"]
 
 
 def bernoulli_noise(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-    """Uniform(0, 1) f32 noise on ``gen``'s device for :func:`sample_graph`."""
-    return torch.rand(tuple(shape), generator=gen, device=gen.device)
+    """Uniform(0, 1) f32 noise on ``gen``'s device for :func:`sample_graph`
+    (``gen`` a ``torch.Generator`` or a pipeline stage's ``KeyedStream``)."""
+    return uniform(gen, shape, gen.device)
 
 
 class _SampleGraph(torch.autograd.Function):

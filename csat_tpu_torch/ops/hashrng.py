@@ -22,7 +22,7 @@ from typing import Union
 import torch
 
 __all__ = ["TILE", "round_up", "noise_stride", "hash_bits", "bits_to_uniform",
-           "uniform_field"]
+           "uniform_field", "block_uniform", "KeyedStream"]
 
 TILE = 128  # the JAX kernels' node tile: the hash row stride is N padded to it
 
@@ -97,3 +97,62 @@ def uniform_field(seed: IntLike, b: int, h: int, n_rows: int, n_cols: int,
     bh, rows, cols = _bh_rows_cols(b, h, n_rows, n_cols, device, bh0)
     return bits_to_uniform(hash_bits(seed, bh, rows, cols, stride))
 
+
+
+def block_uniform(seed: IntLike, bh: torch.Tensor, row0: int, col0: int, n_rows: int,
+                  n_cols: int, stride: int) -> torch.Tensor:
+    """The uniform draws of one (rows ``[row0, row0 + n_rows)``, cols
+    ``[col0, col0 + n_cols)``) block of the field at the global batch·head
+    indices ``bh`` (broadcastable to (B, H, 1, 1)): the same bits as the
+    block of :func:`uniform_field` — the JAX ring's ``_block_uniform``
+    (``parallel/ring.py:71-77``)."""
+    device = bh.device
+    rows = row0 + torch.arange(n_rows, device=device)[None, None, :, None]
+    cols = col0 + torch.arange(n_cols, device=device)[None, None, None, :]
+    return bits_to_uniform(hash_bits(seed, bh, rows, cols, stride))
+
+
+class KeyedStream:
+    """The randomness of one (layer, microbatch) of the GPipe wavefront, as a
+    JAX block gets its own ``sample`` and ``dropout`` keys
+    (``models/sbm.py:392-402`` of the JAX package): two int32 seeds, (1,)
+    tensors on the device, drawn up front from the step's generator.
+
+    It stands where the model takes a ``torch.Generator``: the SBM layer's
+    hash seeds are the seeds themselves (:meth:`seed`: the sampled graph
+    under ``sample``, the attention dropout under ``dropout``), and each
+    model-dropout mask is a counter-hash field (:meth:`rand`) under a seed
+    derived from ``dropout`` and the draw's ordinal — so any stage regenerates
+    any microbatch's draws on its own, and a recompute that sets the ordinal
+    back (:meth:`get_state` / :meth:`set_state`, as ``models.components.remat``
+    does for a generator) draws the same masks.  Nothing is read on the
+    host."""
+
+    _MASK = 0x5EED  # the batch·head slot of the mask-seed derivation
+
+    def __init__(self, sample_seed: torch.Tensor, dropout_seed: torch.Tensor):
+        self.sample = sample_seed.reshape(1).to(torch.int32)
+        self.dropout = dropout_seed.reshape(1).to(torch.int32)
+        self.device = self.sample.device
+        self.draws = 0
+
+    def get_state(self) -> int:
+        return self.draws
+
+    def set_state(self, state: int) -> None:
+        self.draws = state
+
+    def seed(self, name: str) -> torch.Tensor:
+        """The hash seed of the ``name`` stream ("sample" or "dropout")."""
+        return self.sample if name == "sample" else self.dropout
+
+    def rand(self, shape) -> torch.Tensor:
+        """Uniform [0, 1) f32 of ``shape`` on the device: the next mask's
+        field."""
+        mask_seed = hash_bits(self.dropout, self._MASK, 0, self.draws, 1)
+        self.draws += 1
+        numel = 1
+        for s in shape:
+            numel *= int(s)
+        flat = torch.arange(numel, device=self.device)
+        return bits_to_uniform(hash_bits(mask_seed, 0, 0, flat, 0)).reshape(tuple(shape))

@@ -1,23 +1,27 @@
-"""Multi-process dry run: one data-parallel train step over a gloo group.
+"""Multi-process dry run: one train step over a gloo group.
 
-Counterpart of the JAX package's ``parallel/dryrun.py:29-117`` in its
-data-parallel form (its ``model`` and ``seq`` axes wait for the next
+Counterpart of the JAX package's ``parallel/dryrun.py:29-117`` over the
+``data``, ``seq`` and ``pipe`` axes (its ``model`` axis waits for the next
 parallel slice).  :func:`dryrun_train_step` starts ``n_ranks`` processes on
 the CPU, joins them in a gloo group through a ``file://`` store, and each
-runs ONE optimizer step of a tiny model on its rows of one random global
-batch, then one greedy decode of them.  It checks that every output is
-finite, the decoded shape is right and the parameters after the step are
-the same bits on every process.
+runs ONE optimizer step of a tiny model on its data shard's rows of one
+random global batch — the ring over a ``seq`` axis of ``seq_par`` processes,
+the GPipe wavefront over a ``pipe`` axis of ``pipe_par`` — then one greedy
+decode of them.  It checks that every output is finite, the decoded shape
+is right and the parameters after the step are the same bits on every
+process.
 
     python -m csat_tpu_torch.parallel.dryrun 2
+    python -m csat_tpu_torch.parallel.dryrun 4 --seq 2
+    python -m csat_tpu_torch.parallel.dryrun 2 --pipe 2
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import multiprocessing
 import os
-import sys
 import tempfile
 from typing import Dict, Tuple
 
@@ -26,15 +30,20 @@ __all__ = ["dryrun_train_step", "tiny_multiprocess_config"]
 SRC_V, TGT_V = 97, 83
 
 
-def tiny_multiprocess_config(data: int, **overrides):
-    """The flagship at tiny widths with a ``data`` axis of ``data``
-    processes, two rows each."""
+def tiny_multiprocess_config(data: int, seq: int = 1, pipe: int = 1, **overrides):
+    """The flagship at tiny widths over a ``data`` axis of ``data``
+    processes, two rows each, times a ``seq`` axis (the ring) or a ``pipe``
+    axis (two microbatches) when given."""
     from csat_tpu_torch.configs import get_config
 
+    mesh = (("data", data),) + ((("seq", seq),) if seq > 1 else ()) + (
+        (("pipe", pipe),) if pipe > 1 else ())
     kw = dict(pe_dim=32, pegen_dim=64, sbm_enc_dim=128, hidden_size=128, num_heads=8,
               num_layers=2, sbm_layers=2, clusters=(4, 4), dim_feed_forward=256,
-              max_src_len=32, max_tgt_len=12, batch_size=2, tree_pos_width=4,
-              tree_pos_height=8, mesh_shape=(("data", data),), noise_mode="counter")
+              max_src_len=32, max_tgt_len=12, batch_size=2 * data, tree_pos_width=4,
+              tree_pos_height=8, mesh_shape=mesh, noise_mode="counter", seq_impl="ring")
+    if pipe > 1:
+        kw.update(pipeline_stages=pipe, pipeline_microbatches=2)
     kw.update(overrides)
     return get_config("python", **kw)
 
@@ -54,7 +63,7 @@ def random_global_batch(cfg, rows: int, seed: int = 0):
     return collate(arrs, cfg.max_src_len)
 
 
-def _worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+def _worker(rank: int, world: int, init_file: str, out_dir: str, seq: int, pipe: int) -> None:
     import torch
 
     from csat_tpu_torch.data.dataset import batch_to_device
@@ -67,12 +76,12 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     host.initialize_multihost("gloo", f"file://{init_file}", world, rank)
     try:
-        cfg = tiny_multiprocess_config(world)
+        cfg = tiny_multiprocess_config(world // (seq * pipe), seq, pipe)
         mesh = build_mesh(cfg.mesh_shape)
-        b = cfg.batch_size
-        full = random_global_batch(cfg, b * world)
-        mine = full._replace(**{f: getattr(full, f)[rank * b:(rank + 1) * b]
-                                for f in full._fields})
+        b = cfg.batch_size // mesh.data
+        full = random_global_batch(cfg, cfg.batch_size)
+        row0, _ = mesh.rows(b)
+        mine = full._replace(**{f: getattr(full, f)[row0:row0 + b] for f in full._fields})
         batch = batch_to_device(mine, torch.device("cpu"))
         model = CSATrans(cfg, SRC_V, TGT_V, device="cpu", seed=cfg.seed)
         opt = default_optimizer(cfg)
@@ -81,7 +90,7 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
         state, metrics = make_train_step(model, opt, cfg, mesh)(state, batch)
         gen = torch.Generator().manual_seed(0)
         with torch.no_grad():
-            toks = greedy_decode(model, batch, gen)
+            toks = greedy_decode(model, batch, gen, mesh.decode_shard(b))
         flat = torch.cat([p.detach().reshape(-1) for p in state.params.values()])
         torch.save(flat, os.path.join(out_dir, f"params_{rank}.pt"))
         with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
@@ -93,17 +102,22 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
         host.shutdown()
 
 
-def dryrun_train_step(n_ranks: int = 2, timeout_s: float = 300.0) -> Tuple[float, Dict]:
-    """One data-parallel step over ``n_ranks`` gloo processes on the CPU →
-    ``(loss, info)``.  Raises when a process fails or hangs past
-    ``timeout_s``, an output is not finite, or the processes' parameters
-    after the step differ."""
+def dryrun_train_step(n_ranks: int = 2, timeout_s: float = 300.0, seq_par: int = 1,
+                      pipe_par: int = 1) -> Tuple[float, Dict]:
+    """One train step over ``n_ranks`` gloo processes on the CPU, the data
+    axis taking what a ``seq_par`` / ``pipe_par`` axis leaves → ``(loss,
+    info)``.  Raises when a process fails or hangs past ``timeout_s``, an
+    output is not finite, or the processes' parameters after the step
+    differ."""
     import torch
 
+    if n_ranks % (seq_par * pipe_par):
+        raise ValueError(f"{n_ranks} processes cannot hold seq {seq_par} × pipe {pipe_par}")
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_worker, args=(r, n_ranks, init_file, tmp))
+        procs = [ctx.Process(target=_worker,
+                             args=(r, n_ranks, init_file, tmp, seq_par, pipe_par))
                  for r in range(n_ranks)]
         for p in procs:
             p.start()
@@ -136,5 +150,10 @@ def dryrun_train_step(n_ranks: int = 2, timeout_s: float = 300.0) -> Tuple[float
 
 
 if __name__ == "__main__":
-    loss, info = dryrun_train_step(int(sys.argv[1]) if len(sys.argv) > 1 else 2)
+    ap = argparse.ArgumentParser(description="one train step over gloo processes on the CPU")
+    ap.add_argument("n_ranks", nargs="?", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=1, help="processes on the seq axis (the ring)")
+    ap.add_argument("--pipe", type=int, default=1, help="processes on the pipe axis (GPipe)")
+    a = ap.parse_args()
+    loss, info = dryrun_train_step(a.n_ranks, seq_par=a.seq, pipe_par=a.pipe)
     print(json.dumps({"loss": loss, **info}))

@@ -100,6 +100,9 @@ def shutdown() -> None:
     """Leave the process group (and drop the host side group)."""
     import torch.distributed as dist
 
+    from csat_tpu_torch.parallel.mesh import forget_groups
+
     _HOST_GROUP.clear()
+    forget_groups()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()

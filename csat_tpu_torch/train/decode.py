@@ -63,9 +63,9 @@ def _decode_step(model, tok, i: int, caches, src_mask, prev_pad):
 
 
 @torch.no_grad()
-def _greedy(model, batch: Batch, gen: Optional[torch.Generator], early_eos: bool):
+def _greedy(model, batch: Batch, gen: Optional[torch.Generator], early_eos: bool, shard=None):
     steps = batch.tgt_seq.shape[1]
-    memory, _ = model.encode(batch, deterministic=True, gen=gen)
+    memory, _ = model.encode(batch, deterministic=True, gen=gen, shard=shard)
     b, dev = memory.shape[0], memory.device
     src_mask = batch.src_seq == PAD
     cfg = model.cfg
@@ -93,17 +93,21 @@ def _greedy(model, batch: Batch, gen: Optional[torch.Generator], early_eos: bool
     return toks
 
 
-def greedy_decode(model, batch: Batch, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+def greedy_decode(model, batch: Batch, gen: Optional[torch.Generator] = None,
+                  shard=None) -> torch.Tensor:
     """→ (B, T-1) generated token ids (BOS excluded), T from the batch.
     ``batch`` holds tensors on the model's device; ``gen`` feeds the sampled
-    graph under ``eval_graph="sample"``."""
-    return _greedy(model, batch, gen, early_eos=False)
+    graph under ``eval_graph="sample"``.  ``shard`` (a
+    :class:`~csat_tpu_torch.parallel.mesh.DataShard`) runs the encoder along
+    its ``seq`` or ``pipe`` axis; every process of the axis decodes the whole
+    batch from the gathered memory, to the same tokens."""
+    return _greedy(model, batch, gen, early_eos=False, shard=shard)
 
 
-def greedy_decode_early_eos(model, batch: Batch,
-                            gen: Optional[torch.Generator] = None) -> torch.Tensor:
+def greedy_decode_early_eos(model, batch: Batch, gen: Optional[torch.Generator] = None,
+                            shard=None) -> torch.Tensor:
     """:func:`greedy_decode` that exits once every row has emitted EOS."""
-    return _greedy(model, batch, gen, early_eos=True)
+    return _greedy(model, batch, gen, early_eos=True, shard=shard)
 
 
 def decode_fn(model) -> Callable:

@@ -66,7 +66,7 @@ from csat_tpu_torch.models import CSATrans
 from csat_tpu_torch.obs import EventRecorder, MetricsFile, MetricsRegistry, write_chrome_trace
 from csat_tpu_torch.parallel import host
 from csat_tpu_torch.parallel.mesh import (
-    DataShard, Mesh, allreduce_grads, allreduce_sums, broadcast_params, build_mesh)
+    DATA_AXIS, Mesh, allreduce_grads, allreduce_sums, broadcast_params, build_mesh)
 from csat_tpu_torch.resilience.guards import (
     TrainingDivergedError, global_norm, guarded_apply, host_snapshot, restore_snapshot)
 from csat_tpu_torch.resilience.preemption import (
@@ -117,21 +117,36 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: Config,
     the parameters stay the same bits everywhere.  The graph noise and the
     dropout masks are the rows' slices of draws at the global batch's shape,
     so every process draws the same hash seeds and the masks one process
-    would draw.  Nothing is read on the host."""
+    would draw.  Nothing is read on the host.
+
+    Sequence and pipeline parallelism (the mesh's ``seq`` / ``pipe`` axes):
+    the processes of one data shard pass the same rows; the SBM stack runs
+    as the ring over ``seq`` or the GPipe wavefront over ``pipe``
+    (``models/sbm.py``), everything else on whole rows on each of them.
+    Each backpropagates ``1/(seq·pipe)`` of the loss and the gradients are
+    summed over every process, so a parameter computed on every process
+    (the CSE, the decoder) gets its gradient once and one computed on a
+    shard (a ring block, a stage's layers) gets the shards' sum; the
+    metrics are summed over the data axis only.  Over gloo a card's
+    point-to-point hops go through the host."""
     mesh = mesh if mesh is not None else build_mesh(cfg.mesh_shape)
 
     def train_step(state: TrainState, batch: Batch, bad_steps=0,
                    loss_scale: float = 1.0):
         for p in state.params.values():
             p.grad = None
-        row0, rows = mesh.rows(batch.src_seq.shape[0])
-        shard = DataShard(row0=row0, rows=rows * mesh.data)
+        shard = mesh.shard(batch.src_seq.shape[0])
         log_probs, sparsity = model(batch, deterministic=False, gen=state.generator,
                                     shard=shard)
         ntokens = allreduce_sums(torch.sum(batch.target != PAD), mesh)
         nll = label_smoothing_loss(log_probs, batch.target, cfg.smoothing, ntokens)
         total = (nll + cfg.sw * sparsity) * loss_scale
-        total.backward()
+        # the seq · pipe processes of a data shard each hold its whole loss:
+        # each backpropagates its share, and the all-reduce below sums them
+        (total / mesh.replicas if mesh.replicas > 1 else total).backward()
+        for p in state.params.values():
+            if p.grad is None:  # a pipeline stage's blocks on the other stages
+                p.grad = torch.zeros_like(p)
         grads = {k: p.grad for k, p in state.params.items()}
         allreduce_grads(list(grads.values()), mesh)
         nll, sparsity, total = allreduce_sums(
@@ -159,7 +174,7 @@ def _pad_batch(batch: Batch, size: int, max_src_len: Optional[int] = None) -> Tu
 
 def _decode_dataset(model: CSATrans, dataset: ASTDataset, cfg: Config,
                     gen: Optional[torch.Generator] = None, decode: Optional[Callable] = None,
-                    num_shards: int = 1, shard_index: int = 0
+                    num_shards: int = 1, shard_index: int = 0, mesh: Optional[Mesh] = None
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield ``(y_pred, target)`` per batch, tail-padded to a static shape.
 
@@ -171,7 +186,8 @@ def _decode_dataset(model: CSATrans, dataset: ASTDataset, cfg: Config,
     hypotheses as a function of the label — metrics get the full
     ``max_tgt_len - 1`` decode budget whatever the bucketing.  ``num_shards``
     / ``shard_index`` decode one process's share of the dataset (the JAX
-    ``host_shard``)."""
+    ``host_shard``); under ``mesh``'s ``seq`` / ``pipe`` axes each batch's
+    encoder runs along them (:meth:`Mesh.decode_shard`)."""
     decode = decode or decode_fn(model)
     if cfg.bucketing:
         eval_cfg = cfg.replace(bucket_tgt_lens=(cfg.max_tgt_len,))
@@ -185,7 +201,8 @@ def _decode_dataset(model: CSATrans, dataset: ASTDataset, cfg: Config,
     for batch, rows in batches:
         batch, real = _pad_batch(batch, rows, max_src_len=cfg.max_src_len)
         target = np.asarray(batch.target)[:real]
-        y_pred = decode(model, batch_to_device(batch, model.device), gen)
+        shard = None if mesh is None else mesh.decode_shard(rows)
+        y_pred = decode(model, batch_to_device(batch, model.device), gen, shard)
         yield y_pred[:real].cpu().numpy(), target
 
 
@@ -197,14 +214,14 @@ def evaluate_bleu(model: CSATrans, dataset: ASTDataset, cfg: Config, tgt_vocab: 
     decodes its share of the dataset and the sums are reduced over the
     processes (the JAX ``host_shard`` and ``_allreduce_sums``): every
     process returns the same score."""
-    shards = (1, 0) if mesh is None else (mesh.data, mesh.rank)
+    shards = (1, 0) if mesh is None else (mesh.data, mesh.coord(DATA_AXIS))
     total, count = 0.0, 0
-    for y_pred, target in _decode_dataset(model, dataset, cfg, gen, decode, *shards):
+    for y_pred, target in _decode_dataset(model, dataset, cfg, gen, decode, *shards, mesh):
         hyps, refs = bleu_output_transform(y_pred, target, tgt_vocab.i2w)
         scores = batch_bleu(hyps, refs)
         total += float(np.sum(scores))
         count += len(scores)
-    if mesh is not None and mesh.group is not None:
+    if mesh is not None and mesh.axis(DATA_AXIS).group is not None:
         sums = allreduce_sums(torch.tensor([total, float(count)], dtype=torch.float64,
                                            device=_collective_device(model.device)), mesh)
         total, count = float(sums[0]), int(sums[1])
@@ -468,7 +485,7 @@ class Trainer:
         cfg = self.cfg
         hooks = dict(shuffle=True, seed=cfg.seed + epoch, batch_hook=batch_hook,
                      on_batch_error=on_batch_error, num_shards=self.mesh.data,
-                     shard_index=self.mesh.rank)
+                     shard_index=self.mesh.coord(DATA_AXIS))
         if cfg.bucketing:
             return iterate_bucketed_batches(train_ds, cfg, **hooks)
         return iterate_batches(train_ds, cfg.batch_size, **hooks)

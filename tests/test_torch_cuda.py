@@ -1202,3 +1202,68 @@ def test_kernels_at_a_batch_head_offset_match_the_plain_slice(dev, mod, b, n, dh
     before = build.launch_counts()
     _check_sampled_backward(q, k, v, spec, aux, RATE, dseed, go)
     assert build.launch_counts()["flex_bwd_q_sbm_sampled"] == before["flex_bwd_q_sbm_sampled"] + 1
+
+
+# the seq and pipe axes on the card: two gloo ranks sharing cuda:0, as the
+# parallel phase of chip_smoke.py runs them (gloo stages CUDA tensors
+# through the host)
+
+def test_seq_collectives_on_cuda_tensors_over_gloo(dev, tmp_path):
+    import numpy as np
+
+    import torch_dist
+
+    ranks = torch_dist.run_ranks(torch_dist.card_collectives, 2, tmp_path, timeout=180)
+    x = [np.arange(6.0, dtype=np.float32).reshape(2, 3) + 10 * r for r in range(2)]
+    w = np.arange(12.0, dtype=np.float32).reshape(4, 3)
+    for r, got in enumerate(ranks):
+        assert got["on_card"]
+        np.testing.assert_array_equal(got["a"], x[1 - r])
+        np.testing.assert_array_equal(got["b"], np.full((4,), float(1 - r), np.float32))
+        np.testing.assert_array_equal(got["c"], np.zeros((2, 3)) if r == 0 else x[0])
+        np.testing.assert_array_equal(got["g"], np.concatenate(x))
+        np.testing.assert_array_equal(got["s"], x[0] + x[1])
+        # the hop's cotangent comes back from the rank it went to (weight 2 - r),
+        # the open hop's to rank 0 only, the gather's is the ranks' sum of its
+        # rows, the sum's the ranks' sum
+        want = (2 - r) + (3 if r == 0 else 0) + 2 * w[2 * r:2 * r + 2] + 2
+        np.testing.assert_array_equal(got["x_grad"], want)
+        np.testing.assert_array_equal(got["y_grad"], np.ones(4, np.float32))
+
+
+def test_gpipe_step_through_kernels_equals_plain(dev, tmp_path):
+    """One wavefront pass and its backward over two stages (one SBM block
+    each, 4 microbatches, attention dropout 0.2) through K6 / K3 / K4 against
+    the plain path on the card, the same ranks: output within 1e-4, the
+    per-head sparsity within 1e-4 (a sampled edge may flip where the second
+    block's inputs differ by rounding), every gradient within 1e-3 relative
+    (of its largest entry)."""
+    import numpy as np
+
+    import torch_dist
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+
+    cfg = get_config("python_pp", sbm_layers=2, clusters=(10, 10), sbm_enc_dim=128,
+                     num_heads=2, pe_dim=64, max_src_len=64, batch_size=8, dropout=0.0,
+                     attention_dropout=0.2, mesh_shape=(("data", 1), ("pipe", 2)))
+    blocks = CSATrans(cfg, 50, 60, device="cpu", seed=1).encoder.blocks.state_dict()
+    rng = np.random.default_rng(0)
+    payload = dict(cfg=cfg, state_dict=blocks, deterministic=False, remat=False,
+                   x=rng.standard_normal((8, 64, 128)).astype(np.float32),
+                   pad=rng.random((8, 64)) < 0.2,
+                   seeds=rng.integers(0, 2**31 - 1, (2, 2, 4)).astype(np.int32),
+                   go=rng.standard_normal((8, 64, 128)).astype(np.float32),
+                   gsp=rng.standard_normal((2, 2)).astype(np.float32))
+    build.build_all()  # once here, not in both ranks at once
+    ranks = torch_dist.run_ranks(torch_dist.card_gpipe, 2, tmp_path, payload, timeout=300)
+    for r in ranks:
+        k, p = r["kernel"], r["plain"]
+        for fn in ("flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled", "flex_bwd_k_sbm_sampled"):
+            assert k["launches"][fn] > 0, fn
+        np.testing.assert_allclose(k["out"], p["out"], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(k["sparsity"], p["sparsity"], atol=1e-4, rtol=0)
+        for name, g in p["grads"].items():
+            assert np.max(np.abs(k["grads"][name] - g)) <= 1e-3 * max(np.max(np.abs(g)), 1e-6), name
+        assert np.max(np.abs(k["x_grad"] - p["x_grad"])) <= 1e-3 * np.max(np.abs(p["x_grad"]))

@@ -236,17 +236,13 @@ def test_generator_reference_form_and_log_softmax(models):
 
 @pytest.mark.parametrize("name", ["python_long", "java_long", "python_pp"])
 def test_parallel_only_configs_absent(name):
-    """The port registers every JAX registry entry but ``python_pp``: the
-    long-AST entries carry the JAX entries' fields, and ``python_pp``
-    (GPipe) is refused naming the next parallel slice."""
+    """The port registers every JAX registry entry, the parallel ones
+    included (none is absent any more): the long-AST entries and
+    ``python_pp`` (GPipe over a pipe axis) carry the JAX entries' fields."""
     from csat_tpu.configs import get_config as jax_config, list_configs as jax_list
     from csat_tpu_torch.configs import get_config, list_configs
 
-    assert set(jax_list()) - set(list_configs()) == {"python_pp"}
-    if name == "python_pp":
-        with pytest.raises(NotImplementedError, match="next parallel slice"):
-            get_config(name)
-        return
+    assert set(jax_list()) - set(list_configs()) == set()
     tcfg, jcfg = get_config(name), jax_config(name)
     for field in dataclasses.fields(tcfg):
         assert getattr(tcfg, field.name) == getattr(jcfg, field.name), field.name

@@ -30,9 +30,10 @@ join bounded).
   bit for bit;
 * the command line under ``torchrun --standalone`` with two CPU processes:
   rank 0 alone prints the scores and writes the checkpoint;
-* the mesh: ``-1`` fills the process count, a mismatch is refused, and a
-  ``model`` / ``seq`` / ``pipe`` axis above 1 and ``python_pp`` are refused
-  naming the next parallel slice;
+* the mesh: ``-1`` fills the process count, a mismatch is refused, a
+  ``model`` axis above 1 is refused naming the next parallel slice, and
+  ``python_pp`` builds (the ``seq`` / ``pipe`` axes: test_torch_ring.py,
+  test_torch_pipeline.py);
 * the data-parallel dry run (``parallel/dryrun.py``) over 2 gloo ranks.
 """
 
@@ -210,31 +211,35 @@ def test_build_mesh_fills_and_refuses_without_a_group():
     assert mesh_descriptor(mesh).startswith("mesh[data=1]/")
 
 
-@pytest.mark.parametrize("axis", [("model", 2), ("seq", 2), ("pipe", 2), ("model", -1)])
+@pytest.mark.parametrize("axis", [("model", 2), ("model", -1)])
 def test_unported_axes_are_refused(axis):
-    from csat_tpu_torch.configs import get_config
+    """A ``model`` axis (tensor parallelism) is still refused, with the
+    narrowed message; the ``seq`` and ``pipe`` axes run (test_torch_ring.py,
+    test_torch_pipeline.py)."""
+    from csat_tpu_torch.configs import NEXT_PARALLEL_SLICE, get_config
 
     over = dict(mesh_shape=(("data", -1 if axis[1] != -1 else 1), axis))
-    if axis[0] == "pipe":
-        over.update(pipeline_stages=2, noise_mode="counter")
-    if axis[0] == "seq":
-        over.update(noise_mode="counter")
-    with pytest.raises(NotImplementedError, match="next parallel slice"):
+    with pytest.raises(NotImplementedError, match="next parallel slice") as err:
         get_config("python", **over)
+    assert NEXT_PARALLEL_SLICE in str(err.value) and "'model' axis" in str(err.value)
+    assert "'seq'" in NEXT_PARALLEL_SLICE and "'pipe' axes" in NEXT_PARALLEL_SLICE
 
 
 def test_python_pp_is_refused():
-    """By the registry, and with its one line by both command lines, as is
-    an unported mesh axis given with ``--set``."""
+    """``python_pp`` is no longer refused: the registry builds it with the
+    JAX entry's pipeline fields.  What is still refused is a ``model`` axis
+    given with ``--set``, with its one line by both command lines (and an
+    unknown config name)."""
     from csat_tpu_torch.cli import main
     from csat_tpu_torch.configs import get_config
 
-    with pytest.raises(NotImplementedError, match="next parallel slice"):
-        get_config("python_pp")
+    cfg = get_config("python_pp")
+    assert (cfg.mesh_shape, cfg.pipeline_stages, cfg.pipeline_microbatches) == (
+        (("data", -1), ("pipe", 2)), 2, 4)
     model_axis = "mesh_shape=(('data', 1), ('model', 2))"
-    for argv in (["--config", "python_pp", "--device", "cpu"],
+    for argv in (["--config", "python_long", "--device", "cpu", "--set", model_axis],
                  ["--config", "python", "--device", "cpu", "--set", model_axis],
-                 ["summarize", "--config", "python_pp", "--device", "cpu"],
+                 ["summarize", "--config", "python_long", "--device", "cpu", "--set", model_axis],
                  ["summarize", "--config", "python", "--device", "cpu", "--set", model_axis]):
         with pytest.raises(SystemExit, match="next parallel slice"):
             main(argv)
