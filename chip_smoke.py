@@ -181,8 +181,27 @@ Phases, each printing JSON lines:
    limits, 8 ASTs decoded up to a near tie, the ranks' step times and peak
    memory beside one process's; phase 3 checks their kernels' shapes
    (``pp_micro`` line);
-14. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-13 by path, its error,
+14. ``tensor`` — the ``model`` mesh axis and the serve mesh: (a) in phase 3,
+   K2, K6, K7, K3/K4 and K8/K9 at 4 of 8 heads (h0 4, head stride 8), B 64,
+   N 150, against the head slice of the full 8-head launch (0 edges apart,
+   output within 1e-6, gradients within 1e-5 relative L2) and against their
+   plain versions, timed, and K1 on the T plane's heads alone (``head_shard``
+   lines); (b) python at its published widths, own dropout and shared noise
+   at ``("data", 1), ("model", 2)``, B 64, two gloo ranks on ``cuda:0``
+   against one process from the same weights and generator state — loss
+   within 1e-5, grad-norm within 1e-4, the gathered parameters the same on
+   both ranks and within 1e-6 (relative L2) of one process's, the edges
+   apart per SBM layer recorded, K7 against plain on each gated layer's own
+   inputs (0 edges), 8 steps falling, 8 ASTs decoded up to a near tie, rank
+   step seconds and peak memory; (c) python_long at ``("data", 1), ("model",
+   2), ("seq", 2)``, four ranks, N 512 — the ring on a head shard, the same
+   step gate, the first SBM layer's ΣA equal, the decode; (d) the
+   ``serving`` trace with ``serve_mesh_shape=(1, 2)``, both head shards on
+   ``cuda:0``, at f32 and at bf16 compute with int8 pages — tokens and
+   statuses equal to the solo engine's bit for bit, prefix hits, no leak,
+   K5 launched once per shard for each solo launch;
+15. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-14 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -328,6 +347,15 @@ PATH_KERNELS = {
     "parallel_pp": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
                     "flex_bwd_k_sbm_sampled", "flex_fwd_sbm_expected"),
     "parallel_seq": ("flex_fwd_cse",),
+    # the tensor phase: python over a model axis in its defaults (shared
+    # noise): K1 on a plane's heads and K7 on a head shard, train and eval;
+    # python_long over model × seq: K1 on a plane's heads, the SBM stack the
+    # ring on a head shard; the serve mesh: prefill K1 / K2 on the engine's
+    # device, K5 on each head shard's pages
+    "tensor_tp": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    "tensor_tp_seq": ("flex_fwd_cse",),
+    **{f"tensor_serve_{pages}": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
+       for pages in ("float32", "int8")},
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -554,7 +582,8 @@ def _near_draws(q, spec, aux):
     r, kh, _, sseed = aux
     b, h, n, _ = r.shape
     p = torch.clamp(exp_adjacency(r, kh), spec.floor, 0.99)
-    return (uniform_field(sseed, b, h, n, n, spec.stride, bh0=spec.bh0) - p).abs() <= NEAR
+    return (uniform_field(sseed, b, h, n, n, spec.stride, bh0=spec.bh0, h_total=spec.h_total)
+            - p).abs() <= NEAR
 
 
 def _plain_reps(n: int) -> dict:
@@ -1230,8 +1259,9 @@ def kernel_phase(dev) -> dict:
     precision = precision_checks(dev)
     long = long_checks(dev)
     parallel = parallel_checks(dev)
+    tensor = tensor_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
-            **variant, **precision, **long, **parallel,
+            **variant, **precision, **long, **parallel, **tensor,
             "flex_fwd_cse@train": cse_train,
             "flex_fwd_cse@train_batch": cse_real,
             "flex_fwd_cse@serve": cse_serve,
@@ -4287,14 +4317,16 @@ def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
         # timed step's forward, for the same-graph gate (RING_GATE_LAYERS)
         inner_ring, caps, calls = ring_mod._ring, [], []
 
-        def ring_body(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate, floor, bh0):
+        def ring_body(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate, floor, bh0,
+                      h_total=0):
             out_, spars = inner_ring(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate,
-                                     floor, bh0)
+                                     floor, bh0, h_total)
             if calls and len(calls) <= cfg.sbm_layers and len(calls) - 1 in RING_GATE_LAYERS:
                 cpu = lambda t: None if t is None else t.detach().cpu().clone()
                 caps.append(dict(layer=len(calls) - 1, q=cpu(q), k=cpu(k), v=cpu(v), r=cpu(r),
                                  k_hat=cpu(k_hat), key_pad=cpu(key_pad), sseed=cpu(sseed),
                                  dseed=cpu(dseed), rate=rate, floor=floor, bh0=bh0,
+                                 h_total=h_total,
                                  out=cpu(out_), spars=cpu(spars)))
             if calls:
                 calls.append(1)
@@ -4444,7 +4476,7 @@ def ring_same_graph(tmp: str, one: dict, device: str = "cuda") -> dict:
         padf = cat("key_pad", 1).to(torch.float32).contiguous()
         b, h, n, _ = q.shape
         spec = SBMSampledSpec(n=n, heads=h, kk=r.shape[-1], floor=layer["floor"],
-                              bh0=layer["bh0"])
+                              bh0=layer["bh0"], h_total=layer.get("h_total", 0))
         aux = (r.contiguous(), kh.contiguous(), padf, layer["sseed"].to(device))
         dseed = None if layer["dseed"] is None else layer["dseed"].to(device)
         with torch.no_grad():
@@ -4600,6 +4632,597 @@ def parallel_checks(dev) -> dict:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor parallelism and the serve mesh
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2            # the model axis of (b); (c) adds a seq axis of 2
+TP_STEPS = 8            # python steps on the ranks (the first one gated)
+TP_DECODE = 8           # ASTs greedy-decoded on the ranks and in one process
+TP_SEQ_B = TRAIN_B      # python_long's batch at model 2 × seq 2 (cut to 32 past 150 s)
+TP_TIMEOUT_S = 900.0
+TP_HEADS = (4, 4, 8)    # (h0, heads, h_total): the phase-3 checks' head shard
+TP_PARAMS_RTOL = 1e-6   # the gathered parameters after the step against one process (rel L2)
+SHARD_OUT_TOL, SHARD_GRAD_RTOL = 1e-6, 1e-5  # a head shard's launch against the full one's slice
+TP_GATE_LAYERS = (0, 3)  # the SBM layers whose K7 inputs the same-graph gate replays
+
+
+def _shard_of(mod: str, q, k, v, spec, aux, h0: int, h: int):
+    """Heads ``[h0, h0 + h)`` of one launch's inputs as a head shard of a
+    ``model`` axis passes them: the SBM mods at the global hash index
+    (``bh0 + h0``, head stride the full launch's heads), K1 on the plane
+    its heads lie in."""
+    import dataclasses as dc
+
+    from csat_tpu_torch.ops.mods import cse_mod
+
+    part = lambda t: t[:, h0:h0 + h].contiguous()
+    if mod == "cse":
+        lq, lk, rel, mask = aux
+        plane = h0 // spec.group
+        if (h0 + h - 1) // spec.group != plane:
+            raise AssertionError("a K1 head shard must lie in one plane")
+        s_spec, s_aux = cse_mod(lq[h0:h0 + h], lk[h0:h0 + h], rel[:, plane:plane + 1],
+                                mask[:, plane:plane + 1])
+        return part(q), part(k), part(v), s_spec, s_aux
+    s_spec = dc.replace(spec, heads=h, bh0=spec.bh0 + h0, h_total=spec.heads)
+    if mod == "sbm_graph":
+        s_aux = (part(aux[0]), aux[1])
+    else:
+        s_aux = (part(aux[0]), part(aux[1]), *aux[2:])
+    return part(q), part(k), part(v), s_spec, s_aux
+
+
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
+
+
+def head_shard_check(mod: str, gen, dev, b: int = TRAIN_B, n: int = 150) -> dict:
+    """One kernel at a head shard (``TP_HEADS``: 4 of 8 heads from head 4,
+    the hash streams at the global index) against the head slice of the
+    full 8-head launch on the same inputs: graph_sum the same (0 edges
+    apart), output within ``SHARD_OUT_TOL`` (max abs), and — K3/K4, K8/K9 —
+    every gradient within ``SHARD_GRAD_RTOL`` (relative L2) of the slice;
+    then the shard's launch against its plain version and timed
+    (:func:`flex_check`, :func:`bwd_check` on it, ``inputs`` "head shard").
+    K1 runs on one plane's heads."""
+    from csat_tpu_torch.ops import flex_core
+
+    h0, h, h_total = TP_HEADS
+    q, k, v, spec, aux = _flex_inputs(mod, b, n, gen, dev)
+    if spec.heads != h_total:
+        raise AssertionError(f"phase 3's inputs have {spec.heads} heads, not {h_total}")
+    rate = 0.0 if mod == "cse" else RATE
+    dseed = torch.tensor([SEED + 29], dtype=torch.int32, device=dev) if rate else None
+    sq, sk, sv, s_spec, s_aux = _shard_of(mod, q, k, v, spec, aux, h0, h)
+    grads = mod in ("sbm_sampled", "sbm_expected")
+    go = torch.randn(q.shape, generator=gen).to(dev)
+    gs = torch.full((b, h_total), GS_COEF, device=dev)
+
+    def run(qq, kk, vv, sp, ax, g_out, g_s):
+        leaves = [t.detach().clone().requires_grad_(grads) for t in (qq, kk, vv)]
+        facs = [t.detach().clone().requires_grad_(grads) for t in ax[:2]] if grads else []
+        out, ex = flex_core.flex_attention(*leaves, sp, (*facs, *ax[len(facs):]), rate, dseed)
+        got = None
+        if grads:
+            loss = torch.sum(out * g_out) + torch.sum(g_s * ex["graph_sum"])
+            got = torch.autograd.grad(loss, leaves + facs)
+        return out.detach(), ex, got
+
+    full_out, full_ex, full_g = run(q, k, v, spec, aux, go, gs)
+    out, ex, got = run(sq, sk, sv, s_spec, s_aux, go[:, h0:h0 + h].contiguous(),
+                       gs[:, h0:h0 + h].contiguous())
+    torch.cuda.synchronize()
+    edges = int(torch.sum(torch.abs(ex["graph_sum"] - full_ex["graph_sum"][:, h0:h0 + h])))
+    out_err = float(torch.max(torch.abs(out - full_out[:, h0:h0 + h])))
+    grad_errs = {}
+    if grads:
+        for name, a, w in zip(GRAD_NAMES, got, full_g):
+            grad_errs[name] = _rel_l2(a, w[:, h0:h0 + h])
+    if not (edges == 0 and out_err <= SHARD_OUT_TOL
+            and all(e <= SHARD_GRAD_RTOL for e in grad_errs.values())):
+        raise AssertionError(f"{mod} at heads [{h0}, {h0 + h}) of {h_total}: {edges} edges "
+                             f"apart, output {out_err}, gradients {grad_errs} against the full "
+                             "launch's slice")
+    captured = dict(q=sq, k=sk, v=sv, spec=s_spec, aux=s_aux, rate=rate, dseed=dseed,
+                    inputs=f"head shard: heads {h0}-{h0 + h - 1} of {h_total}")
+    shard = dict(heads=[h0, h0 + h], h_total=h_total, bh0=getattr(s_spec, "bh0", None),
+                 edges_apart=edges, out_max_abs_vs_full=out_err, out_tol=SHARD_OUT_TOL,
+                 grad_rel_l2_vs_full=grad_errs, grad_tol=SHARD_GRAD_RTOL)
+    recs = {f"flex_fwd_{mod}@head_shard": dict(flex_check(mod, b, n, gen, dev,
+                                                          captured=captured), **shard)}
+    if grads:
+        captured.update(go=go[:, h0:h0 + h].contiguous(), gs=gs[:, h0:h0 + h].contiguous())
+        for fn, rec in bwd_check(mod, b, n, gen, dev, captured=captured).items():
+            recs[f"{fn}@head_shard"] = dict(rec, **shard)
+    emit("head_shard", kernel=mod, **shard)
+    return recs
+
+
+def tensor_checks(dev) -> dict:
+    """Phase 3's checks of the ``tensor`` phase's kernels: K1 (on one plane),
+    K2, K6, K7, K3/K4 and K8/K9 at a head shard of B 64, N 150 against the
+    full launch's slice and their plain versions, timed (``head_shard``
+    line); checked only: the shapes the tensor paths add (K7 at rate 0 and
+    K1 at the decoded rows, K1 at the model × seq batch at N 512)."""
+    gen = torch.Generator().manual_seed(SEED + 16)
+    recs = {}
+    for mod in ("cse", "sbm_expected", "sbm_sampled", "sbm_graph"):
+        recs.update(head_shard_check(mod, gen, dev))
+    flex_check("sbm_graph", TP_DECODE, 150, gen, dev, rate=0.0, timed=False)
+    flex_check("cse", TP_DECODE, 150, gen, dev, timed=False)
+    for b in sorted({TP_DECODE, TP_SEQ_B, TRAIN_B // 2}):
+        flex_check("cse", b, 512, gen, dev, timed=False, r_len=512)
+    emit("head_shard_times", **{key: dict(ms=rec["ms"], bound_ms=rec["bound_ms"],
+                                          plain_ms=rec["plain_ms"],
+                                          library_ms=rec.get("library_ms"))
+                                for key, rec in recs.items()})
+    return recs
+
+
+def _tp_cfg(kind: str, overrides=None):
+    """python at ("data", 1) × ("model", 2), or python_long at ("data", 1) ×
+    ("model", 2) × ("seq", 2); ``overrides`` (narrow widths) only for the
+    CPU rehearsal of the phase."""
+    from csat_tpu_torch.configs import get_config
+
+    over = dict(overrides or {})
+    if kind == "tp":
+        return get_config("python", mesh_shape=(("data", 1), ("model", TP_RANKS)), **over)
+    return get_config("python_long", mesh_shape=(("data", 1), ("model", TP_RANKS),
+                                                 ("seq", 2)), **over)
+
+
+def _tp_batch(kind: str, cfg, device: str):
+    if kind == "tp":
+        return train_batch(cfg, TRAIN_B, device)
+    return long_batch(cfg, TP_SEQ_B, nodes=(min(LONG_NODES[0], cfg.max_src_len // 2),
+                                            cfg.max_src_len), device=device)
+
+
+@contextlib.contextmanager
+def sbm_graph_sums(kind: str):
+    """Records each SBM layer's ΣA (B, heads held) of the forwards inside the
+    block: the flex launches' ``graph_sum`` (``kind`` "tp"), the ring's
+    (``kind`` "tp_seq"), with the K7 launches' inputs and outputs for the
+    same-graph gate (``"caps"``, layers ``TP_GATE_LAYERS`` of the first
+    forward) and the first sampled launch's q and R (``"first"``)."""
+    from csat_tpu_torch.models import sbm as tsbm
+
+    got = {"sums": [], "caps": [], "first": {}}
+    flex, ring = tsbm.flex_attention, tsbm.ring_sbm_attention
+
+    def flex_rec(q, k, v, spec, aux, rate=0.0, dseed=None):
+        out, ex = flex(q, k, v, spec, aux, rate, dseed)
+        if spec.name.startswith("sbm"):
+            layer = len(got["sums"])
+            got["sums"].append(ex["graph_sum"].detach().cpu())
+            if spec.name == "sbm_sampled" and not got["first"]:
+                got["first"].update(q=q.detach().cpu(), r=aux[0].detach().cpu())
+            if spec.name == "sbm_graph" and layer in TP_GATE_LAYERS and layer < 4:
+                got["caps"].append(dict(layer=layer, q=q.detach(), k=k.detach(),
+                                        v=v.detach(), spec=spec,
+                                        aux=tuple(t.detach() for t in aux), rate=rate,
+                                        dseed=dseed, out=out.detach(),
+                                        graph_sum=ex["graph_sum"].detach()))
+        return out, ex
+
+    def ring_rec(*a, **kw):
+        out, gs = ring(*a, **kw)
+        got["sums"].append(gs.detach().cpu())
+        return out, gs
+
+    tsbm.flex_attention, tsbm.ring_sbm_attention = flex_rec, ring_rec
+    try:
+        yield got
+    finally:
+        tsbm.flex_attention, tsbm.ring_sbm_attention = flex, ring
+
+
+def tp_same_graph(caps) -> list:
+    """Each captured SBM layer's K7 launch (a rank's heads, its own inputs)
+    against the plain path on them: graph_sum the same (0 edges), output
+    within ``GRAPH_TOL``."""
+    from csat_tpu_torch.ops import flex_core
+
+    recs = []
+    for cap in caps:
+        with torch.no_grad():
+            ref, rex = flex_core.flex_reference(cap["q"], cap["k"], cap["v"], cap["spec"],
+                                                cap["aux"], cap["rate"], cap["dseed"])
+        edges = int(torch.sum(torch.abs(rex["graph_sum"] - cap["graph_sum"])))
+        err = float(torch.max(torch.abs(ref - cap["out"])))
+        rec = dict(layer=cap["layer"], heads=cap["spec"].heads, bh0=cap["spec"].bh0,
+                   h_total=cap["spec"].h_total, edges_apart=edges, out_max_abs_err=err,
+                   tol=GRAPH_TOL)
+        if not (edges == 0 and err <= GRAPH_TOL):
+            raise AssertionError(f"tensor: K7 against plain on layer {cap['layer']}'s own "
+                                 f"inputs: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def tensor_rank(kind: str, rank: int, world: int, store: str, out: str,
+                device: str = "cuda", overrides=None) -> None:
+    """One rank of a gloo gate on ``cuda:0`` (``kind`` "tp": python at model
+    2; "tp_seq": python_long at model 2 × seq 2), holding its shard of the
+    heads: the decode of ``TP_DECODE`` ASTs at the initial parameters, then
+    the train steps, the kernels' launches counted from 0 just before and
+    read just after, each SBM layer's ΣA and (tp) the same-graph gate on
+    its own K7 inputs; writes its record and its gathered parameters under
+    ``out``."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.parallel import ring as ring_mod
+    from csat_tpu_torch.parallel.mesh import (
+        broadcast_params, build_mesh, gather_params, shard_model)
+    from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2 if device == "cuda" else 1)
+    cfg = _tp_cfg(kind, overrides)
+    with process_group("gloo", world, rank, store):
+        mesh = build_mesh(cfg.mesh_shape)
+        batch = _tp_batch(kind, cfg, device)
+        model = shard_model(CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED), mesh)
+        opt = default_optimizer(cfg)
+        state = create_train_state(model, opt, SEED)
+        step = make_train_step(model, opt, cfg, mesh)
+        broadcast_params(state.params, mesh)
+        few = _rows(batch, TP_DECODE)
+        # the ring's inputs and outputs in the gated layers of the timed
+        # step's forward (tp_seq), for the same-graph gate on its own inputs
+        inner_ring, caps, calls = ring_mod._ring, [], []
+
+        def ring_body(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate, floor, bh0,
+                      h_total=0):
+            out_, spars = inner_ring(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate,
+                                     floor, bh0, h_total)
+            if calls and len(calls) <= cfg.sbm_layers and len(calls) - 1 in TP_GATE_LAYERS:
+                cpu = lambda t: None if t is None else t.detach().cpu().clone()
+                caps.append(dict(layer=len(calls) - 1, q=cpu(q), k=cpu(k), v=cpu(v), r=cpu(r),
+                                 k_hat=cpu(k_hat), key_pad=cpu(key_pad), sseed=cpu(sseed),
+                                 dseed=cpu(dseed), rate=rate, floor=floor, bh0=bh0,
+                                 h_total=h_total, out=cpu(out_), spars=cpu(spars)))
+            if calls:
+                calls.append(1)
+            return out_, spars
+
+        ring_mod._ring = ring_body
+        build.reset_launches()
+        rec = dict(rank=rank, mesh=mesh.shape, model_index=mesh.coord("model"),
+                   seq_index=mesh.coord("seq"))
+        with recorded_launches() as seen:
+            toks, gaps = greedy_with_gaps(model, few, mesh.decode_shard(TP_DECODE))
+            rec["tokens"], rec["gaps"] = toks.tolist(), gaps.tolist()
+            with sbm_graph_sums(kind) as sums:
+                calls.append(1)  # from here on: the timed step's forward
+                base = _reset_peak(device)
+                state, m, seconds = timed_step(step, state, batch)
+                peak = _peak(device)
+                calls.clear()
+            ring_mod._ring = inner_ring
+            if caps:
+                torch.save(caps, os.path.join(out, f"{kind}_ring_{rank}.pt"))
+            n_layers = cfg.sbm_layers
+            rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       sparsity=float(m["sparsity"]), nonfinite=bool(m["nonfinite"]),
+                       step_s=seconds, peak_gb=peak / 1e9,
+                       peak_above_start_gb=(peak - base) / 1e9,
+                       graph_sums=[g.tolist() for g in sums["sums"][:n_layers]],
+                       same_graph=tp_same_graph(sums["caps"]))
+            del sums
+            whole = gather_params(state.params, mesh)
+            if rank == 0:
+                torch.save(torch.cat([p.reshape(-1) for p in whole.values()]).cpu(),
+                           os.path.join(out, f"{kind}_params.pt"))
+            rec["params_digest"] = float(sum(torch.sum(p.double() * (i + 1)).item()
+                                             for i, p in enumerate(whole.values())))
+            del whole
+            losses, times = [rec["loss"]], [seconds]
+            for _ in range(TP_STEPS - 1 if kind == "tp" else 1):
+                state, m, seconds = timed_step(step, state, batch)
+                losses.append(float(m["loss"]))
+                times.append(seconds)
+            rec.update(losses=losses, step_times=times)
+        rec.update(launches=build.launch_counts(), fwd=sorted(set(seen["fwd"])),
+                   bwd=sorted(set(seen["bwd"])))
+        with open(os.path.join(out, f"{kind}_rank_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+
+def _tp_run_ranks(kind: str, tmp: str, world: int, device: str = "cuda",
+                  overrides=None) -> list:
+    store = os.path.join(tmp, f"gloo_{kind}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+         f"import chip_smoke; chip_smoke.tensor_rank({kind!r}, {r}, {world}, {store!r}, "
+         f"{tmp!r}, {device!r}, {overrides!r})"], cwd=str(REPO), stdout=sys.stderr,
+        stderr=sys.stderr) for r in range(world)]
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    hung = []
+    for r, p in enumerate(procs):
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung.append(r)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(10)
+    if hung or any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{kind} ranks: hung {hung}, exit codes "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{kind}_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    ranks[0]["params0"] = torch.load(os.path.join(tmp, f"{kind}_params.pt"))
+    return ranks
+
+
+def _tp_one_process(kind: str, cfg, batch, device: str = "cuda") -> dict:
+    """The one-process side on the card: the same weights, batch and
+    generator state through the step without a mesh (ΣA of each layer
+    recorded), its decode and its second step time."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.parallel.mesh import build_mesh
+    from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
+
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    opt = default_optimizer(cfg)
+    state = create_train_state(model, opt, SEED)
+    step = make_train_step(model, opt, cfg, build_mesh((("data", 1),)))
+    rec = {}
+    rec["tokens"], rec["gaps"] = greedy_with_gaps(model, _rows(batch, TP_DECODE))
+    # the one-process SBM stack runs K6 / K7 on whole rows and every head
+    with sbm_graph_sums("tp") as sums:
+        base = _reset_peak(device)
+        state, m, seconds = timed_step(step, state, batch)
+        peak = _peak(device)
+    rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               sparsity=float(m["sparsity"]), step_s=seconds, peak_gb=peak / 1e9,
+               peak_above_start_gb=(peak - base) / 1e9,
+               graph_sums=[g.numpy() for g in sums["sums"][:cfg.sbm_layers]],
+               first=sums["first"], params=_flat_params(state))
+    del sums
+    state, _, rec["second_step_s"] = timed_step(step, state, batch)
+    return rec
+
+
+def tp_ring_same_graph(tmp: str, ranks, one: dict, device: str = "cuda") -> list:
+    """(c) The ring on each ``model`` member's heads, gathered over its
+    ``seq`` members to whole rows, against K6 (the plain path on the CPU) on
+    those inputs at the member's global hash index: ΣA the same bits, the
+    output within ``FLEX_TOL``.  Also how far the first gated layer's q and
+    R are from the one-process step's for those heads (the CSE's
+    row-parallel sums round apart from one process's, which moves a draw at
+    its threshold)."""
+    from csat_tpu_torch.ops.flex_core import flex_attention
+    from csat_tpu_torch.ops.mods import SBMSampledSpec
+
+    members = {}
+    for r in ranks:
+        members.setdefault(r["model_index"], []).append(r)
+    recs = []
+    for m, rs in sorted(members.items()):
+        rs = sorted(rs, key=lambda r: r["seq_index"])
+        caps = [torch.load(os.path.join(tmp, f"tp_seq_ring_{r['rank']}.pt")) for r in rs]
+        for i, layer in enumerate(caps[0]):
+            parts = [c[i] for c in caps]
+            cat = lambda key, dim: torch.cat([p[key] for p in parts], dim=dim).to(device)
+            q, k, v, r_, kh = (cat(key, 2) for key in ("q", "k", "v", "r", "k_hat"))
+            padf = cat("key_pad", 1).to(torch.float32).contiguous()
+            b, h, n, _ = q.shape
+            spec = SBMSampledSpec(n=n, heads=h, kk=r_.shape[-1], floor=layer["floor"],
+                                  bh0=layer["bh0"], h_total=layer["h_total"])
+            aux = (r_.contiguous(), kh.contiguous(), padf, layer["sseed"].to(device))
+            dseed = None if layer["dseed"] is None else layer["dseed"].to(device)
+            with torch.no_grad():
+                out, ex = flex_attention(q.contiguous(), k.contiguous(), v.contiguous(), spec,
+                                         aux, layer["rate"], dseed)
+            ring_gs = sum(p["spars"] for p in parts)
+            ring_out = torch.cat([p["out"] for p in parts], dim=2)
+            gs_equal = torch.equal(ex["graph_sum"].cpu(), ring_gs)
+            out_err = float(torch.max(torch.abs(out.cpu() - ring_out)))
+            rec = dict(model_index=m, layer=layer["layer"], heads=h, bh0=layer["bh0"],
+                       h_total=layer["h_total"], graph_sum_equal=gs_equal,
+                       graph_sum_entries_apart=int(torch.sum(ex["graph_sum"].cpu() != ring_gs)),
+                       out_max_abs_err=out_err, tol=FLEX_TOL)
+            if layer["layer"] == 0 and one.get("first"):
+                h0 = layer["bh0"] % layer["h_total"]
+                rec["inputs_max_abs_vs_one_process"] = {
+                    key: float(torch.max(torch.abs(one["first"][key][:, h0:h0 + h]
+                                                   - val.cpu())))
+                    for key, val in (("q", q), ("r", r_))}
+            if not (gs_equal and out_err <= FLEX_TOL):
+                raise AssertionError(f"tp_seq: the ring on model member {m}'s heads against K6 "
+                                     f"on layer {layer['layer']}'s own inputs: {rec}")
+            recs.append(rec)
+    return recs
+
+
+def tensor_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> dict:
+    """(b) ``kind="tp"``: python at its published widths, its own dropout and
+    noise, over ("data", 1) × ("model", 2), B 64, N 150; (c) ``kind="tp_seq"``:
+    python_long over ("data", 1) × ("model", 2) × ("seq", 2), B 64 (32 when
+    cut), N 512 — the ring on a head shard.  Each against one process from
+    the same weights and generator state: loss within 1e-5 and grad-norm
+    within 1e-4 relative, the gathered parameters the same on every rank and
+    within ``TP_PARAMS_RTOL`` (relative L2) of one process's, ΣA per layer
+    and the net edges apart recorded (tp_seq: the first SBM layer's equal),
+    the same-graph gate on each gated layer's own K7 inputs (tp), the steps
+    finite (tp: 8, the last below the first), ``TP_DECODE`` ASTs decoded to
+    the one-process tokens up to a near tie, rank step seconds and peak
+    memory beside one process's.  gloo stages every collective through the
+    host: a correctness gate, no speed figure.  ``device`` and
+    ``overrides`` (narrow widths) serve the CPU rehearsal only."""
+    t0 = time.perf_counter()
+    cfg = _tp_cfg(kind, overrides)
+    world = TP_RANKS * (2 if kind == "tp_seq" else 1)
+    batch = _tp_batch(kind, cfg, device)
+    one = _tp_one_process(kind, cfg, batch, device)
+    del batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ranks = _tp_run_ranks(kind, tmp, world, device, overrides)
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss"] / one["loss"] - 1)
+    gnorm_rel = abs(r0["grad_norm"] / one["grad_norm"] - 1)
+    same_metrics = all((r["loss"], r["grad_norm"], r["sparsity"]) == (
+        r0["loss"], r0["grad_norm"], r0["sparsity"]) for r in ranks)
+    same_params = all(r["params_digest"] == r0["params_digest"] for r in ranks)
+    params_rel = _rel_l2(r0["params0"], one["params"])
+    finite = all(np.all(np.isfinite(r["losses"])) and not r["nonfinite"] for r in ranks)
+    # ΣA per layer: each model member's heads, from the first seq member
+    heads = {}
+    for r in ranks:
+        heads.setdefault(r["model_index"], r["graph_sums"])
+    tp_sums = [np.concatenate([np.array(heads[i][layer]) for i in sorted(heads)], axis=1)
+               for layer in range(cfg.sbm_layers)]
+    apart = [int(np.sum(a != b)) for a, b in zip(tp_sums, one["graph_sums"])]
+    net = [float(np.sum(np.abs(a - b))) for a, b in zip(tp_sums, one["graph_sums"])]
+    rec = dict(model=cfg.name, mesh=r0["mesh"], ranks=world, backend="gloo",
+               device="cuda:0", batch=TRAIN_B if kind == "tp" else TP_SEQ_B,
+               nodes=cfg.max_src_len, noise_mode=cfg.noise_mode, dropout=cfg.dropout,
+               one_process=dict(loss=one["loss"], grad_norm=one["grad_norm"],
+                                step_s=one["step_s"], second_step_s=one["second_step_s"],
+                                peak_gb=one["peak_gb"],
+                                peak_above_start_gb=one["peak_above_start_gb"]),
+               loss=r0["loss"], grad_norm=r0["grad_norm"], loss_rel=loss_rel,
+               loss_rtol=LOSS_RTOL, grad_norm_rel=gnorm_rel, grad_norm_rtol=GNORM_RTOL,
+               params_equal_on_ranks=same_params, metrics_equal=same_metrics,
+               params_rel_l2_vs_one_process=params_rel, params_rtol=TP_PARAMS_RTOL,
+               graph_sum_entries_apart_by_layer=apart, net_edges_apart_by_layer=net,
+               losses=r0["losses"], rank_step_s=[r["step_times"] for r in ranks],
+               rank_peak_gb=[r["peak_gb"] for r in ranks],
+               rank_peak_above_start_gb=[r["peak_above_start_gb"] for r in ranks],
+               same_graph=[g for r in ranks for g in r["same_graph"]])
+    rec["decode"] = [tokens_up_to_tie(np.array(r["tokens"]), one["tokens"], one["gaps"],
+                                      f"{kind} rank {r['rank']}") for r in ranks]
+    if kind == "tp":
+        if not r0["losses"][-1] < r0["losses"][0]:
+            raise AssertionError(f"tp: loss did not fall over {TP_STEPS} steps: "
+                                 f"{r0['losses']}")
+        if not rec["same_graph"]:
+            raise AssertionError("tp: no K7 launch captured for the same-graph gate")
+    else:
+        rec["same_graph"] = tp_ring_same_graph(tmp, ranks, one, device)
+        first = [g["inputs_max_abs_vs_one_process"] for g in rec["same_graph"]
+                 if "inputs_max_abs_vs_one_process" in g]
+        # the first SBM layer draws the one-process graph where its inputs are
+        # the one-process inputs' bits; where the CSE's row-parallel sums
+        # rounded them apart, a draw at its threshold may flip (recorded)
+        if apart[0] and first and all(max(d.values()) == 0.0 for d in first):
+            raise AssertionError(f"tp_seq: the first SBM layer's ΣA apart from one process on "
+                                 f"the same inputs: {apart}")
+    if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL and same_params
+            and same_metrics and finite and params_rel <= TP_PARAMS_RTOL):
+        raise AssertionError(f"{kind}: {world} ranks against one process: loss rel {loss_rel}, "
+                             f"grad-norm rel {gnorm_rel}, parameters equal on the ranks "
+                             f"{same_params}, vs one process {params_rel}, metrics equal "
+                             f"{same_metrics}, finite {finite}")
+    path = f"tensor_{kind}"
+    counts = {fn: sum(r["launches"][fn] for r in ranks) for fn in r0["launches"]}
+    _check_launched(path, counts)
+    launched = {tuple(f) for r in ranks for f in r["fwd"]}
+    _check_rates(path, launched)
+    rec.update(launches={fn: c for fn, c in counts.items() if c},
+               forward_launch_shapes=sorted(launched),
+               note="gloo stages every collective through the host: a correctness gate, "
+                    "not a speed figure", seconds=time.perf_counter() - t0)
+    emit(path, **rec)
+    return rec
+
+
+def tensor_serve(page_dtype: str, compute: str, card: str = "", device: str = "cuda",
+                 overrides=None) -> dict:
+    """(d) The serving trace of the ``serving`` phase (32 requests, 8 exact
+    repeats) on the flagship with ``serve_mesh_shape=(1, 2)``, both head
+    shards' pages on ``cuda:0``, against the solo engine on the same model:
+    tokens and statuses equal bit for bit, prefix hits > 0, no page or chain
+    leaked, K5 launched once per shard for each solo launch.  ``device`` and
+    ``overrides`` (narrow widths) serve the CPU rehearsal only."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import ServeEngine
+
+    cfg = flagship().replace(compute_dtype=compute, serve_kv_page_dtype=page_dtype,
+                             **(overrides or {}))
+    trace = serving_trace(cfg)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    shard_devices = [f"{device}:0" if device == "cuda" else device] * 2
+    runs, counts = {}, {}
+    for name, c, kw in (("solo", cfg, {}),
+                        ("mesh", cfg.replace(serve_mesh_shape=(1, 2)),
+                         dict(mesh_devices=shard_devices))):
+        engine = ServeEngine(model, c, device=device, **kw)
+        build.reset_launches()
+        with flex_launches() as launched, paged_launches() as paged:
+            runs[name] = drive_trace(engine, trace)
+        counts[name] = build.launch_counts()
+        check_trace_run(runs[name], trace, f"tensor serve {name} ({page_dtype} pages)")
+        runs[name].update(leaks=(engine.page_leaks(), engine.chain_leaks()), paged=paged,
+                          launched=launched,
+                          shards=(1 if engine.mesh is None else len(engine.mesh.devices)),
+                          pages_shape=(None if engine.mesh is None else
+                                       list(engine._pool.shards[0][2][0]["k"].shape)))
+        engine.close()
+        del engine
+    solo, mesh = runs["solo"], runs["mesh"]
+    statuses = [r.status for r in solo["results"]] == [r.status for r in mesh["results"]]
+    equal = statuses and all(np.array_equal(a.tokens, b.tokens)
+                             for a, b in zip(solo["results"], mesh["results"]))
+    k5 = (counts["solo"]["paged_decode"], counts["mesh"]["paged_decode"])
+    leaks = solo["leaks"] + mesh["leaks"]
+    path = f"tensor_serve_{page_dtype}"
+    if not (equal and not any(leaks) and k5[1] == 2 * k5[0] > 0 and mesh["hits"]):
+        raise AssertionError(f"{path}: tokens and statuses equal {equal}, leaks {leaks}, K5 "
+                             f"launches solo / mesh {k5}, mesh hits {len(mesh['hits'])}")
+    _check_launched(path, counts["mesh"])
+    _check_rates(path, mesh["launched"])
+    s = mesh["summary"]
+    rec = dict(card=card, compute_dtype=compute, page_dtype=page_dtype,
+               serve_mesh_shape=[1, 2], devices=shard_devices,
+               shard_pages_shape=mesh["pages_shape"], requests=len(trace["samples"]),
+               repeats=SERVING_REPEATS, tokens_and_statuses_equal=True,
+               tokens=sum(len(r.tokens) for r in mesh["results"]), hits=len(mesh["hits"]),
+               page_leaks=0, chain_leaks=0, mesh_devices=s["mesh_devices"],
+               kv_pages_worst_chip=s["kv_pages_worst_chip"],
+               k5_launches_solo=k5[0], k5_launches_mesh=k5[1],
+               k5_launches_per_shard=k5[1] // 2, drain_wall_s=dict(
+                   solo=solo["wall"], mesh=mesh["wall"]),
+               launches={fn: c for fn, c in counts["mesh"].items() if c})
+    emit(path, **rec)
+    return rec
+
+
+def tensor_phase(card: str = "") -> dict:
+    """Phase 14: (b) python over a model axis and (c) python_long over model
+    × seq, as gloo ranks on ``cuda:0`` against one process; (d) one serving
+    engine across two head shards against the solo engine, at f32 and at
+    bf16 compute with int8 pages.  (c) is cut to B 32 when (b) and (c) at B
+    64 would pass 150 s (the phase's first card run decides; the cut is
+    listed in PERF.md §4)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="csat_tensor_")
+    try:
+        recs = {kind: tensor_gate(kind, tmp) for kind in ("tp", "tp_seq")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    serves = {f"tensor_serve_{pages}": tensor_serve(pages, compute, card)
+              for compute, pages in (("float32", "float32"), ("bfloat16", "int8"))}
+    emit("tensor", seconds=time.perf_counter() - t0,
+         paths=[f"tensor_{k}" for k in recs] + list(serves))
+    launches = {f"tensor_{k}": rec["launches"] for k, rec in recs.items()}
+    launches.update({path: rec["launches"] for path, rec in serves.items()})
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4628,13 +5251,14 @@ def main(argv=None) -> int:
         serving = serving_phase(corpus, smi, args.profile)
     long_ast = long_ast_phase(args.profile)
     parallel = parallel_phase()
+    tensor = tensor_phase(smi)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],
-               **parallel["launches"]}
+               **parallel["launches"], **tensor["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

@@ -29,13 +29,18 @@ binds ``cuda:LOCAL_RANK`` and trains on its data shard of every epoch; the
 config's mesh must cover the processes (the long-AST configs' ``("data",
 -1)`` and python_pp's ``("data", -1), ("pipe", 2)`` do; others take
 ``--set "mesh_shape=(('data', -1),)"``).  A ``seq`` axis runs the long
-configs' ring, a ``pipe`` axis python_pp's GPipe stages.  Only rank 0
-prints the lines above, writes checkpoints and scores the test split::
+configs' ring, a ``pipe`` axis python_pp's GPipe stages, a ``model`` axis
+tensor parallelism (each process its shard of the heads and the FFN hidden;
+checkpoints hold whole arrays).  Only rank 0 prints the lines above, writes
+checkpoints and scores the test split (under a ``model`` axis with a
+one-process model of the whole parameters)::
 
     torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_long --data_dir DIR
     torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_long --data_dir DIR \\
         --set "mesh_shape=(('data', -1), ('seq', 2))"
     torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python_pp --data_dir DIR
+    torchrun --nproc_per_node=8 -m csat_tpu_torch.cli --config python --data_dir DIR \\
+        --set "mesh_shape=(('data', -1), ('model', 2))"
 """
 
 from __future__ import annotations
@@ -176,9 +181,8 @@ def _run(args: argparse.Namespace, cfg, device, primary: bool) -> None:
         if not primary:
             return
         params = restore_params(args.checkpoint_dir or trainer.output_dir)
-        trainer.model.load_state_dict(params, strict=True)
-        scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab, test_gen,
-                          output_dir=trainer.output_dir)
+        scores = run_test(_scoring_model(trainer, params), test_ds, cfg, trainer.tgt_vocab,
+                          test_gen, output_dir=trainer.output_dir)
         print(json.dumps(scores))
         return
 
@@ -202,10 +206,26 @@ def _run(args: argparse.Namespace, cfg, device, primary: bool) -> None:
         return
     # persist the best-by-val-BLEU weights and score them on the test split
     save_params(trainer.output_dir, history["best_params"])
-    trainer.model.load_state_dict(history["best_params"], strict=True)
-    scores = run_test(trainer.model, test_ds, cfg, trainer.tgt_vocab, test_gen,
-                      output_dir=trainer.output_dir)
+    scores = run_test(_scoring_model(trainer, history["best_params"]), test_ds, cfg,
+                      trainer.tgt_vocab, test_gen, output_dir=trainer.output_dir)
     print(json.dumps({"val_best_bleu": history["best_bleu"], **scores}))
+
+
+def _scoring_model(trainer, params):
+    """The model rank 0 scores the test split with, holding the whole
+    ``params``: the trainer's own, or — under a ``model`` axis, whose
+    sharded modules would wait on the other members — a one-process model
+    of the same config."""
+    from csat_tpu_torch.parallel.mesh import model_axis
+    from csat_tpu_torch.train.state import make_model, triplet_dictionary
+
+    model = trainer.model
+    if model_axis(trainer.mesh) is not None:
+        cfg = trainer.cfg
+        model = make_model(cfg, trainer.src_vocab.size(), trainer.tgt_vocab.size(),
+                           triplet_dictionary(cfg)[1], device=trainer.device)
+    model.load_state_dict(params, strict=True)
+    return model
 
 
 if __name__ == "__main__":

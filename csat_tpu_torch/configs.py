@@ -12,20 +12,19 @@ retry caps, the reaper's margin, request traces), and the precision axes:
 ``compute_dtype`` (bf16 compute with f32 attention islands),
 ``init_scheme`` (flax's or the reference's realised initialisation) and
 ``serve_kv_page_dtype`` (f32, bf16 or int8 KV pages), and the parallel
-layer's: ``mesh_shape`` (its ``data``, ``seq`` and ``pipe`` axes run over
-``torch.distributed``, ``parallel/mesh.py``), ``remat`` (each CSE layer and
-SBM block recomputed in the backward), ``seq_impl`` (the ring over a ``seq``
-axis, ``parallel/ring.py``) and the pipeline's ``pipeline_stages`` /
+layer's: ``mesh_shape`` (its ``data``, ``model``, ``seq`` and ``pipe`` axes
+run over ``torch.distributed``, ``parallel/mesh.py``), ``remat`` (each CSE
+layer and SBM block recomputed in the backward), ``seq_impl`` (the ring over
+a ``seq`` axis, ``parallel/ring.py``), the pipeline's ``pipeline_stages`` /
 ``pipeline_microbatches`` (GPipe over a ``pipe`` axis,
-``parallel/pipeline.py``), validated by the JAX rules.  A ``model`` axis
-larger than 1 is refused with :data:`NEXT_PARALLEL_SLICE`: tensor
-parallelism is not ported yet.  Fields that only
+``parallel/pipeline.py``) and ``serve_mesh_shape`` (one serving engine
+across head shards), validated by the JAX rules.  Fields that only
 select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
 ``flex_bwd``), telemetry of parts the port does not carry yet
 (SLOs, calibration, the bench history) or serving features outside this port
 (KV tiering, the rectangle layout — so ``serve_kv_layout``, paged being the
-port's only layout —, warm start, serve meshes, fleets, autoscale and the
-network front door) are absent, and so is ``param_dtype``, which the JAX
+port's only layout —, warm start, fleets, autoscale and the network front
+door) are absent, and so is ``param_dtype``, which the JAX
 package declares but reads nowhere (its master weights are f32 whatever it
 says): the port picks kernel or plain path by the device a tensor lies on,
 and a field it never reads is not one it pretends to honour.
@@ -35,12 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
-
-#: the refusal of what the port's parallel layer leaves out
-NEXT_PARALLEL_SLICE = (
-    "not ported yet: tensor parallelism (a 'model' axis) and serve meshes come with "
-    "the next parallel slice; the port runs the 'data', 'seq' and 'pipe' axes")
-
 
 @dataclasses.dataclass(frozen=True)
 class Config:
@@ -167,6 +160,10 @@ class Config:
     seq_impl: str = "allgather"
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
+    # one serving engine across devices: () or (h,) head shards, or (1, h) —
+    # (data, head) axis sizes, the data axis 1; the KV pages split on the
+    # head axis (the paged layout, the port's only one)
+    serve_mesh_shape: Tuple[int, ...] = ()
     # recompute each CSE layer and SBM block in the backward instead of
     # keeping its activations (torch.utils.checkpoint): the long-AST memory
     # lever, the JAX package's nn.remat
@@ -273,6 +270,18 @@ class Config:
         assert self.serve_brownout_max_new_tokens >= 0, (
             self.serve_brownout_max_new_tokens)
         assert self.serve_retry_after_s >= 0, self.serve_retry_after_s
+        assert len(self.serve_mesh_shape) <= 2, (
+            f"serve_mesh_shape {self.serve_mesh_shape}: at most (data, head) axis sizes")
+        assert all(s >= 1 for s in self.serve_mesh_shape), self.serve_mesh_shape
+        mesh_devs = 1
+        for s in self.serve_mesh_shape:
+            mesh_devs *= s
+        if mesh_devs > 1 and len(self.serve_mesh_shape) == 2:
+            # one replica sharded on the head axis: a data axis > 1 would
+            # replicate work (the JAX package's rung (1))
+            assert self.serve_mesh_shape[0] == 1, (
+                f"serve_mesh_shape {self.serve_mesh_shape}: the leading (data) axis must be "
+                "1 — only the head axis shards")
         assert self.obs_traces >= 0, self.obs_traces
         assert self.obs_trace_slowest >= 0, self.obs_trace_slowest
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens
@@ -298,8 +307,9 @@ class Config:
 
     def _validate_parallel(self) -> None:
         """The JAX package's rules for the parallel fields
-        (``csat_tpu/configs.py:581-598, 734-818``), then the refusal of the
-        axis the port does not run yet."""
+        (``csat_tpu/configs.py:581-598, 734-818``), and the head split a
+        ``model`` axis needs (JAX refuses it when it places the sharded
+        parameters)."""
         axes = dict(self.mesh_shape)
         assert len(axes) == len(self.mesh_shape), f"repeated mesh axis in {self.mesh_shape}"
         assert all(size == -1 or size >= 1 for size in axes.values()), self.mesh_shape
@@ -344,11 +354,10 @@ class Config:
             if self.batch_size % divisor:
                 raise ValueError(f"batch_size={self.batch_size} must divide evenly into "
                                  f"data_shards×microbatches (= {divisor})")
-        unported = [f"{name}={size}" for name, size in self.mesh_shape
-                    if name not in ("data", "seq", "pipe") and size != 1]
-        if unported:
-            raise NotImplementedError(f"{self.name}: {', '.join(unported)} is "
-                                      f"{NEXT_PARALLEL_SLICE}")
+        model = axes.get("model", 1)
+        if model > 1 and self.num_heads % model:
+            raise ValueError(f"num_heads={self.num_heads} must divide evenly over the "
+                             f"('model', {model}) mesh axis")
 
 
 # the registry: one named variant per reference config file, as the JAX
@@ -404,20 +413,12 @@ _reg(_PY.replace(name="python_pp", task_name="pp2_gpipe",
                  mesh_shape=(("data", -1), ("pipe", 2)),
                  pipeline_stages=2, pipeline_microbatches=4, noise_mode="counter"))
 
-#: registry entries of the JAX package the port refuses, with the reason
-_NOT_PORTED = {}
-
-
 def list_configs():
     return sorted(_REGISTRY)
 
 
 def get_config(name: str, **overrides) -> Config:
-    """Look up a named variant; keyword overrides are applied on top.  An
-    entry of the JAX registry the port does not run yet raises
-    ``NotImplementedError`` naming the slice it waits for."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[name])
+    """Look up a named variant; keyword overrides are applied on top."""
     cfg = _REGISTRY[name]
     if overrides:
         cfg = cfg.replace(**overrides)
@@ -426,11 +427,12 @@ def get_config(name: str, **overrides) -> Config:
 
 
 def cli_config(name: str, overrides: dict) -> Config:
-    """:func:`get_config` for a command line: an unknown name, or a part
-    the port refuses (``NotImplementedError``), exits with its one line."""
-    if name not in _REGISTRY and name not in _NOT_PORTED:
+    """:func:`get_config` for a command line: an unknown name, or overrides
+    the config's rules refuse (``ValueError``, ``AssertionError``), exits
+    with its one line."""
+    if name not in _REGISTRY:
         raise SystemExit(f"unknown config {name!r}; choose from {list_configs()}")
     try:
         return get_config(name, **overrides)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    except (ValueError, AssertionError) as e:
+        raise SystemExit(f"{name}: {e}")

@@ -22,6 +22,17 @@ does (:func:`dense`); LayerNorms compute in f32 and return ``dtype``
 f32 island (:func:`attention`, the paged decode) whose merged heads are cast
 back to ``dtype`` before the output projection; the output head and its
 log-softmax stay f32.  In f32 every cast is the identity.
+
+Under tensor parallelism (a module's ``tp``, the ``model`` line that
+``parallel.mesh.shard_model`` hands it) the modules hold their shards of
+the parameters the JAX ``PARAM_RULES`` split and run Megatron's layout:
+q/k/v and the first FFN dense column-parallel (this member's heads and
+hidden units; :func:`col_dense`, their input entering through
+``copy_to_model``), the out-projections and the second FFN dense
+row-parallel (:func:`row_dense`: the partial products summed over the line
+before the bias), the embedding tables split on features and gathered, and
+the output head row-parallel on its replicated input.  Dropout on a sharded
+activation draws its mask at the whole width and keeps this member's part.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from torch.nn import functional as F
 
 from csat_tpu_torch.ops.hashrng import KeyedStream
 from csat_tpu_torch.ops.paged_decode import paged_attend
+from csat_tpu_torch.parallel.collectives import (
+    copy_to_model, gather_features, reduce_from_model, scatter_features)
 from csat_tpu_torch.utils import PAD
 
 LN_EPS = 1e-5
@@ -50,6 +63,40 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     if dtype == torch.float32:
         return layer(x.to(dtype))
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def col_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """A column-parallel ``layer`` (its weight this member's output rows, its
+    bias whole) as :func:`dense`: the product with the bias's slice of this
+    member's outputs.  ``x`` has entered through ``copy_to_model`` (the
+    caller's, once for the layers sharing it).  Without ``tp``,
+    :func:`dense`."""
+    if tp is None:
+        return dense(layer, x, dtype)
+    rows = layer.weight.shape[0]
+    bias = layer.bias.narrow(0, tp.index * rows, rows)
+    if dtype == torch.float32:
+        return F.linear(x, layer.weight, bias)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + bias.to(dtype)
+
+
+def row_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """A row-parallel ``layer`` (its weight this member's input columns, its
+    bias whole) on this member's input features ``x``: the partial products
+    summed over ``tp``, then the bias.  Without ``tp``, :func:`dense`."""
+    if tp is None:
+        return dense(layer, x, dtype)
+    part = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return reduce_from_model(part, tp) + layer.bias.to(dtype)
+
+
+def head_range(tp, heads: int) -> Tuple[int, int]:
+    """``(h0, h)``: the first of this ``model`` member's heads and their
+    count, of ``heads`` (all of them without ``tp``)."""
+    if tp is None:
+        return 0, heads
+    h = heads // tp.size
+    return tp.index * h, h
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -107,8 +154,8 @@ def uniform(gen, shape, device) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            gen: Optional[torch.Generator], shard=None, node_axis: Optional[int] = None
-            ) -> torch.Tensor:
+            gen: Optional[torch.Generator], shard=None, node_axis: Optional[int] = None,
+            part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout as flax applies it (``where(keep, x / (1 - rate),
     0)``), with the keep mask drawn from ``gen`` on ``x``'s device; the
     identity when ``deterministic`` or ``rate == 0``.  ``x``'s leading axis
@@ -119,7 +166,10 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     process would drop for these rows of the global batch.  When the shard
     splits the node axis (``shard.nodes``, inside the SBM stack under a
     ``seq`` axis) and ``x``'s ``node_axis`` is that axis, the mask is drawn
-    at the whole node count and the shard's node rows are kept too."""
+    at the whole node count and the shard's node rows are kept too.
+    ``part`` ``(dim, offset, total)`` marks ``x``'s ``dim`` as a ``model``
+    member's slice ``[offset, offset + x.shape[dim])`` of ``total`` (its
+    heads, its hidden units): the mask is drawn at ``total`` and sliced."""
     if deterministic or rate == 0.0:
         return x
     if gen is None:
@@ -129,9 +179,13 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     split = shard is not None and shard.nodes is not None and node_axis is not None
     if split:
         shape[node_axis] = shard.nodes
+    if part is not None:
+        shape[part[0]] = part[2]
     u = uniform(gen, shape, x.device)[row0:row0 + x.shape[0]]
     if split:
         u = u.narrow(node_axis, shard.node0, x.shape[node_axis])
+    if part is not None:
+        u = u.narrow(part[0], part[1], x.shape[part[0]])
     keep = u >= rate
     # flax divides by the keep probability as a weak-typed scalar: in bf16,
     # by 1 - rate rounded to bf16
@@ -208,15 +262,19 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
               rate: float = 0.0, deterministic: bool = True,
-              gen: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
+              gen: Optional[torch.Generator] = None, shard=None,
+              heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The decoder's f32 attention island: ``q`` (B, H, Tq, dh) over ``k``/
     ``v`` (B, H, Tk, dh), whatever their dtype, scores over √dh, -1e9 where
     ``mask`` (broadcastable bool, True = disallowed), softmax, dropout at
-    ``rate``, ·V — all in f32.  → (B, H, Tq, dh) f32."""
+    ``rate``, ·V — all in f32.  ``heads`` ``(h0, total)`` places a ``model``
+    member's heads among all of them (the dropout mask's draw).  → (B, H,
+    Tq, dh) f32."""
     q, k, v = (t.to(torch.float32) for t in (q, k, v))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
     scores = torch.where(mask, torch.full_like(scores, NEG_INF), scores)
-    attn = dropout(torch.softmax(scores, dim=-1), rate, deterministic, gen, shard)
+    part = None if heads is None else (1, heads[0], heads[1])
+    attn = dropout(torch.softmax(scores, dim=-1), rate, deterministic, gen, shard, part=part)
     return torch.einsum("bhqk,bhkd->bhqd", attn, v)
 
 
@@ -235,6 +293,7 @@ class Embeddings(nn.Module):
         self.with_pos = with_pos
         self.pad_row = pad_row
         self.dtype = dtype
+        self.tp = None  # the model line: the table split on features
 
     def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 deterministic: bool = True, gen: Optional[torch.Generator] = None,
@@ -252,8 +311,9 @@ class Embeddings(nn.Module):
             emb = torch.where(is_pad, torch.zeros_like(emb), emb)
         else:
             emb = torch.where(is_pad, emb.detach(), emb)
+        emb = gather_features(emb, self.tp, emb.dim() - 1)
         if self.with_pos:
-            dim = self.weight.shape[1]
+            dim = emb.shape[-1]
             if pos is None:
                 emb = emb + sinusoidal_rows(
                     torch.arange(x.shape[-1], device=x.device), dim)[None]
@@ -273,11 +333,18 @@ class FeedForward(nn.Module):
         self.fc2 = nn.Linear(d_ff, d_model)
         self.dropout = dropout
         self.dtype = dtype
+        self.tp = None  # the model line: fc1 column-, fc2 row-parallel
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
-        h = gelu(dense(self.fc1, x, self.dtype))
-        return dense(self.fc2, dropout(h, self.dropout, deterministic, gen, shard), self.dtype)
+        tp = self.tp
+        h = gelu(col_dense(self.fc1, copy_to_model(x, tp), self.dtype, tp))
+        part = None
+        if tp is not None:
+            width = h.shape[-1]
+            part = (h.dim() - 1, tp.index * width, width * tp.size)
+        h = dropout(h, self.dropout, deterministic, gen, shard, part=part)
+        return row_dense(self.fc2, h, self.dtype, tp)
 
 
 class MultiHeadAttention(nn.Module):
@@ -295,26 +362,39 @@ class MultiHeadAttention(nn.Module):
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
+        self.tp = None  # the model line: q/k/v column-, out row-parallel
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this module runs (its ``model`` member's share)."""
+        return head_range(self.tp, self.num_heads)[1]
 
     def project(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         """(B, T, D) through one of the q/k/v projections → split heads
-        (B, H, T, dh) in ``dtype``."""
-        return split_heads(dense(layer, x, self.dtype), self.num_heads)
+        (B, H, T, dh) in ``dtype`` (this member's heads; ``x`` entered
+        through ``copy_to_model`` under ``tp``)."""
+        return split_heads(col_dense(layer, x, self.dtype, self.tp), self.local_heads)
 
     def merge_out(self, out4: torch.Tensor) -> torch.Tensor:
         """The f32 island's (B, H, T, dh) heads merged, cast back to
         ``dtype`` and through the output projection."""
-        return dense(self.out, merge_heads(out4).to(self.dtype), self.dtype)
+        return row_dense(self.out, merge_heads(out4).to(self.dtype), self.dtype, self.tp)
 
     def attend(self, q_in: torch.Tensor, kv_in: torch.Tensor, mask: torch.Tensor,
                deterministic: bool = True, gen: Optional[torch.Generator] = None,
                shard=None) -> torch.Tensor:
-        """``q_in`` (B, Tq, D) attends over ``kv_in`` (B, Tk, D); ``mask``
-        bool, broadcastable to (B, H, Tq, Tk), True on disallowed keys
-        (score filled with -1e9 before the softmax)."""
+        """``q_in`` (B, Tq, D) attends over ``kv_in`` (B, Tk, D; None: over
+        ``q_in`` itself); ``mask`` bool, broadcastable to (B, H, Tq, Tk), True
+        on disallowed keys (score filled with -1e9 before the softmax)."""
+        tp = self.tp
+        q_in = copy_to_model(q_in, tp)
+        kv_in = q_in if kv_in is None else copy_to_model(kv_in, tp)
         q, k, v = (self.project(w, x) for w, x in ((self.q, q_in), (self.k, kv_in),
                                                       (self.v, kv_in)))
-        return self.merge_out(attention(q, k, v, mask, self.dropout, deterministic, gen, shard))
+        # a model member's heads among all of them: its dropout mask's slice
+        kw = {} if tp is None else {"heads": (head_range(tp, self.num_heads)[0], self.num_heads)}
+        return self.merge_out(attention(q, k, v, mask, self.dropout, deterministic, gen, shard,
+                                        **kw))
 
     def project_kv(self, kv_in: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Split-head K/V of the encoder memory in ``dtype``, computed once
@@ -330,20 +410,36 @@ class MultiHeadAttention(nn.Module):
         writes ``k_step``/``v_step`` (S, H, 1, dh), in ``dtype``, into the
         pages."""
         q, k, v = (self.project(w, x) for w in (self.q, self.k, self.v))
-        out4, _ = paged_attend(
-            q, cache["pages_k"], cache["pages_v"], cache["scale_k"],
-            cache["scale_v"], cache["table"], mask, cache["width"],
-            idx=cache["idx"], k_tok=k, v_tok=v)
+        out4 = _paged(cache, q, mask, k, v)
         return self.merge_out(out4), k, v
 
     def attend_cross(self, x: torch.Tensor, mask: torch.Tensor,
                      kv: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Cross attention of one token per slot over the encoder memory's
         pages.  ``mask`` (S, mem_len) True on padded keys."""
-        out4, _ = paged_attend(
-            self.project(self.q, x), kv["pages_k"], kv["pages_v"], kv["scale_k"],
-            kv["scale_v"], kv["table"], mask, kv["width"])
-        return self.merge_out(out4)
+        return self.merge_out(_paged(kv, self.project(self.q, x), mask))
+
+
+def _paged(cache: Dict, q: torch.Tensor, mask: torch.Tensor,
+           k: Optional[torch.Tensor] = None, v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``q`` (S, H, 1, dh) through the page views ``cache`` (with ``k``/``v``,
+    self attention merging the current token) → (S, H, 1, dh) f32.  A serve
+    mesh's views (``cache["shards"]``: ``(h0, h1, views)`` per head shard)
+    attend each shard's heads on its device; the head outputs are gathered
+    back on ``q``'s before the replicated output projection."""
+    if "shards" not in cache:
+        return paged_attend(q, cache["pages_k"], cache["pages_v"], cache["scale_k"],
+                            cache["scale_v"], cache["table"], mask, cache["width"],
+                            idx=cache.get("idx"), k_tok=k, v_tok=v)[0]
+    outs = []
+    for h0, h1, c in cache["shards"]:
+        dev = c["pages_k"].device
+        part = lambda t: None if t is None else t[:, h0:h1].to(dev)
+        out, _ = paged_attend(part(q), c["pages_k"], c["pages_v"], c["scale_k"], c["scale_v"],
+                              c["table"], mask.to(dev), c["width"], idx=c.get("idx"),
+                              k_tok=part(k), v_tok=part(v))
+        outs.append(out.to(q.device))
+    return torch.cat(outs, dim=1)
 
 
 class DecoderLayer(nn.Module):
@@ -369,9 +465,8 @@ class DecoderLayer(nn.Module):
 
     def teacher_forced(self, tgt, memory, tgt_mask, mem_mask, deterministic, gen, shard=None):
         drop = lambda x: dropout(x, self.dropout, deterministic, gen, shard)
-        normed = self.normed(1, tgt)
-        tgt = tgt + drop(self.self_attn.attend(normed, normed, tgt_mask, deterministic, gen,
-                                               shard))
+        tgt = tgt + drop(self.self_attn.attend(self.normed(1, tgt), None, tgt_mask,
+                                               deterministic, gen, shard))
         tgt = tgt + drop(self.cross_attn.attend(self.normed(2, tgt), memory, mem_mask,
                                                 deterministic, gen, shard))
         return tgt + drop(self.ff(self.normed(3, tgt), deterministic, gen, shard))
@@ -431,10 +526,13 @@ class Generator(nn.Module):
         self.fc1 = nn.Linear(d_model, vocab_size)
         self.reference_dropout = reference_dropout
         self.dropout = dropout
+        self.tp = None  # the model line: row-parallel on the replicated input
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
-        logits = dense(self.fc1, x, torch.float32)
+        if self.tp is not None:
+            x = scatter_features(x, self.tp, x.dim() - 1)
+        logits = row_dense(self.fc1, x, torch.float32, self.tp)
         if self.reference_dropout:
             logits = dropout(logits, self.dropout, deterministic, gen, shard)
             return torch.log(torch.clamp(torch.softmax(logits, dim=-1), min=1e-30))

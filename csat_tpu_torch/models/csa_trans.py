@@ -16,6 +16,12 @@ the JAX ``make_model`` picks it): the parameters stay f32 master weights,
 every module computes in ``dtype`` with f32 attention islands
 (``models/components.py``), the PE inputs are cast to it, and the
 log-probabilities come out f32.
+
+Under a ``model`` axis (``parallel.mesh.shard_model``) each module runs its
+member's heads and hidden units (``models/components.py``); the per-head
+sparsities come back whole from every SBM layer (gathered over the line),
+so the sparsity term — their mean over heads and layers — and the loss are
+the same on every member.
 """
 
 from __future__ import annotations

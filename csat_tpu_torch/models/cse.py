@@ -14,7 +14,14 @@ Under ``cfg.remat`` each layer is recomputed in the backward
 (:func:`~csat_tpu_torch.models.components.remat`), its dropout redrawn from
 the generator's state at the forward.  Under a ``seq`` or ``pipe`` axis
 every process runs the CSE on whole rows (the kernel's q rows are all N):
-the SBM stack takes its own node rows after it.
+the SBM stack takes its own node rows after it, as JAX runs the CSE's
+kernel on gathered operands on every ``seq`` device.  Under a ``model`` axis
+(``tp``) each member runs its own heads: ``wq``/``wk``/``wv`` column- and
+``wo`` row-parallel, the replicated ``l_q``/``l_k``/``t_q``/``t_k`` (no
+``PARAM_RULES`` entry) projected whole and cut to this member's heads, and
+the kernel launched once per plane its heads lie in (with ``H`` 8 and a
+``model`` axis of 2, 4 or 8, one), on that plane's slice of ``rel`` /
+``mask``.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ from torch import nn
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.models.components import (
-    LN_EPS, FeedForward, dense, dropout, layer_norm, merge_heads, remat)
+    LN_EPS, FeedForward, col_dense, dense, dropout, head_range, layer_norm, merge_heads, remat,
+    row_dense)
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.mods import cse_mod
+from csat_tpu_torch.parallel.collectives import copy_to_model
 
 
 class DisentangledAttn(nn.Module):
@@ -42,6 +51,7 @@ class DisentangledAttn(nn.Module):
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
         self.l_q, self.l_k, self.t_q, self.t_k = (
             nn.Linear(d, self.dk * self.half) for _ in range(4))
+        self.tp = None  # the model line: this member's heads
 
     def _heads(self, layer: nn.Linear, table: torch.Tensor) -> torch.Tensor:
         """A (R, d) table through ``layer`` → (half, R, dk)."""
@@ -52,21 +62,44 @@ class DisentangledAttn(nn.Module):
         """``x`` (B, N, d); ``rel_tables`` (2, R, d) stacked L_q/T_q; ``rel``
         (B, 2, N, N) int32 offset distances; ``mask`` (B, 2, N, N) bool."""
         b, n, _ = x.shape
-        h = self.cfg.num_heads
-        q, k, v = (dense(w, x, self.dtype).reshape(b, n, h, self.dk).transpose(1, 2)
+        tp = self.tp
+        h0, h = head_range(tp, self.cfg.num_heads)
+        x = copy_to_model(x, tp)
+        q, k, v = (col_dense(w, x, self.dtype, tp).reshape(b, n, h, self.dk).transpose(1, 2)
                    .to(torch.float32).contiguous() for w in (self.wq, self.wk, self.wv))
         l_table, t_table = rel_tables[0], rel_tables[1]
         rel_q = torch.cat([self._heads(self.l_q, l_table),
                            self._heads(self.t_q, t_table)]).to(torch.float32)
         rel_k = torch.cat([self._heads(self.l_k, l_table),
                            self._heads(self.t_k, t_table)]).to(torch.float32)
-        spec, aux = cse_mod(rel_q, rel_k, rel, mask)
-        out, _ = flex_attention(q, k, v, spec, aux)
+        if tp is None:
+            spec, aux = cse_mod(rel_q, rel_k, rel, mask)
+            out, _ = flex_attention(q, k, v, spec, aux)
+        else:
+            outs = []
+            for a, e in self._plane_runs(h0, h):
+                plane = (h0 + a) // self.half
+                spec, aux = cse_mod(rel_q[h0 + a:h0 + e], rel_k[h0 + a:h0 + e],
+                                    rel[:, plane:plane + 1], mask[:, plane:plane + 1])
+                outs.append(flex_attention(*(t[:, a:e].contiguous() for t in (q, k, v)), spec,
+                                           aux)[0])
+            out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         if self.cfg.cse_empty_rows == "zero":
             # rows with no related pair take nothing from attention
-            empty = mask.all(dim=-1).repeat_interleave(self.half, dim=1)  # (B, H, N)
+            planes = (h0 + torch.arange(h, device=mask.device)) // self.half
+            empty = mask.all(dim=-1)[:, planes]  # (B, H, N)
             out = torch.where(empty[..., None], torch.zeros_like(out), out)
-        return dense(self.wo, merge_heads(out).to(self.dtype), self.dtype)
+        return row_dense(self.wo, merge_heads(out).to(self.dtype), self.dtype, tp)
+
+    def _plane_runs(self, h0: int, h: int):
+        """The runs ``[a, e)`` of this member's ``h`` heads from ``h0`` that
+        lie in one plane each (local indices)."""
+        runs, a = [], 0
+        while a < h:
+            e = min(h, (h0 + a) // self.half * self.half + self.half - h0)
+            runs.append((a, e))
+            a = e
+        return runs
 
 
 class CSELayer(nn.Module):

@@ -111,8 +111,12 @@ class TripletEmbedding(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab_size, pegen_dim))
         self.dtype = dtype
+        self.tp = None  # the model line: the table split on features
 
     def forward(self, triplet: torch.Tensor) -> torch.Tensor:
+        from csat_tpu_torch.parallel.collectives import gather_features
+
         # indexing, as Embeddings does: its backward adds repeated ids' rows
         # in a fixed order
-        return self.weight[triplet].to(self.dtype)
+        rows = self.weight[triplet]
+        return gather_features(rows, self.tp, rows.dim() - 1).to(self.dtype)

@@ -46,6 +46,16 @@ wavefront (``parallel/pipeline.py``, JAX ``sbm.py:336-356``), each
 :class:`~csat_tpu_torch.ops.hashrng.KeyedStream`.  ``ClusterProj`` drops
 at 0.2 whatever ``cfg.dropout`` is, as the JAX module hard-codes it.
 
+Under a ``model`` axis (``tp``, the line ``parallel.mesh.shard_model``
+hands the modules) each member runs its own heads: ``wq``/``wk``/``wv`` and
+the MLP's ``fc1`` column-, ``wo``, ``fc2`` and the encoder's ``out``
+row-parallel; the replicated cluster centres cut to its heads (the JAX
+ring's ``s_aff`` is sharded ``P(model, None, None)``); the hash streams at
+the global index (``bh0 = row0 · H + h0``, head stride ``H``); the shared
+mode's noise drawn at ``(rows, H, n, n)`` and sliced on rows and heads; the
+cluster MLP's and the hidden units' dropout masks drawn at the whole head
+count and width and sliced; the per-head sparsities gathered over the line.
+
 The attention is an f32 island whatever the compute dtype (``sbm.py:17,
 259-260`` of the JAX package): a block's LayerNorms, projections, MLP and
 residual stream run in its ``dtype``, and q/k/v go to f32 before the cluster
@@ -65,12 +75,14 @@ from torch.nn import functional as F
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.models.components import (
-    LN_EPS, dense, dropout, gelu, layer_norm, merge_heads, remat, sinusoidal_rows, split_heads)
+    LN_EPS, col_dense, dense, dropout, gelu, head_range, layer_norm, merge_heads, remat,
+    row_dense, sinusoidal_rows, split_heads)
 from csat_tpu_torch.models.ste import bernoulli_noise, sample_graph
 from csat_tpu_torch.ops.flex_core import flex_attention
 from csat_tpu_torch.ops.hashrng import KeyedStream
 from csat_tpu_torch.ops.mods import sbm_expected_mod, sbm_graph_mod, sbm_sampled_mod
-from csat_tpu_torch.parallel.collectives import all_gather_axis
+from csat_tpu_torch.parallel.collectives import (
+    all_gather_axis, copy_to_model, gather_features, scatter_features)
 from csat_tpu_torch.parallel.mesh import DataShard
 from csat_tpu_torch.parallel.pipeline import draw_streams, gpipe_blocks, pipeline_ready
 from csat_tpu_torch.parallel.ring import (
@@ -103,10 +115,12 @@ class ClusterProj(nn.Module):
         self.fc3 = nn.Linear(head_dim, head_dim)
 
     def forward(self, x, deterministic: bool = True, gen: Optional[torch.Generator] = None,
-                shard=None):
-        # x is (B, H, N, dh): the node axis is 2
-        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen, shard, 2))
-        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen, shard, 2))
+                shard=None, heads=None):
+        # x is (B, H, N, dh): the node axis is 2; ``heads`` (h0, total) places
+        # a model member's heads among all of them
+        part = None if heads is None else (1, heads[0], heads[1])
+        h = F.relu(dropout(self.fc1(x), self.dropout, deterministic, gen, shard, 2, part))
+        h = F.relu(dropout(self.fc2(h), self.dropout, deterministic, gen, shard, 2, part))
         return self.fc3(h)
 
 
@@ -125,18 +139,29 @@ class SBMAttention(nn.Module):
         self.attention_dropout = attention_dropout
         self.clusters = nn.Parameter(torch.empty(num_heads * num_clusters, head_dim))
         self.proj = ClusterProj(head_dim)
+        self.tp = None  # the model line: this member's heads
 
     def forward(self, q, k, v, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None):
+        out, sparsity = self._attend(q, k, v, key_pad, deterministic, gen, shard)
+        # every head's sparsity on every model member
+        return out, gather_features(sparsity, self.tp, 0)
+
+    def _attend(self, q, k, v, key_pad, deterministic, gen, shard):
         b, h, n, dh = q.shape
         # where the rows sit in the global batch (one process: row 0, b rows)
+        # and the heads among all of them (one process: head 0, all h)
         row0, rows = (0, b) if shard is None else (shard.row0, shard.rows)
-        bh0 = row0 * h
-        c = self.clusters.reshape(h, self.kk, dh)
+        h0 = head_range(self.tp, self.num_heads)[0]
+        heads = None if self.tp is None else (h0, self.num_heads)
+        bh0, h_total = row0 * self.num_heads + h0, self.num_heads
+        c = self.clusters.reshape(self.num_heads, self.kk, dh)[h0:h0 + h]
         dist = torch.einsum("hkd,hjd->hkj", c, c)
         s_aff = torch.softmax(dist.reshape(h, self.kk * self.kk), dim=-1).reshape(h, self.kk, self.kk)
-        q_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(q, deterministic, gen, shard), c))
-        k_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(k, deterministic, gen, shard), c))
+        q_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(q, deterministic, gen, shard,
+                                                                        heads), c))
+        k_hat = torch.sigmoid(torch.einsum("bhnd,hkd->bhnk", self.proj(k, deterministic, gen, shard,
+                                                                        heads), c))
 
         rate = 0.0 if deterministic else self.attention_dropout
         expected = deterministic and self.eval_graph == "expected"
@@ -150,7 +175,7 @@ class SBMAttention(nn.Module):
             drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
             out, graph_sums = ring_sbm_attention(
                 q, k, v, q_hat, k_hat, s_aff, key_pad, sample_seed, shard.seq, rate, drop_seed,
-                self.floor, bh0)
+                self.floor, bh0, h_total)
             return out, torch.sum(graph_sums, dim=0) / (rows * shard.nodes * shard.nodes)
         if split:  # whole rows on every process, this process's rows kept
             q, k, v, q_hat, k_hat = (all_gather_axis(t, shard.seq, 2)
@@ -158,16 +183,17 @@ class SBMAttention(nn.Module):
             key_pad = all_gather_axis(key_pad.to(torch.float32), shard.seq, 1) > 0.5
             nl, n = n, shard.nodes
         if expected:
-            spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor, bh0)
+            spec, aux = sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, self.floor, bh0, h_total)
         elif self.noise_mode == "counter":
             spec, aux = sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad,
-                                        draw_seed(gen, "sample"), self.floor, bh0)
+                                        draw_seed(gen, "sample"), self.floor, bh0, h_total)
         else:
             exp_a = torch.einsum("bhnk,hkj,bhmj->bhnm", q_hat, s_aff, k_hat)
-            # the global batch's noise, of which these rows take their slice
-            noise = bernoulli_noise(gen, (rows, h, n, n))[row0:row0 + b]
+            # the global batch's noise, of which these rows and heads take
+            # their slice
+            noise = bernoulli_noise(gen, (rows, self.num_heads, n, n))[row0:row0 + b, h0:h0 + h]
             graph = sample_graph(exp_a, noise, self.floor)
-            spec, aux = sbm_graph_mod(graph, key_pad, bh0)
+            spec, aux = sbm_graph_mod(graph, key_pad, bh0, h_total)
         drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
         out, extras = flex_attention(q, k, v, spec, aux, rate, drop_seed)
         if split:
@@ -189,22 +215,26 @@ class FullAttention(nn.Module):
     from the caller's generator), then the product with V.  No parameters;
     no sparsity."""
 
-    def __init__(self, head_dim: int, attention_dropout: float, seq_impl: str = "allgather"):
+    def __init__(self, head_dim: int, attention_dropout: float, seq_impl: str = "allgather",
+                 num_heads: int = 8):
         super().__init__()
         self.head_dim = head_dim
         self.attention_dropout = attention_dropout
         self.seq_impl = seq_impl
+        self.num_heads = num_heads
+        self.tp = None  # the model line: this member's heads
 
     def forward(self, q, k, v, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None):
         split = ring_active(shard)
+        h0 = head_range(self.tp, self.num_heads)[0]
         if split and self.seq_impl == "ring":
             # the dense ring: dropout from the counter keep-field (JAX
             # sbm.py:222-233), the distribution of the generator's mask
             rate = 0.0 if deterministic else self.attention_dropout
             drop_seed = draw_seed(gen, "dropout") if rate > 0.0 else None
             return ring_full_attention(q, k, v, key_pad, shard.seq, rate, drop_seed,
-                                       shard.row0 * q.shape[1]), None
+                                       shard.row0 * self.num_heads + h0, self.num_heads), None
         if split:  # whole rows on every process, this process's rows kept
             nl = q.shape[2]
             q, k, v = (all_gather_axis(t, shard.seq, 2) for t in (q, k, v))
@@ -213,7 +243,8 @@ class FullAttention(nn.Module):
         dot = dot.masked_fill(key_pad[:, None, None, :], float("-inf"))
         attn = l1_normalize(torch.softmax(dot, dim=-1))
         attn = dropout(attn, self.attention_dropout, deterministic, gen,
-                       dataclasses.replace(shard, nodes=None) if split else shard)
+                       dataclasses.replace(shard, nodes=None) if split else shard,
+                       part=None if self.tp is None else (1, h0, self.num_heads))
         out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
         if split:
             out = out[:, :, shard.node0:shard.node0 + nl]
@@ -233,7 +264,8 @@ class SBMBlock(nn.Module):
         self.attn_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.wq, self.wk, self.wv, self.wo = (nn.Linear(d, d) for _ in range(4))
         if cfg.full_att:
-            self.attn = FullAttention(cfg.head_dim, cfg.attention_dropout, cfg.seq_impl)
+            self.attn = FullAttention(cfg.head_dim, cfg.attention_dropout, cfg.seq_impl,
+                                      cfg.num_heads)
         else:
             self.attn = SBMAttention(cfg.num_heads, cfg.head_dim, cfg.clusters[layer_idx],
                                      cfg.sbm_floor, cfg.noise_mode, cfg.eval_graph,
@@ -241,19 +273,24 @@ class SBMBlock(nn.Module):
         self.ff_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.fc1 = nn.Linear(d, d)
         self.fc2 = nn.Linear(d, d)
+        self.tp = None  # the model line: q/k/v and fc1 column-, wo and fc2 row-parallel
 
     def forward(self, x, key_pad, deterministic: bool = True,
                 gen: Optional[torch.Generator] = None, shard=None):
-        drop = lambda t: dropout(t, self.dropout, deterministic, gen, shard, 1)
-        lin = lambda layer, t: dense(layer, t, self.dtype)
-        h = layer_norm(self.attn_norm, x, self.dtype)
+        tp = self.tp
+        drop = lambda t, part=None: dropout(t, self.dropout, deterministic, gen, shard, 1, part)
+        col = lambda layer, t: col_dense(layer, t, self.dtype, tp)
+        row = lambda layer, t: row_dense(layer, t, self.dtype, tp)
+        h = copy_to_model(layer_norm(self.attn_norm, x, self.dtype), tp)
+        heads = head_range(tp, self.num_heads)[1]
         # the f32 island
-        q, k, v = (split_heads(lin(w, h), self.num_heads).to(torch.float32).contiguous()
+        q, k, v = (split_heads(col(w, h), heads).to(torch.float32).contiguous()
                    for w in (self.wq, self.wk, self.wv))
         out, sparsity = self.attn(q, k, v, key_pad, deterministic, gen, shard)
-        x = x + drop(lin(self.wo, merge_heads(out).to(self.dtype)))
-        h = drop(gelu(lin(self.fc1, layer_norm(self.ff_norm, x, self.dtype))))
-        return x + drop(lin(self.fc2, h)), sparsity
+        x = x + drop(row(self.wo, merge_heads(out).to(self.dtype)))
+        h = gelu(col(self.fc1, copy_to_model(layer_norm(self.ff_norm, x, self.dtype), tp)))
+        part = None if tp is None else (2, tp.index * h.shape[2], h.shape[2] * tp.size)
+        return x + drop(row(self.fc2, drop(h, part))), sparsity
 
 
 class SBMEncoder(nn.Module):
@@ -272,6 +309,7 @@ class SBMEncoder(nn.Module):
         self.blocks = nn.ModuleList(SBMBlock(cfg, i, dtype) for i in range(cfg.sbm_layers))
         self.norm = nn.LayerNorm(cfg.sbm_enc_dim, eps=LN_EPS)
         self.out = nn.Linear(cfg.sbm_enc_dim, cfg.hidden_size)
+        self.tp = None  # the model line: out row-parallel on the replicated input
         self.dtype = dtype
         self.remat = cfg.remat
         self.stages = cfg.pipeline_stages
@@ -295,7 +333,9 @@ class SBMEncoder(nn.Module):
         else:
             x, sparsities, key_pad = self._blocks(x, key_pad, deterministic, gen, shard)
         x = layer_norm(self.norm, x, self.dtype) * (1.0 - key_pad.to(self.dtype))[:, :, None]
-        x = dense(self.out, x, self.dtype)
+        if self.tp is not None:
+            x = scatter_features(x, self.tp, 2)
+        x = row_dense(self.out, x, self.dtype, self.tp)
         if ring_active(shard):  # every process's node rows, for the decoder
             x = all_gather_axis(x, shard.seq, 1)
         return x, sparsities, pe

@@ -86,23 +86,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # q k v lq lk rel mask out lse gsum skip | B H N DH R group scale stream
     "flex_fwd_cse": [_P] * 11 + [_I] * 6 + [_F, _P],
-    # q k v r kh pad dseed out lse gsum skip | B H N DH KK stride bh0 floor
-    # scale rate keep_scale stream
-    "flex_fwd_sbm_expected": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],
-    # q k v r kh pad sseed dseed out lse gsum skip | B H N DH KK stride bh0
+    # q k v r kh pad dseed out lse gsum skip | B H N DH KK stride bh0 hstride
     # floor scale rate keep_scale stream
-    "flex_fwd_sbm_sampled": [_P] * 12 + [_I] * 7 + [_F] * 4 + [_P],
-    # q k v graph pad dseed out lse gsum skip | B H N DH stride bh0 scale
-    # rate keep_scale stream
-    "flex_fwd_sbm_graph": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_P],
+    "flex_fwd_sbm_expected": [_P] * 11 + [_I] * 8 + [_F] * 4 + [_P],
+    # q k v r kh pad sseed dseed out lse gsum skip | B H N DH KK stride bh0
+    # hstride floor scale rate keep_scale stream
+    "flex_fwd_sbm_sampled": [_P] * 12 + [_I] * 8 + [_F] * 4 + [_P],
+    # q k v graph pad dseed out lse gsum skip | B H N DH stride bh0 hstride
+    # scale rate keep_scale stream
+    "flex_fwd_sbm_graph": [_P] * 10 + [_I] * 7 + [_F] * 3 + [_P],
     # q k v r kh pad sseed dseed lse dvec gout gs dq dr | B H N DH KK stride
-    # bh0 floor scale rate keep_scale stream
-    "flex_bwd_q_sbm_sampled": [_P] * 14 + [_I] * 7 + [_F] * 4 + [_P],
+    # bh0 hstride floor scale rate keep_scale stream
+    "flex_bwd_q_sbm_sampled": [_P] * 14 + [_I] * 8 + [_F] * 4 + [_P],
     # ... gs dk dv dkh | (as the q-pass)
-    "flex_bwd_k_sbm_sampled": [_P] * 15 + [_I] * 7 + [_F] * 4 + [_P],
+    "flex_bwd_k_sbm_sampled": [_P] * 15 + [_I] * 8 + [_F] * 4 + [_P],
     # the sampled lists without sseed
-    "flex_bwd_q_sbm_expected": [_P] * 13 + [_I] * 7 + [_F] * 4 + [_P],
-    "flex_bwd_k_sbm_expected": [_P] * 14 + [_I] * 7 + [_F] * 4 + [_P],
+    "flex_bwd_q_sbm_expected": [_P] * 13 + [_I] * 8 + [_F] * 4 + [_P],
+    "flex_bwd_k_sbm_expected": [_P] * 14 + [_I] * 8 + [_F] * 4 + [_P],
     # dtype | q pk pv sk sv table mask idx ktok vtok out skip | S H NB page width DH stream
     "paged_decode": [_I] + [_P] * 12 + [_I] * 6 + [_P],
 }

@@ -33,8 +33,10 @@
 // ops/mods.py:exp_adjacency sum it, and the sample and dropout bits are drawn
 // from the counter hash (hashrng.cuh) at the global (query row, key) indices
 // under the forward's seeds and stride round_up(N, 128), and at the global
-// batch·head index bh0 + b·H + h (bh0 = b0·H on a data-parallel process
-// holding rows [b0, b0 + B) of the global batch; 0 on one process).
+// batch·head index bh0 + b·Ht + h, Ht the head stride (the global head
+// count; H on one process): bh0 = b0·Ht + h0 on a process holding rows
+// [b0, b0 + B) of the global batch and heads [h0, h0 + H) of its Ht; 0 on
+// one process.
 //
 // What bounds it on an H100: at the training shape (B 64, H 8, N 150, dh 64,
 // kk 10) the q-pass moves about 108 MB and the k-pass 128 MB, 32 and 38 µs
@@ -181,6 +183,7 @@ struct Params {
   int B, H, N, kk;
   uint32_t stride;        // hash row stride, round_up(N, 128)
   uint32_t bh0;           // batch·head offset of the hash streams (data parallelism)
+  uint32_t hstride;       // the global head count (tensor parallelism: ≥ H)
   float floor_, scale, rate, keep_scale;
 };
 
@@ -307,6 +310,7 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<MOD, KPASS>::MIN_BL
   const int g = lane >> 2, tig = lane & 3;
   const int N = p.N, kk = p.kk;
   const size_t bh = (size_t)b * p.H + h;
+  const uint32_t gbh = p.bh0 + (uint32_t)b * p.hstride + (uint32_t)h;
   const int own0 = blk * BT, wo = warp * 16;
   const int orow[2] = {own0 + wo + g, own0 + wo + g + 8};
   const bool active = own0 + wo < N;  // the warp has a real own row
@@ -463,7 +467,7 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<MOD, KPASS>::MIN_BL
             if (MOD == MOD_SBM_SAMPLED) {
               if (in) {
                 const float pr = fminf(fmaxf(ea[u][i], p.floor_), 0.99f);
-                a = hash_uniform(sseed, (uint32_t)bh + p.bh0, qrow, key, p.stride) < pr
+                a = hash_uniform(sseed, gbh, qrow, key, p.stride) < pr
                         ? 1.f : 0.f;
               }
               live_l |= (a * (1.f - pad) > 0.f);
@@ -536,7 +540,7 @@ __global__ void __launch_bounds__(THREADS, DH == 64 ? Tiling<MOD, KPASS>::MIN_BL
               const float e = finite ? expf(fminf(x[u][i] * p.scale - lse, 80.f)) : 0.f;
               float keep = 1.f;
               if (dropout)
-                keep = hash_uniform(dseed, (uint32_t)bh + p.bh0, qrow, key, p.stride) >= p.rate
+                keep = hash_uniform(dseed, gbh, qrow, key, p.stride) >= p.rate
                            ? p.keep_scale : 0.f;
               const float tt = y[u][i] * keep - dvec;
               const float attn = e * we;
@@ -660,16 +664,17 @@ int run(const float* q, const float* k, const float* v, const float* r, const fl
         const float* pad, const int32_t* sseed, const int32_t* dseed, const float* lse,
         const float* dvec, const float* gout, const float* gs, float* dq, float* dr,
         float* dk, float* dv, float* dkh, int B, int H, int N, int DH, int KK, int stride,
-        int bh0, float floor_, float scale, float rate, float keep_scale, void* stream) {
+        int bh0, int hstride, float floor_, float scale, float rate, float keep_scale, void* stream) {
   if (KK < 1 || KK > KKMAX) return -3;
-  if (bh0 < 0) return -7;
+  if (bh0 < 0 || hstride < H) return -7;
   if (rate > 0.f && dseed == nullptr) return -4;
   if (MOD == MOD_SBM_SAMPLED && sseed == nullptr) return -5;
   Params p{};
   p.q = q; p.k = k; p.v = v; p.r = r; p.kh = kh; p.pad = pad;
   p.sseed = sseed; p.dseed = dseed; p.lse = lse; p.dvec = dvec; p.gout = gout; p.gs = gs;
   p.dq = dq; p.dr = dr; p.dk = dk; p.dv = dv; p.dkh = dkh;
-  p.B = B; p.H = H; p.N = N; p.kk = KK; p.stride = (uint32_t)stride; p.bh0 = (uint32_t)bh0;
+  p.B = B; p.H = H; p.N = N; p.kk = KK; p.stride = (uint32_t)stride;
+  p.bh0 = (uint32_t)bh0; p.hstride = (uint32_t)hstride;
   p.floor_ = floor_; p.scale = scale; p.rate = rate; p.keep_scale = keep_scale;
   return dispatch<MOD, KPASS>(DH, p, (cudaStream_t)stream);
 }
@@ -680,22 +685,22 @@ extern "C" int flex_bwd_q_sbm_sampled(
     const float* q, const float* k, const float* v, const float* r, const float* kh,
     const float* pad, const int32_t* sseed, const int32_t* dseed, const float* lse,
     const float* dvec, const float* gout, const float* gs, float* dq, float* dr, int B,
-    int H, int N, int DH, int KK, int stride, int bh0, float floor_, float scale, float rate,
+    int H, int N, int DH, int KK, int stride, int bh0, int hstride, float floor_, float scale, float rate,
     float keep_scale, void* stream) {
   return run<MOD_SBM_SAMPLED, false>(q, k, v, r, kh, pad, sseed, dseed, lse, dvec, gout, gs,
                                      dq, dr, nullptr, nullptr, nullptr, B, H, N, DH, KK,
-                                     stride, bh0, floor_, scale, rate, keep_scale, stream);
+                                     stride, bh0, hstride, floor_, scale, rate, keep_scale, stream);
 }
 
 extern "C" int flex_bwd_k_sbm_sampled(
     const float* q, const float* k, const float* v, const float* r, const float* kh,
     const float* pad, const int32_t* sseed, const int32_t* dseed, const float* lse,
     const float* dvec, const float* gout, const float* gs, float* dk, float* dv,
-    float* dkh, int B, int H, int N, int DH, int KK, int stride, int bh0, float floor_,
+    float* dkh, int B, int H, int N, int DH, int KK, int stride, int bh0, int hstride, float floor_,
     float scale, float rate, float keep_scale, void* stream) {
   return run<MOD_SBM_SAMPLED, true>(q, k, v, r, kh, pad, sseed, dseed, lse, dvec, gout, gs,
                                     nullptr, nullptr, dk, dv, dkh, B, H, N, DH, KK, stride,
-                                    bh0, floor_, scale, rate, keep_scale, stream);
+                                    bh0, hstride, floor_, scale, rate, keep_scale, stream);
 }
 
 // The expected pair's argument lists are the sampled pair's without the
@@ -704,20 +709,20 @@ extern "C" int flex_bwd_q_sbm_expected(
     const float* q, const float* k, const float* v, const float* r, const float* kh,
     const float* pad, const int32_t* dseed, const float* lse, const float* dvec,
     const float* gout, const float* gs, float* dq, float* dr, int B, int H, int N, int DH,
-    int KK, int stride, int bh0, float floor_, float scale, float rate, float keep_scale,
+    int KK, int stride, int bh0, int hstride, float floor_, float scale, float rate, float keep_scale,
     void* stream) {
   return run<MOD_SBM_EXPECTED, false>(q, k, v, r, kh, pad, nullptr, dseed, lse, dvec, gout, gs,
                                       dq, dr, nullptr, nullptr, nullptr, B, H, N, DH, KK,
-                                      stride, bh0, floor_, scale, rate, keep_scale, stream);
+                                      stride, bh0, hstride, floor_, scale, rate, keep_scale, stream);
 }
 
 extern "C" int flex_bwd_k_sbm_expected(
     const float* q, const float* k, const float* v, const float* r, const float* kh,
     const float* pad, const int32_t* dseed, const float* lse, const float* dvec,
     const float* gout, const float* gs, float* dk, float* dv, float* dkh, int B, int H,
-    int N, int DH, int KK, int stride, int bh0, float floor_, float scale, float rate,
+    int N, int DH, int KK, int stride, int bh0, int hstride, float floor_, float scale, float rate,
     float keep_scale, void* stream) {
   return run<MOD_SBM_EXPECTED, true>(q, k, v, r, kh, pad, nullptr, dseed, lse, dvec, gout, gs,
                                      nullptr, nullptr, dk, dv, dkh, B, H, N, DH, KK, stride,
-                                     bh0, floor_, scale, rate, keep_scale, stream);
+                                     bh0, hstride, floor_, scale, rate, keep_scale, stream);
 }

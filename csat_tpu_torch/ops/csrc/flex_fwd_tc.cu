@@ -55,14 +55,15 @@
 //   * R·K̂ᵀ is summed j = 0, 1, … with one rounding per product and per sum
 //     (__fmul_rn/__fadd_rn, no FMA), as ops/mods.py:exp_adjacency and the
 //     backward kernels sum it, so the weights are the same bits.  The
-//     sampled mod draws hash_uniform(sample seed, bh0 + b·H + h, row, col,
+//     sampled mod draws hash_uniform(sample seed, bh0 + b·Ht + h, row, col,
 //     stride) at the global (query, key) indices of each entry a thread owns
 //     in the accumulator layout, with the hash row stride round_up(N, 128):
 //     the graph is the same bits that the plain path and K3/K4 draw.  bh0 =
-//     b0·H, from the launch, puts a data-parallel process holding rows
-//     [b0, b0 + B) of the global batch at its rows' global batch·head
-//     index, so every process draws its slice of the one global graph and
-//     dropout field (0 on one process).
+//     b0·Ht + h0 and the head stride Ht (the global head count), from the
+//     launch, put a process holding rows [b0, b0 + B) of the global batch
+//     and heads [h0, h0 + H) at their global batch·head index, so every
+//     process draws its slice of the one global graph and dropout field
+//     (bh0 0 and Ht = H on one process).
 //   * The 3xTF32 split rounds both parts (cvt.rna), not the two-instruction
 //     truncating split of flex_bwd_tc.cu's dh-deep products.  Each pair of
 //     k-steps of Q·Kᵀ and each product of P·V also starts a fresh
@@ -128,6 +129,7 @@ struct Params {
   int B, H, N, kk;
   uint32_t stride;        // hash row stride, round_up(N, 128)
   uint32_t bh0;           // batch·head offset of the hash streams (data parallelism)
+  uint32_t hstride;       // the global head count (tensor parallelism: ≥ H)
   float floor_, scale, rate, keep_scale;
   const int32_t* sseed;   // (1,) Bernoulli stream seed (sampled mod only)
 };
@@ -260,6 +262,8 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
   const int g = lane >> 2, tig = lane & 3;
   const int N = p.N;
   const size_t bh = (size_t)b * p.H + h;
+  // the global batch·head index of the hash streams
+  const uint32_t gbh = p.bh0 + (uint32_t)b * p.hstride + (uint32_t)h;
   const float* qg = p.q + bh * N * DH;
   const float* kg = p.k + bh * N * DH;
   const float* vg = p.v + bh * N * DH;
@@ -340,8 +344,7 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
         if constexpr (MOD == MOD_SBM_EXPECTED)
           wr = real ? pr : 0.f;
         else  // the Bernoulli draw at the entry's global (query, key) indices
-          wr = real && hash_uniform(sseed, (uint32_t)bh + p.bh0, gr_[i >> 1], col0 + c,
-                                      p.stride) < pr
+          wr = real && hash_uniform(sseed, gbh, gr_[i >> 1], col0 + c, p.stride) < pr
                    ? 1.f : 0.f;
         const float we = wr * (1.f - pads[c]);
         gsum += wr;
@@ -415,7 +418,7 @@ __device__ __forceinline__ void flex_tc_body(Params p) {
             const float pr = we > 0.f ? expf(sacc[t][i] - m_new) * we : 0.f;
             float keep = 1.f;
             if (dropout && pr > 0.f)
-              keep = hash_uniform(dseed, (uint32_t)bh + p.bh0, gr_[hr],
+              keep = hash_uniform(dseed, gbh, gr_[hr],
                                   col0 + 8 * t + 2 * tig + e, p.stride) >= p.rate ? p.keep_scale : 0.f;
             sacc[t][i] = pr * keep;  // P, dropped out; the row sum takes pr
             lt += pr;
@@ -526,9 +529,9 @@ template <int MOD>
 int run(const float* q, const float* k, const float* v, const float* r, const float* kh,
         const float* pad, const int32_t* sseed, const int32_t* dseed, float* out, float* lse,
         float* gsum_part, int32_t* skip_part, int B, int H, int N, int DH, int KK, int stride,
-        int bh0, float floor_, float scale, float rate, float keep_scale, void* stream) {
+        int bh0, int hstride, float floor_, float scale, float rate, float keep_scale, void* stream) {
   if (KK < 1 || KK > KKMAX) return -3;
-  if (bh0 < 0) return -7;
+  if (bh0 < 0 || hstride < H) return -7;
   if (rate > 0.f && dseed == nullptr) return -4;
   if (MOD == MOD_SBM_SAMPLED && sseed == nullptr) return -5;
   Params p{};
@@ -536,7 +539,8 @@ int run(const float* q, const float* k, const float* v, const float* r, const fl
   p.sseed = sseed; p.dseed = dseed;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
   p.B = B; p.H = H; p.N = N; p.kk = KK;
-  p.stride = (uint32_t)stride; p.bh0 = (uint32_t)bh0; p.floor_ = floor_; p.scale = scale;
+  p.stride = (uint32_t)stride; p.bh0 = (uint32_t)bh0; p.hstride = (uint32_t)hstride;
+  p.floor_ = floor_; p.scale = scale;
   p.rate = rate; p.keep_scale = keep_scale;
   const cudaStream_t st = (cudaStream_t)stream;
   if (DH == 64) return launch_grid(flex_tc_kernel<MOD, 64>, p, smem_bytes(64), st);
@@ -599,6 +603,7 @@ struct GraphParams {
   int B, H, N;
   uint32_t stride;        // hash row stride, round_up(N, 128)
   uint32_t bh0;           // batch·head offset of the dropout stream (data parallelism)
+  uint32_t hstride;       // the global head count (tensor parallelism: ≥ H)
   uint32_t keep_from;     // keep an entry iff its 24 hash bits ≥ ceil(rate · 2^24)
   float scale, keep_scale;
 };
@@ -665,6 +670,8 @@ __device__ __forceinline__ void graph_body(const GraphParams& p) {
   const int g = lane >> 2, tig = lane & 3;
   const int N = p.N;
   const size_t bh = (size_t)b * p.H + h;
+  // the global batch·head index of the hash streams
+  const uint32_t gbh = p.bh0 + (uint32_t)b * p.hstride + (uint32_t)h;
   const float* qg = p.q + bh * N * DH;
   const float* kg = p.k + bh * N * DH;
   const float* vg = p.v + bh * N * DH;
@@ -726,7 +733,7 @@ __device__ __forceinline__ void graph_body(const GraphParams& p) {
       for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const uint32_t bits = hash_bits(dseed, (uint32_t)bh + p.bh0, (uint32_t)gr_[i >> 1],
+          const uint32_t bits = hash_bits(dseed, gbh, (uint32_t)gr_[i >> 1],
                                           (uint32_t)(col0 + 8 * t + 2 * tig + (i & 1)), p.stride);
           keep |= (uint32_t)((bits >> 8) >= p.keep_from) << (4 * t + i);
         }
@@ -912,7 +919,8 @@ __global__ void __launch_bounds__(THREADS) flex_graph_kernel(GraphParams p) {
 // sqrt(3 dk) on an unmasked entry, the fill -1e9 in place of the score on a
 // masked one (a row whose every column is masked is then uniform over its
 // real columns), weight = the real-extent gate.  Heads h < group read plane 0
-// of rel/mask (L), the others plane 1 (T).
+// of rel/mask (L), the others plane 1 (T); a tensor-parallel member whose
+// heads all lie in one plane passes that plane alone with group = H.
 //
 // What bounds it on an H100: at B 64, N 150 the call moves 93 MB (q, k, v,
 // out, rel, mask): 0.028 ms.  Its products need q·k and P·V on every real
@@ -1099,7 +1107,8 @@ __global__ void __launch_bounds__(THREADS) flex_cse_kernel(CseParams p) {
   const float* qg = p.q + bh * N * DH;
   const float* kg = p.k + bh * N * DH;
   const float* vg = p.v + bh * N * DH;
-  const size_t plane_off = ((size_t)b * 2 + h / p.group) * N * N;
+  // H / group planes a batch row: 2 (L, T), or 1 for a head shard in one plane
+  const size_t plane_off = ((size_t)b * (p.H / p.group) + h / p.group) * N * N;
   const int32_t* relg = p.rel + plane_off;
   const uint8_t* maskg = p.mask + plane_off;
   const int row0 = qb * ROWS, wrow = warp * 16;
@@ -1350,11 +1359,11 @@ extern "C" int flex_fwd_sbm_expected(const float* q, const float* k, const float
                                      const float* r, const float* kh, const float* pad,
                                      const int32_t* dseed, float* out, float* lse,
                                      float* gsum_part, int32_t* skip_part, int B, int H,
-                                     int N, int DH, int KK, int stride, int bh0,
+                                     int N, int DH, int KK, int stride, int bh0, int hstride,
                                      float floor_, float scale, float rate, float keep_scale,
                                      void* stream) {
   return run<MOD_SBM_EXPECTED>(q, k, v, r, kh, pad, nullptr, dseed, out, lse, gsum_part,
-                               skip_part, B, H, N, DH, KK, stride, bh0, floor_, scale, rate,
+                               skip_part, B, H, N, DH, KK, stride, bh0, hstride, floor_, scale, rate,
                                keep_scale, stream);
 }
 
@@ -1363,10 +1372,10 @@ extern "C" int flex_fwd_sbm_sampled(const float* q, const float* k, const float*
                                     const int32_t* sseed, const int32_t* dseed,
                                     float* out, float* lse, float* gsum_part,
                                     int32_t* skip_part, int B, int H, int N, int DH,
-                                    int KK, int stride, int bh0, float floor_, float scale,
+                                    int KK, int stride, int bh0, int hstride, float floor_, float scale,
                                     float rate, float keep_scale, void* stream) {
   return run<MOD_SBM_SAMPLED>(q, k, v, r, kh, pad, sseed, dseed, out, lse, gsum_part,
-                              skip_part, B, H, N, DH, KK, stride, bh0, floor_, scale, rate,
+                              skip_part, B, H, N, DH, KK, stride, bh0, hstride, floor_, scale, rate,
                               keep_scale, stream);
 }
 
@@ -1374,14 +1383,15 @@ extern "C" int flex_fwd_sbm_graph(const float* q, const float* k, const float* v
                                   const float* graph, const float* pad,
                                   const int32_t* dseed, float* out, float* lse,
                                   float* gsum_part, int32_t* skip_part, int B, int H,
-                                  int N, int DH, int stride, int bh0, float scale,
+                                  int N, int DH, int stride, int bh0, int hstride, float scale,
                                   float rate, float keep_scale, void* stream) {
   if (rate > 0.f && dseed == nullptr) return -4;
-  if (bh0 < 0) return -7;
+  if (bh0 < 0 || hstride < H) return -7;
   GraphParams p{};
   p.q = q; p.k = k; p.v = v; p.graph = graph; p.pad = pad; p.dseed = dseed;
   p.out = out; p.lse = lse; p.gsum_part = gsum_part; p.skip_part = skip_part;
-  p.B = B; p.H = H; p.N = N; p.stride = (uint32_t)stride; p.bh0 = (uint32_t)bh0;
+  p.B = B; p.H = H; p.N = N; p.stride = (uint32_t)stride;
+  p.bh0 = (uint32_t)bh0; p.hstride = (uint32_t)hstride;
   // u = top · 2^-24 exactly, so u ≥ rate ⟺ top ≥ ceil(rate · 2^24); 0 = no dropout
   p.keep_from = rate > 0.f ? (uint32_t)ceil((double)rate * 16777216.0) : 0u;
   p.scale = scale; p.keep_scale = keep_scale;
@@ -1399,6 +1409,7 @@ extern "C" int flex_fwd_cse(const float* q, const float* k, const float* v,
                             int N, int DH, int R, int group, float scale,
                             void* stream) {
   if (DH != 64) return -1;  // head width without an instantiation
+  if (group < 1 || H % group) return -3;  // whole planes of heads
   // 16-byte copies and loads of q, k, v and the table rows; the mask rows
   // are copied in the aligned words that cover them
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)lq | (uintptr_t)lk) % 16 ||

@@ -143,12 +143,13 @@ class _WeightedSoftmax(torch.autograd.Function):
 
 
 def keep_field(seed, b: int, h: int, n: int, stride: int, rate: float, device=None,
-               bh0: int = 0):
+               bh0: int = 0, h_total: int = 0):
     """Dropout ``keep / (1 - rate)`` field (B, H, N, N) from the hash stream
     under ``seed``: ``1{u >= rate} · 1/(1 - rate)`` (JAX ``keep_field``,
     ``flex_core.py:214-219``), the same bits the kernels draw per tile;
-    ``bh0`` the batch·head offset of a data-parallel process's rows."""
-    u = uniform_field(seed, b, h, n, n, stride, device, bh0)
+    ``bh0`` the batch·head offset of a process's rows and heads, ``h_total``
+    the head stride (:func:`~csat_tpu_torch.ops.hashrng.uniform_field`)."""
+    u = uniform_field(seed, b, h, n, n, stride, device, bh0, h_total)
     return (u >= rate).to(torch.float32) * (1.0 / (1.0 - rate))
 
 
@@ -167,7 +168,7 @@ def flex_reference(q, k, v, spec, aux, dropout_rate: float = 0.0,
     gsum = torch.sum(torch.broadcast_to(w_raw, s.shape), dim=(2, 3))
     if dropout_rate > 0.0:
         attn = attn * keep_field(dropout_seed, b, h, n, spec.stride, dropout_rate, q.device,
-                                 spec.bh0)
+                                 spec.bh0, spec.hstride)
     out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
     return out, {
         "graph_sum": gsum,
@@ -208,13 +209,16 @@ def _dropout_args(q, rate: float, dseed):
     return dseed.data_ptr(), float(rate), 1.0 / (1.0 - float(rate))
 
 
-def _bh0(spec) -> int:
-    """The spec's batch·head offset as the kernels take it: an int below
-    2³¹, the hash index ``bh0 + b·H + h`` wrapping in uint32 as the plain
-    path's does."""
+def _bh0(spec) -> Tuple[int, int]:
+    """The spec's batch·head offset and head stride as the kernels take
+    them: ints below 2³¹, the hash index ``bh0 + b·h_total + h`` wrapping in
+    uint32 as the plain path's does, the stride at least the launch's
+    heads."""
     if not 0 <= spec.bh0 < 2**31:
         raise ValueError(f"batch·head offset {spec.bh0} outside [0, 2^31)")
-    return int(spec.bh0)
+    if not spec.heads <= spec.hstride < 2**31:
+        raise ValueError(f"head stride {spec.hstride} below the launch's {spec.heads} heads")
+    return int(spec.bh0), int(spec.hstride)
 
 
 def _sbm_factor_args(spec, aux, b, h, n):
@@ -250,8 +254,8 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
         lq, lk, rel, mask = aux
         check_cuda("rel_q", lq, torch.float32, (h, spec.r_len, dh))
         check_cuda("rel_k", lk, torch.float32, (h, spec.r_len, dh))
-        check_cuda("rel", rel, torch.int32, (b, 2, n, n))
-        check_cuda("mask", mask, torch.bool, (b, 2, n, n))
+        check_cuda("rel", rel, torch.int32, (b, spec.planes, n, n))
+        check_cuda("mask", mask, torch.bool, (b, spec.planes, n, n))
         if mask.data_ptr() % 4:  # a view at an odd offset: the kernel copies aligned words
             mask = mask.clone()
             outs["mask"] = mask  # kept alive with the outputs
@@ -261,13 +265,13 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
     elif isinstance(spec, SBMExpectedSpec):
         fn = "flex_fwd_sbm_expected"
         args = [*qkv, *_sbm_factor_args(spec, aux, b, h, n), dptr, *tail, b, h, n, dh,
-                spec.kk, spec.stride, _bh0(spec), spec.floor, spec.scale(dh), rate, keep_scale,
+                spec.kk, spec.stride, *_bh0(spec), spec.floor, spec.scale(dh), rate, keep_scale,
                 stream]
     elif isinstance(spec, SBMSampledSpec):
         check_cuda("sample_seed", aux[3], torch.int32, (1,))
         fn = "flex_fwd_sbm_sampled"
         args = [*qkv, *_sbm_factor_args(spec, aux, b, h, n), aux[3].data_ptr(), dptr, *tail,
-                b, h, n, dh, spec.kk, spec.stride, _bh0(spec), spec.floor, spec.scale(dh), rate,
+                b, h, n, dh, spec.kk, spec.stride, *_bh0(spec), spec.floor, spec.scale(dh), rate,
                 keep_scale, stream]
     elif isinstance(spec, SBMGraphSpec):
         graph, padf = aux
@@ -275,7 +279,7 @@ def kernel_args(spec, q, k, v, aux, rate: float = 0.0, dseed=None):
         check_cuda("key_pad", padf, torch.float32, (b, n))
         fn = "flex_fwd_sbm_graph"
         args = [*qkv, graph.data_ptr(), padf.data_ptr(), dptr, *tail, b, h, n, dh,
-                spec.stride, _bh0(spec), spec.scale(dh), rate, keep_scale, stream]
+                spec.stride, *_bh0(spec), spec.scale(dh), rate, keep_scale, stream]
     else:
         raise NotImplementedError(f"no CUDA kernel for mod {spec.name!r}")
     build.check_head_dim(fn, dh)
@@ -307,7 +311,7 @@ def bwd_kernel_args(spec, q, k, v, aux, lse, dvec, g_out, gs, rate: float = 0.0,
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *_sbm_factor_args(spec, aux, b, h, n),
             *([aux[3].data_ptr()] if sampled else []), dptr, lse.data_ptr(),
             dvec.data_ptr(), g_out.data_ptr(), gs.data_ptr()]
-    tail = [b, h, n, dh, spec.kk, spec.stride, _bh0(spec), spec.floor, spec.scale(dh), rate,
+    tail = [b, h, n, dh, spec.kk, spec.stride, *_bh0(spec), spec.floor, spec.scale(dh), rate,
             keep_scale, stream]
     q_args = head + [grads["dq"].data_ptr(), grads["dr"].data_ptr()] + tail
     k_args = head + [grads[key].data_ptr() for key in ("dk", "dv", "dkh")] + tail

@@ -2,8 +2,10 @@
 
 A copy of the JAX package's ``ops/hashrng.py``: a murmur3 finalizer over
 ``(seed, batch·head, global row, global col)`` gives the uniform draw of every
-attention pair; batch·head is global too (``bh0``), so a data-parallel
-process draws its rows' slice of the one global field.  The stream is a pure function of indices, so the CUDA kernels
+attention pair; batch·head is global too (``bh0`` and the head stride
+``h_total``), so a data-parallel process draws its rows' slice of the one
+global field and a tensor-parallel one its heads' slice.  The stream is a
+pure function of indices, so the CUDA kernels
 (``csrc/flex_fwd*.cu``, ``csrc/flex_bwd*.cu``) generate it tile by tile, the
 backward regenerates it, and :func:`uniform_field` materialises the same
 field for the plain path.
@@ -22,7 +24,7 @@ from typing import Union
 import torch
 
 __all__ = ["TILE", "round_up", "noise_stride", "hash_bits", "bits_to_uniform",
-           "uniform_field", "block_uniform", "KeyedStream"]
+           "global_bh", "uniform_field", "block_uniform", "KeyedStream"]
 
 TILE = 128  # the JAX kernels' node tile: the hash row stride is N padded to it
 
@@ -76,25 +78,34 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return top.to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _bh_rows_cols(b: int, h: int, n_rows: int, n_cols: int, device, bh0: int = 0):
-    bh = (bh0 + torch.arange(b, device=device)[:, None] * h
-          + torch.arange(h, device=device)[None, :])[:, :, None, None]
+def global_bh(b: int, h: int, device, bh0: int = 0, h_total: int = 0) -> torch.Tensor:
+    """(B, H, 1, 1) global batch·head indices ``bh0 + b·h_total + h`` of a
+    process's ``b`` rows and ``h`` heads (``h_total`` 0: the local ``h``)."""
+    return (bh0 + torch.arange(b, device=device)[:, None] * (h_total or h)
+            + torch.arange(h, device=device)[None, :])[:, :, None, None]
+
+
+def _bh_rows_cols(b: int, h: int, n_rows: int, n_cols: int, device, bh0: int = 0,
+                  h_total: int = 0):
+    bh = global_bh(b, h, device, bh0, h_total)
     rows = torch.arange(n_rows, device=device)[None, None, :, None]
     cols = torch.arange(n_cols, device=device)[None, None, None, :]
     return bh, rows, cols
 
 
 def uniform_field(seed: IntLike, b: int, h: int, n_rows: int, n_cols: int,
-                  stride: int, device=None, bh0: int = 0) -> torch.Tensor:
+                  stride: int, device=None, bh0: int = 0, h_total: int = 0) -> torch.Tensor:
     """The full (B, H, n_rows, n_cols) uniform field the kernels generate tile
     by tile — the plain path's copy of exactly the tensor they avoid.
-    ``bh0`` offsets the batch·head index: a process holding rows ``[b0, b0 +
-    B)`` of a global batch of ``H`` heads passes ``b0 · H`` and draws the
-    rows' slice of the global field, as one process over the whole batch
-    would (the JAX ring's ``bh = (b0 + b)·H + h``)."""
+    ``bh0`` offsets the batch·head index and ``h_total`` (0: ``h``) is its
+    head stride: a process holding rows ``[b0, b0 + B)`` of a global batch
+    and heads ``[h0, h0 + h)`` of ``h_total`` passes ``b0 · h_total + h0``
+    and draws its slice of the global field, as one process over the whole
+    batch and every head would (the JAX ring's ``bh = (b0 + b)·H + h0 +
+    h``)."""
     if device is None and torch.is_tensor(seed):
         device = seed.device
-    bh, rows, cols = _bh_rows_cols(b, h, n_rows, n_cols, device, bh0)
+    bh, rows, cols = _bh_rows_cols(b, h, n_rows, n_cols, device, bh0, h_total)
     return bits_to_uniform(hash_bits(seed, bh, rows, cols, stride))
 
 

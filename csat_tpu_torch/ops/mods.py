@@ -126,20 +126,23 @@ def _pad_nodes(x: torch.Tensor, n_pad: int, value: float = 0.0) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class CSESpec:
-    """Disentangled L/T relative bias: the two planes of ``rel``/``mask``
-    (B, 2, N, N) fan out to ``heads // 2`` pseudo-heads each."""
+    """Disentangled L/T relative bias: the planes of ``rel``/``mask`` (B,
+    planes, N, N) fan out to ``heads // planes`` pseudo-heads each — the L
+    and the T plane to half the heads each, or (``planes`` 1) one plane to
+    all of a tensor-parallel member's heads when they lie in it."""
 
     n: int
     heads: int
     dk: int
     r_len: int
+    planes: int = 2
 
     name = "cse"
     exact_weight_grad = False  # the weight is the constant 1
 
     @property
     def group(self) -> int:
-        return self.heads // 2
+        return self.heads // self.planes
 
     def scale(self, dh: int) -> float:
         return 1.0 / math.sqrt(dh * 3)
@@ -176,9 +179,16 @@ class _SBMBase:
 
     exact_weight_grad = False
     #: batch·head offset of the hash streams (the sampled graph and the
-    #: attention-dropout keep field): ``b0 · heads`` on a process holding rows
-    #: ``[b0, b0 + B)`` of the global batch; a dataclass field of each spec
+    #: attention-dropout keep field): ``b0 · h_total + h0`` on a process
+    #: holding rows ``[b0, b0 + B)`` of the global batch and heads ``[h0, h0
+    #: + heads)``; ``h_total`` the global head count, the index's head stride
+    #: (0: ``heads``, one head shard); dataclass fields of each spec
     bh0 = 0
+    h_total = 0
+
+    @property
+    def hstride(self) -> int:
+        return self.h_total or self.heads
 
     def scale(self, dh: int) -> float:
         return 1.0 / math.sqrt(dh)
@@ -201,6 +211,7 @@ class SBMExpectedSpec(_SBMBase):
     kk: int
     floor: float
     bh0: int = 0
+    h_total: int = 0
 
     name = "sbm_expected"
     # at floor == 0 an entry with R·K̂ᵀ == 0 has weight 0 and a half-open clip
@@ -233,6 +244,7 @@ class SBMSampledSpec(_SBMBase):
     kk: int
     floor: float
     bh0: int = 0
+    h_total: int = 0
 
     name = "sbm_sampled"
 
@@ -241,7 +253,7 @@ class SBMSampledSpec(_SBMBase):
 
         r, kh, padf, sseed = aux
         b, h, n, _ = r.shape
-        noise = uniform_field(sseed, b, h, n, n, self.stride, r.device, self.bh0)
+        noise = uniform_field(sseed, b, h, n, n, self.stride, r.device, self.bh0, self.h_total)
         graph = sample_graph(exp_adjacency(r, kh), noise, self.floor)
         return graph, graph * (1.0 - padf)[:, None, None, :]
 
@@ -249,7 +261,8 @@ class SBMSampledSpec(_SBMBase):
         r, kh, padf, sseed = aux
         rp, khp = _pad_nodes(r, n_pad), _pad_nodes(kh, n_pad)
         padp = torch.nn.functional.pad(padf, (0, n_pad - self.n), value=1.0)
-        noise = uniform_field(sseed, b, h, n_pad, n_pad, self.stride, r.device, self.bh0)
+        noise = uniform_field(sseed, b, h, n_pad, n_pad, self.stride, r.device, self.bh0,
+                              self.h_total)
         p = torch.clamp(exp_adjacency(rp, khp), self.floor, 0.99)
         a_raw = (noise < p).to(torch.float32) * _real_gate(self.n, n_pad, r.device)
         return a_raw * (1.0 - padp[:, None, None, :])
@@ -264,6 +277,7 @@ class SBMGraphSpec(_SBMBase):
     n: int
     heads: int
     bh0: int = 0
+    h_total: int = 0
 
     name = "sbm_graph"
 
@@ -281,42 +295,47 @@ class SBMGraphSpec(_SBMBase):
 
 def cse_mod(rel_q, rel_k, rel, mask):
     """``rel_q``/``rel_k`` (H, R, dk) projected relative tables, ``rel``
-    (B, 2, N, N) offset distances, ``mask`` (B, 2, N, N) bool (True = the raw
-    distance was 0)."""
+    (B, planes, N, N) offset distances, ``mask`` (B, planes, N, N) bool
+    (True = the raw distance was 0); ``H // planes`` heads read each plane."""
     h, r_len, dk = rel_q.shape
     n = rel.shape[-1]
     aux = (rel_q.float().contiguous(), rel_k.float().contiguous(),
            rel.to(torch.int32).contiguous(), mask.to(torch.bool).contiguous())
-    return CSESpec(n=n, heads=h, dk=dk, r_len=r_len), aux
+    return CSESpec(n=n, heads=h, dk=dk, r_len=r_len, planes=rel.shape[1]), aux
 
 
-def sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, floor: float = 0.01, bh0: int = 0):
+def sbm_expected_mod(q_hat, k_hat, s_aff, key_pad, floor: float = 0.01, bh0: int = 0,
+                     h_total: int = 0):
     """``q_hat``/``k_hat`` (B, H, N, kk) memberships, ``s_aff`` (H, kk, kk)
     cluster affinity, ``key_pad`` (B, N) truthy on padded keys; ``bh0`` the
-    batch·head offset of the dropout stream (:attr:`_SBMBase.bh0`)."""
+    batch·head offset of the dropout stream and ``h_total`` its head stride
+    (:attr:`_SBMBase.bh0`)."""
     b, h, n, kk = q_hat.shape
     r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
     aux = (r.contiguous(), k_hat.contiguous(), key_pad.to(torch.float32).contiguous())
-    return SBMExpectedSpec(n=n, heads=h, kk=kk, floor=float(floor), bh0=int(bh0)), aux
+    return SBMExpectedSpec(n=n, heads=h, kk=kk, floor=float(floor), bh0=int(bh0),
+                           h_total=int(h_total)), aux
 
 
 def sbm_sampled_mod(q_hat, k_hat, s_aff, key_pad, sample_seed, floor: float = 0.01,
-                    bh0: int = 0):
+                    bh0: int = 0, h_total: int = 0):
     """Counter-mode sampled graph.  ``R = Q̂ S`` is formed here, so the
     cotangent of ``R`` reaches ``Q̂`` and ``S`` through plain autograd;
     ``sample_seed`` is a (1,) int32 tensor on the data's device (the kernels
     read it there: no host sync); ``bh0`` the batch·head offset of the hash
-    streams."""
+    streams, ``h_total`` their head stride."""
     b, h, n, kk = q_hat.shape
     r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
     seed = torch.as_tensor(sample_seed, dtype=torch.int32, device=q_hat.device).reshape(1)
     aux = (r.contiguous(), k_hat.contiguous(), key_pad.to(torch.float32).contiguous(), seed)
-    return SBMSampledSpec(n=n, heads=h, kk=kk, floor=float(floor), bh0=int(bh0)), aux
+    return SBMSampledSpec(n=n, heads=h, kk=kk, floor=float(floor), bh0=int(bh0),
+                          h_total=int(h_total)), aux
 
 
-def sbm_graph_mod(graph, key_pad, bh0: int = 0):
+def sbm_graph_mod(graph, key_pad, bh0: int = 0, h_total: int = 0):
     """``graph`` (B, H, N, N) 0/1 f32, ``key_pad`` (B, N) truthy on padded
-    keys; ``bh0`` the batch·head offset of the dropout stream."""
+    keys; ``bh0`` the batch·head offset of the dropout stream, ``h_total``
+    its head stride."""
     b, h, n, _ = graph.shape
     aux = (graph.contiguous(), key_pad.to(torch.float32).contiguous())
-    return SBMGraphSpec(n=n, heads=h, bh0=int(bh0)), aux
+    return SBMGraphSpec(n=n, heads=h, bh0=int(bh0), h_total=int(h_total)), aux

@@ -16,12 +16,28 @@ transpose has:
   dimension; its backward is the reduce-scatter of the sum;
 * :func:`psum_axis` sums over the axis; its backward sums the cotangents.
 
+Along the ``model`` axis, where every member holds the whole loss, the
+Megatron pairs (identity one way, all-reduce the other) carry a replicated
+activation into a member's heads and back:
+
+* :func:`copy_to_model` (Megatron's ``f``): identity forward, the members'
+  cotangents summed backward — before a column-parallel layer, whose input
+  gradient each member holds only its heads' part of;
+* :func:`reduce_from_model` (``g``): the members' partial products summed
+  forward, identity backward — after a row-parallel layer;
+* :func:`gather_features` all-gathers a feature-sharded activation (the
+  embeddings, the per-head sparsities); its backward keeps this member's
+  slice of the (replicated) cotangent;
+* :func:`scatter_features` keeps this member's feature slice of a replicated
+  activation (a row-parallel layer's input); its backward all-gathers.
+
 A gloo group stages every collective through a pinned host copy of a CUDA
 tensor (two processes sharing one card run over gloo); an NCCL group runs
 them on the card.  The group's backend decides this, never a caught error.
 An axis of one member (or no process group) makes each an identity.
 :func:`hop` and :func:`sum_over` are the plain (non-differentiable) forms,
-for a caller that schedules its own backward (``parallel/pipeline.py``).
+for a caller that schedules its own backward (``parallel/pipeline.py``), and
+:func:`gather_over` the plain all-gather (``mesh.gather_params``).
 """
 
 from __future__ import annotations
@@ -30,7 +46,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ["ppermute", "all_gather_axis", "psum_axis", "hop", "sum_over"]
+__all__ = ["ppermute", "all_gather_axis", "psum_axis", "hop", "sum_over", "gather_over",
+           "copy_to_model", "reduce_from_model", "gather_features", "scatter_features"]
 
 
 def _host_staged(axis, t: torch.Tensor) -> bool:
@@ -169,3 +186,93 @@ def psum_axis(x: torch.Tensor, axis) -> torch.Tensor:
     if axis is None or axis.size == 1 or axis.group is None:
         return x
     return _PSum.apply(axis, x)
+
+
+def gather_over(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim`` in axis order (the
+    same tensor on each; ``x`` itself on an axis of one member)."""
+    if axis is None or axis.size == 1 or axis.group is None:
+        return x
+    import torch.distributed as dist
+
+    staged = _host_staged(axis, x)
+    src = _staging(x, staged)
+    parts = [torch.empty_like(src) for _ in range(axis.size)]
+    dist.all_gather(parts, src, group=axis.group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if staged else out
+
+
+def _mine(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    return x.chunk(axis.size, dim=dim)[axis.index].contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, sum_over(g, ctx.axis)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        return sum_over(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _GatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, dim: int, x):
+        ctx.axis, ctx.dim = axis, dim
+        return gather_over(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _mine(g, ctx.axis, ctx.dim)
+
+
+class _ScatterFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, dim: int, x):
+        ctx.axis, ctx.dim = axis, dim
+        return _mine(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, gather_over(g.contiguous(), ctx.axis, ctx.dim)
+
+
+def _one(axis) -> bool:
+    return axis is None or axis.size == 1 or axis.group is None
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` (replicated over ``axis``) entering this member's heads:
+    identity forward; backward, the members' cotangents summed."""
+    return x if _one(axis) else _CopyToModel.apply(axis, x)
+
+
+def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """The members' partial ``x`` summed (the same bits on each); backward,
+    the identity."""
+    return x if _one(axis) else _ReduceFromModel.apply(axis, x)
+
+
+def gather_features(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The members' feature slices ``x`` concatenated along ``dim``;
+    backward, this member's slice of the cotangent."""
+    return x if _one(axis) else _GatherFeatures.apply(axis, dim, x)
+
+
+def scatter_features(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """This member's slice of the replicated ``x`` along ``dim``; backward,
+    the members' cotangent slices gathered."""
+    return x if _one(axis) else _ScatterFeatures.apply(axis, dim, x)

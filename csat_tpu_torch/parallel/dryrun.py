@@ -1,17 +1,18 @@
 """Multi-process dry run: one train step over a gloo group.
 
 Counterpart of the JAX package's ``parallel/dryrun.py:29-117`` over the
-``data``, ``seq`` and ``pipe`` axes (its ``model`` axis waits for the next
-parallel slice).  :func:`dryrun_train_step` starts ``n_ranks`` processes on
-the CPU, joins them in a gloo group through a ``file://`` store, and each
-runs ONE optimizer step of a tiny model on its data shard's rows of one
-random global batch — the ring over a ``seq`` axis of ``seq_par`` processes,
-the GPipe wavefront over a ``pipe`` axis of ``pipe_par`` — then one greedy
-decode of them.  It checks that every output is finite, the decoded shape
-is right and the parameters after the step are the same bits on every
-process.
+``data``, ``model``, ``seq`` and ``pipe`` axes.  :func:`dryrun_train_step`
+starts ``n_ranks`` processes on the CPU, joins them in a gloo group through
+a ``file://`` store, and each runs ONE optimizer step of a tiny model on its
+data shard's rows of one random global batch — its shard of the heads over
+a ``model`` axis of ``model_par`` processes, the ring over a ``seq`` axis of
+``seq_par``, the GPipe wavefront over a ``pipe`` axis of ``pipe_par`` — then
+one greedy decode of them.  It checks that every output is finite, the
+decoded shape is right and the (whole, gathered) parameters after the step
+are the same bits on every process.
 
     python -m csat_tpu_torch.parallel.dryrun 2
+    python -m csat_tpu_torch.parallel.dryrun 4 --model 2
     python -m csat_tpu_torch.parallel.dryrun 4 --seq 2
     python -m csat_tpu_torch.parallel.dryrun 2 --pipe 2
 """
@@ -25,19 +26,39 @@ import os
 import tempfile
 from typing import Dict, Tuple
 
-__all__ = ["dryrun_train_step", "tiny_multiprocess_config"]
+__all__ = ["dryrun_train_step", "tiny_multiprocess_config", "tiny_multichip_config"]
 
 SRC_V, TGT_V = 97, 83
 
 
-def tiny_multiprocess_config(data: int, seq: int = 1, pipe: int = 1, **overrides):
-    """The flagship at tiny widths over a ``data`` axis of ``data``
-    processes, two rows each, times a ``seq`` axis (the ring) or a ``pipe``
-    axis (two microbatches) when given."""
+def tiny_multichip_config(n_devices: int, data: int, model_par: int, seq_par: int = 1):
+    """The JAX package's dry-run config (``dryrun.py:29-54``): the flagship
+    at tiny widths over ``("data", data), ("model", model_par)`` (and
+    ``("seq", seq_par)``, with trees ``32 · seq_par`` nodes long), two rows a
+    data shard, in the config's own noise mode.  ``n_devices`` is JAX's
+    argument, unused as there."""
     from csat_tpu_torch.configs import get_config
 
-    mesh = (("data", data),) + ((("seq", seq),) if seq > 1 else ()) + (
-        (("pipe", pipe),) if pipe > 1 else ())
+    mesh = [("data", data), ("model", model_par)]
+    if seq_par > 1:
+        mesh.append(("seq", seq_par))
+    return get_config("python", pe_dim=32, pegen_dim=64, sbm_enc_dim=128, hidden_size=128,
+                      num_heads=8, num_layers=2, sbm_layers=2, clusters=(4, 4),
+                      dim_feed_forward=256, max_src_len=32 * max(seq_par, 1), max_tgt_len=12,
+                      batch_size=2 * data, tree_pos_width=4, tree_pos_height=8,
+                      mesh_shape=tuple(mesh))
+
+
+def tiny_multiprocess_config(data: int, seq: int = 1, pipe: int = 1, model: int = 1,
+                             **overrides):
+    """The flagship at tiny widths over a ``data`` axis of ``data``
+    processes, two rows each, times a ``model`` axis (the heads split), a
+    ``seq`` axis (the ring) or a ``pipe`` axis (two microbatches) when
+    given."""
+    from csat_tpu_torch.configs import get_config
+
+    mesh = (("data", data),) + ((("model", model),) if model > 1 else ()) + (
+        (("seq", seq),) if seq > 1 else ()) + ((("pipe", pipe),) if pipe > 1 else ())
     kw = dict(pe_dim=32, pegen_dim=64, sbm_enc_dim=128, hidden_size=128, num_heads=8,
               num_layers=2, sbm_layers=2, clusters=(4, 4), dim_feed_forward=256,
               max_src_len=32, max_tgt_len=12, batch_size=2 * data, tree_pos_width=4,
@@ -63,27 +84,29 @@ def random_global_batch(cfg, rows: int, seed: int = 0):
     return collate(arrs, cfg.max_src_len)
 
 
-def _worker(rank: int, world: int, init_file: str, out_dir: str, seq: int, pipe: int) -> None:
+def _worker(rank: int, world: int, init_file: str, out_dir: str, seq: int, pipe: int,
+            model_par: int) -> None:
     import torch
 
     from csat_tpu_torch.data.dataset import batch_to_device
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.parallel import host
-    from csat_tpu_torch.parallel.mesh import broadcast_params, build_mesh
+    from csat_tpu_torch.parallel.mesh import (
+        broadcast_params, build_mesh, gather_params, shard_model)
     from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
     from csat_tpu_torch.train.decode import greedy_decode
 
     torch.set_num_threads(1)
     host.initialize_multihost("gloo", f"file://{init_file}", world, rank)
     try:
-        cfg = tiny_multiprocess_config(world // (seq * pipe), seq, pipe)
+        cfg = tiny_multiprocess_config(world // (seq * pipe * model_par), seq, pipe, model_par)
         mesh = build_mesh(cfg.mesh_shape)
         b = cfg.batch_size // mesh.data
         full = random_global_batch(cfg, cfg.batch_size)
         row0, _ = mesh.rows(b)
         mine = full._replace(**{f: getattr(full, f)[row0:row0 + b] for f in full._fields})
         batch = batch_to_device(mine, torch.device("cpu"))
-        model = CSATrans(cfg, SRC_V, TGT_V, device="cpu", seed=cfg.seed)
+        model = shard_model(CSATrans(cfg, SRC_V, TGT_V, device="cpu", seed=cfg.seed), mesh)
         opt = default_optimizer(cfg)
         state = create_train_state(model, opt, cfg.seed)
         broadcast_params(state.params, mesh)
@@ -91,7 +114,7 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str, seq: int, pipe:
         gen = torch.Generator().manual_seed(0)
         with torch.no_grad():
             toks = greedy_decode(model, batch, gen, mesh.decode_shard(b))
-        flat = torch.cat([p.detach().reshape(-1) for p in state.params.values()])
+        flat = torch.cat([p.reshape(-1) for p in gather_params(state.params, mesh).values()])
         torch.save(flat, os.path.join(out_dir, f"params_{rank}.pt"))
         with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
             json.dump({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
@@ -103,21 +126,22 @@ def _worker(rank: int, world: int, init_file: str, out_dir: str, seq: int, pipe:
 
 
 def dryrun_train_step(n_ranks: int = 2, timeout_s: float = 300.0, seq_par: int = 1,
-                      pipe_par: int = 1) -> Tuple[float, Dict]:
+                      pipe_par: int = 1, model_par: int = 1) -> Tuple[float, Dict]:
     """One train step over ``n_ranks`` gloo processes on the CPU, the data
-    axis taking what a ``seq_par`` / ``pipe_par`` axis leaves → ``(loss,
-    info)``.  Raises when a process fails or hangs past ``timeout_s``, an
-    output is not finite, or the processes' parameters after the step
-    differ."""
+    axis taking what a ``model_par`` / ``seq_par`` / ``pipe_par`` axis
+    leaves → ``(loss, info)``.  Raises when a process fails or hangs past
+    ``timeout_s``, an output is not finite, or the processes' (gathered)
+    parameters after the step differ."""
     import torch
 
-    if n_ranks % (seq_par * pipe_par):
-        raise ValueError(f"{n_ranks} processes cannot hold seq {seq_par} × pipe {pipe_par}")
+    if n_ranks % (seq_par * pipe_par * model_par):
+        raise ValueError(f"{n_ranks} processes cannot hold model {model_par} × seq {seq_par} × "
+                         f"pipe {pipe_par}")
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_worker,
-                             args=(r, n_ranks, init_file, tmp, seq_par, pipe_par))
+                             args=(r, n_ranks, init_file, tmp, seq_par, pipe_par, model_par))
                  for r in range(n_ranks)]
         for p in procs:
             p.start()
@@ -152,8 +176,10 @@ def dryrun_train_step(n_ranks: int = 2, timeout_s: float = 300.0, seq_par: int =
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="one train step over gloo processes on the CPU")
     ap.add_argument("n_ranks", nargs="?", type=int, default=2)
+    ap.add_argument("--model", type=int, default=1,
+                    help="processes on the model axis (tensor parallelism)")
     ap.add_argument("--seq", type=int, default=1, help="processes on the seq axis (the ring)")
     ap.add_argument("--pipe", type=int, default=1, help="processes on the pipe axis (GPipe)")
     a = ap.parse_args()
-    loss, info = dryrun_train_step(a.n_ranks, seq_par=a.seq, pipe_par=a.pipe)
+    loss, info = dryrun_train_step(a.n_ranks, seq_par=a.seq, pipe_par=a.pipe, model_par=a.model)
     print(json.dumps({"loss": loss, **info}))

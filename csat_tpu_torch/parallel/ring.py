@@ -10,8 +10,10 @@ scores outside the sampled graph filled with ``-1e30``.
 
 The Bernoulli draw of every (i, j) pair comes from the counter hash at the
 global (batch·head, row, col) indices (:func:`~csat_tpu_torch.ops.hashrng.
-block_uniform`, ``bh = (b0 + b)·H + h`` with ``b0`` the data coordinate's
-first row), so the sampled graph is the one-process graph bit for bit; the
+block_uniform`, ``bh = (b0 + b)·H + h0 + h`` with ``b0`` the data
+coordinate's first row and ``h0`` the ``model`` coordinate's first head, JAX
+``ring.py:137-139``), so the sampled graph is the one-process graph bit for
+bit — also on a head shard, where the ring runs this member's heads; the
 adjacency ``R K̂ᵀ`` is summed cluster by cluster as the plain path and the
 kernels sum it, and the straight-through estimator enters through
 :func:`~csat_tpu_torch.models.ste.sample_graph`.  Attention dropout is the
@@ -35,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from csat_tpu_torch.ops.hashrng import block_uniform, noise_stride
+from csat_tpu_torch.ops.hashrng import block_uniform, global_bh, noise_stride
 from csat_tpu_torch.ops.mods import exp_adjacency
 from csat_tpu_torch.parallel.collectives import ppermute, psum_axis
 
@@ -59,11 +61,6 @@ def node_block(n: int, axis) -> Tuple[int, int]:
         raise ValueError(f"ring attention needs N ({n}) divisible by the seq axis ({axis.size})")
     nl = n // axis.size
     return axis.index * nl, nl
-
-
-def _bh(b: int, h: int, bh0: int, device) -> torch.Tensor:
-    return (bh0 + torch.arange(b, device=device)[:, None] * h
-            + torch.arange(h, device=device)[None, :])[:, :, None, None]
 
 
 def _step(q, r, k_cur, v_cur, kh_cur, pad_cur, m, l, acc, sseed, dseed, bh, row0: int,
@@ -98,12 +95,12 @@ def _step(q, r, k_cur, v_cur, kh_cur, pad_cur, m, l, acc, sseed, dseed, bh, row0
 
 
 def _ring(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate: float, floor: float,
-          bh0: int):
+          bh0: int, h_total: int = 0):
     b, h, nl, dh = q.shape
     p, my = axis.size, axis.index
     n = nl * p
     row0, stride, scale = my * nl, noise_stride(n), 1.0 / math.sqrt(dh)
-    bh = _bh(b, h, bh0, q.device)
+    bh = global_bh(b, h, q.device, bh0, h_total)
     m = torch.full((b, h, nl, 1), -BIG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, nl, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, nl, dh), dtype=torch.float32, device=q.device)
@@ -137,29 +134,30 @@ def ring_sbm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_hat:
                        k_hat: torch.Tensor, s_aff: torch.Tensor, key_pad: torch.Tensor,
                        sample_seed: torch.Tensor, axis, dropout_rate: float = 0.0,
                        dropout_seed: Optional[torch.Tensor] = None, floor: float = 0.01,
-                       bh0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                       bh0: int = 0, h_total: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ring SBM attention over ``axis`` (the ``seq`` line).  ``q`` / ``k`` /
     ``v`` (B, H, N/P, dh), ``q_hat`` / ``k_hat`` (B, H, N/P, kk) and
     ``key_pad`` (B, N/P) are this process's node rows; ``s_aff`` (H, kk, kk)
     the cluster affinity; ``sample_seed`` / ``dropout_seed`` (1,) int32 hash
-    seeds; ``bh0`` the batch·head offset of this process's batch rows.
+    seeds; ``bh0`` the batch·head offset of this process's batch rows and
+    heads, ``h_total`` the global head count (0: ``H``, no head shard).
     → ``(out (B, H, N/P, dh), graph_sums (B, H))``, ``graph_sums`` the ΣA of
     the whole rows (the same on every process of the line)."""
     r = torch.einsum("bhnk,hkj->bhnj", q_hat, s_aff)
     dseed = dropout_seed if dropout_rate > 0.0 else None
     out, spars = _ring(q, k, v, r, k_hat, key_pad, sample_seed, dseed, axis,
-                       float(dropout_rate), float(floor), bh0)
+                       float(dropout_rate), float(floor), bh0, h_total)
     return out, psum_axis(spars, axis)
 
 
 def ring_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_pad: torch.Tensor, axis, dropout_rate: float = 0.0,
                         dropout_seed: Optional[torch.Tensor] = None,
-                        bh0: int = 0) -> torch.Tensor:
+                        bh0: int = 0, h_total: int = 0) -> torch.Tensor:
     """Ring dense masked attention (the ``full_att`` family) over ``axis``;
     attention dropout from the counter keep-field (JAX ``ring.py:241-263``:
     the distribution of ``nn.Dropout``, another realisation)."""
     dseed = dropout_seed if dropout_rate > 0.0 else None
     out, _ = _ring(q, k, v, None, None, key_pad, None, dseed, axis, float(dropout_rate), 0.0,
-                   bh0)
+                   bh0, h_total)
     return out

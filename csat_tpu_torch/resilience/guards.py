@@ -16,7 +16,7 @@ exhausted raises :class:`TrainingDivergedError`.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -35,14 +35,18 @@ def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def guarded_apply(optimizer, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                  opt_state, total_loss: torch.Tensor, bad_steps: Union[int, torch.Tensor]
+                  opt_state, total_loss: torch.Tensor, bad_steps: Union[int, torch.Tensor],
+                  gnorm: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Apply ``optimizer`` in place only where ``total_loss`` and the grad
     norm are finite, without a host read.  Returns ``(ok, grad_norm,
     bad_steps)``: ``ok`` a 0-d bool tensor, ``bad_steps`` (an int or the
     previous step's tensor on input) a 0-d int32 tensor, ``where(ok, 0,
-    bad_steps + 1)``."""
-    gnorm = global_norm(grads)
+    bad_steps + 1)``.  ``gnorm`` is the grad norm when the caller has it
+    (a tensor-parallel step's, over the whole parameters); default
+    :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     ok = torch.isfinite(total_loss) & torch.isfinite(gnorm)
     optimizer.update(params, grads, opt_state, ok=ok)
     return ok, gnorm, torch.where(ok, 0, bad_steps + 1).to(torch.int32)

@@ -26,10 +26,13 @@ and without a GPU and without ``--device cpu`` it raises.
   EOF drains and exits; SIGTERM / SIGINT stops intake and drains, shedding
   whatever is left after ``--drain_deadline_s``; exit 0 either way.
 
-The JAX command line's replica fleet (``--replicas`` > 1), autoscale, warm
-start, KV tiering, serve meshes, the rectangle layout, SLOs, the network
-front door (``--net``) and ``top`` are not part of the port yet: each is
-refused with a one-line message, never silently ignored.
+``--mesh H`` or ``--mesh 1xH`` (the JAX flag's parsing) serves with ONE
+engine across ``H`` head shards, one visible card each
+(``cfg.serve_mesh_shape``; a data axis above 1 is refused, as JAX refuses
+it).  The JAX command line's replica fleet (``--replicas`` > 1), autoscale,
+warm start, KV tiering, the rectangle layout, SLOs, the network front door
+(``--net``) and ``top`` are not part of the port yet: each is refused with a
+one-line message, never silently ignored.
 """
 
 from __future__ import annotations
@@ -55,7 +58,6 @@ _LATER = {
     "tier_host_pages": "KV tiering",
     "tier_disk_pages": "KV tiering",
     "tier_dir": "KV tiering",
-    "mesh": "mesh serving",
     "kv_layout": "the rectangle layout",
     "slo": "obs/slo.py",
     "net": "the network front door",
@@ -127,7 +129,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--tier_host_pages", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--tier_disk_pages", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--tier_dir", default="", help=argparse.SUPPRESS)
-    p.add_argument("--mesh", default="", help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default="",
+                   help="serve-mesh shape for ONE engine across cards: 'H' or 'DxH' chip "
+                        "counts, e.g. --mesh 2 or --mesh 1x2 — KV pages and paged attention "
+                        "shard across H on the head axis, everything else stays on the "
+                        "first card (default: config serve_mesh_shape, i.e. solo)")
     p.add_argument("--kv_layout", default="", help=argparse.SUPPRESS)
     p.add_argument("--slo", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--net", action="store_true", help=argparse.SUPPRESS)
@@ -178,6 +184,11 @@ def build_engine(args):
             overrides[field] = value
     if args.metrics_every_s > 0:
         overrides["obs_metrics_every_s"] = args.metrics_every_s
+    if args.mesh:
+        try:
+            overrides["serve_mesh_shape"] = tuple(int(s) for s in args.mesh.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--mesh wants 'H' or 'DxH' chip counts, got {args.mesh!r}")
     cfg = cli_config(args.config, overrides)
     device = resolve_device(args.device)
 

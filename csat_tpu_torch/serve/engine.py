@@ -46,9 +46,19 @@ on the engine's clock, with the device-liveness leg when
 traces and the prefix cache are host bookkeeping: a tick that only decodes
 reads the device once.
 
+A serve mesh (``cfg.serve_mesh_shape`` spanning more than one device) puts
+this ONE engine across head shards, as the JAX single controller does
+(``engine.py:268-314``): each shard's KV pages and scales live on its device
+(``mesh_devices``, default every visible card), while the scheduler, the
+allocator, the page tables, the prefix cache, the encoder, the prefill and
+every projection stay single on the engine's device; each layer's head
+outputs are gathered before the replicated output projection.  The paged
+decode kernel runs one block per (slot, head), so each shard runs it
+unchanged on its heads and the tokens are the solo engine's bit for bit.
+
 Unlike the JAX engine, which donates an immutable pool through compiled
-programs, the pool's tensors are updated in place.  Serve meshes, warm start,
-KV tiering and the rectangle layout are not part of this port yet.
+programs, the pool's tensors are updated in place.  Warm start, KV tiering
+and the rectangle layout are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -65,12 +75,13 @@ import torch
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.obs import EventRecorder, Tracer
+from csat_tpu_torch.parallel.mesh import build_serve_mesh, serve_head_shards
 from csat_tpu_torch.resilience.retry import ErrorBudget
 from csat_tpu_torch.resilience.watchdog import StepWatchdog, device_liveness_probe
 from csat_tpu_torch.serve.ingest import PoisonRequestError, validate_sample
 from csat_tpu_torch.serve.pages import (
     KV_PAGE_RATIO, PageAllocator, attach, build_paged_decode_step, init_paged_pool,
-    page_geometry, release)
+    page_geometry, page_sets, release)
 from csat_tpu_torch.serve.prefill import assign_prefill_bucket, paged_prefill, prefill_plan
 from csat_tpu_torch.serve.prefix import PrefixCache, sample_hash
 from csat_tpu_torch.serve.stats import ServeStats
@@ -155,7 +166,9 @@ class ServeEngine:
     the tick watchdog — so drills can run a virtual one.  ``tgt_vocab``
     enables :meth:`words`; ``fault_injector`` (``resilience/faults.py``) is
     consulted at fixed scheduler points; ``watchdog_on_timeout`` replaces the
-    watchdog's default action (exit 76)."""
+    watchdog's default action (exit 76); ``mesh_devices`` gives a serve
+    mesh's head shards their devices, in order (several may share one;
+    default: every visible card, or the engine's device on the CPU)."""
 
     # floor between same-reason post-mortem rewrites, wall seconds
     _POSTMORTEM_MIN_INTERVAL_S = 1.0
@@ -165,7 +178,8 @@ class ServeEngine:
                  clock: Callable[[], float] = time.monotonic,
                  tgt_vocab=None, fault_injector=None,
                  watchdog_on_timeout: Optional[Callable[[], None]] = None,
-                 log: Callable[[str], None] = lambda m: None):
+                 log: Callable[[str], None] = lambda m: None,
+                 mesh_devices: Optional[Sequence] = None):
         t_build0 = time.perf_counter()
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -191,11 +205,24 @@ class ServeEngine:
         self._last_dump_t: Dict[str, float] = {}
         self.fault_injector = fault_injector
 
+        # serve mesh: cfg.validate() pinned a unit data axis; the device
+        # count and the head split are only checkable here
+        self.mesh = None
+        span = math.prod(cfg.serve_mesh_shape) if cfg.serve_mesh_shape else 1
+        if span > 1:
+            if mesh_devices is None and self.device.type != "cuda":
+                mesh_devices = [self.device] * span
+            self.mesh = build_serve_mesh(cfg.serve_mesh_shape, mesh_devices)
+            hs = serve_head_shards(self.mesh)
+            if cfg.num_heads % hs:
+                raise ValueError(f"serve_mesh_shape={cfg.serve_mesh_shape}: num_heads="
+                                 f"{cfg.num_heads} must divide evenly over {hs} head shards")
         self.geo = page_geometry(cfg)
         self._allocator = PageAllocator(self.geo.num_pages)
         self._prefix: Optional[PrefixCache] = (
             PrefixCache(cfg.serve_prefix_cache) if cfg.serve_prefix_cache > 0 else None)
-        self._pool = init_paged_pool(model, self.num_slots, self.geo, cfg.serve_kv_page_dtype)
+        self._pool = init_paged_pool(model, self.num_slots, self.geo, cfg.serve_kv_page_dtype,
+                                     self.mesh)
         # the serving programs, counted as the JAX engine counts its compiled
         # ones (decode, release, attach now; one prefill per occupied bucket
         # at its first use), so the two summaries agree key for key
@@ -578,6 +605,9 @@ class ServeEngine:
     def _sync_page_stats(self) -> None:
         self.stats.set_page_info(self._allocator.usable, self.geo.rect_pages_per_slot,
                                  kv_ratio=KV_PAGE_RATIO[self.cfg.serve_kv_page_dtype])
+        # the devices this engine's pages span (1 solo); every shard holds
+        # every page's heads, so the worst shard's occupancy is the pool's
+        self.stats.mesh_devices = 1 if self.mesh is None else len(self.mesh.devices)
 
     # ---------------- terminal transitions ----------------
 
@@ -712,9 +742,11 @@ class ServeEngine:
         meta = self._slot_meta[slot]
         assert meta is not None, f"nan drill on an empty slot {slot}"
         ids = torch.tensor(meta.self_chain, dtype=torch.long, device=self.device)
-        for e in self._pool.pages:
-            e["k_scale"].index_fill_(0, ids, float("nan"))
-            e["v_scale"].index_fill_(0, ids, float("nan"))
+        for _, _, layers in page_sets(self._pool):
+            at = ids.to(layers[0]["k"].device)
+            for e in layers:
+                e["k_scale"].index_fill_(0, at, float("nan"))
+                e["v_scale"].index_fill_(0, at, float("nan"))
 
     # ---------------- scheduler internals ----------------
 
@@ -958,7 +990,7 @@ class ServeEngine:
             self._prefix.clear()
         self._pool = None
         self._pool = init_paged_pool(self.model, self.num_slots, self.geo,
-                                     self.cfg.serve_kv_page_dtype)
+                                     self.cfg.serve_kv_page_dtype, self.mesh)
         now = self.clock()
         survivors = []
         for req in sorted(inflight, key=lambda r: r.id):

@@ -12,6 +12,14 @@ decode scatter here and at prefill), dequantized on read — by the
 paged-decode kernel from the stored bytes on the card, by the plain gather
 path on the CPU.
 
+Under a serve mesh (``cfg.serve_mesh_shape``, ``parallel/mesh.py:
+build_serve_mesh``) the page arrays are split on the head axis: head shard
+``s`` keeps heads ``[h0, h1)`` of every layer's pages and scales on its own
+device (:attr:`PagedPool.shards`), the page tables and every other slot
+field stay single on the engine's device, and every write lands each
+shard's heads on its device (:func:`page_sets`).  A row's quantization scale
+is per head, so a shard's pages hold the solo pool's bytes for its heads.
+
 Unlike the JAX pool, which is an immutable pytree donated through compiled
 programs, :class:`PagedPool` is updated IN PLACE: the decode step writes
 each token's K/V into its page and advances the slot state on the tensors
@@ -25,7 +33,7 @@ both are a few indexed writes on the pool's tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +45,7 @@ from csat_tpu_torch.utils import BOS, EOS, PAD
 __all__ = [
     "NULL_PAGE", "KV_PAGE_DTYPES", "KV_PAGE_RATIO", "PageGeometry", "page_geometry",
     "PageAllocator", "PagedPool", "chain_table_row", "init_paged_pool", "admit_slot_state",
-    "scrub_pages", "attach", "release", "build_paged_decode_step",
+    "scrub_pages", "attach", "release", "build_paged_decode_step", "page_sets",
 ]
 
 #: ``serve_kv_page_dtype`` → storage dtype of the K/V page arrays
@@ -133,9 +141,12 @@ class PageAllocator:
 
 @dataclasses.dataclass
 class PagedPool:
-    """Device-resident paged slot state, updated in place."""
+    """Device-resident paged slot state, updated in place.  Under a serve
+    mesh ``pages`` is None and ``shards`` holds, per head shard, ``(h0, h1,
+    per-layer pages of heads [h0, h1) on the shard's device)``."""
 
-    pages: List[Dict[str, torch.Tensor]]  # per layer k, v (NP, H, page, dh); k_scale, v_scale (NP, H, page, 1)
+    # per layer k, v (NP, H, page, dh); k_scale, v_scale (NP, H, page, 1)
+    pages: Optional[List[Dict[str, torch.Tensor]]]
     self_pt: torch.Tensor    # (S, SP) int32 — self-KV chain (NULL_PAGE beyond)
     cross_pt: torch.Tensor   # (S, CP) int32 — cross-KV chain
     src_mask: torch.Tensor   # (S, N) bool — True = pad key (all True when free)
@@ -145,6 +156,17 @@ class PagedPool:
     done: torch.Tensor       # (S,) bool — row emitted EOS
     prev_pad: torch.Tensor   # (S, T) bool — pad-ness of decoder inputs so far
     toks: torch.Tensor       # (S, T) int64 — generated ids (PAD beyond pos)
+    shards: Optional[List[Tuple[int, int, List[Dict[str, torch.Tensor]]]]] = None
+
+
+def page_sets(pool: PagedPool) -> List[Tuple[int, Optional[int], List[Dict[str, torch.Tensor]]]]:
+    """``(h0, h1, per-layer pages)`` of each place the pool's pages live: the
+    whole pool (``h1`` None: every head) solo, each head shard under a serve
+    mesh.  A writer stores heads ``[h0, h1)`` of its values into each set, on
+    the set's device."""
+    if pool.shards is None:
+        return [(0, None, pool.pages)]
+    return pool.shards
 
 
 def chain_table_row(chain: Sequence[int], width: int) -> np.ndarray:
@@ -154,12 +176,22 @@ def chain_table_row(chain: Sequence[int], width: int) -> np.ndarray:
 
 
 def init_paged_pool(model, num_slots: int, geo: PageGeometry,
-                    kv_dtype: str = "float32") -> PagedPool:
+                    kv_dtype: str = "float32", mesh=None) -> PagedPool:
     """Every slot frozen (``limit = 0``) with null page tables, the pages
-    stored in ``kv_dtype`` (a ``serve_kv_page_dtype`` name)."""
+    stored in ``kv_dtype`` (a ``serve_kv_page_dtype`` name) — under a serve
+    ``mesh`` split on the head axis over its shards' devices."""
     dev = model.device
+    pages = model.init_page_pool(geo.num_pages, geo.page, KV_PAGE_DTYPES[kv_dtype])
+    shards = None
+    if mesh is not None:
+        from csat_tpu_torch.parallel.mesh import serve_head_shards, serve_pool_shardings
+
+        per = model.cfg.num_heads // serve_head_shards(mesh)
+        shards = [(s * per, (s + 1) * per, layers)
+                  for s, layers in enumerate(serve_pool_shardings(pages, mesh))]
+        pages = None
     return PagedPool(
-        pages=model.init_page_pool(geo.num_pages, geo.page, KV_PAGE_DTYPES[kv_dtype]),
+        pages=pages, shards=shards,
         self_pt=torch.full((num_slots, geo.sp), NULL_PAGE, dtype=torch.int32, device=dev),
         cross_pt=torch.full((num_slots, geo.cp), NULL_PAGE, dtype=torch.int32, device=dev),
         src_mask=torch.ones((num_slots, geo.mem_len), dtype=torch.bool, device=dev),
@@ -202,10 +234,12 @@ def scrub_pages(pool: PagedPool, chains: Sequence[Sequence[int]]) -> None:
     — NaN after a NaN drill — and a masked lane's weight of 0 times a NaN
     still poisons the softmax."""
     scrub = _ids((p for c in chains for p in c), pool.self_pt.device)
-    for e in pool.pages:
-        for key in ("k", "v"):
-            e[key].index_fill_(0, scrub, 0)
-            e[f"{key}_scale"].index_fill_(0, scrub, 1.0)
+    for _, _, layers in page_sets(pool):
+        ids = scrub.to(layers[0]["k"].device)
+        for e in layers:
+            for key in ("k", "v"):
+                e[key].index_fill_(0, ids, 0)
+                e[f"{key}_scale"].index_fill_(0, ids, 1.0)
 
 
 @torch.no_grad()
@@ -253,17 +287,30 @@ def build_paged_decode_step(model, geo: PageGeometry):
     flagging an active row whose log-probs went non-finite."""
     page = geo.page
 
+    def views(e, table, dev, **extra):
+        return {"pages_k": e["k"], "pages_v": e["v"], "scale_k": e["k_scale"],
+                "scale_v": e["v_scale"], "table": table.to(dev), **extra}
+
     @torch.no_grad()
     def step(pool: PagedPool) -> torch.Tensor:
-        caches = [
-            {"self": {"pages_k": e["k"], "pages_v": e["v"], "scale_k": e["k_scale"],
-                      "scale_v": e["v_scale"], "table": pool.self_pt,
-                      "width": geo.steps, "idx": pool.pos},
-             "cross": {"pages_k": e["k"], "pages_v": e["v"], "scale_k": e["k_scale"],
-                       "scale_v": e["v_scale"], "table": pool.cross_pt,
-                       "width": geo.mem_len}}
-            for e in pool.pages
-        ]
+        if pool.shards is None:
+            caches = [
+                {"self": views(e, pool.self_pt, pool.pos.device, width=geo.steps, idx=pool.pos),
+                 "cross": views(e, pool.cross_pt, pool.pos.device, width=geo.mem_len)}
+                for e in pool.pages]
+        else:  # each head shard's pages, tables and positions on its device
+            caches = []
+            for layer in range(len(pool.shards[0][2])):
+                parts = {"self": [], "cross": []}
+                for h0, h1, layers in pool.shards:
+                    e = layers[layer]
+                    dev = e["k"].device
+                    parts["self"].append((h0, h1, views(e, pool.self_pt, dev, width=geo.steps,
+                                                        idx=pool.pos.to(dev))))
+                    parts["cross"].append((h0, h1, views(e, pool.cross_pt, dev,
+                                                         width=geo.mem_len)))
+                caches.append({"self": {"shards": parts["self"]},
+                               "cross": {"shards": parts["cross"]}})
         log_probs, steps = model.decode_step(
             pool.tok, pool.pos, caches, pool.src_mask, pool.prev_pad)
         nxt = torch.argmax(log_probs, dim=-1)                       # (S,)
@@ -278,13 +325,16 @@ def build_paged_decode_step(model, geo: PageGeometry):
         offs = pos % page
         # in place, where the JAX step returns new page arrays; frozen rows
         # all write the null page, whose contents no live lane reads
-        for e, (k_step, v_step) in zip(pool.pages, steps):
-            kq, ks = quantize_kv(k_step[:, :, 0, :], e["k"].dtype)    # (S, H, dh)
-            vq, vs = quantize_kv(v_step[:, :, 0, :], e["v"].dtype)
-            e["k"][page_ids, :, offs, :] = kq
-            e["v"][page_ids, :, offs, :] = vq
-            e["k_scale"][page_ids, :, offs, :] = ks
-            e["v_scale"][page_ids, :, offs, :] = vs
+        for h0, h1, layers in page_sets(pool):
+            dev = layers[0]["k"].device
+            pids, poffs = page_ids.to(dev), offs.to(dev)
+            for e, (k_step, v_step) in zip(layers, steps):
+                kq, ks = quantize_kv(k_step[:, h0:h1, 0, :], e["k"].dtype)    # (S, H, dh)
+                vq, vs = quantize_kv(v_step[:, h0:h1, 0, :], e["v"].dtype)
+                e["k"][pids, :, poffs, :] = kq.to(dev)
+                e["v"][pids, :, poffs, :] = vq.to(dev)
+                e["k_scale"][pids, :, poffs, :] = ks.to(dev)
+                e["v_scale"][pids, :, poffs, :] = vs.to(dev)
 
         t_cap = pool.toks.shape[1]
         ar = torch.arange(t_cap, device=pos.device)[None, :]

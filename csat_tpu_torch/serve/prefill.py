@@ -20,7 +20,7 @@ from csat_tpu_torch.data.bucketing import src_bucket_ladder
 from csat_tpu_torch.data.dataset import Batch, batch_to_device, collate
 from csat_tpu_torch.ops.paged_decode import quantize_kv
 from csat_tpu_torch.serve.pages import (
-    PagedPool, PageGeometry, admit_slot_state, chain_table_row, scrub_pages)
+    PagedPool, PageGeometry, admit_slot_state, chain_table_row, page_sets, scrub_pages)
 from csat_tpu_torch.utils import PAD
 
 __all__ = ["PrefillSpec", "prefill_plan", "assign_prefill_bucket", "collate_requests",
@@ -92,11 +92,15 @@ def paged_prefill(model, cfg: Config, geo: PageGeometry, pool: PagedPool, n: int
 
     flat_cross = torch.tensor([p for c in cross_chains for p in c], dtype=torch.long, device=dev)
     scrub_pages(pool, self_chains)
-    for e, kv in zip(pool.pages, cross):
-        for key in ("k", "v"):
-            vals, scale = quantize_kv(paginate(kv[key]), e[key].dtype)
-            e[key][flat_cross] = vals
-            e[f"{key}_scale"][flat_cross] = scale
+    # under a serve mesh each head shard's heads go to its device
+    for h0, h1, layers in page_sets(pool):
+        at = layers[0]["k"].device
+        ids = flat_cross.to(at)
+        for e, kv in zip(layers, cross):
+            for key in ("k", "v"):
+                vals, scale = quantize_kv(paginate(kv[key][:, h0:h1]), e[key].dtype)
+                e[key][ids] = vals.to(at)
+                e[f"{key}_scale"][ids] = scale.to(at)
 
     ids = torch.tensor(slot_ids, dtype=torch.long, device=dev)
     pool.self_pt[ids] = torch.from_numpy(

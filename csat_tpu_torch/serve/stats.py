@@ -17,8 +17,10 @@ Every counter is backed by a registry metric (the attribute surface reads
 and writes through descriptors), so the same numbers are scrapeable as
 Prometheus text (:meth:`prometheus`, byte for byte the JAX package's for the
 same calls) and streamable as JSONL snapshots.  The counters of parts the
-port does not serve with — KV tiering, serve meshes, warm start, the
-network front door — stay at zero (``mesh_devices`` reads 1).
+port does not serve with — KV tiering, warm start, the network front
+door — stay at zero.  ``mesh_devices`` is the span of the engine's serve
+mesh (1 solo) and ``kv_pages_worst_chip`` the heaviest shard's pages, every
+shard holding every allocated page's heads.
 """
 
 from __future__ import annotations
@@ -120,7 +122,7 @@ _METRICS = {
                   "high-water KV pages in use"),
     "pages_in_use": ("gauge", "serve_kv_pages_in_use",
                      "KV pages in use at the last tick sample"),
-    # mesh-sharded serving (zero in the port)
+    # mesh-sharded serving (the engine's head shards)
     "mesh_devices": ("gauge", "serve_mesh_devices",
                      "devices the engine's serve mesh spans (1 = solo)"),
     "pages_worst_chip": ("gauge", "serve_kv_pages_in_use_worst_chip",

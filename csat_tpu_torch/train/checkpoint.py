@@ -14,10 +14,18 @@ marker (``resilience/preemption.py``, re-exported here): which epoch was in
 flight, how many of its iterations the state contains, and the batch plan
 that count addresses.  ``Trainer.fit(resume=...)`` replays that epoch's
 deterministic batch sequence and skips the completed iterations.
+
+Under a ``model`` axis a process holds its shards of the parameters and
+moments: :func:`whole_state` gathers them over the ``model`` line (every
+member makes the call), so the file holds whole arrays, exactly what one
+process writes — a tensor-parallel checkpoint restores into one process and
+serves solo — and ``restore_state(..., mesh=...)`` cuts a file back to this
+process's shards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Callable, Dict, Optional, Tuple
@@ -30,9 +38,9 @@ from csat_tpu_torch.resilience.preemption import (
 from csat_tpu_torch.resilience.retry import retry
 from csat_tpu_torch.train.state import TrainState
 
-__all__ = ["save_state", "restore_state", "latest_step", "restore_latest", "save_params",
-           "restore_params", "make_checkpoint_fn", "Preempted", "preempt_dir", "snapshot_step",
-           "write_resume_marker", "read_resume_marker"]
+__all__ = ["whole_state", "save_state", "restore_state", "latest_step", "restore_latest",
+           "save_params", "restore_params", "make_checkpoint_fn", "Preempted", "preempt_dir",
+           "snapshot_step", "write_resume_marker", "read_resume_marker"]
 
 MAX_TO_KEEP = 3
 _STATE_RE = re.compile(r"state_(\d+)\.pt$")
@@ -55,6 +63,22 @@ def _state_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"state_{int(step)}.pt")
 
 
+def whole_state(state: TrainState, mesh=None) -> TrainState:
+    """``state`` with its parameters and AdamW moments whole: gathered over
+    ``mesh``'s ``model`` line (a collective: each member makes the call), or
+    ``state`` itself without a ``model`` axis.  The step, the count and the
+    generator are the state's own."""
+    from csat_tpu_torch.parallel.mesh import gather_params, model_axis
+
+    if model_axis(mesh) is None:
+        return state
+    opt = state.opt_state
+    return TrainState(step=state.step, params=gather_params(state.params, mesh),
+                      opt_state=dataclasses.replace(opt, mu=gather_params(opt.mu, mesh),
+                                                    nu=gather_params(opt.nu, mesh)),
+                      generator=state.generator)
+
+
 def save_state(directory: str, state: TrainState, step: int) -> None:
     """Write ``state`` as step ``step`` of ``directory``; drop all but the
     :data:`MAX_TO_KEEP` newest steps."""
@@ -72,24 +96,31 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_state(directory: str, state: TrainState, step: Optional[int] = None) -> TrainState:
+def restore_state(directory: str, state: TrainState, step: Optional[int] = None,
+                  mesh=None) -> TrainState:
     """Load step ``step`` (default: the newest) into ``state`` in place —
-    parameter names and shapes must match — and return it."""
+    parameter names and shapes must match, after the whole arrays are cut
+    to this process's shards of ``mesh``'s ``model`` axis — and return
+    it."""
+    from csat_tpu_torch.parallel.mesh import shard_params
+
     step = latest_step(directory) if step is None else step
     assert step is not None, f"no checkpoints under {directory}"
     blob = torch.load(_state_path(directory, step), map_location="cpu", weights_only=True)
     missing = set(state.params) ^ set(blob["params"])
     if missing:
         raise KeyError(f"checkpoint and model disagree on parameters: {sorted(missing)}")
+    if mesh is not None:
+        blob.update({key: shard_params(blob[key], mesh) for key in ("params", "mu", "nu")})
     return restore_snapshot(HostSnapshot(**blob), state)
 
 
-def restore_latest(directory: str, state: TrainState,
-                   step: Optional[int] = None) -> Tuple[TrainState, int]:
+def restore_latest(directory: str, state: TrainState, step: Optional[int] = None,
+                   mesh=None) -> Tuple[TrainState, int]:
     """→ ``(state, epoch)`` from the newest checkpoint (the resume surface)."""
     step = latest_step(directory) if step is None else step
     assert step is not None, f"no checkpoints under {directory}"
-    return restore_state(directory, state, step), step
+    return restore_state(directory, state, step, mesh), step
 
 
 def save_params(directory: str, params: Dict[str, torch.Tensor],

@@ -18,6 +18,9 @@ batches decode at their bucket's capacity.
 
 JAX runs this decode as plain XLA code outside any Pallas kernel, so it is
 plain PyTorch here (the paged-decode kernel belongs to the serving engine).
+Under a ``model`` axis every member decodes the same rows in lockstep, each
+with its heads' caches; the row-parallel sums give every member the same
+log-probabilities, so the same tokens.
 The encoder under it runs the flex-attention kernels on the card: the CSE
 forward and, per ``cfg.eval_graph``, the expected- or sampled-graph SBM
 forward.
@@ -69,7 +72,9 @@ def _greedy(model, batch: Batch, gen: Optional[torch.Generator], early_eos: bool
     b, dev = memory.shape[0], memory.device
     src_mask = batch.src_seq == PAD
     cfg = model.cfg
-    shape = (b, cfg.num_heads, steps, cfg.hidden_size // cfg.num_heads)
+    # this process's heads (all of them but under a model axis)
+    heads = model.decoder.layers[0].self_attn.local_heads
+    shape = (b, heads, steps, cfg.hidden_size // cfg.num_heads)
     caches = []
     for layer in model.decoder.layers:
         kv = layer.cross_attn.project_kv(memory)

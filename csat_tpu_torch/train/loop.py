@@ -38,7 +38,12 @@ trainer's program cache and AOT warm-up have no counterpart.  Its mesh's
 (``parallel/mesh.py``): each process of the group steps on its own shard of
 every epoch, the gradients are summed in the step, the validation decode is
 sharded and its sums reduced, and rank 0 alone writes checkpoints, the
-scalar log and the resume marker, with barriers around them.
+scalar log and the resume marker, with barriers around them.  Under a
+``model`` axis each process holds its shard of the parameters
+(``parallel.mesh.shard_model``); checkpoints and the best parameters are
+gathered whole over the ``model`` line before rank 0 writes them, so a
+state file is what one process writes, and a restore cuts it back to this
+process's shard.
 """
 
 from __future__ import annotations
@@ -66,16 +71,18 @@ from csat_tpu_torch.models import CSATrans
 from csat_tpu_torch.obs import EventRecorder, MetricsFile, MetricsRegistry, write_chrome_trace
 from csat_tpu_torch.parallel import host
 from csat_tpu_torch.parallel.mesh import (
-    DATA_AXIS, Mesh, allreduce_grads, allreduce_sums, broadcast_params, build_mesh)
+    DATA_AXIS, Mesh, allreduce_grads, allreduce_sums, broadcast_params, build_mesh,
+    gather_params, global_grad_norm, shard_model, shard_params)
 from csat_tpu_torch.resilience.guards import (
-    TrainingDivergedError, global_norm, guarded_apply, host_snapshot, restore_snapshot)
+    TrainingDivergedError, guarded_apply, host_snapshot, restore_snapshot)
 from csat_tpu_torch.resilience.preemption import (
     Preempted, PreemptionHandler, abort_barrier, coordinated_trigger, preempt_dir,
     read_resume_marker, snapshot_step, write_resume_marker)
 from csat_tpu_torch.resilience.retry import ErrorBudget, retry
 from csat_tpu_torch.resilience.watchdog import StepWatchdog, device_liveness_probe
 from csat_tpu_torch.train.checkpoint import (
-    latest_step, restore_latest, restore_params, restore_state, save_params, save_state)
+    latest_step, restore_latest, restore_params, restore_state, save_params, save_state,
+    whole_state)
 from csat_tpu_torch.train.decode import decode_fn
 from csat_tpu_torch.train.loss import label_smoothing_loss
 from csat_tpu_torch.train.optimizer import AdamW
@@ -128,7 +135,16 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: Config,
     (the CSE, the decoder) gets its gradient once and one computed on a
     shard (a ring block, a stage's layers) gets the shards' sum; the
     metrics are summed over the data axis only.  Over gloo a card's
-    point-to-point hops go through the host."""
+    point-to-point hops go through the host.
+
+    Tensor parallelism (the mesh's ``model`` axis; ``model`` carries its
+    shards, ``parallel.mesh.shard_model``): the members of a ``model`` line
+    pass the same rows and each holds the whole loss; a shard's gradient is
+    summed over the processes holding that shard, a replicated parameter's
+    is whole on every member already, and one a member applies to its own
+    heads only is summed over every process (``allreduce_grads``); the
+    grad-norm counts each shard and each replicated parameter once
+    (``global_grad_norm``), so the guard decides alike everywhere."""
     mesh = mesh if mesh is not None else build_mesh(cfg.mesh_shape)
 
     def train_step(state: TrainState, batch: Batch, bad_steps=0,
@@ -148,17 +164,18 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, cfg: Config,
             if p.grad is None:  # a pipeline stage's blocks on the other stages
                 p.grad = torch.zeros_like(p)
         grads = {k: p.grad for k, p in state.params.items()}
-        allreduce_grads(list(grads.values()), mesh)
+        allreduce_grads(grads, mesh)
         nll, sparsity, total = allreduce_sums(
             torch.stack([nll.detach(), sparsity.detach(), total.detach()]), mesh)
         metrics = {"loss": nll, "sparsity": sparsity, "total": total}
+        gnorm = global_grad_norm(grads, mesh)
         if cfg.nonfinite_guard:
             ok, gnorm, bad = guarded_apply(optimizer, state.params, grads, state.opt_state,
-                                           total, bad_steps)
+                                           total, bad_steps, gnorm)
             metrics.update(grad_norm=gnorm, nonfinite=~ok, bad_steps=bad)
         else:
             optimizer.update(state.params, grads, state.opt_state)
-            metrics.update(grad_norm=global_norm(grads))
+            metrics.update(grad_norm=gnorm)
         state.step += 1
         return state, metrics
 
@@ -403,6 +420,8 @@ class Trainer:
         # the triplet table is sized by the dictionary on disk, as in JAX
         self.model = make_model(cfg, self.src_vocab.size(), self.tgt_vocab.size(),
                                 triplet_dictionary(cfg)[1], device=self.device)
+        # under a model axis this process keeps its shards of the parameters
+        shard_model(self.model, self.mesh)
         self.optimizer = default_optimizer(cfg)
         self.train_step = make_train_step(self.model, self.optimizer, cfg, self.mesh)
         self.decode_fn = decode_fn(self.model)
@@ -460,7 +479,7 @@ class Trainer:
         """A fresh train state; under data parallelism every process starts
         from rank 0's parameters, checked equal to its own."""
         if self.initial_params is not None:
-            self.model.load_state_dict(self.initial_params, strict=True)
+            self.model.load_state_dict(shard_params(self.initial_params, self.mesh), strict=True)
         state = create_train_state(self.model, self.optimizer, self.cfg.seed)
         broadcast_params(state.params, self.mesh)
         n_params = sum(p.numel() for p in state.params.values())
@@ -500,6 +519,7 @@ class Trainer:
         self.log(f"preemption: saving synchronous snapshot (epoch {epoch}, {it_done} "
                  f"iterations done) under {ck_dir} [abort sync: {synced}]")
         self.obs.emit("fault.preemption", epoch=epoch, it_done=it_done, abort_sync=synced)
+        state = whole_state(state, self.mesh)
         if self.primary:
             with self.obs.span("train.checkpoint"):
                 retry(save_state, preempt_dir(ck_dir), state, snapshot_step(epoch, it_done),
@@ -524,12 +544,12 @@ class Trainer:
                     f"resume marker was written under batch plan {marker.get('plan')!r} "
                     f"but this run uses {self._plan_id()!r}; restore a boundary "
                     "checkpoint or rerun with the original bucketing config")
-            state = restore_state(preempt_dir(ckpt_dir), state, marker["step"])
+            state = restore_state(preempt_dir(ckpt_dir), state, marker["step"], self.mesh)
             self.log(f"resumed mid-epoch {marker['epoch']} after "
                      f"{marker['iterations_done']} iterations (preemption snapshot, {ckpt_dir})")
             return state, marker["epoch"], marker["iterations_done"], True
         if found is not None:
-            state, done_epoch = restore_latest(ckpt_dir, state, found)
+            state, done_epoch = restore_latest(ckpt_dir, state, found, self.mesh)
             self.log(f"resumed from epoch {done_epoch} ({ckpt_dir})")
             return state, done_epoch + 1, 0, True
         self.log(f"no checkpoint under {ckpt_dir}; starting fresh")
@@ -793,8 +813,8 @@ class Trainer:
                     self._scalar(epoch=epoch, val_bleu=bleu)
                     if bleu > history["best_bleu"]:
                         history["best_bleu"] = bleu
-                        best_params = {k: p.detach().to("cpu", copy=True)
-                                       for k, p in state.params.items()}
+                        best_params = {k: p.detach().to("cpu", copy=True) for k, p in
+                                       gather_params(state.params, self.mesh).items()}
                         if checkpoint_fn is not None and self.primary:
                             # persist the best immediately so a later kill +
                             # resume keeps it
@@ -803,9 +823,10 @@ class Trainer:
                                 json.dump({"bleu": bleu, "epoch": epoch}, f)
                     msg += f" val_bleu={bleu:.4f}"
                 if checkpoint_fn is not None and epoch % cfg.save_interval == 0:
+                    whole = whole_state(state, self.mesh)
                     if self.primary:
                         with obs.span("train.checkpoint"):
-                            checkpoint_fn(state, epoch)
+                            checkpoint_fn(whole, epoch)
                     host.barrier()  # every process resumes from what rank 0 wrote
                 self.log(msg)
                 if self.metrics_file is not None:
@@ -820,5 +841,6 @@ class Trainer:
             # best_model is still the winner
             best_params = restore_params(self.output_dir)
         history["best_params"] = best_params if best_params is not None else {
-            k: p.detach().to("cpu", copy=True) for k, p in state.params.items()}
+            k: p.detach().to("cpu", copy=True)
+            for k, p in gather_params(state.params, self.mesh).items()}
         return state, history

@@ -31,8 +31,8 @@ join bounded).
 * the command line under ``torchrun --standalone`` with two CPU processes:
   rank 0 alone prints the scores and writes the checkpoint;
 * the mesh: ``-1`` fills the process count, a mismatch is refused, a
-  ``model`` axis above 1 is refused naming the next parallel slice, and
-  ``python_pp`` builds (the ``seq`` / ``pipe`` axes: test_torch_ring.py,
+  ``model`` axis is accepted but refused under a pipe axis or over heads it
+  does not divide, and ``python_pp`` builds (the ``seq`` / ``pipe`` axes: test_torch_ring.py,
   test_torch_pipeline.py);
 * the data-parallel dry run (``parallel/dryrun.py``) over 2 gloo ranks.
 """
@@ -213,36 +213,40 @@ def test_build_mesh_fills_and_refuses_without_a_group():
 
 @pytest.mark.parametrize("axis", [("model", 2), ("model", -1)])
 def test_unported_axes_are_refused(axis):
-    """A ``model`` axis (tensor parallelism) is still refused, with the
-    narrowed message; the ``seq`` and ``pipe`` axes run (test_torch_ring.py,
-    test_torch_pipeline.py)."""
-    from csat_tpu_torch.configs import NEXT_PARALLEL_SLICE, get_config
+    """A ``model`` axis runs now (tests/test_torch_tensor.py); what JAX
+    refuses around it is refused: a ``model`` axis under a pipeline
+    (``("model", 2)``: with ``python_pp``'s pipe axis), and a head count the
+    axis does not divide (``("model", -1)`` stands for the filled axis of
+    three processes: 8 heads over 3)."""
+    from csat_tpu_torch.configs import get_config
 
-    over = dict(mesh_shape=(("data", -1 if axis[1] != -1 else 1), axis))
-    with pytest.raises(NotImplementedError, match="next parallel slice") as err:
-        get_config("python", **over)
-    assert NEXT_PARALLEL_SLICE in str(err.value) and "'model' axis" in str(err.value)
-    assert "'seq'" in NEXT_PARALLEL_SLICE and "'pipe' axes" in NEXT_PARALLEL_SLICE
+    if axis[1] == 2:
+        with pytest.raises(ValueError, match="composes with the 'data' mesh axis only"):
+            get_config("python_pp", mesh_shape=(("data", 1), ("pipe", 2), axis))
+    else:
+        with pytest.raises(ValueError, match="num_heads=8 must divide evenly"):
+            get_config("python", mesh_shape=(("data", 1), ("model", 3)))
+        # the filled axis is checked where its size is known: at the mesh
+        assert get_config("python", mesh_shape=(("data", 1), axis)).mesh_shape[1] == axis
 
 
 def test_python_pp_is_refused():
     """``python_pp`` is no longer refused: the registry builds it with the
-    JAX entry's pipeline fields.  What is still refused is a ``model`` axis
-    given with ``--set``, with its one line by both command lines (and an
-    unknown config name)."""
+    JAX entry's pipeline fields.  A ``model`` axis given with ``--set`` is
+    accepted by both command lines' config (the train CLI then asks for
+    the processes the mesh needs), and an unknown config name is refused."""
     from csat_tpu_torch.cli import main
-    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.configs import cli_config, get_config
 
     cfg = get_config("python_pp")
     assert (cfg.mesh_shape, cfg.pipeline_stages, cfg.pipeline_microbatches) == (
         (("data", -1), ("pipe", 2)), 2, 4)
-    model_axis = "mesh_shape=(('data', 1), ('model', 2))"
-    for argv in (["--config", "python_long", "--device", "cpu", "--set", model_axis],
-                 ["--config", "python", "--device", "cpu", "--set", model_axis],
-                 ["summarize", "--config", "python_long", "--device", "cpu", "--set", model_axis],
-                 ["summarize", "--config", "python", "--device", "cpu", "--set", model_axis]):
-        with pytest.raises(SystemExit, match="next parallel slice"):
-            main(argv)
+    model_axis = (("data", 1), ("model", 2))
+    for name in ("python_long", "python"):
+        assert dict(cli_config(name, {"mesh_shape": model_axis}).mesh_shape)["model"] == 2
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            main(["--config", name, "--device", "cpu", "--data_dir", "/nonexistent",
+                  "--set", f"mesh_shape={model_axis!r}"])
     with pytest.raises(SystemExit, match="unknown config"):
         main(["summarize", "--config", "no_such", "--device", "cpu"])
 

@@ -243,14 +243,21 @@ def test_serve_loop_in_process_malformed_lines_and_stop(served_ckpt, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--net"], ["--replicas", "2"], ["--autoscale"], ["--slo"],
-                                  ["--tiering"], ["--warmstart"], ["--mesh", "1x4"],
+                                  ["--tiering"], ["--warmstart"], ["--mesh", "2x2"],
                                   ["--kv_layout", "rect"]])
 def test_later_slice_flags_refused(served_ckpt, flag):
+    """Each flag of a later slice is refused naming itself; ``--mesh`` is
+    ported, and a mesh with a data axis above 1 is refused by the config's
+    rule (JAX's ``serve_mesh_shape`` assert) with its one line."""
     from csat_tpu_torch.serve import cli
 
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", *_base(served_ckpt), *flag])
-    assert "not part of the port yet" in str(info.value) and flag[0] in str(info.value)
+    if flag[0] == "--mesh":
+        assert "serve_mesh_shape (2, 2)" in str(info.value)
+        assert "leading (data) axis must be 1" in str(info.value)
+    else:
+        assert "not part of the port yet" in str(info.value) and flag[0] in str(info.value)
 
 
 def test_cli_raises_without_cuda_unless_cpu_is_asked(served_ckpt, monkeypatch):
