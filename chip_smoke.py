@@ -200,8 +200,29 @@ Phases, each printing JSON lines:
    ``cuda:0``, at f32 and at bf16 compute with int8 pages — tokens and
    statuses equal to the solo engine's bit for bit, prefix hits, no leak,
    K5 launched once per shard for each solo launch;
-15. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-14 by path, its error,
+15. ``storage`` — the serving engine's storage, on the flagship at full
+   width: (a) KV tiering — the ``serving`` trace on a pool of half the slots'
+   worst case with a 16-page host tier over a disk tier, against a
+   never-tiered engine on the same pool: warm both, spill the tiered warm
+   set, replay — tokens and statuses equal bit for bit, restores, demotions
+   and disk entries > 0, every restored chain's pages gathered again equal
+   to its spilled bytes, no page or chain leaked, one device read per
+   decode-only tick; then every snapshot corrupted — each restore a
+   ``digest_mismatch``, the requests re-prefilled, the tokens still equal;
+   at f32 and at int8 pages, and an f32 engine over the int8 engine's disk
+   tier refusing every snapshot (``dtype_mismatch``); restore p95, spill ms
+   and bytes per chain; (b) the same on a ``(1, 2)`` serve mesh, both shards
+   on ``cuda:0``: every spilled payload and the replay's tokens equal to the
+   solo engine's; (c) the trace through the rect layout (prefix cache 0):
+   tokens equal to the paged engine's up to a near tie, bit-equality to its
+   plain and K5 routes printed, the rect pool's KV bytes beside the paged
+   pool's peak; (d) warm start in four fresh processes over one store — cold
+   (``absent`` misses, ``nvcc`` builds and saves), warm (hits, no ``nvcc``),
+   corrupted entries (``digest_mismatch``, rebuilt), ``CSAT_TPU_NO_CACHE=1``
+   (``disabled``) — 8 requests each, tokens equal across the four, the
+   engine's start wall cold and warm;
+16. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-15 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -356,6 +377,13 @@ PATH_KERNELS = {
     "tensor_tp_seq": ("flex_fwd_cse",),
     **{f"tensor_serve_{pages}": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
        for pages in ("float32", "int8")},
+    # the storage phase: tiered engines (prefill K1 / K2 for misses and
+    # re-prefills, K5 over restored chains too), alone and on a serve mesh;
+    # the rect layout (prefill K1 / K2, a plain decode); warm-start processes
+    **{path: ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
+       for path in ("storage_tier_float32", "storage_tier_int8", "storage_mesh",
+                    "storage_warm")},
+    "storage_rect": ("flex_fwd_cse", "flex_fwd_sbm_expected"),
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -5223,6 +5251,477 @@ def tensor_phase(card: str = "") -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving engine's storage — KV tiers, the rect layout, warm start
+# ---------------------------------------------------------------------------
+
+#: the host tier's budget in pages: a few chains, the rest demote to disk
+STORAGE_HOST_PAGES = 16
+#: requests each warm-start process serves, and its time limit
+WARM_REQUESTS = 8
+WARM_TIMEOUT_S = 300.0
+
+
+def tier_cfg(page_dtype: str, tier_dir: str, overrides=None):
+    """The flagship with KV tiering on a pool of half the slots' worst case
+    (``1 + slots · rect_pages_per_slot // 2``, JAX's ``tier_pair``), a host
+    tier of ``STORAGE_HOST_PAGES`` and its disk tier in ``tier_dir``."""
+    from csat_tpu_torch.serve.pages import page_geometry
+
+    cfg = flagship().replace(serve_kv_page_dtype=page_dtype, serve_tiering=True,
+                             serve_tier_host_pages=STORAGE_HOST_PAGES, serve_tier_dir=tier_dir,
+                             obs_postmortem_dir="", **(overrides or {}))
+    geo = page_geometry(cfg)
+    return cfg.replace(serve_num_pages=1 + cfg.serve_slots * geo.rect_pages_per_slot // 2)
+
+
+class SpillLog:
+    """Records the payload of every snapshot an engine puts into its tiers,
+    by content hash (a chain's bytes never change while it lives)."""
+
+    def __init__(self, engine):
+        self.payloads = {}
+        inner = engine._tiers.put
+
+        def put(key, payload, meta):
+            self.payloads[key] = payload
+            return inner(key, payload, meta)
+
+        engine._tiers.put = put
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str):
+    """Time every call of ``owner.name`` while the block runs: yields the
+    list of host-wall seconds, one entry a call."""
+    inner, own = getattr(owner, name), name in vars(owner)
+    times = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    setattr(owner, name, timed)
+    try:
+        yield times
+    finally:
+        if own:
+            setattr(owner, name, inner)
+        else:
+            delattr(owner, name)
+
+
+def _ms(times) -> dict:
+    ms = [1e3 * t for t in times] or [0.0]
+    return dict(calls=len(times), mean=float(np.mean(ms)), p95=float(np.percentile(ms, 95)))
+
+
+def restored_bytes(engine, spilled) -> tuple:
+    """Every cached chain that was once spilled, gathered again: ``(chains
+    compared, hashes whose bytes differ from the spilled payload)``."""
+    from csat_tpu_torch.serve.engine import _host_array
+    from csat_tpu_torch.serve.pages import tier_gather
+
+    n, bad = 0, []
+    for key, entry in engine._prefix._entries.items():
+        if key in spilled:
+            vals, scales = tier_gather(engine._pool, entry.chain)
+            n += 1
+            if _host_array(vals).tobytes() + scales.cpu().numpy().tobytes() != spilled[key]:
+                bad.append(key.hex()[:12])
+    return n, bad
+
+
+def _equal_runs(a, b) -> bool:
+    """Statuses and tokens of two runs of one trace equal, bit for bit."""
+    return ([r.status for r in a["results"]] == [r.status for r in b["results"]]
+            and all(np.array_equal(x.tokens, y.tokens) for x, y in zip(a["results"], b["results"])))
+
+
+def _quiescent(engine, label: str) -> None:
+    if engine.occupancy or engine.queue_depth or engine.page_leaks() or engine.chain_leaks():
+        raise AssertionError(f"{label}: {engine.page_leaks()} pages, {engine.chain_leaks()} "
+                             f"chains leaked ({engine.occupancy} live, {engine.queue_depth} queued)")
+
+
+def _miss_reasons(engine) -> list:
+    return [f["reason"] for _, name, _, f in engine.obs.events() if name == "tier.restore_miss"]
+
+
+def tier_drill(page_dtype: str, tmp: str, card: str = "", device: str = "cuda",
+               overrides=None, cross_dtype: bool = False) -> dict:
+    """(a) The ``serving`` trace on the tight tiered pool against a
+    never-tiered engine on the same pool and weights: warm both, spill the
+    tiered engine's whole warm set (host tier, then disk), replay — tokens
+    and statuses equal to the never-tiered engine's bit for bit, restores,
+    demotions and disk entries > 0, every restored chain's pages gathered
+    again equal to its spilled bytes, no leak, one device read on each tick
+    that only decodes (the card); then every snapshot corrupted: every
+    restore a ``digest_mismatch`` miss, the requests re-prefilled, the tokens
+    still equal, no leak.  ``cross_dtype`` (int8 pages) adds an f32 engine
+    that adopts the int8 engine's disk tier: every restore a
+    ``dtype_mismatch``.  Readings: restore p95 ms, spill ms per chain,
+    bytes per spilled chain.  ``device`` and ``overrides`` serve the CPU
+    rehearsal."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import ServeEngine
+    from csat_tpu_torch.serve import engine as engine_module
+
+    cfg = tier_cfg(page_dtype, os.path.join(tmp, f"tiers_{page_dtype}"), overrides)
+    trace = serving_trace(cfg)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    plain = ServeEngine(model, cfg.replace(serve_tiering=False), device=device)
+    tiered = ServeEngine(model, cfg, device=device)
+    spills = SpillLog(tiered)
+    label = f"storage tiers ({page_dtype} pages)"
+    build.reset_launches()
+    with flex_launches() as launched:
+        ref = drive_trace(plain, trace)
+        warm = drive_trace(tiered, trace, count_syncs=device == "cuda")
+        warm_restores = tiered._tiers.restores
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spilled = tiered.spill_all()
+        spill_s = time.perf_counter() - t0
+        after_spill = dict(chains=spilled, entries=len(tiered._tiers),
+                           host_pages=tiered._tiers.host_pages_in_use,
+                           disk_pages=tiered._tiers.disk_pages_in_use,
+                           disk_files=len([f for f in os.listdir(cfg.serve_tier_dir)
+                                           if f.endswith(".kvp")]),
+                           demotions=tiered._tiers.demotions)
+        r0 = tiered._tiers.restores
+        # the restore's parts: the store's get (index, disk read, digest)
+        # and the writes into the pool (host wall: the copies are queued)
+        with timed_calls(tiered._tiers, "get") as gets, \
+                timed_calls(engine_module, "tier_restore") as writes:
+            replay = drive_trace(tiered, trace)
+        restores = tiered._tiers.restores - r0
+        restore_ms = [1e3 * t for t in tiered.stats.tier_restore_s]
+        compared, bad_bytes = restored_bytes(tiered, spills.payloads)
+        _quiescent(tiered, label)
+        tiered.spill_all()
+        corrupted = tiered.corrupt_tiers()
+        m0, p0 = tiered._tiers.restore_misses, tiered.prefills
+        corrupt = drive_trace(tiered, trace)
+        corrupt_misses = tiered._tiers.restore_misses - m0
+        reprefills = tiered.prefills - p0
+    counts = build.launch_counts()
+    for name, run in (("never-tiered", ref), ("tiered warm", warm), ("replay", replay),
+                      ("corrupt replay", corrupt)):
+        if not all(r.ok for r in run["results"]):
+            raise AssertionError(f"{label}, {name}: requests not OK")
+    reasons = sorted(set(_miss_reasons(tiered)))
+    checks = dict(warm_equal=_equal_runs(ref, warm), replay_equal=_equal_runs(ref, replay),
+                  corrupt_equal=_equal_runs(ref, corrupt))
+    if not (all(checks.values()) and restores > 0 and after_spill["demotions"] > 0
+            and after_spill["disk_files"] > 0 and compared > 0 and not bad_bytes
+            and corrupted > 0 and corrupt_misses > 0 and reasons == ["digest_mismatch"]
+            and reprefills > 0):
+        raise AssertionError(f"{label}: {checks}, restores {restores}, {after_spill}, restored "
+                             f"chains compared {compared}, bytes differ {bad_bytes}, corrupted "
+                             f"{corrupted}, misses {corrupt_misses} {reasons}, re-prefills "
+                             f"{reprefills}")
+    _quiescent(tiered, label)
+    reads = reads_per_tick(warm["ticks"]) if device == "cuda" else None
+    sizes = [len(p) for p in spills.payloads.values()]
+    rec = dict(card=card, page_dtype=page_dtype, requests=len(trace["samples"]),
+               repeats=SERVING_REPEATS, num_pages=cfg.serve_num_pages,
+               host_tier_pages=STORAGE_HOST_PAGES, tokens_and_statuses_equal=True,
+               tokens=sum(len(r.tokens) for r in replay["results"]),
+               restores_in_warm_run=warm_restores, spilled_chains=spilled, after_spill=after_spill,
+               restores=restores, restored_chains_bytes_equal=compared,
+               corrupted_entries=corrupted, corrupt_misses=corrupt_misses,
+               corrupt_miss_reasons=reasons, reprefills=reprefills, page_leaks=0, chain_leaks=0,
+               restore_p95_ms=float(np.percentile(restore_ms, 95)),
+               restore_ms_mean=float(np.mean(restore_ms)),
+               restore_get_ms=_ms(gets), restore_write_ms=_ms(writes),
+               spill_ms_per_chain=1e3 * spill_s / max(spilled, 1),
+               bytes_per_spilled_chain=float(np.mean(sizes)), reads=reads,
+               drain_wall_s=dict(never_tiered=ref["wall"], warm=warm["wall"],
+                                 replay=replay["wall"], corrupt=corrupt["wall"]),
+               launches={fn: c for fn, c in counts.items() if c})
+    _check_launched(f"storage_tier_{page_dtype}", counts)
+    _check_rates(f"storage_tier_{page_dtype}", launched)
+    if cross_dtype:
+        rec["cross_dtype"] = cross_dtype_drill(model, cfg, tiered, trace, device)
+    plain.close()
+    tiered.close()
+    emit(f"storage_tier_{page_dtype}", **rec)
+    rec["model"], rec["spilled"], rec["replay"] = model, spills.payloads, replay
+    return rec
+
+
+def cross_dtype_drill(model, cfg, source, trace, device: str) -> dict:
+    """An f32-page engine over the int8 engine's disk tier (it adopts the
+    int8 engine's index: the store keeps its index in memory): every restore
+    of an int8 snapshot must be a ``dtype_mismatch`` and a re-prefill."""
+    from csat_tpu_torch.serve import ServeEngine
+
+    source.spill_all()
+    f32 = ServeEngine(model, cfg.replace(serve_kv_page_dtype="float32"), device=device)
+    f32._tiers._disk.update(source._tiers._disk)
+    f32._tiers.disk_pages_in_use = source._tiers.disk_pages_in_use
+    adopted = len(source._tiers._disk)
+    run = drive_trace(f32, trace)
+    reasons = _miss_reasons(f32)
+    ok = all(r.ok for r in run["results"])
+    if not (adopted and ok and reasons and set(reasons) == {"dtype_mismatch"}):
+        raise AssertionError(f"int8 snapshots into an f32 pool: {adopted} adopted, all OK {ok}, "
+                             f"misses {reasons}")
+    _quiescent(f32, "int8 snapshots into an f32 pool")
+    f32.close()
+    return dict(adopted_disk_entries=adopted, misses=len(reasons), reasons=["dtype_mismatch"])
+
+
+def tier_mesh(solo: dict, tmp: str, card: str = "", device: str = "cuda",
+              overrides=None) -> dict:
+    """(b) The same tiered drill on a ``(1, 2)`` serve mesh, both head
+    shards on the engine's device: every chain's spilled payload equal to the
+    solo tiered engine's byte for byte (the gather joins the shards' heads),
+    the replay's tokens and statuses equal to the solo replay's bit for bit."""
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import ServeEngine
+
+    cfg = tier_cfg("float32", os.path.join(tmp, "tiers_mesh"), overrides).replace(
+        serve_mesh_shape=(1, 2))
+    trace = serving_trace(cfg)
+    shard_devices = [f"{device}:0" if device == "cuda" else device] * 2
+    engine = ServeEngine(solo["model"], cfg, device=device, mesh_devices=shard_devices)
+    spills = SpillLog(engine)
+    build.reset_launches()
+    with flex_launches() as launched:
+        drive_trace(engine, trace)
+        engine.spill_all()
+        r0 = engine._tiers.restores
+        replay = drive_trace(engine, trace)
+    counts = build.launch_counts()
+    restores = engine._tiers.restores - r0
+    common = set(spills.payloads) & set(solo["spilled"])
+    differ = [k.hex()[:12] for k in common if spills.payloads[k] != solo["spilled"][k]]
+    equal = _equal_runs(solo["replay"], replay)
+    if not (equal and common and not differ and restores > 0
+            and set(spills.payloads) <= set(solo["spilled"])):
+        raise AssertionError(f"storage mesh: replay equal {equal}, payloads compared "
+                             f"{len(common)}, differ {differ}, restores {restores}")
+    _quiescent(engine, "storage mesh")
+    _check_launched("storage_mesh", counts)
+    _check_rates("storage_mesh", launched)
+    rec = dict(card=card, serve_mesh_shape=[1, 2], devices=shard_devices,
+               payloads_compared=len(common), payloads_equal=True, restores=restores,
+               replay_tokens_and_statuses_equal=True, page_leaks=0, chain_leaks=0,
+               launches={fn: c for fn, c in counts.items() if c})
+    engine.close()
+    emit("storage_mesh", **rec)
+    return rec
+
+
+def rect_ab(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(c) The ``serving`` trace through the rect layout (prefix cache 0, as
+    JAX's A/B) against the paged engine: tokens equal to the paged engine's
+    K5 route up to a near tie (the rect run's top-2 log-prob gaps, below
+    ``TIE_MARGIN``); whether they are bit-equal to the paged plain route's
+    and to the K5 route's is printed.  The rect decode reads its
+    rectangles through plain attention: K1 and K2 launch, K5 must not.
+    Reading: the rect pool's KV bytes against the paged pool's peak."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import ServeEngine
+
+    cfg = flagship().replace(obs_postmortem_dir="", **(overrides or {}))
+    trace = serving_trace(cfg)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    paged = ServeEngine(model, cfg, device=device)
+    k5 = drive_trace(paged, trace)
+    peak_pages = int(paged.stats.page_peak)
+    with plain_route():
+        plain = drive_trace(paged, trace)
+    e = paged._pool.pages[0]
+    page_bytes = len(paged._pool.pages) * 2 * (e["k"][0].numel() * e["k"].element_size()
+                                                + e["k_scale"][0].numel() * 4)
+    paged.close()
+    log = MarginLog(model)
+    rect = ServeEngine(model, cfg.replace(serve_kv_layout="rect", serve_prefix_cache=0),
+                       device=device, clock=lambda: len(log.calls))
+    build.reset_launches()
+    try:
+        with flex_launches() as launched:
+            run = drive_trace(rect, trace)
+    finally:
+        del model.decode_step  # MarginLog's wrapper off again
+    counts = build.launch_counts()
+    if not all(r.ok for r in run["results"]) or counts["paged_decode"]:
+        raise AssertionError(f"storage rect: requests not OK or K5 launched "
+                             f"({counts['paged_decode']})")
+    ties, compared = compare_tokens(k5["results"], dict(results=run["results"], log=log),
+                                    "storage rect against the paged K5 route")
+    _quiescent(rect, "storage rect")
+    _check_launched("storage_rect", counts)
+    _check_rates("storage_rect", launched)
+    rect_bytes = sum(t.numel() * t.element_size() for c in rect._pool.cache for t in c.values())
+    rec = dict(card=card, requests=len(trace["samples"]), prefix_cache=0,
+               tokens_equal_up_to_tie=True, near_ties=ties, tokens_compared=compared,
+               tie_margin=TIE_MARGIN,
+               bit_equal_paged_plain=_equal_runs(run, plain), bit_equal_paged_k5=_equal_runs(run, k5),
+               rect_kv_bytes=rect_bytes, paged_peak_pages=peak_pages,
+               paged_peak_kv_bytes=peak_pages * page_bytes,
+               drain_wall_s=dict(rect=run["wall"], paged_k5=k5["wall"], paged_plain=plain["wall"]),
+               launches={fn: c for fn, c in counts.items() if c})
+    rect.close()
+    emit("storage_rect", **rec)
+    return rec
+
+
+def warm_leg(store: str, out: str, kernels: str) -> None:
+    """One process of (d): the flagship engine with ``serve_warmstart`` over
+    ``store``, building and loading its libraries in the directory
+    ``kernels``, serves ``WARM_REQUESTS`` requests; writes the
+    libraries' provenance, the libraries ``nvcc`` built (counted by wrapping
+    the build call), the engine's start wall, tokens, statuses and launches
+    to ``out``."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.BUILD_DIR = Path(kernels)
+    built = []
+    inner = build._nvcc_build
+
+    def counted(todo):
+        built.extend(todo)
+        return inner(todo)
+
+    build._nvcc_build = counted
+    cfg = flagship().replace(serve_warmstart=True, serve_warmstart_dir=store,
+                             obs_postmortem_dir="")
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device="cuda", seed=SEED)
+    samples, budgets = make_requests(cfg, WARM_REQUESTS)
+    build.reset_launches()
+    with flex_launches() as launched:
+        engine = ServeEngine(model, cfg, device="cuda")
+        ids = [engine.submit(x, b) for x, b in zip(samples, budgets)]
+        engine.drain()
+        torch.cuda.synchronize()
+    results = [engine.poll(i) for i in ids]
+    with open(out, "w") as f:
+        json.dump(dict(
+            provenance=engine.warmstart_provenance, built=sorted(built),
+            cold_start_s=engine.stats.cold_start_s, hits=int(engine.stats.warmstart_hits),
+            misses=int(engine.stats.warmstart_misses),
+            events=[name for _, name, _, _ in engine.obs.events() if name.startswith("warmstart")],
+            statuses=[r.status for r in results],
+            tokens=[[] if r.tokens is None else r.tokens.tolist() for r in results],
+            launches=build.launch_counts(), flex=[list(x) for x in launched]), f)
+    engine.close()
+
+
+def warm_start_drill(card: str = "") -> dict:
+    """(d) Warm start in fresh processes over one temporary store, each with
+    its own empty kernel directory: cold — every library an ``absent`` miss,
+    built by ``nvcc`` and saved; warm — every library a hit, ``nvcc`` never
+    runs; the entries corrupted — ``digest_mismatch`` misses and a rebuild;
+    ``CSAT_TPU_NO_CACHE=1`` — ``disabled``, and a build, since no store is
+    asked and the kernel directory is empty.  Each serves the same requests,
+    and the tokens must be equal bit for bit across the four.  Reading: the
+    engine's start wall in each."""
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve.warmstart import WarmStartStore
+
+    tmp = tempfile.mkdtemp(prefix="csat_warm_")
+    store = os.path.join(tmp, "store")
+    libs = sorted(build.SERVE_LIBRARIES)
+
+    def start(leg: str, kernels: str, extra_env=None):
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        env.pop("CSAT_TPU_NO_CACHE", None)
+        env.update(extra_env or {})
+        out = os.path.join(tmp, f"{leg}.json")
+        kdir = os.path.join(tmp, kernels)
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as c; c.warm_leg({store!r}, {out!r}, {kdir!r})"],
+            cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return leg, out, proc
+
+    def finish(started) -> dict:
+        leg, out, proc = started
+        try:
+            log, _ = proc.communicate(timeout=WARM_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"warm-start {leg} process passed {WARM_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"warm-start {leg} process exited {proc.returncode}:\n"
+                                 f"{log[-3000:]}")
+        with open(out) as f:
+            return json.load(f)
+
+    try:
+        legs = {"cold": finish(start("cold", "kernels_cold"))}
+        legs["warm"] = finish(start("warm", "kernels_warm"))
+        corrupted = WarmStartStore(store).corrupt_entries()
+        pending = [start("corrupt", "kernels_corrupt"),
+                   start("disabled", "kernels_disabled", {"CSAT_TPU_NO_CACHE": "1"})]
+        legs.update((p[0], finish(p)) for p in pending)
+        entries = len(WarmStartStore(store).entries())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = dict(cold=("absent", libs), warm=("hit", []), corrupt=("digest_mismatch", libs),
+                disabled=("disabled", libs))
+    for leg, (prov, built) in want.items():
+        got = legs[leg]
+        if (got["provenance"] != {lib: prov for lib in libs} or got["built"] != built
+                or any(s != "OK" for s in got["statuses"])):
+            raise AssertionError(f"warm-start {leg}: provenance {got['provenance']}, nvcc built "
+                                 f"{got['built']}, statuses {got['statuses']} (want {prov}, "
+                                 f"{built}, all OK)")
+        if got["tokens"] != legs["cold"]["tokens"]:
+            raise AssertionError(f"warm-start {leg}: tokens differ from the cold process's")
+    if corrupted != len(libs) or entries != len(libs):
+        raise AssertionError(f"warm-start store: {corrupted} entries corrupted, {entries} kept")
+    counts = {fn: sum(leg["launches"][fn] for leg in legs.values()) for fn in build.KERNELS}
+    _check_launched("storage_warm", counts)
+    _check_rates("storage_warm", [tuple(x) for leg in legs.values() for x in leg["flex"]])
+    rec = dict(card=card, requests=WARM_REQUESTS, libraries=libs,
+               provenance={leg: got["provenance"] for leg, got in legs.items()},
+               nvcc_built={leg: got["built"] for leg, got in legs.items()},
+               start_wall_s={leg: got["cold_start_s"] for leg, got in legs.items()},
+               hits_misses={leg: [got["hits"], got["misses"]] for leg, got in legs.items()},
+               events={leg: got["events"] for leg, got in legs.items()},
+               tokens_equal=True, corrupted_entries=corrupted,
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("storage_warm", **rec)
+    return rec
+
+
+def storage_phase(card: str = "") -> dict:
+    """Phase 15: (a) KV tiering at f32 and int8 pages (int8 snapshots also
+    refused by an f32 pool), (b) tiering on a ``(1, 2)`` serve mesh, (c) the
+    rect layout against the paged one, (d) warm start in fresh processes."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="csat_storage_")
+    try:
+        f32 = tier_drill("float32", tmp, card)
+        i8 = tier_drill("int8", tmp, card, cross_dtype=True)
+        mesh = tier_mesh(f32, tmp, card)
+        del f32["model"], i8["model"]
+        rect = rect_ab(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    warm = warm_start_drill(card)
+    recs = {"storage_tier_float32": f32, "storage_tier_int8": i8, "storage_mesh": mesh,
+            "storage_rect": rect, "storage_warm": warm}
+    emit("storage", seconds=time.perf_counter() - t0, paths=list(recs))
+    return {"launches": {path: rec["launches"] for path, rec in recs.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5252,13 +5751,14 @@ def main(argv=None) -> int:
     long_ast = long_ast_phase(args.profile)
     parallel = parallel_phase()
     tensor = tensor_phase(smi)
+    storage = storage_phase(smi)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],
-               **parallel["launches"], **tensor["launches"]}
+               **parallel["launches"], **tensor["launches"], **storage["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

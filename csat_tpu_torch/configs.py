@@ -18,13 +18,15 @@ layer and SBM block recomputed in the backward), ``seq_impl`` (the ring over
 a ``seq`` axis, ``parallel/ring.py``), the pipeline's ``pipeline_stages`` /
 ``pipeline_microbatches`` (GPipe over a ``pipe`` axis,
 ``parallel/pipeline.py``) and ``serve_mesh_shape`` (one serving engine
-across head shards), validated by the JAX rules.  Fields that only
+across head shards), validated by the JAX rules, and the serving engine's
+storage (``serve_kv_layout``: the paged pool or the per-slot rectangles;
+``serve_tiering`` and its host / disk tiers below the page pool;
+``serve_warmstart``: the kernel library store).  Fields that only
 select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
 ``flex_bwd``), telemetry of parts the port does not carry yet
 (SLOs, calibration, the bench history) or serving features outside this port
-(KV tiering, the rectangle layout — so ``serve_kv_layout``, paged being the
-port's only layout —, warm start, fleets, autoscale and the network front
-door) are absent, and so is ``param_dtype``, which the JAX
+(fleets, autoscale and the network front door) are absent, and so is
+``param_dtype``, which the JAX
 package declares but reads nowhere (its master weights are f32 whatever it
 says): the port picks kernel or plain path by the device a tensor lies on,
 and a field it never reads is not one it pretends to honour.
@@ -162,7 +164,7 @@ class Config:
     pipeline_microbatches: int = 0
     # one serving engine across devices: () or (h,) head shards, or (1, h) —
     # (data, head) axis sizes, the data axis 1; the KV pages split on the
-    # head axis (the paged layout, the port's only one)
+    # head axis (the paged layout only)
     serve_mesh_shape: Tuple[int, ...] = ()
     # recompute each CSE layer and SBM block in the backward instead of
     # keeping its activations (torch.utils.checkpoint): the long-AST memory
@@ -180,9 +182,28 @@ class Config:
     init_scheme: str = "flax"
     # storage dtype of the paged KV pool: "float32", "bfloat16" or "int8"
     # (rows quantized on write with an f32 per-row scale, dequantized on
-    # read); the paged layout, which quantized pages require, is the port's
-    # only one
+    # read); anything but f32 requires the paged layout
     serve_kv_page_dtype: str = "float32"
+    # KV layout of the serving pool: "paged" (block pages through per-slot
+    # page tables, serve/pages.py) or "rect" (one (S, H, T, dh) self and
+    # (S, H, N, dh) cross rectangle per layer, serve/slots.py: the paged
+    # layout's A/B reference, bit-identical on deterministic configs)
+    serve_kv_layout: str = "paged"
+    # warm start (serve/warmstart.py): the built kernel libraries are kept,
+    # digest-verified, in a store under the cache root, and a later engine
+    # loads them instead of running nvcc; "" = <cache root>/warmstart
+    # (CSAT_TPU_NO_CACHE disables the store regardless)
+    serve_warmstart: bool = False
+    serve_warmstart_dir: str = ""
+    # tiered KV page store (serve/tiering.py): evicted prefix-cache chains
+    # spill to host RAM and on to a digest-verified disk tier, and a later
+    # identical admission restores them into fresh pages.  Requires the
+    # paged layout and a prefix cache.  Budgets in KV pages (0 = unbounded);
+    # the disk directory "" = <output_dir>/kv_tiers (unwritable: host only)
+    serve_tiering: bool = False
+    serve_tier_host_pages: int = 0
+    serve_tier_disk_pages: int = 0
+    serve_tier_dir: str = ""
     # cross-request prefix cache (serve/prefix.py): entries mapping a content
     # hash of a request's encoder input to a refcounted cross-KV page chain,
     # so an identical resubmission skips prefill and shares the pages; 0 = off
@@ -251,6 +272,12 @@ class Config:
         assert self.num_heads % 2 == 0, "CSE splits heads into L and T halves"
         assert len(self.clusters) == self.sbm_layers
         assert self.serve_slots >= 1, self.serve_slots
+        assert self.serve_kv_layout in ("paged", "rect"), self.serve_kv_layout
+        if self.serve_kv_page_dtype != "float32":
+            # quantized storage exists only in the paged pool: the
+            # rectangles have no scale arrays
+            assert self.serve_kv_layout == "paged", (
+                "serve_kv_page_dtype != 'float32' requires serve_kv_layout='paged'")
         assert self.serve_page_size >= 1, self.serve_page_size
         assert self.serve_num_pages >= 0, self.serve_num_pages
         assert self.serve_prefill_budget >= 0, self.serve_prefill_budget
@@ -270,6 +297,15 @@ class Config:
         assert self.serve_brownout_max_new_tokens >= 0, (
             self.serve_brownout_max_new_tokens)
         assert self.serve_retry_after_s >= 0, self.serve_retry_after_s
+        assert self.serve_tier_host_pages >= 0, self.serve_tier_host_pages
+        assert self.serve_tier_disk_pages >= 0, self.serve_tier_disk_pages
+        if self.serve_tiering:
+            # tier keys are prefix-cache content hashes and payloads are
+            # page snapshots: tiering without both has nothing to spill
+            assert self.serve_kv_layout == "paged", (
+                "serve_tiering requires serve_kv_layout='paged'")
+            assert self.serve_prefix_cache > 0, (
+                "serve_tiering requires a prefix cache (serve_prefix_cache > 0)")
         assert len(self.serve_mesh_shape) <= 2, (
             f"serve_mesh_shape {self.serve_mesh_shape}: at most (data, head) axis sizes")
         assert all(s >= 1 for s in self.serve_mesh_shape), self.serve_mesh_shape
@@ -282,6 +318,10 @@ class Config:
             assert self.serve_mesh_shape[0] == 1, (
                 f"serve_mesh_shape {self.serve_mesh_shape}: the leading (data) axis must be "
                 "1 — only the head axis shards")
+        if mesh_devs > 1:
+            assert self.serve_kv_layout == "paged", (
+                "serve_mesh_shape spanning >1 device requires serve_kv_layout='paged' (page "
+                "arrays shard on the head axis; the rect pool has no sharded layout)")
         assert self.obs_traces >= 0, self.obs_traces
         assert self.obs_trace_slowest >= 0, self.obs_trace_slowest
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens

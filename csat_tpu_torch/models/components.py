@@ -45,7 +45,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from csat_tpu_torch.ops.hashrng import KeyedStream
-from csat_tpu_torch.ops.paged_decode import paged_attend
+from csat_tpu_torch.ops.paged_decode import paged_attend, rect_attend
 from csat_tpu_torch.parallel.collectives import (
     copy_to_model, gather_features, reduce_from_model, scatter_features)
 from csat_tpu_torch.utils import PAD
@@ -426,7 +426,12 @@ def _paged(cache: Dict, q: torch.Tensor, mask: torch.Tensor,
     self attention merging the current token) → (S, H, 1, dh) f32.  A serve
     mesh's views (``cache["shards"]``: ``(h0, h1, views)`` per head shard)
     attend each shard's heads on its device; the head outputs are gathered
-    back on ``q``'s before the replicated output projection."""
+    back on ``q``'s before the replicated output projection.  The rectangle
+    layout's views (``cache["k"]`` / ``cache["v"]``, ``serve/slots.py``) go
+    through the plain rectangle read."""
+    if "k" in cache:
+        return rect_attend(q, cache["k"], cache["v"], mask, idx=cache.get("idx"), k_tok=k,
+                           v_tok=v)
     if "shards" not in cache:
         return paged_attend(q, cache["pages_k"], cache["pages_v"], cache["scale_k"],
                             cache["scale_v"], cache["table"], mask, cache["width"],

@@ -2,11 +2,17 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use
 by ``nvcc`` into its own shared library under ``build/kernels/`` at the
-repository root (listed in ``.gitignore``), then loaded with ``ctypes``.  The
-libraries are keyed by a hash of their source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  All sources compile in parallel,
-one ``nvcc`` process each.
+repository root (listed in ``.gitignore``; :data:`BUILD_DIR`),
+then loaded with ``ctypes``.  The libraries are keyed by a hash of their
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  All sources compile in
+parallel, one ``nvcc`` process each.
+
+Warm start (``serve/warmstart.py``): :func:`load_library` given a store asks
+it first.  A hit writes the digest-verified bytes to the build path
+atomically and loads them, with no ``nvcc`` run; a miss builds as above,
+then saves the library.  :data:`PROVENANCE` records how each library of the
+process was loaded (``"hit"``, a miss reason, or ``"off"`` without a store).
 
 Nothing here runs at import time: the CPU path never needs ``nvcc``.
 """
@@ -15,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -23,8 +30,9 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = [
-    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "build_dir", "library_path", "check_head_dim",
-    "load_library", "build_all", "kernel", "launch", "launch_counts", "reset_launches",
+    "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "SERVE_LIBRARIES", "PROVENANCE", "build_dir",
+    "library_path", "check_head_dim", "load_library", "build_all", "kernel", "launch",
+    "launch_counts", "reset_launches", "store_fields",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -49,6 +57,9 @@ KERNELS: Dict[str, str] = {
     "flex_bwd_k_sbm_expected": "flex_bwd_tc",
     "paged_decode": "paged_decode",
 }
+
+#: the libraries a serving engine launches: K1 and K2 at prefill, K5 at decode
+SERVE_LIBRARIES = ("flex_fwd_tc", "paged_decode")
 
 #: every kernel → the TPU (Pallas) kernel of the JAX package it replaces
 REPLACES: Dict[str, str] = {
@@ -110,10 +121,17 @@ _ARGTYPES = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOG: Dict[str, str] = {}
+#: library → how this process loaded it: "hit" (from the warm-start store),
+#: a miss reason (built, then saved), or "off" (no store asked)
+PROVENANCE: Dict[str, str] = {}
+
+
+#: where the libraries are built and loaded from
+BUILD_DIR = _REPO / "build" / "kernels"
 
 
 def build_dir() -> Path:
-    return _REPO / "build" / "kernels"
+    return BUILD_DIR
 
 
 def _nvcc() -> str:
@@ -124,13 +142,47 @@ def _nvcc() -> str:
     return found
 
 
+def _source_digest(name: str) -> str:
+    """sha256 over library ``name``'s source, the shared headers and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    return hashlib.sha256(
+        SOURCES[name].read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
 def library_path(name: str) -> Path:
     """Where library ``name`` is built (it exists after :func:`build_all`)."""
-    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"lib{name}_{digest}.so"
+    return build_dir() / f"lib{name}_{_source_digest(name)[:16]}.so"
+
+
+def _nvcc_version() -> str:
+    """The toolkit's version from its ``version.json`` beside ``bin/nvcc``
+    (read, not run: a warm start runs no ``nvcc``), else ``nvcc --version``'s
+    last line, else ``"absent"``."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    meta = Path(nvcc).resolve().parents[1] / "version.json"
+    try:
+        return json.loads(meta.read_text())["cuda_nvcc"]["version"]
+    except (OSError, ValueError, KeyError, TypeError):
+        pass
+    if not os.path.exists(nvcc):
+        return "absent"
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
+    return out.strip().splitlines()[-1] if out.strip() else "unknown"
+
+
+def store_fields(name: str) -> Dict[str, str]:
+    """The warm-start key of library ``name``: its source digest, the flags,
+    the toolchain (``nvcc``, torch and its CUDA, the card's compute
+    capability) and the git rev — everything that shapes the binary."""
+    import torch
+
+    from csat_tpu_torch.serve.warmstart import git_rev
+
+    cap = (".".join(map(str, torch.cuda.get_device_capability(0)))
+           if torch.cuda.is_available() else "none")
+    return {"source": _source_digest(name), "flags": " ".join(NVCC_FLAGS), "git": git_rev(),
+            "toolchain": f"nvcc {_nvcc_version()} / torch {torch.__version__} / "
+                         f"cuda {torch.version.cuda} / sm {cap}"}
 
 
 def build_all(names: Optional[List[str]] = None) -> float:
@@ -140,37 +192,68 @@ def build_all(names: Optional[List[str]] = None) -> float:
     todo = [n for n in names if not library_path(n).exists()]
     t0 = time.perf_counter()
     if todo:
-        build_dir().mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        for n in todo:
-            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-            procs[n] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failed = []
-        for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            BUILD_LOG[n] = out
-            if proc.returncode != 0:
-                failed.append(f"{n}:\n{out}")
-            else:
-                os.replace(tmp, library_path(n))
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        _nvcc_build(todo)
     return time.perf_counter() - t0
 
 
-def load_library(name: str) -> ctypes.CDLL:
+def _nvcc_build(todo: List[str]) -> None:
+    """One ``nvcc`` process for each library of ``todo``, all at once."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[n] = out
+        if proc.returncode != 0:
+            failed.append(f"{n}:\n{out}")
+        else:
+            os.replace(tmp, library_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def _restore(name: str, payload: bytes) -> None:
+    """Write a store hit's verified bytes to the build path, atomically."""
+    path = library_path(name)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(payload)
+    os.replace(tmp, path)
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(path))
+
+
+def load_library(name: str, store=None) -> ctypes.CDLL:
+    """Library ``name``, loaded once per process.  With a warm-start
+    ``store`` (``serve/warmstart.py:WarmStartStore``) a first load asks it
+    before building and saves what it built on a miss; its outcome lands in
+    :data:`PROVENANCE`."""
     lib = _LIBS.get(name)
     if lib is None:
+        reason = "off"
+        if store is not None:
+            fields = store_fields(name)
+            payload, reason = store.load(name, fields)
+            if payload is not None:
+                _restore(name, payload)
         build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        if store is not None and reason != "hit":
+            store.save(name, fields, library_path(name).read_bytes())
+        lib = _open(library_path(name))
         for fn, lib_name in KERNELS.items():
             if lib_name == name:
                 getattr(lib, fn).argtypes = _ARGTYPES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
+        PROVENANCE[name] = reason
     return lib
 
 

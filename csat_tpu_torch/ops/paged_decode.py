@@ -27,7 +27,7 @@ from csat_tpu_torch.ops import build
 from csat_tpu_torch.ops.flex_core import check_cuda, select_impl
 
 __all__ = ["NULL_PAGE", "NEG_INF", "quantize_kv", "dequantize_kv", "paged_attend",
-           "reference_page_skip"]
+           "reference_page_skip", "rect_attend"]
 
 #: Reserved page id 0: never allocated; target of unallocated table entries
 #: and of frozen rows' dead writes.
@@ -93,6 +93,19 @@ def _attend_reference(q, pages_k, pages_v, scale_k, scale_v, table, mask, width,
     v = dequantize_kv(_gather(pages_v, table, width), _gather(scale_v, table, width))
     out = _finalize(q, k, v, mask, idx, k_tok, v_tok)
     return out, reference_page_skip(table, q.shape[1])
+
+
+def rect_attend(q, k, v, mask, *, idx=None, k_tok=None, v_tok=None) -> torch.Tensor:
+    """One decode step of attention over per-slot rectangles ``k``/``v`` (S,
+    H, width, dh) — the rectangle layout's read (``serve/slots.py``), the
+    paged plain path's arithmetic in f32 without the table walk; ``idx`` /
+    ``k_tok`` / ``v_tok`` merge the current token as :func:`paged_attend`
+    does.  Plain PyTorch on every device: the JAX rect engine reads through
+    its XLA reference path, not the paged kernel.  → (S, H, 1, dh) f32."""
+    f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
+    if idx is not None:
+        idx = idx.to(torch.int32).contiguous()
+    return _finalize(f32(q), f32(k), f32(v), mask, idx, f32(k_tok), f32(v_tok))
 
 
 def kernel_args(q, pages_k, pages_v, scale_k, scale_v, table, mask, width,

@@ -34,15 +34,19 @@ tick:
 * **decode fault** — the decode dispatch raises on a chosen tick,
   exercising the bounded rebuild-and-resubmit;
 * **poison sample** — :meth:`poison_sample` malforms a request payload,
-  exercising the submit-time quarantine.
+  exercising the submit-time quarantine;
+* **spill storm** — a chosen tick force-spills every unreferenced prefix-cache
+  chain down the KV tiers (``ServeEngine.spill_all``), the whole warm set
+  evicted at once;
+* **corrupt tier** — a chosen tick flips payload bytes in every tiered
+  snapshot (``ServeEngine.corrupt_tiers``), so the next restores must fail
+  their digest check and re-prefill.
 
 Step ordinals are global train-step attempts (0-based, counted by the
 Trainer across epochs within one ``fit`` call); batch ordinals count batches
 produced by the training iterator; tick ordinals count engine ticks and
 prefill ordinals prefill calls (both 0-based).  All are deterministic for a
 fixed config and trace, which is what makes the drills' assertions exact.
-The JAX package's KV-tier faults (spill storms, corrupt tiers) wait for the
-port's tiering.
 """
 
 from __future__ import annotations
@@ -78,6 +82,8 @@ class FaultInjector:
         serve_hang_at_tick: Optional[int] = None,
         serve_wedge_slots: Collection[tuple] = (),
         serve_decode_fail_ticks: Collection[int] = (),
+        serve_spill_storm_ticks: Collection[int] = (),
+        serve_corrupt_tier_ticks: Collection[int] = (),
     ) -> None:
         self.nan_loss_steps = frozenset(int(s) for s in nan_loss_steps)
         self.spike_steps = frozenset(int(s) for s in spike_steps)
@@ -98,6 +104,9 @@ class FaultInjector:
         self.serve_hang_at_tick = serve_hang_at_tick
         self.serve_wedge_slots = {int(t): int(s) for t, s in serve_wedge_slots}
         self.serve_decode_fail_ticks = frozenset(int(t) for t in serve_decode_fail_ticks)
+        # KV tier faults: tick ordinals
+        self.serve_spill_storm_ticks = frozenset(int(t) for t in serve_spill_storm_ticks)
+        self.serve_corrupt_tier_ticks = frozenset(int(t) for t in serve_corrupt_tier_ticks)
         # optional flight recorder (obs/events.py): the trainer attaches its
         # own, so every fired fault is stamped into the SAME timeline the
         # post-mortem dumps — a drill's dump shows cause next to effect
@@ -165,6 +174,25 @@ class FaultInjector:
         if self.serve_hang_at_tick is not None and tick == self.serve_hang_at_tick:
             self._note("hang_tick", tick=tick, seconds=self.hang_seconds)
             self._sleep(self.hang_seconds)
+
+    def spill_storm(self, tick: int) -> bool:
+        """Should this tick force-spill every unreferenced prefix-cache
+        entry down the tiers (``ServeEngine.spill_all``)?  A page-pressure
+        storm evicting the whole warm set at once."""
+        if tick in self.serve_spill_storm_ticks:
+            self._note("spill_storm", tick=tick)
+            return True
+        return False
+
+    def corrupt_tier(self, tick: int) -> bool:
+        """Should this tick corrupt every tiered snapshot
+        (``ServeEngine.corrupt_tiers``)?  Bit rot or torn writes in the host
+        and disk tiers: later restores must degrade to a re-prefill through
+        the digest check, never write garbage into the pool."""
+        if tick in self.serve_corrupt_tier_ticks:
+            self._note("corrupt_tier_restore", tick=tick)
+            return True
+        return False
 
     def maybe_fail_prefill(self, call_ordinal: int) -> None:
         """Raise on the configured prefill call ordinals — a device fault

@@ -29,10 +29,16 @@ and without a GPU and without ``--device cpu`` it raises.
 ``--mesh H`` or ``--mesh 1xH`` (the JAX flag's parsing) serves with ONE
 engine across ``H`` head shards, one visible card each
 (``cfg.serve_mesh_shape``; a data axis above 1 is refused, as JAX refuses
-it).  The JAX command line's replica fleet (``--replicas`` > 1), autoscale,
-warm start, KV tiering, the rectangle layout, SLOs, the network front door
-(``--net``) and ``top`` are not part of the port yet: each is refused with a
-one-line message, never silently ignored.
+it).  The serving engine's storage takes the JAX flags: ``--kv_layout rect``
+(the per-slot rectangles, ``serve/slots.py``), ``--tiering`` with
+``--tier_host_pages`` / ``--tier_disk_pages`` / ``--tier_dir`` (KV tiers
+below the page pool, ``serve/tiering.py``) and ``--warmstart`` (the kernel
+library store, ``serve/warmstart.py``); a combination the config's rules
+refuse (tiering without a prefix cache, rect under a mesh) exits with its
+one line.  The JAX command line's replica fleet (``--replicas`` > 1),
+autoscale, SLOs, the network front door (``--net``) and ``top`` are not part
+of the port yet: each is refused with a one-line message, never silently
+ignored.
 """
 
 from __future__ import annotations
@@ -53,12 +59,6 @@ _LATER = {
     "autoscale": "the fleet's autoscale",
     "min_replicas": "the fleet's autoscale",
     "max_replicas": "the fleet's autoscale",
-    "warmstart": "the warm-start decision",
-    "tiering": "KV tiering",
-    "tier_host_pages": "KV tiering",
-    "tier_disk_pages": "KV tiering",
-    "tier_dir": "KV tiering",
-    "kv_layout": "the rectangle layout",
     "slo": "obs/slo.py",
     "net": "the network front door",
 }
@@ -124,17 +124,31 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--autoscale", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--min_replicas", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--max_replicas", type=int, default=-1, help=argparse.SUPPRESS)
-    p.add_argument("--warmstart", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--tiering", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--tier_host_pages", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--tier_disk_pages", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--tier_dir", default="", help=argparse.SUPPRESS)
+    p.add_argument("--warmstart", action="store_true",
+                   help="warm-start store (serve/warmstart.py): keep the built kernel "
+                        "libraries, digest-verified, under the cache root so a new "
+                        "engine loads them instead of running nvcc")
+    p.add_argument("--tiering", action="store_true",
+                   help="tiered KV page store (serve/tiering.py): spill cold prefix-cache "
+                        "chains to host RAM / a digest-verified disk tier instead of "
+                        "destroying them; identical later admissions restore instead of "
+                        "re-prefilling (requires --kv_layout paged and a prefix cache)")
+    p.add_argument("--tier_host_pages", type=int, default=0,
+                   help="host-tier budget in KV pages; 0 = unbounded (overflow demotes LRU "
+                        "snapshots to disk)")
+    p.add_argument("--tier_disk_pages", type=int, default=0,
+                   help="disk-tier budget in KV pages; 0 = unbounded (overflow deletes LRU "
+                        "snapshot files)")
+    p.add_argument("--tier_dir", default="",
+                   help="disk-tier directory (default: <output_dir>/kv_tiers)")
     p.add_argument("--mesh", default="",
                    help="serve-mesh shape for ONE engine across cards: 'H' or 'DxH' chip "
                         "counts, e.g. --mesh 2 or --mesh 1x2 — KV pages and paged attention "
                         "shard across H on the head axis, everything else stays on the "
-                        "first card (default: config serve_mesh_shape, i.e. solo)")
-    p.add_argument("--kv_layout", default="", help=argparse.SUPPRESS)
+                        "first card; requires --kv_layout paged (default: config serve_mesh_shape, "
+                        "i.e. solo)")
+    p.add_argument("--kv_layout", default="",
+                   help="paged | rect KV-cache layout (default: config serve_kv_layout)")
     p.add_argument("--slo", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--net", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("files", nargs="*", help="summarize: files holding one snippet each")
@@ -148,8 +162,6 @@ def _refuse_later(args) -> None:
         if flag == "replicas" and value <= 1:
             continue
         if flag == "max_replicas" and value < 0:
-            continue
-        if flag == "kv_layout" and value in ("", "paged"):
             continue
         if value:
             raise SystemExit(f"csat_tpu_torch serve: --{flag} is not part of the port yet "
@@ -176,6 +188,9 @@ def build_engine(args):
             ("page_size", "serve_page_size", 0), ("num_pages", "serve_num_pages", -1),
             ("kv_page_dtype", "serve_kv_page_dtype", ""),
             ("prefix_cache", "serve_prefix_cache", -1), ("max_queue", "serve_max_queue", -1),
+            ("kv_layout", "serve_kv_layout", ""), ("warmstart", "serve_warmstart", False),
+            ("tiering", "serve_tiering", False), ("tier_host_pages", "serve_tier_host_pages", 0),
+            ("tier_disk_pages", "serve_tier_disk_pages", 0), ("tier_dir", "serve_tier_dir", ""),
             ("queue_policy", "serve_queue_policy", ""), ("deadline_s", "serve_deadline_s", -1.0),
             ("metrics_file", "obs_metrics_file", ""),
             ("postmortem_dir", "obs_postmortem_dir", "")):

@@ -56,9 +56,34 @@ outputs are gathered before the replicated output projection.  The paged
 decode kernel runs one block per (slot, head), so each shard runs it
 unchanged on its heads and the tokens are the solo engine's bit for bit.
 
+Storage, as the JAX engine holds it (``engine.py:296-550, 987-1317``):
+
+* **the rectangle layout** (``serve_kv_layout="rect"``, ``serve/slots.py``):
+  one ``(S, H, T, dh)`` self and ``(S, H, N, dh)`` cross rectangle per layer
+  instead of pages — no allocator and no prefix cache (``page_leaks`` and
+  ``chain_leaks`` read 0), prefill through ``serve/prefill.py:rect_prefill``
+  (K1 and K2 on the card), decode through the plain rectangle read (JAX pins
+  its reference path there);
+* **KV tiering** (``serve_tiering``, ``serve/tiering.py``): under page
+  pressure an evicted prefix-cache chain is spilled — its pages and scales
+  gathered out of every layer (``serve/pages.py:tier_gather``) into a host
+  tier, demoted to a digest-verified disk tier beyond its budget — instead
+  of destroyed; a later admission of the same content hash restores it into
+  fresh pages (``tier_restore``) and attaches it as a prefix hit, bit for bit
+  the chain that never left the card.  Every failed restore is a structured
+  ``tier.restore_miss{reason}`` and a re-prefill through the same kernels.
+  Spills and restores happen at admission (or on :meth:`spill_all`), never
+  on a tick that only decodes;
+* **warm start** (``serve_warmstart``, ``serve/warmstart.py``): on the card
+  the engine loads its kernel libraries at construction through the store,
+  so a warm process runs no ``nvcc``; each library's provenance
+  (``warmstart_provenance``: ``"hit"`` or the miss reason) is counted in
+  ``stats`` and stamped as ``warmstart.hit`` / ``warmstart_miss{reason}``.
+  The libraries are loaded once per process, so a second engine in the same
+  process reports the first load's provenance.
+
 Unlike the JAX engine, which donates an immutable pool through compiled
-programs, the pool's tensors are updated in place.  Warm start, KV tiering
-and the rectangle layout are not part of this port yet.
+programs, the pool's tensors are updated in place.
 """
 
 from __future__ import annotations
@@ -75,19 +100,32 @@ import torch
 
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.obs import EventRecorder, Tracer
+from csat_tpu_torch.ops import build
 from csat_tpu_torch.parallel.mesh import build_serve_mesh, serve_head_shards
 from csat_tpu_torch.resilience.retry import ErrorBudget
 from csat_tpu_torch.resilience.watchdog import StepWatchdog, device_liveness_probe
 from csat_tpu_torch.serve.ingest import PoisonRequestError, validate_sample
 from csat_tpu_torch.serve.pages import (
     KV_PAGE_RATIO, PageAllocator, attach, build_paged_decode_step, init_paged_pool,
-    page_geometry, page_sets, release)
-from csat_tpu_torch.serve.prefill import assign_prefill_bucket, paged_prefill, prefill_plan
+    page_geometry, page_sets, release, tier_gather, tier_restore)
+from csat_tpu_torch.serve.prefill import (
+    assign_prefill_bucket, paged_prefill, prefill_plan, rect_prefill)
 from csat_tpu_torch.serve.prefix import PrefixCache, sample_hash
+from csat_tpu_torch.serve.slots import build_decode_step, init_pool
 from csat_tpu_torch.serve.stats import ServeStats
+from csat_tpu_torch.serve.tiering import TieredPageStore
+from csat_tpu_torch.serve.warmstart import WarmStartStore, store_root
 from csat_tpu_torch.utils import EOS_WORD, PAD, resolve_device
 
 __all__ = ["Request", "RequestStatus", "PagePlan", "ServeEngine"]
+
+#: a tier snapshot's header ``dtype`` per page storage dtype: numpy's
+#: ``dtype.str`` of the JAX pool's arrays (ml_dtypes' bfloat16 is ``<V2``)
+_TIER_DTYPE_STR = {"float32": "<f4", "bfloat16": "<V2", "int8": "|i1"}
+#: the numpy dtype a snapshot's bytes are read as (bf16 as its raw 16 bits)
+_TIER_NP = {"float32": np.float32, "bfloat16": np.int16, "int8": np.int8}
+#: ``_restore_plan``'s "the restore failed, re-prefill" outcome
+_RESTORE_MISS = object()
 
 
 class RequestStatus:
@@ -168,7 +206,9 @@ class ServeEngine:
     consulted at fixed scheduler points; ``watchdog_on_timeout`` replaces the
     watchdog's default action (exit 76); ``mesh_devices`` gives a serve
     mesh's head shards their devices, in order (several may share one;
-    default: every visible card, or the engine's device on the CPU)."""
+    default: every visible card, or the engine's device on the CPU);
+    ``warmstart`` shares a caller's warm-start store (default: a fresh one
+    when ``cfg.serve_warmstart``)."""
 
     # floor between same-reason post-mortem rewrites, wall seconds
     _POSTMORTEM_MIN_INTERVAL_S = 1.0
@@ -179,7 +219,8 @@ class ServeEngine:
                  tgt_vocab=None, fault_injector=None,
                  watchdog_on_timeout: Optional[Callable[[], None]] = None,
                  log: Callable[[str], None] = lambda m: None,
-                 mesh_devices: Optional[Sequence] = None):
+                 mesh_devices: Optional[Sequence] = None,
+                 warmstart: Optional[WarmStartStore] = None):
         t_build0 = time.perf_counter()
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -217,20 +258,52 @@ class ServeEngine:
             if cfg.num_heads % hs:
                 raise ValueError(f"serve_mesh_shape={cfg.serve_mesh_shape}: num_heads="
                                  f"{cfg.num_heads} must divide evenly over {hs} head shards")
-        self.geo = page_geometry(cfg)
-        self._allocator = PageAllocator(self.geo.num_pages)
-        self._prefix: Optional[PrefixCache] = (
-            PrefixCache(cfg.serve_prefix_cache) if cfg.serve_prefix_cache > 0 else None)
-        self._pool = init_paged_pool(model, self.num_slots, self.geo, cfg.serve_kv_page_dtype,
-                                     self.mesh)
+        # the rect layout has no pages: no allocator, no prefix cache
+        # (cfg.validate() refused it under a serve mesh and with tiering)
+        self.paged = cfg.serve_kv_layout == "paged"
+        if self.paged:
+            self.geo = page_geometry(cfg)
+            self._allocator = PageAllocator(self.geo.num_pages)
+            self._prefix: Optional[PrefixCache] = (
+                PrefixCache(cfg.serve_prefix_cache) if cfg.serve_prefix_cache > 0 else None)
+        else:
+            self.geo = self._allocator = self._prefix = None
+        self._pool = self._fresh_pool()
+        self._step = (build_paged_decode_step(model, self.geo) if self.paged
+                      else build_decode_step(model))
+
+        # warm start: the serving kernels' libraries loaded now, through the
+        # store, so that the start wall covers them and a warm process runs
+        # no nvcc (the CPU path loads none)
+        self.warmstart = warmstart if warmstart is not None else (
+            WarmStartStore(store_root(cfg), log=log) if cfg.serve_warmstart else None)
+        self.warmstart_provenance: Dict[str, str] = {}
+        if self.warmstart is not None and self.device.type == "cuda":
+            self._warm_libraries()
+
         # the serving programs, counted as the JAX engine counts its compiled
-        # ones (decode, release, attach now; one prefill per occupied bucket
-        # at its first use), so the two summaries agree key for key
-        self._step = build_paged_decode_step(model, self.geo)
+        # ones (decode, release, attach, the tier gather and restore now; one
+        # prefill per occupied bucket at its first use), so the two summaries
+        # agree key for key
         self.stats.record_compile("decode", (self.num_slots, self.steps))
-        self.stats.record_compile("release", (self.num_slots,))
+        if self.paged:
+            self.stats.record_compile("release", (self.num_slots,))
         if self._prefix is not None:
             self.stats.record_compile("attach", (self.num_slots,))
+        # the KV tiers below the page pool: a snapshot is (layers, k|v, chain
+        # width, H, page, dh) in the page storage dtype plus its f32 scales
+        # (..., page, 1), a digest-covered byte string each
+        self._tiers: Optional[TieredPageStore] = None
+        if self.paged and cfg.serve_tiering and self._prefix is not None:
+            self._tiers = TieredPageStore(
+                host_pages=cfg.serve_tier_host_pages, disk_pages=cfg.serve_tier_disk_pages,
+                root=cfg.serve_tier_dir or os.path.join(cfg.output_dir, "kv_tiers"),
+                log=log, obs=self.obs)
+            page_shape = (cfg.num_heads, self.geo.page, cfg.hidden_size // cfg.num_heads)
+            self._tier_shape = (len(model.decoder.layers), 2, self.geo.cp) + page_shape
+            self._tier_scale_shape = self._tier_shape[:-1] + (1,)
+            self.stats.record_compile("tier_gather", (self.geo.cp,))
+            self.stats.record_compile("tier_restore", self._tier_shape)
         self._prefill_built: Set[int] = set()
         self._slot_meta: List[Optional[PagePlan]] = [None] * self.num_slots
         self._slots: List[Optional[Request]] = [None] * self.num_slots
@@ -250,7 +323,8 @@ class ServeEngine:
         self._poison_budget = ErrorBudget(cfg.serve_poison_budget, log=log)
         self._sync_page_stats()
         self.stats.cold_start_s = round(time.perf_counter() - t_build0, 4)
-        self.obs.emit("engine.cold_start", cold_start_s=self.stats.cold_start_s, warm=0, cold=0)
+        self.obs.emit("engine.cold_start", cold_start_s=self.stats.cold_start_s,
+                      warm=int(self.stats.warmstart_hits), cold=int(self.stats.warmstart_misses))
 
         # tick watchdog: beats once per completed tick while work is in
         # flight, disarms when idle, default action exit 76
@@ -272,8 +346,37 @@ class ServeEngine:
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = None
+        if self._tiers is not None:
+            # tiered snapshots are an in-lifetime optimisation, not a
+            # persistence contract: both tiers go (disk files removed)
+            self._tiers.clear()
         self._flush_postmortems(force=True)
         return True
+
+    def _fresh_pool(self):
+        """An empty pool of the engine's layout (every slot frozen)."""
+        if self.paged:
+            return init_paged_pool(self.model, self.num_slots, self.geo,
+                                   self.cfg.serve_kv_page_dtype, self.mesh)
+        return init_pool(self.model, self.num_slots, self.steps, self.cfg.max_src_len)
+
+    def _warm_libraries(self) -> None:
+        """Load the libraries of the engine's kernels (K1 and K2; K5 when
+        paged) through the warm-start store and book each one's provenance:
+        a hit, or a miss (counted when the store is enabled, as the JAX
+        engine counts only store-enabled misses) with its reason."""
+        for lib in build.SERVE_LIBRARIES if self.paged else ("flex_fwd_tc",):
+            build.load_library(lib, self.warmstart)
+            prov = build.PROVENANCE[lib]
+            self.warmstart_provenance[lib] = prov
+            if prov == "hit":
+                self.stats.warmstart_hits += 1
+                self.obs.emit("warmstart.hit", program=lib)
+            elif prov != "off":
+                if self.warmstart.enabled:
+                    self.stats.warmstart_misses += 1
+                self.obs.emit("warmstart_miss", program=lib, reason=prov)
+                self.log(f"# warmstart_miss{{program={lib!r}, reason={prov!r}}}")
 
     # ---------------- observability plumbing ----------------
 
@@ -441,6 +544,13 @@ class ServeEngine:
                 # silently freeze the row — the scheduler is NOT told, so
                 # only the reaper can recover the request
                 self._freeze_rows([wedge])
+            # tier chaos: a spill storm force-spills every unreferenced
+            # cache entry; a corruption flips payload bytes so the next
+            # restore must fail its digest check
+            if inj.spill_storm(tick):
+                self.spill_all()
+            if inj.corrupt_tier(tick):
+                self.corrupt_tiers()
         t0 = time.perf_counter()
         self._retire()
         self._expire_and_reap()
@@ -448,7 +558,10 @@ class ServeEngine:
         t0 = time.perf_counter()
         self._admit()
         obs.span_from("tick.admit", t0)
-        self.stats.note_pages(self._allocator.used_pages)
+        if self.paged:
+            self.stats.note_pages(self._allocator.used_pages)
+            if self._tiers is not None:
+                self._stamp_tier_stats()
         self.stats.queue_depth = len(self._queue)
         live = sum(r is not None for r in self._slots)
         self.stats.occupancy = live
@@ -573,16 +686,59 @@ class ServeEngine:
 
     def page_leaks(self) -> int:
         """Pages allocated beyond what live slots hold and the prefix cache
-        pins — at quiescence any positive value is a leaked chain."""
+        pins — at quiescence any positive value is a leaked chain (0 in the
+        rect layout, which has no pages)."""
+        if not self.paged:
+            return 0
         pinned = self._prefix.pinned_pages if self._prefix is not None else 0
         held = sum(len(p.self_chain) + (0 if p.shared else len(p.cross_chain))
                    for p in self._slot_meta if p is not None)
         return self._allocator.used_pages - pinned - held
 
     def chain_leaks(self) -> int:
-        """Tier-side chain accounting errors; KV tiering is not part of this
-        port, so always 0 (:meth:`page_leaks` is the allocator's check)."""
-        return 0
+        """Tier-side chain accounting errors, meaningful at quiescence (0
+        with tiering off): keys held both by the prefix cache and by a tier
+        — a spill and a restore are moves, an entry lives in one place —
+        plus the store's own audit (occupancy gauges against the indexed
+        pages, the tiers disjoint).  :meth:`page_leaks` is the allocator's
+        check; the two compose."""
+        if self._tiers is None:
+            return 0
+        bad = self._tiers.accounting_errors()
+        return bad + sum(1 for h in self._prefix.keys() if h in self._tiers)
+
+    def spill_all(self) -> int:
+        """Spill EVERY unreferenced prefix-cache entry down the tiers — the
+        ``spill_storm`` fault's hook, and a lever before scale-down (empty
+        the card's cache, keep the value).  Entries with live sharers stay.
+        Returns the number of chains spilled."""
+        if self._tiers is None:
+            return 0
+        pairs = self._prefix.evict_for(1 << 30)
+        self._spill_chains(pairs)
+        if pairs:
+            self.obs.emit("tier.spill_all", chains=len(pairs))
+        return len(pairs)
+
+    def corrupt_tiers(self) -> int:
+        """Flip payload bytes in every tiered snapshot (both tiers), keeping
+        the recorded digests — the ``corrupt_tier_restore`` fault's hook: the
+        next restore of each must be a structured ``tier.restore_miss`` and
+        a re-prefill, never a wrong chain.  Returns the entries corrupted."""
+        if self._tiers is None:
+            return 0
+        return self._tiers.corrupt_entries()
+
+    def _stamp_tier_stats(self) -> None:
+        """Mirror the store's occupancy gauges and lifetime counters onto
+        the stats (the scrape surface reads only those)."""
+        t = self._tiers
+        self.stats.tier_host_pages = t.host_pages_in_use
+        self.stats.tier_disk_pages = t.disk_pages_in_use
+        self.stats.tier_spills = t.spills
+        self.stats.tier_demotions = t.demotions
+        self.stats.tier_restores = t.restores
+        self.stats.tier_restore_misses = t.restore_misses
 
     def _retry_hint(self) -> Optional[float]:
         """Backpressure hint of REJECTED / SHED outcomes: the configured base
@@ -603,8 +759,9 @@ class ServeEngine:
         return self.stats
 
     def _sync_page_stats(self) -> None:
-        self.stats.set_page_info(self._allocator.usable, self.geo.rect_pages_per_slot,
-                                 kv_ratio=KV_PAGE_RATIO[self.cfg.serve_kv_page_dtype])
+        if self.paged:
+            self.stats.set_page_info(self._allocator.usable, self.geo.rect_pages_per_slot,
+                                     kv_ratio=KV_PAGE_RATIO[self.cfg.serve_kv_page_dtype])
         # the devices this engine's pages span (1 solo); every shard holds
         # every page's heads, so the worst shard's occupancy is the pool's
         self.stats.mesh_devices = 1 if self.mesh is None else len(self.mesh.devices)
@@ -681,18 +838,119 @@ class ServeEngine:
 
     def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
         """``n`` pages, evicting unreferenced prefix-cache entries (LRU first)
-        under pool pressure — entries with live sharers are never touched."""
+        under pool pressure — entries with live sharers are never touched.
+        With tiering on, the evicted chains are spilled, not destroyed."""
         chain = self._allocator.alloc(n)
         if chain is not None or self._prefix is None:
             return chain
-        for _, evicted in self._prefix.evict_for(n - self._allocator.free_pages):
-            self._allocator.free(evicted)
+        self._spill_chains(self._prefix.evict_for(n - self._allocator.free_pages))
         return self._allocator.alloc(n)
+
+    def _spill_chains(self, pairs) -> None:
+        """Retire evicted prefix-cache ``(hash, chain)`` pairs: with tiering
+        on, each chain's pages and scales are snapshotted into the tier
+        store FIRST (one gather, one read to the host, the digest recorded
+        at put), then the pages go back to the allocator.  Only unreferenced
+        entries get here: the prefix cache never evicts a chain a live slot
+        reads."""
+        for phash, chain in pairs:
+            if self._tiers is not None and chain:
+                vals, scales = tier_gather(self._pool, chain)
+                payload = _host_array(vals)
+                scales = scales.cpu().numpy()
+                # values and their f32 scales travel as ONE digest-covered
+                # byte string (values first); the header's kv_dtype makes a
+                # restore into a differently stored pool a structured miss
+                self._tiers.put(phash, payload.tobytes() + scales.tobytes(), {
+                    "pages": len(chain),
+                    "shape": list(payload.shape),
+                    "dtype": _TIER_DTYPE_STR[self.cfg.serve_kv_page_dtype],
+                    "scale_shape": list(scales.shape),
+                    "scale_dtype": scales.dtype.str,
+                    "kv_dtype": self.cfg.serve_kv_page_dtype,
+                })
+            self._allocator.free(chain)
+        if pairs and self._tiers is not None:
+            self._stamp_tier_stats()
+
+    def _restore_miss(self, phash: bytes, reason: Optional[str], *chains) -> object:
+        """A failed restore: the snapshot dropped with a structured miss
+        (``reason``; None when the store already counted it), its chains
+        refunded; the caller re-prefills."""
+        if reason is not None:
+            self._tiers.invalidate(phash, reason)
+        for chain in chains:
+            self._allocator.free(chain)
+        self._stamp_tier_stats()
+        return _RESTORE_MISS
+
+    def _restore_plan(self, req: Request, phash: bytes, sp_need: int):
+        """Fund an admission from a TIERED snapshot: fresh chains, the
+        digest-verified bytes written into the cross chain, the chain put
+        back into the prefix cache — from there the ordinary attach path, so
+        a restored chain is bit-identical to one that never spilled.
+        Returns a :class:`PagePlan`, None (unfundable this tick: the
+        snapshot stays tiered and the request waits), or ``_RESTORE_MISS``
+        (a structured ``tier.restore_miss{reason}`` was counted; the caller
+        re-prefills)."""
+        w = self._tiers.pages(phash)
+        if w <= 0 or w > self.geo.cp:
+            # an index entry no chain of this pool's geometry can match
+            return self._restore_miss(phash, "truncated")
+        self_chain = self._alloc_with_evict(sp_need)
+        if self_chain is None:
+            return None
+        cross_chain = self._alloc_with_evict(w)
+        if cross_chain is None:
+            self._allocator.free(self_chain)
+            return None
+        t0 = time.perf_counter()
+        payload, meta, _ = self._tiers.get(phash)
+        if payload is None:
+            return self._restore_miss(phash, None, cross_chain, self_chain)
+        if meta.get("kv_dtype", "float32") != self.cfg.serve_kv_page_dtype:
+            # digest-intact bytes of another storage dtype mean nothing to
+            # this pool: an int8 snapshot must never land in an f32 pool
+            return self._restore_miss(phash, "dtype_mismatch", cross_chain, self_chain)
+        want = (self._tier_shape[0], 2, w) + self._tier_shape[3:]
+        want_s = (self._tier_scale_shape[0], 2, w) + self._tier_scale_shape[3:]
+        try:
+            if list(meta["shape"]) != list(want) or list(meta["scale_shape"]) != list(want_s):
+                raise ValueError("geometry")
+            vdt = np.dtype(_TIER_NP[self.cfg.serve_kv_page_dtype])
+            kb = int(np.prod(want)) * vdt.itemsize
+            snap = np.frombuffer(payload[:kb], dtype=vdt).reshape(want)
+            scales = np.frombuffer(payload[kb:], dtype=np.float32).reshape(want_s)
+        except (KeyError, TypeError, ValueError):
+            # digest-intact bytes that do not decode to THIS pool's snapshot
+            # (geometry skew): never written into the pool
+            return self._restore_miss(phash, "truncated", cross_chain, self_chain)
+        if (meta["dtype"] != _TIER_DTYPE_STR[self.cfg.serve_kv_page_dtype]
+                or meta.get("scale_dtype") != "<f4"):
+            # a lying header: its kv_dtype names this pool's, its arrays'
+            # dtypes do not
+            return self._restore_miss(phash, "dtype_mismatch", cross_chain, self_chain)
+        vals = torch.from_numpy(snap.copy())
+        if self.cfg.serve_kv_page_dtype == "bfloat16":
+            vals = vals.view(torch.bfloat16)
+        tier_restore(self._pool, cross_chain, vals, torch.from_numpy(scales.copy()))
+        self._tiers.drop(phash)  # moved back onto the card (a re-spill re-snapshots)
+        self.stats.note_tier_restore(time.perf_counter() - t0)
+        evicted = self._prefix.insert(phash, cross_chain)
+        if evicted:
+            self._spill_chains(evicted)
+        # a restored admission IS a prefix hit: the encoder never runs
+        self.stats.prefix_hits += 1
+        self._prefix.count_hit(phash)
+        self._stamp_tier_stats()
+        return PagePlan(self_chain, cross_chain, phash, hit=True, shared=evicted is not None)
 
     def _plan_pages(self, req: Request) -> Optional[PagePlan]:
         """Fund one request's chains — self sized by its budget, cross by its
-        bucket, or a prefix-cache hit sharing an existing cross chain.  None
-        (no state change) when the pool cannot fund it this tick."""
+        bucket, or a prefix-cache hit sharing an existing cross chain, or a
+        tiered snapshot restored into fresh pages (a failed restore falls
+        back to the miss path).  None (no state change) when the pool cannot
+        fund it this tick."""
         sp_need = self.geo.self_pages(req.limit)
         phash = None
         if self._prefix is not None:
@@ -706,6 +964,10 @@ class ServeEngine:
                 self.stats.prefix_hits += 1
                 self._prefix.count_hit(phash)
                 return PagePlan(self_chain, list(entry.chain), phash, hit=True, shared=True)
+            if self._tiers is not None and self._tiers.has(phash):
+                plan = self._restore_plan(req, phash, sp_need)
+                if plan is not _RESTORE_MISS:
+                    return plan
         self_chain = self._alloc_with_evict(sp_need)
         if self_chain is None:
             return None
@@ -723,9 +985,14 @@ class ServeEngine:
     def _release_rows(self, slots: Sequence[int]) -> None:
         """Pool half of retirement: zero the budget and null the page-table
         rows, so the rows' dead writes land on the null page while their
-        freed pages serve other requests."""
-        if len(slots):
+        freed pages serve other requests (the rect layout only zeroes the
+        budget: its rows own their rectangles)."""
+        if not len(slots):
+            return
+        if self.paged:
             release(self._pool, slots)
+        else:
+            self._freeze_rows(slots)
 
     def _freeze_rows(self, slots: Sequence[int]) -> None:
         """Zero the budget of ``slots`` only (the decode step then treats
@@ -738,7 +1005,14 @@ class ServeEngine:
         """Fault drill: NaN the scales of the slot's self pages, so its next
         logits are non-finite on f32, bf16 and int8 pages alike (the scales
         multiply every gathered lane).  The pages return to the free list
-        NaN-laden when the row retires FAILED; admission scrubs them."""
+        NaN-laden when the row retires FAILED; admission scrubs them.  In
+        the rect layout the slot's self rectangles are NaN'd (prefill zeroes
+        them for the next request)."""
+        if not self.paged:
+            for c in self._pool.cache:
+                c["k"][slot] = float("nan")
+                c["v"][slot] = float("nan")
+            return
         meta = self._slot_meta[slot]
         assert meta is not None, f"nan drill on an empty slot {slot}"
         ids = torch.tensor(meta.self_chain, dtype=torch.long, device=self.device)
@@ -846,10 +1120,11 @@ class ServeEngine:
             chunk: List[Request] = []
             plans: List[PagePlan] = []
             while order and order[0].bucket == k and len(chunk) < self.specs[k].batch_size:
-                plan = self._plan_pages(order[0])
-                if plan is None:
-                    break  # the pool cannot fund this request this tick
-                plans.append(plan)
+                if self.paged:
+                    plan = self._plan_pages(order[0])
+                    if plan is None:
+                        break  # the pool cannot fund this request this tick
+                    plans.append(plan)
                 chunk.append(order.pop(0))
             if not chunk:
                 # page backpressure: a structured wait at the queue head
@@ -860,8 +1135,9 @@ class ServeEngine:
                 self._prefill_chunk(k, chunk, slot_ids, plans)
             except Exception as e:  # noqa: BLE001 — an admission fault fails its chunk
                 now = self.clock()
-                for req, plan in zip(chunk, plans):
-                    self._free_plan(plan)
+                for j, req in enumerate(chunk):
+                    if plans:
+                        self._free_plan(plans[j])
                     self._finish(req, RequestStatus.FAILED,
                                  error=f"prefill failed: {type(e).__name__}: {e}", now=now)
                 try:
@@ -879,8 +1155,11 @@ class ServeEngine:
         """One bucket chunk's admission: misses run the encoder at the
         bucket's width and write their cross chains (then publish them to the
         prefix cache); hits attach without the encoder.  A fault fails the
-        whole chunk (:meth:`_admit`)."""
+        whole chunk (:meth:`_admit`).  The rect layout encodes every row."""
         spec = self.specs[k]
+        if not self.paged:
+            self._prefill_rect(k, chunk, slot_ids)
+            return
         misses = [(r, s, p) for r, s, p in zip(chunk, slot_ids, plans) if not p.hit]
         hits = [(r, s, p) for r, s, p in zip(chunk, slot_ids, plans) if p.hit]
         if misses:
@@ -908,13 +1187,14 @@ class ServeEngine:
             self.stats.prefill_calls += 1
             if self._prefix is not None:
                 # publish the fresh chains: the cache owns them (refs=1, the
-                # inserting request); a declined insert stays private
+                # inserting request); a declined insert stays private.  What
+                # the insert evicts to stay within capacity is spilled (freed
+                # when tiering is off)
                 for _, _, plan in misses:
                     evicted = self._prefix.insert(plan.phash, plan.cross_chain)
                     if evicted is not None:
                         plan.shared = True
-                        for _, chain in evicted:
-                            self._allocator.free(chain)
+                        self._spill_chains(evicted)
         if hits:
             smask = np.ones((len(hits), self.geo.mem_len), bool)
             for j, (r, _, _) in enumerate(hits):
@@ -937,22 +1217,49 @@ class ServeEngine:
                                               rows=len(hits))
         self._mark_admitted(chunk, slot_ids, plans)
 
+    def _prefill_rect(self, k: int, chunk: List[Request], slot_ids: List[int]) -> None:
+        """One bucket chunk's admission in the rect layout: every row runs
+        the encoder (no prefix cache) into its slot's rectangles."""
+        spec = self.specs[k]
+        call_ordinal = self._n_prefills
+        self._n_prefills += 1
+        if self.fault_injector is not None:
+            self.fault_injector.maybe_fail_prefill(call_ordinal)
+        if k not in self._prefill_built:
+            self._prefill_built.add(k)
+            self.stats.record_compile("prefill", (spec.n, spec.batch_size))
+        t0 = time.perf_counter()
+        traced = any(r.trace_id for r in chunk)
+        c0 = self.clock() if traced else 0.0
+        rect_prefill(self.model, self.cfg, self._pool, spec.n, [r.sample for r in chunk],
+                     slot_ids, [r.limit for r in chunk])
+        self.obs.span_from(f"prefill.n{spec.n}", t0, rows=len(chunk))
+        if traced:
+            c1 = self.clock()
+            for r in chunk:
+                if r.trace_id:
+                    self.tracer.span_from(r.trace_id, f"prefill.n{spec.n}", c0, c1,
+                                          rows=len(chunk))
+        self.stats.prefill_calls += 1
+        self._mark_admitted(chunk, slot_ids, [])
+
     def _mark_admitted(self, chunk: List[Request], slot_ids: List[int],
                        plans: List[PagePlan]) -> None:
         self.stats.admitted += len(chunk)
         now = self.clock()
-        for req, s, plan in zip(chunk, slot_ids, plans):
+        for j, (req, s) in enumerate(zip(chunk, slot_ids)):
             req.admit_t = now
             req.slot = s
             req.admit_tick = self._tick_no
             self._slots[s] = req
-            self._slot_meta[s] = plan
-            self.obs.emit("req.admit", id=req.id, slot=s, bucket=req.bucket, hit=plan.hit,
+            self._slot_meta[s] = plans[j] if plans else None
+            hit = bool(plans and plans[j].hit)
+            self.obs.emit("req.admit", id=req.id, slot=s, bucket=req.bucket, hit=hit,
                           **_tf(req))
             if req.trace_id:
                 self.tracer.span_from(req.trace_id, "queue_wait", req.submit_t, now)
                 self.tracer.event(req.trace_id, "admit", t=now, slot=s, bucket=req.bucket,
-                                  hit=plan.hit)
+                                  hit=hit)
 
     def _rebuild_and_resubmit(self, exc: BaseException) -> None:
         """Self-healing after a fault escaped the decode step or left the pool
@@ -983,14 +1290,19 @@ class ServeEngine:
         self._slots = [None] * self.num_slots
         self._slot_meta = [None] * self.num_slots
         self._status = None
-        # the free list and every prefix refcount go with the pool: in-flight
-        # sharers are requeued below and re-fund from scratch
-        self._allocator = PageAllocator(self.geo.num_pages)
+        # the free list, every prefix refcount and the tiers go with the
+        # pool: in-flight sharers are requeued below and re-fund from
+        # scratch, and snapshots gathered from a faulting device are not
+        # trusted across a rebuild
+        if self.paged:
+            self._allocator = PageAllocator(self.geo.num_pages)
         if self._prefix is not None:
             self._prefix.clear()
+        if self._tiers is not None:
+            self._tiers.clear()
+            self._stamp_tier_stats()
         self._pool = None
-        self._pool = init_paged_pool(self.model, self.num_slots, self.geo,
-                                     self.cfg.serve_kv_page_dtype, self.mesh)
+        self._pool = self._fresh_pool()
         now = self.clock()
         survivors = []
         for req in sorted(inflight, key=lambda r: r.id):
@@ -1015,3 +1327,9 @@ class ServeEngine:
         ids = [self.submit(s, max_new_tokens) for s in samples]
         self.drain()
         return [self._results[i] for i in ids]
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bytes as a host numpy array (bf16 as its raw 16 bits)."""
+    t = t.contiguous().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()

@@ -27,7 +27,14 @@ themselves, and so do the two admission-side surgeries of the JAX package's
 ``:452-563``: :func:`attach` brings prefix-cache hits live without running
 the encoder, and :func:`release` retires rows frozen outside the decode
 step (NaN guard, timeout, reap, shed).  Neither is a kernel there or here:
-both are a few indexed writes on the pool's tensors.
+both are a few indexed writes on the pool's tensors.  Nor are the KV
+tiers' two (``:492-546``, XLA gathers and scatters in JAX):
+:func:`tier_gather` snapshots a chain's pages and scales out of every layer
+for a spill (``serve/tiering.py``), and :func:`tier_restore` writes a
+snapshot back into fresh pages.  The snapshot stacks the layers in the JAX
+pool's order (sorted ``layer_{i}`` names, :func:`tier_layer_order`) and
+whole heads (a serve mesh's shards concatenated), so a payload means the
+same pages in both packages and under any mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ __all__ = [
     "NULL_PAGE", "KV_PAGE_DTYPES", "KV_PAGE_RATIO", "PageGeometry", "page_geometry",
     "PageAllocator", "PagedPool", "chain_table_row", "init_paged_pool", "admit_slot_state",
     "scrub_pages", "attach", "release", "build_paged_decode_step", "page_sets",
+    "tier_layer_order", "tier_gather", "tier_restore",
 ]
 
 #: ``serve_kv_page_dtype`` → storage dtype of the K/V page arrays
@@ -273,6 +281,57 @@ def release(pool: PagedPool, slots: Sequence[int]) -> None:
     pool.limit.index_fill_(0, ids, 0)
     pool.self_pt.index_fill_(0, ids, NULL_PAGE)
     pool.cross_pt.index_fill_(0, ids, NULL_PAGE)
+
+
+def tier_layer_order(n_layers: int) -> List[int]:
+    """The decoder layers in the order a tier snapshot stacks them: the JAX
+    pool's ``layer_{i}`` keys sorted by name (``layer_10`` before
+    ``layer_2``), so a payload's layer axis means the same layers in both
+    packages."""
+    return sorted(range(n_layers), key=lambda i: f"layer_{i}")
+
+
+@torch.no_grad()
+def tier_gather(pool: PagedPool, row: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Snapshot the pages ``row`` (W,) of every layer — values AND scales, so
+    a quantized chain round-trips byte for byte: ``(L, 2, W, H, page, dh)``
+    in the storage dtype and ``(L, 2, W, H, page, 1)`` f32, K before V, the
+    layers in :func:`tier_layer_order`, on the engine's device.  A serve
+    mesh's shards are concatenated on the head axis, so the snapshot is the
+    solo pool's."""
+    dev = pool.self_pt.device
+    ids = _ids(row, dev)
+    vals, scales = [], []
+    for _, _, layers in page_sets(pool):
+        at = ids.to(layers[0]["k"].device)
+        order = tier_layer_order(len(layers))
+        vals.append(torch.stack([torch.stack((layers[i]["k"][at], layers[i]["v"][at]))
+                                 for i in order]).to(dev))
+        scales.append(torch.stack([torch.stack((layers[i]["k_scale"][at],
+                                                layers[i]["v_scale"][at]))
+                                   for i in order]).to(dev))
+    return torch.cat(vals, dim=3), torch.cat(scales, dim=3)
+
+
+@torch.no_grad()
+def tier_restore(pool: PagedPool, row: Sequence[int], payload: torch.Tensor,
+                 scales: torch.Tensor) -> None:
+    """Write a :func:`tier_gather` snapshot back into the pages ``row`` (W,),
+    in place.  Lanes whose id is out of range (the ``num_pages`` sentinel
+    that pads a row) are dropped, never written to the null page.  Each
+    shard of a serve mesh takes its heads of the snapshot."""
+    row = torch.as_tensor(np.asarray(row, np.int64))
+    live = (row >= 0) & (row < page_sets(pool)[0][2][0]["k"].shape[0])
+    payload, scales = payload[:, :, live.to(payload.device)], scales[:, :, live.to(scales.device)]
+    ids = row[live]
+    for h0, h1, layers in page_sets(pool):
+        dev = layers[0]["k"].device
+        at = ids.to(dev)
+        for j, i in enumerate(tier_layer_order(len(layers))):
+            e = layers[i]
+            for side, key in enumerate(("k", "v")):
+                e[key][at] = payload[j, side, :, h0:h1].to(dev)
+                e[f"{key}_scale"][at] = scales[j, side, :, h0:h1].to(dev)
 
 
 def build_paged_decode_step(model, geo: PageGeometry):

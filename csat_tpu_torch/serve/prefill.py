@@ -1,11 +1,14 @@
 """Bucketed prefill: encode admitted requests and write them into the pool.
 
-Counterpart of the JAX package's ``serve/prefill.py:45-114, 164-247``.
-Admission encodes a group of requests at the smallest fitting node capacity
-from the config's bucket ladder, projects the per-layer cross-attention K/V
-from the memory, cuts it into whole pages written into each request's cross
-chain, scrubs its freshly allocated self pages to zero (a freed page may hold
-a predecessor's values), and resets the slot's decode state.
+Counterpart of the JAX package's ``serve/prefill.py:45-247``.  Admission
+encodes a group of requests at the smallest fitting node capacity from the
+config's bucket ladder and projects the per-layer cross-attention K/V from
+the memory.  :func:`paged_prefill` cuts it into whole pages written into
+each request's cross chain, scrubs its freshly allocated self pages to zero
+(a freed page may hold a predecessor's values), and resets the slot's decode
+state; :func:`rect_prefill` (``build_prefill``'s twin, the rectangle layout
+of ``serve/slots.py``) writes it zero-padded into the slot's cross rectangle
+and zeroes its self rectangle instead.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from csat_tpu_torch.serve.pages import (
 from csat_tpu_torch.utils import PAD
 
 __all__ = ["PrefillSpec", "prefill_plan", "assign_prefill_bucket", "collate_requests",
-           "paged_prefill"]
+           "paged_prefill", "rect_prefill"]
 
 
 class PrefillSpec(NamedTuple):
@@ -110,3 +113,31 @@ def paged_prefill(model, cfg: Config, geo: PageGeometry, pool: PagedPool, n: int
     smask = torch.ones((b, geo.mem_len), dtype=torch.bool, device=dev)
     smask[:, :n] = batch.src_seq == PAD
     admit_slot_state(pool, ids, limits, smask)
+
+
+@torch.no_grad()
+def rect_prefill(model, cfg: Config, pool, n: int, samples: Sequence[Dict[str, np.ndarray]],
+                 slot_ids: List[int], limits: List[int]) -> None:
+    """Encode ``samples`` at bucket width ``n`` and admit them into
+    ``slot_ids`` of the rectangle pool (``serve/slots.py``), in place: each
+    row's cross K/V zero-padded to ``mem_len``, its self rectangle zeroed,
+    its decode state reset.  A row whose slot id is the sentinel
+    ``num_slots`` (padding) is encoded and dropped, as the JAX scatters drop
+    it."""
+    dev = model.device
+    num_slots, mem_len = pool.src_mask.shape
+    batch = batch_to_device(collate_requests(samples, n, cfg), dev)
+    memory, _ = model.encode(batch)
+    cross = model.project_cross_kv(memory)
+    keep = [j for j, s in enumerate(slot_ids) if 0 <= s < num_slots]
+    rows = torch.tensor(keep, dtype=torch.long, device=dev)
+    ids = torch.tensor([slot_ids[j] for j in keep], dtype=torch.long, device=dev)
+    for c, kv in zip(pool.cache, cross):
+        c["k"].index_fill_(0, ids, 0)
+        c["v"].index_fill_(0, ids, 0)
+        for key in ("k", "v"):
+            c[f"cross_{key}"][ids] = torch.nn.functional.pad(
+                kv[key], (0, 0, 0, mem_len - n))[rows].to(c[f"cross_{key}"].dtype)
+    smask = torch.ones((len(samples), mem_len), dtype=torch.bool, device=dev)
+    smask[:, :n] = batch.src_seq == PAD
+    admit_slot_state(pool, ids, [limits[j] for j in keep], smask[rows])

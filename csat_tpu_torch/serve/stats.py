@@ -16,9 +16,10 @@ memory).
 Every counter is backed by a registry metric (the attribute surface reads
 and writes through descriptors), so the same numbers are scrapeable as
 Prometheus text (:meth:`prometheus`, byte for byte the JAX package's for the
-same calls) and streamable as JSONL snapshots.  The counters of parts the
-port does not serve with — KV tiering, warm start, the network front
-door — stay at zero.  ``mesh_devices`` is the span of the engine's serve
+same calls) and streamable as JSONL snapshots.  The engine stamps the KV
+tiers' gauges and counters from its tier store and books each kernel
+library's warm-start provenance; the network front door's counters, a part
+the port does not serve with, stay at zero.  ``mesh_devices`` is the span of the engine's serve
 mesh (1 solo) and ``kv_pages_worst_chip`` the heaviest shard's pages, every
 shard holding every allocated page's heads.
 """
@@ -132,14 +133,14 @@ _METRICS = {
                     "queued (not yet admitted) requests"),
     "occupancy": ("gauge", "serve_slots_occupied",
                   "decode slots currently in flight"),
-    # warm-start executable store (zero in the port)
+    # warm-start store (the port's: the kernel libraries, serve/warmstart.py)
     "warmstart_hits": ("counter", "serve_warmstart_hits_total",
                        "programs deserialized from the warm-start store"),
     "warmstart_misses": ("counter", "serve_warmstart_misses_total",
                          "store-enabled compiles that went cold (any reason)"),
     "cold_start_s": ("gauge", "serve_cold_start_s",
                      "engine bring-up wall time (ctor to programs live)"),
-    # tiered KV page store (zero in the port)
+    # tiered KV page store (serve/tiering.py), stamped by the engine
     "tier_host_pages": ("gauge", "serve_tier_host_pages_in_use",
                         "KV pages resident in the host-RAM tier"),
     "tier_disk_pages": ("gauge", "serve_tier_disk_pages_in_use",

@@ -2,8 +2,8 @@
 imports JAX, flax or the JAX package, every module imports with those
 blocked and without ``nvcc``, ``chip_smoke.py`` fails without a GPU or
 without the package beside it, and the port's copies of JAX-free modules
-(the prefix cache, the request tracer, the serve stats, the identifier
-splitters of the extractor) define exactly what their originals do."""
+(the prefix cache, the request tracer, the serve stats, the KV tier store,
+the identifier splitters of the extractor) define exactly what their originals do."""
 
 import ast
 import os
@@ -93,6 +93,7 @@ def _defs(path: Path):
 # is the original's, statement for statement (the extractor's stdlib backend
 # is held to the original by its outputs, tests/test_torch_serve_cli.py)
 COPIES = [("serve/prefix.py", None), ("obs/rtrace.py", None), ("serve/stats.py", None),
+          ("serve/tiering.py", None),
           ("data/extract.py", ("split_camelcase", "split_identifier_into_parts"))]
 
 

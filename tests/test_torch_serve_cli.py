@@ -243,21 +243,53 @@ def test_serve_loop_in_process_malformed_lines_and_stop(served_ckpt, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--net"], ["--replicas", "2"], ["--autoscale"], ["--slo"],
-                                  ["--tiering"], ["--warmstart"], ["--mesh", "2x2"],
-                                  ["--kv_layout", "rect"]])
+                                  ["--tiering", "--prefix_cache", "0"],
+                                  ["--tiering", "--kv_layout", "rect"], ["--mesh", "2x2"],
+                                  ["--kv_layout", "rect", "--mesh", "2"]])
 def test_later_slice_flags_refused(served_ckpt, flag):
-    """Each flag of a later slice is refused naming itself; ``--mesh`` is
-    ported, and a mesh with a data axis above 1 is refused by the config's
-    rule (JAX's ``serve_mesh_shape`` assert) with its one line."""
+    """Each flag of a later slice is refused naming itself; the storage
+    flags and ``--mesh`` are ported, and a combination the config's rules
+    refuse (JAX's asserts: tiering without a prefix cache or outside the
+    paged layout, a mesh with a data axis above 1 or over the rect layout)
+    exits with its one line."""
     from csat_tpu_torch.serve import cli
 
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", *_base(served_ckpt), *flag])
+    msg = str(info.value)
     if flag[0] == "--mesh":
-        assert "serve_mesh_shape (2, 2)" in str(info.value)
-        assert "leading (data) axis must be 1" in str(info.value)
+        assert "serve_mesh_shape (2, 2)" in msg and "leading (data) axis must be 1" in msg
+    elif flag[0] == "--tiering":
+        want = "a prefix cache" if "--prefix_cache" in flag else "serve_kv_layout='paged'"
+        assert msg.startswith("python: serve_tiering requires") and want in msg
+    elif flag[0] == "--kv_layout":
+        assert "serve_mesh_shape spanning >1 device requires serve_kv_layout='paged'" in msg
     else:
-        assert "not part of the port yet" in str(info.value) and flag[0] in str(info.value)
+        assert "not part of the port yet" in msg and flag[0] in msg
+
+
+def test_tiered_summarize_equals_untiered(served_ckpt, tmp_path, capsys):
+    """``summarize --tiering`` on a pool too small for the snippets' chains
+    (spills under pressure) prints what the untiered command prints."""
+    from csat_tpu_torch.serve import cli
+
+    files = []
+    for i, src in enumerate(SNIPPETS[:3] * 2):
+        files.append(str(tmp_path / f"s{i}.py"))
+        with open(files[-1], "w") as f:
+            f.write(src)
+    outs = []
+    for extra in ([], ["--tiering", "--tier_host_pages", "2",
+                       "--tier_dir", str(tmp_path / "tiers")]):
+        cli.main(["summarize", *_base(served_ckpt), "--max_new_tokens", "5", "--serve_slots",
+                  "2", *extra, *files])
+        out, err = capsys.readouterr()
+        outs.append(out)
+        stats = json.loads(err.strip().splitlines()[-1])
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == len(files)
+    assert all(json.loads(x)["status"] == "OK" for x in outs[1].splitlines())
+    assert stats["retired"] == len(files)
+    assert stats["tier_spills"] > 0 and stats["tier_restores"] > 0
 
 
 def test_cli_raises_without_cuda_unless_cpu_is_asked(served_ckpt, monkeypatch):
