@@ -221,8 +221,34 @@ Phases, each printing JSON lines:
    corrupted entries (``digest_mismatch``, rebuilt), ``CSAT_TPU_NO_CACHE=1``
    (``disabled``) — 8 requests each, tokens equal across the four, the
    engine's start wall cold and warm;
-16. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-15 by path, its error,
+16. ``fleet`` — the replica fleet on the flagship at full width (8 slots a
+   replica, one model shared by the replicas, random weights from a seed,
+   the reference's vocabulary caps, ``eval_graph="expected"``): (a)
+   ``fleet_sick`` — two replicas under a 32-request bursty multi-tenant zoo
+   trace, replica 1's decode faulting from tick 4 at rebuild cap 0, a strict
+   invariant monitor: every request terminal once, every non-OK one a SHED
+   that had delivered tokens, the moved requests OK, the OK tokens a solo
+   engine's (bit for bit, else up to a near tie, the gate printed), the
+   rebuild cap named, capacity 0.5, no leak on replica 0, one device read
+   per decoding replica on each decode-only fleet tick, the allocated bytes
+   down by at least the retired pool's; readings of the trace without
+   faults on 1 × 16 and 2 × 8 slots (drain wall, tokens/s, p50 / p95, busy
+   share); (b) ``fleet_mesh`` — a solo replica beside a ``(1, 2)`` serve-mesh
+   one, both shards on ``cuda:0``: tokens and statuses a 2-solo fleet's bit
+   for bit, K5 twice per decode step on the mesh replica; (c)
+   ``fleet_heal`` — an ``AutoScaler`` healing a retired replica through a
+   fresh warm-start store (the replacement's provenance ``hit``, tokens
+   after the heal a solo engine's), after ``corrupt_warmstart`` (its
+   provenance ``digest_mismatch``, the store whole again) and through a
+   killed spawn (one ``fleet.spawn_failed``, then a spawn); (d)
+   ``fleet_tiers`` — JAX's tiered-fleet chaos drill: spill storms and
+   corrupted restores on both tiered replicas under a duplicate storm,
+   strict, with spills and ``digest_mismatch`` misses, no leak; (e)
+   ``fleet_cli`` — ``serve --replicas 2 --autoscale --min_replicas 1
+   --max_replicas 3`` fed snippets and malformed lines: every line answered,
+   the fleet's stats line;
+17. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-16 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -384,6 +410,11 @@ PATH_KERNELS = {
        for path in ("storage_tier_float32", "storage_tier_int8", "storage_mesh",
                     "storage_warm")},
     "storage_rect": ("flex_fwd_cse", "flex_fwd_sbm_expected"),
+    # the fleet phase: every replica prefills its misses (K1, K2) and decodes
+    # over its own pool (K5), also on a head-sharded replica, a healed one,
+    # tiered ones and behind the command line
+    **{path: ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
+       for path in ("fleet_sick", "fleet_mesh", "fleet_heal", "fleet_tiers", "fleet_cli")},
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -3767,7 +3798,7 @@ def serving_phase(corpus, card: str = "", profile: bool = False) -> dict:
         launches=counts, drills=drills, cli=cli_rec, profile=traced,
         seconds=time.perf_counter() - t0)
     emit("serving", **rec)
-    return rec
+    return dict(rec, checkpoint=ckpt)
 
 # ---------------------------------------------------------------------------
 
@@ -5722,6 +5753,668 @@ def storage_phase(card: str = "") -> dict:
     return {"launches": {path: rec["launches"] for path, rec in recs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the replica fleet — router, fleet, autoscale and the chaos drills
+# ---------------------------------------------------------------------------
+
+#: (a)'s trace: a zoo scenario, its size and its seed
+FLEET_TRACE = ("bursty_multitenant", 32, 5)
+#: (a): the fleet tick at which replica 1's decode faults start
+FLEET_RETIRE_AT = 4
+#: requests of (b), of each of (c)'s legs, and of (d)'s duplicate storm
+FLEET_MESH_REQUESTS = 8
+FLEET_HEAL_REQUESTS = 12
+FLEET_TIER_REQUESTS = 24
+#: the triplet ids the toy samples draw (the python model reads none)
+TRIP_VOCAB = 64
+
+
+def fleet_cfg(overrides=None):
+    """The flagship as the fleet legs serve it: 8 slots a replica, rebuild
+    cap 0 (one decode fault retires a replica, as in JAX's fleet tests), no
+    post-mortem files."""
+    return flagship().replace(serve_max_rebuilds=0, obs_postmortem_dir="", **(overrides or {}))
+
+
+def fleet_trace(cfg, zoo: str, n: int, seed: int, **spec):
+    """A seeded zoo trace (``serve/traffic.py``) at ``cfg``'s shapes."""
+    from csat_tpu_torch.serve.traffic import make_trace, zoo_spec
+
+    return make_trace(zoo_spec(zoo, n, seed=seed, **spec), cfg, SRC_VOCAB, TRIP_VOCAB)
+
+
+def allocated(device: str) -> int:
+    return torch.cuda.memory_allocated() if device == "cuda" else 0
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every distinct tensor storage reachable from ``obj``."""
+    storages, seen = {}, set()
+
+    def walk(x):
+        if id(x) in seen:
+            return
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            s = x.untyped_storage()
+            storages[(x.device, s.data_ptr())] = s.nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "__dict__") and not isinstance(x, (type, torch.nn.Module)):
+            for v in vars(x).values():
+                walk(v)
+
+    walk(obj)
+    return sum(storages.values())
+
+
+class FleetTicks:
+    """Wraps a fleet's tick and each replica engine's.  Per fleet tick: the
+    host syncs (on the card), the allocated bytes before and after, each
+    live replica's admitted / resolved / decoded flags, the replicas' health
+    and the resubmission count; per replica: the kernel launches and decode
+    steps of its ticks (``launches``, ``k5``, ``steps``)."""
+
+    def __init__(self, fleet, device: str):
+        from csat_tpu_torch.ops import build
+
+        self.ticks, self.launches, self.steps = [], {}, {}
+        self._wrapped = set()
+        inner = fleet.tick
+        count = device == "cuda"
+
+        def tick():
+            for rep in fleet.replicas:
+                if rep.index not in self._wrapped:
+                    self._wrap(rep, build)
+            self._current = []
+            health = [r.health for r in fleet.replicas]
+            moved, mem = fleet.resubmissions, allocated(device)
+            with counted_syncs() if count else contextlib.nullcontext([]) as caught:
+                live = inner()
+            self.ticks.append(dict(
+                syncs=list(caught), replicas=self._current, mem_before=mem,
+                mem_after=allocated(device), health_before=health,
+                health_after=[r.health for r in fleet.replicas],
+                moved=fleet.resubmissions > moved))
+            return live
+
+        fleet.tick = tick
+
+    def _wrap(self, rep, build):
+        eng, k = rep.engine, rep.index
+        inner = eng.tick
+        self._wrapped.add(k)
+        self.launches[k], self.steps[k] = {fn: 0 for fn in build.KERNELS}, 0
+
+        def tick():
+            a, r, d = eng.stats.admitted, len(eng._results), eng.stats.decode_steps
+            before = build.launch_counts()
+            try:
+                return inner()
+            finally:
+                self._current.append(dict(replica=k, admitted=eng.stats.admitted > a,
+                                          resolved=len(eng._results) > r,
+                                          decoded=eng.stats.decode_steps > d))
+                for fn, c in build.launch_counts().items():
+                    self.launches[k][fn] += c - before[fn]
+                self.steps[k] += eng.stats.decode_steps - d
+
+        eng.tick = tick
+
+    @property
+    def k5(self) -> dict:
+        return {k: c["paged_decode"] for k, c in self.launches.items()}
+
+    def by_replica(self) -> dict:
+        """Each replica's launches of the serving kernels (K1, K2, K5)."""
+        return {k: {fn: c[fn] for fn in ("flex_fwd_cse", "flex_fwd_sbm_expected",
+                                          "paged_decode")} for k, c in self.launches.items()}
+
+    def reads(self) -> dict:
+        """Host reads of the decode-only fleet ticks (every live replica
+        that ticked only decoded: no admission, no request resolved, no
+        retirement or resubmission): each must read the device once per
+        replica that decoded."""
+        pure = [t for t in self.ticks if t["replicas"] and not t["moved"]
+                and t["health_before"] == t["health_after"]
+                and any(r["decoded"] for r in t["replicas"])
+                and not any(r["admitted"] or r["resolved"] for r in t["replicas"])]
+        bad = [(len(t["syncs"]), sum(r["decoded"] for r in t["replicas"])) for t in pure
+               if len(t["syncs"]) != sum(r["decoded"] for r in t["replicas"])]
+        if not pure or bad:
+            raise AssertionError(f"decode-only fleet ticks: {len(pure)}, with reads != decoding "
+                                 f"replicas (reads, replicas): {bad[:8]}; sites "
+                                 f"{_tally(s for t in pure for s in t['syncs'])}")
+        return dict(decode_only_fleet_ticks=len(pure),
+                    reads_per_decoding_replica=1,
+                    fleet_ticks=len(self.ticks),
+                    sites_decode_only=_tally(s for t in pure for s in t["syncs"]))
+
+
+def fleet_checks(dev) -> None:
+    """K1 and K2 at every prefill group a 16-slot engine can form (the
+    readings' single replica) that phase 3 did not check yet."""
+    gen = torch.Generator().manual_seed(SEED + 16)
+    for b, n in serve_shapes(fleet_cfg(dict(serve_slots=16))):
+        for mod, fn in (("cse", "flex_fwd_cse"), ("sbm_expected", "flex_fwd_sbm_expected")):
+            dh = _head_dim(fn, flagship())
+            if (fn, b, n, dh) not in CHECKED:
+                flex_check(mod, b, n, gen, dev, timed=False)
+
+
+def _latency(results) -> dict:
+    """p50 / p95 of the OK requests' latencies (each request's own, not a
+    histogram's bucket bounds)."""
+    from csat_tpu_torch.serve.stats import percentile
+
+    lat = [r.done_t - r.submit_t for r in results if r is not None and r.ok]
+    return dict(latency_p50_s=percentile(lat, 50), latency_p95_s=percentile(lat, 95))
+
+
+def _fleet_results(fleet, n: int) -> list:
+    """A fresh fleet's results of a trace driven by ``run_chaos``: its fleet
+    ids are the trace's indices."""
+    return [fleet.poll(i) for i in range(n)]
+
+
+def _tokens_against(results, ref, log, label: str) -> dict:
+    """OK results' tokens against a reference engine's on the same samples:
+    bit for bit first; where that fails, up to a near tie of the
+    reference's (``TIE_MARGIN``, its ``MarginLog``).  Returns the gate that
+    held."""
+    pairs = [(r, c) for r, c in zip(results, ref) if r is not None and r.ok]
+    differ = [c.id for r, c in pairs if not np.array_equal(r.tokens, c.tokens)]
+    rec = dict(tokens_compared_requests=len(pairs), bit_equal=not differ,
+               differing_requests=len(differ))
+    if differ:
+        ties, compared = compare_tokens([r for r, _ in pairs],
+                                        dict(results=[c for _, c in pairs], log=log), label)
+        rec.update(gate="near_tie", near_ties=ties, tokens_compared=compared,
+                   tie_margin=TIE_MARGIN)
+    else:
+        rec["gate"] = "bit"
+    return rec
+
+
+def _solo_reference(model, cfg, trace, device: str):
+    """The trace's samples, budgets and tiers on one engine: its results in
+    trace order and the ``MarginLog`` of its decode steps (the wrapper is
+    taken off the shared module again)."""
+    from csat_tpu_torch.serve import ServeEngine
+
+    log = MarginLog(model)
+    try:
+        solo = ServeEngine(model, cfg, device=device, clock=lambda: len(log.calls))
+        ids = [solo.submit(it.sample, it.max_new_tokens, priority=it.priority)
+               for it in trace.items]
+        solo.drain()
+        ref = [solo.poll(i) for i in ids]
+        solo.close()
+    finally:
+        del model.decode_step
+    return ref, log
+
+
+def fleet_readings(model, cfg, trace, device: str) -> dict:
+    """Readings, not gates: (a)'s trace without faults on one replica of 16
+    slots and on two of 8 — drain wall, tokens/s, merged p50 / p95, and the
+    device's busy share from a second, profiled run (on the card)."""
+    from csat_tpu_torch.resilience import run_chaos
+    from csat_tpu_torch.serve import Fleet
+
+    out = {}
+    for label, replicas, slots in (("1x16", 1, 16), ("2x8", 2, 8)):
+        c = cfg.replace(serve_slots=slots)
+        rec = {}
+        for profiled in (False, True) if device == "cuda" else (False,):
+            fleet = Fleet(model, c, replicas=replicas)
+            ctx = contextlib.nullcontext()
+            if profiled:
+                from torch.profiler import ProfilerActivity, profile as torch_profile
+
+                ctx = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            with ctx as prof:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                report = run_chaos(fleet, trace)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            results = _fleet_results(fleet, len(trace))
+            tokens = sum(r.n_tokens for r in results)
+            if profiled:
+                s = _device_summary(prof, wall)
+                rec.update(profiled_wall_s=wall, device_busy_share=s["device_busy_share"],
+                           device_busy_ms=s["device_busy_ms"])
+            else:
+                rec.update(drain_wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                           outcomes=report.outcomes, fleet_ticks=report.n_ticks,
+                           **_latency(results))
+            fleet.close()
+        out[label] = rec
+    return out
+
+
+def fleet_sick(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(a) Two replicas under (a)'s bursty trace, replica 1's decode
+    faulting from fleet tick ``FLEET_RETIRE_AT`` (rebuild cap 0), a strict
+    invariant monitor: every request terminal once; every non-OK request a
+    SHED that had delivered tokens (at most once: a zero-token shed is
+    resubmitted and finishes OK); the OK tokens a solo engine's on the same
+    samples (bit for bit, else up to a near tie, the gate recorded);
+    ``sick_reason`` names the rebuild cap; capacity 0.5; replica 0 leaks
+    nothing; each decode-only fleet tick reads the device once per replica
+    that decoded; the allocated bytes fall by at least the retired pool's at
+    the retiring tick.  Readings: the allocated bytes before the fleet and
+    after its close, and the fault-free 1 × 16 / 2 × 8 runs."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.resilience import FaultEvent, FaultPlan, InvariantMonitor, run_chaos
+    from csat_tpu_torch.serve import Fleet
+
+    cfg = fleet_cfg(overrides)
+    zoo, n, seed = FLEET_TRACE
+    trace = fleet_trace(cfg, zoo, n, seed)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    ref, log = _solo_reference(model, cfg, trace, device)
+    mem_before = allocated(device)
+    fleet = Fleet(model, cfg, replicas=2)
+    pool_bytes = tensor_bytes(fleet.replicas[1].engine._pool)
+    ticks = FleetTicks(fleet, device)
+    plan = FaultPlan((FaultEvent("retire_replica", at=FLEET_RETIRE_AT, replica=1),),
+                     name="fleet_sick")
+    build.reset_launches()
+    with flex_launches() as launched:
+        t0 = time.perf_counter()
+        report = run_chaos(fleet, trace, plan=plan, monitor=InvariantMonitor(cfg), strict=True)
+        wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    results = _fleet_results(fleet, n)
+    label = "fleet sick replica"
+    statuses = {}
+    for r in results:
+        statuses[r.status] = statuses.get(r.status, 0) + 1
+    shed = [r for r in results if not r.ok]
+    bad = [r.id for r in shed if r.status != "SHED" or not r.n_tokens
+           or not r.error.startswith("replica 1 retired")]
+    moved = [r for r in results if r.attempts]
+    rep0, rep1 = fleet.replicas[0], fleet.replicas[1]
+    retire_tick = next((i for i, t in enumerate(ticks.ticks) if t["health_after"][1] == "SICK"),
+                       None)
+    freed = (ticks.ticks[retire_tick]["mem_before"] - ticks.ticks[retire_tick]["mem_after"]
+             if retire_tick is not None else 0)
+    if (not report.clean or "UNRESOLVED" in report.outcomes or bad
+            or not all(r.ok for r in moved) or "serve_max_rebuilds" not in (rep1.sick_reason or "")
+            or retire_tick is None or fleet.capacity_frac != 0.5 or rep0.engine.page_leaks()
+            or rep0.engine.chain_leaks() or rep1.engine._pool is not None
+            or (device == "cuda" and freed < pool_bytes)):
+        raise AssertionError(f"{label}: clean {report.clean}, outcomes {report.outcomes}, "
+                             f"non-OK not a delivered SHED {bad}, moved "
+                             f"{[(r.id, r.status) for r in moved]}, reason {rep1.sick_reason}, "
+                             f"capacity {fleet.capacity_frac}, leaks {rep0.engine.page_leaks()} / "
+                             f"{rep0.engine.chain_leaks()}, freed {freed} of {pool_bytes} B")
+    tokens = _tokens_against(results, ref, log, label)
+    reads = ticks.reads() if device == "cuda" else None
+    _check_launched("fleet_sick", counts)
+    _check_rates("fleet_sick", launched)
+    summ = fleet.summary(wall_s=wall)
+    ticks_rec = ticks.by_replica()
+    fleet.close()
+    del fleet, ticks, rep0, rep1
+    if device == "cuda":
+        torch.cuda.synchronize()
+    mem_closed = allocated(device)
+    rec = dict(card=card, trace=zoo, requests=n, seed=seed, slots=cfg.serve_slots,
+               retire_at_tick=FLEET_RETIRE_AT, outcomes=report.outcomes, statuses=statuses,
+               delivered_sheds=len(shed), resubmissions=summ["resubmissions"],
+               moved_ok=len(moved), sick_reason=summ["per_replica"][1]["sick_reason"],
+               capacity_frac=summ["capacity_frac"], invariant_checks=report.checks,
+               violations=0, page_leaks=0, chain_leaks=0, tokens=tokens, reads=reads,
+               memory=dict(before_fleet=mem_before, retired_pool_bytes=pool_bytes,
+                           freed_at_retirement=freed, retire_tick=retire_tick,
+                           after_close=mem_closed),
+               launches_by_replica=ticks_rec, drain_wall_s=wall, fleet_ticks=report.n_ticks,
+               **_latency(results),
+               readings=fleet_readings(model, cfg, trace, device),
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("fleet_sick", **rec)
+    return rec
+
+
+def fleet_mesh(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(b) Replica 0 solo and replica 1 on a ``(1, 2)`` serve mesh (both
+    head shards on the engine's device) against a fleet of two solo
+    replicas, ``FLEET_MESH_REQUESTS`` requests, no faults: statuses and
+    tokens equal bit for bit, both replicas served, and (on the card)
+    replica 1 launches K5 twice per decode step as often as replica 0.  The
+    path's launches are the mesh fleet's run alone."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.resilience import run_chaos
+    from csat_tpu_torch.serve import Fleet
+
+    cfg = fleet_cfg(overrides)
+    trace = fleet_trace(cfg, "steady", FLEET_MESH_REQUESTS, 5, mean_interarrival=0.1)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    shards = [f"{device}:0" if device == "cuda" else device] * 2
+    runs, counts, launched = {}, {}, []
+    for label, kw in (("solo", {}), ("mesh", dict(mesh_shapes=[(), (1, 2)],
+                                                   mesh_devices=[None, shards]))):
+        fleet = Fleet(model, cfg, replicas=2, **kw)
+        ticks = FleetTicks(fleet, "cpu")
+        build.reset_launches()
+        with flex_launches() as seen:
+            report = run_chaos(fleet, trace)
+        if label == "mesh":
+            counts, launched = build.launch_counts(), seen
+        runs[label] = dict(results=_fleet_results(fleet, len(trace)), k5=ticks.k5,
+                           by_replica=ticks.by_replica(),
+                           steps=dict(ticks.steps), routes=dict(fleet.routes),
+                           outcomes=report.outcomes,
+                           mesh=[r.engine.mesh is not None for r in fleet.replicas])
+        fleet.close()
+    a, b = runs["solo"], runs["mesh"]
+    equal = ([r.status for r in a["results"]] == [r.status for r in b["results"]]
+             and all(np.array_equal(x.tokens, y.tokens)
+                     for x, y in zip(a["results"], b["results"])))
+    per_step = {k: b["k5"][k] / b["steps"][k] for k in b["k5"] if b["steps"][k]}
+    if (not equal or not all(r.ok for r in b["results"]) or b["mesh"] != [False, True]
+            or set(b["routes"].values()) != {0, 1}
+            or (device == "cuda" and per_step.get(1) != 2 * per_step.get(0, -1))):
+        raise AssertionError(f"fleet mesh: equal {equal}, outcomes {b['outcomes']}, mesh "
+                             f"{b['mesh']}, routes {b['routes']}, K5 per step {per_step}")
+    _check_launched("fleet_mesh", counts)
+    _check_rates("fleet_mesh", launched)
+    rec = dict(card=card, requests=FLEET_MESH_REQUESTS, serve_mesh_shapes=[[], [1, 2]],
+               shard_devices=shards, tokens_and_statuses_equal=True,
+               k5_launches=b["k5"], decode_steps=b["steps"], k5_per_decode_step=per_step,
+               launches_by_replica=b["by_replica"],
+               routes=sorted(set(b["routes"].values())),
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("fleet_mesh", **rec)
+    return rec
+
+
+def _spawns(fleet) -> list:
+    return [dict(replica=f["replica"], cold_start_s=f["cold_start_s"], spawn_s=f["spawn_s"],
+                 warm=f["warm"], cold=f["cold"])
+            for _, name, _, f in fleet.obs.events() if name == "fleet.spawn"]
+
+
+def fleet_heal(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(c) Self-healing over a fresh warm-start store, an ``AutoScaler``
+    (floor and ceiling 2, evaluating every tick) attached to ``run_chaos``,
+    strict monitors expecting recovery, each leg a fresh 2-replica fleet
+    under a bursty trace with replica 1 retired at tick 4: (1) the heal —
+    one replica spawned, capacity 1.0, the replacement's provenance ``hit``
+    for each library, no prefix hit, and tokens after the heal a solo
+    engine's; (2) ``corrupt_warmstart`` first — entries corrupted, the
+    replacement books ``digest_mismatch`` for each library, the store
+    verifies whole afterwards, capacity 1.0; (3) ``kill_during_spawn`` —
+    one ``fleet.spawn_failed``, then a spawn.  Readings: each spawn's
+    seconds.  The provenance gates need the card (the CPU engine loads no
+    library).  The heal leg's solo reference runs before the launches are
+    counted, without the store, so the path's counts and the store's
+    verdicts are the fleets' own."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.resilience import FaultEvent, FaultPlan, InvariantMonitor, run_chaos
+    from csat_tpu_torch.serve import AutoScaler, Fleet
+    from csat_tpu_torch.serve.warmstart import WarmStartStore
+
+    tmp = tempfile.mkdtemp(prefix="csat_fleet_ws_")
+    store = os.path.join(tmp, "store")
+    cfg = fleet_cfg(overrides).replace(
+        serve_warmstart=True, serve_warmstart_dir=store, serve_min_replicas=2,
+        serve_max_replicas=2, serve_autoscale=True, serve_autoscale_every_ticks=1,
+        serve_resubmit_backoff_s=0.0)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    libs = sorted(build.SERVE_LIBRARIES)
+    card_only = device == "cuda"
+    legs, counts = {}, {}
+    leg_faults = (("heal", ()), ("corrupt_warmstart", (FaultEvent("corrupt_warmstart", at=0),)),
+                  ("kill_during_spawn", (FaultEvent("kill_during_spawn", count=1),)))
+    traces = [fleet_trace(cfg, "bursty_multitenant", FLEET_HEAL_REQUESTS, 20 + i,
+                          mean_interarrival=1.0) for i in range(len(leg_faults))]
+    ref, log = _solo_reference(model, cfg.replace(serve_warmstart=False), traces[0], device)
+    build.reset_launches()
+    try:
+        with flex_launches() as launched:
+            for (leg, extra), trace in zip(leg_faults, traces):
+                fleet = Fleet(model, cfg, replicas=2)
+                first = [dict(r.engine.warmstart_provenance) for r in fleet.replicas]
+                plan = FaultPlan(extra + (FaultEvent("retire_replica", at=4, replica=1),),
+                                 name=f"fleet_{leg}")
+                scaler = AutoScaler(fleet)
+                report = run_chaos(fleet, trace, plan=plan, supervisor=scaler, strict=True,
+                                   monitor=InvariantMonitor(cfg, expect_recovery=True))
+                spawned = [r for r in fleet.replicas if r.index >= 2]
+                names = [name for _, name, _, _ in fleet.obs.events()]
+                corrupted = [f["entries"] for _, name, _, f in fleet.obs.events()
+                             if name == "fault.corrupt_warmstart"]
+                rec = dict(outcomes=report.outcomes, heals=scaler.heals,
+                           replicas_spawned=report.replicas_spawned,
+                           capacity_frac=fleet.capacity_frac,
+                           time_to_recover_s=report.time_to_recover_s,
+                           provenance_first=first,
+                           provenance_spawned=[dict(r.engine.warmstart_provenance)
+                                               for r in spawned],
+                           spawned_prefix_hits=[int(r.engine.stats.prefix_hits) for r in spawned],
+                           spawn_failed=names.count("fleet.spawn_failed"),
+                           spawns=_spawns(fleet), corrupted_entries=corrupted)
+                want = {"heal": "hit", "corrupt_warmstart": "digest_mismatch",
+                        "kill_during_spawn": "hit"}[leg]
+                ok = (report.clean and report.replicas_spawned == 1
+                      and fleet.capacity_frac == 1.0 and len(spawned) == 1
+                      and spawned[0].health == "HEALTHY" and rec["spawned_prefix_hits"] == [0])
+                if card_only:
+                    ok = ok and rec["provenance_spawned"] == [{lib: want for lib in libs}]
+                if leg == "heal":
+                    after = [fleet.submit(it.sample, it.max_new_tokens, priority=it.priority)
+                             for it in trace.items]
+                    fleet.drain()
+                    rec["tokens_after_heal"] = _tokens_against(
+                        [fleet.poll(f) for f in after], ref, log, "fleet heal, after the heal")
+                elif leg == "corrupt_warmstart":
+                    whole = {lib: WarmStartStore(store).load(lib, build.store_fields(lib))[1]
+                             for lib in libs} if card_only else {}
+                    rec["store_after"] = whole
+                    if card_only:
+                        ok = ok and corrupted and corrupted[0] > 0 and set(whole.values()) == {"hit"}
+                else:
+                    ok = ok and rec["spawn_failed"] == 1 and names.index(
+                        "fleet.spawn_failed") < names.index("fleet.spawn")
+                fleet.close()
+                if not ok:
+                    raise AssertionError(f"fleet heal, {leg}: {rec}")
+                legs[leg] = rec
+        counts = build.launch_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_launched("fleet_heal", counts)
+    _check_rates("fleet_heal", launched)
+    rec = dict(card=card, requests_per_leg=FLEET_HEAL_REQUESTS, libraries=libs, legs=legs,
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("fleet_heal", **rec)
+    return rec
+
+
+def fleet_tiers(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(d) JAX's tiered fleet drill (``tests/test_tiering.py``) at full
+    width: two tiered replicas at f32 pages on the storage phase's tight
+    pool, with JAX's host-only tiers (an unbounded host budget, so nothing
+    reaches the disk directory the replicas share), under a duplicate storm
+    (arrivals 3 ticks apart on average), a strict monitor, and on both
+    replicas JAX's schedule — spill storms from ticks 2 and 9, every tiered
+    snapshot corrupted at tick 6 — with the second storm held through the
+    run and the corruption repeated every 10 ticks to tick 56: at full width
+    a request lives for more ticks than at JAX's micro width, and its short
+    storms found every chain pinned by live sharers (no spill in the CPU
+    rehearsal at 8 slots).  Gates: clean, every request resolved, spills
+    and ``digest_mismatch`` restore misses on the timeline, no page or chain
+    leaked."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.resilience import FaultEvent, FaultPlan, InvariantMonitor, run_chaos
+    from csat_tpu_torch.serve import Fleet
+
+    tmp = tempfile.mkdtemp(prefix="csat_fleet_tiers_")
+    try:
+        cfg = tier_cfg("float32", os.path.join(tmp, "tiers"), overrides).replace(
+            serve_max_rebuilds=0, serve_tier_host_pages=0)
+        model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+        trace = fleet_trace(cfg, "duplicate_storm", FLEET_TIER_REQUESTS, 5,
+                            mean_interarrival=3.0)
+        plan = FaultPlan(name="tier_storm", events=tuple(
+            FaultEvent(kind=kind, at=at, count=count, replica=rep) for rep in (0, 1)
+            for kind, at, count in (("spill_storm", 2, 3), ("spill_storm", 9, 100),
+                                    *(("corrupt_tier_restore", t, 1) for t in range(6, 60, 10)))))
+        fleet = Fleet(model, cfg, replicas=2)
+        build.reset_launches()
+        with flex_launches() as launched:
+            report = run_chaos(fleet, trace, plan=plan, monitor=InvariantMonitor(cfg),
+                               strict=True)
+        counts = build.launch_counts()
+        names = [e["name"] for e in report.timeline]
+        misses = [e.get("reason") for e in report.timeline if e["name"] == "tier.restore_miss"]
+        leaks = [(r.engine.page_leaks(), r.engine.chain_leaks()) for r in fleet.replicas]
+        stats = [dict(spills=int(r.engine.stats.tier_spills),
+                      restores=int(r.engine.stats.tier_restores),
+                      misses=int(r.engine.stats.tier_restore_misses),
+                      prefix_hits=int(r.engine.stats.prefix_hits)) for r in fleet.replicas]
+        fleet.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if (not report.clean or "UNRESOLVED" in report.outcomes
+            or sum(report.outcomes.values()) != len(trace) or "tier.spill" not in names
+            or "digest_mismatch" not in misses or any(p or c for p, c in leaks)):
+        raise AssertionError(f"fleet tiers: clean {report.clean}, outcomes {report.outcomes}, "
+                             f"spills {names.count('tier.spill')}, misses {misses}, leaks "
+                             f"{leaks}")
+    _check_launched("fleet_tiers", counts)
+    _check_rates("fleet_tiers", launched)
+    rec = dict(card=card, requests=len(trace), duplicates=trace.n_duplicates,
+               outcomes=report.outcomes, invariant_checks=report.checks, violations=0,
+               spill_events=names.count("tier.spill"),
+               restore_misses={r: misses.count(r) for r in sorted(set(misses))},
+               replicas=stats, page_leaks=0, chain_leaks=0, fleet_ticks=report.n_ticks,
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("fleet_tiers", **rec)
+    return rec
+
+
+#: ``python -c`` program of (e)'s serve process: ``python -m
+#: csat_tpu_torch.cli`` with its argv after the output path, recording the
+#: kernel launches and flex forward shapes of the process into that file
+#: when it exits
+FLEET_CLI_RUNNER = """\
+import atexit, json, runpy, sys
+import chip_smoke
+from csat_tpu_torch.ops import build
+out = sys.argv.pop(1)
+launched = chip_smoke.flex_launches().__enter__()
+atexit.register(lambda: json.dump(dict(launches=build.launch_counts(),
+                                       flex=[list(x) for x in launched]), open(out, "w")))
+runpy.run_module("csat_tpu_torch.cli", run_name="__main__", alter_sys=True)
+"""
+
+
+def fleet_cli(data_dir: str, ckpt: str, tmp: str, card: str = "", device: str = "cuda",
+              sets=()) -> dict:
+    """(e) ``serve --replicas 2 --autoscale --min_replicas 1 --max_replicas
+    3`` on the serving phase's checkpoint, in a process of its own fed the
+    serving phase's snippets twice over with malformed lines mixed in, then
+    end of input: the process exits 0, every line is answered (the malformed
+    ones FAILED, the rest OK), each OK summary is the one a single
+    ``ServeEngine`` from ``build_engine`` gives on the same snippet, and the
+    stats line is the fleet's.  The launches are the serve process's own,
+    which it writes to a file as it exits."""
+    from csat_tpu_torch.serve import cli
+
+    base = ["--config", "python", "--data_dir", data_dir, "--checkpoint_dir", ckpt,
+            "--device", device, "--set", "eval_graph='expected'", "--max_new_tokens", "8"]
+    for k, v in dict(sets).items():
+        base += ["--set", f"{k}={v!r}"]
+    snippets = CLI_SNIPPETS * 2
+    lines = [json.dumps({"id": f"r{i}", "code": s}) for i, s in enumerate(snippets)]
+    lines[1:1] = ["42", json.dumps({"id": "nocode"}), json.dumps({"id": "syn", "code": "def f(:"})]
+    lines.append(json.dumps({"id": "late", "code": CLI_SNIPPETS[0], "priority": "hi"}))
+    paths = {name: os.path.join(tmp, f"fleet_cli.{name}") for name in ("in", "out", "err",
+                                                                        "counts")}
+    with open(paths["in"], "w") as f:
+        f.write("\n".join(lines) + "\n")
+    args = ["serve", *base, "--postmortem_dir", os.path.join(tmp, "fleet_cli_pm"),
+            "--replicas", "2", "--autoscale", "--min_replicas", "1", "--max_replicas", "3"]
+    t0 = time.perf_counter()
+    with open(paths["in"]) as stdin, open(paths["out"], "w") as out_f, \
+            open(paths["err"], "w") as err_f:
+        proc = subprocess.run([sys.executable, "-c", FLEET_CLI_RUNNER, paths["counts"], *args],
+                              cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+                              stdin=stdin, stdout=out_f, stderr=err_f, timeout=600)
+    seconds = time.perf_counter() - t0
+    with open(paths["out"]) as f, open(paths["err"]) as g:
+        out, err = f.read(), g.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet CLI: exit {proc.returncode}; stderr tail {err[-1500:]}")
+    with open(paths["counts"]) as f:
+        recorded = json.load(f)
+    counts, launched = recorded["launches"], [tuple(x) for x in recorded["flex"]]
+
+    engine, cfg, src_vocab, trip_vocab = cli.build_engine(cli._parser().parse_args(
+        [*base, "--postmortem_dir", os.path.join(tmp, "fleet_cli_ref_pm")]))
+    ids = [cli._ingest(engine, cfg, src_vocab, trip_vocab, s, 8) for s in snippets]
+    engine.drain()
+    words = {f"r{i}": " ".join(engine.words(engine.poll(r))) for i, r in enumerate(ids)}
+    engine.close()
+
+    answered = {str(json.loads(x)["id"]): json.loads(x) for x in out.splitlines() if x.strip()}
+    want = set(words) | {"0", "nocode", "syn", "late"}
+    failed = sorted(k for k, v in answered.items() if v["status"] == "FAILED")
+    differ = sorted(k for k in words if answered.get(k, {}).get("summary") != words[k])
+    stats = json.loads(err.strip().splitlines()[-1])
+    fleet_keys = ("replicas", "healthy_replicas", "target_replicas", "capacity_frac",
+                  "replicas_spawned", "per_replica")
+    if (set(answered) != want or failed != sorted(["0", "nocode", "syn", "late"])
+            or any(answered[k]["status"] != "OK" for k in words) or differ
+            or not all(k in stats for k in fleet_keys) or stats["replicas"] < 2):
+        raise AssertionError(f"fleet CLI: answered {sorted(answered)}, FAILED {failed}, "
+                             f"summaries unlike the engine's {differ}, stats keys "
+                             f"{sorted(stats)}; stderr tail {err[-800:]}")
+    _check_launched("fleet_cli", counts)
+    _check_rates("fleet_cli", launched)
+    rec = dict(card=card, lines=len(lines), answered=len(answered), failed_lines=len(failed),
+               exit_status=proc.returncode, ok=sum(v["status"] == "OK" for v in answered.values()),
+               summaries_equal_engine=True,
+               stats={k: stats[k] for k in fleet_keys if k != "per_replica"},
+               per_replica=[{k: p[k] for k in ("replica", "health", "retired")}
+                            for p in stats["per_replica"]],
+               seconds=seconds, launches={fn: c for fn, c in counts.items() if c})
+    emit("fleet_cli", **rec)
+    return rec
+
+
+def fleet_phase(corpus, ckpt: str, card: str = "") -> dict:
+    """Phase 16: (a) a sick replica retired and its work moved, (b) a
+    mesh-sharded replica beside a solo one, (c) healing through the
+    warm-start store, corrupted and killed spawns included, (d) the tiered
+    fleet's chaos drill, (e) the command line's fleet on the serving phase's
+    corpus and checkpoint ``ckpt``."""
+    tmp, data_dir, _ = corpus
+    t0 = time.perf_counter()
+    fleet_checks(torch.device("cuda"))
+    recs = {"fleet_sick": fleet_sick(card), "fleet_mesh": fleet_mesh(card),
+            "fleet_heal": fleet_heal(card), "fleet_tiers": fleet_tiers(card),
+            "fleet_cli": fleet_cli(data_dir, ckpt, tmp, card)}
+    emit("fleet", seconds=time.perf_counter() - t0, paths=list(recs))
+    return {"launches": {path: rec["launches"] for path, rec in recs.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5748,17 +6441,19 @@ def main(argv=None) -> int:
         precision = precision_phase(args.profile)
         resilience = resilience_phase(corpus)
         serving = serving_phase(corpus, smi, args.profile)
-    long_ast = long_ast_phase(args.profile)
-    parallel = parallel_phase()
-    tensor = tensor_phase(smi)
-    storage = storage_phase(smi)
+        long_ast = long_ast_phase(args.profile)
+        parallel = parallel_phase()
+        tensor = tensor_phase(smi)
+        storage = storage_phase(smi)
+        fleet = fleet_phase(corpus, serving["checkpoint"], smi)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],
-               **parallel["launches"], **tensor["launches"], **storage["launches"]}
+               **parallel["launches"], **tensor["launches"], **storage["launches"],
+               **fleet["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

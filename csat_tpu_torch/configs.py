@@ -21,11 +21,15 @@ a ``seq`` axis, ``parallel/ring.py``), the pipeline's ``pipeline_stages`` /
 across head shards), validated by the JAX rules, and the serving engine's
 storage (``serve_kv_layout``: the paged pool or the per-slot rectangles;
 ``serve_tiering`` and its host / disk tiers below the page pool;
-``serve_warmstart``: the kernel library store).  Fields that only
+``serve_warmstart``: the kernel library store), and the replica fleet's
+(``serve_replicas``, the fleet queue bound, the reap-storm trip, the
+resubmission backoff) and its autoscaler's (``serve_min_replicas`` /
+``serve_max_replicas``, ``serve_autoscale`` and the ``serve_autoscale_*``
+signals, hysteresis, cooldown and churn bound).  Fields that only
 select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
 ``flex_bwd``), telemetry of parts the port does not carry yet
 (SLOs, calibration, the bench history) or serving features outside this port
-(fleets, autoscale and the network front door) are absent, and so is
+(the network front door) are absent, and so is
 ``param_dtype``, which the JAX
 package declares but reads nowhere (its master weights are f32 whatever it
 says): the port picks kernel or plain path by the device a tensor lies on,
@@ -234,6 +238,39 @@ class Config:
     serve_brownout_queue_frac: float = 0.75
     serve_brownout_max_new_tokens: int = 8
     serve_retry_after_s: float = 0.5
+    # the replica fleet (serve/fleet.py): engine replicas behind the router
+    # (1 = one engine, the fleet bypassed by the CLI); the fleet-wide queue
+    # bound over the healthy replicas (0 = serve_max_queue × healthy), under
+    # serve_queue_policy; a replica whose reaped count reaches
+    # serve_fleet_reap_storm retires (0 = off); a retired replica's
+    # zero-token requests are resubmitted after base · 2^(attempt-1) seconds,
+    # capped, with deterministic jitter in [0.5x, 1.0x) (0 = at once)
+    serve_replicas: int = 1
+    serve_fleet_max_queue: int = 0
+    serve_fleet_reap_storm: int = 0
+    serve_resubmit_backoff_s: float = 0.05
+    serve_resubmit_backoff_max_s: float = 2.0
+    # the autoscaler (serve/autoscale.py): heal and scale between these
+    # bounds (serve_max_replicas 0 = the constructed size), evaluated every
+    # serve_autoscale_every_ticks fleet ticks.  Scale up on any of queue per
+    # healthy slot, worst page occupancy, class-0 p95 over its SLO (0 = off);
+    # down on both queue per slot and busy-slot fraction under theirs; a
+    # signal must hold serve_autoscale_hysteresis evaluations; scale actions
+    # are serve_autoscale_cooldown_s apart, and every action (heals too)
+    # counts against serve_autoscale_max_actions per churn window
+    serve_min_replicas: int = 1
+    serve_max_replicas: int = 0
+    serve_autoscale: bool = False
+    serve_autoscale_every_ticks: int = 8
+    serve_autoscale_up_queue_frac: float = 1.5
+    serve_autoscale_up_page_frac: float = 0.85
+    serve_autoscale_p95_slo_s: float = 0.0
+    serve_autoscale_down_queue_frac: float = 0.1
+    serve_autoscale_down_busy_frac: float = 0.25
+    serve_autoscale_hysteresis: int = 3
+    serve_autoscale_cooldown_s: float = 5.0
+    serve_autoscale_max_actions: int = 8
+    serve_autoscale_churn_window_s: float = 60.0
     # request traces (obs/rtrace.py): finished traces kept (0 = tracing off)
     # and the longest ones kept past ring eviction
     obs_traces: int = 256
@@ -291,12 +328,18 @@ class Config:
         assert self.serve_max_rebuilds >= 0, self.serve_max_rebuilds
         assert self.serve_max_retries >= 0, self.serve_max_retries
         assert self.serve_reap_margin >= 1, self.serve_reap_margin
+        assert self.serve_replicas >= 1, self.serve_replicas
+        assert self.serve_fleet_max_queue >= 0, self.serve_fleet_max_queue
+        assert self.serve_fleet_reap_storm >= 0, self.serve_fleet_reap_storm
         assert self.serve_priority_classes >= 1, self.serve_priority_classes
         assert 0 < self.serve_brownout_queue_frac <= 1, (
             self.serve_brownout_queue_frac)
         assert self.serve_brownout_max_new_tokens >= 0, (
             self.serve_brownout_max_new_tokens)
         assert self.serve_retry_after_s >= 0, self.serve_retry_after_s
+        assert self.serve_resubmit_backoff_s >= 0, self.serve_resubmit_backoff_s
+        assert self.serve_resubmit_backoff_max_s >= self.serve_resubmit_backoff_s, (
+            self.serve_resubmit_backoff_max_s)
         assert self.serve_tier_host_pages >= 0, self.serve_tier_host_pages
         assert self.serve_tier_disk_pages >= 0, self.serve_tier_disk_pages
         if self.serve_tiering:
@@ -322,6 +365,7 @@ class Config:
             assert self.serve_kv_layout == "paged", (
                 "serve_mesh_shape spanning >1 device requires serve_kv_layout='paged' (page "
                 "arrays shard on the head axis; the rect pool has no sharded layout)")
+        self._validate_autoscale()
         assert self.obs_traces >= 0, self.obs_traces
         assert self.obs_trace_slowest >= 0, self.obs_trace_slowest
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens
@@ -344,6 +388,25 @@ class Config:
             assert 0 < self.pe_dim < self.sbm_enc_dim
         if self.use_pegen == "treepos":
             assert self.pegen_dim % (self.tree_pos_width * self.tree_pos_height) == 0
+
+    def _validate_autoscale(self) -> None:
+        """The JAX package's rules for the autoscaler's band and signals
+        (``csat_tpu/configs.py:674-700``)."""
+        assert self.serve_min_replicas >= 1, self.serve_min_replicas
+        assert self.serve_max_replicas >= 0, self.serve_max_replicas
+        if self.serve_max_replicas:
+            assert self.serve_max_replicas >= self.serve_min_replicas, self.serve_max_replicas
+        assert self.serve_autoscale_every_ticks >= 1, self.serve_autoscale_every_ticks
+        assert self.serve_autoscale_up_queue_frac > 0, self.serve_autoscale_up_queue_frac
+        assert 0 < self.serve_autoscale_up_page_frac <= 1, self.serve_autoscale_up_page_frac
+        assert self.serve_autoscale_p95_slo_s >= 0, self.serve_autoscale_p95_slo_s
+        assert self.serve_autoscale_down_queue_frac >= 0, self.serve_autoscale_down_queue_frac
+        assert 0 <= self.serve_autoscale_down_busy_frac <= 1, (
+            self.serve_autoscale_down_busy_frac)
+        assert self.serve_autoscale_hysteresis >= 1, self.serve_autoscale_hysteresis
+        assert self.serve_autoscale_cooldown_s >= 0, self.serve_autoscale_cooldown_s
+        assert self.serve_autoscale_max_actions >= 1, self.serve_autoscale_max_actions
+        assert self.serve_autoscale_churn_window_s > 0, self.serve_autoscale_churn_window_s
 
     def _validate_parallel(self) -> None:
         """The JAX package's rules for the parallel fields

@@ -13,6 +13,9 @@ it first.  A hit writes the digest-verified bytes to the build path
 atomically and loads them, with no ``nvcc`` run; a miss builds as above,
 then saves the library.  :data:`PROVENANCE` records how each library of the
 process was loaded (``"hit"``, a miss reason, or ``"off"`` without a store).
+A library is loaded once per process, but every serving engine asks the store
+(:func:`warm_library`): a later engine in the same process books the store's
+own verdict for it and repairs a bad entry from the loaded library.
 
 Nothing here runs at import time: the CPU path never needs ``nvcc``.
 """
@@ -27,11 +30,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 __all__ = [
     "KERNELS", "SOURCES", "REPLACES", "HEAD_DIMS", "SERVE_LIBRARIES", "PROVENANCE", "build_dir",
-    "library_path", "check_head_dim", "load_library", "build_all", "kernel", "launch",
+    "library_path", "check_head_dim", "load_library", "warm_library", "build_all", "kernel",
+    "launch",
     "launch_counts", "reset_launches", "store_fields",
 ]
 
@@ -255,6 +259,34 @@ def load_library(name: str, store=None) -> ctypes.CDLL:
         _LIBS[name] = lib
         PROVENANCE[name] = reason
     return lib
+
+
+def warm_library(name: str, store,
+                 on_repair_failed: Optional[Callable[[str], None]] = None) -> str:
+    """Library ``name`` for one serving engine through the warm-start
+    ``store``; returns the store's verdict for this engine (``"hit"`` or a
+    miss reason).  The process's first request loads it
+    (:func:`load_library`, whose verdict it returns).  A later one asks the
+    store again and verifies the entry's digest: a miss is repaired by saving
+    the library this process built or restored (it stays loaded: a process
+    cannot safely unload one), so the next engine, here or in a new process,
+    finds the entry whole.  A repair that fails (the loaded library's file
+    is gone, or the store refused the write) is handed to
+    ``on_repair_failed`` with its cause; the verdict stays the miss."""
+    if name not in _LIBS:
+        load_library(name, store)
+        return PROVENANCE[name]
+    fields = store_fields(name)
+    _, reason = store.load(name, fields)
+    if reason not in ("hit", "disabled"):
+        try:
+            error = (None if store.save(name, fields, library_path(name).read_bytes())
+                     else "the store refused the entry")
+        except OSError as e:
+            error = f"{type(e).__name__}: {e}"
+        if error is not None and on_repair_failed is not None:
+            on_repair_failed(error)
+    return reason
 
 
 def check_head_dim(fn: str, dh: int) -> None:

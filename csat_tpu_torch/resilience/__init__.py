@@ -15,11 +15,22 @@
   data batches;
 * :mod:`~csat_tpu_torch.resilience.faults` — a deterministic fault
   injector, so every behaviour above is exercised by CPU tests.
+
+and for serving, the chaos layer over the engine and the replica fleet:
+
+* :mod:`~csat_tpu_torch.resilience.chaos` — declarative fault plans
+  compiled onto the injector, and :func:`run_chaos`, which drives an engine
+  or a fleet through a traffic trace;
+* :mod:`~csat_tpu_torch.resilience.invariants` — the serving invariants a
+  chaos run is judged by, checked live and at quiescence.
 """
 
+from csat_tpu_torch.resilience.chaos import ChaosReport, FaultEvent, FaultPlan, run_chaos
 from csat_tpu_torch.resilience.faults import CorruptBatchError, FaultInjector
 from csat_tpu_torch.resilience.guards import (
     TrainingDivergedError, global_norm, guarded_apply, host_snapshot, restore_snapshot)
+from csat_tpu_torch.resilience.invariants import (
+    InvariantMonitor, InvariantViolationError, Violation)
 from csat_tpu_torch.resilience.preemption import (
     EXIT_PREEMPTED, Preempted, PreemptionHandler, abort_barrier, coordinated_trigger,
     read_resume_marker, write_resume_marker)
@@ -27,7 +38,8 @@ from csat_tpu_torch.resilience.retry import DataErrorBudgetExceeded, ErrorBudget
 from csat_tpu_torch.resilience.watchdog import (
     EXIT_WATCHDOG, StepWatchdog, device_liveness_probe)
 
-__all__ = ["CorruptBatchError", "FaultInjector", "TrainingDivergedError", "global_norm",
+__all__ = ["ChaosReport", "FaultEvent", "FaultPlan", "run_chaos", "InvariantMonitor",
+           "InvariantViolationError", "Violation", "CorruptBatchError", "FaultInjector", "TrainingDivergedError", "global_norm",
            "guarded_apply", "host_snapshot", "restore_snapshot", "EXIT_PREEMPTED", "Preempted",
            "PreemptionHandler", "abort_barrier", "coordinated_trigger", "read_resume_marker",
            "write_resume_marker", "DataErrorBudgetExceeded", "ErrorBudget", "retry",

@@ -10,8 +10,10 @@ The JAX package's ``serve/cli.py`` for the port::
 Both build the same stack: named config (``--set field=value`` overrides any
 field) + the vocabularies under ``--data_dir`` + the parameters the port's
 trainer saved (``best_model.pt`` under ``--checkpoint_dir``, default the
-run's output dir) → :class:`~csat_tpu_torch.serve.engine.ServeEngine`; raw
-snippets go through ``serve/ingest.py:sample_from_source`` per request.  It
+run's output dir) → :class:`~csat_tpu_torch.serve.engine.ServeEngine`, or a
+:class:`~csat_tpu_torch.serve.fleet.Fleet` of engine replicas sharing the
+one model with ``--replicas`` > 1 or ``--autoscale``; raw snippets go
+through ``serve/ingest.py:sample_from_source`` per request.  It
 runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU,
 and without a GPU and without ``--device cpu`` it raises.
 
@@ -35,10 +37,14 @@ it).  The serving engine's storage takes the JAX flags: ``--kv_layout rect``
 below the page pool, ``serve/tiering.py``) and ``--warmstart`` (the kernel
 library store, ``serve/warmstart.py``); a combination the config's rules
 refuse (tiering without a prefix cache, rect under a mesh) exits with its
-one line.  The JAX command line's replica fleet (``--replicas`` > 1),
-autoscale, SLOs, the network front door (``--net``) and ``top`` are not part
-of the port yet: each is refused with a one-line message, never silently
-ignored.
+one line.  ``--replicas N`` serves with N engine replicas behind the
+health-aware router (``serve/fleet.py``); ``--autoscale`` steps the fleet's
+supervisor (``serve/autoscale.py``) in the ``serve`` loop, healing retired
+replicas and scaling between ``--min_replicas`` and ``--max_replicas``; the
+stats line is then the fleet's summary (merged latency quantiles and a
+per-replica breakdown).  The JAX command line's SLOs (``--slo``), network
+front door (``--net``) and ``top`` are not part of the port yet: each is
+refused with a one-line message, never silently ignored.
 """
 
 from __future__ import annotations
@@ -55,10 +61,6 @@ __all__ = ["main", "build_engine"]
 
 # flag → the later slice it waits for; refused while set
 _LATER = {
-    "replicas": "the replica fleet and router",
-    "autoscale": "the fleet's autoscale",
-    "min_replicas": "the fleet's autoscale",
-    "max_replicas": "the fleet's autoscale",
     "slo": "obs/slo.py",
     "net": "the network front door",
 }
@@ -119,11 +121,19 @@ def _parser() -> argparse.ArgumentParser:
                    help="where fault post-mortem dumps land (default: config "
                         "obs_postmortem_dir)")
     p.add_argument("--sep", default="\x00", help="summarize stdin snippet separator (NUL)")
-    # the JAX command line's flags of parts the port does not carry yet
-    p.add_argument("--replicas", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--autoscale", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--min_replicas", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--max_replicas", type=int, default=-1, help=argparse.SUPPRESS)
+    p.add_argument("--replicas", type=int, default=0,
+                   help="engine replicas behind the health-aware router (serve/fleet.py), "
+                        "each with its own KV pool, queue and fault budget, all sharing the "
+                        "one model; 1 = single engine (default: config serve_replicas)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="serve: run the metrics-driven fleet supervisor (serve/autoscale.py) — "
+                        "replaces retired replicas and scales between --min_replicas and "
+                        "--max_replicas on queue depth, KV-page occupancy and class-0 p95")
+    p.add_argument("--min_replicas", type=int, default=0,
+                   help="autoscale floor (default: config serve_min_replicas)")
+    p.add_argument("--max_replicas", type=int, default=-1,
+                   help="autoscale ceiling; 0 = the constructed fleet size "
+                        "(default: config serve_max_replicas)")
     p.add_argument("--warmstart", action="store_true",
                    help="warm-start store (serve/warmstart.py): keep the built kernel "
                         "libraries, digest-verified, under the cache root so a new "
@@ -149,6 +159,7 @@ def _parser() -> argparse.ArgumentParser:
                         "i.e. solo)")
     p.add_argument("--kv_layout", default="",
                    help="paged | rect KV-cache layout (default: config serve_kv_layout)")
+    # the JAX command line's flags of parts the port does not carry yet
     p.add_argument("--slo", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--net", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("files", nargs="*", help="summarize: files holding one snippet each")
@@ -158,19 +169,17 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_later(args) -> None:
     """A flag of a part the port does not carry is an error, not a no-op."""
     for flag, slice_ in _LATER.items():
-        value = getattr(args, flag)
-        if flag == "replicas" and value <= 1:
-            continue
-        if flag == "max_replicas" and value < 0:
-            continue
-        if value:
+        if getattr(args, flag):
             raise SystemExit(f"csat_tpu_torch serve: --{flag} is not part of the port yet "
                              f"({slice_} is a later slice)")
 
 
 def build_engine(args):
     """Config / vocabs / params / engine bring-up shared by both subcommands;
-    returns ``(engine, cfg, src_vocab, trip_vocab)``."""
+    returns ``(engine, cfg, src_vocab, trip_vocab)``, the engine a
+    :class:`~csat_tpu_torch.serve.fleet.Fleet` when ``serve_replicas`` > 1
+    or ``serve_autoscale`` (the supervisor needs the replica lifecycle even
+    at one replica)."""
     _refuse_later(args)
     from csat_tpu_torch.configs import cli_config
     from csat_tpu_torch.data.vocab import Vocab, load_vocab
@@ -192,6 +201,8 @@ def build_engine(args):
             ("tiering", "serve_tiering", False), ("tier_host_pages", "serve_tier_host_pages", 0),
             ("tier_disk_pages", "serve_tier_disk_pages", 0), ("tier_dir", "serve_tier_dir", ""),
             ("queue_policy", "serve_queue_policy", ""), ("deadline_s", "serve_deadline_s", -1.0),
+            ("replicas", "serve_replicas", 0), ("autoscale", "serve_autoscale", False),
+            ("min_replicas", "serve_min_replicas", 0), ("max_replicas", "serve_max_replicas", -1),
             ("metrics_file", "obs_metrics_file", ""),
             ("postmortem_dir", "obs_postmortem_dir", "")):
         value = getattr(args, flag)
@@ -216,9 +227,26 @@ def build_engine(args):
     ckpt = args.checkpoint_dir or os.path.join(cfg.output_dir, cfg.project_name, cfg.task_name)
     model.load_state_dict(restore_params(ckpt), strict=True)
     model.eval()
-    engine = ServeEngine(model, cfg, device=device, tgt_vocab=tgt_vocab,
-                         log=lambda m: print(m, file=sys.stderr))
+    log = lambda m: print(m, file=sys.stderr)  # noqa: E731
+    if cfg.serve_replicas > 1 or cfg.serve_autoscale:
+        from csat_tpu_torch.serve.fleet import Fleet
+
+        engine = Fleet(model, cfg, tgt_vocab=tgt_vocab, log=log)
+    else:
+        engine = ServeEngine(model, cfg, device=device, tgt_vocab=tgt_vocab, log=log)
     return engine, cfg, src_vocab, trip_vocab
+
+
+def _is_fleet(engine) -> bool:
+    return hasattr(engine, "replicas")
+
+
+def _summary(engine) -> dict:
+    """The engine's stats summary, or the fleet's (summed counters, merged
+    latency quantiles, a per-replica breakdown)."""
+    if _is_fleet(engine):
+        return engine.summary(n_chips=1)
+    return engine.stats.summary(n_chips=1)
 
 
 def _telemetry(engine, cfg, args):
@@ -228,9 +256,11 @@ def _telemetry(engine, cfg, args):
 
     writer = None
     if cfg.obs_metrics_file:
-        # looked up per write: reset_stats swaps the stats object
-        writer = MetricsFile(cfg.obs_metrics_file, lambda: engine.stats.registry,
-                             every_s=cfg.obs_metrics_every_s)
+        # looked up per write: reset_stats swaps the stats object.  A fleet
+        # is its own snapshot source: the fleet's series plus every
+        # replica's registry under a replica<k>_ key prefix
+        source = (lambda: engine) if _is_fleet(engine) else (lambda: engine.stats.registry)
+        writer = MetricsFile(cfg.obs_metrics_file, source, every_s=cfg.obs_metrics_every_s)
 
     def extra():
         return {"queue_depth": engine.queue_depth, "occupancy": engine.occupancy}
@@ -292,7 +322,7 @@ def _summarize(args) -> None:
             if req.ok or req.n_tokens:
                 rec.update(summary=" ".join(engine.words(req)), n_tokens=req.n_tokens)
             print(json.dumps(rec))
-    print(json.dumps(engine.stats.summary(n_chips=1)), file=sys.stderr)
+    print(json.dumps(_summary(engine)), file=sys.stderr)
 
 
 def _parse_request(line: str, n_anon: int):
@@ -381,6 +411,11 @@ def _serve(args, stdin=None, stop=None) -> None:
 
     engine, cfg, src_vocab, trip_vocab = build_engine(args)
     writer, extra, finalize = _telemetry(engine, cfg, args)
+    scaler = None
+    if cfg.serve_autoscale and _is_fleet(engine):
+        from csat_tpu_torch.serve.autoscale import AutoScaler
+
+        scaler = AutoScaler(engine, cfg, log=lambda m: print(m, file=sys.stderr))
     hb_every = max(args.heartbeat_s, 0.0)
     last_hb = engine.clock()
     hb_keys = ("submitted", "retired", "failed", "timeouts", "rejected", "shed",
@@ -448,16 +483,20 @@ def _serve(args, stdin=None, stop=None) -> None:
                 eof = eof or lines.eof
             if engine.occupancy or engine.queue_depth:
                 engine.tick()
+            if scaler is not None:
+                # every iteration, not just busy ones: healing a retired
+                # replica must not wait for the next request
+                scaler.step()
             flush_finished(pending)
             if writer is not None:
                 writer.maybe_write(extra=extra())
             if hb_every and engine.clock() - last_hb >= hb_every:
                 last_hb = engine.clock()
-                s = engine.stats.summary(n_chips=1)
+                s = _summary(engine)
                 hb = {k: s[k] for k in hb_keys}
                 hb.update(queue_depth=engine.queue_depth, occupancy=engine.occupancy)
                 print(f"# heartbeat {json.dumps(hb)}", file=sys.stderr)
-    print(json.dumps(engine.stats.summary(n_chips=1)), file=sys.stderr)
+    print(json.dumps(_summary(engine)), file=sys.stderr)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

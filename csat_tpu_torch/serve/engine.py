@@ -79,8 +79,10 @@ Storage, as the JAX engine holds it (``engine.py:296-550, 987-1317``):
   so a warm process runs no ``nvcc``; each library's provenance
   (``warmstart_provenance``: ``"hit"`` or the miss reason) is counted in
   ``stats`` and stamped as ``warmstart.hit`` / ``warmstart_miss{reason}``.
-  The libraries are loaded once per process, so a second engine in the same
-  process reports the first load's provenance.
+  The libraries are loaded once per process; a later engine in the same
+  process (a fleet's replica or replacement) asks the store again, books its
+  verdict and repairs a bad entry from the loaded library
+  (``ops/build.py:warm_library``).
 
 Unlike the JAX engine, which donates an immutable pool through compiled
 programs, the pool's tensors are updated in place.
@@ -164,6 +166,7 @@ class Request:
     priority: int = 0                # tenant tier (0 = most important)
     retry_after_s: Optional[float] = None  # backpressure hint on REJECTED / SHED
     browned: bool = False            # decode budget was brownout-capped
+    backoff_s: float = 0.0           # total fleet resubmission backoff served
     admit_tick: Optional[int] = None  # engine tick at admission (reaper clock)
     phash: Optional[bytes] = None    # content hash (prefix cache on), once at submit
     trace_id: str = ""               # request trace ("" with tracing off)
@@ -338,8 +341,9 @@ class ServeEngine:
         self._closed = False
 
     def close(self) -> bool:
-        """Stop the watchdog and flush pending post-mortems.  Idempotent: the
-        first call returns True, later calls False."""
+        """Stop the watchdog, drop the tiers and the pool, and flush pending
+        post-mortems.  Idempotent: the first call returns True, later calls
+        False."""
         if self._closed:
             return False
         self._closed = True
@@ -350,8 +354,20 @@ class ServeEngine:
             # tiered snapshots are an in-lifetime optimisation, not a
             # persistence contract: both tiers go (disk files removed)
             self._tiers.clear()
+        # the pool's pages go back to the device: a fleet closes a retired
+        # or drained replica and serves on (results, stats and the
+        # allocator's books stay readable; what needs the pool raises)
+        self._pool = None
         self._flush_postmortems(force=True)
         return True
+
+    def _live_pool(self):
+        """The pool, or a clear error once :meth:`close` gave it back (a
+        closed engine ticks no more, and its in-flight rows have no tokens
+        left to read: shed them before closing)."""
+        if self._pool is None:
+            raise RuntimeError("engine closed: its pool was given back to the device")
+        return self._pool
 
     def _fresh_pool(self):
         """An empty pool of the engine's layout (every slot frozen)."""
@@ -362,12 +378,19 @@ class ServeEngine:
 
     def _warm_libraries(self) -> None:
         """Load the libraries of the engine's kernels (K1 and K2; K5 when
-        paged) through the warm-start store and book each one's provenance:
-        a hit, or a miss (counted when the store is enabled, as the JAX
-        engine counts only store-enabled misses) with its reason."""
+        paged) through the warm-start store and book each one's provenance
+        for this engine: a hit, or a miss (counted when the store is
+        enabled, as the JAX engine counts only store-enabled misses) with its
+        reason.  A store entry that could not be repaired is a
+        ``warmstart.repair_failed`` event and a log line."""
+
+        def repair_failed(error: str, lib: str) -> None:
+            self.obs.emit("warmstart.repair_failed", program=lib, error=error)
+            self.log(f"# warmstart.repair_failed{{program={lib!r}, error={error!r}}}")
+
         for lib in build.SERVE_LIBRARIES if self.paged else ("flex_fwd_tc",):
-            build.load_library(lib, self.warmstart)
-            prov = build.PROVENANCE[lib]
+            prov = build.warm_library(
+                lib, self.warmstart, on_repair_failed=lambda e, lib=lib: repair_failed(e, lib))
             self.warmstart_provenance[lib] = prov
             if prov == "hit":
                 self.stats.warmstart_hits += 1
@@ -513,6 +536,7 @@ class ServeEngine:
     def tick(self) -> int:
         """One scheduler round (retire → expire / reap → admit → decode);
         returns the number of slots live afterwards."""
+        self._live_pool()
         tick = self._tick_no
         self._tick_no += 1
         if self._watchdog is not None and (
@@ -662,7 +686,7 @@ class ServeEngine:
             if n <= 0:
                 continue
             if toks is None:
-                toks = self._pool.toks.cpu().numpy()
+                toks = self._live_pool().toks.cpu().numpy()
             out[req.id] = np.array(toks[i, :n], dtype=np.int32)
         return out
 
@@ -813,7 +837,8 @@ class ServeEngine:
             pos = max(pos - 1, 0)
         if pos > 0:
             req.n_tokens = pos
-            req.tokens = np.array(self._pool.toks[i, :pos].cpu().numpy(), dtype=np.int32)
+            req.tokens = np.array(self._live_pool().toks[i, :pos].cpu().numpy(),
+                                  dtype=np.int32)
         self._slots[i] = None
         self._free_slot_meta(i)
         self._finish(req, status, error=error, now=now)

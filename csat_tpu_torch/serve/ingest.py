@@ -53,22 +53,27 @@ def validate_sample(sample: Dict[str, np.ndarray], cfg: Config,
         try:
             arr = np.asarray(sample[key])
         except (TypeError, ValueError) as e:  # ragged lists, objects
-            raise PoisonRequestError(f"sample[{key!r}] is not array-like: {e}") from e
+            raise PoisonRequestError(f"sample[{key!r}] is not array-like: "
+                                     f"{type(e).__name__}: {e}") from e
         if arr.ndim != ndim or arr.shape != want_shape[key]:
             raise PoisonRequestError(
-                f"sample[{key!r}] has shape {arr.shape}, expected {want_shape[key]}")
+                f"sample[{key!r}] has shape {arr.shape}, expected {want_shape[key]} "
+                "(flagship width, serve/ingest.py)")
         if not np.issubdtype(arr.dtype, np.integer):
             raise PoisonRequestError(
                 f"sample[{key!r}] has dtype {arr.dtype}, expected an integer dtype")
     n = int(np.asarray(sample["num_node"]))
     if not 1 <= n <= N:
-        raise PoisonRequestError(f"num_node={n} outside [1, max_src_len={N}]")
+        raise PoisonRequestError(
+            f"num_node={n} outside [1, max_src_len={N}] — oversized inputs must be "
+            "truncated at ingest (truncate_preorder), not submitted")
     src = np.asarray(sample["src_seq"])
     if src.min() < 0:
         raise PoisonRequestError("src_seq contains negative token ids")
     if src_vocab_size and src.max() >= src_vocab_size:
         raise PoisonRequestError(
-            f"src_seq token id {int(src.max())} >= src vocab size {src_vocab_size}")
+            f"src_seq token id {int(src.max())} >= src vocab size {src_vocab_size} "
+            "(OOV ids must map to <unk> at ingest)")
     if triplet_vocab_size:
         trip = np.asarray(sample["triplet"])
         if trip.min() < 0 or trip.max() >= triplet_vocab_size:

@@ -3,7 +3,9 @@ imports JAX, flax or the JAX package, every module imports with those
 blocked and without ``nvcc``, ``chip_smoke.py`` fails without a GPU or
 without the package beside it, and the port's copies of JAX-free modules
 (the prefix cache, the request tracer, the serve stats, the KV tier store,
-the identifier splitters of the extractor) define exactly what their originals do."""
+the identifier splitters of the extractor, the router, the autoscaler, the
+traffic zoo, the toy samples, and the chaos runner and invariant monitor
+short of their network parts) define exactly what their originals do."""
 
 import ast
 import os
@@ -75,18 +77,43 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     assert '"ok": true' not in res.stdout
 
 
-def _defs(path: Path):
+def _is_doc(node) -> bool:
+    return (isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)
+            and isinstance(node.value.value, str))
+
+
+def _strip_docs(tree):
+    """Every function's and class's docstring taken out (the copies below
+    describe the port where their originals describe the JAX package)."""
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            body = [n for n in node.body if not _is_doc(n)]
+            node.body = body or [ast.Pass()]
+    return tree
+
+
+def _defs(path: Path, docs: bool = True):
     """Top-level statements of a module as AST dumps, by name, docstring and
-    imports left out, the package's own name normalised."""
+    imports left out, the package's own name normalised; ``docs=False``
+    leaves out every inner docstring too."""
     tree = ast.parse(path.read_text())
+    if not docs:
+        _strip_docs(tree)
     out = {}
     for node in tree.body:
-        if isinstance(node, (ast.Import, ast.ImportFrom)) or (
-                isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)) or _is_doc(node):
             continue
         name = getattr(node, "name", None) or ast.dump(node)[:60]
         out[name] = ast.dump(node).replace("csat_tpu_torch", "csat_tpu")
     return out
+
+
+def _methods(path: Path, cls: str):
+    """A class's methods as AST dumps (docstrings left out), by name."""
+    tree = _strip_docs(ast.parse(path.read_text()))
+    node = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == cls)
+    return {m.name: ast.dump(m).replace("csat_tpu_torch", "csat_tpu") for m in node.body
+            if isinstance(m, ast.FunctionDef)}
 
 
 # the port's copies of JAX-free modules of the JAX package: every definition
@@ -94,7 +121,9 @@ def _defs(path: Path):
 # is held to the original by its outputs, tests/test_torch_serve_cli.py)
 COPIES = [("serve/prefix.py", None), ("obs/rtrace.py", None), ("serve/stats.py", None),
           ("serve/tiering.py", None),
-          ("data/extract.py", ("split_camelcase", "split_identifier_into_parts"))]
+          ("data/extract.py", ("split_camelcase", "split_identifier_into_parts")),
+          ("serve/router.py", None), ("serve/autoscale.py", None), ("serve/traffic.py", None),
+          ("data/toy.py", None)]
 
 
 @pytest.mark.parametrize("rel,names", COPIES, ids=[c[0] for c in COPIES])
@@ -103,3 +132,23 @@ def test_copies_equal_their_originals(rel, names):
     if names is None:  # a whole-module copy
         assert sorted(port) == sorted(ref)
     assert all(port[n] == ref[n] for n in names or ref), rel
+
+
+# copies short of the network front door's parts (JAX's run_net_chaos,
+# check_streams and the network draw of FaultPlan.random): every other
+# definition and method is the original's, docstrings aside
+PARTIAL = [("resilience/chaos.py", ("run_net_chaos",), "FaultPlan", ("random",)),
+           ("resilience/invariants.py", (), "InvariantMonitor", ("check_streams",))]
+
+
+@pytest.mark.parametrize("rel,absent,cls,changed", PARTIAL, ids=[c[0] for c in PARTIAL])
+def test_partial_copies_equal_their_originals(rel, absent, cls, changed):
+    port = _defs(REPO / "csat_tpu_torch" / rel, docs=False)
+    ref = _defs(REPO / "csat_tpu" / rel, docs=False)
+    skip = set(absent) | {cls} | {n for n in ref if n.startswith("Assign(targets=[Name(id='__all__'")}
+    assert sorted(n for n in port if n not in skip) == sorted(n for n in ref if n not in skip)
+    assert all(port[n] == ref[n] for n in ref if n not in skip), rel
+    assert not set(absent) & set(port)
+    pm, rm = _methods(REPO / "csat_tpu_torch" / rel, cls), _methods(REPO / "csat_tpu" / rel, cls)
+    assert sorted(set(rm) - set(changed) - set(pm)) == [] and all(
+        pm[n] == rm[n] for n in rm if n not in changed), f"{rel}:{cls}"

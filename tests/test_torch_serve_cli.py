@@ -242,22 +242,29 @@ def test_serve_loop_in_process_malformed_lines_and_stop(served_ckpt, capsys):
     assert json.loads(err.strip().splitlines()[-1])["retired"] == 4
 
 
-@pytest.mark.parametrize("flag", [["--net"], ["--replicas", "2"], ["--autoscale"], ["--slo"],
+@pytest.mark.parametrize("flag", [["--net"], ["--replicas", "2", "--net"],
+                                  ["--autoscale", "--min_replicas", "3", "--max_replicas", "2"],
+                                  ["--slo"],
                                   ["--tiering", "--prefix_cache", "0"],
                                   ["--tiering", "--kv_layout", "rect"], ["--mesh", "2x2"],
                                   ["--kv_layout", "rect", "--mesh", "2"]])
 def test_later_slice_flags_refused(served_ckpt, flag):
-    """Each flag of a later slice is refused naming itself; the storage
-    flags and ``--mesh`` are ported, and a combination the config's rules
-    refuse (JAX's asserts: tiering without a prefix cache or outside the
-    paged layout, a mesh with a data axis above 1 or over the rect layout)
-    exits with its one line."""
+    """Each flag of a later slice is refused naming itself, also beside the
+    ported fleet flags; the storage flags, ``--mesh`` and the fleet's are
+    ported, and a combination the config's rules refuse (JAX's asserts:
+    tiering without a prefix cache or outside the paged layout, a mesh with a
+    data axis above 1 or over the rect layout, an autoscale ceiling below its
+    floor) exits with its one line."""
     from csat_tpu_torch.serve import cli
 
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", *_base(served_ckpt), *flag])
     msg = str(info.value)
-    if flag[0] == "--mesh":
+    if flag[0] == "--replicas":
+        assert "not part of the port yet" in msg and "--net" in msg
+    elif flag[0] == "--autoscale":
+        assert msg == "python: 2"  # JAX's assert: serve_max_replicas >= serve_min_replicas
+    elif flag[0] == "--mesh":
         assert "serve_mesh_shape (2, 2)" in msg and "leading (data) axis must be 1" in msg
     elif flag[0] == "--tiering":
         want = "a prefix cache" if "--prefix_cache" in flag else "serve_kv_layout='paged'"
@@ -303,3 +310,28 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked(served_ckpt, monkeypatch):
         cli.main(["top"])
     monkeypatch.setattr("sys.stdin", io.StringIO("def f(x):\n    return x\n"))
     cli.main(["summarize", *base, "--device", "cpu"])
+
+
+def test_summarize_over_a_fleet_equals_one_engine(served_ckpt, tmp_path, capsys):
+    """``--replicas 2`` (and ``--autoscale`` alone, a fleet of one) serve the
+    snippets through a ``Fleet``: the same lines as one engine, and the stats
+    line is the fleet's summary."""
+    from csat_tpu_torch.serve import cli
+
+    files = []
+    for i, src in enumerate(SNIPPETS[:3] * 2):
+        files.append(str(tmp_path / f"s{i}.py"))
+        with open(files[-1], "w") as f:
+            f.write(src)
+    outs, stats = [], []
+    for extra in ([], ["--replicas", "2"], ["--autoscale", "--max_replicas", "2"]):
+        cli.main(["summarize", *_base(served_ckpt), "--max_new_tokens", "5", "--serve_slots",
+                  "2", *extra, *files])
+        out, err = capsys.readouterr()
+        outs.append(out)
+        stats.append(json.loads(err.strip().splitlines()[-1]))
+    assert outs[0] == outs[1] == outs[2] and len(outs[0].splitlines()) == len(files)
+    assert all(json.loads(x)["status"] == "OK" for x in outs[1].splitlines())
+    assert "replicas" not in stats[0]
+    assert (stats[1]["replicas"], stats[2]["replicas"]) == (2, 1)
+    assert stats[1]["retired"] == len(files) and len(stats[1]["per_replica"]) == 2

@@ -235,3 +235,80 @@ def test_engine_books_library_provenance(stub_build, tmp_path, monkeypatch):
         assert names.count("warmstart.hit" if want == "hit" else "warmstart_miss") == 2
         fresh()
     assert built == list(build.SERVE_LIBRARIES)
+
+
+def test_later_engines_ask_the_store_and_repair_it(stub_build, tmp_path):
+    """Per-engine warm start (``warm_library``): the process's first request
+    loads the library (``absent``: built and saved); a later engine in the
+    same process asks the store again and books its own verdict without
+    building or loading; a corrupted entry books ``digest_mismatch`` and is
+    repaired from the loaded library, so the next engine — here or in a new
+    process — hits."""
+    build, built, loaded, fresh = stub_build
+    store = WarmStartStore(str(tmp_path / "ws"))
+    assert build.warm_library("paged_decode", store) == "absent"
+    assert build.warm_library("paged_decode", store) == "hit"
+    assert store.corrupt_entries() == 1
+    assert build.warm_library("paged_decode", store) == "digest_mismatch"
+    assert build.warm_library("paged_decode", store) == "hit"
+    assert built == ["paged_decode"] and len(loaded) == 1  # nothing rebuilt or reloaded
+    assert build.PROVENANCE["paged_decode"] == "absent"    # how this process loaded it
+    fresh()
+    assert build.warm_library("paged_decode", store) == "hit"  # a new process: repaired entry
+    assert built == ["paged_decode"] and loaded[-1] == b"\x7fELF built paged_decode"
+
+
+def test_engines_of_one_process_book_their_own_verdicts(stub_build, tmp_path):
+    """A fleet's replicas and replacements in one process over one store:
+    the first engine's libraries are ``absent`` misses, the next engine
+    hits, and after the store is corrupted the next books
+    ``digest_mismatch`` for each library and leaves the store whole."""
+    from torch_parity import configs
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.serve import ServeEngine
+
+    build, built, _, _ = stub_build
+    _, cfg = configs(serve_warmstart=True, serve_warmstart_dir=str(tmp_path / "ws"))
+    model = CSATrans(cfg, 200, 300, device="cpu", triplet_vocab_size=50)
+    seen = []
+    for step in ("first", "second", "corrupt", "after"):
+        eng = ServeEngine(model, cfg, device="cpu")
+        if step == "corrupt":
+            assert eng.warmstart.corrupt_entries() == len(build.SERVE_LIBRARIES)
+        eng._warm_libraries()
+        seen.append(set(eng.warmstart_provenance.values()))
+        eng.close()
+    assert seen == [{"absent"}, {"hit"}, {"digest_mismatch"}, {"hit"}]
+    assert built == list(build.SERVE_LIBRARIES)
+
+
+def test_a_failed_repair_is_reported(stub_build, tmp_path):
+    """A miss whose repair fails (the loaded library's file is gone) keeps
+    its verdict, hands the cause to ``on_repair_failed``, and an engine
+    books it as a ``warmstart.repair_failed`` event; the store stays
+    corrupt, so the next engine books the miss again."""
+    from torch_parity import configs
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.serve import ServeEngine
+
+    build, _, _, _ = stub_build
+    _, cfg = configs(serve_warmstart=True, serve_warmstart_dir=str(tmp_path / "ws"))
+    model = CSATrans(cfg, 200, 300, device="cpu", triplet_vocab_size=50)
+    eng = ServeEngine(model, cfg, device="cpu")
+    eng._warm_libraries()
+    eng.close()
+    assert eng.warmstart.corrupt_entries() == len(build.SERVE_LIBRARIES)
+    for lib in build.SERVE_LIBRARIES:
+        build.library_path(lib).unlink()
+    causes = []
+    assert build.warm_library("paged_decode", eng.warmstart,
+                              on_repair_failed=causes.append) == "digest_mismatch"
+    assert len(causes) == 1 and causes[0].startswith("FileNotFoundError")
+    for _ in range(2):
+        eng = ServeEngine(model, cfg, device="cpu")
+        eng._warm_libraries()
+        failed = [f["program"] for _, name, _, f in eng.obs.events()
+                  if name == "warmstart.repair_failed"]
+        eng.close()
+        assert set(eng.warmstart_provenance.values()) == {"digest_mismatch"}
+        assert sorted(failed) == sorted(build.SERVE_LIBRARIES)
