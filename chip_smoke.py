@@ -247,8 +247,40 @@ Phases, each printing JSON lines:
    ``fleet_cli`` — ``serve --replicas 2 --autoscale --min_replicas 1
    --max_replicas 3`` fed snippets and malformed lines: every line answered,
    the fleet's stats line;
-17. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-16 by path, its error,
+17. ``net`` — the network front door, burn-rate SLOs and ``top``, on the
+   flagship at full width (8 slots, random weights from a seed, the
+   reference's vocabulary caps, ``eval_graph="expected"``), every socket on
+   ``127.0.0.1`` at port 0: (a) ``net_drill`` —
+   ``run_net_chaos`` in front of one ``ServeEngine`` under the ``fleet``
+   phase's 32-request bursty trace, one event of each network fault kind,
+   a forced mid-stream reconnect, one retry, a strict invariant monitor:
+   0 violations from ``check`` and ``check_streams``, every ACKed stream
+   terminal, resumes ≥ 1, malformed lines = those injected, the OK
+   streams' tokens a solo engine's (bit for bit,
+   else up to a near tie, the gate printed), one device read per
+   decode-only tick and at most one token-pool read per front step (counted
+   apart); a wedged reader (small socket buffers, a heartbeat every step on
+   the front's virtual clock) stalled, unstalled once it reads, stalled
+   again and dropped past the stall timeout while the other streams finish,
+   its streams resumed on a fresh connection exactly once (the drill's
+   stalls are a reading, not a gate: its default socket buffers hold what
+   a slow reader leaves); readings:
+   frames, resumes, the slow
+   reader's stalls, the socket buffer the kernel grants, the drain wall
+   beside the in-process engine's; (b) ``net_fleet`` — the drill over 2 × 8 slots,
+   replica 1 retired at tick 4 and a disconnect mid-stream: clean, the
+   moved requests streamed OK, the OK tokens a solo engine's; (c)
+   ``net_slo`` — ``SLOEngine.for_target`` over an engine on a virtual
+   clock: an overload fires the availability alert and clean traffic clears
+   it (events and gauges), and an ``AutoScaler`` stamps the firing alert
+   into its heal over a fleet; (d) ``net_cli`` — ``serve --net --slo
+   --replicas 2 --metrics_file`` in a process of its own on the serving
+   phase's checkpoint: 8 snippets and 4 that ingest refuses over a
+   ``NetClient`` plus a garbage line, SIGTERM mid-stream: every stream
+   terminal (the 4 FAILED), exit 0 with the ``net`` summary, OK tokens one
+   ``ServeEngine``'s, ``top --once`` on its metrics answering;
+18. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-17 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -271,6 +303,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -415,6 +448,11 @@ PATH_KERNELS = {
     # tiered ones and behind the command line
     **{path: ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
        for path in ("fleet_sick", "fleet_mesh", "fleet_heal", "fleet_tiers", "fleet_cli")},
+    # the net phase: the same serving kernels behind the network front door
+    # (an engine, a fleet losing a replica, the command line's fleet) and
+    # under the SLO engine's overload
+    **{path: ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
+       for path in ("net_drill", "net_fleet", "net_slo", "net_cli")},
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -6415,6 +6453,652 @@ def fleet_phase(corpus, ckpt: str, card: str = "") -> dict:
     return {"launches": {path: rec["launches"] for path, rec in recs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the network front door, burn-rate SLOs and top
+# ---------------------------------------------------------------------------
+
+#: (a)'s plan: one event of each network fault kind, (kind, loop
+#: iteration, count), in the order of JAX's drill
+NET_PLAN = (("slow_reader", 2, 1), ("disconnect_mid_stream", 9, 1),
+            ("malformed_frame", 14, 2), ("reconnect_storm", 20, 1))
+#: the front door's settings in (a) and (b): the per-connection send-buffer
+#: bound in bytes, one token a frame
+NET_CFG = dict(serve_net_client_buffer=512, serve_net_frame_tokens=1)
+#: the send and receive buffers the wedged-reader leg asks the kernel for on
+#: the wedge's two ends, in bytes
+NET_SOCKET_BUF = 1024
+#: the wedged-reader leg: requests the raw socket submits (full budget) and
+#: reads only once, the others' requests over a reading client, the stall
+#: timeout, and the heartbeat cadence on the front's virtual clock, which
+#: moves one cadence a fill step: a line every step keeps backing the wedged
+#: connection up once its streams have finished, until the kernel's buffers
+#: are full whatever size it grants them
+NET_WEDGE_REQUESTS = 4
+NET_WEDGE_OTHERS = 8
+NET_STALL_TIMEOUT_S = 0.5
+NET_WEDGE_HEARTBEAT_S = 1e-6
+#: (c)'s overload: a queue of 2 refusing (engine) or shedding (fleet), an
+#: availability target of 0.9 over fast / slow windows of 0.5 / 2 s on the
+#: virtual clock, which moves NET_SLO_TICK_S a tick
+NET_SLO_CFG = dict(serve_max_queue=2, serve_queue_policy="reject", slo_availability=0.9,
+                   slo_fast_window_s=0.5, slo_slow_window_s=2.0, slo_burn_fast=2.0,
+                   slo_burn_slow=1.0)
+NET_SLO_TICK_S = 0.01
+#: (d)'s snippets that ingest refuses (each a SyntaxError)
+NET_BAD_SNIPPETS = ("def f(:\n", "class\n", "x = (1,\n", "def g(x):\nreturn x\n")
+
+
+def net_cfg(overrides=None):
+    """The flagship as the network legs serve it: (a)'s fleet trace shapes,
+    8 slots, rebuild cap 0, one token a frame, a 512-byte send bound."""
+    return fleet_cfg({**NET_CFG, **(overrides or {})})
+
+
+@contextlib.contextmanager
+def kept_clients():
+    """Every ``NetClient`` built inside the block (``run_net_chaos`` builds
+    its own), kept for the streams they assembled."""
+    from csat_tpu_torch.serve import netclient
+
+    base, kept = netclient.NetClient, []
+
+    class Kept(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            kept.append(self)
+
+    netclient.NetClient = Kept
+    try:
+        yield kept
+    finally:
+        netclient.NetClient = base
+
+
+def socket_buffers() -> dict:
+    """The send buffer the kernel grants an accepted connection that asks
+    for ``NET_SOCKET_BUF`` bytes, as the wedged-reader leg's front end of
+    the wedge asks: a few KB where the stack honours it (Linux grants at
+    least 4608 B).  The drill's connections keep the default buffers."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as lsock:
+        lsock.bind(("127.0.0.1", 0))
+        lsock.listen(1)
+        with socket.create_connection(lsock.getsockname()):
+            conn, _ = lsock.accept()
+            with conn:
+                conn.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, NET_SOCKET_BUF)
+                granted = conn.getsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF)
+    return dict(asked=NET_SOCKET_BUF, granted=granted, honoured=granted <= 16 * NET_SOCKET_BUF)
+
+
+class NetReads:
+    """Wraps an engine's tick and ``partial_tokens``: the host reads of each
+    tick (with its admitted / resolved / decoded flags, as the serving
+    phase's) and of each token-pool read the front door makes, apart."""
+
+    def __init__(self, engine, device: str):
+        self.ticks, self.pumps = [], []
+        count = device == "cuda"
+        tick, partial = engine.tick, engine.partial_tokens
+
+        def counted_tick():
+            a, r, d = engine.stats.admitted, len(engine._results), engine.stats.decode_steps
+            with counted_syncs() if count else contextlib.nullcontext([]) as caught:
+                live = tick()
+            self.ticks.append(dict(syncs=list(caught), admitted=engine.stats.admitted > a,
+                                   resolved=len(engine._results) > r,
+                                   decoded=engine.stats.decode_steps > d))
+            return live
+
+        def counted_partial():
+            with counted_syncs() if count else contextlib.nullcontext([]) as caught:
+                out = partial()
+            self.pumps.append((list(caught), bool(out)))
+            return out
+
+        engine.tick, engine.partial_tokens = counted_tick, counted_partial
+
+    def reads(self) -> dict:
+        """The engine's gate as the serving phase holds it (exactly one
+        read on each decode-only tick), and the front's token-pool reads:
+        at most one per step, none while no stream has a token yet."""
+        rec = reads_per_tick(self.ticks)
+        bad = [(len(s), live) for s, live in self.pumps if len(s) > 1 or (s and not live)]
+        if bad:
+            raise AssertionError(f"front token-pool reads per step (reads, tokens live): {bad[:8]}")
+        rec.update(front_steps_with_streams=len(self.pumps),
+                   front_pool_reads=sum(len(s) for s, _ in self.pumps),
+                   sites_front=_tally(x for s, _ in self.pumps for x in s))
+        return rec
+
+
+def _stream_results(client, n: int) -> list:
+    """A ``run_net_chaos`` client's streams in trace order (its tags are
+    ``c0``, ``c1``, ... in submission order) as result records."""
+    out = []
+    for k in range(n):
+        st = client.streams[f"c{k}"]
+        out.append(types.SimpleNamespace(id=st.id, ok=st.status == "OK", status=st.status,
+                                         tokens=np.asarray(st.tokens, np.int32), done=st.done,
+                                         lost=st.lost, dups=st.dups, gaps=st.gaps))
+    return out
+
+
+def _net_gates(label: str, report, streams, plan_counts) -> dict:
+    """Strict and clean, every ACKed stream terminal with no duplicate, gap
+    or loss, resumes ≥ 1 and malformed lines = those injected."""
+    net = report.net
+    open_ = [s.id for s in streams if not s.done or s.lost or s.dups or s.gaps]
+    if (not report.clean or "UNRESOLVED" in report.outcomes or open_
+            or net["resumes"] < 1 or net["malformed"] != plan_counts.get("malformed_frame", 0)
+            or net["dup_frames"] or net["gap_frames"]):
+        raise AssertionError(f"{label}: clean {report.clean}, outcomes {report.outcomes}, open "
+                             f"or broken streams {open_}, net {net}")
+    # a submit re-sent across a reconnect before its ACK arrived is accepted
+    # again and decoded in full; the client drops that stream's frames
+    submits = sum(1 for e in report.timeline if e["name"] == "net.submit")
+    return dict(outcomes=report.outcomes, invariant_checks=report.checks, violations=0,
+                net=net, iterations=report.n_ticks, accepted_submits=submits,
+                stalls=sum(1 for e in report.timeline if e["name"] == "net.stall"),
+                stall_drops=net["stall_drops"])
+
+
+def net_wedge(model, cfg, trace, ref, log, device: str) -> dict:
+    """(a)'s wedged-reader leg: a raw socket with a small receive buffer
+    submits ``NET_WEDGE_REQUESTS`` requests at the full budget and stops
+    reading, while a ``NetClient`` streams ``NET_WEDGE_OTHERS`` more.  The
+    front runs on a virtual clock.  The wedged connection must stall
+    (``net.stall``); the wedge then reads until the front sends again
+    (``net.unstall``) and stops once more; stalled a second time, it is
+    dropped once the clock moves past ``NET_STALL_TIMEOUT_S``, while the
+    other streams finish OK with the solo engine's tokens of (a) (bit for
+    bit, else up to a near tie); a fresh connection then resumes each wedged
+    stream from nothing and gets every seq once, the tokens a clean run's,
+    the frames the wedge read a prefix of them."""
+    import socket
+
+    from csat_tpu_torch.serve import ServeEngine
+    from csat_tpu_torch.serve.netclient import NetClient
+    from csat_tpu_torch.serve.netfront import NetFront, encode_frame
+
+    c = cfg.replace(serve_net_stall_timeout_s=NET_STALL_TIMEOUT_S,
+                    serve_net_heartbeat_s=NET_WEDGE_HEARTBEAT_S)
+    items = trace.items
+    engine = ServeEngine(model, c, device=device)
+    now = [0.0]
+    front = NetFront(engine, make_sample=lambda m: items[int(m["sample"])].sample,
+                     clock=lambda: now[0])
+    wedge = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    wedge.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, NET_SOCKET_BUF)
+    wedge.connect(front.address)
+    front.step()  # accepts the wedge: a small send buffer on its end too
+    for conn in front._conns:
+        if conn.sock.getpeername() == wedge.getsockname():
+            conn.sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, NET_SOCKET_BUF)
+    for k in range(NET_WEDGE_REQUESTS):
+        wedge.sendall(encode_frame({"sample": k, "tag": f"w{k}", "max_new_tokens": 0}))
+    wedge.setblocking(False)
+    client = NetClient(front.address)
+    others = list(range(NET_WEDGE_REQUESTS, NET_WEDGE_REQUESTS + NET_WEDGE_OTHERS))
+    tags = [client.submit(i, max_new_tokens=items[i].max_new_tokens) for i in others]
+
+    def fill(done, what: str) -> float:
+        """Front and client steps, a heartbeat each, until ``done()``."""
+        t0 = time.perf_counter()
+        while not done():
+            now[0] += NET_WEDGE_HEARTBEAT_S
+            front.step()
+            if client.pending():
+                client.step()
+            elif client.sock is not None:
+                # its streams are done: only the wedge is left to back up
+                client.close()
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError(f"wedged reader: no {what} in 120 s ({front.summary()})")
+        return time.perf_counter() - t0
+
+    def read(buf: bytes) -> bytes:
+        """What the wedge's buffers hold now, appended to ``buf``."""
+        while True:
+            try:
+                data = wedge.recv(65536)
+            except (BlockingIOError, InterruptedError):
+                return buf
+            if not data:
+                return buf
+            buf += data
+
+    stalled = engine.stats  # the front's gauge of stalled connections
+    stall_s = fill(lambda: stalled.net_stalled, "stall")
+    # the wedge reads a chunk a step, the clock standing still, until the
+    # front sends again
+    buf, t0 = b"", time.perf_counter()
+    while stalled.net_stalled:
+        try:
+            buf += wedge.recv(65536)
+        except (BlockingIOError, InterruptedError):
+            pass
+        front.step()
+        time.sleep(0.001)
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError(f"wedged reader read {len(buf)} B: no unstall in 60 s")
+    unstall_s, read_to_unstall = time.perf_counter() - t0, len(buf)
+    restall_s = fill(lambda: stalled.net_stalled, "second stall")
+    now[0] += NET_STALL_TIMEOUT_S + NET_WEDGE_HEARTBEAT_S
+    drop_s = fill(lambda: front.counters["stall_drops"] and not client.pending(), "stall drop")
+    events = [e[1] for e in front.obs.events()]
+    # what the wedge read and its buffers hold: complete lines only
+    buf = read(buf)
+    wedge.close()
+    held_bytes, held = len(buf), {}
+    for line in buf.split(b"\n")[:-1]:
+        msg = json.loads(line)
+        if "seq" in msg:
+            held.setdefault(msg["id"], []).append(msg)
+    ids = sorted(held)
+    fresh = socket.create_connection(front.address, timeout=5.0)
+    for sid in ids:  # a reader that lost everything: every frame, once
+        fresh.sendall(encode_frame({"resume": sid, "have_seq": -1}))
+    fresh.setblocking(False)
+    got, buf, t0 = {sid: [] for sid in ids}, b"", time.perf_counter()
+
+    def complete():
+        return all(got[sid] and got[sid][-1].get("done") for sid in ids)
+
+    # past completion a little longer: a replayed duplicate would show here
+    while not complete() or time.perf_counter() - t0 < 0.25:
+        front.step()
+        try:
+            buf += fresh.recv(65536)
+        except (BlockingIOError, InterruptedError):
+            time.sleep(0.005)
+        *lines, buf = buf.split(b"\n")
+        for line in lines:
+            msg = json.loads(line)
+            if "seq" in msg:
+                got[msg["id"]].append(msg)
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError(f"wedged streams' resume did not finish: {got}")
+    fresh.close()
+    authority = front.streams()
+    clean = _clean_tokens(model, c, device, [items[k].sample for k in range(NET_WEDGE_REQUESTS)],
+                          0)
+    bad = []
+    for k, sid in enumerate(ids):
+        frames = got[sid]
+        seqs = [f["seq"] for f in frames]
+        toks = [t for f in frames for t in f["tokens"]]
+        if (seqs != list(range(len(seqs))) or toks != authority[sid]
+                or held[sid] != frames[:len(held[sid])]
+                or not np.array_equal(np.asarray(toks), clean[k])):
+            bad.append((sid, seqs[:3], len(toks), len(clean[k])))
+    others_ok = all(client.streams[t].status == "OK" and client.streams[t].done for t in tags)
+    # each stall but the last ends in an unstall, the last in the drop
+    if (len(ids) != NET_WEDGE_REQUESTS or bad or events.count("net.unstall") < 1
+            or events.count("net.stall") != events.count("net.unstall") + 1
+            or front.counters["stall_drops"] != 1
+            or not others_ok):
+        raise AssertionError(f"wedged reader: streams {ids}, bad {bad}, stall events "
+                             f"{events.count('net.stall')}, unstall events "
+                             f"{events.count('net.unstall')}, drops "
+                             f"{front.counters['stall_drops']}, others OK {others_ok}")
+    results = [types.SimpleNamespace(ok=True, tokens=np.asarray(client.streams[t].tokens))
+               for t in tags]
+    others_equal = _tokens_against(results, [ref[i] for i in others], log, "wedged reader")
+    rec = dict(wedged_streams=len(ids), bytes_held_by_wedge=held_bytes,
+               seconds_to_stall=stall_s, seconds_to_unstall=unstall_s,
+               bytes_read_to_unstall=read_to_unstall, seconds_to_restall=restall_s,
+               seconds_to_drop=drop_s, stalls=events.count("net.stall"),
+               unstalls=events.count("net.unstall"),
+               frames_held_by_wedge=sum(len(v) for v in held.values()),
+               frames_resumed=sum(len(v) for v in got.values()),
+               tokens=[len(authority[sid]) for sid in ids], exactly_once=True,
+               stall_drops=front.counters["stall_drops"], others_ok=len(tags),
+               others_tokens=others_equal,
+               resumes=front.counters["resumes"])
+    client.close()
+    front.close()
+    engine.close()
+    return rec
+
+
+def net_drill(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(a) ``run_net_chaos`` in front of one ``ServeEngine`` under (a)'s
+    32-request bursty trace, one event of each network fault kind, a forced
+    mid-stream reconnect, one retry, a strict monitor: every ACKed stream
+    terminal, resumes ≥ 1, malformed lines = those injected, and the OK
+    streams' tokens a solo engine's (bit
+    for bit, else up to a near tie, the gate printed); the engine still
+    reads the device once per decode-only tick, and the front reads the
+    token pool at most once a step; then the wedged-reader leg, which gates
+    stall, unstall and the stall drop.  Readings: frames, resumes, the slow
+    reader's stalls (a drill's few KB rarely fill the default socket
+    buffers), the granted small buffer (:func:`socket_buffers`), the drain
+    wall of the drill, of the same trace behind the front door without
+    faults, and of the in-process engine."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.resilience import (
+        FaultEvent, FaultPlan, InvariantMonitor, run_chaos, run_net_chaos)
+    from csat_tpu_torch.serve import ServeEngine
+
+    cfg = net_cfg(overrides)
+    zoo, n, seed = FLEET_TRACE
+    trace = fleet_trace(cfg, zoo, n, seed)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    ref, log = _solo_reference(model, cfg, trace, device)
+    walls = {}
+    inproc = ServeEngine(model, cfg, device=device)
+    run_chaos(inproc, trace)  # warm: the kernels' first launches
+    inproc.close()
+    for label in ("in_process", "net_clean", "net"):
+        engine = ServeEngine(model, cfg, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "in_process":
+            run_chaos(engine, trace)
+        elif label == "net_clean":
+            run_net_chaos(engine, trace)
+        else:
+            reads = NetReads(engine, device)
+            plan = FaultPlan(tuple(FaultEvent(kind, at=at, count=count)
+                                   for kind, at, count in NET_PLAN), name="net_drill")
+            build.reset_launches()
+            with flex_launches() as launched, kept_clients() as clients:
+                report = run_net_chaos(engine, trace, plan=plan, monitor=InvariantMonitor(cfg),
+                                       strict=True, retries=1, force_reconnect=True)
+            counts = build.launch_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        if label == "net":
+            net_engine = engine
+        else:
+            engine.close()
+    label = "net drill"
+    streams = _stream_results(clients[0], n)
+    rec = _net_gates(label, report, streams, {k: c for k, _, c in NET_PLAN})
+    rec["socket_buffers"] = socket_buffers()
+    tokens = _tokens_against(streams, ref, log, label)
+    engine_reads = reads.reads() if device == "cuda" else None
+    net_engine.close()
+    _check_launched("net_drill", counts)
+    _check_rates("net_drill", launched)
+    rec.update(card=card, trace=zoo, requests=n, seed=seed, plan=[list(e) for e in NET_PLAN],
+               tokens=tokens, reads=engine_reads,
+               drain_wall_s=dict(walls, clean_over_in_process=walls["net_clean"]
+                                 / walls["in_process"]),
+               wedge=net_wedge(model, cfg, trace, ref, log, device),
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("net_drill", **rec)
+    return rec
+
+
+def net_fleet(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(b) The same drill over a ``Fleet`` of 2 × 8 slots, replica 1's
+    decode faulting from tick ``FLEET_RETIRE_AT`` (rebuild cap 0) and a
+    client disconnect mid-stream: strict and clean, the moved requests
+    streamed OK under their fleet ids, the OK tokens a solo engine's."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.resilience import FaultEvent, FaultPlan, InvariantMonitor, run_net_chaos
+    from csat_tpu_torch.serve import Fleet
+
+    cfg = net_cfg(overrides)
+    zoo, n, seed = FLEET_TRACE
+    trace = fleet_trace(cfg, zoo, n, seed)
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    ref, log = _solo_reference(model, cfg, trace, device)
+    fleet = Fleet(model, cfg, replicas=2)
+    plan = FaultPlan((FaultEvent("retire_replica", at=FLEET_RETIRE_AT, replica=1),
+                      FaultEvent("disconnect_mid_stream", at=6)), name="net_fleet")
+    build.reset_launches()
+    with flex_launches() as launched, kept_clients() as clients:
+        t0 = time.perf_counter()
+        report = run_net_chaos(fleet, trace, plan=plan, monitor=InvariantMonitor(cfg),
+                               strict=True, retries=1)
+        wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    label = "net fleet"
+    streams = _stream_results(clients[0], n)
+    rec = _net_gates(label, report, streams, {})
+    # the moved requests' terminal frames, as the front door sent them (a
+    # moved request may be a duplicate stream the client dropped)
+    moved = {f["id"] for _, name, _, f in fleet.obs.events() if name == "fleet.resubmit"}
+    moved_status = {e["id"]: e["status"] for e in report.timeline
+                    if e["name"] == "net.stream_done" and e["id"] in moved}
+    if (not moved or set(moved_status) != moved
+            or any(v != "OK" for v in moved_status.values()) or fleet.capacity_frac != 0.5):
+        raise AssertionError(f"{label}: moved {sorted(moved)}, their terminal frames "
+                             f"{moved_status}, capacity {fleet.capacity_frac}")
+    tokens = _tokens_against(streams, ref, log, label)
+    fleet.close()
+    _check_launched("net_fleet", counts)
+    _check_rates("net_fleet", launched)
+    rec.update(card=card, requests=n, retire_at_tick=FLEET_RETIRE_AT,
+               moved=len(moved), moved_ok=len(moved_status), resubmissions=report.resubmissions,
+               capacity_frac=report.capacity_frac, tokens=tokens, drain_wall_s=wall,
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("net_fleet", **rec)
+    return rec
+
+
+def _slo_overload(target, slo, samples, tick) -> dict:
+    """All ``samples`` at once (most refused), four ticks, then one request
+    every four ticks until the alert has cleared: the transitions, and the
+    alert gauge after the overload and at the end."""
+    trans = [dict(t, leg="overload") for t in slo.step()]
+    for s in samples:
+        target.submit(s, max_new_tokens=4)
+    for _ in range(4):
+        tick()
+        trans += [dict(t, leg="overload") for t in slo.step()]
+    gauge_overload = slo.summary()["slo_alert_availability"]
+    for k in range(2000):
+        if k % 4 == 0:
+            target.submit(samples[k % len(samples)], max_new_tokens=4)
+        tick()
+        trans += [dict(t, leg="clean") for t in slo.step()]
+        if not slo.alerts and k > 8:
+            break
+    while target.occupancy or target.queue_depth:
+        tick()
+    return dict(transitions=trans, gauge_overload=gauge_overload,
+                gauge_end=slo.summary()["slo_alert_availability"])
+
+
+def net_slo(card: str = "", device: str = "cuda", overrides=None) -> dict:
+    """(c) ``SLOEngine.for_target`` over one engine on a virtual clock: an
+    overload (a queue of 2 refusing) fires the availability alert, clean
+    traffic clears it; ``slo.alert`` / ``slo.ok`` in the engine's flight
+    recorder, the alert gauge 1 then 0.  Then over a 2-replica fleet
+    (shedding, so the replicas' registries see it) with an ``AutoScaler``
+    whose ``slo`` is the engine: the heal it takes while the alert fires
+    carries ``slo_firing``."""
+    from csat_tpu_torch.models import CSATrans
+    from csat_tpu_torch.obs.slo import SLOEngine
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.serve import AutoScaler, Fleet, ServeEngine
+
+    cfg = fleet_cfg({**NET_SLO_CFG, **(overrides or {})})
+    model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
+    samples = [it.sample for it in fleet_trace(cfg, *FLEET_TRACE).items[:12]]
+    clock = DrillClock()
+    engine = ServeEngine(model, cfg, device=device, clock=clock)
+
+    def tick():
+        live = engine.tick()
+        clock.advance(NET_SLO_TICK_S)
+        return live
+
+    slo = SLOEngine.for_target(engine, cfg)
+    build.reset_launches()
+    with flex_launches() as launched:
+        leg = _slo_overload(engine, slo, samples, tick)
+    counts = build.launch_counts()
+    events = [(name, f.get("objective")) for _, name, _, f in engine.obs.events()
+              if name.startswith("slo.")]
+    states = [(t["state"], t["leg"]) for t in leg["transitions"]]
+    rejected = int(engine.stats.rejected)
+    engine.close()
+    label = "net slo"
+    if (states != [("alert", "overload"), ("ok", "clean")] or rejected < 1
+            or events != [("slo.alert", "availability"), ("slo.ok", "availability")]
+            or (leg["gauge_overload"], leg["gauge_end"]) != (1, 0)):
+        raise AssertionError(f"{label}: transitions {states}, rejected {rejected}, events "
+                             f"{events}, gauges {leg['gauge_overload']} / {leg['gauge_end']}")
+    fcfg = cfg.replace(serve_queue_policy="shed_oldest", serve_max_replicas=3,
+                       serve_autoscale_every_ticks=1)
+    fclock = DrillClock()
+    fleet = Fleet(model, fcfg, replicas=2, clock=fclock)
+    fslo = SLOEngine.for_target(fleet, fcfg)
+    scaler = AutoScaler(fleet, fcfg)
+    scaler.slo = fslo
+    fslo.step()
+    for s in samples + samples:
+        fleet.submit(s, max_new_tokens=4)
+    fleet.tick()
+    fclock.advance(NET_SLO_TICK_S)
+    fired = fslo.step()
+    fleet.set_target(3)
+    actions = scaler.step()
+    heal = [f for _, name, _, f in fleet.obs.events() if name == "autoscale.heal"]
+    fleet.drain()
+    fleet.close()
+    if (not fired or fired[0]["state"] != "alert" or actions != ["heal"]
+            or heal[0].get("slo_firing") != "availability"):
+        raise AssertionError(f"{label}: fleet alert {fired}, scaler {actions}, heal {heal}")
+    _check_launched("net_slo", counts)
+    _check_rates("net_slo", launched)
+    rec = dict(card=card, objectives=[o.name for o in slo.objectives], rejected=rejected,
+               transitions=leg["transitions"], gauges=[leg["gauge_overload"], leg["gauge_end"]],
+               recorder_events=[e[0] for e in events], fleet_alert=fired[0],
+               scaler_decision=heal[0], virtual_s=clock.t,
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("net_slo", **rec)
+    return rec
+
+
+def net_cli(data_dir: str, ckpt: str, tmp: str, card: str = "", device: str = "cuda",
+            sets=()) -> dict:
+    """(d) ``serve --net --net_port 0 --slo --replicas 2 --metrics_file``
+    on the serving phase's checkpoint, in a process of its own: a
+    ``NetClient`` at the address of its first ``{"net": ...}`` line submits
+    the serving phase's snippets twice (8) and four that ingest refuses,
+    plus a garbage line; SIGTERM once a stream has tokens.  Every stream
+    ends in a terminal frame (the refused four FAILED, the rest OK with one
+    in-process ``ServeEngine``'s tokens), the process exits 0 with the
+    ``net`` summary on its last stderr line, and ``top --once`` on its
+    metrics file exits 0 with the SLO burn rows and the net row."""
+    import signal
+    import threading
+
+    from csat_tpu_torch.serve import cli
+    from csat_tpu_torch.serve.netclient import NetClient
+
+    base = ["--config", "python", "--data_dir", data_dir, "--checkpoint_dir", ckpt,
+            "--device", device, "--set", "eval_graph='expected'"]
+    for k, v in dict(sets).items():
+        base += ["--set", f"{k}={v!r}"]
+    metrics = os.path.join(tmp, "net_cli.metrics.jsonl")
+    paths = {name: os.path.join(tmp, f"net_cli.{name}") for name in ("counts",)}
+    args = ["serve", *base, "--postmortem_dir", os.path.join(tmp, "net_cli_pm"), "--net",
+            "--net_port", "0", "--slo", "--replicas", "2", "--metrics_file", metrics]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", FLEET_CLI_RUNNER, paths["counts"], *args],
+                            cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+                            stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    err = []
+    reader = threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)
+    reader.start()
+    try:
+        address = None
+        while address is None:
+            if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"net CLI: no address line; stderr {''.join(err)[-1500:]}")
+            for line in list(err):
+                if line.startswith('{"net"'):
+                    address = tuple(json.loads(line)["net"].values())
+            time.sleep(0.05)
+        start_s = time.perf_counter() - t0
+        good = list(CLI_SNIPPETS) * 2
+        client = NetClient(address)
+        tags = [client.submit(s, max_new_tokens=8) for s in good]
+        bad = [client.submit(s, max_new_tokens=8) for s in NET_BAD_SNIPPETS]
+        client.step()
+        client.send_garbage()
+        signalled = None
+        while client.pending():
+            client.step()
+            if signalled is None and any(st.tokens for st in client.streams.values()):
+                proc.send_signal(signal.SIGTERM)
+                signalled = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError(f"net CLI: streams pending {client.pending()}")
+            time.sleep(0.002)
+        code = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    seconds = time.perf_counter() - t0
+    client.close()
+    with open(paths["counts"]) as f:
+        recorded = json.load(f)
+    counts, launched = recorded["launches"], [tuple(x) for x in recorded["flex"]]
+    engine, cfg, src_vocab, trip_vocab = cli.build_engine(cli._parser().parse_args(
+        [*base, "--postmortem_dir", os.path.join(tmp, "net_cli_ref_pm")]))
+    ids = [cli._ingest(engine, cfg, src_vocab, trip_vocab, s, 8) for s in good]
+    engine.drain()
+    want = [engine.poll(r).tokens for r in ids]
+    engine.close()
+    streams = {t: client.streams[t] for t in tags + bad}
+    differ = [t for t, w in zip(tags, want)
+              if streams[t].status != "OK" or not np.array_equal(np.asarray(streams[t].tokens), w)]
+    refused = [streams[t].status for t in bad]
+    last = json.loads(err[-1]) if err else {}
+    top = subprocess.run([sys.executable, "-m", "csat_tpu_torch.cli", "top", "--metrics", metrics,
+                          "--once"], cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
+                         capture_output=True, text=True, timeout=120)
+    label = "net CLI"
+    if (code != 0 or signalled is None or not all(s.done for s in streams.values())
+            or refused != ["FAILED"] * len(bad) or differ or "net" not in last
+            or last["net"]["malformed"] != 1 or top.returncode != 0
+            or "== slo burn ==" not in top.stdout or "== net front door ==" not in top.stdout):
+        raise AssertionError(f"{label}: exit {code}, SIGTERM at {signalled}, refused {refused}, "
+                             f"differ {differ}, last line {list(last)}, top {top.returncode} "
+                             f"{top.stdout[-600:]} {top.stderr[-600:]}; stderr "
+                             f"{''.join(err)[-1200:]}")
+    _check_launched("net_cli", counts)
+    _check_rates("net_cli", launched)
+    rec = dict(card=card, streams=len(streams), ok=len(tags), failed=len(bad),
+               exit_status=code, tokens_equal_engine=True, start_s=start_s,
+               sigterm_at_s=signalled, seconds=seconds, net=last["net"],
+               drain_line=any("draining" in line for line in err),
+               top_lines=len(top.stdout.splitlines()),
+               launches={fn: c for fn, c in counts.items() if c})
+    emit("net_cli", **rec)
+    return rec
+
+
+def net_phase(corpus, ckpt: str, card: str = "") -> dict:
+    """Phase 17: (a) the network chaos drill in front of one engine, with
+    the wedged-reader leg, (b) the drill over a fleet losing a replica, (c)
+    burn-rate SLOs firing and clearing, stamped into an autoscaler's
+    decision, (d) ``serve --net --slo`` in a process of its own, drained by
+    SIGTERM, and ``top``."""
+    tmp, data_dir, _ = corpus
+    t0 = time.perf_counter()
+    recs = {"net_drill": net_drill(card), "net_fleet": net_fleet(card),
+            "net_slo": net_slo(card), "net_cli": net_cli(data_dir, ckpt, tmp, card)}
+    emit("net", seconds=time.perf_counter() - t0, paths=list(recs))
+    return {"launches": {path: rec["launches"] for path, rec in recs.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6446,6 +7130,7 @@ def main(argv=None) -> int:
         tensor = tensor_phase(smi)
         storage = storage_phase(smi)
         fleet = fleet_phase(corpus, serving["checkpoint"], smi)
+        net = net_phase(corpus, serving["checkpoint"], smi)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
@@ -6453,7 +7138,7 @@ def main(argv=None) -> int:
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],
                **parallel["launches"], **tensor["launches"], **storage["launches"],
-               **fleet["launches"]}
+               **fleet["launches"], **net["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

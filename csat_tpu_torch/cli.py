@@ -6,6 +6,7 @@ The JAX package's ``cli.py``::
     python -m csat_tpu_torch.cli --config python --data_dir DIR --is_test --checkpoint_dir OUT
     python -m csat_tpu_torch.cli summarize --config python --data_dir DIR --checkpoint_dir OUT f.py
     python -m csat_tpu_torch.cli serve --config python --data_dir DIR --checkpoint_dir OUT
+    python -m csat_tpu_torch.cli top --metrics serve_metrics.jsonl --once
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU
 (``--device`` stands where the JAX CLI has ``--platform``).  Without a GPU and
@@ -18,9 +19,9 @@ command line's.  Training streams ``scalars.jsonl`` into the output dir
 (``--set scalar_log=False`` turns it off).  A SIGTERM or SIGINT during
 training saves a resumable snapshot, prints one ``{"preempted": true, ...}``
 line and exits 75; a stalled step under ``--watchdog_timeout_s`` exits 76;
-either run continues with ``--resume``.  ``summarize`` and ``serve`` go to
-the serving command line (``serve/cli.py``), as the JAX ``cli.py`` dispatches
-them.
+either run continues with ``--resume``.  ``summarize``, ``serve`` and
+``top`` go to the serving command line (``serve/cli.py``), as the JAX
+``cli.py`` dispatches them.
 
 Data, sequence and pipeline parallelism: under ``torchrun`` (its ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) each

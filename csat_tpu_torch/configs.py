@@ -25,11 +25,11 @@ storage (``serve_kv_layout``: the paged pool or the per-slot rectangles;
 (``serve_replicas``, the fleet queue bound, the reap-storm trip, the
 resubmission backoff) and its autoscaler's (``serve_min_replicas`` /
 ``serve_max_replicas``, ``serve_autoscale`` and the ``serve_autoscale_*``
-signals, hysteresis, cooldown and churn bound).  Fields that only
+signals, hysteresis, cooldown and churn bound), the network front door's
+(``serve_net_*``) and the burn-rate SLOs' (``slo_*``).  Fields that only
 select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
-``flex_bwd``), telemetry of parts the port does not carry yet
-(SLOs, calibration, the bench history) or serving features outside this port
-(the network front door) are absent, and so is
+``flex_bwd``) or telemetry of parts the port does not carry yet
+(calibration, the bench history) are absent, and so is
 ``param_dtype``, which the JAX
 package declares but reads nowhere (its master weights are f32 whatever it
 says): the port picks kernel or plain path by the device a tensor lies on,
@@ -271,10 +271,38 @@ class Config:
     serve_autoscale_cooldown_s: float = 5.0
     serve_autoscale_max_actions: int = 8
     serve_autoscale_churn_window_s: float = 60.0
+    # the streaming network front door (serve/netfront.py): listen address
+    # (loopback by default; port 0 = ephemeral, printed at start), the
+    # per-connection send-buffer bound in bytes (past it the connection is
+    # stalled and its streams stop enqueueing), how long a stalled
+    # connection lives before it is dropped, the heartbeat cadence (0 =
+    # off), the per-stream replay ring in frames, tokens per frame (0 = all
+    # newly decoded ones) and the finished streams kept for late resumes
+    serve_net_host: str = "127.0.0.1"
+    serve_net_port: int = 0
+    serve_net_client_buffer: int = 65536
+    serve_net_stall_timeout_s: float = 5.0
+    serve_net_heartbeat_s: float = 0.0
+    serve_net_frame_ring: int = 256
+    serve_net_frame_tokens: int = 0
+    serve_net_done_retain: int = 512
     # request traces (obs/rtrace.py): finished traces kept (0 = tracing off)
     # and the longest ones kept past ring eviction
     obs_traces: int = 256
     obs_trace_slowest: int = 8
+    # burn-rate SLOs (obs/slo.py): the availability target, the latency
+    # threshold per priority class in seconds (entry p for class p, a shorter
+    # tuple reusing its last entry, () = no latency objectives) and their
+    # target fraction, and the multi-window alert: it fires while both the
+    # fast and the slow window burn past their thresholds (burn 1.0 = the
+    # error budget spent exactly on schedule).  Observe-only
+    slo_availability: float = 0.999
+    slo_latency_s: Tuple[float, ...] = ()
+    slo_latency_target: float = 0.95
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_burn_fast: float = 14.0
+    slo_burn_slow: float = 6.0
 
     # reference-compat quirk flags (same meanings as the JAX package)
     generator_dropout: bool = True
@@ -349,6 +377,13 @@ class Config:
                 "serve_tiering requires serve_kv_layout='paged'")
             assert self.serve_prefix_cache > 0, (
                 "serve_tiering requires a prefix cache (serve_prefix_cache > 0)")
+        assert self.serve_net_port >= 0, self.serve_net_port
+        assert self.serve_net_client_buffer >= 1, self.serve_net_client_buffer
+        assert self.serve_net_stall_timeout_s >= 0, self.serve_net_stall_timeout_s
+        assert self.serve_net_heartbeat_s >= 0, self.serve_net_heartbeat_s
+        assert self.serve_net_frame_ring >= 1, self.serve_net_frame_ring
+        assert self.serve_net_frame_tokens >= 0, self.serve_net_frame_tokens
+        assert self.serve_net_done_retain >= 1, self.serve_net_done_retain
         assert len(self.serve_mesh_shape) <= 2, (
             f"serve_mesh_shape {self.serve_mesh_shape}: at most (data, head) axis sizes")
         assert all(s >= 1 for s in self.serve_mesh_shape), self.serve_mesh_shape
@@ -368,6 +403,13 @@ class Config:
         self._validate_autoscale()
         assert self.obs_traces >= 0, self.obs_traces
         assert self.obs_trace_slowest >= 0, self.obs_trace_slowest
+        assert 0 < self.slo_availability < 1, self.slo_availability
+        assert all(t > 0 for t in self.slo_latency_s), self.slo_latency_s
+        assert 0 < self.slo_latency_target < 1, self.slo_latency_target
+        assert self.slo_fast_window_s > 0, self.slo_fast_window_s
+        assert self.slo_slow_window_s >= self.slo_fast_window_s, self.slo_slow_window_s
+        assert self.slo_burn_fast > 0, self.slo_burn_fast
+        assert self.slo_burn_slow > 0, self.slo_burn_slow
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens
         assert all(t >= 2 for t in self.bucket_tgt_lens), self.bucket_tgt_lens
         assert self.bucket_token_budget >= 0, self.bucket_token_budget

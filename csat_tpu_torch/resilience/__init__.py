@@ -19,13 +19,15 @@
 and for serving, the chaos layer over the engine and the replica fleet:
 
 * :mod:`~csat_tpu_torch.resilience.chaos` — declarative fault plans
-  compiled onto the injector, and :func:`run_chaos`, which drives an engine
-  or a fleet through a traffic trace;
+  compiled onto the injector, :func:`run_chaos`, which drives an engine or a
+  fleet through a traffic trace, and :func:`run_net_chaos`, the same behind
+  the network front door with the network fault kinds;
 * :mod:`~csat_tpu_torch.resilience.invariants` — the serving invariants a
   chaos run is judged by, checked live and at quiescence.
 """
 
-from csat_tpu_torch.resilience.chaos import ChaosReport, FaultEvent, FaultPlan, run_chaos
+from csat_tpu_torch.resilience.chaos import (
+    NET_KINDS, ChaosReport, FaultEvent, FaultPlan, run_chaos, run_net_chaos)
 from csat_tpu_torch.resilience.faults import CorruptBatchError, FaultInjector
 from csat_tpu_torch.resilience.guards import (
     TrainingDivergedError, global_norm, guarded_apply, host_snapshot, restore_snapshot)
@@ -38,7 +40,8 @@ from csat_tpu_torch.resilience.retry import DataErrorBudgetExceeded, ErrorBudget
 from csat_tpu_torch.resilience.watchdog import (
     EXIT_WATCHDOG, StepWatchdog, device_liveness_probe)
 
-__all__ = ["ChaosReport", "FaultEvent", "FaultPlan", "run_chaos", "InvariantMonitor",
+__all__ = ["NET_KINDS", "ChaosReport", "FaultEvent", "FaultPlan", "run_chaos", "run_net_chaos",
+           "InvariantMonitor",
            "InvariantViolationError", "Violation", "CorruptBatchError", "FaultInjector", "TrainingDivergedError", "global_norm",
            "guarded_apply", "host_snapshot", "restore_snapshot", "EXIT_PREEMPTED", "Preempted",
            "PreemptionHandler", "abort_barrier", "coordinated_trigger", "read_resume_marker",

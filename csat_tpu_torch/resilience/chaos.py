@@ -1,7 +1,6 @@
 """FaultPlan DSL: declarative fault schedules over the serve stack — the JAX
 package's ``resilience/chaos.py`` for the port (``tests/test_torch_imports.py``
-holds every definition to the original's; the network drill
-``run_net_chaos`` waits for the network front door).
+holds every definition to the original's).
 
 * a plan is a tuple of :class:`FaultEvent` — named fault kinds with
   *relative* timing (``at`` = ticks from the moment the plan is applied;
@@ -45,12 +44,21 @@ Fault kinds (compilation targets in parentheses):
                       (``ServeEngine.spill_all``)
 ``corrupt_tier_restore``  flip payload bytes in every tiered KV snapshot so
                       later restores fail verification and re-prefill
+``disconnect_mid_stream``  drop the streaming client's connection
+                      (:func:`run_net_chaos` only — fires on the client,
+                      never the injector)
+``slow_reader``       throttle the client's reads so the server must
+                      stall-account, never block its tick
+``malformed_frame``   inject protocol-violating lines at the server
+``reconnect_storm``   consecutive disconnect / reconnect / resume cycles
 ====================  =====================================================
 
-:data:`NET_KINDS` (``disconnect_mid_stream``, ``slow_reader``,
-``malformed_frame``, ``reconnect_storm``) stay in :data:`KINDS`, so plans
-serialise as JAX's do; they never reach an injector, and
-``FaultPlan.random(net=True)`` raises until the network drill is ported.
+The :data:`NET_KINDS` family (drawn by ``FaultPlan.random(net=True)``)
+faults the protocol boundary: :func:`run_net_chaos` drives a ``NetFront`` /
+``NetClient`` pair over real loopback sockets, fires these against the
+client's connection schedule, and closes with the stream delivery invariants
+(``stream_no_token_loss`` / ``stream_no_duplicate`` /
+``stream_terminal_frame``).
 
 The two fleet-level kinds have no per-tick injector: they latch state at
 :meth:`FaultPlan.apply` time (``at`` is ignored) and fire when the
@@ -65,6 +73,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,11 +81,12 @@ import numpy as np
 from csat_tpu_torch.resilience.faults import FaultInjector
 from csat_tpu_torch.resilience.retry import DataErrorBudgetExceeded
 
-__all__ = ["FaultEvent", "FaultPlan", "ChaosReport", "run_chaos", "NET_KINDS"]
+__all__ = ["FaultEvent", "FaultPlan", "ChaosReport", "run_chaos",
+           "run_net_chaos", "NET_KINDS"]
 
 # network fault family: faults on the protocol boundary, not the device.
-# They never compile onto the FaultInjector; the network drill (a later
-# slice of the port) fires them against the client's connection schedule
+# They never compile onto the FaultInjector; run_net_chaos fires them
+# against the client's connection schedule
 NET_KINDS = ("disconnect_mid_stream", "slow_reader", "malformed_frame",
              "reconnect_storm")
 
@@ -144,11 +154,6 @@ class FaultPlan:
         serves with ``serve_tiering``) adds the two tier kinds to the
         draw pool; ``net=True`` (the target serves behind a network
         front door) adds the :data:`NET_KINDS` family."""
-        if net:
-            raise NotImplementedError(
-                "FaultPlan.random(net=True): the network fault kinds need "
-                "run_net_chaos and the network front door, not part of the "
-                "port yet")
         rng = np.random.default_rng(seed)
         kinds = ["nan_logits", "wedge_slot", "prefill_fail", "decode_fault"]
         if replicas > 1:
@@ -380,11 +385,10 @@ def run_chaos(
     record degraded instead of crashing the run.  ``supervisor`` (an
     :class:`~csat_tpu_torch.serve.autoscale.AutoScaler` or anything with a
     ``step()``) is stepped once per loop iteration, so healing happens
-    under the same trace pressure the faults fire into.  ``slo`` (any
-    object with ``step()`` and a ``fired`` count per objective; the
-    burn-rate SLO engine is a later slice of the port) is likewise stepped
-    per iteration; its fired-alert counts land in
-    ``ChaosReport.slo_alerts``."""
+    under the same trace pressure the faults fire into.  ``slo`` (an
+    :class:`~csat_tpu_torch.obs.slo.SLOEngine`) is likewise stepped per
+    iteration; its fired-alert counts land in ``ChaosReport.slo_alerts``
+    and its transitions in the merged timeline."""
     cfg = target.cfg
     injectors = plan.apply(target) if plan is not None else {}
     del injectors  # installed on the engines; the report reads the events
@@ -501,6 +505,205 @@ def run_chaos(
         replicas_spawned=(len(target.replicas) - n_replicas0
                           if is_fleet else 0),
         slo_alerts=dict(slo.fired) if slo is not None else {},
+    )
+    if strict and monitor is not None:
+        monitor.assert_clean(report)
+    return report
+
+
+def run_net_chaos(
+    target: Any,
+    trace: Any,
+    plan: Optional[FaultPlan] = None,
+    monitor: Any = None,
+    strict: bool = True,
+    tick_budget: int = 0,
+    retries: int = 1,
+    force_reconnect: bool = False,
+    slow_reader_bytes: int = 64,
+    slow_window_scale: int = 20,
+) -> ChaosReport:
+    """Drive ``target`` through ``trace`` over real loopback sockets: a
+    :class:`~csat_tpu_torch.serve.netfront.NetFront` in front of the target, a
+    :class:`~csat_tpu_torch.serve.netclient.NetClient` submitting the trace's
+    arrivals and assembling the streams, single-threaded co-simulation
+    (``front.step(); client.step()`` per loop iteration — the loop
+    iteration is the schedule clock for arrivals AND net faults).
+
+    ``plan``'s engine kinds compile onto the injector exactly as in
+    :func:`run_chaos`; its :data:`NET_KINDS` fire against the client:
+
+    * ``disconnect_mid_stream`` — drop the connection at iteration
+      ``at``; the client reconnects and resumes.
+    * ``reconnect_storm`` — disconnect on ``3 * count`` consecutive
+      iterations (a thundering reconnect/resume herd).
+    * ``malformed_frame`` — inject ``count`` protocol-violating lines.
+    * ``slow_reader`` — throttle client reads to ``slow_reader_bytes``
+      per step for ``count * slow_window_scale`` iterations (the server
+      must stall-account, never block its tick).
+
+    ``force_reconnect=True`` additionally forces ONE disconnect the
+    moment any stream has partial tokens — the bench's guaranteed
+    mid-stream reconnect.  ``retries`` lets the client honor
+    ``retry_after_s`` refusal hints with resubmits.
+
+    The final check is :meth:`InvariantMonitor.check` over the retained
+    terminal results plus :meth:`InvariantMonitor.check_streams` —
+    streamed assemblies bit-identical to the in-process engine's tokens.
+    """
+    from csat_tpu_torch.serve.netclient import NetClient  # avoid package cycle
+    from csat_tpu_torch.serve.netfront import NetFront
+
+    cfg = target.cfg
+    items = trace.items
+    front = NetFront(
+        target,
+        make_sample=lambda msg: items[int(msg["sample"])].sample)
+    client = NetClient(front.address, clock=front.clock, retries=retries)
+    if plan is not None:
+        plan.apply(target)
+    disconnect_at: set = set()
+    garbage_at: set = set()
+    slow_windows: List[Tuple[int, int]] = []
+    for e in (plan.events if plan is not None else ()):
+        if e.kind == "disconnect_mid_stream":
+            disconnect_at.add(e.at)
+        elif e.kind == "reconnect_storm":
+            disconnect_at.update(range(e.at, e.at + 3 * e.count))
+        elif e.kind == "malformed_frame":
+            garbage_at.update(range(e.at, e.at + e.count))
+        elif e.kind == "slow_reader":
+            slow_windows.append((e.at, e.at + e.count * slow_window_scale))
+
+    steps = cfg.max_tgt_len - 1
+    last_arrival = items[-1].arrival if items else 0
+    budget = tick_budget or (
+        (last_arrival + len(items) + target.num_slots + 1)
+        * (steps + cfg.serve_reap_margin + 4) + 500)
+
+    tags: Dict[int, str] = {}     # trace index -> client tag
+    i = 0
+    it_no = 0
+    forced = 0
+    live = 0
+    try:
+        while True:
+            while i < len(items) and items[i].arrival <= it_no:
+                it = items[i]
+                tags[it.index] = client.submit(
+                    i, priority=it.priority,
+                    max_new_tokens=it.max_new_tokens)
+                i += 1
+            if it_no in disconnect_at:
+                client.disconnect()
+            if it_no in garbage_at:
+                client.send_garbage()
+            client.max_read_bytes = (
+                slow_reader_bytes
+                if any(a <= it_no < b for a, b in slow_windows) else 0)
+            if (force_reconnect and not forced
+                    and any(st.tokens and not st.done
+                            for st in client.streams.values())):
+                client.disconnect()
+                forced = 1
+            live = front.step()
+            client.step()
+            if monitor is not None:
+                monitor.observe_tick(target)
+            it_no += 1
+            if not (i < len(items) or client.pending()
+                    or client.retry_pending() or live
+                    or target.occupancy or target.queue_depth):
+                break
+            wait = client.next_retry_in()
+            if (wait is not None and wait > 0
+                    and not (i < len(items) or client.pending() or live
+                             or target.occupancy or target.queue_depth)):
+                # the run is idle except for a scheduled backoff resubmit:
+                # honor the server's retry_after_s hint by actually waiting
+                # (bounded slices — the clock may be real) instead of
+                # spinning the iteration budget away polling dead sockets
+                time.sleep(min(wait + 1e-3, 0.05))
+            if it_no > budget:
+                raise RuntimeError(
+                    f"net chaos run exceeded {budget} iterations — not "
+                    f"quiescing ({len(items) - i} unsubmitted, "
+                    f"{client.pending()} client-pending, "
+                    f"{client.retry_pending()} retry-pending, {live} live "
+                    f"streams, occupancy {target.occupancy}, queue "
+                    f"{target.queue_depth})")
+    finally:
+        client.close()
+        front.close()
+
+    reqs = front.results()
+    outcomes: Dict[str, int] = {}
+    per_class: Dict[str, Dict[str, Any]] = {}
+    from csat_tpu_torch.serve.stats import percentile
+    lat: Dict[str, List[float]] = {}
+    for it in items:
+        pc = per_class.setdefault(it.pclass, {
+            "priority": it.priority, "submitted": 0, "ok": 0, "browned": 0,
+            "shed": 0, "rejected": 0, "timeout": 0, "failed": 0,
+            "unresolved": 0})
+        pc["submitted"] += 1
+        st = client.streams.get(tags.get(it.index, ""))
+        if st is None or not st.done or st.lost:
+            pc["unresolved"] += 1
+            outcomes["UNRESOLVED"] = outcomes.get("UNRESOLVED", 0) + 1
+            continue
+        outcomes[st.status] = outcomes.get(st.status, 0) + 1
+        key = {"OK": "ok", "SHED": "shed", "REJECTED": "rejected",
+               "TIMEOUT": "timeout", "FAILED": "failed"}.get(st.status)
+        if key:
+            pc[key] += 1
+        if st.browned:
+            pc["browned"] += 1
+        req = reqs.get(st.id) if st.id is not None else None
+        if st.status == "OK" and req is not None:
+            lat.setdefault(it.pclass, []).append(req.done_t - req.submit_t)
+    for name, pc in per_class.items():
+        xs = lat.get(name, [])
+        pc["latency_p50_s"] = round(percentile(xs, 50), 4)
+        pc["latency_p95_s"] = round(percentile(xs, 95), 4)
+
+    violations: List[dict] = []
+    checks = 0
+    if monitor is not None:
+        expected = [st.id for st in client.streams.values()
+                    if st.id is not None and st.id >= 0]
+        monitor.check(target, results=reqs, expected_ids=expected)
+        violations = [dataclasses.asdict(v)
+                      for v in monitor.check_streams(front, client)]
+        checks = monitor.checks
+    is_fleet = hasattr(target, "replicas")
+    report = ChaosReport(
+        trace_name=trace.spec.name,
+        plan_name=plan.name if plan is not None else "none",
+        submitted=len(tags),
+        outcomes=outcomes,
+        per_class=per_class,
+        violations=violations,
+        checks=checks,
+        capacity_frac=round(target.capacity_frac, 4) if is_fleet else 1.0,
+        resubmissions=target.resubmissions if is_fleet else 0,
+        browned=sum(pc["browned"] for pc in per_class.values()),
+        n_ticks=it_no,
+        poison_budget_hits=0,
+        timeline=_merged_timeline(target, monitor,
+                                  extra=(("net", front.obs),)),
+        trace_json=trace.spec.to_json(),
+        plan_json=plan.to_json() if plan is not None else "",
+        net={
+            **front.counters,
+            "reconnects": client.reconnects,
+            "resumes_sent": client.resumes_sent,
+            "dup_frames": client.dup_total(),
+            "gap_frames": client.gap_total(),
+            "forced_reconnects": forced,
+            "client_errors": client.errors,
+            "backoffs": len(client.backoffs),
+        },
     )
     if strict and monitor is not None:
         monitor.assert_clean(report)

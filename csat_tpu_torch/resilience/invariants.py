@@ -1,7 +1,6 @@
 """Live invariant monitors for chaos runs — the JAX package's
 ``resilience/invariants.py`` for the port (``tests/test_torch_imports.py``
-holds every definition to the original's; the streaming check waits for the
-network front door).
+holds every definition to the original's).
 
 A fault drill that only eyeballs counters can pass while the engine quietly
 double-delivers a request or leaks KV pages.  The monitor turns the serving
@@ -31,6 +30,10 @@ registries:
 * **no_chain_leak** — at quiescence each engine's tier-chain accounting
   reconciles (:meth:`~csat_tpu_torch.serve.engine.ServeEngine.chain_leaks`
   == 0).
+* **stream_no_token_loss / stream_no_duplicate / stream_terminal_frame** —
+  the network front door: every ACKed stream's client-assembled frames equal
+  the engine's tokens, duplicate-free and terminated, across any number of
+  reconnects and resumes (:meth:`InvariantMonitor.check_streams`).
 
 Violations are structured (:class:`Violation`), land in the monitor's own
 event recorder, and :meth:`InvariantMonitor.assert_clean` dumps a
@@ -323,6 +326,72 @@ class InvariantMonitor:
                     label,
                     f"{label}: request {rid} diverged from the fault-free "
                     f"reference", id=rid)
+
+    def check_streams(self, front: Any, client: Any) -> List[Violation]:
+        """Streaming delivery invariants: judge a network chaos run by
+        comparing every client-assembled stream against the front door's
+        authoritative per-stream tokens (the engine's own outputs) —
+        across any number of reconnects/resumes.
+
+        * ``stream_no_token_loss`` — a clean terminal stream's
+          concatenated frames are bit-identical to the engine's tokens
+          (OK: full equality; non-OK: the truncated-to-``n_tokens``
+          assembly is exactly the engine's delivered partial); a stream
+          the client had to mark lost (seq gap / ring reset) is loss by
+          definition.
+        * ``stream_no_duplicate`` — the client never received a frame at
+          or below its ``have_seq`` (resume replays start strictly after
+          ``have_seq``; duplicates are dropped client-side, but their
+          existence is a protocol violation).
+        * ``stream_terminal_frame`` — every stream the server ACKed
+          reached a terminal ``done`` frame by the end of the run.
+        """
+        authority = front.streams()
+        statuses = front.stream_status()
+        self.checks += 3
+        for st in client.streams.values():
+            if st.id is None:
+                continue  # never ACKed: no server-side stream exists
+            if st.dups:
+                self._violate(
+                    "stream_no_duplicate",
+                    f"stream {st.id}: client saw {st.dups} duplicate "
+                    f"frame(s)", id=st.id, dups=st.dups)
+            if st.lost:
+                self._violate(
+                    "stream_no_token_loss",
+                    f"stream {st.id}: client lost frames "
+                    f"({st.gaps} gap(s))", id=st.id, gaps=st.gaps)
+                continue
+            if not st.done:
+                self._violate(
+                    "stream_terminal_frame",
+                    f"stream {st.id}: ACKed but never reached a "
+                    f"terminal frame", id=st.id)
+                continue
+            if st.id < 0:
+                continue  # synthetic drain refusal: no engine tokens
+            ref = authority.get(st.id)
+            if ref is None:
+                continue  # evicted from bounded retention: uncheckable
+            got = list(st.tokens)
+            if statuses.get(st.id) == "OK":
+                if got != list(ref):
+                    self._violate(
+                        "stream_no_token_loss",
+                        f"stream {st.id}: assembled {len(got)} token(s) "
+                        f"!= engine's {len(ref)} (bit identity)",
+                        id=st.id, got=len(got), want=len(ref))
+            elif got != list(ref)[:len(got)]:
+                self._violate(
+                    "stream_no_token_loss",
+                    f"stream {st.id}: partial assembly diverges from "
+                    f"the engine's delivered prefix ({st.status})",
+                    id=st.id, got=len(got), want=len(ref))
+        self.obs.emit("invariant.check_streams",
+                      streams=len(client.streams),
+                      violations=len(self.violations))
+        return self.violations
 
     # ---------------- loud failure ----------------
 

@@ -26,7 +26,8 @@ shares the sliding-window churn bound (``serve_autoscale_max_actions`` per
 engines only through public surfaces (``tests/test_torch_fleet.py`` scans for
 private reads) and emits ``autoscale.heal`` / ``autoscale.up`` /
 ``autoscale.down`` into the fleet's recorder.  ``slo`` is any object with
-``alerts`` (the burn-rate SLO engine is a later slice of the port).
+``alerts``, e.g. the burn-rate :class:`~csat_tpu_torch.obs.slo.SLOEngine`:
+the objectives firing when a decision is taken are stamped into its event.
 """
 
 from __future__ import annotations

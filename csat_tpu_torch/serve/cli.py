@@ -6,6 +6,9 @@ The JAX package's ``serve/cli.py`` for the port::
         --checkpoint_dir OUT snippet1.py snippet2.py
     cat requests.jsonl | python -m csat_tpu_torch.cli serve --config python \\
         --data_dir DIR --checkpoint_dir OUT
+    python -m csat_tpu_torch.cli serve --net --net_port 0 --config python \\
+        --data_dir DIR --checkpoint_dir OUT --metrics_file m.jsonl --slo
+    python -m csat_tpu_torch.cli top --metrics m.jsonl --once
 
 Both build the same stack: named config (``--set field=value`` overrides any
 field) + the vocabularies under ``--data_dir`` + the parameters the port's
@@ -27,6 +30,18 @@ and without a GPU and without ``--device cpu`` it raises.
   SHED``); a malformed line gets an error record and the loop goes on.
   EOF drains and exits; SIGTERM / SIGINT stops intake and drains, shedding
   whatever is left after ``--drain_deadline_s``; exit 0 either way.
+* ``serve --net`` — the streaming network front door
+  (``serve/netfront.py``): listen on ``--net_host`` / ``--net_port`` (port 0
+  = ephemeral; the bound address is the first stderr line, ``{"net":
+  {"host", "port"}}``) and stream incremental token frames ``{id, seq,
+  tokens, done?, status?}`` per request over JSONL/TCP, with a bounded send
+  buffer per connection (a slow reader stalls only its own stream, never the
+  engine's tick), ``{resume, have_seq}`` replay after a reconnect, and
+  refusal frames carrying ``retry_after_s``.  A submit is ``{"sample":
+  <code string>, "tag"?, "priority"?, "max_new_tokens"?}``.  SIGTERM drains:
+  every in-flight stream gets its terminal frame before the socket closes,
+  exit 0; the last stderr line is the stats summary with a ``net`` entry.
+* ``top`` — the live console over ``--metrics_file`` (``obs/top.py``).
 
 ``--mesh H`` or ``--mesh 1xH`` (the JAX flag's parsing) serves with ONE
 engine across ``H`` head shards, one visible card each
@@ -42,9 +57,11 @@ health-aware router (``serve/fleet.py``); ``--autoscale`` steps the fleet's
 supervisor (``serve/autoscale.py``) in the ``serve`` loop, healing retired
 replicas and scaling between ``--min_replicas`` and ``--max_replicas``; the
 stats line is then the fleet's summary (merged latency quantiles and a
-per-replica breakdown).  The JAX command line's SLOs (``--slo``), network
-front door (``--net``) and ``top`` are not part of the port yet: each is
-refused with a one-line message, never silently ignored.
+per-replica breakdown).  ``--slo`` steps the burn-rate SLO engine
+(``obs/slo.py``, objectives from the ``slo_*`` fields) in the ``serve``
+loops: alert transitions land in the flight recorder, burn gauges in the
+metrics snapshots, the active alerts in the heartbeat and in the
+autoscaler's decisions.
 """
 
 from __future__ import annotations
@@ -58,13 +75,6 @@ import sys
 from typing import List, Optional
 
 __all__ = ["main", "build_engine"]
-
-# flag → the later slice it waits for; refused while set
-_LATER = {
-    "slo": "obs/slo.py",
-    "net": "the network front door",
-}
-
 
 def _parser() -> argparse.ArgumentParser:
     # the subcommand is stripped by main() before parsing, as in the JAX CLI
@@ -159,19 +169,29 @@ def _parser() -> argparse.ArgumentParser:
                         "i.e. solo)")
     p.add_argument("--kv_layout", default="",
                    help="paged | rect KV-cache layout (default: config serve_kv_layout)")
-    # the JAX command line's flags of parts the port does not carry yet
-    p.add_argument("--slo", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--net", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--slo", action="store_true",
+                   help="serve: step the burn-rate SLO engine (obs/slo.py, objectives from the "
+                        "slo_* config fields) against the live metrics — alert transitions "
+                        "land in the flight recorder, burn gauges in the metrics snapshots")
+    p.add_argument("--net", action="store_true",
+                   help="serve: listen on a TCP socket and stream per-token JSONL frames "
+                        "(serve/netfront.py) instead of running the stdin loop")
+    p.add_argument("--net_host", default="",
+                   help="--net listen address (default: config serve_net_host, 127.0.0.1)")
+    p.add_argument("--net_port", type=int, default=-1,
+                   help="--net listen port; 0 = ephemeral, printed on stderr at start "
+                        "(default: config serve_net_port)")
+    p.add_argument("--net_client_buffer", type=int, default=0,
+                   help="per-connection send-buffer bound in bytes; beyond it the "
+                        "connection is stalled (default: config serve_net_client_buffer)")
+    p.add_argument("--net_stall_timeout_s", type=float, default=-1.0,
+                   help="drop a stalled connection after this long "
+                        "(default: config serve_net_stall_timeout_s)")
+    p.add_argument("--net_heartbeat_s", type=float, default=-1.0,
+                   help="server heartbeat cadence over --net; 0 = off "
+                        "(default: config serve_net_heartbeat_s)")
     p.add_argument("files", nargs="*", help="summarize: files holding one snippet each")
     return p
-
-
-def _refuse_later(args) -> None:
-    """A flag of a part the port does not carry is an error, not a no-op."""
-    for flag, slice_ in _LATER.items():
-        if getattr(args, flag):
-            raise SystemExit(f"csat_tpu_torch serve: --{flag} is not part of the port yet "
-                             f"({slice_} is a later slice)")
 
 
 def build_engine(args):
@@ -180,7 +200,6 @@ def build_engine(args):
     :class:`~csat_tpu_torch.serve.fleet.Fleet` when ``serve_replicas`` > 1
     or ``serve_autoscale`` (the supervisor needs the replica lifecycle even
     at one replica)."""
-    _refuse_later(args)
     from csat_tpu_torch.configs import cli_config
     from csat_tpu_torch.data.vocab import Vocab, load_vocab
     from csat_tpu_torch.serve.engine import ServeEngine
@@ -204,7 +223,11 @@ def build_engine(args):
             ("replicas", "serve_replicas", 0), ("autoscale", "serve_autoscale", False),
             ("min_replicas", "serve_min_replicas", 0), ("max_replicas", "serve_max_replicas", -1),
             ("metrics_file", "obs_metrics_file", ""),
-            ("postmortem_dir", "obs_postmortem_dir", "")):
+            ("postmortem_dir", "obs_postmortem_dir", ""),
+            ("net_host", "serve_net_host", ""), ("net_port", "serve_net_port", -1),
+            ("net_client_buffer", "serve_net_client_buffer", 0),
+            ("net_stall_timeout_s", "serve_net_stall_timeout_s", -1.0),
+            ("net_heartbeat_s", "serve_net_heartbeat_s", -1.0)):
         value = getattr(args, flag)
         if value != unset:
             overrides[field] = value
@@ -276,6 +299,10 @@ def _telemetry(engine, cfg, args):
     return writer, extra, finalize
 
 
+#: what ingest raises on a snippet it refuses (answered FAILED)
+_INGEST_ERRORS = (SyntaxError, ValueError, RecursionError, RuntimeError)
+
+
 def _ingest(engine, cfg, src_vocab, trip_vocab, code: str, max_new_tokens: int,
             priority: int = 0) -> int:
     from csat_tpu_torch.serve.ingest import sample_from_source
@@ -308,7 +335,7 @@ def _summarize(args) -> None:
                                     args.max_new_tokens)
             except DataErrorBudgetExceeded:
                 raise  # a mostly-poison input is an upstream corruption event
-            except (SyntaxError, ValueError, RecursionError, RuntimeError) as e:
+            except _INGEST_ERRORS as e:
                 errors[name] = f"{type(e).__name__}: {e}"
         engine.drain()
         for name in names:
@@ -401,6 +428,19 @@ class _StdinLines:
         return lines
 
 
+def _slo(engine, cfg, args, scaler):
+    """The burn-rate SLO engine over ``engine`` under ``--slo`` (else None);
+    an autoscaler stamps its active alerts into every decision."""
+    if not args.slo:
+        return None
+    from csat_tpu_torch.obs.slo import SLOEngine
+
+    slo = SLOEngine.for_target(engine, cfg)
+    if scaler is not None:
+        scaler.slo = slo
+    return slo
+
+
 def _serve(args, stdin=None, stop=None) -> None:
     """The JSONL loop over ``stdin`` (default ``sys.stdin``); ``stop`` is the
     :class:`~csat_tpu_torch.resilience.preemption.PreemptionHandler` whose
@@ -416,6 +456,7 @@ def _serve(args, stdin=None, stop=None) -> None:
         from csat_tpu_torch.serve.autoscale import AutoScaler
 
         scaler = AutoScaler(engine, cfg, log=lambda m: print(m, file=sys.stderr))
+    slo = _slo(engine, cfg, args, scaler)
     hb_every = max(args.heartbeat_s, 0.0)
     last_hb = engine.clock()
     hb_keys = ("submitted", "retired", "failed", "timeouts", "rejected", "shed",
@@ -477,7 +518,7 @@ def _serve(args, stdin=None, stop=None) -> None:
                         pending[rid] = ext_id
                     except DataErrorBudgetExceeded:
                         raise  # the poison budget is spent: fail loud
-                    except (SyntaxError, ValueError, RecursionError, RuntimeError) as e:
+                    except _INGEST_ERRORS as e:
                         print(json.dumps({"id": ext_id, "status": "FAILED",
                                           "error": f"{type(e).__name__}: {e}"}), flush=True)
                 eof = eof or lines.eof
@@ -487,6 +528,8 @@ def _serve(args, stdin=None, stop=None) -> None:
                 # every iteration, not just busy ones: healing a retired
                 # replica must not wait for the next request
                 scaler.step()
+            if slo is not None:
+                slo.step()
             flush_finished(pending)
             if writer is not None:
                 writer.maybe_write(extra=extra())
@@ -495,21 +538,131 @@ def _serve(args, stdin=None, stop=None) -> None:
                 s = _summary(engine)
                 hb = {k: s[k] for k in hb_keys}
                 hb.update(queue_depth=engine.queue_depth, occupancy=engine.occupancy)
+                if slo is not None and slo.alerts:
+                    hb["slo_alerts"] = sorted(slo.alerts)
                 print(f"# heartbeat {json.dumps(hb)}", file=sys.stderr)
     print(json.dumps(_summary(engine)), file=sys.stderr)
 
 
+class _IngestTarget:
+    """The engine or fleet as the front door of ``serve --net`` sees it.  JAX's
+    front answers a snippet that ingest refuses with a bare ``{"error":
+    "malformed"}`` line that names no stream, so the client's submit never
+    resolves; here such a submit is a request FAILED at once, under a
+    negative id of its own (below the front door's drain refusals), so the
+    client gets the ACK and a terminal FAILED frame carrying the error, as
+    the stdin loop answers such a line FAILED.  Lines the protocol refuses
+    (a non-string ``sample``, a non-integer priority) stay malformed, as in
+    JAX.  Everything else is the target's."""
+
+    _FIRST_ID = -(1 << 40)
+
+    def __init__(self, target):
+        self._target, self._failed, self._next_id = target, {}, self._FIRST_ID
+
+    def __getattr__(self, name):
+        return getattr(self._target, name)
+
+    def submit(self, sample, max_new_tokens: int = 0, priority: int = 0) -> int:
+        if not isinstance(sample, Exception):  # ingest took the snippet
+            return self._target.submit(sample, max_new_tokens=max_new_tokens,
+                                       priority=priority)
+        from csat_tpu_torch.serve.engine import Request, RequestStatus
+
+        self._next_id -= 1
+        now = self._target.clock()
+        self._failed[self._next_id] = Request(
+            id=self._next_id, sample=None, limit=0, submit_t=now, done_t=now,
+            status=RequestStatus.FAILED, error=f"{type(sample).__name__}: {sample}",
+            priority=priority)
+        return self._next_id
+
+    def poll(self, req_id: int):
+        req = self._failed.get(req_id)
+        return req if req is not None else self._target.poll(req_id)
+
+    def pop_result(self, req_id: int):
+        req = self._failed.pop(req_id, None)
+        return req if req is not None else self._target.pop_result(req_id)
+
+
+def _net_front(engine, cfg, src_vocab, trip_vocab):
+    """The front door of ``serve --net``: JAX's ``NetFront`` over
+    :class:`_IngestTarget`; ``make_sample`` hands it ingest's error where
+    ingest refuses the snippet."""
+    from csat_tpu_torch.serve.ingest import sample_from_source
+    from csat_tpu_torch.serve.netfront import NetFront
+
+    def make_sample(msg):
+        code = msg.get("sample")
+        if not isinstance(code, str):
+            raise ValueError("'sample' must be the code string")
+        try:
+            return sample_from_source(code, cfg, src_vocab, trip_vocab)
+        except _INGEST_ERRORS as e:
+            return e
+
+    return NetFront(_IngestTarget(engine), make_sample=make_sample)
+
+
+def _serve_net(args, stop=None) -> None:
+    """``serve --net``: the streaming front door (``serve/netfront.py``) over
+    the same engine or fleet as the stdin loop, on the card unless
+    ``--device cpu``.  It prints the bound address first; SIGTERM / SIGINT
+    (or ``stop``'s flag) stops intake and drains — every in-flight stream
+    finishes or flushes a terminal frame before the socket closes — and the
+    last stderr line is the stats summary with the front's under ``net``."""
+    import time
+
+    from csat_tpu_torch.resilience.preemption import PreemptionHandler
+
+    engine, cfg, src_vocab, trip_vocab = build_engine(args)
+    writer, extra, finalize = _telemetry(engine, cfg, args)
+    scaler = None
+    if cfg.serve_autoscale and _is_fleet(engine):
+        from csat_tpu_torch.serve.autoscale import AutoScaler
+
+        scaler = AutoScaler(engine, cfg, log=lambda m: print(m, file=sys.stderr))
+    slo = _slo(engine, cfg, args, scaler)
+    front = _net_front(engine, cfg, src_vocab, trip_vocab)
+    # the bound address first (port 0 = ephemeral): clients parse this
+    print(json.dumps({"net": {"host": front.address[0], "port": front.address[1]}}),
+          file=sys.stderr, flush=True)
+    stop = stop if stop is not None else PreemptionHandler()
+    with contextlib.ExitStack() as teardown:
+        teardown.callback(finalize)      # LIFO: drain and close run first
+        teardown.callback(engine.close)
+        teardown.callback(front.drain)   # terminal frames before the close
+        teardown.enter_context(stop.installed())
+        while not stop.triggered:
+            live = front.step()
+            if scaler is not None:
+                scaler.step()
+            if slo is not None:
+                slo.step()
+            if writer is not None:
+                writer.maybe_write(extra=extra())
+            if not live and not engine.queue_depth:
+                time.sleep(0.005)  # idle: do not spin the socket loop
+        print(f"# serve: shutdown signal — draining {front.summary()['live_streams']} "
+              "stream(s)", file=sys.stderr, flush=True)
+    print(json.dumps({**_summary(engine), "net": front.summary()}), file=sys.stderr)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "top":
-        raise SystemExit("csat_tpu_torch top is not part of the port yet "
-                         "(the live console comes with obs/slo.py, a later slice)")
-    if not argv or argv[0] not in ("serve", "summarize"):
-        raise SystemExit("usage: csat_tpu_torch.cli serve|summarize [options] [files ...]")
+    if not argv or argv[0] not in ("serve", "summarize", "top"):
+        raise SystemExit("usage: csat_tpu_torch.cli serve|summarize|top [options] [files ...]")
     command = argv.pop(0)
+    if command == "top":
+        from csat_tpu_torch.obs.top import main as top_main
+
+        raise SystemExit(top_main(argv))
     args = _parser().parse_args(argv)
     if command == "summarize":
         _summarize(args)
+    elif args.net:
+        _serve_net(args)
     else:
         _serve(args)
 

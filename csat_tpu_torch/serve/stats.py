@@ -153,7 +153,7 @@ _METRICS = {
                       "digest-verified chains restored into HBM"),
     "tier_restore_misses": ("counter", "serve_tier_restore_miss_total",
                             "failed restores degraded to re-prefill"),
-    # streaming network front door (zero in the port)
+    # streaming network front door (serve/netfront.py)
     "net_connections": ("gauge", "serve_net_connections",
                         "client connections currently open"),
     "net_stalled": ("gauge", "serve_net_stalled",

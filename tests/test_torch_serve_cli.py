@@ -3,8 +3,8 @@ bitwise against the JAX package's on a snippet corpus, the JSONL request
 parser on its hardened cases, the burst-tolerant stdin reader, and the
 ``summarize`` / ``serve`` command line in process on the CPU (micro widths, a
 checkpoint written by the test): a malformed line answered and the loop
-going on, a stop signal draining, every line answered, and the flags of
-later slices refused."""
+going on, a stop signal draining, every line answered, the combinations
+of flags the config's rules refuse, and ``top`` answering without a card."""
 
 import io
 import json
@@ -242,37 +242,85 @@ def test_serve_loop_in_process_malformed_lines_and_stop(served_ckpt, capsys):
     assert json.loads(err.strip().splitlines()[-1])["retired"] == 4
 
 
-@pytest.mark.parametrize("flag", [["--net"], ["--replicas", "2", "--net"],
-                                  ["--autoscale", "--min_replicas", "3", "--max_replicas", "2"],
-                                  ["--slo"],
+def test_serve_loop_slo_alert_in_heartbeat_and_metrics(served_ckpt, tmp_path, capsys):
+    """``serve --slo``: a burst into a queue of 1 is mostly refused, the
+    availability alert fires (its objective in the heartbeat), its gauges
+    land in the metrics file, and ``top`` renders them."""
+    import threading
+
+    from csat_tpu_torch.serve import cli
+
+    metrics = str(tmp_path / "m.jsonl")
+    lines = [json.dumps({"id": i, "code": SNIPPETS[i % len(SNIPPETS)]}) for i in range(6)]
+    r, w = os.pipe()
+    # after the loop's first idle round, so the SLO engine has its baseline;
+    # the stop flag counts its looks from the write on
+    written = threading.Event()
+    timer = threading.Timer(0.5, lambda: (os.write(w, ("\n".join(lines) + "\n").encode()),
+                                          written.set()))
+    timer.start()
+    try:
+        args = cli._parser().parse_args(_base(served_ckpt) + [
+            "--slo", "--max_queue", "1", "--queue_policy", "reject", "--heartbeat_s", "1e-9",
+            "--metrics_file", metrics, "--set", "slo_availability=0.9", "--set",
+            "slo_burn_fast=2.0", "--set", "slo_burn_slow=1.0"])
+        cli._serve(args, stdin=types.SimpleNamespace(fileno=lambda: r),
+                   stop=_StopAfterEvent(12, written))
+    finally:
+        timer.join()
+        os.close(w)
+        os.close(r)
+    out, err = capsys.readouterr()
+    statuses = sorted(json.loads(x)["status"] for x in out.splitlines())
+    assert statuses.count("REJECTED") >= 4 and "OK" in statuses
+    beats = [json.loads(x.split("# heartbeat ", 1)[1]) for x in err.splitlines()
+             if x.startswith("# heartbeat ")]
+    assert any(b.get("slo_alerts") == ["availability"] for b in beats)
+    with open(metrics) as f:
+        snap = json.loads(f.read().splitlines()[-1])
+    assert "slo_alert_availability" in snap and snap["slo_burn_fast_availability"] > 0
+    with pytest.raises(SystemExit) as info:
+        cli.main(["top", "--metrics", metrics, "--once"])
+    assert info.value.code == 0 and "== slo burn ==" in capsys.readouterr().out
+
+
+class _StopAfterEvent(_StopAfter):
+    """A stop flag counting its looks only once ``event`` is set."""
+
+    def __init__(self, n, event):
+        super().__init__(n)
+        self.event = event
+
+    @property
+    def triggered(self):
+        return self.event.is_set() and _StopAfter.triggered.fget(self)
+
+
+@pytest.mark.parametrize("flag", [["--autoscale", "--min_replicas", "3", "--max_replicas", "2"],
                                   ["--tiering", "--prefix_cache", "0"],
                                   ["--tiering", "--kv_layout", "rect"], ["--mesh", "2x2"],
                                   ["--kv_layout", "rect", "--mesh", "2"]])
 def test_later_slice_flags_refused(served_ckpt, flag):
-    """Each flag of a later slice is refused naming itself, also beside the
-    ported fleet flags; the storage flags, ``--mesh`` and the fleet's are
-    ported, and a combination the config's rules refuse (JAX's asserts:
+    """A combination of flags the config's rules refuse (JAX's asserts:
     tiering without a prefix cache or outside the paged layout, a mesh with a
     data axis above 1 or over the rect layout, an autoscale ceiling below its
-    floor) exits with its one line."""
+    floor) exits with its one line; every flag of the JAX command line is
+    ported."""
     from csat_tpu_torch.serve import cli
 
     with pytest.raises(SystemExit) as info:
         cli.main(["serve", *_base(served_ckpt), *flag])
     msg = str(info.value)
-    if flag[0] == "--replicas":
-        assert "not part of the port yet" in msg and "--net" in msg
-    elif flag[0] == "--autoscale":
+    if flag[0] == "--autoscale":
         assert msg == "python: 2"  # JAX's assert: serve_max_replicas >= serve_min_replicas
     elif flag[0] == "--mesh":
         assert "serve_mesh_shape (2, 2)" in msg and "leading (data) axis must be 1" in msg
     elif flag[0] == "--tiering":
         want = "a prefix cache" if "--prefix_cache" in flag else "serve_kv_layout='paged'"
         assert msg.startswith("python: serve_tiering requires") and want in msg
-    elif flag[0] == "--kv_layout":
-        assert "serve_mesh_shape spanning >1 device requires serve_kv_layout='paged'" in msg
     else:
-        assert "not part of the port yet" in msg and flag[0] in msg
+        assert flag[0] == "--kv_layout"
+        assert "serve_mesh_shape spanning >1 device requires serve_kv_layout='paged'" in msg
 
 
 def test_tiered_summarize_equals_untiered(served_ckpt, tmp_path, capsys):
@@ -299,15 +347,19 @@ def test_tiered_summarize_equals_untiered(served_ckpt, tmp_path, capsys):
     assert stats["tier_spills"] > 0 and stats["tier_restores"] > 0
 
 
-def test_cli_raises_without_cuda_unless_cpu_is_asked(served_ckpt, monkeypatch):
+def test_cli_raises_without_cuda_unless_cpu_is_asked(served_ckpt, monkeypatch, tmp_path, capsys):
     from csat_tpu_torch import cli
 
     base = [x for x in _base(served_ckpt) if x not in ("--device", "cpu")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["summarize", *base, os.devnull])
-    with pytest.raises(SystemExit, match="not part of the port"):
-        cli.main(["top"])
+    # top reads files only: it answers without a card
+    metrics = tmp_path / "m.jsonl"
+    metrics.write_text(json.dumps({"t": 0.0, "serve_requests_ok_total": 3}) + "\n")
+    with pytest.raises(SystemExit) as info:
+        cli.main(["top", "--metrics", str(metrics), "--once"])
+    assert info.value.code == 0 and "ok 3" in capsys.readouterr().out
     monkeypatch.setattr("sys.stdin", io.StringIO("def f(x):\n    return x\n"))
     cli.main(["summarize", *base, "--device", "cpu"])
 

@@ -9,8 +9,7 @@ package's, on the same micro configuration.
   trips and refuses tampered metadata and another config's shapes;
 * ``resilience/chaos.py``: ``FaultEvent`` / ``FaultPlan`` JSON, the seeded
   random storms and the compiled injectors equal JAX's; the guards refuse
-  what JAX refuses; ``FaultPlan.random(net=True)`` raises until the network
-  drill is ported.
+  what JAX refuses, also for the network kinds' draw (``net=True``).
 
 No engine runs here: these are pure functions of their seeds."""
 
@@ -159,8 +158,8 @@ def test_random_storms_equal_jax(replicas, slots, tiered):
         assert plan.to_json() == JPlan.random(seed, **kw).to_json()
         for e in plan.events:
             assert e.kind != "hang" and not (e.kind == "retire_replica" and e.replica == 0)
-    with pytest.raises(NotImplementedError, match="network front door"):
-        FaultPlan.random(0, replicas=replicas, net=True)
+        kw["net"] = True
+        assert FaultPlan.random(seed, **kw).to_json() == JPlan.random(seed, **kw).to_json()
 
 
 def _fake_engine(mod_cfg, ticks=5, prefills=2):
