@@ -279,8 +279,22 @@ Phases, each printing JSON lines:
    ``NetClient`` plus a garbage line, SIGTERM mid-stream: every stream
    terminal (the 4 FAILED), exit 0 with the ``net`` summary, OK tokens one
    ``ServeEngine``'s, ``top --once`` on its metrics answering;
-18. ``kernels`` — one line listing every kernel with its route, source, the
-   TPU kernel it replaces, its launches in phases 4-17 by path, its error,
+18. ``native`` — the native host modules on the fixed-shape path and
+   csat-lint: both C++ libraries (``csat_tpu_torch/native``) built with
+   ``g++`` from the checkout's sources into ``build/native/`` (``g++``'s
+   seconds printed when the run built them); one epoch of ``Trainer.fit`` in the
+   python config's defaults (``bucketing=False``, batch 64, N 150, shared
+   noise) on the fit phases' corpus and ``run_test`` scoring BLEU / ROUGE-L /
+   METEOR on its test split — every batch drawn equal bit for bit to the
+   NumPy collate of its indices and collated natively, every step finite,
+   the eval's METEOR equal to the Python scorer's on its own hypotheses
+   within 1e-9, K1 and K7 launched at shapes and rates phase 3 checked; the
+   collate's host ms per batch, native against NumPy, at python's batch (B
+   64, N 150, the corpus) and python_long's (B 64, N 512, synthetic), beside
+   the host CPU's model; ``python -m csat_tpu_torch.cli lint --format json``
+   in a process of its own: exit 0, no finding;
+19. ``kernels`` — one line listing every kernel with its route, source, the
+   TPU kernel it replaces, its launches in phases 4-18 by path, its error,
    times and bound.
 
 The line before the last is the card's ``name, power.limit``; the last line
@@ -453,6 +467,9 @@ PATH_KERNELS = {
     # under the SLO engine's overload
     **{path: ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
        for path in ("net_drill", "net_fleet", "net_slo", "net_cli")},
+    # the native phase: the fixed-shape fit and test eval in the python
+    # config's defaults (shared noise, sampled eval graph): K1 and K7
+    "native": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -7099,6 +7116,268 @@ def net_phase(corpus, ckpt: str, card: str = "") -> dict:
     return {"launches": {path: rec["launches"] for path, rec in recs.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the native host modules on the fixed-shape path, and csat-lint
+# ---------------------------------------------------------------------------
+
+NATIVE_TIMING_REPS = 7  # collate timings: native and NumPy in turns, median of each
+NATIVE_METEOR_TOL = 1e-9  # tests/test_metrics.py::test_native_meteor_matches_python's
+
+
+class _CountedLib:
+    """A ``ctypes`` library whose function ``fn`` counts its calls."""
+
+    def __init__(self, lib, fn: str):
+        self.lib, self.fn, self.calls = lib, fn, 0
+
+    def __getattr__(self, name):
+        attr = getattr(self.lib, name)
+        if name != self.fn:
+            return attr
+
+        def counted(*args):
+            self.calls += 1
+            return attr(*args)
+        return counted
+
+
+@contextlib.contextmanager
+def native_traffic():
+    """Inside the block: every ``collate_indexed`` batch held against the
+    NumPy ``collate`` of the same indices (bit for bit, every field and
+    dtype), the native collate's and METEOR scorer's calls counted.  Builds
+    and loads both libraries first: a failed build raises."""
+    from csat_tpu_torch import native
+    from csat_tpu_torch.data import dataset
+
+    native.load_meteor()
+    lib = native.load_collate()
+    if lib is None:
+        raise AssertionError("CSAT_TPU_NO_NATIVE_COLLATE=1 is set: the native phase needs it unset")
+    counted = _CountedLib(lib, "collate_rel_c")
+    inner_collate, inner_meteor = dataset.collate_indexed, native.native_meteor_score
+    seen = {"batches": 0, "apart": [], "meteor_calls": 0, "lib": counted}
+
+    def collate_indexed(arrays, idx, max_src_len):
+        batch = inner_collate(arrays, idx, max_src_len)
+        plain = dataset.collate({k: v[idx] for k, v in arrays.items()}, max_src_len)
+        seen["batches"] += 1
+        for field in plain._fields:
+            a, b = getattr(batch, field), getattr(plain, field)
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                seen["apart"].append((seen["batches"], field))
+        return batch
+
+    def native_meteor_score(*args, **kw):
+        seen["meteor_calls"] += 1
+        return inner_meteor(*args, **kw)
+
+    native._LIBS["collate"] = counted
+    dataset.collate_indexed = collate_indexed
+    native.native_meteor_score = native_meteor_score
+    try:
+        yield seen
+    finally:
+        native._LIBS["collate"] = lib
+        dataset.collate_indexed = inner_collate
+        native.native_meteor_score = inner_meteor
+
+
+def native_fit(data_dir: str, out: str, device: str = "cuda", **overrides) -> dict:
+    """One fixed-shape epoch of ``Trainer.fit`` in the python config's own
+    defaults (``bucketing=False``, its batch size and N, shared noise), then
+    ``run_test`` scoring BLEU / ROUGE-L / METEOR on the test split, as the
+    command line runs them: every batch drawn is the NumPy collate of its
+    indices bit for bit and went through the native collate, the eval's
+    METEOR is the Python scorer's on its own hypotheses to 1e-9, the flex
+    kernels launched at shapes and rates phase 3 checked."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.metrics.meteor import meteor_score
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.train import Trainer, run_test
+
+    cfg = get_config("python", data_dir=data_dir, output_dir=out, num_epochs=1, **overrides)
+    if cfg.bucketing:
+        raise AssertionError("the python config buckets by default: the native phase drives "
+                             "the fixed-shape path")
+    tr = Trainer(cfg, device=device, log=lambda msg: None)
+    sets = {split: ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab)
+            for split in ("train", "test")}
+    gen = torch.Generator(device=tr.device).manual_seed(cfg.seed)
+    with native_traffic() as seen:
+        build.reset_launches()
+        with flex_launches() as launched:
+            t0 = time.perf_counter()
+            _, hist = tr.fit(sets["train"])
+            fit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            scores = run_test(tr.model, sets["test"], cfg, tr.tgt_vocab, gen, output_dir=out)
+            test_s = time.perf_counter() - t0
+        counts = build.launch_counts()
+    steps = hist["steps"]
+    want_steps = len(sets["train"]) // cfg.batch_size
+    shape = [cfg.batch_size, cfg.max_src_len]
+    if len(steps) != want_steps or any(list(r["shape"][:2]) != shape for r in steps):
+        raise AssertionError(f"native fit: {len(steps)} steps at {_by_shape(steps)}, want "
+                             f"{want_steps} at {shape}")
+    if not all(np.isfinite(r["loss"]) for r in steps) or hist["nonfinite_steps"]:
+        raise AssertionError(f"native fit: non-finite steps {hist['nonfinite_steps']}")
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"native fit: test scores not finite: {scores}")
+    eval_batches = -(-len(sets["test"]) // cfg.batch_size)
+    if seen["apart"] or seen["batches"] != want_steps + eval_batches:
+        raise AssertionError(f"native fit: {seen['batches']} batches collated (want "
+                             f"{want_steps + eval_batches}), apart from NumPy's: {seen['apart']}")
+    if seen["lib"].calls != seen["batches"]:
+        raise AssertionError(f"native fit: the native collate ran {seen['lib'].calls} times "
+                             f"for {seen['batches']} batches")
+    _check_launched("native", counts)
+    _check_shapes("native", {tuple(shape)}, cfg)
+    _check_rates("native", launched)
+    # the eval's METEOR against the Python scorer on its own hypotheses
+    predict = [f for f in os.listdir(out) if f.startswith("predict_results_")]
+    if len(predict) != 1:
+        raise AssertionError(f"native fit: predictions file missing: {os.listdir(out)}")
+    with open(os.path.join(out, predict[0])) as f:
+        pairs = [(r["predict"].split(), r["true"].split()) for r in json.load(f)]
+    calls = seen["meteor_calls"]
+    if calls < len(pairs):
+        raise AssertionError(f"native fit: {calls} native METEOR calls for {len(pairs)} pairs")
+    nat = [meteor_score(h, r) for h, r in pairs]
+    py = [meteor_score(h, r, use_native=False) for h, r in pairs]
+    err = max(abs(a - b) for a, b in zip(nat, py))
+    meteor_py = 100 * float(np.mean(py))
+    if err > NATIVE_METEOR_TOL or abs(scores["meteor"] - meteor_py) > 100 * NATIVE_METEOR_TOL:
+        raise AssertionError(f"native fit: METEOR native {scores['meteor']} against Python "
+                             f"{meteor_py}, max pair error {err}")
+    return dict(model="python", bucketing=False, batch=cfg.batch_size, n=cfg.max_src_len,
+                noise_mode=cfg.noise_mode, eval_graph=cfg.eval_graph, steps=len(steps),
+                losses=[r["loss"] for r in steps], fit_s=fit_s, test=scores, test_s=test_s,
+                batches=seen["batches"], native_collate_calls=seen["lib"].calls,
+                batches_apart=0, meteor_pairs=len(pairs), native_meteor_calls=calls,
+                meteor_python=meteor_py, meteor_max_pair_err=err, launches=counts)
+
+
+def synthetic_arrays(s: int, n: int, t: int, seed: int = SEED) -> dict:
+    """Dataset-resident arrays of ``s`` samples at N ``n`` and target width
+    ``t``: int16 relation matrices of random signed distances, zero past each
+    sample's node count, as ``ASTDataset`` lays them out."""
+    rng = np.random.default_rng(seed)
+    nodes = rng.integers(n // 2, n + 1, s)
+    pad = np.arange(n)[None, :] >= nodes[:, None]
+    L = rng.integers(-n, n, (s, n, n), dtype=np.int16)
+    T = rng.integers(-n, n, (s, n, n), dtype=np.int16)
+    for m in (L, T):
+        m[pad[:, :, None] | pad[:, None, :]] = 0
+    return {"src_seq": rng.integers(0, 100, (s, n)).astype(np.int32),
+            "tgt_seq": rng.integers(0, 100, (s, t)).astype(np.int32),
+            "target": rng.integers(0, 100, (s, t)).astype(np.int32),
+            "L_raw": L, "T_raw": T, "num_node": nodes.astype(np.int32),
+            "tree_pos": (rng.random((s, n, 16)) < 0.3).astype(np.uint8),
+            "triplet": rng.integers(0, 50, (s, n)).astype(np.int32)}
+
+
+def collate_timings(arrays: dict, b: int, max_src_len: int,
+                    reps: int = NATIVE_TIMING_REPS) -> dict:
+    """Host ms per batch of ``b`` samples: ``collate_indexed`` (the native
+    kernel) and the NumPy gather + ``collate``, in turns, median of each;
+    the two batches must be equal."""
+    from csat_tpu_torch.data import dataset
+
+    idx = np.random.default_rng(SEED).choice(len(arrays["L_raw"]), b, replace=False)
+    runs = {"native": lambda: dataset.collate_indexed(arrays, idx, max_src_len),
+            "numpy": lambda: dataset.collate({k: v[idx] for k, v in arrays.items()},
+                                             max_src_len)}
+    out = {name: fn() for name, fn in runs.items()}
+    for field in out["numpy"]._fields:
+        if not np.array_equal(getattr(out["native"], field), getattr(out["numpy"], field)):
+            raise AssertionError(f"collate timings: native {field} differs from NumPy's")
+    times = {name: [] for name in runs}
+    for _ in range(reps):
+        for name, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    return {"B": b, "N": int(arrays["L_raw"].shape[1]), "native_ms": ms["native"],
+            "numpy_ms": ms["numpy"], "speedup": ms["numpy"] / ms["native"], "reps": reps}
+
+
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names its first processor: model
+    name, vendor, family and model number (a sandboxed kernel may leave the
+    name ``unknown``), and the core count."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}), "
+            f"{os.cpu_count()} cores")
+
+
+def lint_run() -> dict:
+    """``python -m csat_tpu_torch.cli lint --format json`` in a process of its
+    own: exit 0 and zero unsuppressed findings."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "csat_tpu_torch.cli", "lint", "--format", "json"],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    try:
+        report = json.loads(res.stdout)
+    except ValueError:
+        raise AssertionError(f"lint printed no report (exit {res.returncode}): "
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    if res.returncode != 0 or report["findings"]:
+        raise AssertionError(f"lint exit {res.returncode}, findings {report['findings']}")
+    return {"exit": res.returncode, "findings": 0, "suppressed": len(report["suppressed"]),
+            "files": report["files"], "rules": len(report["rules"]), "seconds": seconds}
+
+
+def native_phase(corpus, card: str = "") -> dict:
+    """Phase 18: the fixed-shape fit and eval through both native libraries,
+    built from the checkout's sources into ``build/native/`` (with ``g++``'s
+    seconds when this run built them), the collate's host timings at the
+    python and python_long batches beside the host CPU, and csat-lint over
+    the port."""
+    from csat_tpu_torch import native
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.data.vocab import load_vocab
+
+    tmp, data_dir, _ = corpus
+    t0 = time.perf_counter()
+    fit = native_fit(data_dir, os.path.join(tmp, "native"))
+    builds = {}
+    for name, src in native.SOURCES.items():
+        path = native.library_path(src, native.OPT[name])
+        if not path.exists():
+            raise AssertionError(f"native library {name} was not built under build/native")
+        # g++ seconds when this process built it (a checkout's first run)
+        builds[name] = {"library": str(path.relative_to(REPO)),
+                        "built_s": native.BUILT.get(path.name)}
+    cfg = get_config("python", data_dir=data_dir)
+    src_v, tgt_v = load_vocab(data_dir)
+    train = ASTDataset(cfg, "train", src_v, tgt_v)
+    long_cfg = get_config("python_long")
+    timings = [collate_timings(train.arrays, cfg.batch_size, cfg.max_src_len),
+               collate_timings(synthetic_arrays(long_cfg.batch_size * 2, long_cfg.max_src_len,
+                                                long_cfg.max_tgt_len - 1),
+                               long_cfg.batch_size, long_cfg.max_src_len)]
+    lint = lint_run()
+    rec = dict(card=card, cpu=host_cpu(), builds=builds, fit=fit, collate=timings, lint=lint,
+               launches=fit["launches"], seconds=time.perf_counter() - t0)
+    emit("native", **rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7131,6 +7410,7 @@ def main(argv=None) -> int:
         storage = storage_phase(smi)
         fleet = fleet_phase(corpus, serving["checkpoint"], smi)
         net = net_phase(corpus, serving["checkpoint"], smi)
+        native_rec = native_phase(corpus, smi)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
@@ -7138,7 +7418,7 @@ def main(argv=None) -> int:
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],
                **parallel["launches"], **tensor["launches"], **storage["launches"],
-               **fleet["launches"], **net["launches"]}
+               **fleet["launches"], **net["launches"], "native": native_rec["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():
         m = measured[fn]

@@ -7,6 +7,7 @@ The JAX package's ``cli.py``::
     python -m csat_tpu_torch.cli summarize --config python --data_dir DIR --checkpoint_dir OUT f.py
     python -m csat_tpu_torch.cli serve --config python --data_dir DIR --checkpoint_dir OUT
     python -m csat_tpu_torch.cli top --metrics serve_metrics.jsonl --once
+    python -m csat_tpu_torch.cli lint [--format json]
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU
 (``--device`` stands where the JAX CLI has ``--platform``).  Without a GPU and
@@ -20,8 +21,9 @@ command line's.  Training streams ``scalars.jsonl`` into the output dir
 training saves a resumable snapshot, prints one ``{"preempted": true, ...}``
 line and exits 75; a stalled step under ``--watchdog_timeout_s`` exits 76;
 either run continues with ``--resume``.  ``summarize``, ``serve`` and
-``top`` go to the serving command line (``serve/cli.py``), as the JAX
-``cli.py`` dispatches them.
+``top`` go to the serving command line (``serve/cli.py``), and ``lint`` to
+csat-lint over the port (``analysis/cli.py``: exit 1 on any unsuppressed
+finding), as the JAX ``cli.py`` dispatches them.
 
 Data, sequence and pipeline parallelism: under ``torchrun`` (its ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) each
@@ -105,6 +107,10 @@ def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "lint":
+        from csat_tpu_torch.analysis.cli import main as lint_main
+
+        raise SystemExit(lint_main(argv[1:]))
     if argv and argv[0] in ("serve", "summarize", "top"):
         from csat_tpu_torch.serve.cli import main as serve_main
 

@@ -257,10 +257,68 @@ def collate(arrs: Dict[str, np.ndarray], max_src_len: int) -> Batch:
 def collate_indexed(
     arrays: Dict[str, np.ndarray], idx: np.ndarray, max_src_len: int
 ) -> Batch:
-    """Gather rows ``idx`` off the dataset-resident arrays and collate them
-    (NumPy fancy index + :func:`collate`; the JAX package's optional native
-    single-pass gather is bit-identical to this path and is not carried)."""
-    return collate({k: v[idx] for k, v in arrays.items()}, max_src_len)
+    """Fused gather + collate straight off the dataset-resident arrays.
+
+    The (B, N, N) relation matrices — the input pipeline's byte budget —
+    go through the native single-pass kernel
+    (``csat_tpu_torch/native/collate.cpp``: gather, mask, adjacency,
+    offset+clamp, one read per element), which raises if it does not build.
+    NumPy fancy-index + :func:`collate` takes the batches the kernel's
+    contract excludes (a non-int16 or non-contiguous array — every bucketed
+    view —, L and T not one (S, N, N) shape, an empty index, a negative or
+    out-of-range index, whose NumPy semantics are wraparound or
+    ``IndexError``) and the caller who opted out
+    with ``CSAT_TPU_NO_NATIVE_COLLATE=1``.  Bit-identical either way
+    (``tests/test_torch_native.py``)."""
+    from csat_tpu_torch.native import load_collate
+
+    lib = load_collate()
+    L_all, T_all = arrays["L_raw"], arrays["T_raw"]
+    idx64 = np.ascontiguousarray(idx, dtype=np.int64)
+    if (
+        lib is None
+        or L_all.dtype != np.int16
+        or T_all.dtype != np.int16
+        or not L_all.flags["C_CONTIGUOUS"]
+        or not T_all.flags["C_CONTIGUOUS"]
+        # the kernel reads both as (S, N, N): any other layout would be an
+        # out-of-bounds read in C, where NumPy raises or broadcasts
+        or L_all.shape != T_all.shape
+        or L_all.ndim != 3
+        or L_all.shape[1] != L_all.shape[2]
+        # negative (NumPy-wraparound) or out-of-range indices would be
+        # silent out-of-bounds reads in C — NumPy's semantics apply instead
+        or len(idx64) == 0
+        or idx64.min() < 0
+        or idx64.max() >= L_all.shape[0]
+    ):
+        return collate({k: v[idx] for k, v in arrays.items()}, max_src_len)
+
+    b, n = len(idx64), L_all.shape[1]
+    L = np.empty((b, n, n), np.int16)
+    T = np.empty((b, n, n), np.int16)
+    L_mask = np.empty((b, n, n), np.bool_)
+    T_mask = np.empty((b, n, n), np.bool_)
+    adj = np.empty((b, n, n), np.uint8)
+    lib.collate_rel_c(
+        L_all.ctypes.data, T_all.ctypes.data, idx64.ctypes.data,
+        b, n, max_src_len // 2, max_src_len - 1,
+        L.ctypes.data, T.ctypes.data,
+        L_mask.ctypes.data, T_mask.ctypes.data, adj.ctypes.data,
+    )
+    return Batch(
+        src_seq=arrays["src_seq"][idx64].astype(np.int32),
+        tgt_seq=arrays["tgt_seq"][idx64].astype(np.int32),
+        target=arrays["target"][idx64].astype(np.int32),
+        L=L,
+        T=T,
+        L_mask=L_mask,
+        T_mask=T_mask,
+        num_node=arrays["num_node"][idx64].astype(np.int32),
+        adj=adj,
+        tree_pos=arrays["tree_pos"][idx64].astype(np.uint8),
+        triplet=arrays["triplet"][idx64].astype(np.int32),
+    )
 
 
 def iterate_batches(

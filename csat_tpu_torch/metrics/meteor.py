@@ -39,9 +39,13 @@ the jar's final *paraphrase* module (phrase table, weight 0.6) remains
 omitted — the phrase-table blob is absent from the reference too.
 
 The classic 2005 exact-match formulation (Banerjee & Lavie) is retained as
-``version="2005"``.  A copy of the JAX package's ``metrics/meteor.py`` without
-its optional native (C++) scorer: scoring runs on the host in Python, and
-``tests/test_torch_metrics.py`` holds the two packages together.
+``version="2005"``.  A copy of the JAX package's ``metrics/meteor.py``.  The
+native (C++) scorer with the same semantics (``csat_tpu_torch/native``) scores
+every pair whose tokens it can carry and raises if it does not build; the
+Python scorer here is its plain version, reached with ``use_native=False``
+and for tokens holding whitespace.  ``tests/test_torch_metrics.py`` and
+``tests/test_torch_native.py`` hold the scorers and the two packages
+together.
 """
 
 from __future__ import annotations
@@ -479,6 +483,7 @@ def _score_2005(hyp: Sequence[str], ref: Sequence[str]) -> float:
 def meteor_score(
     hyp: Sequence[str],
     ref: Sequence[str],
+    use_native: bool = True,
     version: str = "1.5",
 ) -> float:
     """METEOR score of one hypothesis against one reference.
@@ -496,6 +501,14 @@ def meteor_score(
         ref = normalize_tokens(ref)
         if not hyp or not ref:
             return 0.0
+    # the C ABI passes whitespace-joined strings, so it can only represent
+    # tokens that are non-empty and whitespace-free; Python scores the rest
+    if use_native and all(
+        t and not any(c.isspace() for c in t) for t in (*hyp, *ref)
+    ):
+        from csat_tpu_torch.native import native_meteor_score
+
+        return native_meteor_score(" ".join(hyp), " ".join(ref), version=version)
     if version == "1.5":
         return _score_15(list(hyp), list(ref))
     return _score_2005(hyp, ref)

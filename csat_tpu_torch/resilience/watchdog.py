@@ -213,8 +213,9 @@ class StepWatchdog:
         while not self._stop.wait(self._probe_interval):
             try:
                 self._probe()
-            except Exception:  # noqa: BLE001 — a failing device must trip, not
-                continue       # crash the thread: staleness accumulates until the check fires
+            # csat-lint: disable=swallowed-fault probe failure IS the signal
+            except Exception:  # a failing device must trip, not crash the thread:
+                continue       # staleness accumulates until the check fires
             with self._lock:
                 self._last_probe = self._clock()
 
@@ -222,7 +223,8 @@ class StepWatchdog:
         if self._on_trip is not None:
             try:
                 self._on_trip(what, stalled_s)
-            except Exception:  # noqa: BLE001 — a broken hook must not block the abort
+            # csat-lint: disable=swallowed-fault a broken on_trip hook must
+            except Exception:  # not block the dump + abort that follow
                 pass
         self._log(
             f"# watchdog: {what} for {stalled_s:.1f}s "
@@ -237,7 +239,8 @@ class StepWatchdog:
         file, so the post-mortem shows exactly which call wedged."""
         try:
             faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
-        except Exception:  # noqa: BLE001 — diagnostics must not mask the abort
+        # csat-lint: disable=swallowed-fault diagnostics must not mask abort
+        except Exception:
             pass
         if self._diag_path:
             try:
@@ -246,5 +249,6 @@ class StepWatchdog:
                     f.write(f"watchdog trip at monotonic {time.monotonic()}\n"
                             f"timeout_s={self.timeout_s}\n")
                     faulthandler.dump_traceback(file=f, all_threads=True)
-            except Exception:  # noqa: BLE001 — best-effort file; stderr has the stacks
+            # csat-lint: disable=swallowed-fault best-effort diagnostics
+            except Exception:  # file; stderr dump above already happened
                 pass

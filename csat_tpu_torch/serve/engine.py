@@ -389,6 +389,9 @@ class ServeEngine:
             self.log(f"# warmstart.repair_failed{{program={lib!r}, error={error!r}}}")
 
         for lib in build.SERVE_LIBRARIES if self.paged else ("flex_fwd_tc",):
+            # one distinct library per iteration, built or restored once per
+            # process (ops/build.py keeps it loaded), its provenance booked below
+            # csat-lint: disable=untracked-compile one library each, loaded once
             prov = build.warm_library(
                 lib, self.warmstart, on_repair_failed=lambda e, lib=lib: repair_failed(e, lib))
             self.warmstart_provenance[lib] = prov

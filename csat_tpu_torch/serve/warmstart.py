@@ -67,7 +67,8 @@ def git_rev() -> str:
             _git_rev_cache = subprocess.run(
                 ["git", "rev-parse", "HEAD"], cwd=os.path.dirname(os.path.abspath(__file__)),
                 capture_output=True, text=True, timeout=5).stdout.strip() or "unknown"
-        except Exception:  # noqa: BLE001 — a key component, never a crash
+        # csat-lint: disable=swallowed-fault key component, never a crash —
+        except Exception:  # the key degrades to "unknown" (a cache miss)
             _git_rev_cache = "unknown"
     return _git_rev_cache
 
@@ -144,7 +145,8 @@ class WarmStartStore:
             assert header["magic"] == _MAGIC
             want = header["payload_sha256"]
             stored = header["fields"]
-        except Exception:  # noqa: BLE001 — any malformed header IS the corrupt_header miss
+        # csat-lint: disable=swallowed-fault any malformed header IS the
+        except Exception:  # structured corrupt_header miss reason
             return None, "corrupt_header"
         if "toolchain" in fields and stored.get("toolchain") != str(fields["toolchain"]):
             # the key holds the toolchain already; an entry copied or
