@@ -12,7 +12,17 @@ Phases, each printing JSON lines:
    from the checkout's sources (``csat_tpu_torch/ops/csrc``) with ``nvcc`` for
    sm_90a, one process per source, all at once, and counts the tensor-core
    instructions in the SASS of K1/K2/K6/K7 and of K3/K4/K8/K9 (``sass``: an
-   instantiation without any fails the run);
+   instantiation without any fails the run); then ``calibration`` measures
+   the machine before the port, as a benchmark session would
+   (``csat_tpu_torch/obs/calibrate.py``): the fingerprint beside the card's
+   name and power limit, and the probe suite (f32 and bf16 matmul, memory
+   bandwidth, launch latency, one ``nvcc`` build of a fixed source) at the
+   python config's ``calib_*`` defaults and at a card size (n 8192, 1 GiB,
+   set through those fields):
+   no probe skipped, every value finite and positive, the card-size readings
+   at most 1.05× the card's peaks (67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35
+   TB/s), ``build/kernels/`` and the warm-start store untouched by the
+   compile probe;
 3. ``kernel``  — each kernel against its plain PyTorch version on the card, at
    the shapes the driven paths give it — the serving batches, B 64 / N 150,
    and every bucket of the fit's plan (259×37, 128×75, 64×150), which each
@@ -43,7 +53,10 @@ Phases, each printing JSON lines:
    printed, not gated), and K6, K3/K4 and K8/K9 at dh 96 on random inputs
    and on the first SBM layer of a java counter step and of java's
    expected-graph forward; for the precision phase, K5 on one self- and one
-   cross-attention launch of its bf16-page and its int8-page drains;
+   cross-attention launch of its bf16-page and its int8-page drains; for
+   the ``data_mesh`` phase, untimed, K1 at a data replica's rows (B 32, N
+   150; B 8, N 512), K6 and K3/K4 at its pipe microbatches (B 8), and K1
+   and K7 at a head shard of its rows (B 32);
 4. ``serve``   — the flagship ``python`` model at full width (random weights
    from a seed, ``eval_graph="expected"``) serves 16 synthetic requests
    through ``ServeEngine``; every request must be OK, no page may leak, every
@@ -170,10 +183,11 @@ Phases, each printing JSON lines:
    served through the kernels and the plain route, tokens equal up to a near
    tie; phase 3 checks and times their kernels at N 512 (``n512`` line);
 13. ``parallel`` — the ``seq`` and ``pipe`` mesh axes, each as two gloo
-   ranks in fresh interpreters sharing ``cuda:0`` against one process: (a)
+   ranks in fresh interpreters sharing ``cuda:0`` against one process (the
+   legs' ranks all at once, here and in phase 14): (a)
    python_pp at ``("pipe", 2)``, B 64 in 4 microbatches, N 150 — a step
    (loss within 1e-5, grad-norm within 1e-4, the parameters the same bits
-   on both ranks), 8 steps, 8 ASTs decoded on the sampled (K6 in the
+   on both ranks), 4 steps, 8 ASTs decoded on the sampled (K6 in the
    stages) and the expected graph (K2) up to a near tie; (b) python_long at
    ``("seq", 2)``, B 64, N 512 — the first SBM layer's ΣA the same bits as
    the one-process step's, the ring against K6 on layers 0 and 3's own
@@ -192,14 +206,27 @@ Phases, each printing JSON lines:
    within 1e-5, grad-norm within 1e-4, the gathered parameters the same on
    both ranks and within 1e-6 (relative L2) of one process's, the edges
    apart per SBM layer recorded, K7 against plain on each gated layer's own
-   inputs (0 edges), 8 steps falling, 8 ASTs decoded up to a near tie, rank
+   inputs (0 edges), 4 steps falling, 8 ASTs decoded up to a near tie, rank
    step seconds and peak memory; (c) python_long at ``("data", 1), ("model",
    2), ("seq", 2)``, four ranks, N 512 — the ring on a head shard, the same
    step gate, the first SBM layer's ΣA equal, the decode; (d) the
    ``serving`` trace with ``serve_mesh_shape=(1, 2)``, both head shards on
    ``cuda:0``, at f32 and at bf16 compute with int8 pages — tokens and
    statuses equal to the solo engine's bit for bit, prefix hits, no leak,
-   K5 launched once per shard for each solo launch;
+   K5 launched once per shard for each solo launch; ``data_mesh`` — a data
+   axis of 2 beside each other axis, four gloo ranks on ``cuda:0`` a leg,
+   the three legs at once, each data replica passing its own rows, against
+   one process on the whole batch, one gated step and 2 more finite, no
+   decode: (a) python_pp at
+   ``("data", 2), ("pipe", 2)``, B 64 (32 a replica, 4 microbatches of 8) —
+   loss within 1e-5, grad-norm within 1e-4 of the microbatched reference
+   step, the parameters the same bits on all four ranks; (b) python_long at
+   ``("data", 2), ("seq", 2)``, B 16, N 512 — the same, and the first SBM
+   layer's ΣA on each rank's rows the same bits as one process's; (c)
+   python at ``("data", 2), ("model", 2)``, B 64, shared noise, dropout 0.2
+   — the same step gate, the gathered parameters the same bits on every
+   rank and within 1e-6 (relative L2) of one process's, K7 against plain on
+   each gated layer's own inputs; rank step seconds and peak memory;
 15. ``storage`` — the serving engine's storage, on the flagship at full
    width: (a) KV tiering — the ``serving`` trace on a pool of half the slots'
    worst case with a 16-page host tier over a disk tier, against a
@@ -292,7 +319,11 @@ Phases, each printing JSON lines:
    collate's host ms per batch, native against NumPy, at python's batch (B
    64, N 150, the corpus) and python_long's (B 64, N 512, synthetic), beside
    the host CPU's model; ``python -m csat_tpu_torch.cli lint --format json``
-   in a process of its own: exit 0, no finding;
+   in a process of its own: exit 0, no finding; then ``perfdb`` — the
+   run-history ledger (``csat_tpu_torch/obs/perfdb.py``) in a temporary
+   directory: one entry, the ``calibration`` phase's card-size block beside
+   the fixed-shape epoch's real AST nodes per second, read back unchanged
+   as the reference entry, ``attribute_delta`` with the JAX package's keys;
 19. ``kernels`` — one line listing every kernel with its route, source, the
    TPU kernel it replaces, its launches in phases 4-18 by path, its error,
    times and bound.
@@ -308,6 +339,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import re
@@ -448,6 +480,14 @@ PATH_KERNELS = {
     # device, K5 on each head shard's pages
     "tensor_tp": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
     "tensor_tp_seq": ("flex_fwd_cse",),
+    # the data_mesh phase: each of those meshes beside a data axis of 2, no
+    # decode — python_pp's stages (K6, K3, K4) behind the CSE (K1); under
+    # the seq axis only the CSE (K1), the SBM stack being the ring; python
+    # over a model axis (K1 on a plane's heads, K7 on a head shard)
+    "data_pp": ("flex_fwd_cse", "flex_fwd_sbm_sampled", "flex_bwd_q_sbm_sampled",
+                "flex_bwd_k_sbm_sampled"),
+    "data_seq": ("flex_fwd_cse",),
+    "data_tp": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
     **{f"tensor_serve_{pages}": ("flex_fwd_cse", "flex_fwd_sbm_expected", "paged_decode")
        for pages in ("float32", "int8")},
     # the storage phase: tiered engines (prefill K1 / K2 for misses and
@@ -500,8 +540,14 @@ DP_TIMEOUT_S = 300.0
 REMAT_GNORM_RTOL = 1e-6  # remat on against off: the recompute's order of sums
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields and ``t``, the seconds since this
+    module was imported (where a run's time went)."""
+    print(json.dumps({"phase": phase, **fields, "t": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def cuda_ms(fn, reps: int = 20, trials: int = 7) -> float:
@@ -616,6 +662,101 @@ def tensor_core_instructions(lib: Path) -> dict:
         elif fn and ("HMMA" in line or "HGMMA" in line):
             counts[fn] += 1
     return counts
+
+
+# ---------------------------------------------------------------------------
+# calibration: the machine measured before the port (obs/calibrate.py)
+# ---------------------------------------------------------------------------
+
+#: the card-size suite's ``calib_*`` overrides: at the Config's defaults
+#: (n 512, 64 MiB) a matmul is a few µs on the card, the launch and not the card
+CALIB_CARD = dict(calib_matmul_n=8192, calib_memory_mb=1024)
+#: one H100's published peaks (NVIDIA data sheet, SXM, dense) in the probes'
+#: units: f32 outside the tensor cores (TF32 off), bf16 on them, HBM3.  A
+#: card-size reading past ``CALIB_PEAK_SLACK`` times its peak is a timing
+#: fault, not a fast card
+CALIB_PEAKS = {"matmul_f32_gflops": 67_000.0, "matmul_bf16_gflops": 989_000.0,
+               "memory_gbps": 3350.0}
+CALIB_PEAK_SLACK = 1.05
+
+
+def calibration_suite(device: str = "cuda", **overrides) -> dict:
+    """``run_calibration`` at the python config's ``calib_*`` fields, with
+    ``overrides`` (``calib_*`` fields, validated by the config) set first."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.obs.calibrate import calibration_kwargs, run_calibration
+
+    return run_calibration(device=device,
+                           **calibration_kwargs(get_config("python", **overrides)))
+
+
+def calibration_gates(suites: dict) -> dict:
+    """Raises unless every suite ran every probe (``skipped`` empty), every
+    value is finite and positive, and suite ``"card_size"``'s readings are
+    at most ``CALIB_PEAK_SLACK`` times the card's peaks; returns each of
+    those readings' share of its peak."""
+    from csat_tpu_torch.obs.calibrate import PROBES
+
+    for name, suite in suites.items():
+        values = suite["probes"]
+        if suite["skipped"] or len(values) != len(PROBES):
+            raise AssertionError(f"calibration {name}: probes skipped {suite['skipped']}, "
+                                 f"ran {sorted(values)}")
+        bad = {k: v for k, v in values.items() if not (np.isfinite(v) and v > 0)}
+        if bad:
+            raise AssertionError(f"calibration {name}: values not finite and positive: {bad}")
+    share = {k: suites["card_size"]["probes"][k] / peak for k, peak in CALIB_PEAKS.items()}
+    over = {k: v for k, v in share.items() if v > CALIB_PEAK_SLACK}
+    if over:
+        raise AssertionError(f"calibration card_size: readings past {CALIB_PEAK_SLACK}× the "
+                             f"card's peaks (share of peak): {over}")
+    return share
+
+
+def _tree_state(root) -> list:
+    """(path under ``root``, mtime ns, size) of every file under it, sorted;
+    empty when it does not exist."""
+    root = Path(root)
+    return sorted((str(f.relative_to(root)), f.stat().st_mtime_ns, f.stat().st_size)
+                  for f in root.rglob("*") if f.is_file())
+
+
+def kernel_stores() -> list:
+    """Where the port's kernel libraries live: ``build/kernels/`` and the
+    warm-start store (``serve/warmstart.py``; not created here)."""
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.utils import cache
+
+    root = os.environ.get("CSAT_TPU_CACHE_DIR") or cache.DEFAULT_DIR
+    return [build.build_dir(), Path(root) / "warmstart"]
+
+
+def calibration_phase(card: str = "", device: str = "cuda", card_size=None) -> dict:
+    """The machine measured before the port, as a benchmark session would:
+    the fingerprint, then the probe suite at the python config's defaults
+    and at a card size (``CALIB_CARD``; ``card_size`` replaces it for the
+    CPU rehearsal) — no probe skipped, every value finite and positive, the
+    card-size readings under the card's peaks, the compile probe's build
+    leaving ``build/kernels/`` and the warm-start store as they were (file
+    list and mtimes)."""
+    from csat_tpu_torch.obs.calibrate import machine_fingerprint
+
+    t0 = time.perf_counter()
+    fp = machine_fingerprint(device)
+    before = [_tree_state(d) for d in kernel_stores()]
+    suites = {"defaults": calibration_suite(device),
+              "card_size": calibration_suite(device, **(card_size or CALIB_CARD))}
+    after = [_tree_state(d) for d in kernel_stores()]
+    if after != before:
+        raise AssertionError("the compile probe wrote into the kernel library store: "
+                             f"{[str(d) for d in kernel_stores()]}")
+    share = calibration_gates(suites)
+    rec = dict(card=card, fingerprint=fp, **suites, peak_share=share,
+               peaks=CALIB_PEAKS, peak_slack=CALIB_PEAK_SLACK,
+               kernel_stores_unchanged=[str(d) for d in kernel_stores()],
+               seconds=time.perf_counter() - t0)
+    emit("calibration", **rec)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1374,6 +1515,7 @@ def kernel_phase(dev) -> dict:
     long = long_checks(dev)
     parallel = parallel_checks(dev)
     tensor = tensor_checks(dev)
+    data_mesh_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             **variant, **precision, **long, **parallel, **tensor,
             "flex_fwd_cse@train": cse_train,
@@ -4280,10 +4422,18 @@ def long_ast_phase(profile: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 PAR_RANKS = 2
-PAR_STEPS = 8           # python_pp steps on the ranks (the first one gated)
+PAR_STEPS = 4           # python_pp steps on the ranks (the first one gated)
 PAR_DECODE = 8          # ASTs greedy-decoded on the ranks and in one process
 PAR_SEQ_B = TRAIN_B     # python_long's batch at seq 2 (cut to 32 if the phase runs past 150 s)
 PAR_TIMEOUT_S = 600.0
+#: the gloo gates of the parallel and data_mesh phases: kind → (config,
+#: data axis, the other axis, global batch).  The data_mesh legs split the
+#: batch over two data replicas (each passes its own rows) and decode nothing
+PAR_KINDS = {"pp": ("python_pp", 1, "pipe", TRAIN_B),
+             "seq": ("python_long", 1, "seq", PAR_SEQ_B),
+             "data_pp": ("python_pp", 2, "pipe", TRAIN_B),
+             "data_seq": ("python_long", 2, "seq", TRAIN_B // 4)}
+DATA_STEPS = 2          # steps after the gated one on a data_mesh leg's ranks, finite
 RING_GATE_LAYERS = (0, 3)  # the SBM layers whose ring inputs the same-graph gate replays
 
 
@@ -4353,26 +4503,28 @@ def tokens_up_to_tie(toks, ref, ref_gaps, label: str, margin: float = TIE_MARGIN
 
 
 def _par_cfg(kind: str, overrides=None):
-    """python_pp over ("data", 1) × ("pipe", 2), or python_long over
-    ("data", 1) × ("seq", 2); ``overrides`` (narrow widths) only for the
-    CPU rehearsal of the phase."""
+    """``PAR_KINDS[kind]``'s config over its mesh: python_pp over ("data",
+    1 or 2) × ("pipe", 2), or python_long over ("data", 1 or 2) × ("seq",
+    2); ``overrides`` (narrow widths) only for the CPU rehearsal of the
+    phase."""
     from csat_tpu_torch.configs import get_config
 
-    over = dict(overrides or {})
-    if kind == "pp":
-        return get_config("python_pp", mesh_shape=(("data", 1), ("pipe", PAR_RANKS)), **over)
-    return get_config("python_long", mesh_shape=(("data", 1), ("seq", PAR_RANKS)), **over)
+    name, data, axis, _ = PAR_KINDS[kind]
+    return get_config(name, mesh_shape=(("data", data), (axis, PAR_RANKS)), **dict(overrides or {}))
 
 
 def _par_batch(kind: str, cfg, device: str):
-    if kind == "pp":
-        return train_batch(cfg, TRAIN_B, device)
-    return long_batch(cfg, PAR_SEQ_B, nodes=(min(LONG_NODES[0], cfg.max_src_len // 2),
-                                             cfg.max_src_len), device=device)
+    """The global batch of ``kind``'s gate (every rank builds it and passes
+    its own rows)."""
+    b = PAR_KINDS[kind][3]
+    if PAR_KINDS[kind][2] == "pipe":
+        return train_batch(cfg, b, device)
+    return long_batch(cfg, b, nodes=(min(LONG_NODES[0], cfg.max_src_len // 2),
+                                     cfg.max_src_len), device=device)
 
 
-def _rows(batch, n: int):
-    return batch._replace(**{f: getattr(batch, f)[:n] for f in batch._fields})
+def _rows(batch, n: int, row0: int = 0):
+    return batch._replace(**{f: getattr(batch, f)[row0:row0 + n] for f in batch._fields})
 
 
 def _flat_params(state) -> torch.Tensor:
@@ -4394,12 +4546,14 @@ def _peak(device: str) -> int:
 
 def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
                   device: str = "cuda", overrides=None) -> None:
-    """One rank of a two-process gloo gate on ``cuda:0`` (``kind`` "pp": the
-    pipe axis, "seq": the seq axis): the decode of ``PAR_DECODE`` ASTs at the
-    initial parameters (python_pp also on the expected graph, through K2 in
-    the stages), then the train steps, the kernels' launches counted from 0
-    just before and read just after; writes its record and parameters under
-    ``out``."""
+    """One rank of a gloo gate on ``cuda:0`` (``kind`` "pp": the pipe axis,
+    "seq": the seq axis, two ranks; "data_pp" / "data_seq": each composed
+    with a data axis of 2, four ranks, each data replica passing its own
+    rows): the decode of ``PAR_DECODE`` ASTs at the initial parameters
+    (python_pp also on the expected graph, through K2 in the stages; not on
+    the data legs), then the train steps, the kernels' launches counted from
+    0 just before and read just after; writes its record and parameters
+    under ``out``."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.models import sbm as tsbm
     from csat_tpu_torch.ops import build
@@ -4412,9 +4566,12 @@ def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2 if device == "cuda" else 1)
     cfg = _par_cfg(kind, overrides)
+    data = kind.startswith("data_")
     with process_group("gloo", world, rank, store):
         mesh = build_mesh(cfg.mesh_shape)
         batch = _par_batch(kind, cfg, device)
+        row0, rows = mesh.rows(batch.src_seq.shape[0] // mesh.data)
+        batch = _rows(batch, rows, row0)
         model, state, step = trainer(cfg, device=device)
         broadcast_params(state.params, mesh)
         few = _rows(batch, PAR_DECODE)
@@ -4435,7 +4592,8 @@ def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
                       h_total=0):
             out_, spars = inner_ring(q, k, v, r, k_hat, key_pad, sseed, dseed, axis, rate,
                                      floor, bh0, h_total)
-            if calls and len(calls) <= cfg.sbm_layers and len(calls) - 1 in RING_GATE_LAYERS:
+            if (kind == "seq" and calls and len(calls) <= cfg.sbm_layers
+                    and len(calls) - 1 in RING_GATE_LAYERS):
                 cpu = lambda t: None if t is None else t.detach().cpu().clone()
                 caps.append(dict(layer=len(calls) - 1, q=cpu(q), k=cpu(k), v=cpu(v), r=cpu(r),
                                  k_hat=cpu(k_hat), key_pad=cpu(key_pad), sseed=cpu(sseed),
@@ -4448,10 +4606,11 @@ def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
 
         ring_mod._ring = ring_body
         build.reset_launches()
-        rec = dict(rank=rank, mesh=mesh.shape)
+        rec = dict(rank=rank, mesh=mesh.shape, rows=[row0, rows])
         with recorded_launches() as seen:
-            toks, gaps = greedy_with_gaps(model, few, mesh.decode_shard(PAR_DECODE))
-            rec["tokens"], rec["gaps"] = toks.tolist(), gaps.tolist()
+            if not data:
+                toks, gaps = greedy_with_gaps(model, few, mesh.decode_shard(PAR_DECODE))
+                rec["tokens"], rec["gaps"] = toks.tolist(), gaps.tolist()
             if kind == "pp":
                 exp = CSATrans(cfg.replace(eval_graph="expected"), SRC_VOCAB, TGT_VOCAB,
                                device=device, seed=SEED)
@@ -4471,8 +4630,9 @@ def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
                        graph_sums=[g.tolist() for g in gsums])
             torch.save(_flat_params(state), os.path.join(out, f"par_{kind}_params_{rank}.pt"))
             losses, times = [rec["loss"]], [seconds]
-            # python_pp's 8 steps; python_long's second step, timed past warm-up
-            for _ in range(PAR_STEPS - 1 if kind == "pp" else 1):
+            # python_pp's steps; python_long's second step, timed past
+            # warm-up; a data leg's 2 more
+            for _ in range(PAR_STEPS - 1 if kind == "pp" else DATA_STEPS if data else 1):
                 state, m, seconds = timed_step(step, state, batch)
                 losses.append(float(m["loss"]))
                 times.append(seconds)
@@ -4487,51 +4647,68 @@ def parallel_rank(kind: str, rank: int, world: int, store: str, out: str,
             json.dump(rec, f)
 
 
-def _run_ranks(kind: str, tmp: str, device: str = "cuda", overrides=None) -> list:
-    # each rank a fresh interpreter importing this file as a module, its
-    # output on stderr
+@contextlib.contextmanager
+def rank_processes(fn: str, kind: str, tmp: str, world: int, device: str, overrides,
+                   timeout: float):
+    """``world`` ranks of ``chip_smoke.<fn>`` in one gloo group, each a fresh
+    interpreter importing this file as a module, its output on stderr, run
+    while the block runs (the one-process side: the ranks' start-up overlaps
+    it).  On leaving the block, waits for them and raises when one hangs past
+    ``timeout`` or exits non-zero; every rank is stopped before, also when
+    the block raises."""
     store = os.path.join(tmp, f"gloo_{kind}")
     procs = [subprocess.Popen(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
-         f"import chip_smoke; chip_smoke.parallel_rank({kind!r}, {r}, {PAR_RANKS}, {store!r}, "
+         f"import chip_smoke; chip_smoke.{fn}({kind!r}, {r}, {world}, {store!r}, "
          f"{tmp!r}, {device!r}, {overrides!r})"], cwd=str(REPO), stdout=sys.stderr,
-        stderr=sys.stderr) for r in range(PAR_RANKS)]
-    deadline = time.monotonic() + PAR_TIMEOUT_S
+        stderr=sys.stderr) for r in range(world)]
+    deadline = time.monotonic() + timeout
     hung = []
-    for r, p in enumerate(procs):
-        try:
-            p.wait(timeout=max(0.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            hung.append(r)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait(10)
+    try:
+        yield
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                hung.append(r)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
     if hung or any(p.returncode != 0 for p in procs):
         raise AssertionError(f"{kind} ranks: hung {hung}, exit codes "
                              f"{[p.returncode for p in procs]}")
+
+
+def _par_ranks(kind: str, tmp: str, world: int) -> list:
+    """The records :func:`parallel_rank` wrote on ``world`` ranks, rank 0's
+    carrying whether every rank's parameters are the same bits
+    (``same_params``) and its own (``params0``)."""
     ranks = []
-    for r in range(PAR_RANKS):
+    for r in range(world):
         with open(os.path.join(tmp, f"par_{kind}_rank_{r}.json")) as f:
             ranks.append(json.load(f))
     params = [torch.load(os.path.join(tmp, f"par_{kind}_params_{r}.pt"))
-              for r in range(PAR_RANKS)]
+              for r in range(world)]
     ranks[0]["same_params"] = all(torch.equal(params[0], p) for p in params[1:])
     ranks[0]["params0"] = params[0]
     return ranks
 
 
 def _one_process(kind: str, cfg, batch, device: str = "cuda") -> dict:
-    """The one-process side on the card: python_pp's microbatched step
-    (``pipeline_reference_mesh``: the sequential microbatched loop with the
-    wavefront's keys) and its decodes, or python_long's counter step (ΣA of
-    each layer recorded) and decode."""
+    """The one-process side on the card, on the whole batch: python_pp's
+    microbatched step (``pipeline_reference_mesh``: the sequential
+    microbatched loop with the wavefront's keys, microbatches formed per
+    data replica) and its decodes, or python_long's counter step (ΣA of each
+    layer recorded) and decode; the data legs decode nothing."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.models import sbm as tsbm
     from csat_tpu_torch.parallel.mesh import build_mesh, pipeline_reference_mesh
     from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
 
-    mesh = (pipeline_reference_mesh(cfg.mesh_shape) if kind == "pp"
+    pipe = PAR_KINDS[kind][2] == "pipe"
+    mesh = (pipeline_reference_mesh(cfg.mesh_shape) if pipe
             else build_mesh((("data", 1),)))
     model = CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED)
     opt = default_optimizer(cfg)
@@ -4539,7 +4716,8 @@ def _one_process(kind: str, cfg, batch, device: str = "cuda") -> dict:
     step = make_train_step(model, opt, cfg, mesh)
     few = _rows(batch, PAR_DECODE)
     rec = {}
-    rec["tokens"], rec["gaps"] = greedy_with_gaps(model, few, mesh.decode_shard(PAR_DECODE))
+    if not kind.startswith("data_"):
+        rec["tokens"], rec["gaps"] = greedy_with_gaps(model, few, mesh.decode_shard(PAR_DECODE))
     if kind == "pp":  # the expected graph in one process: no mesh, the plain loop
         exp = CSATrans(cfg.replace(eval_graph="expected"), SRC_VOCAB, TGT_VOCAB, device=device,
                        seed=SEED)
@@ -4618,7 +4796,7 @@ def parallel_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> 
     """(a) ``kind="pp"``: python_pp at its published widths over ("data",
     1) × ("pipe", 2), B 64 (4 microbatches of 16), N 150, against the
     one-process microbatched step: loss within 1e-5 and grad-norm within
-    1e-4 relative, the parameters the same bits on both ranks; 8 steps
+    1e-4 relative, the parameters the same bits on both ranks; 4 steps
     finite; 8 ASTs decoded to the one-process tokens up to a near tie on the
     sampled graph (K6 in the stages, the reference mesh's keys) and on the
     expected graph (K2 in the stages, against the plain one-process loop).
@@ -4627,17 +4805,34 @@ def parallel_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> 
     bits, the step at the python gates' limits, the parameters the same bits
     on both ranks, 8 ASTs decoded to the one-process tokens up to a near
     tie; the ring step's time and each rank's peak memory beside the
-    one-process step's.  Both: gloo stages the collectives through the host,
-    so no time here is a speed figure.  ``device`` and ``overrides`` (narrow
-    widths) serve the CPU rehearsal only."""
-    t0 = time.perf_counter()
+    one-process step's.  The ``data_mesh`` phase's legs, four ranks each,
+    against one process on the whole batch, 2 more steps finite, no decode:
+    ``kind="data_pp"``: python_pp over ("data", 2) × ("pipe", 2), B 64 (32 a
+    replica, 4 microbatches of 8), the gate of (a); ``kind="data_seq"``:
+    python_long over ("data", 2) × ("seq", 2), B 16 (8 a replica), N 512,
+    the gate of (b) but for the ring's replay on its own inputs.  All: gloo
+    stages the collectives through the host, so no time here is a speed
+    figure.  ``device`` and ``overrides`` (narrow widths) serve the CPU
+    rehearsal only."""
+    return gloo_gates([kind], tmp, device, overrides)[kind]
+
+
+def _par_side(kind: str, device: str, overrides):
+    """The one-process side of a :func:`parallel_gate`: the config and the
+    one-process record on the whole batch."""
     cfg = _par_cfg(kind, overrides)
     batch = _par_batch(kind, cfg, device)
     one = _one_process(kind, cfg, batch, device)
     del batch
     if device == "cuda":
         torch.cuda.empty_cache()
-    ranks = _run_ranks(kind, tmp, device, overrides)
+    return cfg, one
+
+
+def _par_judge(kind: str, tmp: str, cfg, one: dict, device: str, t0: float) -> dict:
+    """A :func:`parallel_gate`'s gate: the ranks' records against ``one``."""
+    data = kind.startswith("data_")
+    ranks = _par_ranks(kind, tmp, PAR_KINDS[kind][1] * PAR_RANKS)
     r0 = ranks[0]
     loss_rel = abs(r0["loss"] / one["loss"] - 1)
     gnorm_rel = abs(r0["grad_norm"] / one["grad_norm"] - 1)
@@ -4645,8 +4840,9 @@ def parallel_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> 
         r0["loss"], r0["grad_norm"], r0["sparsity"]) for r in ranks)
     params_vs_one = float(torch.max(torch.abs(r0["params0"] - one["params"])))
     finite = all(np.all(np.isfinite(r["losses"])) and not r["nonfinite"] for r in ranks)
-    rec = dict(model=cfg.name, mesh=r0["mesh"], ranks=PAR_RANKS, backend="gloo",
-               device="cuda:0", batch=TRAIN_B if kind == "pp" else PAR_SEQ_B,
+    rec = dict(model=cfg.name, mesh=r0["mesh"], ranks=len(ranks), backend="gloo",
+               device="cuda:0", batch=PAR_KINDS[kind][3],
+               rows_by_rank=[r["rows"] for r in ranks],
                nodes=cfg.max_src_len, one_process=dict(
                    loss=one["loss"], grad_norm=one["grad_norm"], step_s=one["step_s"],
                    second_step_s=one["second_step_s"],
@@ -4658,44 +4854,49 @@ def parallel_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> 
                rank_step_s=[r["step_s"] for r in ranks],
                rank_peak_gb=[r["peak_gb"] for r in ranks],
                rank_peak_above_start_gb=[r["peak_above_start_gb"] for r in ranks])
-    decodes = {"sampled": [tokens_up_to_tie(np.array(r["tokens"]), one["tokens"],
-                                            one["gaps"], f"{kind} rank {r['rank']}")
-                           for r in ranks]}
-    if kind == "pp":
-        decodes["expected"] = [tokens_up_to_tie(np.array(r["tokens_expected"]),
-                                                one["tokens_expected"], one["gaps_expected"],
-                                                f"{kind} rank {r['rank']} expected")
-                               for r in ranks]
-        rec.update(losses=r0["losses"], step_times=r0["step_times"], microbatches=4)
+    if not data:
+        decodes = {"sampled": [tokens_up_to_tie(np.array(r["tokens"]), one["tokens"],
+                                                one["gaps"], f"{kind} rank {r['rank']}")
+                               for r in ranks]}
+        if kind == "pp":
+            decodes["expected"] = [tokens_up_to_tie(
+                np.array(r["tokens_expected"]), one["tokens_expected"], one["gaps_expected"],
+                f"{kind} rank {r['rank']} expected") for r in ranks]
+        rec["decode"] = decodes
+    if PAR_KINDS[kind][2] == "pipe":
+        rec.update(losses=r0["losses"], step_times=r0["step_times"],
+                   microbatches=cfg.pipeline_microbatches)
     else:
         rec.update(rank_second_step_s=[r["step_times"][1] for r in ranks])
         layers_seen = [len(r["graph_sums"]) for r in ranks]
         if not (all(n == cfg.sbm_layers for n in layers_seen)
                 and len(one["graph_sums"]) == cfg.sbm_layers):
-            raise AssertionError(f"seq: ΣA of {layers_seen} ring layers, "
+            raise AssertionError(f"{kind}: ΣA of {layers_seen} ring layers, "
                                  f"{len(one['graph_sums'])} one-process layers")
-        # ΣA per layer against the one-process step: the first SBM layer sees
-        # the same inputs and must draw the same graph; past it the ring's
-        # output (plain PyTorch) and K6's round apart, so a later layer's
-        # draw near its threshold may flip — a reading there, and the gate
-        # on each gated layer's own inputs is ring_same_graph's
-        apart = [[int(np.sum(np.array(g) != one_g.numpy()))
+        # ΣA per layer against the one-process step on the rank's rows: the
+        # first SBM layer sees the same inputs and must draw the same graph;
+        # past it the ring's output (plain PyTorch) and K6's round apart, so a
+        # later layer's draw near its threshold may flip — a reading there,
+        # and the gate on each gated layer's own inputs is ring_same_graph's
+        mine = lambda r, one_g: one_g.numpy()[r["rows"][0]:r["rows"][0] + r["rows"][1]]
+        apart = [[int(np.sum(np.array(g) != mine(r, one_g)))
                   for g, one_g in zip(r["graph_sums"], one["graph_sums"])] for r in ranks]
-        net = [float(sum(np.sum(np.abs(np.array(g) - one_g.numpy()))
+        net = [float(sum(np.sum(np.abs(np.array(g) - mine(r, one_g)))
                          for g, one_g in zip(r["graph_sums"], one["graph_sums"])))
                for r in ranks]
         rec.update(graph_sum_entries_apart_by_layer=apart, net_edges_apart=net,
-                   graph_sums_equal=all(a == 0 for row in apart for a in row),
-                   same_graph=ring_same_graph(tmp, one, device))
+                   graph_sums_equal=all(a == 0 for row in apart for a in row))
+        if kind == "seq":
+            rec["same_graph"] = ring_same_graph(tmp, one, device)
         if any(row[0] for row in apart):
-            raise AssertionError(f"seq: the first SBM layer's ΣA apart from one process: {apart}")
-    rec["decode"] = decodes
+            raise AssertionError(f"{kind}: the first SBM layer's ΣA apart from one process: "
+                                 f"{apart}")
     if not (loss_rel <= LOSS_RTOL and gnorm_rel <= GNORM_RTOL and r0["same_params"]
             and same_metrics and finite):
-        raise AssertionError(f"{kind}: two ranks against one process: loss rel {loss_rel}, "
-                             f"grad-norm rel {gnorm_rel}, parameters equal {r0['same_params']}, "
-                             f"metrics equal {same_metrics}, finite {finite}")
-    path = f"parallel_{kind}"
+        raise AssertionError(f"{kind}: {len(ranks)} ranks against one process: loss rel "
+                             f"{loss_rel}, grad-norm rel {gnorm_rel}, parameters equal "
+                             f"{r0['same_params']}, metrics equal {same_metrics}, finite {finite}")
+    path = kind if data else f"parallel_{kind}"
     counts = {fn: sum(r["launches"][fn] for r in ranks) for fn in r0["launches"]}
     _check_launched(path, counts)
     launched = {tuple(f) for r in ranks for f in r["fwd"]}
@@ -4713,11 +4914,12 @@ def parallel_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> 
 
 def parallel_phase() -> dict:
     """Phase 13: (a) python_pp over a pipe axis and (b) python_long over a
-    seq axis, each as two gloo ranks on ``cuda:0`` against one process."""
+    seq axis, each as two gloo ranks on ``cuda:0`` against one process, both
+    legs at once (:func:`gloo_gates`)."""
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="csat_parallel_")
     try:
-        recs = {kind: parallel_gate(kind, tmp) for kind in ("pp", "seq")}
+        recs = gloo_gates(("pp", "seq"), tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("parallel", seconds=time.perf_counter() - t0, paths=[f"parallel_{k}" for k in recs])
@@ -4751,7 +4953,7 @@ def parallel_checks(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2            # the model axis of (b); (c) adds a seq axis of 2
-TP_STEPS = 8            # python steps on the ranks (the first one gated)
+TP_STEPS = 4            # python steps on the ranks (the first one gated)
 TP_DECODE = 8           # ASTs greedy-decoded on the ranks and in one process
 TP_SEQ_B = TRAIN_B      # python_long's batch at model 2 × seq 2 (cut to 32 past 150 s)
 TP_TIMEOUT_S = 900.0
@@ -4792,15 +4994,16 @@ def _rel_l2(a, b) -> float:
                  / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
 
 
-def head_shard_check(mod: str, gen, dev, b: int = TRAIN_B, n: int = 150) -> dict:
+def head_shard_check(mod: str, gen, dev, b: int = TRAIN_B, n: int = 150,
+                     timed: bool = True) -> dict:
     """One kernel at a head shard (``TP_HEADS``: 4 of 8 heads from head 4,
     the hash streams at the global index) against the head slice of the
     full 8-head launch on the same inputs: graph_sum the same (0 edges
     apart), output within ``SHARD_OUT_TOL`` (max abs), and — K3/K4, K8/K9 —
     every gradient within ``SHARD_GRAD_RTOL`` (relative L2) of the slice;
-    then the shard's launch against its plain version and timed
-    (:func:`flex_check`, :func:`bwd_check` on it, ``inputs`` "head shard").
-    K1 runs on one plane's heads."""
+    then the shard's launch against its plain version, and timed unless
+    ``timed`` is false (:func:`flex_check`, :func:`bwd_check` on it,
+    ``inputs`` "head shard").  K1 runs on one plane's heads."""
     from csat_tpu_torch.ops import flex_core
 
     h0, h, h_total = TP_HEADS
@@ -4844,11 +5047,11 @@ def head_shard_check(mod: str, gen, dev, b: int = TRAIN_B, n: int = 150) -> dict
     shard = dict(heads=[h0, h0 + h], h_total=h_total, bh0=getattr(s_spec, "bh0", None),
                  edges_apart=edges, out_max_abs_vs_full=out_err, out_tol=SHARD_OUT_TOL,
                  grad_rel_l2_vs_full=grad_errs, grad_tol=SHARD_GRAD_RTOL)
-    recs = {f"flex_fwd_{mod}@head_shard": dict(flex_check(mod, b, n, gen, dev,
+    recs = {f"flex_fwd_{mod}@head_shard": dict(flex_check(mod, b, n, gen, dev, timed=timed,
                                                           captured=captured), **shard)}
     if grads:
         captured.update(go=go[:, h0:h0 + h].contiguous(), gs=gs[:, h0:h0 + h].contiguous())
-        for fn, rec in bwd_check(mod, b, n, gen, dev, captured=captured).items():
+        for fn, rec in bwd_check(mod, b, n, gen, dev, timed=timed, captured=captured).items():
             recs[f"{fn}@head_shard"] = dict(rec, **shard)
     emit("head_shard", kernel=mod, **shard)
     return recs
@@ -4876,20 +5079,24 @@ def tensor_checks(dev) -> dict:
 
 
 def _tp_cfg(kind: str, overrides=None):
-    """python at ("data", 1) × ("model", 2), or python_long at ("data", 1) ×
-    ("model", 2) × ("seq", 2); ``overrides`` (narrow widths) only for the
-    CPU rehearsal of the phase."""
+    """python at ("data", 1) × ("model", 2) (``kind`` "tp") or at ("data", 2)
+    × ("model", 2) ("data_tp", the data_mesh phase's leg), or python_long at
+    ("data", 1) × ("model", 2) × ("seq", 2) ("tp_seq"); ``overrides``
+    (narrow widths) only for the CPU rehearsal of the phase."""
     from csat_tpu_torch.configs import get_config
 
     over = dict(overrides or {})
-    if kind == "tp":
-        return get_config("python", mesh_shape=(("data", 1), ("model", TP_RANKS)), **over)
+    if kind in ("tp", "data_tp"):
+        data = 2 if kind == "data_tp" else 1
+        return get_config("python", mesh_shape=(("data", data), ("model", TP_RANKS)), **over)
     return get_config("python_long", mesh_shape=(("data", 1), ("model", TP_RANKS),
                                                  ("seq", 2)), **over)
 
 
 def _tp_batch(kind: str, cfg, device: str):
-    if kind == "tp":
+    """The global batch of ``kind``'s gate (every rank builds it and passes
+    its own rows)."""
+    if kind in ("tp", "data_tp"):
         return train_batch(cfg, TRAIN_B, device)
     return long_batch(cfg, TP_SEQ_B, nodes=(min(LONG_NODES[0], cfg.max_src_len // 2),
                                             cfg.max_src_len), device=device)
@@ -4960,12 +5167,14 @@ def tp_same_graph(caps) -> list:
 def tensor_rank(kind: str, rank: int, world: int, store: str, out: str,
                 device: str = "cuda", overrides=None) -> None:
     """One rank of a gloo gate on ``cuda:0`` (``kind`` "tp": python at model
-    2; "tp_seq": python_long at model 2 × seq 2), holding its shard of the
-    heads: the decode of ``TP_DECODE`` ASTs at the initial parameters, then
-    the train steps, the kernels' launches counted from 0 just before and
-    read just after, each SBM layer's ΣA and (tp) the same-graph gate on
-    its own K7 inputs; writes its record and its gathered parameters under
-    ``out``."""
+    2; "data_tp": python at data 2 × model 2, each data replica passing its
+    own rows; "tp_seq": python_long at model 2 × seq 2), holding its shard
+    of the heads: the decode of ``TP_DECODE`` ASTs at the initial parameters
+    (not on the data leg), then the train steps, the kernels' launches
+    counted from 0 just before and read just after, each SBM layer's ΣA and
+    (python) the same-graph gate on its own K7 inputs; writes its record,
+    with a digest of the bits of its gathered parameters, and rank 0's
+    gathered parameters under ``out``."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.ops import build
     from csat_tpu_torch.parallel import ring as ring_mod
@@ -4979,9 +5188,12 @@ def tensor_rank(kind: str, rank: int, world: int, store: str, out: str,
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(2 if device == "cuda" else 1)
     cfg = _tp_cfg(kind, overrides)
+    data = kind.startswith("data_")
     with process_group("gloo", world, rank, store):
         mesh = build_mesh(cfg.mesh_shape)
         batch = _tp_batch(kind, cfg, device)
+        row0, rows = mesh.rows(batch.src_seq.shape[0] // mesh.data)
+        batch = _rows(batch, rows, row0)
         model = shard_model(CSATrans(cfg, SRC_VOCAB, TGT_VOCAB, device=device, seed=SEED), mesh)
         opt = default_optimizer(cfg)
         state = create_train_state(model, opt, SEED)
@@ -5009,10 +5221,12 @@ def tensor_rank(kind: str, rank: int, world: int, store: str, out: str,
         ring_mod._ring = ring_body
         build.reset_launches()
         rec = dict(rank=rank, mesh=mesh.shape, model_index=mesh.coord("model"),
-                   seq_index=mesh.coord("seq"))
+                   seq_index=mesh.coord("seq"), data_index=mesh.coord("data"),
+                   rows=[row0, rows])
         with recorded_launches() as seen:
-            toks, gaps = greedy_with_gaps(model, few, mesh.decode_shard(TP_DECODE))
-            rec["tokens"], rec["gaps"] = toks.tolist(), gaps.tolist()
+            if not data:
+                toks, gaps = greedy_with_gaps(model, few, mesh.decode_shard(TP_DECODE))
+                rec["tokens"], rec["gaps"] = toks.tolist(), gaps.tolist()
             with sbm_graph_sums(kind) as sums:
                 calls.append(1)  # from here on: the timed step's forward
                 base = _reset_peak(device)
@@ -5031,14 +5245,13 @@ def tensor_rank(kind: str, rank: int, world: int, store: str, out: str,
                        same_graph=tp_same_graph(sums["caps"]))
             del sums
             whole = gather_params(state.params, mesh)
+            flat = torch.cat([p.reshape(-1) for p in whole.values()]).cpu()
             if rank == 0:
-                torch.save(torch.cat([p.reshape(-1) for p in whole.values()]).cpu(),
-                           os.path.join(out, f"{kind}_params.pt"))
-            rec["params_digest"] = float(sum(torch.sum(p.double() * (i + 1)).item()
-                                             for i, p in enumerate(whole.values())))
-            del whole
+                torch.save(flat, os.path.join(out, f"{kind}_params.pt"))
+            rec["params_sha256"] = hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+            del whole, flat
             losses, times = [rec["loss"]], [seconds]
-            for _ in range(TP_STEPS - 1 if kind == "tp" else 1):
+            for _ in range(TP_STEPS - 1 if kind == "tp" else DATA_STEPS if data else 1):
                 state, m, seconds = timed_step(step, state, batch)
                 losses.append(float(m["loss"]))
                 times.append(seconds)
@@ -5049,28 +5262,9 @@ def tensor_rank(kind: str, rank: int, world: int, store: str, out: str,
             json.dump(rec, f)
 
 
-def _tp_run_ranks(kind: str, tmp: str, world: int, device: str = "cuda",
-                  overrides=None) -> list:
-    store = os.path.join(tmp, f"gloo_{kind}")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
-         f"import chip_smoke; chip_smoke.tensor_rank({kind!r}, {r}, {world}, {store!r}, "
-         f"{tmp!r}, {device!r}, {overrides!r})"], cwd=str(REPO), stdout=sys.stderr,
-        stderr=sys.stderr) for r in range(world)]
-    deadline = time.monotonic() + TP_TIMEOUT_S
-    hung = []
-    for r, p in enumerate(procs):
-        try:
-            p.wait(timeout=max(0.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            hung.append(r)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait(10)
-    if hung or any(p.returncode != 0 for p in procs):
-        raise AssertionError(f"{kind} ranks: hung {hung}, exit codes "
-                             f"{[p.returncode for p in procs]}")
+def _tp_ranks(kind: str, tmp: str, world: int) -> list:
+    """The records :func:`tensor_rank` wrote on ``world`` ranks, rank 0's
+    carrying the gathered parameters (``params0``)."""
     ranks = []
     for r in range(world):
         with open(os.path.join(tmp, f"{kind}_rank_{r}.json")) as f:
@@ -5080,9 +5274,10 @@ def _tp_run_ranks(kind: str, tmp: str, world: int, device: str = "cuda",
 
 
 def _tp_one_process(kind: str, cfg, batch, device: str = "cuda") -> dict:
-    """The one-process side on the card: the same weights, batch and
+    """The one-process side on the card: the same weights, whole batch and
     generator state through the step without a mesh (ΣA of each layer
-    recorded), its decode and its second step time."""
+    recorded), its decode (not for the data leg) and its second step
+    time."""
     from csat_tpu_torch.models import CSATrans
     from csat_tpu_torch.parallel.mesh import build_mesh
     from csat_tpu_torch.train import create_train_state, default_optimizer, make_train_step
@@ -5092,7 +5287,8 @@ def _tp_one_process(kind: str, cfg, batch, device: str = "cuda") -> dict:
     state = create_train_state(model, opt, SEED)
     step = make_train_step(model, opt, cfg, build_mesh((("data", 1),)))
     rec = {}
-    rec["tokens"], rec["gaps"] = greedy_with_gaps(model, _rows(batch, TP_DECODE))
+    if not kind.startswith("data_"):
+        rec["tokens"], rec["gaps"] = greedy_with_gaps(model, _rows(batch, TP_DECODE))
     # the one-process SBM stack runs K6 / K7 on whole rows and every head
     with sbm_graph_sums("tp") as sums:
         base = _reset_peak(device)
@@ -5170,38 +5366,61 @@ def tensor_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> di
     within ``TP_PARAMS_RTOL`` (relative L2) of one process's, ΣA per layer
     and the net edges apart recorded (tp_seq: the first SBM layer's equal),
     the same-graph gate on each gated layer's own K7 inputs (tp), the steps
-    finite (tp: 8, the last below the first), ``TP_DECODE`` ASTs decoded to
+    finite (tp: 4, the last below the first), ``TP_DECODE`` ASTs decoded to
     the one-process tokens up to a near tie, rank step seconds and peak
-    memory beside one process's.  gloo stages every collective through the
-    host: a correctness gate, no speed figure.  ``device`` and
-    ``overrides`` (narrow widths) serve the CPU rehearsal only."""
-    t0 = time.perf_counter()
+    memory beside one process's.  ``kind="data_tp"``, the ``data_mesh``
+    phase's leg (c): python over ("data", 2) × ("model", 2), B 64 (32 a
+    replica), four ranks, the gate of (b) but for the decode, 2 more steps
+    finite, the gathered parameters the same bits on both data replicas.
+    gloo stages every collective through the host: a correctness gate, no
+    speed figure.  ``device`` and ``overrides`` (narrow widths) serve the
+    CPU rehearsal only."""
+    return gloo_gates([kind], tmp, device, overrides)[kind]
+
+
+def _tp_world(kind: str) -> int:
+    return TP_RANKS * (1 if kind == "tp" else 2)
+
+
+def _tp_side(kind: str, device: str, overrides):
+    """The one-process side of a :func:`tensor_gate`: the config and the
+    one-process record on the whole batch."""
     cfg = _tp_cfg(kind, overrides)
-    world = TP_RANKS * (2 if kind == "tp_seq" else 1)
     batch = _tp_batch(kind, cfg, device)
     one = _tp_one_process(kind, cfg, batch, device)
     del batch
     if device == "cuda":
         torch.cuda.empty_cache()
-    ranks = _tp_run_ranks(kind, tmp, world, device, overrides)
+    return cfg, one
+
+
+def _tp_judge(kind: str, tmp: str, cfg, one: dict, device: str, t0: float) -> dict:
+    """A :func:`tensor_gate`'s gate: the ranks' records against ``one``."""
+    world = _tp_world(kind)
+    ranks = _tp_ranks(kind, tmp, world)
     r0 = ranks[0]
     loss_rel = abs(r0["loss"] / one["loss"] - 1)
     gnorm_rel = abs(r0["grad_norm"] / one["grad_norm"] - 1)
     same_metrics = all((r["loss"], r["grad_norm"], r["sparsity"]) == (
         r0["loss"], r0["grad_norm"], r0["sparsity"]) for r in ranks)
-    same_params = all(r["params_digest"] == r0["params_digest"] for r in ranks)
+    same_params = all(r["params_sha256"] == r0["params_sha256"] for r in ranks)
     params_rel = _rel_l2(r0["params0"], one["params"])
     finite = all(np.all(np.isfinite(r["losses"])) and not r["nonfinite"] for r in ranks)
-    # ΣA per layer: each model member's heads, from the first seq member
+    # ΣA per layer: each (data replica, model member)'s rows and heads, from
+    # its first seq member, the heads side by side and the replicas' rows
+    # one after another
     heads = {}
     for r in ranks:
-        heads.setdefault(r["model_index"], r["graph_sums"])
-    tp_sums = [np.concatenate([np.array(heads[i][layer]) for i in sorted(heads)], axis=1)
+        heads.setdefault((r["data_index"], r["model_index"]), r["graph_sums"])
+    datas, models = sorted({d for d, _ in heads}), sorted({m for _, m in heads})
+    tp_sums = [np.concatenate([np.concatenate([np.array(heads[d, m][layer]) for m in models],
+                                              axis=1) for d in datas], axis=0)
                for layer in range(cfg.sbm_layers)]
     apart = [int(np.sum(a != b)) for a, b in zip(tp_sums, one["graph_sums"])]
     net = [float(np.sum(np.abs(a - b))) for a, b in zip(tp_sums, one["graph_sums"])]
     rec = dict(model=cfg.name, mesh=r0["mesh"], ranks=world, backend="gloo",
-               device="cuda:0", batch=TRAIN_B if kind == "tp" else TP_SEQ_B,
+               device="cuda:0", batch=TP_SEQ_B if kind == "tp_seq" else TRAIN_B,
+               rows_by_rank=[r["rows"] for r in ranks],
                nodes=cfg.max_src_len, noise_mode=cfg.noise_mode, dropout=cfg.dropout,
                one_process=dict(loss=one["loss"], grad_norm=one["grad_norm"],
                                 step_s=one["step_s"], second_step_s=one["second_step_s"],
@@ -5216,14 +5435,14 @@ def tensor_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> di
                rank_peak_gb=[r["peak_gb"] for r in ranks],
                rank_peak_above_start_gb=[r["peak_above_start_gb"] for r in ranks],
                same_graph=[g for r in ranks for g in r["same_graph"]])
-    rec["decode"] = [tokens_up_to_tie(np.array(r["tokens"]), one["tokens"], one["gaps"],
-                                      f"{kind} rank {r['rank']}") for r in ranks]
-    if kind == "tp":
-        if not r0["losses"][-1] < r0["losses"][0]:
-            raise AssertionError(f"tp: loss did not fall over {TP_STEPS} steps: "
-                                 f"{r0['losses']}")
+    if kind != "data_tp":
+        rec["decode"] = [tokens_up_to_tie(np.array(r["tokens"]), one["tokens"], one["gaps"],
+                                          f"{kind} rank {r['rank']}") for r in ranks]
+    if kind == "tp" and not r0["losses"][-1] < r0["losses"][0]:
+        raise AssertionError(f"tp: loss did not fall over {TP_STEPS} steps: {r0['losses']}")
+    if kind != "tp_seq":
         if not rec["same_graph"]:
-            raise AssertionError("tp: no K7 launch captured for the same-graph gate")
+            raise AssertionError(f"{kind}: no K7 launch captured for the same-graph gate")
     else:
         rec["same_graph"] = tp_ring_same_graph(tmp, ranks, one, device)
         first = [g["inputs_max_abs_vs_one_process"] for g in rec["same_graph"]
@@ -5240,7 +5459,7 @@ def tensor_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> di
                              f"grad-norm rel {gnorm_rel}, parameters equal on the ranks "
                              f"{same_params}, vs one process {params_rel}, metrics equal "
                              f"{same_metrics}, finite {finite}")
-    path = f"tensor_{kind}"
+    path = kind if kind == "data_tp" else f"tensor_{kind}"
     counts = {fn: sum(r["launches"][fn] for r in ranks) for fn in r0["launches"]}
     _check_launched(path, counts)
     launched = {tuple(f) for r in ranks for f in r["fwd"]}
@@ -5251,6 +5470,26 @@ def tensor_gate(kind: str, tmp: str, device: str = "cuda", overrides=None) -> di
                     "not a speed figure", seconds=time.perf_counter() - t0)
     emit(path, **rec)
     return rec
+
+
+def gloo_gates(kinds, tmp: str, device: str = "cuda", overrides=None) -> dict:
+    """The gloo gates of ``kinds`` (:func:`parallel_gate`'s and
+    :func:`tensor_gate`'s kinds) at once: every leg's ranks start together,
+    each leg's one-process side runs in turn in this process while they run
+    (a fresh rank spends most of its time starting: importing torch,
+    building the model, its first step), then each leg is judged on its
+    ranks' records.  A leg's ``seconds`` count from the legs' start.  Any
+    failure stops every rank."""
+    t0 = time.perf_counter()
+    parts = {kind: ("parallel_rank", PAR_KINDS[kind][1] * PAR_RANKS, PAR_TIMEOUT_S, _par_side,
+                    _par_judge) if kind in PAR_KINDS else
+             ("tensor_rank", _tp_world(kind), TP_TIMEOUT_S, _tp_side, _tp_judge)
+             for kind in kinds}
+    with contextlib.ExitStack() as stack:
+        for kind, (fn, world, timeout, _, _) in parts.items():
+            stack.enter_context(rank_processes(fn, kind, tmp, world, device, overrides, timeout))
+        sides = {kind: parts[kind][3](kind, device, overrides) for kind in kinds}
+    return {kind: parts[kind][4](kind, tmp, *sides[kind], device, t0) for kind in kinds}
 
 
 def tensor_serve(page_dtype: str, compute: str, card: str = "", device: str = "cuda",
@@ -5317,7 +5556,8 @@ def tensor_serve(page_dtype: str, compute: str, card: str = "", device: str = "c
 
 def tensor_phase(card: str = "") -> dict:
     """Phase 14: (b) python over a model axis and (c) python_long over model
-    × seq, as gloo ranks on ``cuda:0`` against one process; (d) one serving
+    × seq, as gloo ranks on ``cuda:0`` against one process, both legs at once
+    (:func:`gloo_gates`); (d) one serving
     engine across two head shards against the solo engine, at f32 and at
     bf16 compute with int8 pages.  (c) is cut to B 32 when (b) and (c) at B
     64 would pass 150 s (the phase's first card run decides; the cut is
@@ -5325,7 +5565,7 @@ def tensor_phase(card: str = "") -> dict:
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="csat_tensor_")
     try:
-        recs = {kind: tensor_gate(kind, tmp) for kind in ("tp", "tp_seq")}
+        recs = gloo_gates(("tp", "tp_seq"), tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     serves = {f"tensor_serve_{pages}": tensor_serve(pages, compute, card)
@@ -5335,6 +5575,52 @@ def tensor_phase(card: str = "") -> dict:
     launches = {f"tensor_{k}": rec["launches"] for k, rec in recs.items()}
     launches.update({path: rec["launches"] for path, rec in serves.items()})
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 14, data_mesh: a data axis of 2 beside the pipe, seq and model axes
+# ---------------------------------------------------------------------------
+
+DATA_MESH_LEGS = ("data_pp", "data_seq", "data_tp")
+DATA_MESH_LIMIT_S = 200.0  # the phase's time budget: a reading, cut depth past it
+
+
+def data_mesh_checks(dev) -> None:
+    """Phase 3's checks of the ``data_mesh`` phase's per-replica shapes,
+    untimed (each kernel has a timed row at a neighbouring shape): K1 at a
+    replica's rows (B 32, N 150) for (a), K6 and K3/K4 at its pipe
+    microbatches (B 8, N 150); K1 at a replica's rows at N 512 (B 8) for
+    (b); K1 on one plane's heads and K7 at a head shard of a replica's rows
+    (B 32, N 150) for (c)."""
+    from csat_tpu_torch.configs import get_config
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    replica = TRAIN_B // 2
+    micro = replica // get_config("python_pp").pipeline_microbatches
+    flex_check("cse", replica, 150, gen, dev, timed=False)
+    flex_check("sbm_sampled", micro, 150, gen, dev, timed=False)
+    bwd_check("sbm_sampled", micro, 150, gen, dev, timed=False)
+    flex_check("cse", PAR_KINDS["data_seq"][3] // 2, 512, gen, dev, timed=False, r_len=512)
+    for mod in ("cse", "sbm_graph"):
+        head_shard_check(mod, gen, dev, b=replica, timed=False)
+
+
+def data_mesh_phase(device: str = "cuda", overrides=None) -> dict:
+    """Phase 14, ``data_mesh``: a data axis of 2 composed with each of the
+    other axes on the card, four gloo ranks on ``cuda:0`` a leg, the three
+    legs at once, each against one process on the whole batch — (a)
+    python_pp over data 2 × pipe 2, (b) python_long over data 2 × seq 2, (c)
+    python over data 2 × model 2 (:func:`gloo_gates`).  ``device`` and
+    ``overrides`` (narrow widths) serve the CPU rehearsal only."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="csat_data_mesh_")
+    try:
+        recs = gloo_gates(DATA_MESH_LEGS, tmp, device, overrides)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("data_mesh", seconds=time.perf_counter() - t0, limit_s=DATA_MESH_LIMIT_S,
+         paths=list(recs), leg_seconds={k: rec["seconds"] for k, rec in recs.items()})
+    return {"launches": {kind: rec["launches"] for kind, rec in recs.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -5707,7 +5993,7 @@ def warm_leg(store: str, out: str, kernels: str) -> None:
     engine.close()
 
 
-def warm_start_drill(card: str = "") -> dict:
+def warm_start_drill(card: str = "", meanwhile=None):
     """(d) Warm start in fresh processes over one temporary store, each with
     its own empty kernel directory: cold — every library an ``absent`` miss,
     built by ``nvcc`` and saved; warm — every library a hit, ``nvcc`` never
@@ -5715,7 +6001,9 @@ def warm_start_drill(card: str = "") -> dict:
     ``CSAT_TPU_NO_CACHE=1`` — ``disabled``, and a build, since no store is
     asked and the kernel directory is empty.  Each serves the same requests,
     and the tokens must be equal bit for bit across the four.  Reading: the
-    engine's start wall in each."""
+    engine's start wall in each.  ``meanwhile`` (a callable) runs in this
+    process while the cold and the disabled processes build; returns
+    ``(the drill's record, what meanwhile returned)``."""
     from csat_tpu_torch.ops import build
     from csat_tpu_torch.serve.warmstart import WarmStartStore
 
@@ -5749,15 +6037,24 @@ def warm_start_drill(card: str = "") -> dict:
         with open(out) as f:
             return json.load(f)
 
+    started = []
     try:
-        legs = {"cold": finish(start("cold", "kernels_cold"))}
-        legs["warm"] = finish(start("warm", "kernels_warm"))
-        corrupted = WarmStartStore(store).corrupt_entries()
-        pending = [start("corrupt", "kernels_corrupt"),
+        # the disabled process asks no store: it builds beside the cold one
+        started = [start("cold", "kernels_cold"),
                    start("disabled", "kernels_disabled", {"CSAT_TPU_NO_CACHE": "1"})]
-        legs.update((p[0], finish(p)) for p in pending)
+        other = meanwhile() if meanwhile is not None else None
+        legs = {p[0]: finish(p) for p in started}
+        started = [start("warm", "kernels_warm")]
+        legs["warm"] = finish(started[0])
+        corrupted = WarmStartStore(store).corrupt_entries()
+        started = [start("corrupt", "kernels_corrupt")]
+        legs["corrupt"] = finish(started[0])
         entries = len(WarmStartStore(store).entries())
     finally:
+        for _, _, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
     want = dict(cold=("absent", libs), warm=("hit", []), corrupt=("digest_mismatch", libs),
                 disabled=("disabled", libs))
@@ -5784,24 +6081,29 @@ def warm_start_drill(card: str = "") -> dict:
                tokens_equal=True, corrupted_entries=corrupted,
                launches={fn: c for fn, c in counts.items() if c})
     emit("storage_warm", **rec)
-    return rec
+    return rec, other
 
 
 def storage_phase(card: str = "") -> dict:
     """Phase 15: (a) KV tiering at f32 and int8 pages (int8 snapshots also
     refused by an f32 pool), (b) tiering on a ``(1, 2)`` serve mesh, (c) the
-    rect layout against the paged one, (d) warm start in fresh processes."""
+    rect layout against the paged one, (d) warm start in fresh processes —
+    (a) to (c) run while (d)'s cold and disabled processes build."""
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="csat_storage_")
-    try:
-        f32 = tier_drill("float32", tmp, card)
-        i8 = tier_drill("int8", tmp, card, cross_dtype=True)
-        mesh = tier_mesh(f32, tmp, card)
-        del f32["model"], i8["model"]
-        rect = rect_ab(card)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    warm = warm_start_drill(card)
+
+    def in_process():
+        # (a) - (c), while (d)'s first two processes build their libraries
+        tmp = tempfile.mkdtemp(prefix="csat_storage_")
+        try:
+            f32 = tier_drill("float32", tmp, card)
+            i8 = tier_drill("int8", tmp, card, cross_dtype=True)
+            mesh = tier_mesh(f32, tmp, card)
+            del f32["model"], i8["model"]
+            return f32, i8, mesh, rect_ab(card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    warm, (f32, i8, mesh, rect) = warm_start_drill(card, meanwhile=in_process)
     recs = {"storage_tier_float32": f32, "storage_tier_int8": i8, "storage_mesh": mesh,
             "storage_rect": rect, "storage_warm": warm}
     emit("storage", seconds=time.perf_counter() - t0, paths=list(recs))
@@ -7145,7 +7447,8 @@ class _CountedLib:
 def native_traffic():
     """Inside the block: every ``collate_indexed`` batch held against the
     NumPy ``collate`` of the same indices (bit for bit, every field and
-    dtype), the native collate's and METEOR scorer's calls counted.  Builds
+    dtype) and its real AST nodes counted, the native collate's and METEOR
+    scorer's calls counted.  Builds
     and loads both libraries first: a failed build raises."""
     from csat_tpu_torch import native
     from csat_tpu_torch.data import dataset
@@ -7156,12 +7459,13 @@ def native_traffic():
         raise AssertionError("CSAT_TPU_NO_NATIVE_COLLATE=1 is set: the native phase needs it unset")
     counted = _CountedLib(lib, "collate_rel_c")
     inner_collate, inner_meteor = dataset.collate_indexed, native.native_meteor_score
-    seen = {"batches": 0, "apart": [], "meteor_calls": 0, "lib": counted}
+    seen = {"batches": 0, "apart": [], "meteor_calls": 0, "lib": counted, "nodes": []}
 
     def collate_indexed(arrays, idx, max_src_len):
         batch = inner_collate(arrays, idx, max_src_len)
         plain = dataset.collate({k: v[idx] for k, v in arrays.items()}, max_src_len)
         seen["batches"] += 1
+        seen["nodes"].append(int(np.sum(plain.num_node)))
         for field in plain._fields:
             a, b = getattr(batch, field), getattr(plain, field)
             if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
@@ -7190,7 +7494,9 @@ def native_fit(data_dir: str, out: str, device: str = "cuda", **overrides) -> di
     command line runs them: every batch drawn is the NumPy collate of its
     indices bit for bit and went through the native collate, the eval's
     METEOR is the Python scorer's on its own hypotheses to 1e-9, the flex
-    kernels launched at shapes and rates phase 3 checked."""
+    kernels launched at shapes and rates phase 3 checked.  The record
+    carries the epoch's real AST nodes per second (``real_nodes_per_s``:
+    its batches' nodes, padding not counted, over the fit's seconds)."""
     from csat_tpu_torch.configs import get_config
     from csat_tpu_torch.data.dataset import ASTDataset
     from csat_tpu_torch.metrics.meteor import meteor_score
@@ -7251,9 +7557,11 @@ def native_fit(data_dir: str, out: str, device: str = "cuda", **overrides) -> di
     if err > NATIVE_METEOR_TOL or abs(scores["meteor"] - meteor_py) > 100 * NATIVE_METEOR_TOL:
         raise AssertionError(f"native fit: METEOR native {scores['meteor']} against Python "
                              f"{meteor_py}, max pair error {err}")
+    real_nodes = sum(seen["nodes"][:want_steps])  # the train batches come first
     return dict(model="python", bucketing=False, batch=cfg.batch_size, n=cfg.max_src_len,
                 noise_mode=cfg.noise_mode, eval_graph=cfg.eval_graph, steps=len(steps),
-                losses=[r["loss"] for r in steps], fit_s=fit_s, test=scores, test_s=test_s,
+                losses=[r["loss"] for r in steps], fit_s=fit_s, real_nodes=real_nodes,
+                real_nodes_per_s=real_nodes / fit_s, test=scores, test_s=test_s,
                 batches=seen["batches"], native_collate_calls=seen["lib"].calls,
                 batches_apart=0, meteor_pairs=len(pairs), native_meteor_calls=calls,
                 meteor_python=meteor_py, meteor_max_pair_err=err, launches=counts)
@@ -7378,6 +7686,50 @@ def native_phase(corpus, card: str = "") -> dict:
     return rec
 
 
+#: the keys of the JAX package's ``attribute_delta`` (``csat_tpu/obs/perfdb.py``)
+ATTRIBUTION_KEYS = ("comparable", "calibrated", "total_pct", "environment_pct", "code_pct",
+                    "unexplained_pct", "noise_tol_pct", "verdict")
+
+
+def perfdb_leg(calibration: dict, headline: float, card: str = "", device: str = "cuda") -> dict:
+    """The run-history ledger (``obs/perfdb.py``) on the card: one entry —
+    the ``calibration`` phase's card-size block (the one a benchmark on the
+    card normalises by) beside one headline this run measured
+    (``headline``: the ``native`` phase's fixed-shape epoch in real AST
+    nodes per second on one card, under ``HEADLINE_METRIC``) — appended to
+    a history in a temporary directory and read back.  Gates: the history
+    reads back the entry unchanged, it is the reference entry, and
+    ``attribute_delta`` returns the JAX package's keys.  The ledger's
+    arithmetic is held to the JAX package's on the CPU
+    (``tests/test_torch_calibrate.py``)."""
+    from csat_tpu_torch.obs import perfdb
+    from csat_tpu_torch.obs.calibrate import machine_fingerprint
+
+    t0 = time.perf_counter()
+    out = {"metric": perfdb.HEADLINE_METRIC, "value": headline,
+           "nodes_per_sec_per_chip_cal": headline, "calibration": calibration["card_size"],
+           "machine_fingerprint": machine_fingerprint(device), "degraded_reasons": []}
+    entry = perfdb.make_entry(out, run_id="chip_smoke", source="chip_smoke.py")
+    tmp = tempfile.mkdtemp(prefix="csat_perfdb_")
+    try:
+        path = os.path.join(tmp, "history.jsonl")
+        perfdb.append_entry(path, entry)
+        loaded = perfdb.load_history(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = perfdb.reference_entry(loaded)
+    delta = perfdb.attribute_delta(entry, ref) if ref else {}
+    if not (loaded == [entry] and ref == entry and tuple(delta) == ATTRIBUTION_KEYS
+            and delta["calibrated"]):
+        raise AssertionError(f"perfdb: read back {loaded == [entry]}, reference {ref == entry}, "
+                             f"attribution {delta}")
+    rec = dict(card=card, metric=perfdb.HEADLINE_METRIC, headline=headline,
+               calibration_params=calibration["card_size"]["params"],
+               reference_run=ref["run_id"], seconds=time.perf_counter() - t0)
+    emit("perfdb", **rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7389,6 +7741,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     smi = device_phase()
     build_phase()
+    calibration = calibration_phase(smi)
     from csat_tpu_torch.ops import build
 
     dev = torch.device("cuda")
@@ -7407,17 +7760,20 @@ def main(argv=None) -> int:
         long_ast = long_ast_phase(args.profile)
         parallel = parallel_phase()
         tensor = tensor_phase(smi)
+        data_mesh = data_mesh_phase()
         storage = storage_phase(smi)
         fleet = fleet_phase(corpus, serving["checkpoint"], smi)
         net = net_phase(corpus, serving["checkpoint"], smi)
         native_rec = native_phase(corpus, smi)
+    perfdb_leg(calibration, native_rec["fit"]["real_nodes_per_s"], smi)
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],
-               **parallel["launches"], **tensor["launches"], **storage["launches"],
+               **parallel["launches"], **tensor["launches"], **data_mesh["launches"],
+               **storage["launches"],
                **fleet["launches"], **net["launches"], "native": native_rec["launches"]}
     kernels = []
     for fn, lib in build.KERNELS.items():

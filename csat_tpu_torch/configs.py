@@ -26,12 +26,14 @@ storage (``serve_kv_layout``: the paged pool or the per-slot rectangles;
 resubmission backoff) and its autoscaler's (``serve_min_replicas`` /
 ``serve_max_replicas``, ``serve_autoscale`` and the ``serve_autoscale_*``
 signals, hysteresis, cooldown and churn bound), the network front door's
-(``serve_net_*``) and the burn-rate SLOs' (``slo_*``).  Fields that only
+(``serve_net_*``) and the burn-rate SLOs' (``slo_*``), and the machine's
+calibration probes' (``calib_*``, read by
+``obs/calibrate.py:calibration_kwargs``).  Fields that only
 select JAX/TPU machinery (``backend``, compilation caches, AOT warm-up,
-``flex_bwd``) or telemetry of parts the port does not carry yet
-(calibration, the bench history) are absent, and so is
-``param_dtype``, which the JAX
-package declares but reads nowhere (its master weights are f32 whatever it
+``flex_bwd``) are absent, and so is the bench history's file
+(``bench_history_file``), which the port's benchmark, still to come, will
+name; and so is ``param_dtype``, which the JAX package declares but reads
+nowhere (its master weights are f32 whatever it
 says): the port picks kernel or plain path by the device a tensor lies on,
 and a field it never reads is not one it pretends to honour.
 """
@@ -303,6 +305,20 @@ class Config:
     slo_slow_window_s: float = 300.0
     slo_burn_fast: float = 14.0
     slo_burn_slow: float = 6.0
+    # the machine's calibration probes (obs/calibrate.py), run before a
+    # benchmark measures the port: which probes (() = all of them), the
+    # square matmul operand's size, the bandwidth probe's array in MiB, the
+    # dispatch probe's loop length, and the wall-clock budget of the whole
+    # suite (a probe past it is skipped with its reason).  Read through
+    # ``obs.calibrate.calibration_kwargs``, as the JAX package's bench reads
+    # them.  The defaults are JAX's; on an H100 n 512 and 64 MiB time the
+    # launch, so chip_smoke.py calibrates at n 8192 and 1024 MiB through
+    # these fields
+    calib_probes: Tuple[str, ...] = ()
+    calib_matmul_n: int = 512
+    calib_memory_mb: int = 64
+    calib_dispatch_iters: int = 50
+    calib_budget_s: float = 45.0
 
     # reference-compat quirk flags (same meanings as the JAX package)
     generator_dropout: bool = True
@@ -410,6 +426,7 @@ class Config:
         assert self.slo_slow_window_s >= self.slo_fast_window_s, self.slo_slow_window_s
         assert self.slo_burn_fast > 0, self.slo_burn_fast
         assert self.slo_burn_slow > 0, self.slo_burn_slow
+        self._validate_calibration()
         assert all(n >= 1 for n in self.bucket_src_lens), self.bucket_src_lens
         assert all(t >= 2 for t in self.bucket_tgt_lens), self.bucket_tgt_lens
         assert self.bucket_token_budget >= 0, self.bucket_token_budget
@@ -449,6 +466,18 @@ class Config:
         assert self.serve_autoscale_cooldown_s >= 0, self.serve_autoscale_cooldown_s
         assert self.serve_autoscale_max_actions >= 1, self.serve_autoscale_max_actions
         assert self.serve_autoscale_churn_window_s > 0, self.serve_autoscale_churn_window_s
+
+    def _validate_calibration(self) -> None:
+        """The JAX package's rules for the calibration probes
+        (``csat_tpu/configs.py:712-721``), against the port's own probes."""
+        from csat_tpu_torch.obs.calibrate import PROBES
+
+        assert all(p in PROBES for p in self.calib_probes), (
+            f"calib_probes {self.calib_probes}: each must be one of {PROBES}")
+        assert self.calib_matmul_n >= 8, self.calib_matmul_n
+        assert self.calib_memory_mb >= 1, self.calib_memory_mb
+        assert self.calib_dispatch_iters >= 1, self.calib_dispatch_iters
+        assert self.calib_budget_s > 0, self.calib_budget_s
 
     def _validate_parallel(self) -> None:
         """The JAX package's rules for the parallel fields

@@ -6,9 +6,10 @@ without the package beside it, and the port's copies of JAX-free modules
 the identifier splitters of the extractor, the router, the autoscaler, the
 traffic zoo, the toy samples, the chaos runner and invariant monitor, the
 SLO engine, the network front door and client, ``top`` with its table
-readers from ``tools/``, and csat-lint's rule machinery: its core, AST
-visitors and boundary, fault-path and clock rules) define exactly what their
-originals do."""
+readers from ``tools/``, csat-lint's rule machinery: its core, AST visitors
+and boundary, fault-path and clock rules, the run-history ledger, and the
+calibration probes' names, digest and normalisation) define exactly what
+their originals do."""
 
 import ast
 import os
@@ -67,7 +68,7 @@ def test_every_module_imports_with_jax_blocked_and_no_nvcc():
     )
     res = _run(["-c", code], cwd=REPO)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 62
+    assert int(res.stdout.split()[-1]) >= 96
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
@@ -154,7 +155,11 @@ COPIES = [("serve/prefix.py", "csat_tpu/serve/prefix.py", None, True),
            ("_CLEAR", "last_snapshot", "_g", "header_lines", "pages_lines", "net_lines",
             "slo_lines", "render", "main"), False),
           *((f"analysis/{m}.py", f"csat_tpu/analysis/{m}.py", None, False)
-            for m in ("core", "visitors", "boundary", "faultflow", "clock"))]
+            for m in ("core", "visitors", "boundary", "faultflow", "clock")),
+          ("obs/perfdb.py", "csat_tpu/obs/perfdb.py", None, False),
+          ("obs/calibrate.py", "csat_tpu/obs/calibrate.py",
+           ("PROBES", "REFERENCE_PROBE", "fingerprint_id", "_median", "normalization_ratio",
+            "normalize"), False)]
 
 
 #: text the port's copy words otherwise (a pattern and its replacement, applied
