@@ -101,7 +101,25 @@ Phases, each printing JSON lines:
    the config's own defaults (``noise_mode="shared"``,
    ``eval_graph="sample"``): 2 epochs, every step finite, epoch loss
    falling, K1 and K7 launched at every train bucket and in the eval
-   encoder, at shapes and rates phase 3 checked;
+   encoder, at shapes and rates phase 3 checked; the ``fit`` phase's
+   epoch-1 file comes from the asynchronous snapshots (durable once ``fit``
+   returns); ``real_corpus`` — (a) a corpus of 1024 / 128 / 128 functions of
+   this machine's Python stdlib built with ``tools/build_real_corpus_torch.py``
+   (the port's extraction and preprocessing, N ≤ 150): every asked sample
+   kept, both vocabularies larger than the synthetic corpus's; (b)
+   ``Trainer.fit`` in the python config's defaults on it, bucketed, 2
+   epochs, validation and an asynchronous snapshot each epoch
+   (``make_checkpoint_fn``): every step finite, the epoch loss falling, K1
+   and K7 at shapes and rates phase 3 checked; (c) once ``fit`` returns, the
+   newest file equal to its final state bit for bit (parameters, both
+   moments, count, step, generator), and a background write fault retried
+   exactly once, synchronously, from the retained host copy, a second one
+   raised from the barrier; (d) readings: the ``train.checkpoint`` span's
+   seconds per save of that state, asynchronous against synchronous, and
+   the host copy alone, in turns, 3 each, the fit's own saves and their
+   copies, the background writes' seconds and the state's bytes; (e)
+   ``greedy_decode_nocache`` on 16 dev rows equal to ``greedy_decode`` up to
+   a near tie, K1 and K7 launched by every step's full forward;
 8. ``variants`` — the paper's other encoders, each at its published widths
    and full depth in its own defaults (``noise_mode="shared"``):
    ``python_full_att``, ``python_lap``, ``python_seq``, ``python_treepos``
@@ -510,6 +528,11 @@ PATH_KERNELS = {
     # the native phase: the fixed-shape fit and test eval in the python
     # config's defaults (shared noise, sampled eval graph): K1 and K7
     "native": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    # the real_corpus phase: Trainer.fit in the defaults on the stdlib corpus
+    # (K1 and K7, train and eval), and the reference-shaped decode, whose
+    # every step's full forward runs the encoder (K1, K7 at rate 0)
+    "real_corpus": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
+    "real_corpus_decode": ("flex_fwd_cse", "flex_fwd_sbm_graph"),
 }
 #: java's dh-96 kernels that only its counter gate and expected-graph
 #: gradient run (at its train batch, B 64 / N 150)
@@ -1516,6 +1539,7 @@ def kernel_phase(dev) -> dict:
     parallel = parallel_checks(dev)
     tensor = tensor_checks(dev)
     data_mesh_checks(dev)
+    real_corpus_checks(dev)
     return {"flex_fwd_cse": flex[("cse", 4, 150)],
             **variant, **precision, **long, **parallel, **tensor,
             "flex_fwd_cse@train": cse_train,
@@ -1530,6 +1554,15 @@ def kernel_phase(dev) -> dict:
             **bwd, **bwd_exp,
             "paged_decode": paged[(torch.float32, "cross")],
             **{f"paged_decode@serve_{side}": rec for side, rec in paged_real.items()}}
+
+
+def real_corpus_checks(dev) -> None:
+    """Untimed: K7 at rate 0 and K1 at the real_corpus phase's decode batch
+    (B 16, N 150), where every step of the reference-shaped decode runs the
+    encoder.  Its own generator: drawn after the other checks."""
+    gen = torch.Generator().manual_seed(SEED + 22)
+    flex_check("sbm_graph", REAL_DECODE_B, 150, gen, dev, timed=False, rate=0.0)
+    flex_check("cse", REAL_DECODE_B, 150, gen, dev, timed=False)
 
 
 def serve_shapes(cfg):
@@ -2505,6 +2538,306 @@ def fit_default_phase(corpus) -> dict:
         eval_tokens_per_s=eval_tokens / statistics.median(hist["eval_s"]),
         launches=counts, launch_shapes=by_side)
     emit("fit_default", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7, real_corpus: the stdlib corpus, async snapshots, reference decode
+# ---------------------------------------------------------------------------
+
+#: the real corpus: train / dev / test functions of the Python stdlib
+#: (``tools/build_real_corpus_torch.py``), AST nodes kept
+REAL_SAMPLES = (1024, 128, 128)
+REAL_MAX_AST_LEN = 150
+REAL_DECODE_B = 16
+#: the checkpoint readings: the host copy alone, async and sync saves of one
+#: state, in turns
+CKPT_ORDER = ("copy", "async", "sync", "sync", "async", "copy", "copy", "async", "sync")
+
+
+def real_corpus_build(tmp: str, synthetic_vocab, samples=REAL_SAMPLES,
+                      max_ast_len: int = REAL_MAX_AST_LEN) -> dict:
+    """(a) The stdlib corpus through the port's extraction and preprocessing
+    (``tools/build_real_corpus_torch.py``, one process) in ``tmp``: every
+    asked sample kept, and both vocabularies larger than the synthetic
+    corpus's (``synthetic_vocab``: its source and target sizes)."""
+    from csat_tpu_torch.data.vocab import load_vocab
+    from tools.build_real_corpus_torch import build as build_corpus
+
+    data_dir = os.path.join(tmp, "real_corpus")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # keep stdout to the JSON lines
+        kept = build_corpus(data_dir, sum(samples), max_ast_len, seed=SEED, n_dev=samples[1],
+                            n_test=samples[2], n_jobs=1)
+    seconds = time.perf_counter() - t0
+    src_v, tgt_v = load_vocab(data_dir)
+    vocab = [src_v.size(), tgt_v.size()]
+    want = dict(zip(("train", "dev", "test"), samples))
+    if kept != want or not all(v > s for v, s in zip(vocab, synthetic_vocab)):
+        raise AssertionError(f"real corpus: kept {kept} of {want}, vocabularies {vocab} against "
+                             f"the synthetic corpus's {list(synthetic_vocab)}")
+    return dict(data_dir=data_dir, samples=kept, max_ast_len=max_ast_len, seconds=seconds,
+                vocab=vocab, synthetic_vocab=list(synthetic_vocab))
+
+
+def _checkpoint_spans(obs) -> list:
+    """(mode, seconds) of every ``train.checkpoint`` span in ``obs``'s ring."""
+    return [((fields or {}).get("mode", "fit"), dur) for _, name, dur, fields in obs.events()
+            if name == "train.checkpoint"]
+
+
+def snapshot_equal(path: str, state) -> dict:
+    """The state file at ``path`` against ``state``: parameters and both
+    moments bit for bit (dtype, shape, bytes), the moments' count, the step
+    and the generator's state equal."""
+    from csat_tpu_torch.resilience.guards import host_snapshot
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    snap = host_snapshot(state)
+    apart = [f"{key}.{name}" for key in ("params", "mu", "nu")
+             for name, t in getattr(snap, key).items()
+             if name not in blob[key] or blob[key][name].dtype != t.dtype
+             or not torch.equal(blob[key][name], t)]
+    apart += [key for key in ("step", "count") if blob[key] != getattr(snap, key)]
+    if not torch.equal(blob["gen_state"], snap.gen_state):
+        apart.append("gen_state")
+    if apart or set(blob["params"]) != set(snap.params):
+        raise AssertionError(f"{path} differs from the state: {apart[:10]}")
+    return {"tensors": 3 * len(snap.params), "step": snap.step, "count": snap.count}
+
+
+def background_fault_drill(tmp: str, state) -> dict:
+    """(c) An async save whose background write raises once: the barrier
+    retries it exactly once, synchronously, from the retained host copy
+    (the file then equals the state and the ledger is clear); a write that
+    fails again propagates from the barrier."""
+    import threading
+
+    from csat_tpu_torch.train import checkpoint as ck
+
+    inner, calls = ck._atomic_save, []
+
+    def flaky(obj, path, failures):
+        calls.append("main" if threading.current_thread() is threading.main_thread()
+                     else "background")
+        if len(calls) <= failures:
+            raise OSError(f"injected commit failure {len(calls)} of {failures}")
+        return inner(obj, path)
+
+    d = os.path.abspath(os.path.join(tmp, "fault_checkpoints"))
+    out = {}
+    try:
+        ck._atomic_save = lambda obj, path: flaky(obj, path, 1)
+        ck.save_state_async(d, state, 1)
+        ck.wait_for_saves(d)
+        out["once"] = list(calls)
+        if calls != ["background", "main"] or d in ck._PENDING_SAVES:
+            raise AssertionError(f"background fault: writes {calls}, ledger "
+                                 f"{sorted(ck._PENDING_SAVES)}")
+        snapshot_equal(os.path.join(d, "state_1.pt"), state)
+        calls.clear()
+        ck._atomic_save = lambda obj, path: flaky(obj, path, 2)
+        ck.save_state_async(d, state, 2)
+        try:
+            ck.wait_for_saves(d)
+        except OSError as e:
+            out["twice"], out["raised"] = list(calls), str(e)
+        else:
+            raise AssertionError(f"a second background fault did not propagate: writes {calls}")
+        if out["twice"] != ["background", "main"]:
+            raise AssertionError(f"second fault: writes {out['twice']}")
+    finally:
+        ck._atomic_save = inner
+        ck._PENDING_SAVES.pop(d, None)
+    return out
+
+
+@contextlib.contextmanager
+def timed_host_copies():
+    """Inside the block: the seconds of every host copy a snapshot takes
+    (``train/checkpoint.py``'s ``host_snapshot``), one entry a call."""
+    from csat_tpu_torch.train import checkpoint as ck
+
+    inner, seconds = ck.host_snapshot, []
+
+    def timed(state):
+        t0 = time.perf_counter()
+        snap = inner(state)
+        seconds.append(time.perf_counter() - t0)
+        return snap
+
+    ck.host_snapshot = timed
+    try:
+        yield seconds
+    finally:
+        ck.host_snapshot = inner
+
+
+def checkpoint_readings(tr, state, tmp: str, order=CKPT_ORDER) -> dict:
+    """(d) Readings, in turns: the ``train.checkpoint`` span's seconds per
+    save of ``state``, asynchronous (``save_state_async``; its write
+    confirmed outside the span, as the next epoch overlaps it in a fit)
+    against synchronous (``save_state``), the host copy alone
+    (``host_snapshot``), the background writes' seconds, and the state's
+    bytes."""
+    from csat_tpu_torch.resilience.guards import host_snapshot
+    from csat_tpu_torch.train.checkpoint import save_state, save_state_async, wait_for_saves
+
+    dirs = {mode: os.path.join(tmp, f"ckpt_{mode}") for mode in ("async", "sync")}
+    writes, copies = [], []
+    for i, mode in enumerate(order):
+        if mode == "copy":
+            t0 = time.perf_counter()
+            host_snapshot(state)
+            copies.append(time.perf_counter() - t0)
+            continue
+        with tr.obs.span("train.checkpoint", mode=mode):
+            (save_state_async if mode == "async" else save_state)(dirs[mode], state, i + 1)
+        if mode == "async":
+            t0 = time.perf_counter()
+            wait_for_saves(dirs[mode])
+            writes.append(time.perf_counter() - t0)
+    spans = _checkpoint_spans(tr.obs)[-sum(m != "copy" for m in order):]
+    opt = state.opt_state
+    state_bytes = sum(t.numel() * t.element_size()
+                      for group in (state.params, opt.mu, opt.nu) for t in group.values())
+    return dict(order=list(order), state_bytes=state_bytes,
+                async_s=[s for m, s in spans if m == "async"],
+                sync_s=[s for m, s in spans if m == "sync"], host_copy_s=copies,
+                async_wait_s=writes)
+
+
+@contextlib.contextmanager
+def decode_launches_per_forward(model, kernels):
+    """Inside the block: the kernels' launch counts of each full forward of
+    ``model`` (``model.forward`` wrapped), one dict per call."""
+    from csat_tpu_torch.ops import build
+
+    per_call, inner = [], model.forward
+
+    def forward(*a, **kw):
+        before = build.launch_counts()
+        out = inner(*a, **kw)
+        after = build.launch_counts()
+        per_call.append({fn: after[fn] - before[fn] for fn in kernels})
+        return out
+
+    model.forward = forward
+    try:
+        yield per_call
+    finally:
+        del model.forward
+
+
+def _each_step_launched(per_step, kernels) -> None:
+    """Every decode step's forward launched every one of ``kernels``."""
+    idle = [(i, fn) for i, counts in enumerate(per_step) for fn in kernels if counts[fn] <= 0]
+    if idle:
+        raise AssertionError(f"reference-shaped decode: steps without a launch: {idle[:10]}")
+
+
+def nocache_decode_gate(model, cfg, dev_ds, device: str = "cuda",
+                        b: int = REAL_DECODE_B) -> dict:
+    """(e) ``greedy_decode_nocache`` on the first ``b`` rows of the dev split
+    against ``greedy_decode`` (one generator seed each, the config's
+    ``eval_graph``): tokens equal up to the near-tie rule, and every step's
+    full forward launched K1 and K7 (at shapes and rates phase 3 checked)."""
+    from csat_tpu_torch.data.dataset import batch_to_device, iterate_batches
+    from csat_tpu_torch.train.decode import greedy_decode_nocache
+
+    batch = batch_to_device(next(iterate_batches(dev_ds, b, shuffle=False)),
+                            torch.device(device))
+    ref, gaps = greedy_with_gaps(model, batch)
+    kernels = PATH_KERNELS["real_corpus_decode"]
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    with flex_launches() as launched, decode_launches_per_forward(model, kernels) as per_step:
+        toks = greedy_decode_nocache(model, batch, gen)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = batch.tgt_seq.shape[1]
+    if tuple(toks.shape) != (b, steps) or len(per_step) != steps:
+        raise AssertionError(f"reference-shaped decode: tokens {tuple(toks.shape)}, "
+                             f"{len(per_step)} forwards for {steps} steps")
+    _each_step_launched(per_step, kernels)
+    _check_shapes("real_corpus_decode", {(b, cfg.max_src_len)}, cfg)
+    _check_rates("real_corpus_decode", launched)
+    tie = tokens_up_to_tie(toks.cpu().numpy(), ref, gaps, "reference-shaped decode")
+    launches = {fn: sum(c[fn] for c in per_step) for fn in kernels}
+    return dict(B=b, steps=steps, eval_graph=cfg.eval_graph, seconds=seconds,
+                launches=launches, launches_per_step=per_step[0], **tie)
+
+
+def real_corpus_phase(corpus, card: str = "", device: str = "cuda", overrides=None,
+                      samples=REAL_SAMPLES, max_ast_len: int = REAL_MAX_AST_LEN) -> dict:
+    """Phase 7, ``real_corpus``: (a) a stdlib corpus built on this machine;
+    (b) ``Trainer.fit`` of python at its published widths in its defaults,
+    bucketed, 2 epochs, validation and an asynchronous snapshot each epoch
+    (``make_checkpoint_fn``): every step finite, the epoch loss falling, K1
+    and K7 launched at checked shapes and rates; (c) the newest snapshot
+    equal to the fit's final state bit for bit once ``fit`` returns, and a
+    background write fault retried once from the host copy, a second one
+    raised; (d) readings: the ``train.checkpoint`` span's seconds async
+    against sync and the host copy alone, the state's bytes; (e) the
+    reference-shaped decode against the cached one on a dev batch.
+    ``overrides`` (narrow widths) and smaller ``samples`` only for the CPU
+    rehearsal."""
+    from csat_tpu_torch.configs import get_config
+    from csat_tpu_torch.data.dataset import ASTDataset
+    from csat_tpu_torch.data.vocab import load_vocab
+    from csat_tpu_torch.ops import build
+    from csat_tpu_torch.train import Trainer
+    from csat_tpu_torch.train.checkpoint import _PENDING_SAVES, latest_step, make_checkpoint_fn
+
+    tmp, synthetic_dir, _ = corpus
+    t0 = time.perf_counter()
+    synthetic_vocab = [v.size() for v in load_vocab(synthetic_dir)]
+    built = real_corpus_build(tmp, synthetic_vocab, samples, max_ast_len)
+    cfg = get_config("python", data_dir=built["data_dir"],
+                     output_dir=os.path.join(tmp, "run_real"), bucketing=True,
+                     num_epochs=FIT_EPOCHS, val_interval=1, save_interval=1, **(overrides or {}))
+    tr = Trainer(cfg, device=device, log=lambda msg: None)
+    sets = {split: ASTDataset(cfg, split, tr.src_vocab, tr.tgt_vocab) for split in ("train", "dev")}
+    ckpt = make_checkpoint_fn(tr.output_dir, retries=cfg.save_retries,
+                              backoff_s=cfg.save_retry_backoff_s)
+    build.reset_launches()
+    t_fit = time.perf_counter()
+    with flex_launches() as launched, timed_host_copies() as fit_copies:
+        state, hist = tr.fit(sets["train"], sets["dev"], checkpoint_fn=ckpt)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    counts = build.launch_counts()
+    steps = hist["steps"]
+    if not all(np.isfinite(r["loss"]) for r in steps) or hist["nonfinite_steps"]:
+        raise AssertionError(f"real corpus fit: non-finite steps {hist['nonfinite_steps']}")
+    if not (len(hist["loss"]) == FIT_EPOCHS and hist["loss"][-1] < hist["loss"][0]):
+        raise AssertionError(f"real corpus fit: epoch loss did not fall: {hist['loss']}")
+    _check_launched("real_corpus", counts)
+    _check_shapes("real_corpus", {tuple(r["shape"][:2]) for r in steps} | set(plan_shapes()),
+                  cfg)
+    _check_rates("real_corpus", launched)
+    # (c) durable when fit returns: the newest file is the final state
+    newest = latest_step(ckpt.directory)
+    if newest != FIT_EPOCHS or os.path.abspath(ckpt.directory) in _PENDING_SAVES:
+        raise AssertionError(f"real corpus fit: newest snapshot {newest}, ledger "
+                             f"{sorted(_PENDING_SAVES)}")
+    durable = snapshot_equal(os.path.join(ckpt.directory, f"state_{newest}.pt"), state)
+    fit_spans = [s for _, s in _checkpoint_spans(tr.obs)]
+    fault = background_fault_drill(tmp, state)
+    readings = checkpoint_readings(tr, state, tmp)
+    decode = nocache_decode_gate(tr.model, cfg, sets["dev"], device)
+    rec = dict(
+        card=card, corpus=built, model="python", noise_mode=cfg.noise_mode,
+        eval_graph=cfg.eval_graph, bucketing=True, batch=cfg.batch_size, epochs=FIT_EPOCHS,
+        fit_s=fit_s, epoch_loss=hist["loss"], steps=len(steps), by_shape=_by_shape(steps),
+        val_bleu=hist["val_bleu"], eval_s=hist["eval_s"], fit_checkpoint_s=fit_spans,
+        fit_host_copy_s=fit_copies,
+        checkpoints=sorted(os.listdir(ckpt.directory)), durable=durable, fault=fault, checkpoint=readings, decode=decode,
+        launches=counts, decode_launches=decode["launches"],
+        seconds=time.perf_counter() - t0)
+    emit("real_corpus", **rec)
     return rec
 
 
@@ -7753,6 +8086,7 @@ def main(argv=None) -> int:
     with fit_corpus() as corpus:
         fitted = fit_phase(args.profile, corpus)
         fitted_default = fit_default_phase(corpus)
+        real = real_corpus_phase(corpus, smi)
         variants = variants_phase()
         precision = precision_phase(args.profile)
         resilience = resilience_phase(corpus)
@@ -7769,6 +8103,7 @@ def main(argv=None) -> int:
     by_path = {"serve": served["launches"], "train_counter": trained["launches"],
                "train_shared": shared["launches"], "expected_grad": expected["launches"],
                "fit": fitted["launches"], "fit_default": fitted_default["launches"],
+               "real_corpus": real["launches"], "real_corpus_decode": real["decode_launches"],
                **{name: rec["launches"] for name, rec in variants.items()},
                **precision["launches"], "resilience": resilience["launches"],
                "serving": serving["launches"], **long_ast["launches"],

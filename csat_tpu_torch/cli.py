@@ -13,7 +13,8 @@ Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU
 (``--device`` stands where the JAX CLI has ``--platform``).  Without a GPU and
 without ``--device cpu`` it raises.  ``--set field=value`` overrides any config
 field (the value is parsed as a Python literal), e.g. the widths of a small
-run, ``nonfinite_guard=False``, ``bucket_src_lens=(37,75)``, the
+run, ``nonfinite_guard=False``, ``bucket_src_lens=(37,75)`` (also
+``--bucket_src_lens 37,75``, as in the JAX command line), the
 production precision ``compute_dtype='bfloat16'`` or
 ``init_scheme='reference'``.  The resilience and telemetry flags are the JAX
 command line's.  Training streams ``scalars.jsonl`` into the output dir
@@ -63,6 +64,7 @@ def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True, help="named variant, e.g. python, java")
     p.add_argument("--data_dir", default="", help="override the config's data_dir")
+    p.add_argument("--exp_type", default="summary", choices=["summary"])
     p.add_argument("--epochs", type=int, default=0, help="override num_epochs")
     p.add_argument("--batch_size", type=int, default=0)
     p.add_argument("--is_test", action="store_true",
@@ -75,6 +77,9 @@ def _parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--bucketing", action="store_true",
                    help="length-bucketed execution: each sample is collated at the "
                         "smallest fitting (N, T) bucket with node-budget batch sizes")
+    p.add_argument("--bucket_src_lens", default="",
+                   help="comma list of bucket node capacities (default: geometric ladder "
+                        "capped by max_src_len)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; never falls back on its own")
     p.add_argument("--profile", action="store_true",
@@ -134,6 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         overrides["batch_size"] = args.batch_size
     if args.bucketing:
         overrides["bucketing"] = True
+    if args.bucket_src_lens:
+        overrides["bucket_src_lens"] = tuple(int(v) for v in args.bucket_src_lens.split(","))
     if args.profile:
         overrides["profile"] = True
     if args.no_guard:

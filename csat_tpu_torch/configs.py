@@ -600,6 +600,33 @@ def get_config(name: str, **overrides) -> Config:
     return cfg
 
 
+def config_from_dict(d: dict) -> Config:
+    """Rebuild a :class:`Config` from ``dataclasses.asdict`` output that
+    round-tripped through JSON (a run's resolved config, stamped into its
+    records).  Tuple fields come back as lists and are restored (the SLO
+    latencies and the calibration probe names too, which the JAX package
+    leaves as lists); unknown keys (fields of a newer or older schema, or
+    JAX-only ones) are dropped rather than fatal.  Validated."""
+    known = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in d.items() if k in known}
+    if "clusters" in kw:
+        kw["clusters"] = tuple(int(c) for c in kw["clusters"])
+    for lens in ("bucket_src_lens", "bucket_tgt_lens"):
+        if lens in kw:
+            kw[lens] = tuple(int(v) for v in kw[lens])
+    if "mesh_shape" in kw:
+        kw["mesh_shape"] = tuple((str(n), int(s)) for n, s in kw["mesh_shape"])
+    if "serve_mesh_shape" in kw:
+        kw["serve_mesh_shape"] = tuple(int(s) for s in kw["serve_mesh_shape"])
+    if "slo_latency_s" in kw:
+        kw["slo_latency_s"] = tuple(float(t) for t in kw["slo_latency_s"])
+    if "calib_probes" in kw:
+        kw["calib_probes"] = tuple(str(p) for p in kw["calib_probes"])
+    cfg = Config(**kw)
+    cfg.validate()
+    return cfg
+
+
 def cli_config(name: str, overrides: dict) -> Config:
     """:func:`get_config` for a command line: an unknown name, or overrides
     the config's rules refuse (``ValueError``, ``AssertionError``), exits

@@ -2,9 +2,11 @@
 
 The JAX package's ``serve/ingest.py``: :func:`sample_from_source` runs one
 code snippet through the L0 extractor (``data/extract.py``, the stdlib-``ast``
-backend), the L1 distance matrices (``data/ast_tools.py``) and the vocab —
-exactly the offline preprocessing pipeline, per request — and
-:func:`validate_sample` refuses malformed samples at submit.
+backend, or tree-sitter where its grammar imports), the L1 distance matrices
+(``data/ast_tools.py``) and the vocab — exactly the offline preprocessing
+pipeline, per request —, :func:`sample_from_dataset` takes a request sample
+from a built dataset's row, and :func:`validate_sample` refuses malformed
+samples at submit.
 """
 
 from __future__ import annotations
@@ -16,11 +18,11 @@ import numpy as np
 from csat_tpu_torch.configs import Config
 from csat_tpu_torch.data.ast_tools import (
     ast_json_to_tree, build_matrices, tree_to_record, truncate_preorder)
-from csat_tpu_torch.data.dataset import gen_tree_positions, node_triplets
+from csat_tpu_torch.data.dataset import ASTDataset, gen_tree_positions, node_triplets
 from csat_tpu_torch.data.extract import source_to_ast_json
 from csat_tpu_torch.utils import UNK
 
-__all__ = ["PoisonRequestError", "sample_from_source", "validate_sample"]
+__all__ = ["PoisonRequestError", "sample_from_source", "sample_from_dataset", "validate_sample"]
 
 
 class PoisonRequestError(ValueError):
@@ -114,4 +116,17 @@ def sample_from_source(source: str, cfg: Config, src_vocab, trip_vocab=None,
         "num_node": np.asarray(min(n, N), np.int32),
         "tree_pos": tree_pos,
         "triplet": triplet,
+    }
+
+
+def sample_from_dataset(dataset: ASTDataset, i: int) -> Dict[str, np.ndarray]:
+    """Row ``i`` of a built dataset as a request sample (views, no copy)."""
+    a = dataset.arrays
+    return {
+        "src_seq": a["src_seq"][i],
+        "L_raw": a["L_raw"][i],
+        "T_raw": a["T_raw"][i],
+        "num_node": a["num_node"][i],
+        "tree_pos": a["tree_pos"][i],
+        "triplet": a["triplet"][i],
     }

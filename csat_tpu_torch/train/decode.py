@@ -12,6 +12,13 @@ batches decode at their bucket's capacity.
   decoder's attention island does; ``prev_pad`` reproduces the reference's
   ``make_std_mask(ys, 0)``: a *generated* PAD token is masked out of later
   self attention.
+* :func:`greedy_decode_nocache` is the reference-shaped A/B decoder: at
+  every step it reruns the full teacher-forced forward on the PAD-filled
+  prefix and takes the argmax at the step's column — for column i the same
+  as the reference's length-(i+1) prefix rerun, since ``make_std_mask``
+  hides both pads and futures.  Output-identical, asymptotically slower;
+  the encoder's sampled graph is the same at every step (the generator's
+  state is restored before each forward), as JAX reuses one sample key.
 * :func:`greedy_decode_early_eos` (``cfg.decode_early_eos``) runs the same
   steps and stops once every row has emitted ``</s>``; positions after the
   exit stay PAD, and each row's prefix up to its first EOS is identical.
@@ -36,7 +43,7 @@ from csat_tpu_torch.data.dataset import Batch
 from csat_tpu_torch.models.components import attention
 from csat_tpu_torch.utils import BOS, EOS, PAD
 
-__all__ = ["greedy_decode", "greedy_decode_early_eos", "decode_fn"]
+__all__ = ["greedy_decode", "greedy_decode_nocache", "greedy_decode_early_eos", "decode_fn"]
 
 
 def _decode_step(model, tok, i: int, caches, src_mask, prev_pad):
@@ -107,6 +114,33 @@ def greedy_decode(model, batch: Batch, gen: Optional[torch.Generator] = None,
     its ``seq`` or ``pipe`` axis; every process of the axis decodes the whole
     batch from the gathered memory, to the same tokens."""
     return _greedy(model, batch, gen, early_eos=False, shard=shard)
+
+
+@torch.no_grad()
+def greedy_decode_nocache(model, batch: Batch,
+                          gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """→ (B, T-1) generated token ids like :func:`greedy_decode`, by a full
+    teacher-forced forward on the growing PAD-filled prefix per step; a
+    batch of target width 0 (T ≤ 1) decodes to ``(B, 0)``.  ``gen`` feeds
+    the sampled graph under ``eval_graph="sample"``: every step's encoder
+    draws from its state at the call, which it is left past one encode, as
+    :func:`greedy_decode` leaves it."""
+    steps = batch.tgt_seq.shape[1]
+    b, dev = batch.src_seq.shape[0], batch.src_seq.device
+    if steps <= 0:
+        return torch.zeros((b, 0), dtype=torch.long, device=dev)
+    start = None if gen is None else gen.get_state()
+    ys = torch.full((b, steps), PAD, dtype=torch.long, device=dev)
+    ys[:, 0] = BOS
+    toks = torch.empty((b, steps), dtype=torch.long, device=dev)
+    for i in range(steps):
+        if gen is not None:
+            gen.set_state(start)
+        log_probs, _ = model(batch._replace(tgt_seq=ys), deterministic=True, gen=gen)
+        toks[:, i] = torch.argmax(log_probs[:, i], dim=-1)
+        if i + 1 < steps:
+            ys[:, i + 1] = toks[:, i]
+    return toks
 
 
 def greedy_decode_early_eos(model, batch: Batch, gen: Optional[torch.Generator] = None,

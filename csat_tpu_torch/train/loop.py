@@ -13,10 +13,11 @@ Counterpart of the JAX package's ``train/loop.py``:
 * :func:`evaluate_bleu` / :func:`run_test` (``:363-423``): greedy decodes of
   a dataset scored by mean per-sentence smoothed BLEU (validation) or corpus
   BLEU / ROUGE-L / METEOR with a dump of the predictions (test);
-* :class:`Trainer` (``:426``): vocabularies, model and optimizer from a
+* :class:`Trainer` (``:385``): vocabularies, model and optimizer from a
   config; ``fit`` runs the epoch loop with fixed-shape or length-bucketed
   batches, validation every ``val_interval`` epochs, the best-by-BLEU
-  parameters kept and saved, periodic checkpoints, guard-driven rollback to
+  parameters kept and saved, periodic checkpoints (asynchronous with the
+  default hook, and durable before ``fit`` returns), guard-driven rollback to
   the last good snapshot (the guard's counter read every
   ``guard_check_every`` steps), a SIGTERM/SIGINT handler that saves a
   mid-epoch snapshot and raises ``Preempted``, the step watchdog, the data
@@ -82,7 +83,7 @@ from csat_tpu_torch.resilience.retry import ErrorBudget, retry
 from csat_tpu_torch.resilience.watchdog import StepWatchdog, device_liveness_probe
 from csat_tpu_torch.train.checkpoint import (
     latest_step, restore_latest, restore_params, restore_state, save_params, save_state,
-    whole_state)
+    wait_for_saves, whole_state)
 from csat_tpu_torch.train.decode import decode_fn
 from csat_tpu_torch.train.loss import label_smoothing_loss
 from csat_tpu_torch.train.optimizer import AdamW
@@ -827,7 +828,10 @@ class Trainer:
                     if self.primary:
                         with obs.span("train.checkpoint"):
                             checkpoint_fn(whole, epoch)
-                    host.barrier()  # every process resumes from what rank 0 wrote
+                    # the write runs in rank 0's background thread: past this
+                    # barrier the snapshot is submitted, not durable — a resume
+                    # reads the newest file that was committed
+                    host.barrier()
                 self.log(msg)
                 if self.metrics_file is not None:
                     self.metrics_file.maybe_write(extra={"epoch": epoch}, force=True)
@@ -836,6 +840,11 @@ class Trainer:
         # per-phase wall-clock totals, cumulative over this Trainer's recorder
         history["phase_s"] = {name: rec["total_s"] for name, rec in obs.phase_totals().items()
                               if name.startswith("train.")}
+        if checkpoint_fn is not None:
+            # epoch snapshots persist asynchronously (train/checkpoint.py):
+            # make them durable before handing the state back, scoped to this
+            # run's directory when the hook provides it
+            getattr(checkpoint_fn, "wait", wait_for_saves)()
         if best_params is None and resumed and os.path.exists(best_meta):
             # resumed run that never beat the earlier best: the on-disk
             # best_model is still the winner

@@ -1,9 +1,10 @@
 """The port stands alone: no file of ``csat_tpu_torch/`` nor ``chip_smoke.py``
 imports JAX, flax or the JAX package, every module imports with those
-blocked and without ``nvcc``, ``chip_smoke.py`` fails without a GPU or
-without the package beside it, and the port's copies of JAX-free modules
-(the prefix cache, the request tracer, the serve stats, the KV tier store,
-the identifier splitters of the extractor, the router, the autoscaler, the
+blocked and without ``nvcc`` (``tools/build_real_corpus_torch.py`` too),
+``chip_smoke.py`` fails without a GPU or without the package beside it, and
+the port's copies of JAX-free modules (the prefix cache, the request tracer,
+the serve stats, the KV tier store, the extractor's leaf tables, identifier
+splitters, dispatch and corpus writer, the real-corpus harvest, the router, the autoscaler, the
 traffic zoo, the toy samples, the chaos runner and invariant monitor, the
 SLO engine, the network front door and client, ``top`` with its table
 readers from ``tools/``, csat-lint's rule machinery: its core, AST visitors
@@ -24,8 +25,13 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "csat_tpu")
 
 
+#: the port's tools, which import nothing of the JAX package either
+PORT_TOOLS = ("tools/build_real_corpus_torch.py",)
+
+
 def _port_files():
-    return sorted((REPO / "csat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "csat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + [REPO / tool for tool in PORT_TOOLS])
 
 
 def _imported_roots(path: Path):
@@ -62,6 +68,7 @@ def test_every_module_imports_with_jax_blocked_and_no_nvcc():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import tools.build_real_corpus_torch\n"
         "from csat_tpu_torch.ops import build\n"
         "assert not build._LIBS and all(v == 0 for v in build.launch_counts().values())\n"
         "print(len(mods))\n"
@@ -128,8 +135,9 @@ def _methods(path: Path, cls: str):
 # docstrings compared).  ``names`` None is a whole-module copy: every
 # definition is the original's, statement for statement, and there are no
 # others; a tuple holds those definitions alone (the extractor's stdlib
-# backend is held to the original by its outputs,
-# tests/test_torch_serve_cli.py; ``top`` and its table readers copy what the
+# backend and its CST walk, whose node-graph class carries the port's own
+# name, are held to the original by their outputs, tests/test_torch_extract.py
+# and tests/test_torch_serve_cli.py; ``top`` and its table readers copy what the
 # console of ``tools/`` uses of those files).  Copies whose docstrings
 # describe the port are compared without them
 COPIES = [("serve/prefix.py", "csat_tpu/serve/prefix.py", None, True),
@@ -137,7 +145,9 @@ COPIES = [("serve/prefix.py", "csat_tpu/serve/prefix.py", None, True),
           ("serve/stats.py", "csat_tpu/serve/stats.py", None, True),
           ("serve/tiering.py", "csat_tpu/serve/tiering.py", None, True),
           ("data/extract.py", "csat_tpu/data/extract.py",
-           ("split_camelcase", "split_identifier_into_parts"), True),
+           ("IDENTIFIER_TYPE", "STRING_TYPE", "_NUMBER_TYPES", "_is_number", "split_camelcase",
+            "split_identifier_into_parts", "have_tree_sitter", "_treesitter_to_ast_json",
+            "source_to_ast_json", "extract_corpus"), True),
           ("serve/router.py", "csat_tpu/serve/router.py", None, True),
           ("serve/autoscale.py", "csat_tpu/serve/autoscale.py", None, True),
           ("serve/traffic.py", "csat_tpu/serve/traffic.py", None, True),
@@ -157,6 +167,8 @@ COPIES = [("serve/prefix.py", "csat_tpu/serve/prefix.py", None, True),
           *((f"analysis/{m}.py", f"csat_tpu/analysis/{m}.py", None, False)
             for m in ("core", "visitors", "boundary", "faultflow", "clock")),
           ("obs/perfdb.py", "csat_tpu/obs/perfdb.py", None, False),
+          ("../tools/build_real_corpus_torch.py", "tools/build_real_corpus.py",
+           ("_WORD", "_nl_tokens", "harvest"), False),
           ("obs/calibrate.py", "csat_tpu/obs/calibrate.py",
            ("PROBES", "REFERENCE_PROBE", "fingerprint_id", "_median", "normalization_ratio",
             "normalize"), False)]
